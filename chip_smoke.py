@@ -8,22 +8,30 @@ from `koordinator_tpu_torch/csrc/` into `build/kernels/` first. Phases,
 in order:
 
 1. device: the card's name and power limit, and the kernels' build time;
-2. kernels: each of K1 score_topk, K2 segment_prefix_ok and
+2. kernels: each of K1 score_topk, K2 segment_prefix_ok (chained over
+   the node level and the quota levels of a step) and
    K3 ordered_scatter_add against its plain PyTorch version on the card,
    at the flagship's shapes, required equal (K1 values and indices, K2
-   bools, K3 bit for bit), with its time, the plain version's, one
-   library call's and the card's lower bound for the same work;
+   bools, K3 bit for bit): K1 at the sweep's and the tail's shapes and
+   over all 11 dims; K2 with 70 % and 8 % of the pods trying, over all
+   11 dims, and one level alone; K3 at the node commit and at the
+   2-level quota commit. Each with its time (CUDA events over
+   back-to-back calls, and the kernel's device time from torch.profiler),
+   the plain version's, one library call's where there is one, and the
+   card's lower bound for the same work;
 3. slice equality: the slim flagship at 8000 pods x 1000 nodes on the
    card against the plain path on the host: equal assignments;
 4. flagship: the slim flagship at 100 000 pods x 10 000 nodes, chunk
    2000, on the card, after a warm-up run: the bench line, every
-   kernel's launch count in the measured run (each must be > 0), peak
-   device memory, and the invariants (no overcommit, quota used within
-   runtime, every straggler retried).
+   kernel's launch count in the measured run (each must be > 0; K2 once
+   an inner step; K3 at most twice an inner step plus its round and
+   rebuild commits), peak device memory, and the invariants (no
+   overcommit, quota used within runtime, every straggler retried, the
+   sweep's stragglers unchanged).
 
-The last two lines are one JSON object listing the kernels and one
-stating the result. Without a CUDA device it exits non-zero and prints
-no result.
+The last three lines are one JSON object listing the kernels, the
+card's name and power limit, and one JSON object stating the result.
+Without a CUDA device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -34,9 +42,15 @@ import sys
 import time
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from koordinator_tpu_torch import kernels, resolve_device
-from koordinator_tpu_torch.flagship import run_northstar, sweep_and_tail
+from koordinator_tpu_torch.flagship import (
+    STEP_KW,
+    TAIL_KW,
+    run_northstar,
+    sweep_and_tail,
+)
 from koordinator_tpu_torch.kernels.build import build_all
 from koordinator_tpu_torch.kernels.scatter import (
     ordered_scatter_add,
@@ -48,7 +62,8 @@ from koordinator_tpu_torch.kernels.score_topk import (
     tie_break_jitter,
 )
 from koordinator_tpu_torch.kernels.segment_prefix import (
-    segment_prefix_ok,
+    segment_prefix_chain,
+    segment_prefix_chain_plain,
     segment_prefix_ok_plain,
 )
 from koordinator_tpu_torch.scheduler.batching import EPS, rank_by_priority
@@ -67,6 +82,12 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 FIT_DIMS = [0, 1, 2, 3]
 SCORE_DIMS = [0, 1]
+ALL_DIMS = list(range(11))
+QUOTA_DEPTH = STEP_KW["quota_depth"]
+# the slim flagship at pods seed 1, snapshot seed 7 leaves this many
+# stragglers after its sweep; a kernel change that moves a placement
+# changes it
+STRAGGLERS_AFTER_SWEEP = 510
 SOURCES = {
     "score_topk": ("koordinator_tpu_torch/csrc/score_topk.cu",
                    "koordinator_tpu/scheduler/core.py:721"),
@@ -90,6 +111,27 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean device milliseconds of the kernel whose symbol holds
+    `kernel`, a call of fn() (one launch), from torch.profiler's device
+    trace: the host's time between launches, which `cuda_ms` sees when
+    the host is slower than the kernel, is not in it."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    # the tracer may miss a launch at its start: the mean of those seen
+    if len(spans) < reps // 2:
+        raise SystemExit(f"the trace holds {len(spans)} launches of "
+                         f"{kernel}, not {reps}")
+    return sum(spans) / len(spans) / 1e3
 
 
 def bound(nbytes: float, ops: float):
@@ -119,35 +161,40 @@ def loaded_state(dev, gen):
     return snap.replace(nodes=nodes, quotas=quotas.replace(used=used)), pods
 
 
-def k1_case(snap, pods, cfg, p0, p, k, gen):
+def k1_case(snap, pods, cfg, p0, p, k, gen, fit_dims, score_dims):
     """K1's arguments for pods [p0, p0 + p), as schedule_batch forms
-    them, with 90 % of the rows active."""
+    them, with 90 % of the rows active; score_dims None = all dims."""
     dev = snap.nodes.allocatable.device
     batch = slice_batch(pods, p0, p)
     static_ok, _ = static_gates(snap.nodes, batch, cfg)
     static_ok = (static_ok & deviceshare.prefilter(snap.devices, batch)
                  ).contiguous()
     node_term, prod_term, alloc_s, weights = loadaware.score_terms(
-        snap.nodes, cfg, tuple(SCORE_DIMS))
+        snap.nodes, cfg, None if score_dims is None else tuple(score_dims))
+    sd = ALL_DIMS if score_dims is None else score_dims
     row_ok = torch.rand((p,), generator=gen, device=dev) < 0.9
     return dict(
         static_ok=static_ok, row_ok=row_ok,
-        req_fit=batch.requests[:, FIT_DIMS].contiguous(),
-        requested_fit=snap.nodes.requested[:, FIT_DIMS].contiguous(),
-        alloc_fit=snap.nodes.allocatable[:, FIT_DIMS].contiguous(),
-        est=batch.estimated[:, SCORE_DIMS].contiguous(),
+        req_fit=batch.requests[:, fit_dims].contiguous(),
+        requested_fit=snap.nodes.requested[:, fit_dims].contiguous(),
+        alloc_fit=snap.nodes.allocatable[:, fit_dims].contiguous(),
+        est=batch.estimated[:, sd].contiguous(),
         prod_scored=loadaware.prod_scored(batch, cfg),
         node_term=node_term, prod_term=prod_term, alloc_score=alloc_s,
         fresh=snap.nodes.metric_fresh, weights=weights, k=k,
-        tie_break=True, eps=EPS)
+        tie_break=True, eps=EPS, fma_sum=score_dims is not None)
 
 
 def check_k1(snap, pods, cfg, gen):
     """K1 at the sweep's shape (P=2000, k=8) and the tail's (P=512,
-    k=32)."""
+    k=32) over the flagship's dims, and at the sweep's shape over all
+    11 dims (fit_dims = score_dims = None: the 8-lane weighted sum)."""
     out = {}
-    for label, p0, p, k in (("sweep", 0, 2000, 8), ("tail", 2000, 512, 32)):
-        kw = k1_case(snap, pods, cfg, p0, p, k, gen)
+    for label, p0, p, k, fd, sd in (
+            ("sweep", 0, 2000, 8, FIT_DIMS, SCORE_DIMS),
+            ("tail", 2000, 512, 32, FIT_DIMS, SCORE_DIMS),
+            ("sweep R=11", 4000, 2000, 8, ALL_DIMS, None)):
+        kw = k1_case(snap, pods, cfg, p0, p, k, gen, fd, sd)
         got = score_topk(**kw)
         want = score_topk_plain(**kw)
         err = float((got[0] - want[0]).abs().max())
@@ -156,7 +203,7 @@ def check_k1(snap, pods, cfg, gen):
             raise SystemExit(f"K1 score_topk ({label}) differs from its "
                              f"plain version; rows {bad}")
         n = kw["static_ok"].shape[1]
-        f, d = len(FIT_DIMS), len(SCORE_DIMS)
+        f, d = kw["req_fit"].shape[1], kw["est"].shape[1]
         checked = kw["static_ok"] & kw["row_ok"][:, None]
         fit = torch.all(kw["req_fit"][:, None, :] + kw["requested_fit"][None]
                         <= kw["alloc_fit"][None] + EPS, dim=-1)
@@ -174,97 +221,214 @@ def check_k1(snap, pods, cfg, gen):
             loadaware.least_requested_score(
                 kw["est"], kw["prod_scored"], kw["node_term"],
                 kw["prod_term"], kw["alloc_score"], kw["fresh"],
-                kw["weights"])), -1.0)
+                kw["weights"], kw["fma_sum"])), -1.0)
         out[label] = dict(
             ms=cuda_ms(lambda: score_topk(**kw)),
+            device_ms=device_ms(lambda: score_topk(**kw),
+                                "score_topk_kernel"),
             plain_ms=cuda_ms(lambda: score_topk_plain(**kw), reps=3),
             library_ms=cuda_ms(lambda: torch.topk(masked, k, dim=1)),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-            shape=f"P={p} N={n} k={k}", feasible_pairs=n_feasible)
-        score_topk.launches = 0
+            shape=f"P={p} N={n} k={k} F={f} D={d}",
+            feasible_pairs=n_feasible)
     return out
+
+
+def k2_case(snap, pods, gen, p0, trying_frac, fit_dims):
+    """The chained gate of one inner step as schedule_batch forms it
+    for the chunk [p0, p0 + 2000): the node level (choices spread over
+    the 10^4 nodes, half of them on 64 popular ones) and the 2 quota
+    levels of the flagship (segments from the chunk's pod_anc)."""
+    dev = snap.nodes.allocatable.device
+    batch = slice_batch(pods, p0, 2000)
+    p = batch.num_pods
+    n_nodes, quotas = snap.num_nodes, snap.quotas
+    n_quotas = quotas.min.shape[0]
+    trying = torch.rand((p,), generator=gen, device=dev) < trying_frac
+    choice = torch.where(
+        torch.rand((p,), generator=gen, device=dev) < 0.5,
+        torch.randint(0, 64, (p,), generator=gen, device=dev),
+        torch.randint(0, n_nodes, (p,), generator=gen, device=dev))
+    choice_eff = torch.where(trying, choice, n_nodes).to(torch.int32)
+    pod_anc = torch.where(
+        batch.quota_id[:, None] >= 0,
+        quotas.depth_ancestor[batch.quota_id.clamp_min(0).long()], -1)
+    quota_seg = torch.where(pod_anc >= 0, pod_anc, n_quotas)[
+        :, :QUOTA_DEPTH].T.to(torch.int32)
+    # the root's headroom: half of what the trying pods ask for, so
+    # that every level admits some pods and rejects others
+    demand = (batch.requests * trying[:, None]).sum(dim=0)
+    runtime = quotas.runtime
+    root = torch.floor(torch.clamp_min(runtime[0] - 0.5 * demand, 0.0)
+                       / 500.0) * 500.0
+    used = quotas.used.clone()
+    used[0] = torch.where(torch.isinf(runtime[0]), 0.0, root)
+    quota_table = (used[:, fit_dims].contiguous(),
+                   runtime[:, fit_dims].contiguous(), n_quotas)
+    return dict(
+        seg=torch.cat([choice_eff[None], quota_seg]).contiguous(),
+        rank=rank_by_priority(batch),
+        req=batch.requests[:, fit_dims].contiguous(), active=trying,
+        tables=[(snap.nodes.requested[:, fit_dims].contiguous(),
+                 snap.nodes.allocatable[:, fit_dims].contiguous(), n_nodes)]
+        + [quota_table] * QUOTA_DEPTH, eps=EPS)
 
 
 def check_k2(snap, pods, gen):
-    """K2 at P=2000 with node segments and with quota segments."""
-    dev = snap.nodes.allocatable.device
-    batch = slice_batch(pods, 0, 2000)
-    p = batch.num_pods
-    rank = rank_by_priority(batch)
-    n_nodes, n_quotas = snap.num_nodes, snap.quotas.min.shape[0]
-    drop = torch.rand((p,), generator=gen, device=dev) < 0.3
-    node_seg = torch.where(
-        drop, n_nodes,
-        torch.randint(0, 64, (p,), generator=gen, device=dev)
-    ).to(torch.int32)
-    quota_seg = torch.where(drop, n_quotas, torch.where(
-        torch.rand((p,), generator=gen, device=dev) < 0.5, 0,
-        batch.quota_id)).to(torch.int32)
-    req = batch.requests[:, FIT_DIMS].contiguous()
+    """K2's chained gate (node + 2 quota levels, one launch) at P=2000:
+    70 % of the pods trying (a round's first steps), 8 % trying (its
+    late steps), and 70 % over all 11 dims; and one level alone (the
+    single-level form), with the masked matmul of its prefix sums."""
     out = {}
-    for label, seg, base, limit, s in (
-            ("node", node_seg, snap.nodes.requested, snap.nodes.allocatable,
-             n_nodes),
-            ("quota", quota_seg, snap.quotas.used, snap.quotas.runtime,
-             n_quotas)):
-        args = (seg, rank, torch.where((seg < s)[:, None], req, 0.0),
-                base[:, FIT_DIMS].contiguous(),
-                limit[:, FIT_DIMS].contiguous(), s, EPS)
-        got = segment_prefix_ok(*args)
-        want = segment_prefix_ok_plain(*args)
+    for label, p0, frac, fd in (("chain", 0, 0.7, FIT_DIMS),
+                                ("chain 8% trying", 2000, 0.08, FIT_DIMS),
+                                ("chain R=11", 4000, 0.7, ALL_DIMS),
+                                ("node level", 6000, 0.7, FIT_DIMS)):
+        kw = k2_case(snap, pods, gen, p0, frac, fd)
+        if label == "node level":
+            kw["seg"], kw["tables"] = kw["seg"][:1], kw["tables"][:1]
+        got = segment_prefix_chain(**kw)
+        want = segment_prefix_chain_plain(**kw)
         err = float((got.int() - want.int()).abs().max())
         if not torch.equal(got, want):
-            raise SystemExit(f"K2 segment_prefix_ok ({label}) differs from "
-                             f"its plain version at "
+            raise SystemExit(f"K2 segment_prefix_chain ({label}) differs "
+                             f"from its plain version at "
                              f"{(got != want).nonzero()[:5, 0].tolist()}")
-        r = len(FIT_DIMS)
-        inr = seg < s
-        mask = (seg[:, None] == seg[None, :]) & (rank[None, :] < rank[:, None])
-        matched = int((mask & inr[:, None]).sum())
-        n_in = int(inr.sum())
-        # base and limit: only the rows of the segments in range
-        n_seg = int(torch.unique(seg[inr]).numel())
-        nbytes = p * (8 + 4 * r + 1) + 2 * n_seg * r * 4
-        ops = n_in * p * 2 + matched * r + n_in * r * 3
+        # the work this data needs, level by level: each pod alive and
+        # in range sums its earlier same-segment pods (one add a column
+        # on a segmented scan) and compares (3 operations a column);
+        # bytes: active and the result, the rank of the active pods, the
+        # seg of the pods alive at each level, the req of the pods some
+        # level gates (once), the base and limit rows of the segments in
+        # range
+        p, r = kw["req"].shape
+        alive = kw["active"]
+        nbytes, ops, matched = 2 * p + 4 * int(alive.sum()), 0, 0
+        gated = torch.zeros_like(alive)
+        for level, (base, limit, s) in zip(kw["seg"], kw["tables"]):
+            inr = alive & (level < s)
+            gated |= inr
+            n_in = int(inr.sum())
+            n_seg = int(torch.unique(level[inr]).numel())
+            nbytes += 4 * int(alive.sum()) + 2 * n_seg * r * 4
+            ops += n_in * r * 4
+            if label == "node level":
+                rank = kw["rank"]
+                mask = ((level[:, None] == level[None, :])
+                        & (rank[None, :] < rank[:, None])
+                        & inr[:, None] & inr[None, :])
+                matched = int(mask.sum())
+            alive = alive & segment_prefix_ok_plain(
+                torch.where(alive, level, s).to(torch.int32), kw["rank"],
+                torch.where(alive[:, None], kw["req"], 0.0), base, limit,
+                s, EPS)
+        nbytes += 4 * r * int(gated.sum())
         b_ms, b_by = bound(nbytes, ops)
-        mask_f = mask.to(torch.float32)
+        library_ms = None
+        if label == "node level":
+            mask_f = mask.to(torch.float32)
+            library_ms = cuda_ms(lambda: mask_f @ kw["req"])
         out[label] = dict(
-            ms=cuda_ms(lambda: segment_prefix_ok(*args)),
-            plain_ms=cuda_ms(lambda: segment_prefix_ok_plain(*args)),
-            library_ms=cuda_ms(lambda: mask_f @ args[2]),
-            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-            shape=f"P={p} S={s} R={r}", segments=n_seg, rejected=int((~got).sum()))
-        segment_prefix_ok.launches = 0
+            ms=cuda_ms(lambda: segment_prefix_chain(**kw)),
+            device_ms=device_ms(lambda: segment_prefix_chain(**kw),
+                                "segment_prefix_chain_kernel"),
+            plain_ms=cuda_ms(lambda: segment_prefix_chain_plain(**kw)),
+            library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=err,
+            shape=f"P={p} L={len(kw['tables'])} R={r} "
+                  f"S={[t[2] for t in kw['tables']]}",
+            trying=int(kw["active"].sum()), accepted=int(got.sum()),
+            matched_pairs=matched if label == "node level" else None)
     return out
 
 
-def check_k3(dev, gen):
-    """K3 at P=2000 rows into 10^4 targets; the plain version runs on
-    the host, whose index_add_ adds in order (the card's uses atomics)."""
-    s, c, p = 10_000, 11, 2000
-    target = torch.rand((s, c), generator=gen, device=dev) * 5000.0
-    idx = torch.randint(0, s + 1, (p,), generator=gen, device=dev)
+def check_k3(snap, pods, gen):
+    """K3 at the node commit (P=2000 rows into 10^4 targets, one level,
+    repeats and drops) and the quota commit (P=2000 into the 64-row
+    quota table, 2 levels from a real chunk's pod_anc, half the pods
+    accepted: every accepted quota pod lands on the root at level 0),
+    non-integer rows in both; and, untimed, indices below 0 (wrapped
+    or dropped as in the reference). The plain version runs on the
+    host, whose index_add_ adds in order (the card's uses atomics)."""
+    dev = snap.nodes.allocatable.device
+    s_node, c, p = snap.num_nodes, 11, 2000
+    idx = torch.randint(0, s_node + 1, (p,), generator=gen, device=dev)
     idx = torch.where(torch.rand((p,), generator=gen, device=dev) < 0.5,
-                      idx % 200, idx).to(torch.int32)     # repeats + drops
+                      idx % 200, idx)                      # repeats
+    idx = torch.where(torch.rand((p,), generator=gen, device=dev) < 0.2,
+                      s_node, idx).to(torch.int32)          # drops
+    quotas = snap.quotas
+    n_quotas = quotas.min.shape[0]
+    batch = slice_batch(pods, 0, p)
+    pod_anc = torch.where(
+        batch.quota_id[:, None] >= 0,
+        quotas.depth_ancestor[batch.quota_id.clamp_min(0).long()], -1)
+    take = torch.rand((p,), generator=gen, device=dev) < 0.5
+    qidx = torch.where(take[:, None] & (pod_anc >= 0), pod_anc, n_quotas)[
+        :, :QUOTA_DEPTH].T.to(torch.int32).contiguous()
+    # negative indices: [-S, 0) wraps to S + idx, as in the reference
+    # (no commit passes one; checked, not timed)
+    target = torch.rand((n_quotas, c), generator=gen, device=dev) * 5000.0
     rows = torch.rand((p, c), generator=gen, device=dev) * 3000.0 + 0.1
-    got = ordered_scatter_add(target, idx, rows)
-    want = ordered_scatter_add_plain(target.cpu(), idx.cpu(), rows.cpu())
-    err = float((got.cpu() - want).abs().max())
-    if not torch.equal(got.cpu(), want):
-        raise SystemExit(f"K3 ordered_scatter_add differs from its plain "
-                         f"version on the host, max abs err {err}")
-    keep = idx < s
-    idx_k, rows_k = idx[keep].long(), rows[keep]
-    nbytes = 2 * s * c * 4 + p * 4 + p * c * 4
-    b_ms, b_by = bound(nbytes, int(keep.sum()) * c)
-    out = dict(
-        ms=cuda_ms(lambda: ordered_scatter_add(target, idx, rows)),
-        plain_ms=cuda_ms(lambda: ordered_scatter_add_plain(target, idx, rows)),
-        library_ms=cuda_ms(lambda: target.clone().index_add_(0, idx_k, rows_k)),
-        bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-        shape=f"P={p} S={s} C={c}")
-    ordered_scatter_add.launches = 0
+    neg = torch.randint(-n_quotas - 4, n_quotas + 4, (p,), generator=gen,
+                        device=dev).to(torch.int32)
+    if not torch.equal(ordered_scatter_add(target, neg, rows).cpu(),
+                       ordered_scatter_add_plain(target.cpu(), neg.cpu(),
+                                                 rows.cpu())):
+        raise SystemExit("K3 ordered_scatter_add (negative indices) differs "
+                         "from its plain version on the host")
+    out = {}
+    for label, s, index in (("node commit", s_node, idx),
+                            ("quota commit", n_quotas, qidx)):
+        target = torch.rand((s, c), generator=gen, device=dev) * 5000.0
+        rows = torch.rand((p, c), generator=gen, device=dev) * 3000.0 + 0.1
+        got = ordered_scatter_add(target, index, rows)
+        want = ordered_scatter_add_plain(target.cpu(), index.cpu(),
+                                         rows.cpu())
+        err = float((got.cpu() - want).abs().max())
+        if not torch.equal(got.cpu(), want):
+            raise SystemExit(f"K3 ordered_scatter_add ({label}) differs "
+                             f"from its plain version on the host, max abs "
+                             f"err {err}")
+        levels = index.reshape(-1, p)
+        keep = levels < s
+        hits = keep.sum(dim=0)
+        # target read and written once, the indices, the rows some
+        # level takes; one add a kept entry and column
+        nbytes = 2 * s * c * 4 + levels.numel() * 4 \
+            + int((hits > 0).sum()) * c * 4
+        b_ms, b_by = bound(nbytes, int(keep.sum()) * c)
+        flat_idx = levels[keep].long()
+        flat_rows = rows.expand(levels.shape[0], p, c)[keep]
+        out[label] = dict(
+            ms=cuda_ms(lambda: ordered_scatter_add(target, index, rows)),
+            device_ms=device_ms(
+                lambda: ordered_scatter_add(target, index, rows),
+                "ordered_scatter_add_kernel"),
+            plain_ms=cuda_ms(lambda: ordered_scatter_add_plain(
+                target, index, rows)),
+            library_ms=cuda_ms(lambda: target.clone().index_add_(
+                0, flat_idx, flat_rows)),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            shape=f"P={p} S={s} C={c} L={levels.shape[0]}",
+            kept=int(keep.sum()), hottest_row=int(torch.bincount(
+                flat_idx, minlength=s).max()))
     return out
+
+
+def expected_launches(line):
+    """(inner steps, K3 launches) of one flagship run: K2 launches once
+    an inner step; K3 twice an inner step (node, all quota levels),
+    three times a round (two estimates, gang count) and six times a
+    batch (the rebuild's requested, two estimates, quotas, gangs
+    assumed, gangs attempted)."""
+    batches = line["num_pods"] // line["chunk"]
+    rounds = (batches * STEP_KW["num_rounds"]
+              + line["tail_passes"] * TAIL_KW["num_rounds"])
+    steps = (batches * STEP_KW["num_rounds"] * STEP_KW["k_choices"]
+             + line["tail_passes"] * TAIL_KW["num_rounds"]
+             * TAIL_KW["k_choices"])
+    return steps, 2 * steps + 3 * rounds + 6 * (batches + line["tail_passes"])
 
 
 def main() -> int:
@@ -292,11 +456,11 @@ def main() -> int:
     cfg = loadaware.LoadAwareConfig.make(device=dev)
     k1 = check_k1(snap, pods, cfg, gen)
     k2 = check_k2(snap, pods, gen)
-    k3 = check_k3(dev, gen)
-    for name, res in (("score_topk", k1), ("segment_prefix_ok", k2)):
+    k3 = check_k3(snap, pods, gen)
+    for name, res in (("score_topk", k1), ("segment_prefix_ok", k2),
+                      ("ordered_scatter_add", k3)):
         for label, r in res.items():
             print(f"kernel {name} [{label}]: " + json.dumps(r), flush=True)
-    print("kernel ordered_scatter_add: " + json.dumps(k3), flush=True)
 
     # --- 3. slice equality: the card against the host --------------------
     runs = {}
@@ -330,6 +494,17 @@ def main() -> int:
     print("flagship: " + json.dumps(line), flush=True)
     if min(launches.values()) <= 0:
         raise SystemExit(f"a kernel of the path never launched: {launches}")
+    steps, k3_launches = expected_launches(line)
+    if launches["segment_prefix_ok"] != steps:
+        raise SystemExit(f"K2 launched {launches['segment_prefix_ok']} "
+                         f"times for {steps} inner steps")
+    if launches["ordered_scatter_add"] > k3_launches:
+        raise SystemExit(f"K3 launched {launches['ordered_scatter_add']} "
+                         f"times, above {k3_launches}")
+    if line["stragglers_after_sweep"] != STRAGGLERS_AFTER_SWEEP:
+        raise SystemExit(f"{line['stragglers_after_sweep']} stragglers after "
+                         f"the sweep, not {STRAGGLERS_AFTER_SWEEP}: a "
+                         "placement moved")
     if not overcommit_ok(run.snapshot):
         raise SystemExit("overcommit: requested exceeds allocatable")
     if not quota_ok(run.snapshot):
@@ -339,8 +514,8 @@ def main() -> int:
     if not 0 < line["placed"] <= 100_000:
         raise SystemExit(f"placed {line['placed']} pods")
 
-    timings = {"score_topk": k1["sweep"], "segment_prefix_ok": k2["node"],
-               "ordered_scatter_add": k3}
+    timings = {"score_topk": k1["sweep"], "segment_prefix_ok": k2["chain"],
+               "ordered_scatter_add": k3["node commit"]}
     report = []
     for name, r in timings.items():
         source, replaces = SOURCES[name]

@@ -1,6 +1,9 @@
-// K3 ordered_scatter_add: out = target with rows[j] added into row idx[j],
-// each target row's updates applied in ascending j, indices outside
-// [0, S) dropped.
+// K3 ordered_scatter_add: out = target with rows[j] added into row
+// idx[l, j] for every level l, each target row's updates applied in
+// ascending (l, j); an index in [-S, 0) names row S + idx (numpy's
+// rule, as the reference's `.at[]`), other indices outside [0, S) are
+// dropped. L levels are L scatters in a row into the same target, in
+// one launch.
 //
 // Replaces the `.at[idx].add(rows, mode="drop")` commits of
 // koordinator_tpu/scheduler/core.py schedule_batch: node requested and
@@ -14,55 +17,221 @@
 // One ulp there flips a later round's floored score and moves a pod.
 //
 // What bounds it on the H100: bytes. It reads and writes the [S, C]
-// target once (0.9 MB at S=10^4, C=11) and reads the [P, C] rows once;
-// the adds are few. A launch is a few microseconds.
+// target once (0.9 MB at S=10^4, C=11) and reads the [L, P] indices and
+// the matched [P, C] rows once; the adds are few. Its floor in time is
+// the chain of dependent adds of the row that takes the most updates:
+// the quota root takes every quota pod of a chunk, up to P adds in a row,
+// which the bit-exact order forbids splitting.
 //
-// Design: the wrapper sorts the indices stably (so each target row's
-// updates form one run, in ascending j) and passes the sorted indices
-// with their original positions. One thread per (target row, column)
-// finds its run by binary search and walks it in order from the target's
-// value. Rows that receive nothing copy the target.
+// Design: no sort. A block first copies the [L, P] indices into shared
+// memory (coalesced, every thread of the block), and where its warps own
+// one target row each (small S, where hot rows are) the [P, C] rows too,
+// so that the chains below read them at shared-memory latency, not the
+// L2's. Each warp owns a tile of TR consecutive target rows (TR = 1
+// where S is small, so that many warps share the work; up to 32 where S
+// is large, so that few warps scan the indices) and keeps the tile in
+// shared memory. It scans the indices in ascending (l, j), 32 at a time
+// and four chunks in flight, and finds the tile's matches with one
+// __ballot_sync a chunk. Lane c < C reads column c of the matched rows
+// first (all reads in flight together), then adds them in ascending j.
+// Where a warp owns one row (small S: the quota table, gang counts) the
+// walk is dense and branch-free: all 32 rows of a chunk read from the
+// block's copy, a predicated add for each set bit. This is the hot-row
+// case: the quota root takes a whole chunk's quota pods, one dependent
+// add each. Where a warp owns several rows (a wide table: node commits)
+// its matches are few and scattered, so it lists them in order in
+// shared memory and walks them 32 at a time: one wait on the reads for
+// 32 matches, not one a chunk; the current row's accumulator stays in
+// a register while consecutive matches hit the same row. Rows that
+// receive nothing copy the target. Column lanes: C <= 32; the rows,
+// indices and tiles must fit in shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void ordered_scatter_add_kernel(
-    const float* __restrict__ target, const int32_t* __restrict__ sorted_idx,
-    const int64_t* __restrict__ order, const float* __restrict__ rows, int S,
-    int C, int P, float* __restrict__ out) {
-  const size_t t = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
-  if (t >= (size_t)S * C) return;
-  const int s = (int)(t / C);
-  const int c = (int)(t % C);
-  int lo = 0, hi = P;  // first j with sorted_idx[j] >= s
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (sorted_idx[mid] < s)
-      lo = mid + 1;
-    else
-      hi = mid;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARPS = 8;  // warps a block
+constexpr int MAX_TR = 32;
+constexpr int MAX_C = 32;
+constexpr int GROUP = 4;  // index chunks in flight (the walk names 4)
+constexpr int LIST = 64;  // a warp's pending matches: < 32 + one chunk
+constexpr size_t MAX_SMEM = 200 * 1024;
+
+// STAGED: a warp owns one row (TR == 1) and the block copies the rows.
+template <bool STAGED>
+__global__ void __launch_bounds__(WARPS * 32) ordered_scatter_add_kernel(
+    const float* __restrict__ target, const int32_t* __restrict__ idx,
+    const float* __restrict__ rows, int S, int C, int P, int L, int TR,
+    float* __restrict__ out) {
+  extern __shared__ float smem[];
+  float* tiles = smem;                         // [WARPS][TR][C]
+  int* sidx = (int*)(tiles + WARPS * TR * C);  // [L][P]
+  float* srows = (float*)(sidx + (size_t)L * P);  // [P][C] when STAGED
+  for (int i = threadIdx.x; i < L * P; i += WARPS * 32) {
+    const int v = idx[i];
+    sidx[i] = v < 0 ? v + S : v;  // [-S, 0) wraps; the rest stays out
   }
-  float acc = target[t];
-  for (int j = lo; j < P && sorted_idx[j] == s; ++j)
-    acc = __fadd_rn(acc, rows[(size_t)order[j] * C + c]);
-  out[t] = acc;
+  if constexpr (STAGED) {
+    const int nv = P * C;
+    if (((uintptr_t)rows & 15) == 0 && ((uintptr_t)srows & 15) == 0) {
+      const float4* src4 = (const float4*)rows;
+      float4* dst4 = (float4*)srows;
+      for (int i = threadIdx.x; i < nv / 4; i += WARPS * 32)
+        dst4[i] = src4[i];
+      for (int i = nv / 4 * 4 + threadIdx.x; i < nv; i += WARPS * 32)
+        srows[i] = rows[i];
+    } else {
+      for (int i = threadIdx.x; i < nv; i += WARPS * 32) srows[i] = rows[i];
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int lo = (blockIdx.x * WARPS + warp) * TR;
+  if (lo >= S) return;  // the whole warp leaves together
+  const int hi = min(lo + TR, S);
+  const int n = (hi - lo) * C;
+  float* acc = tiles + warp * TR * C;
+  for (int t = lane; t < n; t += 32) acc[t] = target[(size_t)lo * C + t];
+  __syncwarp();
+
+  const int c = min(lane, C - 1);  // lanes >= C shadow column C - 1
+  int cur = STAGED ? 0 : -1;  // tile row held in `held` (warp-uniform)
+  float held = acc[c];         // acc[cur][c]
+
+  // several rows a warp: its matches, (j << 5 | tile row), in order
+  __shared__ int lists[WARPS][LIST];
+  int* list = lists[warp];
+  int count = 0;
+  // the first nf matches of the list: every lane's reads first (up to
+  // 32 in flight), then the adds in order; the rest move to the front
+  auto walk = [&](int nf) {
+    __syncwarp();
+    float x[32];
+    int r[32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      const int e = list[min(k, nf - 1)];
+      x[k] = __ldg(rows + (size_t)(e >> 5) * C + c);
+      r[k] = e & 31;
+    }
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      if (k < nf) {  // warp-uniform
+        if (r[k] != cur) {
+          if (cur >= 0 && lane < C) acc[cur * C + c] = held;
+          cur = r[k];
+          held = acc[cur * C + c];
+        }
+        held = __fadd_rn(held, x[k]);
+      }
+    }
+    const int rest = count - nf;
+    const int moved = lane < rest ? list[nf + lane] : 0;
+    __syncwarp();
+    if (lane < rest) list[lane] = moved;
+    __syncwarp();
+    count = rest;
+  };
+  for (int l = 0; l < L; ++l) {
+    const int* il = sidx + (size_t)l * P;
+    for (int g0 = 0; g0 < P; g0 += 32 * GROUP) {
+      unsigned match[GROUP];
+      int sv[GROUP];  // this lane's index in each chunk of the group
+#pragma unroll
+      for (int q = 0; q < GROUP; ++q) {
+        const int j = g0 + 32 * q + lane;
+        sv[q] = j < P ? il[j] : -1;
+        match[q] = __ballot_sync(FULL, sv[q] >= lo && sv[q] < hi);
+      }
+      if constexpr (STAGED) {
+        // one row: each chunk with matches walked densely and
+        // branch-free, all 32 of its rows read from the block's copy,
+        // an add for each set bit
+#pragma unroll
+        for (int q = 0; q < GROUP; ++q) {
+          if (!match[q]) continue;  // warp-uniform
+          const int j0 = g0 + 32 * q;
+          float x[32];
+#pragma unroll
+          for (int b = 0; b < 32; ++b)
+            x[b] = srows[min(j0 + b, P - 1) * C + c];
+#pragma unroll
+          for (int b = 0; b < 32; ++b)
+            held = match[q] >> b & 1u ? __fadd_rn(held, x[b]) : held;
+        }
+      } else {
+        if (!(match[0] | match[1] | match[2] | match[3])) continue;
+        // several rows: the matches go to the warp's list in ascending
+        // (l, j), and 32 at a time are walked
+#pragma unroll 1
+        for (int q = 0; q < GROUP; ++q) {
+          const unsigned mq = q == 0 ? match[0] : q == 1 ? match[1]
+                              : q == 2 ? match[2] : match[3];
+          if (!mq) continue;  // warp-uniform
+          const int s = q == 0 ? sv[0] : q == 1 ? sv[1]
+                        : q == 2 ? sv[2] : sv[3];
+          if (mq >> lane & 1u)
+            list[count + __popc(mq & ((1u << lane) - 1u))] =
+                (g0 + 32 * q + lane) << 5 | (s - lo);
+          count += __popc(mq);
+          if (count >= 32) walk(32);
+        }
+      }
+    }
+  }
+  if constexpr (!STAGED) {
+    if (count) walk(count);
+  }
+  if (cur >= 0 && lane < C) acc[cur * C + c] = held;
+  __syncwarp();
+  for (int t = lane; t < n; t += 32) out[(size_t)lo * C + t] = acc[t];
+}
+
+size_t smem_bytes(int C, int P, int L, int TR) {
+  return ((size_t)WARPS * TR * C + (TR == 1 ? (size_t)P * C : 0)
+          + (size_t)L * P) * 4;
 }
 
 }  // namespace
 
-extern "C" int koord_ordered_scatter_add(const void* target,
-                                         const void* sorted_idx,
-                                         const void* order, const void* rows,
-                                         int S, int C, int P, void* out,
+extern "C" int koord_ordered_scatter_add(const void* target, const void* idx,
+                                         const void* rows, int S, int C,
+                                         int P, int L, void* out,
                                          void* stream) {
-  const size_t total = (size_t)S * C;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const int blocks = (int)((total + threads - 1) / threads);
-  ordered_scatter_add_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)target, (const int32_t*)sorted_idx, (const int64_t*)order,
-      (const float*)rows, S, C, P, (float*)out);
+  if (S <= 0 || C <= 0) return 0;
+  // target rows a warp owns: 1 up to 1024 targets (many warps share a
+  // small target), doubling up to 32 so that at most about 1024 warps
+  // scan the indices of a large one (625 at 10^4 targets)
+  int TR = 1;
+  while (TR < MAX_TR && TR * 1024 < S) TR *= 2;
+  if (C > MAX_C || P < 0 || L < 0 || smem_bytes(C, P, L, TR) > MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  static bool attr = false;
+  if (!attr) {
+    const void* fns[2] = {(const void*)ordered_scatter_add_kernel<true>,
+                          (const void*)ordered_scatter_add_kernel<false>};
+    for (const void* fn : fns) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
+      if (e != cudaSuccess) return (int)e;
+    }
+    attr = true;
+  }
+  const int tiles = (S + TR - 1) / TR;
+  const int blocks = (tiles + WARPS - 1) / WARPS;
+  const size_t smem = smem_bytes(C, P, L, TR);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (TR == 1)
+    ordered_scatter_add_kernel<true><<<blocks, WARPS * 32, smem, st>>>(
+        (const float*)target, (const int32_t*)idx, (const float*)rows, S, C,
+        P, L, TR, (float*)out);
+  else
+    ordered_scatter_add_kernel<false><<<blocks, WARPS * 32, smem, st>>>(
+        (const float*)target, (const int32_t*)idx, (const float*)rows, S, C,
+        P, L, TR, (float*)out);
   return (int)cudaGetLastError();
 }

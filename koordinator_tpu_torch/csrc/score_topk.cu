@@ -30,11 +30,19 @@
 //
 // Exactness against the reference (bit for bit): the file builds with
 // -fmad=false, and the arithmetic names its rounding. The floors sit on
-// IEEE divisions (__fdiv_rn). The reference's compiler contracts two
-// multiply-adds, and so does this kernel, by name (__fmaf_rn): the
-// weighted sum of the per-dim scores and the jitter
-// score + h * f32(0.49/1024). The jitter hash is uint32 arithmetic, as
-// in the reference.
+// IEEE divisions (__fdiv_rn). The reference's compiler contracts the
+// jitter score + h * f32(0.49/1024) into one fused multiply-add, and so
+// does this kernel, by name (__fmaf_rn). The weighted sum of the
+// per-dim scores takes the reference's form for the caller's score
+// dims (scheduler/plugins/loadaware.py weighted_sum): with `fma_sum`
+// an ascending __fmaf_rn chain (dims listed); without it, products
+// rounded on their own (__fmul_rn) and summed over 8 lanes folded in
+// halves (all dims: XLA:CPU's vectorised dot). The weights are summed
+// in order. The jitter hash is uint32 arithmetic, as in the reference.
+//
+// Dims: the kernel is instantiated for up to 4 fit and score dims (the
+// flagship's 4 and 2, fewer registers) and for up to NUM_RESOURCES = 11
+// (fit_dims / score_dims = None, the reference's defaults).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -42,7 +50,8 @@
 
 namespace {
 
-constexpr int MAX_DIMS = 8;
+constexpr int MAX_DIMS = 11;  // NUM_RESOURCES
+constexpr int SUM_LANES = 8;
 constexpr float JITTER = (float)(0.49 / 1024.0);
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -50,7 +59,7 @@ __device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
 }
 
-template <int K>
+template <int K, int MAXD>
 __global__ void score_topk_kernel(
     const uint8_t* __restrict__ static_ok, const uint8_t* __restrict__ row_ok,
     const float* __restrict__ req_fit, const float* __restrict__ requested_fit,
@@ -59,7 +68,7 @@ __global__ void score_topk_kernel(
     const float* __restrict__ node_term, const float* __restrict__ prod_term,
     const float* __restrict__ alloc_score, const uint8_t* __restrict__ fresh,
     const float* __restrict__ weights, int P, int N, int F, int D, int k,
-    int tie_break, float eps, float* __restrict__ out_val,
+    int tie_break, int fma_sum, float eps, float* __restrict__ out_val,
     int32_t* __restrict__ out_idx) {
   const int p = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
@@ -74,10 +83,10 @@ __global__ void score_topk_kernel(
     return;
   }
 
-  float rq[MAX_DIMS], es[MAX_DIMS], w[MAX_DIMS];
+  float rq[MAXD], es[MAXD], w[MAXD];
   float wsum = 0.0f;
 #pragma unroll
-  for (int d = 0; d < MAX_DIMS; ++d) {
+  for (int d = 0; d < MAXD; ++d) {
     rq[d] = d < F ? req_fit[(size_t)p * F + d] : 0.0f;
     es[d] = d < D ? est[(size_t)p * D + d] : 0.0f;
     w[d] = d < D ? weights[d] : 0.0f;
@@ -98,7 +107,7 @@ __global__ void score_topk_kernel(
   for (int n = lane; n < N; n += 32) {
     bool feas = srow[n] != 0;
 #pragma unroll
-    for (int f = 0; f < MAX_DIMS; ++f) {
+    for (int f = 0; f < MAXD; ++f) {
       if (feas && f < F) {
         const size_t o = (size_t)n * F + f;
         feas = __fadd_rn(rq[f], requested_fit[o]) <= __fadd_rn(alloc_fit[o], eps);
@@ -109,8 +118,11 @@ __global__ void score_topk_kernel(
       float score = 0.0f;
       if (fresh[n]) {
         float acc = 0.0f;
+        float lane[SUM_LANES];
 #pragma unroll
-        for (int d = 0; d < MAX_DIMS; ++d) {
+        for (int i = 0; i < SUM_LANES; ++i) lane[i] = 0.0f;
+#pragma unroll
+        for (int d = 0; d < MAXD; ++d) {
           if (d < D) {
             const size_t o = (size_t)n * D + d;
             const float cap = alloc_score[o];
@@ -118,8 +130,22 @@ __global__ void score_topk_kernel(
             float least = floorf(__fdiv_rn(
                 __fmul_rn(__fsub_rn(cap, eu), 100.0f), fmaxf(cap, 1e-9f)));
             if (!(cap > 0.0f && eu <= cap)) least = 0.0f;
-            acc = __fmaf_rn(least, w[d], acc);
+            if (fma_sum) {
+              acc = __fmaf_rn(least, w[d], acc);
+            } else {
+              const float prod = __fmul_rn(least, w[d]);
+              lane[d % SUM_LANES] = d < SUM_LANES
+                  ? prod : __fadd_rn(lane[d % SUM_LANES], prod);
+            }
           }
+        }
+        if (!fma_sum) {
+#pragma unroll
+          for (int half = SUM_LANES / 2; half > 0; half >>= 1)
+#pragma unroll
+            for (int i = 0; i < half; ++i)
+              lane[i] = __fadd_rn(lane[i], lane[i + half]);
+          acc = lane[0];
         }
         score = floorf(__fdiv_rn(acc, wsum));
       }
@@ -182,8 +208,8 @@ extern "C" int koord_score_topk(
     const void* requested_fit, const void* alloc_fit, const void* est,
     const void* prod_scored, const void* node_term, const void* prod_term,
     const void* alloc_score, const void* fresh, const void* weights, int P,
-    int N, int F, int D, int k, int tie_break, float eps, void* out_val,
-    void* out_idx, void* stream) {
+    int N, int F, int D, int k, int tie_break, int fma_sum, float eps,
+    void* out_val, void* out_idx, void* stream) {
   if (P <= 0) return 0;
   if (F > MAX_DIMS || D > MAX_DIMS || k > 32 || k > N || k <= 0)
     return (int)cudaErrorInvalidValue;
@@ -196,12 +222,17 @@ extern "C" int koord_score_topk(
       (const float*)est, (const uint8_t*)prod_scored,                       \
       (const float*)node_term, (const float*)prod_term,                     \
       (const float*)alloc_score, (const uint8_t*)fresh,                     \
-      (const float*)weights, P, N, F, D, k, tie_break, eps,                 \
+      (const float*)weights, P, N, F, D, k, tie_break, fma_sum, eps,        \
       (float*)out_val, (int32_t*)out_idx
-  if (k <= 8)
-    score_topk_kernel<8><<<blocks, threads, 0, s>>>(KOORD_ARGS);
+  const bool narrow = F <= 4 && D <= 4;
+  if (k <= 8 && narrow)
+    score_topk_kernel<8, 4><<<blocks, threads, 0, s>>>(KOORD_ARGS);
+  else if (k <= 8)
+    score_topk_kernel<8, MAX_DIMS><<<blocks, threads, 0, s>>>(KOORD_ARGS);
+  else if (narrow)
+    score_topk_kernel<32, 4><<<blocks, threads, 0, s>>>(KOORD_ARGS);
   else
-    score_topk_kernel<32><<<blocks, threads, 0, s>>>(KOORD_ARGS);
+    score_topk_kernel<32, MAX_DIMS><<<blocks, threads, 0, s>>>(KOORD_ARGS);
 #undef KOORD_ARGS
   return (int)cudaGetLastError();
 }

@@ -1,105 +1,441 @@
-// K2 segment_prefix_ok: does each pod fit its segment's limit when charged
-// after every earlier-ranked pod of the same segment?
+// K2 segment_prefix_ok, chained: the node gate and every quota level of
+// one inner commit step in one launch.
 //
-// Replaces koordinator_tpu/scheduler/batching.py segment_prefix_ok, called
-// once for node capacity (core.py:768) and once per quota level
-// (core.py:891) in every inner commit step. On the TPU it is a masked
-// [P, P] x [P, R] matmul, because sorts are slow there; XLA runs it on
-// the matrix unit.
+// Replaces koordinator_tpu/scheduler/batching.py segment_prefix_ok as
+// schedule_batch calls it in every inner commit step: once for node
+// capacity (core.py:768) and then once per quota level (core.py:891),
+// each level seeing only the pods that passed the levels before it. On
+// the TPU each call is a masked [P, P] x [P, R] matmul, because sorts are
+// slow there; XLA runs it on the matrix unit. Per level l, for the pods
+// still alive (alive starts as `active`):
 //
-//   ok[p] = all_r( base[seg[p], r] + sum_{q: seg[q] == seg[p],
-//                                         rank[q] < rank[p]} req[q, r]
-//                  + req[p, r] <= limit[seg[p], r] + eps )
-//           or seg[p] >= S            (out of range = no candidate)
+//   ok[p] = all_r( base_l[seg_l[p], r] + sum_{q alive: seg_l[q] == seg_l[p],
+//                                               rank[q] < rank[p]} req[q, r]
+//                  + req[p, r] <= limit_l[seg_l[p], r] + eps )
+//           or seg_l[p] >= S_l            (out of range = not gated here)
+//   alive[p] &= ok[p]
 //
-// What bounds it on the H100: O(P^2) pair tests on 8 bytes each (the seg
-// and rank of both pods) that sit in L2 (16 KB at P=2000); the bytes from
-// device memory are a few tens of KB. At flagship sizes a launch does a
-// few microseconds of work, so the kernel is launch-bound: 3 launches per
-// inner step, 2400 per sweep.
+// and the result is alive. A pod with seg -1 checks against row 0 but
+// counts only with the other -1 pods, as in the reference.
 //
-// Design: one warp per pod; pods whose segment is out of range (not
-// trying this step: most of them late in a round) leave at once. The
-// lanes stride over the other pods and sum the matching rows, the warp
-// reduces the sums by shuffles, and lane 0 compares. A (segment, rank)
-// sort followed by a segmented scan would be O(P log P); that is a later
-// change.
+// What bounds it on the H100: neither bytes (a few tens of KB) nor
+// operations (a few thousand additions): a launch does microseconds of
+// work at flagship sizes, so the launches themselves and the chain of
+// levels (each waits on the one before) set its time. So one launch
+// does every level.
+//
+// Design: one block of 512 threads (P <= 2048). The pods sit in rank
+// order (rank is a permutation of [0, P)). Per level, a block scan
+// counts the alive pods with a segment in range, in rank order; the
+// others take no part in the level's sums, and a level where none is
+// in range is skipped. Then, by the n pods in range:
+// - n <= SMALL (288 at R = 4, 72 otherwise: the late steps of a round,
+//   few pods still trying): the pods are compacted in rank order, with
+//   their segments and requests, into shared memory, and each pod's
+//   thread sums the requests of the earlier pods of its segment, O(n)
+//   a pod from shared memory, no sort;
+// - n > SMALL: a block radix sort (cub::BlockRadixSort, stable, over
+//   the key's bits only, four keys a thread; the key is seg + 1, and a
+//   key past every segment for the pods not in range, which the sort
+//   carries along) groups each segment with its pods still in rank
+//   order; a segmented scan (in registers over a thread's pods,
+//   shuffles across a warp, the warps' trailing segments through
+//   shared memory; four columns a pass, each pod's request and its
+//   segment's base and limit read beside it, 16 bytes at a time where
+//   R is a multiple of 4) gives each pod the sum of its earlier
+//   same-segment pods. O(P log P) a level instead of O(P^2).
+// Each pod compares and a failing pod drops out of the next level. req
+// stays in device memory on the sorted path (read through the cache):
+// a copy in shared memory, gathered in rank order, cost more than it
+// saved at the flagship's R = 4.
+//
+// Preconditions, checked in the kernel: rank is a permutation of
+// [0, P) and every alive pod's segment is >= -1. A launch that finds
+// either broken stops with __trap(): the launch fails and the caller
+// sees the CUDA error at its next synchronisation, rather than a gate
+// that silently passed pods the reference would have gated.
 //
 // Exactness: the summation order is not the reference's. The sums are
 // still exact on the scheduler's inputs: requests are multiples of
 // 500 mC and 512 MiB (utils/synthetic.py) and node/quota usage is a sum
-// of such requests, so every partial sum is an integer far below 2^24
-// and representable in f32, in any order. The quota root (depth 0 holds
+// of such requests, so every partial sum is an integer (a multiple of 4,
+// resp. 512, far below 2^24 times that) and representable in f32, in
+// any order. The quota root (depth 0 holds
 // every quota pod) puts up to a whole chunk in one segment, so this
 // reasoning, not a small segment size, is what keeps the result exact.
 // The comparison itself keeps the reference's order of additions.
 
+#include <cub/block/block_radix_sort.cuh>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int MAX_R = 8;
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+constexpr int ITEMS = 4;  // pods a thread, consecutive in rank/sorted order
+constexpr int MAX_P = THREADS * ITEMS;
+constexpr int MAX_R = 11;  // NUM_RESOURCES
+constexpr int COLS = 4;    // columns a scan pass
+constexpr int MAX_LEVELS = 8;
+// at most this many pods in range (a quarter where R != 4): no sort.
+// The unsorted sums cost O(n^2) reads; on the H100 they beat a level's
+// sort up to about 300 pods at R = 4 (python -m
+// koordinator_tpu_torch.sweep_k2).
+constexpr int SMALL = 288;
+constexpr int PAD = 8;      // pods the unsorted sums read past n
 constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void segment_prefix_ok_kernel(
+struct Levels {
+  const float* base[MAX_LEVELS];
+  const float* limit[MAX_LEVELS];
+  int S[MAX_LEVELS];
+};
+
+// 5 key bits a pass: 3 passes for 10^4 node segments, 2 for quotas
+using Sort = cub::BlockRadixSort<uint32_t, THREADS, ITEMS, int, 5>;
+
+// A level's shared memory: the sort's, or where few pods are in range,
+// those pods compacted in rank order with their requests.
+union LevelStorage {
+  Sort::TempStorage sort;
+  struct __align__(16) {
+    int seg[MAX_P];                      // n, then PAD sentinels
+    float req[(SMALL + PAD) * MAX_R];    // [n][R], then zeros
+    int16_t pod[MAX_P];
+  } in;
+};
+
+// NR: the columns the unsorted path unrolls (R <= NR)
+template <int NR>
+__global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
     const int32_t* __restrict__ seg, const int32_t* __restrict__ rank,
-    const float* __restrict__ req, const float* __restrict__ base,
-    const float* __restrict__ limit, int P, int R, int S, float eps,
+    const float* __restrict__ req, const uint8_t* __restrict__ active,
+    Levels lv, int L, int P, int R, int vec4, float eps,
     uint8_t* __restrict__ out) {
-  const int p = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (p >= P) return;
-  const int s = seg[p];
-  if (s >= S) {
-    if (lane == 0) out[p] = 1;
-    return;
+  __shared__ LevelStorage sh;
+  __shared__ int warp_count[2][WARPS];  // by level parity
+  __shared__ int16_t order[MAX_P];  // pod at each rank position, -1 = none
+  __shared__ uint8_t alive[MAX_P];
+  __shared__ int carry_key[WARPS];  // each warp's trailing segment
+  __shared__ float carry_sum[WARPS][COLS];
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  for (int i = t; i < MAX_P; i += THREADS) order[i] = -1;
+  __syncthreads();
+  for (int i = t; i < P; i += THREADS) {
+    const int r = rank[i];
+    if (r >= 0 && r < P) order[r] = (int16_t)i;
+    alive[i] = active[i];
   }
-  const int rp = rank[p];
-  float acc[MAX_R];
+  __syncthreads();
+  // rank is a permutation iff every position below P holds a pod
+  bool filled = true;
+  for (int i = t; i < P; i += THREADS) filled &= order[i] >= 0;
+  if (!__syncthreads_and(filled)) __trap();
+
+  // this thread's pods (blocked: rank order) and their segments, each
+  // level's read one level ahead
+  int mine[ITEMS], snext[ITEMS];
 #pragma unroll
-  for (int r = 0; r < MAX_R; ++r) acc[r] = 0.0f;
-  for (int q = lane; q < P; q += 32) {
-    if (seg[q] == s && rank[q] < rp) {
+  for (int k = 0; k < ITEMS; ++k) {
+    const int pos = t * ITEMS + k;
+    mine[k] = pos < P ? order[pos] : -1;
+    snext[k] = L > 0 && mine[k] >= 0 ? seg[mine[k]] : 0;
+  }
+
+  for (int l = 0; l < L; ++l) {
+    const int S = lv.S[l];
+    const float* base = lv.base[l];
+    const float* limit = lv.limit[l];
+    int scur[ITEMS];
 #pragma unroll
-      for (int r = 0; r < MAX_R; ++r)
-        if (r < R) acc[r] = __fadd_rn(acc[r], req[(size_t)q * R + r]);
+    for (int k = 0; k < ITEMS; ++k) {
+      scur[k] = snext[k];
+      if (l + 1 < L && mine[k] >= 0)
+        snext[k] = seg[(size_t)(l + 1) * P + mine[k]];
     }
-  }
+    // the alive pods in range, to compact in rank order
+    int cpod[ITEMS], cseg[ITEMS], cnt = 0;
+    bool bad = false;
 #pragma unroll
-  for (int r = 0; r < MAX_R; ++r) {
+    for (int k = 0; k < ITEMS; ++k) {
+      const int p = mine[k];
+      const bool a = p >= 0 && alive[p];
+      const int s = a ? scur[k] : S;
+      bad |= s < -1;
+      const bool in = a && s < S;
+      cpod[k] = in ? p : -1;
+      cseg[k] = s;
+      cnt += in;
+    }
+    // block scan of the counts: shuffles within a warp, the warps'
+    // totals through shared memory (a level's barrier orders them; the
+    // two parities keep a level's reads apart from the next's writes)
+    int inc = cnt;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[r] = __fadd_rn(acc[r], __shfl_xor_sync(FULL, acc[r], off));
-  }
-  if (lane == 0) {
-    const int sc = s < 0 ? 0 : s;
-    bool ok = true;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up = __shfl_up_sync(FULL, inc, d);
+      if (lane >= d) inc += up;
+    }
+    int* wc = warp_count[l & 1];
+    if (lane == 31) wc[warp] = inc;
+    if (__syncthreads_or(bad)) __trap();
+    int n = 0, off = inc - cnt;
 #pragma unroll
-    for (int r = 0; r < MAX_R; ++r) {
-      if (r < R) {
-        const size_t o = (size_t)sc * R + r;
-        const float lhs = __fadd_rn(__fadd_rn(base[o], acc[r]),
-                                    req[(size_t)p * R + r]);
-        ok = ok && (lhs <= __fadd_rn(limit[o], eps));
+    for (int w = 0; w < WARPS; ++w) {
+      const int x = wc[w];
+      n += x;
+      off += w < warp ? x : 0;
+    }
+    if (n == 0) continue;  // block-uniform: nothing to gate
+
+    // R = 4 reads 16 bytes a request: 4x fewer shared-memory reads
+    const bool v4 = NR == 4 && R == 4;
+    if (n <= (v4 ? SMALL : SMALL / 4)) {
+      // few pods: compact them with their requests into shared memory,
+      // then each sums the requests of its earlier same-segment pods,
+      // in rank order
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) {
+        if (cpod[k] >= 0) {
+          sh.in.seg[off] = cseg[k];
+          sh.in.pod[off] = (int16_t)cpod[k];
+#pragma unroll
+          for (int r = 0; r < NR; ++r)
+            if (r < R)
+              sh.in.req[off * R + r] = req[(size_t)cpod[k] * R + r];
+          ++off;
+        }
       }
+      // past n: segments that match no pod, zero requests
+      if (t < PAD) sh.in.seg[n + t] = -2;
+      for (int i = n * R + t; i < (n + PAD) * R + MAX_R; i += THREADS)
+        sh.in.req[i] = 0.0f;
+      __syncthreads();
+      if (t < n) {
+        const int s = sh.in.seg[t];
+        const size_t o = (size_t)max(s, 0) * R;
+        float bas[NR], lim[NR], acc[NR];
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {  // in flight during the sums
+          bas[r] = base[o + min(r, R - 1)];
+          lim[r] = limit[o + min(r, R - 1)];
+          acc[r] = 0.0f;
+        }
+        // B earlier pods at a time, every read first (unconditional,
+        // inside the padded copy), then each request times 1 where its
+        // pod is earlier and of the same segment, else times 0: exact
+        constexpr int B = NR == 4 ? PAD : 2;  // registers: B * NR
+        for (int j0 = 0; j0 < t; j0 += B) {
+          int sj[B];
+          float x[B][NR];
+          if constexpr (NR == 4) {
+            if (v4) {
+              const int4 a4 = *(const int4*)(sh.in.seg + j0);
+              const int4 b4 = *(const int4*)(sh.in.seg + j0 + 4);
+              sj[0] = a4.x; sj[1] = a4.y; sj[2] = a4.z; sj[3] = a4.w;
+              sj[4] = b4.x; sj[5] = b4.y; sj[6] = b4.z; sj[7] = b4.w;
+#pragma unroll
+              for (int b = 0; b < B; ++b) {
+                const float4 q = *(const float4*)(sh.in.req + (j0 + b) * 4);
+                x[b][0] = q.x; x[b][1] = q.y; x[b][2] = q.z; x[b][3] = q.w;
+              }
+            }
+          }
+          if (!v4) {
+#pragma unroll
+            for (int b = 0; b < B; ++b) {
+              sj[b] = sh.in.seg[j0 + b];
+#pragma unroll
+              for (int r = 0; r < NR; ++r)
+                x[b][r] = sh.in.req[(j0 + b) * R + r];
+            }
+          }
+#pragma unroll
+          for (int b = 0; b < B; ++b) {
+            const float m = sj[b] == s && j0 + b < t ? 1.0f : 0.0f;
+#pragma unroll
+            for (int r = 0; r < NR; ++r)
+              acc[r] = __fadd_rn(acc[r], __fmul_rn(x[b][r], m));
+          }
+        }
+        bool ok = true;
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+          const float lhs = __fadd_rn(__fadd_rn(bas[r], acc[r]),
+                                      sh.in.req[t * R + r]);
+          ok &= (r >= R) | (lhs <= __fadd_rn(lim[r], eps));
+        }
+        if (!ok) alive[sh.in.pod[t]] = 0;
+      }
+      __syncthreads();
+      continue;
     }
-    out[p] = ok ? 1 : 0;
+
+    // many pods: in rank order, key seg + 1 for the pods in range, a
+    // key past every segment for the others
+    const uint32_t out_key = (uint32_t)S + 1u;
+    uint32_t key[ITEMS];
+    int pod[ITEMS];
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      key[k] = cpod[k] >= 0 ? (uint32_t)(cseg[k] + 1) : out_key;
+      pod[k] = cpod[k];
+    }
+    const int bits = 32 - __clz((int)out_key);
+    Sort(sh.sort).Sort(key, pod, 0, bits);  // stable: rank order kept
+
+    bool ok[ITEMS];
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) ok[k] = true;
+    for (int r0 = 0; r0 < R; r0 += COLS) {
+      // this thread's pods' requests in columns [r0, r0 + COLS)
+      // (every read unconditional, from a valid address, then masked:
+      // all of them in flight together)
+      // and the base and limit of their segments (out-of-range pods and
+      // columns read row 0 and mask the result; where R is a multiple of
+      // 4, each row's 4 columns in one 16-byte read)
+      float v[ITEMS][COLS], lim[ITEMS][COLS], bas[ITEMS][COLS];
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) {
+        const bool in = key[k] != out_key;
+        const size_t o = (size_t)(in ? max((int)key[k] - 1, 0) : 0) * R;
+        const size_t q = (size_t)max(pod[k], 0) * R;
+        if (vec4) {
+          const float4 x4 = *(const float4*)(req + q + r0);
+          const float4 b4 = *(const float4*)(base + o + r0);
+          const float4 l4 = *(const float4*)(limit + o + r0);
+          v[k][0] = x4.x; v[k][1] = x4.y; v[k][2] = x4.z; v[k][3] = x4.w;
+          bas[k][0] = b4.x; bas[k][1] = b4.y; bas[k][2] = b4.z;
+          bas[k][3] = b4.w;
+          lim[k][0] = l4.x; lim[k][1] = l4.y; lim[k][2] = l4.z;
+          lim[k][3] = l4.w;
+        } else {
+#pragma unroll
+          for (int c = 0; c < COLS; ++c) {
+            const int rc = min(r0 + c, R - 1);
+            v[k][c] = req[q + rc];
+            bas[k][c] = base[o + rc];
+            lim[k][c] = limit[o + rc];
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < COLS; ++c)
+          v[k][c] = in && r0 + c < R ? v[k][c] : 0.0f;
+      }
+      // segmented inclusive scan: over the thread's pods, across the
+      // warp (shuffles), across the warps (their trailing segments)
+      float inc[COLS];
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) inc[c] = v[0][c];
+#pragma unroll
+      for (int k = 1; k < ITEMS; ++k)
+#pragma unroll
+        for (int c = 0; c < COLS; ++c)
+          inc[c] = key[k] == key[k - 1] ? __fadd_rn(inc[c], v[k][c])
+                                        : v[k][c];
+      int ikey = (int)key[ITEMS - 1];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int ukey = __shfl_up_sync(FULL, ikey, off);
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) {
+          const float up = __shfl_up_sync(FULL, inc[c], off);
+          if (lane >= off && ukey == ikey) inc[c] = __fadd_rn(up, inc[c]);
+        }
+      }
+      int pkey = __shfl_up_sync(FULL, ikey, 1);
+      float pre[COLS];
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) pre[c] = __shfl_up_sync(FULL, inc[c], 1);
+      if (lane == 0) pkey = -1;
+      if (lane == 31) {
+        carry_key[warp] = ikey;
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) carry_sum[warp][c] = inc[c];
+      }
+      __syncthreads();
+      int wkey = -1;  // the trailing segment of the warps before this one
+      float wsum[COLS] = {};
+#pragma unroll
+      for (int w = 0; w < WARPS - 1; ++w) {
+        if (w < warp) {
+          const bool same = carry_key[w] == wkey;
+          wkey = carry_key[w];
+#pragma unroll
+          for (int c = 0; c < COLS; ++c)
+            wsum[c] = same ? __fadd_rn(wsum[c], carry_sum[w][c])
+                           : carry_sum[w][c];
+        }
+      }
+      if (pkey == -1 || pkey == wkey) {  // lanes before: one segment
+#pragma unroll
+        for (int c = 0; c < COLS; ++c)
+          pre[c] = pkey == -1 ? wsum[c] : __fadd_rn(wsum[c], pre[c]);
+        pkey = wkey;
+      }
+      // each pod's exclusive prefix, then its comparison
+      float ex[COLS];
+#pragma unroll
+      for (int c = 0; c < COLS; ++c)
+        ex[c] = pkey == (int)key[0] ? pre[c] : 0.0f;
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) {
+        if (k > 0) {
+#pragma unroll
+          for (int c = 0; c < COLS; ++c)
+            ex[c] = key[k] == key[k - 1] ? __fadd_rn(ex[c], v[k - 1][c])
+                                         : 0.0f;
+        }
+        const bool in = key[k] != out_key;
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) {
+          const float lhs = __fadd_rn(__fadd_rn(bas[k][c], ex[c]), v[k][c]);
+          const bool pass = lhs <= __fadd_rn(lim[k][c], eps);
+          ok[k] = ok[k] & (pass | !in | (r0 + c >= R));
+        }
+      }
+      __syncthreads();  // the carries are read before the next pass
+    }
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k)
+      if (key[k] != out_key && !ok[k]) alive[pod[k]] = 0;
+    __syncthreads();
   }
+  for (int i = t; i < P; i += THREADS) out[i] = alive[i];
 }
 
 }  // namespace
 
-extern "C" int koord_segment_prefix_ok(const void* seg, const void* rank,
-                                       const void* req, const void* base,
-                                       const void* limit, int P, int R, int S,
-                                       float eps, void* out, void* stream) {
+extern "C" int koord_segment_prefix_chain(
+    const void* seg, const void* rank, const void* req, const void* active,
+    const void* const* bases, const void* const* limits, const int* nseg,
+    int L, int P, int R, float eps, void* out, void* stream) {
   if (P <= 0) return 0;
-  if (R > MAX_R || S <= 0) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const int blocks = (int)(((size_t)P * 32 + threads - 1) / threads);
-  segment_prefix_ok_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)seg, (const int32_t*)rank, (const float*)req,
-      (const float*)base, (const float*)limit, P, R, S, eps, (uint8_t*)out);
+  if (P > MAX_P || R > MAX_R || R <= 0 || L < 0 || L > MAX_LEVELS)
+    return (int)cudaErrorInvalidValue;
+  Levels lv = {};
+  for (int l = 0; l < L; ++l) {
+    if (nseg[l] <= 0) return (int)cudaErrorInvalidValue;
+    lv.base[l] = (const float*)bases[l];
+    lv.limit[l] = (const float*)limits[l];
+    lv.S[l] = nseg[l];
+  }
+  int vec4 = R % 4 == 0 && ((uintptr_t)req & 15) == 0;
+  for (int l = 0; l < L; ++l)
+    vec4 = vec4 && ((uintptr_t)lv.base[l] & 15) == 0
+           && ((uintptr_t)lv.limit[l] & 15) == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (R <= 4)
+    segment_prefix_chain_kernel<4><<<1, THREADS, 0, st>>>(
+        (const int32_t*)seg, (const int32_t*)rank, (const float*)req,
+        (const uint8_t*)active, lv, L, P, R, vec4, eps, (uint8_t*)out);
+  else
+    segment_prefix_chain_kernel<MAX_R><<<1, THREADS, 0, st>>>(
+        (const int32_t*)seg, (const int32_t*)rank, (const float*)req,
+        (const uint8_t*)active, lv, L, P, R, vec4, eps, (uint8_t*)out);
   return (int)cudaGetLastError();
 }

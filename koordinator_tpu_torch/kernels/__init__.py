@@ -19,7 +19,7 @@ def _wrappers():
         segment_prefix,
     )
     return {"score_topk": score_topk.score_topk,
-            "segment_prefix_ok": segment_prefix.segment_prefix_ok,
+            "segment_prefix_ok": segment_prefix.segment_prefix_chain,
             "ordered_scatter_add": scatter.ordered_scatter_add}
 
 

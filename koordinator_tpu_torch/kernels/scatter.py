@@ -15,39 +15,55 @@ import torch
 from koordinator_tpu_torch.kernels import _launch
 from koordinator_tpu_torch.kernels.build import TOOLCHAIN, check
 
+MAX_COLUMNS = 32  # one lane a column (csrc/ordered_scatter_add.cu)
+
 
 def ordered_scatter_add_plain(target: torch.Tensor, idx: torch.Tensor,
                               rows: torch.Tensor) -> torch.Tensor:
-    """target with rows[j] added into row idx[j] in ascending j;
+    """target with rows[j] added into row idx[l, j] for each level l in
+    turn, in ascending j (idx i32[P] is one level); an index in [-S, 0)
+    names row S + idx (numpy's rule, as the reference's `.at[]`), other
     indices outside [0, S) are dropped. torch's CPU index_add_ adds in
     index order, as the reference's CPU scatter does."""
-    keep = (idx >= 0) & (idx < target.shape[0])
-    return target.clone().index_add_(0, idx[keep].long(), rows[keep])
+    s = target.shape[0]
+    out = target.clone()
+    for level in (idx[None] if idx.dim() == 1 else idx):
+        level = torch.where(level < 0, level + s, level)
+        keep = (level >= 0) & (level < s)
+        out.index_add_(0, level[keep].long(), rows[keep])
+    return out
 
 
 def ordered_scatter_add(target: torch.Tensor, idx: torch.Tensor,
                         rows: torch.Tensor) -> torch.Tensor:
     """The scatter of `ordered_scatter_add_plain`: the kernel for CUDA
     tensors, the plain version for CPU tensors. target: f32[S, C];
-    idx: i32[P]; rows: f32[P, C]. Returns a new tensor."""
+    idx: i32[P] or i32[L, P] (L scatters of the same rows, applied in
+    order: bit-equal to L calls in a row); rows: f32[P, C]. Returns a
+    new tensor."""
     s, c = target.shape
-    p = idx.shape[0]
+    p = rows.shape[0]
     dev = target.device
     _launch.check_tensor("target", target, torch.float32, (s, c), dev)
-    _launch.check_tensor("idx", idx, torch.int32, (p,), dev)
+    _launch.check_tensor("idx", idx, torch.int32,
+                         (p,) if idx.dim() == 1 else (None, p), dev)
     _launch.check_tensor("rows", rows, torch.float32, (p, c), dev)
     if dev.type == "cpu":
         return ordered_scatter_add_plain(target, idx, rows)
     if dev.type != "cuda":
         raise ValueError(f"ordered_scatter_add: unsupported device {dev}")
-    sorted_idx, order = torch.sort(idx, stable=True)
+    if c > MAX_COLUMNS:
+        raise ValueError(f"ordered_scatter_add: C={c} above {MAX_COLUMNS}")
+    levels = 1 if idx.dim() == 1 else idx.shape[0]
     out = torch.empty_like(target)
     fn = TOOLCHAIN.function("ordered_scatter_add",
-                      "koord_ordered_scatter_add",
-                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                      + [ctypes.c_void_p, ctypes.c_void_p])
-    rc = fn(_launch.ptr(target), _launch.ptr(sorted_idx), _launch.ptr(order),
-            _launch.ptr(rows), s, c, p, _launch.ptr(out), _launch.stream(dev))
+                            "koord_ordered_scatter_add",
+                            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                            + [ctypes.c_void_p, ctypes.c_void_p])
+    # the kernel refuses (cudaErrorInvalidValue) indices and rows that do
+    # not fit a block's shared memory
+    rc = fn(_launch.ptr(target), _launch.ptr(idx), _launch.ptr(rows), s, c,
+            p, levels, _launch.ptr(out), _launch.stream(dev))
     check(rc, "ordered_scatter_add")
     ordered_scatter_add.launches += 1
     return out

@@ -2,16 +2,17 @@
 
 Counterpart of `koordinator_tpu/scheduler/batching.py`. The prefix gate
 is kernel K2 (`kernels/segment_prefix.py`); it takes each pod's `rank`
-rather than the reference's [P, P] `earlier` matrix.
+rather than the reference's [P, P] `earlier` matrix, and chains the
+levels of a commit step (`segment_prefix_chain`).
 """
 
 from __future__ import annotations
 
 import torch
 
-# K2; re-exported as this module's segment_prefix_ok
+# K2; re-exported as this module's gate
 from koordinator_tpu_torch.kernels.segment_prefix import (  # noqa: F401
-    segment_prefix_ok,
+    segment_prefix_chain,
 )
 
 EPS = 0.5  # comparison tolerance in canonical units (millicores / MiB)

@@ -10,11 +10,12 @@ NotImplementedError.
 
 Per round (num_rounds of them), kernel K1 (`score_topk`) picks each
 active pod's k best feasible nodes. Then k inner steps run: each pod
-tries its next choice, kernel K2 (`segment_prefix_ok`) admits it if it
-fits the node, and then each quota level, after every earlier-ranked
-pod that chose the same node or quota, and kernel K3
-(`ordered_scatter_add`) commits the accepted requests; a rejected pod
-falls through to its next choice. After the rounds, strict gangs below
+tries its next choice, kernel K2 (`segment_prefix_chain`, one launch)
+admits it if it fits the node, and then each quota level, after every
+earlier-ranked pod that chose the same node or quota, and kernel K3
+(`ordered_scatter_add`) commits the accepted requests, one launch for
+the node and one for all quota levels; a rejected pod falls through
+to its next choice. After the rounds, strict gangs below
 quorum roll back, and the snapshot is rebuilt from the final
 assignment. The reference runs the rounds and steps as lax.scan loops
 inside one jitted program; here they are Python loops over launches,
@@ -34,7 +35,7 @@ from koordinator_tpu_torch.kernels.score_topk import score_topk
 from koordinator_tpu_torch.scheduler.batching import (
     EPS,
     rank_by_priority,
-    segment_prefix_ok,
+    segment_prefix_chain,
 )
 from koordinator_tpu_torch.scheduler.cascade import static_gates
 from koordinator_tpu_torch.scheduler.plugins import deviceshare, loadaware
@@ -155,6 +156,9 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         pods.quota_id[:, None] >= 0,
         quotas0.depth_ancestor[pods.quota_id.clamp_min(0).long()],
         -1).to(torch.int32)                                     # [P, D]
+    # the quota segment of each checked level, n_quotas = none: [D', P]
+    quota_seg = torch.where(pod_anc >= 0, pod_anc, n_quotas)[
+        :, :quota_depth].T.to(torch.int32).contiguous()
 
     static_ok, taint_penalty = static_gates(nodes0, pods, cfg)
     if taint_penalty is not None:
@@ -182,7 +186,14 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     placed = torch.full((p,), -1, dtype=torch.int32, device=dev)
     out_score = torch.full((p,), -1.0, dtype=torch.float32, device=dev)
     drop_node = torch.full((p,), n_ext, dtype=torch.int32, device=dev)
-    drop_quota = torch.full((p,), n_quotas, dtype=torch.int32, device=dev)
+
+    def quota_commit(used, take, rows):
+        """used with rows charged to every quota level of the pods in
+        `take`: one ordered scatter for all levels."""
+        if not quota_depth:
+            return used
+        return ordered_scatter_add(
+            used, _where_i32(take[None, :], quota_seg, n_quotas), rows)
 
     for _ in range(num_rounds):
         active = pods.valid & (placed < 0) & gang_ok
@@ -207,7 +218,8 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         topk_val, topk_idx = score_topk(
             static_ok, row_ok, req_fit, dims(requested), alloc_fit,
             est_score, is_prod_scored, node_term, prod_term, alloc_score,
-            nodes0.metric_fresh, weights, k, tie_break, EPS)
+            nodes0.metric_fresh, weights, k, tie_break, EPS,
+            fma_sum=score_dims is not None)
 
         kptr = torch.zeros((p,), dtype=torch.int64, device=dev)
         for _ in range(k):
@@ -217,28 +229,18 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
             trying = active & (placed < 0) & (kptr < k) & (val > -0.5)
             choice_eff = _where_i32(trying, choice, drop_node)
 
-            # node capacity prefix in priority order
-            eff_req = torch.where(trying[:, None], req_fit, 0.0)
-            accept = trying & segment_prefix_ok(
-                choice_eff, rank, eff_req, dims(requested), alloc_fit,
-                n_ext, EPS)
-            # quota prefix per tree level, the same gate
-            for d in range(quota_depth):
-                anc = torch.where(accept, pod_anc[:, d], -1)
-                anc_eff = _where_i32(anc >= 0, anc, drop_quota)
-                acc_req = torch.where(accept[:, None], req_fit, 0.0)
-                accept = accept & segment_prefix_ok(
-                    anc_eff, rank, acc_req, dims(quota_used), runtime_fit,
-                    n_quotas, EPS)
+            # node capacity prefix in priority order, then the quota
+            # prefix per tree level among the pods the node admitted
+            quota_table = (dims(quota_used), runtime_fit, n_quotas)
+            accept = segment_prefix_chain(
+                torch.cat([choice_eff[None], quota_seg]), rank, req_fit,
+                trying, [(dims(requested), alloc_fit, n_ext)]
+                + [quota_table] * quota_depth, EPS)
 
             # scatter-commit (assume)
             acc_req = pods.requests * accept[:, None]
             requested = ordered_scatter_add(requested, choice_eff, acc_req)
-            for d in range(quota_depth):
-                anc = torch.where(accept, pod_anc[:, d], -1)
-                quota_used = ordered_scatter_add(
-                    quota_used, _where_i32(anc >= 0, anc, drop_quota),
-                    acc_req)
+            quota_used = quota_commit(quota_used, accept, acc_req)
             placed = _where_i32(accept, choice, placed)
             out_score = torch.where(accept, val, out_score)
             # a rejected pod's chosen node just filled up: fall through
@@ -280,11 +282,7 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                                        fin_est)
     prod_assigned_est = ordered_scatter_add(
         nodes0.prod_assigned_estimated, tgt, fin_est * is_prod[:, None])
-    quota_used = quotas0.used
-    for d in range(quota_depth):
-        anc = torch.where(ok, pod_anc[:, d], -1)
-        quota_used = ordered_scatter_add(
-            quota_used, _where_i32(anc >= 0, anc, drop_quota), fin_req)
+    quota_used = quota_commit(quotas0.used, ok, fin_req)
     gang_assumed = gangs0.assumed + _count(n_gangs, _where_i32(
         ok & (pods.gang_id >= 0), pods.gang_id, n_gangs))[:, 0].to(torch.int32)
 

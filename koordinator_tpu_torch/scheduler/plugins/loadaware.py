@@ -8,11 +8,16 @@ reproduced in float32. The round's score is fused into kernel K1
 (`kernels/score_topk.py`); `score_matrix` here is the plain [P, N] form
 that K1's plain version shares.
 
-Rounding follows the reference's compiled program, which contracts a
-multiply followed by an add into one fused multiply-add: `fma_f32`
-computes a*b+c with one rounding (exact in float64 first, for the
-operands these formulas see: an integer of at most 10 bits, or a
-quotient, times a float32, plus a float32 of similar magnitude).
+Rounding follows the reference's compiled program (XLA on the CPU),
+which contracts a multiply followed by an add into one fused
+multiply-add: `fma_f32` computes a*b+c with one rounding (exact in
+float64 first, for the operands these formulas see: an integer of at
+most 10 bits, or a quotient, times a float32, plus a float32 of
+similar magnitude). The weighted sum of the per-dim scores takes one of
+two forms there, by how the score dims are given (`weighted_sum`): a
+listed subset is gathered into a loop fusion that becomes an ascending
+FMA chain; all dims (`score_dims=None`) become a vectorised dot whose
+products are rounded on their own and summed across 8 float lanes.
 """
 
 from __future__ import annotations
@@ -163,10 +168,13 @@ def prod_scored(pods: PodBatch, cfg: LoadAwareConfig) -> torch.Tensor:
 def least_requested_score(est: torch.Tensor, is_prod_scored: torch.Tensor,
                           node_term: torch.Tensor, prod_term: torch.Tensor,
                           alloc: torch.Tensor, fresh: torch.Tensor,
-                          weights: torch.Tensor) -> torch.Tensor:
+                          weights: torch.Tensor,
+                          fma_sum: bool) -> torch.Tensor:
     """f32[P, N]: floor'd weighted least-requested (load_aware.go:378-397)
     of each pod's estimate est f32[P, D] on each node; 0 on nodes
-    without a fresh NodeMetric."""
+    without a fresh NodeMetric. `fma_sum` picks the weighted sum's
+    rounding (`weighted_sum`): True where the score dims were listed,
+    False where they are all dims."""
     base = torch.where(is_prod_scored[:, None, None], prod_term[None],
                        node_term[None])                          # [P, N, D]
     used = est[:, None, :] + base
@@ -174,13 +182,44 @@ def least_requested_score(est: torch.Tensor, is_prod_scored: torch.Tensor,
     least = torch.floor((cap - used) * MAX_NODE_SCORE
                         / torch.clamp_min(cap, 1e-9))
     least = torch.where((cap > 0) & (used <= cap), least, 0.0)
-    acc = torch.zeros(least.shape[:2], dtype=torch.float32,
-                      device=least.device)
-    for d in range(least.shape[-1]):
-        acc = fma_f32(least[..., d], weights[d], acc)
-    weight_sum = torch.clamp_min(weights.sum(), 1e-9)
-    score = torch.floor(acc / weight_sum)
+    weight_sum = weights.new_zeros(())
+    for d in range(weights.shape[0]):  # in order, as the reference sums
+        weight_sum = weight_sum + weights[d]
+    score = torch.floor(weighted_sum(least, weights, fma_sum)
+                        / torch.clamp_min(weight_sum, 1e-9))
     return torch.where(fresh[None, :], score, 0.0)
+
+
+SUM_LANES = 8  # float32 lanes of the reference's vectorised dot (AVX2)
+
+
+def weighted_sum(least: torch.Tensor, weights: torch.Tensor,
+                 fma_sum: bool) -> torch.Tensor:
+    """Σ_d least[..., d] * weights[d] rounded as the reference rounds it.
+
+    fma_sum (score dims listed): acc = fma(least[d], w[d], acc) in
+    ascending d from 0. Otherwise (all dims): each product rounded on
+    its own; lane i sums the products of dims i, i + 8, ... in order;
+    then the 8 lanes fold in halves, lane i + half into lane i, down to
+    one. Both forms were read from XLA:CPU's compiled score program and
+    match it on every width from 1 to 11 (tests/test_torch_loadaware.py).
+    """
+    if fma_sum:
+        acc = torch.zeros(least.shape[:-1], dtype=torch.float32,
+                          device=least.device)
+        for d in range(least.shape[-1]):
+            acc = fma_f32(least[..., d], weights[d], acc)
+        return acc
+    prods = least * weights
+    lanes = [torch.zeros(least.shape[:-1], dtype=torch.float32,
+                         device=least.device) for _ in range(SUM_LANES)]
+    for d in range(least.shape[-1]):
+        lanes[d % SUM_LANES] = (prods[..., d] if d < SUM_LANES
+                                else lanes[d % SUM_LANES] + prods[..., d])
+    while len(lanes) > 1:
+        half = len(lanes) // 2
+        lanes = [lanes[i] + lanes[i + half] for i in range(half)]
+    return lanes[0]
 
 
 def score_matrix(nodes: NodeState, pods: PodBatch, cfg: LoadAwareConfig,
@@ -190,4 +229,5 @@ def score_matrix(nodes: NodeState, pods: PodBatch, cfg: LoadAwareConfig,
     dims = list(score_dims) if score_dims is not None else list(range(NUM_RESOURCES))
     return least_requested_score(
         pods.estimated[:, dims].contiguous(), prod_scored(pods, cfg),
-        node_term, prod_term, alloc, nodes.metric_fresh, weights)
+        node_term, prod_term, alloc, nodes.metric_fresh, weights,
+        fma_sum=score_dims is not None)

@@ -57,20 +57,118 @@ def test_segment_prefix_ok_equal_reference(data):
         jnp.asarray(seg), earlier, jnp.asarray(req), jnp.asarray(base),
         jnp.asarray(limit), S))
     rank = batching.stable_rank(torch.from_numpy(-prio))
-    got = batching.segment_prefix_ok(
-        torch.from_numpy(seg), rank, torch.from_numpy(req),
-        torch.from_numpy(base), torch.from_numpy(limit), S,
+    # the single-level gate: the chain with L = 1, every pod taking part
+    got = batching.segment_prefix_chain(
+        torch.from_numpy(seg)[None], rank, torch.from_numpy(req),
+        torch.ones(P, dtype=torch.bool),
+        [(torch.from_numpy(base), torch.from_numpy(limit), S)],
         batching.EPS).numpy()
     np.testing.assert_array_equal(got, want)
 
 
 def test_segment_prefix_ok_wrapper_checks_its_inputs():
-    seg = torch.zeros(4, dtype=torch.int64)
+    seg = torch.zeros((1, 4), dtype=torch.int64)
     rank = torch.arange(4, dtype=torch.int32)
     req = torch.zeros((4, 2))
+    active = torch.ones(4, dtype=torch.bool)
     table = torch.zeros((3, 2))
     with pytest.raises(TypeError, match="seg"):
-        batching.segment_prefix_ok(seg, rank, req, table, table, 3, 0.5)
+        batching.segment_prefix_chain(seg, rank, req, active,
+                                      [(table, table, 3)], 0.5)
     with pytest.raises(ValueError, match="limit"):
-        batching.segment_prefix_ok(seg.int(), rank, req, table,
-                                   torch.zeros((2, 2)), 3, 0.5)
+        batching.segment_prefix_chain(seg.int(), rank, req, active,
+                                      [(table, torch.zeros((2, 2)), 3)], 0.5)
+
+
+@pytest.mark.parametrize("case", ["duplicate rank", "rank out of range",
+                                  "segment below -1"])
+def test_segment_prefix_chain_refuses_broken_preconditions(case):
+    """The kernel needs rank to be a permutation and active pods'
+    segments >= -1 (it stops with a launch failure otherwise); the host
+    path raises on the same inputs rather than gate them its own way."""
+    p, r = 4, 2
+    seg = torch.zeros((1, p), dtype=torch.int32)
+    rank = torch.arange(p, dtype=torch.int32)
+    active = torch.ones(p, dtype=torch.bool)
+    if case == "duplicate rank":
+        rank[1] = 0
+    elif case == "rank out of range":
+        rank[1] = p
+    else:
+        seg[0, 2] = -2
+    table = (torch.zeros((3, r)), torch.ones((3, r)), 3)
+    with pytest.raises(ValueError, match="permutation|below -1"):
+        batching.segment_prefix_chain(seg, rank, torch.zeros((p, r)),
+                                      active, [table], 0.5)
+    if case == "segment below -1":   # an inactive pod's segment is not read
+        active[2] = False
+        batching.segment_prefix_chain(seg, rank, torch.zeros((p, r)),
+                                      active, [table], 0.5)
+
+
+def _reference_chain(seg, earlier, req, active, tables):
+    """schedule_batch's inner-step gate in the reference: the node level
+    on the trying pods (core.py:767-770), then each quota level on the
+    pods accepted so far (core.py:884-890)."""
+    accept = jnp.asarray(active)
+    for level, (base, limit, s) in zip(seg, tables):
+        seg_l = jnp.where(accept, jnp.asarray(level), s)
+        req_l = jnp.where(accept[:, None], jnp.asarray(req), 0.0)
+        accept = accept & jbatching.segment_prefix_ok(
+            seg_l, earlier, req_l, jnp.asarray(base), jnp.asarray(limit), s)
+    return np.asarray(accept)
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3])
+@settings(max_examples=30, deadline=None)
+@given(data=st.data())
+def test_segment_prefix_chain_equal_reference(levels, data):
+    """The chained gate (K2's plain path) against the reference's
+    segment_prefix_ok applied level by level with the accept chain:
+    integer-valued inputs, levels with their own segment counts, pods
+    out of range at some levels, inactive pods and equal priorities."""
+    ints = lambda lo, hi, n: np.array(  # noqa: E731
+        data.draw(st.lists(st.integers(lo, hi), min_size=n, max_size=n)))
+    sizes = [data.draw(st.integers(1, 6)) for _ in range(levels)]
+    seg = np.stack([ints(-1, s + 1, P) for s in sizes]).astype(np.int32)
+    prio = ints(0, 3, P).astype(np.int32)
+    active = ints(0, 4, P) > 0
+    req = ints(0, 8, P * R).reshape(P, R).astype(np.float32) * 500.0
+    tables = []
+    for s in sizes:
+        base = ints(0, 20, s * R).reshape(s, R).astype(np.float32) * 500.0
+        limit = base + ints(0, 12, s * R).reshape(s, R).astype(
+            np.float32) * 500.0
+        tables.append((base, limit, s))
+    jrank = jbatching.stable_rank(jnp.asarray(-prio))
+    want = _reference_chain(seg, jrank[None, :] < jrank[:, None], req,
+                            active, tables)
+    got = batching.segment_prefix_chain(
+        torch.from_numpy(seg), batching.stable_rank(torch.from_numpy(-prio)),
+        torch.from_numpy(req), torch.from_numpy(active),
+        [(torch.from_numpy(b), torch.from_numpy(lim), s)
+         for b, lim, s in tables], batching.EPS).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_segment_prefix_chain_checks_its_inputs():
+    p, r = 4, 2
+    rank = torch.arange(p, dtype=torch.int32)
+    req = torch.zeros((p, r))
+    active = torch.ones(p, dtype=torch.bool)
+    table = (torch.zeros((3, r)), torch.zeros((3, r)), 3)
+    seg = torch.zeros((2, p), dtype=torch.int32)
+    with pytest.raises(ValueError, match="seg"):   # 2 levels, 1 table
+        batching.segment_prefix_chain(seg, rank, req, active, [table], 0.5)
+    with pytest.raises(TypeError, match="active"):
+        batching.segment_prefix_chain(seg, rank, req, active.int(),
+                                      [table] * 2, 0.5)
+    with pytest.raises(ValueError, match=r"base\[1\]"):
+        batching.segment_prefix_chain(
+            seg, rank, req, active,
+            [table, (torch.zeros((2, r)), torch.zeros((3, r)), 3)], 0.5)
+    meta = [t.to("meta") for t in (seg, rank, req, active)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        batching.segment_prefix_chain(
+            *meta, [(torch.zeros((3, r), device="meta"),) * 2 + (3,)] * 2,
+            0.5)

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from koordinator_tpu.api.extension import ResourceKind as RK
 from koordinator_tpu.scheduler import core as jcore
 from koordinator_tpu.scheduler.plugins.loadaware import LoadAwareConfig as JCfg
 from koordinator_tpu.utils import synthetic as jsyn
@@ -109,3 +110,30 @@ def test_unported_inputs_raise():
             (snap, pods.replace(has_taints=True))):
         with pytest.raises(NotImplementedError):
             core.schedule_batch(bad_snap, bad_pods, cfg, **BENCH_KW)
+
+
+@pytest.mark.parametrize("weights", [None, "fractional"])
+def test_all_dims_equal_reference(weights):
+    """fit_dims=None and score_dims=None (the reference's defaults: all
+    11 resource dims gated and scored), contended, with the default
+    weights and with fractional ones whose weighted sum rounds."""
+    snap = jsyn.synthetic_cluster(24, seed=4, num_quotas=8)
+    pods = jsyn.synthetic_pods(384, seed=14, num_quotas=8)
+    cfg_kw = {} if weights is None else dict(resource_weights={
+        RK(i): w for i, w in enumerate((3.0, 0.7, 1.3, 0.1, 2.9, 0.3, 1.7,
+                                        0.9, 0.6, 1.1, 2.2))})
+    kw = dict(BENCH_KW, fit_dims=None, score_dims=None)
+    want = jcore.schedule_batch(snap, pods, JCfg.make(**cfg_kw), **kw)
+    got = core.schedule_batch(to_port("ClusterSnapshot", snap),
+                              to_port("PodBatch", pods),
+                              LoadAwareConfig.make(**cfg_kw, device="cpu"),
+                              **kw)
+    placed = int((np.asarray(want.assignment) >= 0).sum())
+    assert 0 < placed < 384
+    for w, g in ((want.assignment, got.assignment),
+                 (want.chosen_score, got.chosen_score),
+                 (want.snapshot.nodes.requested, got.snapshot.nodes.requested),
+                 (want.snapshot.quotas.used, got.snapshot.quotas.used),
+                 (want.snapshot.nodes.assigned_estimated,
+                  got.snapshot.nodes.assigned_estimated)):
+        assert _np(g).tobytes() == _np(w).tobytes()

@@ -28,6 +28,9 @@ VARIANTS = {
     # integer weights, as LoadAwareSchedulingArgs has them (int64)
     "weights": dict(resource_weights={RK.CPU: 3.0, RK.MEMORY: 2.0,
                                       RK.BATCH_MEMORY: 5.0}),
+    # fractional weights: the weighted sum's rounding shows (ROADMAP C1)
+    "fractional_weights": dict(resource_weights={RK.CPU: 3.0,
+                                                 RK.MEMORY: 0.7}),
     "all": dict(prod_usage_thresholds={RK.CPU: 45.0},
                 filter_agg_type="avg",
                 agg_usage_thresholds={RK.CPU: 60.0, RK.MEMORY: 90.0},
@@ -77,3 +80,27 @@ def test_filter_and_score_exactly_equal_reference(variant, seed):
         got = loadaware.score_matrix(tnodes, tpods, tcfg, dims).numpy()
         np.testing.assert_array_equal(got, want)
         assert len(np.unique(want)) > 5
+
+
+# eleven fractional weights: every term of the weighted sum rounds
+FRACTIONAL_11 = {RK(i): w for i, w in enumerate(
+    (3.0, 0.7, 1.3, 0.1, 2.9, 0.3, 1.7, 0.9, 0.6, 1.1, 2.2))}
+
+
+@pytest.mark.parametrize("dims", [None, (0,), (0, 1), (0, 1, 2), (1, 4, 7),
+                                  tuple(range(5)), tuple(range(11))],
+                         ids=str)
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_weighted_sum_rounds_as_reference(dims, seed):
+    """The score's weighted sum over every width the reference can be
+    asked for, with weights whose products and sums all round: the FMA
+    chain for listed dims, the 8-lane sum for all dims."""
+    jnodes, jpods = _inputs(seed)
+    jcfg = jla.LoadAwareConfig.make(resource_weights=FRACTIONAL_11)
+    tcfg = loadaware.LoadAwareConfig.make(resource_weights=FRACTIONAL_11,
+                                          device="cpu")
+    score = jax.jit(functools.partial(jla.score_matrix, score_dims=dims))
+    want = np.asarray(score(jnodes, jpods, jcfg))
+    got = loadaware.score_matrix(to_port("NodeState", jnodes),
+                                 to_port("PodBatch", jpods), tcfg, dims)
+    np.testing.assert_array_equal(got.numpy(), want)

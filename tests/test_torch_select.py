@@ -89,7 +89,7 @@ def test_score_topk_plain_equals_reference(tie_break, k, dup):
         tn.allocatable[:, list(FIT_DIMS)].contiguous(),
         tp.estimated[:, list(SCORE_DIMS)].contiguous(),
         loadaware.prod_scored(tp, cfg), node_term, prod_term, alloc_s,
-        tn.metric_fresh, weights, k, tie_break, EPS)
+        tn.metric_fresh, weights, k, tie_break, EPS, fma_sum=True)
     np.testing.assert_array_equal(idx.numpy(), want_idx)
     assert val.numpy().tobytes() == want_val.tobytes()
     # the case has ties beyond the masked -1 entries, infeasible rows,
@@ -122,6 +122,48 @@ def test_ordered_scatter_add_plain_is_bit_equal_to_reference():
     pre = target + np.stack([rows[idx == t].sum(0, dtype=np.float32)
                              for t in range(s)])
     assert pre.tobytes() != want.tobytes()
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3])
+def test_ordered_scatter_add_levels_equal_sequential_reference(levels):
+    """idx [L, P]: bit-equal to L reference scatters in a row, with
+    non-integer rows, one hot target row (every pod on it at level 0,
+    as the quota root takes them), repeats, drops and negative indices
+    (numpy's wrap)."""
+    rng = np.random.default_rng(20 + levels)
+    s, c, p = 40, 11, 3000
+    target = (rng.uniform(0, 1e4, (s, c)) + 0.1).astype(np.float32)
+    rows = (rng.uniform(0, 300, (p, c)) * np.e).astype(np.float32)
+    idx = rng.integers(-3, s + 10, (levels, p)).astype(np.int32)
+    idx[0] = np.where(rng.uniform(size=p) < 0.9, 0, idx[0])
+    want = jnp.asarray(target)
+    for level in idx:
+        want = want.at[level].add(rows, mode="drop")
+    want = np.asarray(want)
+    got = ordered_scatter_add(torch.from_numpy(target),
+                              torch.from_numpy(idx),
+                              torch.from_numpy(rows)).numpy()
+    assert got.tobytes() == want.tobytes()
+    if levels > 1:   # the levels' order matters for these rows
+        rev = ordered_scatter_add(torch.from_numpy(target),
+                                  torch.from_numpy(idx[::-1].copy()),
+                                  torch.from_numpy(rows)).numpy()
+        assert rev.tobytes() != want.tobytes()
+
+
+def test_ordered_scatter_add_wraps_negative_indices_as_reference():
+    """[-S, 0) names row S + idx, as the reference's `.at[]` does;
+    indices below -S and from S up are dropped."""
+    rng = np.random.default_rng(30)
+    s, c, p = 7, 3, 200
+    target = (rng.uniform(0, 1e3, (s, c)) + 0.1).astype(np.float32)
+    rows = (rng.uniform(0, 30, (p, c)) * np.pi).astype(np.float32)
+    idx = rng.integers(-s - 3, s + 3, p).astype(np.int32)
+    assert (idx < -s).any() and ((idx >= -s) & (idx < 0)).any()
+    want = np.asarray(jnp.asarray(target).at[idx].add(rows, mode="drop"))
+    got = ordered_scatter_add(torch.from_numpy(target), torch.from_numpy(idx),
+                              torch.from_numpy(rows)).numpy()
+    assert got.tobytes() == want.tobytes()
 
 
 def test_wrappers_refuse_other_devices():
