@@ -8,17 +8,21 @@ from `koordinator_tpu_torch/csrc/` into `build/kernels/` first. Phases,
 in order:
 
 1. device: the card's name and power limit, and the kernels' build time;
-2. kernels: each of K1 score_topk, K2 segment_prefix_ok (chained over
-   the node level and the quota levels of a step) and
-   K3 ordered_scatter_add against its plain PyTorch version on the card,
-   at the flagship's shapes, required equal (K1 values and indices, K2
-   bools, K3 bit for bit): K1 at the sweep's and the tail's shapes and
-   over all 11 dims; K2 with 70 % and 8 % of the pods trying, over all
-   11 dims, and one level alone; K3 at the node commit and at the
-   2-level quota commit. Each with its time (CUDA events over
-   back-to-back calls, and the kernel's device time from torch.profiler),
-   the plain version's, one library call's where there is one, and the
-   card's lower bound for the same work;
+2. kernels: each of K1 score_topk (fed the static gates in factored
+   form), K2 segment_prefix_ok (chained over the node level and the
+   quota levels of a step) and K3 ordered_scatter_add against its plain
+   PyTorch version on the card, at the flagship's shapes, required equal
+   (K1 indices exactly and values bit for bit, K2 bools, K3 bit for
+   bit): K1 at the sweep's and the tail's shapes and over all 11 dims,
+   and untimed where its splits, tiles and row groups meet their edges
+   (N = 1000, N = k, every row inactive, P = 10 000, a tie-heavy batch
+   without jitter, P = 1, every factored gate biting, table indices out
+   of range, a pair mask, negative estimates and weights); K2 with 70 % and 8 % of the pods trying, over all 11
+   dims, and one level alone; K3 at the node commit and at the 2-level
+   quota commit. Each with its time (CUDA events over back-to-back
+   calls, and the kernel's device time from torch.profiler), the plain
+   version's, one library call's where there is one, and the card's
+   lower bound for the same work;
 3. slice equality: the slim flagship at 8000 pods x 1000 nodes on the
    card against the plain path on the host: equal assignments;
 4. flagship: the slim flagship at 100 000 pods x 10 000 nodes, chunk
@@ -45,6 +49,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from koordinator_tpu_torch import kernels, resolve_device
+from koordinator_tpu_torch.api.extension import ResourceKind
 from koordinator_tpu_torch.flagship import (
     STEP_KW,
     TAIL_KW,
@@ -57,6 +62,7 @@ from koordinator_tpu_torch.kernels.scatter import (
     ordered_scatter_add_plain,
 )
 from koordinator_tpu_torch.kernels.score_topk import (
+    JITTER,
     score_topk,
     score_topk_plain,
     tie_break_jitter,
@@ -67,7 +73,10 @@ from koordinator_tpu_torch.kernels.segment_prefix import (
     segment_prefix_ok_plain,
 )
 from koordinator_tpu_torch.scheduler.batching import EPS, rank_by_priority
-from koordinator_tpu_torch.scheduler.cascade import static_gates
+from koordinator_tpu_torch.scheduler.cascade import (
+    expand_gates,
+    static_gate_terms,
+)
 from koordinator_tpu_torch.scheduler.core import overcommit_ok, quota_ok
 from koordinator_tpu_torch.scheduler.plugins import deviceshare, loadaware
 from koordinator_tpu_torch.utils.synthetic import (
@@ -120,18 +129,22 @@ def device_ms(fn, kernel: str, reps: int = 20) -> float:
     the host is slower than the kernel, is not in it."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
-    # the tracer may miss a launch at its start: the mean of those seen
-    if len(spans) < reps // 2:
-        raise SystemExit(f"the trace holds {len(spans)} launches of "
-                         f"{kernel}, not {reps}")
-    return sum(spans) / len(spans) / 1e3
+    # the tracer may miss launches (a few at its start, or now and then a
+    # whole trace): the mean of those seen, from up to three traces
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.name]
+        if len(spans) >= reps // 2:
+            return sum(spans) / len(spans) / 1e3
+        print(f"device_ms: the trace holds {len(spans)} launches of "
+              f"{kernel}, not {reps}; tracing again", file=sys.stderr)
+    raise SystemExit(f"three traces missed most launches of {kernel}")
 
 
 def bound(nbytes: float, ops: float):
@@ -142,11 +155,11 @@ def bound(nbytes: float, ops: float):
                                        else "operations")
 
 
-def loaded_state(dev, gen):
-    """The flagship's first chunk against a snapshot whose nodes and
-    quotas are partly filled (integer-valued loads, as commits leave
-    them; non-integer estimates)."""
-    snap = synthetic_cluster(10_000, seed=0, num_quotas=32, device=dev)
+def loaded_state(dev, gen, n_nodes=10_000):
+    """The flagship's pods against a snapshot whose nodes and quotas are
+    partly filled (integer-valued loads, as commits leave them;
+    non-integer estimates)."""
+    snap = synthetic_cluster(n_nodes, seed=0, num_quotas=32, device=dev)
     pods = synthetic_pods(100_000, seed=1, num_quotas=32, device=dev)
     nodes, quotas = snap.nodes, snap.quotas
     alloc = nodes.allocatable
@@ -161,28 +174,180 @@ def loaded_state(dev, gen):
     return snap.replace(nodes=nodes, quotas=quotas.replace(used=used)), pods
 
 
-def k1_case(snap, pods, cfg, p0, p, k, gen, fit_dims, score_dims):
+def k1_case(snap, pods, cfg, p0, p, k, gen, fit_dims, score_dims,
+            active=0.9, tie_break=True, pair=False):
     """K1's arguments for pods [p0, p0 + p), as schedule_batch forms
-    them, with 90 % of the rows active; score_dims None = all dims."""
+    them (the static gates in factored form), with a share `active` of
+    the rows active; score_dims None = all dims; `pair` adds a random
+    pair mask (60 % pass)."""
     dev = snap.nodes.allocatable.device
     batch = slice_batch(pods, p0, p)
-    static_ok, _ = static_gates(snap.nodes, batch, cfg)
-    static_ok = (static_ok & deviceshare.prefilter(snap.devices, batch)
-                 ).contiguous()
+    gates = static_gate_terms(snap.nodes, batch, cfg, snap.devices)
     node_term, prod_term, alloc_s, weights = loadaware.score_terms(
         snap.nodes, cfg, None if score_dims is None else tuple(score_dims))
     sd = ALL_DIMS if score_dims is None else score_dims
-    row_ok = torch.rand((p,), generator=gen, device=dev) < 0.9
+    row_ok = torch.rand((p,), generator=gen, device=dev) < active
+    pair_ok = (torch.rand((p, snap.num_nodes), generator=gen, device=dev)
+               < 0.6) if pair else None
     return dict(
-        static_ok=static_ok, row_ok=row_ok,
+        gates=gates, pair_ok=pair_ok, row_ok=row_ok,
         req_fit=batch.requests[:, fit_dims].contiguous(),
         requested_fit=snap.nodes.requested[:, fit_dims].contiguous(),
         alloc_fit=snap.nodes.allocatable[:, fit_dims].contiguous(),
         est=batch.estimated[:, sd].contiguous(),
         prod_scored=loadaware.prod_scored(batch, cfg),
         node_term=node_term, prod_term=prod_term, alloc_score=alloc_s,
-        fresh=snap.nodes.metric_fresh, weights=weights, k=k,
-        tie_break=True, eps=EPS, fma_sum=score_dims is not None)
+        weights=weights, k=k, tie_break=tie_break, eps=EPS,
+        fma_sum=score_dims is not None)
+
+
+def k1_equal(label, kw):
+    """Run K1 and its plain version on kw; raise unless equal (indices
+    exactly, values bit for bit). Returns (kernel output, max abs err)."""
+    got = score_topk(**kw)
+    want = score_topk_plain(**kw)
+    err = float((got[0] - want[0]).abs().max())
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and got[0].view(torch.int32).equal(want[0].view(torch.int32))):
+        bad = (got[1] != want[1]).any(dim=1).nonzero()[:5, 0].tolist()
+        raise SystemExit(f"K1 score_topk ({label}) differs from its plain "
+                         f"version; rows {bad}")
+    return got, err
+
+
+def gated_state(dev, gen, n):
+    """A snapshot of n nodes and a LoadAware config in which every
+    factored gate bites: label groups and pod selectors (some matching
+    few groups), stale metrics, unschedulable nodes, DaemonSet pods,
+    prod-usage thresholds for prod pods, and pods asking for GPU or aux
+    resources (no instances: their rows are all -1)."""
+    snap, pods = loaded_state(dev, gen, n)
+    nodes = snap.nodes
+    nodes = nodes.replace(
+        label_group=torch.randint(0, 64, (n,), generator=gen, device=dev,
+                                  dtype=torch.int32),
+        metric_fresh=torch.rand((n,), generator=gen, device=dev) < 0.8,
+        schedulable=torch.rand((n,), generator=gen, device=dev) < 0.9,
+        prod_usage=nodes.usage * torch.rand((n, 1), generator=gen,
+                                            device=dev))
+    np_ = pods.num_pods
+    match = torch.rand(pods.selector_match.shape, generator=gen,
+                       device=dev) < 0.5
+    match[0] = False
+    match[0, :2] = True                    # selector 0: 2 groups of 64
+    req = pods.requests.clone()
+    req[:, deviceshare.GPU_CORE] = torch.where(
+        torch.rand((np_,), generator=gen, device=dev) < 0.05, 50.0, 0.0)
+    pods = pods.replace(
+        requests=req,
+        selector_id=torch.randint(-1, match.shape[0], (np_,), generator=gen,
+                                  device=dev, dtype=torch.int32),
+        selector_match=match,
+        daemonset=torch.rand((np_,), generator=gen, device=dev) < 0.1)
+    cfg = loadaware.LoadAwareConfig.make(
+        prod_usage_thresholds={ResourceKind.CPU: 45.0}, device=dev)
+    return snap.replace(nodes=nodes), pods, cfg
+
+
+def check_k1_edges(snap, pods, cfg, gen):
+    """K1 equal to its plain version, untimed, where the kernel's splits,
+    tiles and row groups meet their edges: N = 1000 (no multiple of the
+    256-node tile), N = k, every row inactive, P = 10 000 (16-row groups,
+    three fully inactive), a tie-heavy batch without jitter (nodes in
+    groups of identical columns), P = 1, every factored gate biting,
+    selector ids and label groups out of the table's range, a pair mask,
+    and negative estimates and a negative weight (rows the node bounds
+    do not hold for)."""
+    dev = snap.nodes.allocatable.device
+    small = {n: loaded_state(dev, gen, n) for n in (1000, 32, 8)}
+    dup_snap, dup_pods = small[1000]
+    src = torch.arange(1000, device=dev) // 8 * 8
+    dup_snap = dup_snap.replace(nodes=dup_snap.nodes.replace(**{
+        f: getattr(dup_snap.nodes, f)[src]
+        for f in ("allocatable", "requested", "usage", "assigned_estimated",
+                  "prod_assigned_estimated")}))
+    gsnap, gpods, gcfg = gated_state(dev, gen, 10_000)
+    s_, labels = gpods.selector_match.shape
+    wild = (gsnap.replace(nodes=gsnap.nodes.replace(label_group=torch.randint(
+                -labels - 8, labels + 8, (10_000,), generator=gen,
+                device=dev, dtype=torch.int32))),
+            gpods.replace(selector_id=torch.randint(
+                -3, s_ + 3, (gpods.num_pods,), generator=gen, device=dev,
+                dtype=torch.int32)))
+
+    def inactive_groups(a):
+        a["row_ok"][:48] = False
+
+    def negative_est(a):
+        a["est"][::3, 0] -= 3000.0
+
+    def negative_weight(a):
+        a["weights"] = torch.tensor([1.0, -0.5], device=dev)
+
+    cases = [
+        ("N=1000", small[1000], cfg, dict(p=2000, k=8), None),
+        ("N=1000 k=32", small[1000], cfg, dict(p=512, k=32), None),
+        ("N=k=32", small[32], cfg, dict(p=512, k=32), None),
+        ("N=k=8", small[8], cfg, dict(p=2000, k=8), None),
+        ("all rows inactive", (snap, pods), cfg,
+         dict(p=2000, k=8, active=0.0), None),
+        ("P=10000", (snap, pods), cfg, dict(p=10_000, k=8),
+         inactive_groups),
+        ("ties, no jitter", (dup_snap, dup_pods), cfg,
+         dict(p=2000, k=32, tie_break=False), None),
+        ("P=1", (snap, pods), cfg, dict(p=1, k=8, active=1.0), None),
+        ("P=1 k=32", (snap, pods), cfg, dict(p=1, k=32, active=1.0), None),
+        ("gated", (gsnap, gpods), gcfg, dict(p=2000, k=8), None),
+        ("gated, indices out of range", wild, gcfg, dict(p=2000, k=8),
+         None),
+        ("gated, pair mask", (gsnap, gpods), gcfg,
+         dict(p=512, k=32, pair=True), None),
+        ("negative estimates", (snap, pods), cfg, dict(p=2000, k=8),
+         negative_est),
+        ("negative weight", (snap, pods), cfg, dict(p=512, k=32),
+         negative_weight),
+    ]
+    out = {}
+    for label, (s, p_), c, kw, edit in cases:
+        args = k1_case(s, p_, c, 0, kw.pop("p"), kw.pop("k"), gen,
+                       FIT_DIMS, SCORE_DIMS, **kw)
+        if edit is not None:
+            edit(args)
+        (val, _), _ = k1_equal(label, args)
+        out[label] = dict(
+            feasible_pairs=int((val >= 0).sum()),
+            rows_below_k=int(((val >= 0).sum(dim=1) < args["k"]).sum()),
+            ties=int((val[:, 1:] == val[:, :-1]).sum()))
+    return out
+
+
+def k1_needed_pairs(kw, checked, val, idx):
+    """(pairs, usage terms): the pairs of K1's arguments `kw` whose fit
+    and score a selection must evaluate when it may rule a pair out by
+    its node's bound (the value a pod that estimates zero gives the node,
+    with the largest jitter: no pod of a non-negative estimate and
+    weights gives more), given the selection's result (val, idx): the
+    pairs in `checked` (the gates passed) whose bound reaches the row's
+    k-th entry in the top-k order, and every pair in `checked` of a row
+    with a negative estimate or weight. The usage terms are those the
+    active rows score against (the node's, and the prod term)."""
+    gates, prod = kw["gates"], kw["prod_scored"]
+    d = kw["est"].shape[1]
+    ub = loadaware.least_requested_score(
+        torch.zeros((2, d), device=val.device),
+        torch.tensor([False, True], device=val.device), kw["node_term"],
+        kw["prod_term"], kw["alloc_score"], gates.metric_fresh,
+        kw["weights"], kw["fma_sum"])
+    if kw["tie_break"]:
+        ub = loadaware.fma_f32(torch.full_like(ub, 1023.0), JITTER, ub)
+    ub = ub[prod.long()]                                     # [P, N]
+    kv, ki = val[:, -1:], idx[:, -1:].long()
+    node = torch.arange(ub.shape[1], device=ub.device)[None, :]
+    reach = (ub > kv) | ((ub == kv) & (node <= ki))
+    bounded = (kw["est"] >= 0).all(dim=1) & bool((kw["weights"] >= 0).all())
+    needed = checked & (reach | ~bounded[:, None])
+    active = kw["row_ok"] & gates.device_ok
+    return int(needed.sum()), 1 + int(bool(prod[active].any()))
 
 
 def check_k1(snap, pods, cfg, gen):
@@ -195,32 +360,45 @@ def check_k1(snap, pods, cfg, gen):
             ("tail", 2000, 512, 32, FIT_DIMS, SCORE_DIMS),
             ("sweep R=11", 4000, 2000, 8, ALL_DIMS, None)):
         kw = k1_case(snap, pods, cfg, p0, p, k, gen, fd, sd)
-        got = score_topk(**kw)
-        want = score_topk_plain(**kw)
-        err = float((got[0] - want[0]).abs().max())
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            bad = (got[1] != want[1]).any(dim=1).nonzero()[:5, 0].tolist()
-            raise SystemExit(f"K1 score_topk ({label}) differs from its "
-                             f"plain version; rows {bad}")
-        n = kw["static_ok"].shape[1]
+        (val, idx), err = k1_equal(label, kw)
+        gates = kw["gates"]
+        n = gates.label_group.shape[0]
         f, d = kw["req_fit"].shape[1], kw["est"].shape[1]
-        checked = kw["static_ok"] & kw["row_ok"][:, None]
+        checked = expand_gates(gates) & kw["row_ok"][:, None]
         fit = torch.all(kw["req_fit"][:, None, :] + kw["requested_fit"][None]
                         <= kw["alloc_fit"][None] + EPS, dim=-1)
         n_rows = int(kw["row_ok"].sum())
         n_checked = int(checked.sum())
         n_feasible = int((checked & fit).sum())
-        # inactive rows read nothing of static_ok; per-node terms
-        # (alloc + eps, the clamped capacity, cap > 0) count once a node
-        nbytes = n_rows * n + p * (f + d) * 4 + 2 * p \
-            + n * (2 * f + 3 * d) * 4 + n + d * 4 + p * k * 8
-        ops = n_rows * n + n_checked * 2 * f + n * (f + 2 * d) \
+        n_needed, n_terms = k1_needed_pairs(kw, checked, val, idx)
+        active = int((kw["row_ok"] & gates.device_ok).sum())
+        # bytes: the factored gates (five flag bytes and the selector id
+        # a pod, a label and four flag bytes a node, the selector table)
+        # and the pod and node columns, each read once, and the result
+        # (`bound_ms_mask_form`: the [P, N] mask of the active rows in
+        # place of the gate terms).
+        shared = p * (f + d) * 4 + n * (2 * f + 3 * d) * 4 + d * 4 \
+            + p * k * 8
+        nbytes = shared + p * 9 + n * 8 + gates.selector_match.numel()
+        mask_bytes = shared + n_rows * n + 2 * p + n
+        # operations (a correctly rounded division counts as one).
+        # `bound_ms`: what a selection that prunes by node bounds needs:
+        # one compare for each pair of an active row; each node's gate
+        # classes and its bound for each usage term in use; the fit and
+        # the score of only the pairs `k1_needed_pairs` counts.
+        # `bound_ms_all_pairs` (and the mask form) charge a selection
+        # that prunes nothing: the gate of each pair of an active row,
+        # the fit of each pair that passes it, the per-node terms once,
+        # the score of each feasible pair.
+        ops = active * n + n * (3 + n_terms * (5 * d + 3)) \
+            + n_needed * (2 * f + 8 * d + 4)
+        ops_all = n_rows * n + n_checked * 2 * f + n * (f + 2 * d) \
             + n_feasible * (8 * d + 4)
         b_ms, b_by = bound(nbytes, ops)
         masked = torch.where(checked & fit, tie_break_jitter(
             loadaware.least_requested_score(
                 kw["est"], kw["prod_scored"], kw["node_term"],
-                kw["prod_term"], kw["alloc_score"], kw["fresh"],
+                kw["prod_term"], kw["alloc_score"], gates.metric_fresh,
                 kw["weights"], kw["fma_sum"])), -1.0)
         out[label] = dict(
             ms=cuda_ms(lambda: score_topk(**kw)),
@@ -228,9 +406,11 @@ def check_k1(snap, pods, cfg, gen):
                                 "score_topk_kernel"),
             plain_ms=cuda_ms(lambda: score_topk_plain(**kw), reps=3),
             library_ms=cuda_ms(lambda: torch.topk(masked, k, dim=1)),
-            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-            shape=f"P={p} N={n} k={k} F={f} D={d}",
-            feasible_pairs=n_feasible)
+            bound_ms=b_ms, bound_by=b_by,
+            bound_ms_all_pairs=bound(nbytes, ops_all)[0],
+            bound_ms_mask_form=bound(mask_bytes, ops_all)[0],
+            max_abs_err=err, shape=f"P={p} N={n} k={k} F={f} D={d}",
+            feasible_pairs=n_feasible, needed_pairs=n_needed)
     return out
 
 
@@ -455,6 +635,8 @@ def main() -> int:
     snap, pods = loaded_state(dev, gen)
     cfg = loadaware.LoadAwareConfig.make(device=dev)
     k1 = check_k1(snap, pods, cfg, gen)
+    print("kernel score_topk edges, equal to the plain version: "
+          + json.dumps(check_k1_edges(snap, pods, cfg, gen)), flush=True)
     k2 = check_k2(snap, pods, gen)
     k3 = check_k3(snap, pods, gen)
     for name, res in (("score_topk", k1), ("segment_prefix_ok", k2),

@@ -9,7 +9,9 @@ amplification, cascade off. Anything outside that raises
 NotImplementedError.
 
 Per round (num_rounds of them), kernel K1 (`score_topk`) picks each
-active pod's k best feasible nodes. Then k inner steps run: each pod
+active pod's k best feasible nodes; it takes the batch's static gates
+in factored form (`cascade.static_gate_terms`), so no [P, N] gate mask
+is built. Then k inner steps run: each pod
 tries its next choice, kernel K2 (`segment_prefix_chain`, one launch)
 admits it if it fits the node, and then each quota level, after every
 earlier-ranked pod that chose the same node or quota, and kernel K3
@@ -37,8 +39,8 @@ from koordinator_tpu_torch.scheduler.batching import (
     rank_by_priority,
     segment_prefix_chain,
 )
-from koordinator_tpu_torch.scheduler.cascade import static_gates
-from koordinator_tpu_torch.scheduler.plugins import deviceshare, loadaware
+from koordinator_tpu_torch.scheduler.cascade import static_gate_terms
+from koordinator_tpu_torch.scheduler.plugins import loadaware
 from koordinator_tpu_torch.scheduler.plugins.reservation import (
     rebuild_reservations,
     slot_columns,
@@ -160,14 +162,12 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     quota_seg = torch.where(pod_anc >= 0, pod_anc, n_quotas)[
         :, :quota_depth].T.to(torch.int32).contiguous()
 
-    static_ok, taint_penalty = static_gates(nodes0, pods, cfg)
-    if taint_penalty is not None:
-        raise _unported("the taint score penalty (pods.has_taints)")
-    if enable_devices:
-        static_ok = static_ok & deviceshare.prefilter(snap.devices, pods)
-    slot_columns(snap, pods, static_ok)  # raises on live slots
+    # the static gates (selector, LoadAware filter, schedulable, device
+    # prefilter) in factored form: K1 combines them pair by pair
+    gates = static_gate_terms(nodes0, pods, cfg,
+                              snap.devices if enable_devices else None)
+    slot_columns(snap, pods)  # raises on live slots
     n_ext = n_nodes  # no slot columns
-    static_ok = static_ok.contiguous()
 
     req_fit = dims(pods.requests)
     alloc_fit = dims(nodes0.allocatable)
@@ -216,10 +216,9 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         node_term, prod_term, alloc_score, weights = loadaware.score_terms(
             nodes, cfg, score_dims)
         topk_val, topk_idx = score_topk(
-            static_ok, row_ok, req_fit, dims(requested), alloc_fit,
+            gates, None, row_ok, req_fit, dims(requested), alloc_fit,
             est_score, is_prod_scored, node_term, prod_term, alloc_score,
-            nodes0.metric_fresh, weights, k, tie_break, EPS,
-            fma_sum=score_dims is not None)
+            weights, k, tie_break, EPS, fma_sum=score_dims is not None)
 
         kptr = torch.zeros((p,), dtype=torch.int64, device=dev)
         for _ in range(k):

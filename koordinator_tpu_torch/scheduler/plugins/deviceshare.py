@@ -3,8 +3,9 @@
 Counterpart of `koordinator_tpu/scheduler/plugins/deviceshare.py`
 has_gpu_request and prefilter (plugins/deviceshare): the slim path runs
 the prefilter with zero GPU and aux instances, where it rejects every
-device-requesting pod and passes the rest. The instance gates, scores
-and choosers of the full-gate path are not ported yet.
+device-requesting pod and passes the rest; `zero_instance_term` gives
+that as one bool a pod, without the [P, N] form. The instance gates,
+scores and choosers of the full-gate path are not ported yet.
 """
 
 from __future__ import annotations
@@ -68,4 +69,19 @@ def prefilter(devices: DeviceState, pods: PodBatch) -> torch.Tensor:
             (devices.aux_free[None, :, t, :] + EPS >= req[:, None, None])
             & devices.aux_valid[None, :, t, :], dim=-1)
         ok = ok & ((req <= 0)[:, None] | aux_ok)
+    return ok
+
+
+def zero_instance_term(devices: DeviceState, pods: PodBatch) -> torch.Tensor:
+    """bool[P]: `prefilter`'s row of each pod when the snapshot holds no
+    GPU and no aux instance (every node the same): the pod asks for no
+    GPU resource and for no aux resource. Raises NotImplementedError on
+    a snapshot with instances, whose prefilter is pairwise."""
+    if devices.gpu_free.shape[1] or devices.aux_free.shape[2]:
+        raise NotImplementedError(
+            "the device prefilter with GPU instances or aux pools is not "
+            "ported yet (ROADMAP queue A item 6)")
+    ok = ~has_gpu_request(pods.requests, pods.gpu_ratio)
+    for kind in AUX_KINDS:
+        ok = ok & (pods.requests[:, kind] <= 0)
     return ok

@@ -102,11 +102,12 @@ def _usage_percent(used: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
     return torch.where(total > 0, torch.floor(fma_f32(q, 100.0, 0.5)), 0.0)
 
 
-def filter_mask(nodes: NodeState, pods: PodBatch,
-                cfg: LoadAwareConfig) -> torch.Tensor:
-    """bool[P, N]: True = node passes the LoadAware filter for the pod
-    (load_aware.go:123-254). Nodes without fresh metrics pass, and so do
-    DaemonSet pods."""
+def filter_terms(nodes: NodeState, cfg: LoadAwareConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(node_ok bool[N], prod_node_ok bool[N]): the node is under every
+    usage threshold, and under every prod-usage threshold
+    (load_aware.go:123-254), before the freshness and DaemonSet
+    exemptions."""
     alloc = nodes.allocatable
     if cfg.filter_agg_idx >= 0:
         used = torch.where(nodes.has_agg[:, None],
@@ -122,11 +123,23 @@ def filter_mask(nodes: NodeState, pods: PodBatch,
     prod_thr = cfg.prod_usage_thresholds
     prod_pct = _usage_percent(nodes.prod_usage, alloc)
     prod_over = (prod_thr[None, :] > 0) & (alloc > 0) & (prod_pct >= prod_thr[None, :])
-    prod_node_ok = ~torch.any(prod_over, dim=-1)
+    return node_ok, ~torch.any(prod_over, dim=-1)
 
+
+def prod_gate(pods: PodBatch, cfg: LoadAwareConfig) -> torch.Tensor:
+    """bool[P]: the pod is held to the prod-usage gate (a prod pod, with
+    some prod-usage threshold set)."""
     is_prod = pods.priority_class == int(PriorityClass.PROD)
-    use_prod_gate = torch.any(prod_thr > 0) & is_prod
-    ok = torch.where(use_prod_gate[:, None], prod_node_ok[None, :],
+    return torch.any(cfg.prod_usage_thresholds > 0) & is_prod
+
+
+def filter_mask(nodes: NodeState, pods: PodBatch,
+                cfg: LoadAwareConfig) -> torch.Tensor:
+    """bool[P, N]: True = node passes the LoadAware filter for the pod
+    (load_aware.go:123-254). Nodes without fresh metrics pass, and so do
+    DaemonSet pods."""
+    node_ok, prod_node_ok = filter_terms(nodes, cfg)
+    ok = torch.where(prod_gate(pods, cfg)[:, None], prod_node_ok[None, :],
                      node_ok[None, :])
     return ok | ~nodes.metric_fresh[None, :] | pods.daemonset[:, None]
 

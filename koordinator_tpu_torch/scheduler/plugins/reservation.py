@@ -25,14 +25,13 @@ def _require_no_slots(resv: ReservationState) -> None:
             "schedules against a snapshot without them")
 
 
-def slot_columns(snap: ClusterSnapshot, pods: PodBatch,
-                 static_base: torch.Tensor
+def slot_columns(snap: ClusterSnapshot, pods: PodBatch
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(slot_ok bool[P, 0], slot_alloc f32[0, R], slot_node i32[0])."""
     _require_no_slots(snap.reservations)
     resv = snap.reservations
     slot_ok = torch.zeros((pods.num_pods, 0), dtype=torch.bool,
-                          device=static_base.device)
+                          device=pods.valid.device)
     return slot_ok, resv.free, resv.node
 
 

@@ -13,7 +13,8 @@ from koordinator_tpu.api.extension import ResourceKind as RK
 from koordinator_tpu.scheduler import core as jcore
 from koordinator_tpu.scheduler.plugins.loadaware import LoadAwareConfig as JCfg
 from koordinator_tpu.utils import synthetic as jsyn
-from koordinator_tpu_torch.scheduler import core
+from koordinator_tpu_torch.scheduler import cascade, core
+from koordinator_tpu_torch.scheduler.plugins import deviceshare, loadaware
 from koordinator_tpu_torch.scheduler.plugins.loadaware import LoadAwareConfig
 from koordinator_tpu_torch.utils import synthetic
 
@@ -82,6 +83,33 @@ def test_cases_exercise_rejection_and_rollback():
     assert np.asarray(_run("gangs_below_quorum")[0].gang_failed).any()
     _, got = _run("contended")
     assert core.overcommit_ok(got.snapshot) and core.quota_ok(got.snapshot)
+
+
+def test_slim_path_builds_no_pair_gate(monkeypatch):
+    """The slim schedule_batch forms no [P, N] gate mask: K1 takes the
+    gates in factored form. The functions that build the mask (static_gates, the
+    LoadAware filter_mask, the [P, N, 3] device prefilter) raise while
+    it runs, and the result still equals the reference's."""
+    def built(*args, **kwargs):
+        raise AssertionError("the slim path built a [P, N] gate mask")
+
+    for mod, name in ((cascade, "static_gates"), (deviceshare, "prefilter"),
+                      (loadaware, "filter_mask")):
+        monkeypatch.setattr(mod, name, built)
+        if hasattr(core, name):   # a name imported into core itself
+            monkeypatch.setattr(core, name, built)
+    want, _ = _run("contended")
+    p, n, seed = CASES["contended"]
+    snap = jsyn.synthetic_cluster(n, seed=seed, num_quotas=8, num_gangs=6,
+                                  gang_min_member=8)
+    pods = jsyn.synthetic_pods(p, seed=seed + 10, num_quotas=8, num_gangs=6,
+                               gang_min_member=8)
+    got = core.schedule_batch(to_port("ClusterSnapshot", snap),
+                              to_port("PodBatch", pods),
+                              LoadAwareConfig.make(device="cpu"), **BENCH_KW)
+    for field in ("assignment", "chosen_score"):
+        assert (_np(getattr(got, field)).tobytes()
+                == _np(getattr(want, field)).tobytes())
 
 
 def _slim_inputs():

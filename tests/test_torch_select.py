@@ -1,6 +1,10 @@
 """K1's and K3's plain versions against the JAX programs they replace:
-the round's fit/score/jitter/mask/top-k (core.py:565-742) and the
-`.at[].add(mode="drop")` commits."""
+the batch's static gates in factored form (cascade.static_gates and the
+deviceshare prefilter), the round's fit/score/jitter/mask/top-k
+(core.py:565-742) and the `.at[].add(mode="drop")` commits.
+
+Tolerances: none. Gate masks, top-k indices and commit sums are
+compared exactly; top-k values and sums bit for bit."""
 
 from __future__ import annotations
 
@@ -12,6 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from koordinator_tpu.api.extension import PriorityClass as JPC
+from koordinator_tpu.api.extension import ResourceKind as RK
+from koordinator_tpu.scheduler import cascade as jcascade
+from koordinator_tpu.scheduler.plugins import deviceshare as jds
 from koordinator_tpu.scheduler.plugins import loadaware as jla
 from koordinator_tpu.utils import synthetic as jsyn
 from koordinator_tpu_torch.kernels.scatter import (
@@ -20,12 +28,24 @@ from koordinator_tpu_torch.kernels.scatter import (
 )
 from koordinator_tpu_torch.kernels.score_topk import score_topk
 from koordinator_tpu_torch.scheduler.batching import EPS
+from koordinator_tpu_torch.scheduler.cascade import (
+    expand_gates,
+    static_gate_terms,
+)
 from koordinator_tpu_torch.scheduler.plugins import loadaware
 
 from torch_port_ref import to_port
 
 FIT_DIMS = (0, 1, 2, 3)
 SCORE_DIMS = (0, 1)
+GATE_VARIANTS = {
+    "default": {},
+    "prod_thresholds": dict(prod_usage_thresholds={RK.CPU: 40.0,
+                                                   RK.MEMORY: 55.0}),
+    "filter_agg": dict(filter_agg_type="p95",
+                       agg_usage_thresholds={RK.CPU: 50.0, RK.MEMORY: 70.0},
+                       prod_usage_thresholds={RK.CPU: 30.0}),
+}
 
 
 @functools.partial(jax.jit, static_argnames=("k", "tie_break"))
@@ -47,6 +67,14 @@ def reference_select(nodes, pods, cfg, static_ok, row_ok, *, k, tie_break):
     return jax.lax.top_k(masked, k)
 
 
+@jax.jit
+def reference_gates(nodes, pods, devices, cfg):
+    """The batch's static mask as the reference's schedule_batch forms
+    it: cascade.static_gates, then the deviceshare prefilter."""
+    return (jcascade.static_gates(nodes, pods, cfg)[0]
+            & jds.prefilter(devices, pods))
+
+
 def _case(seed, p, n, dup_nodes):
     """Nodes partly filled; with dup_nodes, groups of identical node
     columns so that many pairs tie exactly."""
@@ -65,37 +93,210 @@ def _case(seed, p, n, dup_nodes):
     pods = jsyn.synthetic_pods(p, seed=seed + 7)
     static_ok = rng.uniform(size=(p, n)) < 0.85
     row_ok = rng.uniform(size=p) < 0.8
-    return nodes, pods, static_ok, row_ok
+    return nodes, pods, snap.devices, static_ok, row_ok
 
 
-@pytest.mark.parametrize("tie_break", [True, False])
-@pytest.mark.parametrize("k,dup", [(8, False), (8, True), (32, True)])
-def test_score_topk_plain_equals_reference(tie_break, k, dup):
-    nodes, pods, static_ok, row_ok = _case(3, 96, 64, dup)
-    jcfg = jla.LoadAwareConfig.make()
-    want_val, want_idx = reference_select(
-        nodes, pods, jcfg, jnp.asarray(static_ok), jnp.asarray(row_ok),
-        k=k, tie_break=tie_break)
-    want_val, want_idx = np.asarray(want_val), np.asarray(want_idx)
+def _gated_case(seed, p, n):
+    """Every factored gate in play: selectors (-1, and one that matches
+    4 label groups of 64, so some pods have fewer feasible nodes than
+    k), DaemonSet pods, stale metrics, every priority class, usage near
+    the thresholds, unschedulable nodes, and pods that ask for GPU or
+    aux resources on a snapshot without instances (all of their pairs
+    fail)."""
+    rng = np.random.default_rng(seed)
+    snap = jsyn.synthetic_cluster(n, seed=seed, usage_cpu_frac=(0.2, 0.95))
+    nodes = snap.nodes
+    usage = np.asarray(nodes.usage)
+    alloc = np.asarray(nodes.allocatable)
+    nodes = nodes.replace(
+        requested=(np.floor(rng.uniform(0, 0.9, alloc.shape) * alloc / 500)
+                   * 500).astype(np.float32),
+        prod_usage=(usage * rng.uniform(0.2, 1.0, (n, 1))).astype(np.float32),
+        metric_fresh=rng.uniform(size=n) < 0.75,
+        has_agg=rng.uniform(size=n) < 0.7,
+        schedulable=rng.uniform(size=n) < 0.85,
+        label_group=rng.integers(0, 64, n).astype(np.int32))
+    pods = jsyn.synthetic_pods(p, seed=seed + 3)
+    req = np.array(pods.requests)
+    for kind, value, frac in ((RK.GPU_CORE, 50.0, 0.08),
+                              (RK.GPU_MEMORY, 4096.0, 0.06),
+                              (RK.RDMA, 1.0, 0.06), (RK.FPGA, 1.0, 0.06)):
+        req[rng.uniform(size=p) < frac, int(kind)] = value
+    match = rng.uniform(size=(8, 64)) < 0.5
+    match[7] = False
+    match[7, 5:9] = True        # selector 7 matches 4 label groups of 64
+    pods = pods.replace(
+        requests=req,
+        gpu_ratio=np.where(rng.uniform(size=p) < 0.06, 50.0,
+                           0.0).astype(np.float32),
+        selector_id=rng.integers(-1, 8, p).astype(np.int32),
+        selector_match=match,
+        daemonset=rng.uniform(size=p) < 0.15,
+        priority_class=rng.choice(
+            [int(c) for c in JPC], size=p).astype(np.int8))
+    return nodes, pods, snap.devices
 
-    cfg = loadaware.LoadAwareConfig.make(device="cpu")
+
+def _port_cfg(variant):
+    return (jla.LoadAwareConfig.make(**GATE_VARIANTS[variant]),
+            loadaware.LoadAwareConfig.make(**GATE_VARIANTS[variant],
+                                           device="cpu"))
+
+
+@pytest.mark.parametrize("variant", sorted(GATE_VARIANTS))
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_gate_terms_expand_to_reference_mask(seed, variant):
+    """expand_gates(static_gate_terms(...)) equals the reference's
+    static_gates(...)[0] & prefilter(...), exactly."""
+    nodes, pods, devices = _gated_case(seed, 64, 80)
+    jcfg, cfg = _port_cfg(variant)
+    want = np.asarray(reference_gates(nodes, pods, devices, jcfg))
+    gates = static_gate_terms(to_port("NodeState", nodes),
+                              to_port("PodBatch", pods), cfg,
+                              to_port("DeviceState", devices))
+    got = expand_gates(gates).numpy()
+    np.testing.assert_array_equal(got, want)
+    # each term shows: some pods fail the device term, some nodes are
+    # unschedulable or stale, some pods match one label group
+    dev_ok = gates.device_ok.numpy()
+    assert (~dev_ok).any() and dev_ok.any()
+    assert (~want[dev_ok]).any() and want.any()
+    sel = gates.selector_id.numpy()
+    assert (sel == -1).any() and (sel == 7).any()
+    if variant != "default":
+        assert gates.prod_gate.numpy().any()
+        assert (gates.prod_node_ok.numpy() != gates.node_ok.numpy()).any()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_gate_terms_index_the_table_as_reference(seed):
+    """Selector ids at or above the selector table's rows and label
+    groups below 0 or at or above its columns index the table as the
+    reference does (a negative index counts from the end, one out of
+    range is clamped): expand_gates equals static_gates & prefilter,
+    exactly."""
+    nodes, pods, devices = _gated_case(seed, 64, 80)
+    rng = np.random.default_rng(seed + 100)
+    s, labels = np.asarray(pods.selector_match).shape
+    nodes = nodes.replace(label_group=rng.integers(
+        -labels - 8, labels + 8, 80).astype(np.int32))
+    pods = pods.replace(selector_id=rng.integers(-3, s + 3, 64).astype(
+        np.int32))
+    jcfg, cfg = _port_cfg("default")
+    want = np.asarray(reference_gates(nodes, pods, devices, jcfg))
+    gates = static_gate_terms(to_port("NodeState", nodes),
+                              to_port("PodBatch", pods), cfg,
+                              to_port("DeviceState", devices))
+    np.testing.assert_array_equal(expand_gates(gates).numpy(), want)
+    lab = gates.label_group.numpy()
+    sel = gates.selector_id.numpy()
+    assert (lab < -labels).any() and ((lab < 0) & (lab >= -labels)).any()
+    assert (lab >= labels).any() and (sel >= s).any()
+
+
+def test_gate_terms_without_devices_and_with_taints():
+    """devices=None leaves the device prefilter out; a batch with taints
+    or a snapshot with GPU instances does not factor and raises."""
+    nodes, pods, devices = _gated_case(4, 32, 24)
+    _, cfg = _port_cfg("default")
     tn, tp = to_port("NodeState", nodes), to_port("PodBatch", pods)
+    gates = static_gate_terms(tn, tp, cfg, None)
+    assert gates.device_ok.all()
+    jcfg = jla.LoadAwareConfig.make()
+    want = np.asarray(jax.jit(
+        lambda n, p, c: jcascade.static_gates(n, p, c)[0])(nodes, pods, jcfg))
+    np.testing.assert_array_equal(expand_gates(gates).numpy(), want)
+    with pytest.raises(NotImplementedError):
+        static_gate_terms(tn, tp.replace(has_taints=True), cfg, None)
+    gpu = jsyn.synthetic_cluster(24, gpu_node_frac=1.0, gpus_per_node=2)
+    with pytest.raises(NotImplementedError):
+        static_gate_terms(tn, tp, cfg, to_port("DeviceState", gpu.devices))
+
+
+def _port_select(tn, tp, cfg, gates, pair_ok, row_ok, k, tie_break):
     node_term, prod_term, alloc_s, weights = loadaware.score_terms(
         tn, cfg, SCORE_DIMS)
-    val, idx = score_topk(
-        torch.from_numpy(static_ok), torch.from_numpy(row_ok),
+    return score_topk(
+        gates, pair_ok, torch.from_numpy(row_ok),
         tp.requests[:, list(FIT_DIMS)].contiguous(),
         tn.requested[:, list(FIT_DIMS)].contiguous(),
         tn.allocatable[:, list(FIT_DIMS)].contiguous(),
         tp.estimated[:, list(SCORE_DIMS)].contiguous(),
         loadaware.prod_scored(tp, cfg), node_term, prod_term, alloc_s,
-        tn.metric_fresh, weights, k, tie_break, EPS, fma_sum=True)
+        weights, k, tie_break, EPS, fma_sum=True)
+
+
+@pytest.mark.parametrize("tie_break", [True, False])
+@pytest.mark.parametrize("k,dup", [(8, False), (8, True), (32, True)])
+def test_score_topk_plain_equals_reference(tie_break, k, dup):
+    """A random static mask, passed as K1's pair mask beside the
+    (all-pass) factored gates of the synthetic batch."""
+    nodes, pods, devices, static_ok, row_ok = _case(3, 96, 64, dup)
+    jcfg = jla.LoadAwareConfig.make()
+    want_static = np.asarray(reference_gates(nodes, pods, devices, jcfg))
+    want_val, want_idx = reference_select(
+        nodes, pods, jcfg, jnp.asarray(static_ok & want_static),
+        jnp.asarray(row_ok), k=k, tie_break=tie_break)
+    want_val, want_idx = np.asarray(want_val), np.asarray(want_idx)
+
+    cfg = loadaware.LoadAwareConfig.make(device="cpu")
+    tn, tp = to_port("NodeState", nodes), to_port("PodBatch", pods)
+    gates = static_gate_terms(tn, tp, cfg, to_port("DeviceState", devices))
+    val, idx = _port_select(tn, tp, cfg, gates, torch.from_numpy(static_ok),
+                            row_ok, k, tie_break)
     np.testing.assert_array_equal(idx.numpy(), want_idx)
     assert val.numpy().tobytes() == want_val.tobytes()
     # the case has ties beyond the masked -1 entries, infeasible rows,
     # and rows with fewer than k feasible nodes
     assert (want_val == -1.0).all(axis=1).any()
     if not tie_break:
+        top = want_val[:, :2]
+        assert ((top[:, 0] == top[:, 1]) & (top[:, 0] >= 0)).any()
+
+
+@pytest.mark.parametrize("pair", [False, True], ids=["terms", "terms+pair"])
+@pytest.mark.parametrize("k", [1, 8, 32])
+@pytest.mark.parametrize("shape", ["ragged", "ties"])
+def test_score_topk_gate_terms_equal_reference(shape, k, pair):
+    """K1 on the factored gates of `_gated_case`, with and without a
+    random pair mask, against the reference on the expanded mask.
+    "ragged": 300 nodes (no multiple of the kernel's tiles), jitter on;
+    "ties": nodes in groups of 4 identical columns, jitter off, so equal
+    values are ordered by index alone."""
+    p, n = 80, 300
+    nodes, pods, devices = _gated_case(10 + k, p, n)
+    if shape == "ties":
+        src = np.arange(n) // 4 * 4
+        nodes = nodes.replace(**{
+            f: np.asarray(getattr(nodes, f))[src]
+            for f in ("allocatable", "requested", "usage", "prod_usage",
+                      "agg_usage", "metric_fresh", "schedulable",
+                      "has_agg")})
+    tie_break = shape == "ragged"
+    rng = np.random.default_rng(k)
+    row_ok = rng.uniform(size=p) < 0.85
+    pair_ok = rng.uniform(size=(p, n)) < 0.7 if pair else np.ones((p, n), bool)
+    jcfg, cfg = _port_cfg("prod_thresholds")
+    want_static = np.asarray(reference_gates(nodes, pods, devices, jcfg))
+    want_val, want_idx = reference_select(
+        nodes, pods, jcfg, jnp.asarray(want_static & pair_ok),
+        jnp.asarray(row_ok), k=k, tie_break=tie_break)
+    want_val, want_idx = np.asarray(want_val), np.asarray(want_idx)
+
+    tn, tp = to_port("NodeState", nodes), to_port("PodBatch", pods)
+    gates = static_gate_terms(tn, tp, cfg, to_port("DeviceState", devices))
+    val, idx = _port_select(tn, tp, cfg, gates,
+                            torch.from_numpy(pair_ok) if pair else None,
+                            row_ok, k, tie_break)
+    np.testing.assert_array_equal(idx.numpy(), want_idx)
+    assert val.numpy().tobytes() == want_val.tobytes()
+    # all-infeasible active rows (device requests), rows with fewer than
+    # k feasible nodes, and (jitter off) ties among feasible values
+    n_feasible = (want_val >= 0).sum(axis=1)
+    assert ((n_feasible == 0) & row_ok).any()
+    if k > 1:
+        assert ((n_feasible > 0) & (n_feasible < k)).any()
+    if not tie_break and k > 1:
         top = want_val[:, :2]
         assert ((top[:, 0] == top[:, 1]) & (top[:, 0] >= 0)).any()
 
