@@ -19,10 +19,18 @@ in order:
    without jitter, P = 1, every factored gate biting, table indices out
    of range, a pair mask, negative estimates and weights); K2 with 70 % and 8 % of the pods trying, over all 11
    dims, and one level alone; K3 at the node commit and at the 2-level
-   quota commit. Each with its time (CUDA events over back-to-back
-   calls, and the kernel's device time from torch.profiler), the plain
-   version's, one library call's where there is one, and the card's
-   lower bound for the same work;
+   quota commit. The NUMA path's kernels the same way: K4
+   numa_pair_terms at a config-2 chunk (P = 2000, N = 1000, Z = 2) and
+   at the flagship's width (N = 10 000), both strategies, and at Z = 4
+   (policy nodes, invalid and partly used zones); K5 topology_admit at a
+   config-2 chunk at Z = 2 and 4, both strategies, every policy, zero
+   requests, every pod trying and P = 1; K1 with K4's pair mask and
+   score addend (the config-2 chunk; k = 32 without jitter, negative
+   estimates, N = 10 000); K2 as the zone gates (per-level requests,
+   strided zone tables; Z = 2 and 4). Each timed case with its time
+   (CUDA events over back-to-back calls, and the kernel's device time
+   from torch.profiler), the plain version's, one library call's where
+   there is one, and the card's lower bound for the same work;
 3. slice equality: the slim flagship at 8000 pods x 1000 nodes on the
    card against the plain path on the host: equal assignments;
 4. flagship: the slim flagship at 100 000 pods x 10 000 nodes, chunk
@@ -31,7 +39,15 @@ in order:
    an inner step; K3 at most twice an inner step plus its round and
    rebuild commits), peak device memory, and the invariants (no
    overcommit, quota used within runtime, every straggler retried, the
-   sweep's stragglers unchanged).
+   sweep's stragglers unchanged; K4 and K5 never launched);
+5. config 2: BASELINE config 2 (10 000 pods x 1000 nodes, chunks of
+   2000, LoadAware + NodeNUMAResource, `configs.run_config_2_numa`) on
+   the card after a warm-up run, then on the host: the bench line, the
+   measured run's launch counts (K4 once a chunk, K5 once an inner step,
+   K2 twice an inner step, K1 once a round), the card's assignment,
+   zones, takes, zone free and requested equal to the host's, each
+   zone's takes within its capacity, no overcommit, quota within
+   runtime.
 
 The last three lines are one JSON object listing the kernels, the
 card's name and power limit, and one JSON object stating the result.
@@ -50,6 +66,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from koordinator_tpu_torch import kernels, resolve_device
 from koordinator_tpu_torch.api.extension import ResourceKind
+from koordinator_tpu_torch.configs import CONFIG_2_KW, run_config_2_numa
 from koordinator_tpu_torch.flagship import (
     STEP_KW,
     TAIL_KW,
@@ -57,6 +74,10 @@ from koordinator_tpu_torch.flagship import (
     sweep_and_tail,
 )
 from koordinator_tpu_torch.kernels.build import build_all
+from koordinator_tpu_torch.kernels.numa_terms import (
+    numa_pair_terms,
+    numa_pair_terms_plain,
+)
 from koordinator_tpu_torch.kernels.scatter import (
     ordered_scatter_add,
     ordered_scatter_add_plain,
@@ -72,14 +93,23 @@ from koordinator_tpu_torch.kernels.segment_prefix import (
     segment_prefix_chain_plain,
     segment_prefix_ok_plain,
 )
+from koordinator_tpu_torch.kernels.topology import (
+    topology_admit,
+    topology_admit_plain,
+)
 from koordinator_tpu_torch.scheduler.batching import EPS, rank_by_priority
 from koordinator_tpu_torch.scheduler.cascade import (
     expand_gates,
     static_gate_terms,
 )
 from koordinator_tpu_torch.scheduler.core import overcommit_ok, quota_ok
-from koordinator_tpu_torch.scheduler.plugins import deviceshare, loadaware
+from koordinator_tpu_torch.scheduler.plugins import (
+    deviceshare,
+    loadaware,
+    numaaware,
+)
 from koordinator_tpu_torch.utils.synthetic import (
+    config_2_inputs,
     slice_batch,
     synthetic_cluster,
     synthetic_pods,
@@ -97,6 +127,8 @@ QUOTA_DEPTH = STEP_KW["quota_depth"]
 # stragglers after its sweep; a kernel change that moves a placement
 # changes it
 STRAGGLERS_AFTER_SWEEP = 510
+# the slim path's kernels; the NUMA path adds K4 and K5
+SLIM_KERNELS = ("score_topk", "segment_prefix_ok", "ordered_scatter_add")
 SOURCES = {
     "score_topk": ("koordinator_tpu_torch/csrc/score_topk.cu",
                    "koordinator_tpu/scheduler/core.py:721"),
@@ -105,6 +137,10 @@ SOURCES = {
     "ordered_scatter_add": (
         "koordinator_tpu_torch/csrc/ordered_scatter_add.cu",
         "koordinator_tpu/scheduler/core.py:1109"),
+    "numa_pair_terms": ("koordinator_tpu_torch/csrc/numa_terms.cu",
+                        "koordinator_tpu/scheduler/plugins/numaaware.py:70"),
+    "topology_admit": ("koordinator_tpu_torch/csrc/topology_admit.cu",
+                       "koordinator_tpu/scheduler/core.py:907"),
 }
 
 
@@ -325,12 +361,13 @@ def k1_needed_pairs(kw, checked, val, idx):
     """(pairs, usage terms): the pairs of K1's arguments `kw` whose fit
     and score a selection must evaluate when it may rule a pair out by
     its node's bound (the value a pod that estimates zero gives the node,
-    with the largest jitter: no pod of a non-negative estimate and
-    weights gives more), given the selection's result (val, idx): the
-    pairs in `checked` (the gates passed) whose bound reaches the row's
-    k-th entry in the top-k order, and every pair in `checked` of a row
-    with a negative estimate or weight. The usage terms are those the
-    active rows score against (the node's, and the prod term)."""
+    plus the pair's own score addend where `kw` has one, with the
+    largest jitter: no pod of a non-negative estimate and weights gives
+    more), given the selection's result (val, idx): the pairs in
+    `checked` (the gates passed) whose bound reaches the row's k-th
+    entry in the top-k order, and every pair in `checked` of a row with
+    a negative estimate or weight. The usage terms are those the active
+    rows score against (the node's, and the prod term)."""
     gates, prod = kw["gates"], kw["prod_scored"]
     d = kw["est"].shape[1]
     ub = loadaware.least_requested_score(
@@ -338,9 +375,11 @@ def k1_needed_pairs(kw, checked, val, idx):
         torch.tensor([False, True], device=val.device), kw["node_term"],
         kw["prod_term"], kw["alloc_score"], gates.metric_fresh,
         kw["weights"], kw["fma_sum"])
+    ub = ub[prod.long()]                                     # [P, N]
+    if kw.get("pair_score") is not None:
+        ub = ub + kw["pair_score"]
     if kw["tie_break"]:
         ub = loadaware.fma_f32(torch.full_like(ub, 1023.0), JITTER, ub)
-    ub = ub[prod.long()]                                     # [P, N]
     kv, ki = val[:, -1:], idx[:, -1:].long()
     node = torch.arange(ub.shape[1], device=ub.device)[None, :]
     reach = (ub > kv) | ((ub == kv) & (node <= ki))
@@ -596,6 +635,392 @@ def check_k3(snap, pods, gen):
     return out
 
 
+def numa_state(dev, gen, n_nodes, z=2):
+    """BASELINE config 2's pods (seed 1, 60 % prod, prod pods NUMA-bound)
+    against n_nodes nodes with z zones: each node's cpu and memory split
+    over its zones, about 15 % of the zones invalid (zone 0 valid),
+    zones partly used (multiples of 500 mC / 512 MiB, as commits leave
+    them), and every topology policy code on some nodes (a quarter each,
+    at random)."""
+    snap, pods = config_2_inputs(10_000, n_nodes, device=dev)
+    nodes = snap.nodes
+    if z != 2:
+        share = torch.rand((n_nodes, z), generator=gen, device=dev)
+        share = share / share.sum(dim=1, keepdim=True)
+        cap = torch.stack([
+            torch.floor(nodes.allocatable[:, None, 0] * share / 500) * 500,
+            torch.floor(nodes.allocatable[:, None, 1] * share / 512) * 512],
+            dim=-1)
+    else:
+        cap = nodes.numa_cap
+    valid = torch.rand((n_nodes, z), generator=gen, device=dev) < 0.85
+    valid[:, 0] = True
+    cap = (cap * valid[:, :, None]).contiguous()
+    load = torch.rand((n_nodes, z, 1), generator=gen, device=dev) * 0.9
+    used = torch.floor(cap * load / 500.0) * 500.0
+    policy = torch.randint(0, 4, (n_nodes,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    resv = snap.reservations
+    snap = snap.replace(
+        nodes=nodes.replace(numa_cap=cap, numa_free=(cap - used).contiguous(),
+                            numa_valid=valid, numa_policy=policy),
+        reservations=resv.replace(
+            numa_free=torch.zeros((0, z, 2), device=dev),
+            numa_valid=torch.zeros((0, z), dtype=torch.bool, device=dev)))
+    return snap, pods
+
+
+def k4_args(snap, batch, strategy):
+    nodes = snap.nodes
+    return (numaaware.zone_demand(batch), batch.numa_single.contiguous(),
+            nodes.numa_cap, nodes.numa_free, nodes.numa_valid,
+            nodes.numa_policy, strategy)
+
+
+def check_k4(dev, gen):
+    """K4 at a config-2 chunk (P=2000, N=1000, Z=2) and at the flagship's
+    width (N=10 000), both strategies, and untimed at Z=4: policy nodes,
+    invalid zones, partly used zones. Equal to the plain version (bools,
+    scores bit for bit)."""
+    out = {}
+    for label, n, z, strategy, timed in (
+            ("cfg2 most", 1000, 2, "most", True),
+            ("cfg2 least", 1000, 2, "least", False),
+            ("N=10000 most", 10_000, 2, "most", True),
+            ("N=10000 least", 10_000, 2, "least", False),
+            ("Z=4 most", 1000, 4, "most", False),
+            ("Z=4 least", 1000, 4, "least", False)):
+        snap, pods = numa_state(dev, gen, n, z)
+        batch = slice_batch(pods, 0, 2000)
+        args = k4_args(snap, batch, strategy)
+        ok, score = numa_pair_terms(*args)
+        want_ok, want_score = numa_pair_terms_plain(*args)
+        err = float((score - want_score).abs().max())
+        if not (torch.equal(ok, want_ok) and torch.equal(
+                score.view(torch.int32), want_score.view(torch.int32))):
+            raise SystemExit(f"K4 numa_pair_terms ({label}) differs from its "
+                             f"plain version, max abs err {err}")
+        if not timed:
+            out[label] = dict(max_abs_err=err, pairs_ok=int(ok.sum()))
+            continue
+        # bytes: the pod columns (demand, numa_single) and node columns
+        # (cap, free, valid, policy) once, the two [P, N] outputs.
+        # operations this data needs: per pair of a bound pod, the fit of
+        # each zone (2 adds, 2 compares) and, per zone it fits, its score
+        # (sub, add, div a dim, the mean's add and div, the max: 9; the
+        # "least" form 2 more) and the clip and scale (3); per pair on a
+        # policy node the combined fit (2 adds, 2 compares); per node the
+        # total valid free (2 multiplies and adds a zone)
+        p = batch.num_pods
+        single = batch.numa_single
+        req2 = args[0] * single[:, None]
+        fits = (torch.all(snap.nodes.numa_free[None] + EPS
+                          >= req2[:, None, None, :], dim=-1)
+                & snap.nodes.numa_valid[None])           # [P, N, Z]
+        n_fit = int(fits[single].sum())
+        n_bound = int(single.sum()) * n
+        n_policy = p * int((snap.nodes.numa_policy != 0).sum())
+        ops = (n_bound * (4 * z + 3)
+               + n_fit * (9 if strategy == "most" else 11)
+               + n_policy * 4 + n * 4 * z)
+        nbytes = p * 9 + n * (z * 17 + 4) + p * n * 5
+        b_ms, b_by = bound(nbytes, ops)
+        out[label] = dict(
+            ms=cuda_ms(lambda: numa_pair_terms(*args)),
+            device_ms=device_ms(lambda: numa_pair_terms(*args),
+                                "numa_pair_terms_kernel"),
+            plain_ms=cuda_ms(lambda: numa_pair_terms_plain(*args), reps=5),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=err, shape=f"P={p} N={n} Z={z}",
+            pairs_ok=int(ok.sum()), zone_fits=n_fit)
+    return out
+
+
+def k5_args(snap, batch, gen, trying_frac=0.7, zero_frac=0.05):
+    """One inner step's K5 arguments: chosen nodes spread over the
+    snapshot (half of them on 64 popular ones), a share of the pods
+    trying, some with no cpu or memory request."""
+    dev = snap.nodes.allocatable.device
+    p, n = batch.num_pods, snap.num_nodes
+    nodes = snap.nodes
+    choice = torch.where(
+        torch.rand((p,), generator=gen, device=dev) < 0.5,
+        torch.randint(0, 64, (p,), generator=gen, device=dev),
+        torch.randint(0, n, (p,), generator=gen, device=dev))
+    trying = torch.rand((p,), generator=gen, device=dev) < trying_frac
+    demand = numaaware.zone_demand(batch)
+    demand = torch.where(
+        torch.rand((p, 1), generator=gen, device=dev) < zero_frac, 0.0,
+        demand).contiguous()
+    return (torch.where(trying, choice, n).to(torch.int32), trying,
+            batch.numa_single.contiguous(), demand, nodes.numa_cap,
+            (nodes.numa_cap - nodes.numa_free).contiguous(),
+            nodes.numa_valid, nodes.numa_policy)
+
+
+def check_k5(dev, gen):
+    """K5 at a config-2 chunk (P=2000, N=1000) at Z=2 and Z=4 (all four
+    policies on the nodes, NUMA-bound pods, zero requests), both
+    strategies, and at P=1 and with every pod trying. Equal to the plain
+    version (every output; takes bit for bit)."""
+    out = {}
+    for label, z, strategy, timed, kw in (
+            ("cfg2 most", 2, "most", True, {}),
+            ("cfg2 least", 2, "least", False, {}),
+            ("Z=4 most", 4, "most", True, {}),
+            ("Z=4 least", 4, "least", False, {}),
+            ("all trying", 2, "most", False, dict(trying_frac=1.0)),
+            ("zero requests", 4, "least", False, dict(zero_frac=0.5))):
+        snap, pods = numa_state(dev, gen, 1000, z)
+        batch = slice_batch(pods, 2000, 2000)
+        args = k5_args(snap, batch, gen, **kw) + (strategy,)
+        one = tuple(a[:1] if i < 4 else a for i, a in enumerate(args))
+        for a in (args, one):   # and P = 1
+            got, want = topology_admit(*a), topology_admit_plain(*a)
+            for name, g, w in zip(got._fields, got, want):
+                same = (torch.equal(g.view(torch.int32), w.view(torch.int32))
+                        if g.dtype == torch.float32 else torch.equal(g, w))
+                if not same:
+                    raise SystemExit(f"K5 topology_admit ({label}, P="
+                                     f"{a[0].shape[0]}) differs from its "
+                                     f"plain version in {name}")
+            if a is args:
+                err = float((got.take - want.take).abs().max())
+                full = got
+        engaged = int(full.engaged.sum())
+        admitted = int((full.admit & full.engaged).sum())
+        if not timed:
+            out[label] = dict(max_abs_err=err, engaged=engaged,
+                              admitted=admitted)
+            continue
+        # bytes: the pod columns (choice, trying, numa_single, demand),
+        # the zone rows of the chosen nodes (cap, used, valid, policy)
+        # once a node, and the outputs. Operations this data needs, per
+        # engaged pod, M = 2^Z masks: a mask's combined free (3 a zone
+        # and dim) and fit (4), its free cpu (2 a zone), its key (9 with
+        # the argmin); the greedy take (8 a zone) and its total (2 a
+        # zone and 2); per pod not engaged, its policy (2)
+        p = args[0].shape[0]
+        m = 1 << z
+        n_rows = int(torch.unique(args[0][args[1]]).numel())
+        nbytes = p * 14 + n_rows * (z * 17 + 4) + p * (z * 17 + 6)
+        ops = engaged * (m * (8 * z + 13) + 10 * z + 2) \
+            + (p - engaged) * 2
+        b_ms, b_by = bound(nbytes, ops)
+        out[label] = dict(
+            ms=cuda_ms(lambda: topology_admit(*args)),
+            device_ms=device_ms(lambda: topology_admit(*args),
+                                "topology_admit_kernel"),
+            plain_ms=cuda_ms(lambda: topology_admit_plain(*args), reps=5),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=err, shape=f"P={p} S=1000 Z={z}", engaged=engaged,
+            admitted=admitted)
+    return out
+
+
+def check_k1_numa(dev, gen):
+    """K1 with the NUMA pair mask and score addend of K4, at a config-2
+    chunk (P=2000, N=1000, k=8, jitter on; timed) and, untimed, at the
+    tail's k=32 without jitter, with negative estimates (rows the node
+    bound does not hold for), and at the flagship's width (N=10 000).
+    Equal to the plain version (indices, values bit for bit)."""
+    out = {}
+    for label, n, p, k, tie_break in (
+            ("cfg2", 1000, 2000, 8, True),
+            ("k=32, no jitter", 1000, 512, 32, False),
+            ("negative estimates", 1000, 2000, 8, True),
+            ("N=10000", 10_000, 2000, 8, True)):
+        snap, pods = numa_state(dev, gen, n)
+        alloc = snap.nodes.allocatable
+        load = torch.rand(alloc.shape, generator=gen, device=dev) * 0.9
+        snap = snap.replace(nodes=snap.nodes.replace(
+            requested=torch.floor(alloc * load / 500.0) * 500.0))
+        cfg = loadaware.LoadAwareConfig.make(device=dev)
+        kw = k1_case(snap, pods, cfg, 0, p, k, gen, FIT_DIMS, SCORE_DIMS,
+                     tie_break=tie_break)
+        kw["pair_ok"], kw["pair_score"] = numa_pair_terms(
+            *k4_args(snap, slice_batch(pods, 0, p), "most"))
+        if label == "negative estimates":
+            kw["est"][::3, 0] -= 3000.0
+        (val, idx), err = k1_equal(f"NUMA addend, {label}", kw)
+        if label != "cfg2":
+            out[label] = dict(max_abs_err=err,
+                              feasible_pairs=int((val >= 0).sum()))
+            continue
+        gates = kw["gates"]
+        f, d = kw["req_fit"].shape[1], kw["est"].shape[1]
+        checked = expand_gates(gates) & kw["pair_ok"] & kw["row_ok"][:, None]
+        fit = torch.all(kw["req_fit"][:, None, :] + kw["requested_fit"][None]
+                        <= kw["alloc_fit"][None] + EPS, dim=-1)
+        n_rows = int(kw["row_ok"].sum())
+        n_checked = int(checked.sum())
+        n_feasible = int((checked & fit).sum())
+        n_needed, n_terms = k1_needed_pairs(kw, checked, val, idx)
+        active = int((kw["row_ok"] & gates.device_ok).sum())
+        # as the slim K1's pruned bound (check_k1), plus the pair mask's
+        # byte for each pair of an active row, the addend (4 bytes) and
+        # one add to the node bound for each pair that passes the gates,
+        # and one add for each pair whose score is needed.
+        # `bound_ms_all_pairs`: as K1's all-pairs bound, plus the pair
+        # mask and the addend of every pair (5 bytes) and one add a
+        # feasible pair.
+        shared = p * (f + d) * 4 + n * (2 * f + 3 * d) * 4 + d * 4 \
+            + p * k * 8 + p * 9 + n * 8 + gates.selector_match.numel()
+        nbytes = shared + active * n + n_checked * 4
+        ops = active * n + n_checked + n * (3 + n_terms * (5 * d + 3)) \
+            + n_needed * (2 * f + 8 * d + 5)
+        ops_all = (n_rows * n + n_checked * 2 * f + n * (f + 2 * d)
+                   + n_feasible * (8 * d + 5))
+        b_ms, b_by = bound(nbytes, ops)
+        masked = torch.where(checked & fit, tie_break_jitter(
+            loadaware.least_requested_score(
+                kw["est"], kw["prod_scored"], kw["node_term"],
+                kw["prod_term"], kw["alloc_score"], gates.metric_fresh,
+                kw["weights"], kw["fma_sum"]) + kw["pair_score"]), -1.0)
+        out[label] = dict(
+            ms=cuda_ms(lambda: score_topk(**kw)),
+            device_ms=device_ms(lambda: score_topk(**kw),
+                                "score_topk_kernel"),
+            plain_ms=cuda_ms(lambda: score_topk_plain(**kw), reps=3),
+            library_ms=cuda_ms(lambda: torch.topk(masked, k, dim=1)),
+            bound_ms=b_ms, bound_by=b_by,
+            bound_ms_all_pairs=bound(shared + p * n * 5, ops_all)[0],
+            max_abs_err=err,
+            shape=f"P={p} N={n} k={k} F={f} D={d} + pair score",
+            feasible_pairs=n_feasible, needed_pairs=n_needed)
+    return out
+
+
+def check_k2_zones(dev, gen):
+    """K2 as the zone gates of a NUMA step run it: 2 levels (one a zone),
+    per-level requests (each pod's take in that zone, from K5), segments
+    the chosen node, each level's base and limit a zone's columns of the
+    [N, Z * 2] zone tables; at a config-2 chunk (P=2000, N=1000), and
+    untimed at Z=4. Equal to the plain version."""
+    out = {}
+    for label, z, timed in (("zones", 2, True), ("zones Z=4", 4, False)):
+        snap, pods = numa_state(dev, gen, 1000, z)
+        batch = slice_batch(pods, 4000, 2000)
+        args = k5_args(snap, batch, gen, trying_frac=0.9)
+        adm = topology_admit(*args, "most")
+        choice, trying, used = args[0], args[1], args[5]
+        n = snap.num_nodes
+        accept = trying & adm.admit & (
+            torch.rand(trying.shape, generator=gen, device=dev) < 0.8)
+        used_flat = used.view(n, z * 2)
+        cap_flat = snap.nodes.numa_cap.view(n, z * 2)
+        kw = dict(
+            seg=choice[None].expand(z, -1).contiguous(),
+            rank=rank_by_priority(batch), req=adm.take.transpose(0, 1),
+            active=accept & adm.engaged,
+            tables=[(used_flat[:, 2 * i:2 * i + 2],
+                     cap_flat[:, 2 * i:2 * i + 2], n) for i in range(z)],
+            eps=EPS)
+        got = segment_prefix_chain(**kw)
+        want = segment_prefix_chain_plain(**kw)
+        err = float((got.int() - want.int()).abs().max())
+        if not torch.equal(got, want):
+            raise SystemExit(f"K2 segment_prefix_chain ({label}) differs "
+                             f"from its plain version")
+        if not timed:
+            out[label] = dict(max_abs_err=err, active=int(kw["active"].sum()),
+                              accepted=int(got.sum()))
+            continue
+        # as check_k2, level by level, with the level's own requests
+        p, r = batch.num_pods, 2
+        alive = kw["active"]
+        nbytes, ops = 2 * p + 4 * int(alive.sum()), 0
+        for level, req_l, (base, limit, s) in zip(kw["seg"], kw["req"],
+                                                  kw["tables"]):
+            inr = alive & (level < s)
+            n_in = int(inr.sum())
+            n_seg = int(torch.unique(level[inr]).numel())
+            nbytes += 4 * int(alive.sum()) + 2 * n_seg * r * 4 + 4 * r * n_in
+            ops += n_in * r * 4
+            alive = alive & segment_prefix_ok_plain(
+                torch.where(alive, level, s).to(torch.int32), kw["rank"],
+                torch.where(alive[:, None], req_l, 0.0), base, limit, s, EPS)
+        b_ms, b_by = bound(nbytes, ops)
+        out[label] = dict(
+            ms=cuda_ms(lambda: segment_prefix_chain(**kw)),
+            device_ms=device_ms(lambda: segment_prefix_chain(**kw),
+                                "segment_prefix_chain_kernel"),
+            plain_ms=cuda_ms(lambda: segment_prefix_chain_plain(**kw)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            shape=f"P={p} L={z} R=2 S=[{n}]*{z} per-level req",
+            active=int(kw["active"].sum()), accepted=int(got.sum()))
+    return out
+
+
+def config_2_phase():
+    """BASELINE config 2 (10 000 pods x 1000 nodes, chunks of 2000, the
+    NUMA path) on the card after a warm-up run, then on the host: the
+    bench line with the measured run's launch counts, the card's results
+    against the host's, and the invariants. Returns (line, launches)."""
+    run_config_2_numa(device="cuda")                     # warm-up
+    kernels.reset_launch_counts()
+    line, run = run_config_2_numa(device="cuda")
+    launches = kernels.launch_counts()
+    line["launches"] = launches
+    t0 = time.perf_counter()
+    _, host = run_config_2_numa(device="cpu")
+    line["host_s"] = time.perf_counter() - t0
+    fields = {"assignment": (run.assignment, host.assignment),
+              "numa_zone": (run.numa_zone, host.numa_zone),
+              "numa_take": (run.numa_take, host.numa_take),
+              "numa_free": (run.snapshot.nodes.numa_free,
+                            host.snapshot.nodes.numa_free),
+              "requested": (run.snapshot.nodes.requested,
+                            host.snapshot.nodes.requested)}
+    line["equal_to_host"] = {f: torch.equal(a.cpu(), b)
+                             for f, (a, b) in fields.items()}
+    print("config 2: " + json.dumps(line), flush=True)
+    if not all(line["equal_to_host"].values()):
+        raise SystemExit("config 2: the card's results differ from the "
+                         f"host's: {line['equal_to_host']}")
+    check_config_2(run, line, launches)
+    return line, launches
+
+
+def check_config_2(run, line, launches):
+    """Config 2's invariants: each zone's takes (from the placed pods)
+    within its capacity and equal to capacity minus zone free; no
+    overcommit; quota within runtime; K4 once a chunk, K5 once an inner
+    step, K2 twice an inner step, K1 once a round, K3 within its count."""
+    snap = run.snapshot
+    n = snap.num_nodes
+    ok = run.assignment >= 0
+    z = snap.nodes.numa_cap.shape[1]
+    tgt = torch.where(ok, run.assignment, n).long()
+    used = torch.zeros((n + 1, z * 2), device=tgt.device).index_add_(
+        0, tgt, run.numa_take.reshape(-1, z * 2))[:n].view(n, z, 2)
+    if not bool((used <= snap.nodes.numa_cap + EPS).all()):
+        raise SystemExit("config 2: a zone's takes exceed its capacity")
+    if not torch.equal(snap.nodes.numa_free,
+                       torch.clamp_min(snap.nodes.numa_cap - used, 0.0)):
+        raise SystemExit("config 2: zone free differs from capacity minus "
+                         "the takes")
+    if not (overcommit_ok(snap) and quota_ok(snap)):
+        raise SystemExit("config 2: overcommit or quota over runtime")
+    if not 0 < line["numa_bound_placed"] <= line["placed"]:
+        raise SystemExit(f"config 2: placed {line['placed']} pods, "
+                         f"{line['numa_bound_placed']} NUMA-bound")
+    chunks = line["num_pods"] // line["chunk"]
+    rounds = chunks * CONFIG_2_KW["num_rounds"]
+    steps = rounds * CONFIG_2_KW["k_choices"]
+    want = {"numa_pair_terms": chunks, "topology_admit": steps,
+            "segment_prefix_ok": 2 * steps, "score_topk": rounds}
+    for name, count in want.items():
+        if launches[name] != count:
+            raise SystemExit(f"config 2: {name} launched {launches[name]} "
+                             f"times, not {count}")
+    k3_most = 3 * steps + 3 * rounds + 7 * chunks
+    if not 0 < launches["ordered_scatter_add"] <= k3_most:
+        raise SystemExit(f"config 2: K3 launched "
+                         f"{launches['ordered_scatter_add']} times, not in "
+                         f"(0, {k3_most}]")
+
+
 def expected_launches(line):
     """(inner steps, K3 launches) of one flagship run: K2 launches once
     an inner step; K3 twice an inner step (node, all quota levels),
@@ -639,8 +1064,14 @@ def main() -> int:
           + json.dumps(check_k1_edges(snap, pods, cfg, gen)), flush=True)
     k2 = check_k2(snap, pods, gen)
     k3 = check_k3(snap, pods, gen)
+    k4 = check_k4(dev, gen)
+    k5 = check_k5(dev, gen)
+    k1_numa = check_k1_numa(dev, gen)
+    k2_zones = check_k2_zones(dev, gen)
     for name, res in (("score_topk", k1), ("segment_prefix_ok", k2),
-                      ("ordered_scatter_add", k3)):
+                      ("ordered_scatter_add", k3), ("numa_pair_terms", k4),
+                      ("topology_admit", k5), ("score_topk", k1_numa),
+                      ("segment_prefix_ok", k2_zones)):
         for label, r in res.items():
             print(f"kernel {name} [{label}]: " + json.dumps(r), flush=True)
 
@@ -674,8 +1105,10 @@ def main() -> int:
     line["launches"] = launches
     line["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     print("flagship: " + json.dumps(line), flush=True)
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in SLIM_KERNELS) <= 0:
         raise SystemExit(f"a kernel of the path never launched: {launches}")
+    if any(launches[k] for k in launches if k not in SLIM_KERNELS):
+        raise SystemExit(f"the slim path launched a NUMA kernel: {launches}")
     steps, k3_launches = expected_launches(line)
     if launches["segment_prefix_ok"] != steps:
         raise SystemExit(f"K2 launched {launches['segment_prefix_ok']} "
@@ -696,14 +1129,22 @@ def main() -> int:
     if not 0 < line["placed"] <= 100_000:
         raise SystemExit(f"placed {line['placed']} pods")
 
+    # --- 5. BASELINE config 2, the NUMA path, at 10k x 1k ------------------
+    _, launches_cfg2 = config_2_phase()
+
     timings = {"score_topk": k1["sweep"], "segment_prefix_ok": k2["chain"],
-               "ordered_scatter_add": k3["node commit"]}
+               "ordered_scatter_add": k3["node commit"],
+               "numa_pair_terms": k4["cfg2 most"],
+               "topology_admit": k5["cfg2 most"]}
     report = []
     for name, r in timings.items():
         source, replaces = SOURCES[name]
+        path = launches if name in SLIM_KERNELS else launches_cfg2
         report.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": path[name],
+            "launches_by_path": {"flagship": launches[name],
+                                 "config_2": launches_cfg2[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -58,3 +58,10 @@ AUX_RDMA = 0
 AUX_FPGA = 1
 NUM_AUX_TYPES = 2
 AUX_KINDS = (int(ResourceKind.RDMA), int(ResourceKind.FPGA))
+
+# topology-manager policy codes of a node (apis/extension/numa_aware.go
+# :138-145; NodeState.numa_policy)
+NUMA_POLICY_NONE = 0
+NUMA_POLICY_BEST_EFFORT = 1
+NUMA_POLICY_RESTRICTED = 2
+NUMA_POLICY_SINGLE_NUMA_NODE = 3

@@ -18,7 +18,9 @@
 // selector table; a pair passes when every term does. The selector
 // rows of a block's pods are staged in shared memory as bits over the
 // label groups. An optional bool[P, N] pair mask carries gates that do
-// not factor (null on the slim path).
+// not factor, and an optional f32[P, N] pair score is added to the
+// LoadAware score before the jitter, as the reference adds its NUMA zone
+// score (core.py:693-696); both are null on the slim path.
 //
 // What bounds it on the H100: operations. A pair that passes the gates
 // and the fit costs D + 1 correctly rounded divisions (__fdiv_rn, tens
@@ -62,6 +64,19 @@
 //   top-k of a union is the top-k of the parts' top-ks, so this is
 //   exact. Rows that are inactive score -1 on every node and are
 //   written as (-1, 0..k-1), which is what the order gives them.
+// - A pair score (the ADD instance): the value of a pair is
+//   jit(fl(la + a)), la the LoadAware score (0 on a stale node), a the
+//   pair's addend, jit(x) = fma(h, J, x) with tie-break (else x). The
+//   staged bound U of the node is then kept without its jitter, and the
+//   filter bounds the pair by jit_1023(fl(U + a)), reading a itself
+//   (one coalesced load a lane and row). Proof that this bounds every
+//   value: la <= U (score_bound; U = 0 = la on a stale node), so
+//   la + a <= U + a and, rounding being monotone, fl(la + a) <=
+//   fl(U + a); fma(h, J, x) rounds the exact h * J + x once and does
+//   not decrease in x nor in h (J > 0, h <= 1023). Equal values keep
+//   the index order by `better`, as for the slim rows. A gated-off
+//   class stages -inf, and -inf + a stays -inf for a finite a. The
+//   slim instance is unchanged.
 //
 // Exactness against the reference (bit for bit): the file builds with
 // -fmad=false, and the arithmetic names its rounding. The floors sit on
@@ -144,6 +159,7 @@ struct Args {
   const float* alloc_score;    // [N, D]
   const uint8_t* selector_match;  // [S, L]
   const uint8_t* pair_ok;         // [P, N] or null
+  const float* pair_score;        // [P, N] (the ADD instance) or null
   const float* weights;           // [D]
   float* part_val;                // [gridDim.x, RB, k]
   int32_t* part_idx;
@@ -353,7 +369,7 @@ __device__ __forceinline__ bool node_gate(const Args& a, int n, int g) {
          (cls == 0 || (cls == 1 ? a.node_ok[n] : a.prod_node_ok[n]) || stale);
 }
 
-template <class C>
+template <class C, bool ADD>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     score_topk_kernel(const Args a) {
   constexpr int MAXD = C::MAXD, THREADS = C::THREADS, TILE = C::TILE;
@@ -549,6 +565,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
                                           s_w, wsum, a.fma_sum)
                   : 0.0f;
     }
+    if (ADD && ok) v = __fadd_rn(v, a.pair_score[(size_t)prow[r] * N + n]);
     if (ok && a.tie_break) {
       const uint32_t h =
           ((uint32_t)prow[r] * 2654435761u + (uint32_t)n * 40503u) & 1023u;
@@ -601,7 +618,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
                                         [&](int d) { return pt[d]; }, D, s_w,
                                         wsum);
         }
-        if (a.tie_break) {
+        if (a.tie_break && !ADD) {  // ADD: in the filter, after the addend
           ub_t[0] = __fmaf_rn(1023.0f, JITTER, ub_t[0]);
           ub_t[1] = __fmaf_rn(1023.0f, JITTER, ub_t[1]);
         }
@@ -634,7 +651,11 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
         any_m = 0;
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
-          const float ub = ubr[r][ii];
+          float ub = ubr[r][ii];
+          if (ADD && live[r] && in) {
+            ub = __fadd_rn(ub, a.pair_score[(size_t)prow[r] * N + n]);
+            if (a.tie_break) ub = __fmaf_rn(1023.0f, JITTER, ub);
+          }
           bool sel = true;
           if (any_sel)
             sel = sel_all[r] ||
@@ -725,18 +746,18 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 
 // Allow the instance its dynamic shared memory and count its resident
 // blocks an SM (once).
-template <class C>
+template <class C, bool ADD>
 int prepare(int* occupancy) {
   static int occ = 0;
   if (occ == 0) {
     const size_t smem = smem_bytes(C::TILE);
     cudaError_t err = cudaFuncSetAttribute(
-        score_topk_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        score_topk_kernel<C, ADD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, score_topk_kernel<C>, C::THREADS, smem);
+        &blocks, score_topk_kernel<C, ADD>, C::THREADS, smem);
     if (err != cudaSuccess) return (int)err;
     occ = max(blocks, 1);
   }
@@ -744,24 +765,37 @@ int prepare(int* occupancy) {
   return 0;
 }
 
+template <class C, bool ADD>
+int launch(const Args& a, int blocks, cudaStream_t s) {
+  const int rc = prepare<C, ADD>(nullptr);
+  if (rc) return rc;
+  score_topk_kernel<C, ADD>
+      <<<blocks, C::THREADS, smem_bytes(C::TILE), s>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <class C>
 int launch(const Args& a, int blocks, cudaStream_t s) {
-  const int rc = prepare<C>(nullptr);
-  if (rc) return rc;
-  score_topk_kernel<C><<<blocks, C::THREADS, smem_bytes(C::TILE), s>>>(a);
-  return (int)cudaGetLastError();
+  return a.pair_score != nullptr ? launch<C, true>(a, blocks, s)
+                                 : launch<C, false>(a, blocks, s);
+}
+
+template <class C>
+int prepare(bool add, int* occupancy) {
+  return add ? prepare<C, true>(occupancy) : prepare<C, false>(occupancy);
 }
 
 }  // namespace
 
 // The grid of one launch for P pods: at least one block per 16 rows,
 // and enough blocks to fill every SM as far as the instance's occupancy
-// allows. Returns the block count, or minus a CUDA error code.
-extern "C" int koord_score_topk_blocks(int P, int F, int D) {
+// allows (`add`: the instance with a pair score). Returns the block
+// count, or minus a CUDA error code.
+extern "C" int koord_score_topk_blocks(int P, int F, int D, int add) {
   const int need = (P + RB - 1) / RB;
   int occ = 0, dev = 0, sms = 0;
-  const int rc = F <= NARROW && D <= NARROW ? prepare<Narrow>(&occ)
-                                            : prepare<Wide>(&occ);
+  const int rc = F <= NARROW && D <= NARROW ? prepare<Narrow>(add, &occ)
+                                            : prepare<Wide>(add, &occ);
   if (rc) return -rc;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -774,8 +808,9 @@ extern "C" int koord_score_topk_blocks(int P, int F, int D) {
 // prod_scored, req_fit, est, label_group, node_ok, prod_node_ok, fresh,
 // schedulable, requested_fit, alloc_fit, node_term, prod_term,
 // alloc_score, selector_match, pair_ok (or null), weights, part_val,
-// part_idx, tickets, out_val, out_idx. dims: P, N, F, D, k, S, L,
-// tie_break, fma_sum, blocks (from koord_score_topk_blocks).
+// part_idx, tickets, out_val, out_idx, pair_score (or null). dims: P,
+// N, F, D, k, S, L, tie_break, fma_sum, blocks (from
+// koord_score_topk_blocks).
 extern "C" int koord_score_topk(const void* const* ptr, const int* dims,
                                 float eps, void* stream) {
   Args a;
@@ -805,6 +840,7 @@ extern "C" int koord_score_topk(const void* const* ptr, const int* dims,
   a.tickets = (int32_t*)ptr[23];
   a.out_val = (float*)ptr[24];
   a.out_idx = (int32_t*)ptr[25];
+  a.pair_score = (const float*)ptr[26];
   a.P = dims[0];
   a.N = dims[1];
   a.F = dims[2];

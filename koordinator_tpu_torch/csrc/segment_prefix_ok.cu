@@ -16,7 +16,14 @@
 //   alive[p] &= ok[p]
 //
 // and the result is alive. A pod with seg -1 checks against row 0 but
-// counts only with the other -1 pods, as in the reference.
+// counts only with the other -1 pods, as in the reference. The requests
+// are one [P, R] array shared by the levels (node and quota levels), or
+// one a level (the zone gates of a NUMA step, core.py:949-956, where
+// level z gates each pod's take in zone z, with segments = the chosen
+// node: level z reads the columns of zone z of the take [P, Z, R] in
+// place, a level stride and a row stride); a level's base and limit are
+// [S_l, R] with a row stride of their own (a zone's columns of the
+// [S, Z * R] zone table).
 //
 // What bounds it on the H100: neither bytes (a few tens of KB) nor
 // operations (a few thousand additions): a launch does microseconds of
@@ -87,9 +94,12 @@ constexpr int PAD = 8;      // pods the unsorted sums read past n
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Levels {
+  const float* req[MAX_LEVELS];  // [P, R] of the level, rows rstride apart
   const float* base[MAX_LEVELS];
   const float* limit[MAX_LEVELS];
   int S[MAX_LEVELS];
+  int stride[MAX_LEVELS];  // row stride of base and limit
+  int rstride;             // row stride of every level's req
 };
 
 // 5 key bits a pass: 3 passes for 10^4 node segments, 2 for quotas
@@ -110,8 +120,7 @@ union LevelStorage {
 template <int NR>
 __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
     const int32_t* __restrict__ seg, const int32_t* __restrict__ rank,
-    const float* __restrict__ req, const uint8_t* __restrict__ active,
-    Levels lv, int L, int P, int R, int vec4, float eps,
+    const uint8_t* __restrict__ active, Levels lv, int L, int P, int R, int vec4, float eps,
     uint8_t* __restrict__ out) {
   __shared__ LevelStorage sh;
   __shared__ int warp_count[2][WARPS];  // by level parity
@@ -150,6 +159,9 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
     const int S = lv.S[l];
     const float* base = lv.base[l];
     const float* limit = lv.limit[l];
+    const float* req = lv.req[l];
+    const int stride = lv.stride[l];
+    const int rstride = lv.rstride;
     int scur[ITEMS];
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) {
@@ -206,7 +218,7 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
 #pragma unroll
           for (int r = 0; r < NR; ++r)
             if (r < R)
-              sh.in.req[off * R + r] = req[(size_t)cpod[k] * R + r];
+              sh.in.req[off * R + r] = req[(size_t)cpod[k] * rstride + r];
           ++off;
         }
       }
@@ -217,7 +229,7 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
       __syncthreads();
       if (t < n) {
         const int s = sh.in.seg[t];
-        const size_t o = (size_t)max(s, 0) * R;
+        const size_t o = (size_t)max(s, 0) * stride;
         float bas[NR], lim[NR], acc[NR];
 #pragma unroll
         for (int r = 0; r < NR; ++r) {  // in flight during the sums
@@ -302,8 +314,9 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
 #pragma unroll
       for (int k = 0; k < ITEMS; ++k) {
         const bool in = key[k] != out_key;
-        const size_t o = (size_t)(in ? max((int)key[k] - 1, 0) : 0) * R;
-        const size_t q = (size_t)max(pod[k], 0) * R;
+        const size_t o =
+            (size_t)(in ? max((int)key[k] - 1, 0) : 0) * stride;
+        const size_t q = (size_t)max(pod[k], 0) * rstride;
         if (vec4) {
           const float4 x4 = *(const float4*)(req + q + r0);
           const float4 b4 = *(const float4*)(base + o + r0);
@@ -410,32 +423,43 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
 
 }  // namespace
 
+// req: level l's [P, R] requests start req_level_stride * l elements in
+// (0: shared by the levels), rows req_row_stride (>= R) apart, unit
+// column stride; strides: each level's row stride of base and limit
+// (>= R).
 extern "C" int koord_segment_prefix_chain(
     const void* seg, const void* rank, const void* req, const void* active,
     const void* const* bases, const void* const* limits, const int* nseg,
-    int L, int P, int R, float eps, void* out, void* stream) {
+    const int* strides, int L, int P, int R, long long req_level_stride,
+    int req_row_stride, float eps, void* out, void* stream) {
   if (P <= 0) return 0;
   if (P > MAX_P || R > MAX_R || R <= 0 || L < 0 || L > MAX_LEVELS)
     return (int)cudaErrorInvalidValue;
+  if ((P > 1 && req_row_stride < R) || req_level_stride < 0)
+    return (int)cudaErrorInvalidValue;
   Levels lv = {};
+  lv.rstride = req_row_stride;
+  int vec4 = R % 4 == 0 && req_row_stride % 4 == 0;
   for (int l = 0; l < L; ++l) {
-    if (nseg[l] <= 0) return (int)cudaErrorInvalidValue;
+    if (nseg[l] <= 0 || (nseg[l] > 1 && strides[l] < R))
+      return (int)cudaErrorInvalidValue;
+    lv.req[l] = (const float*)req + (size_t)l * req_level_stride;
     lv.base[l] = (const float*)bases[l];
     lv.limit[l] = (const float*)limits[l];
     lv.S[l] = nseg[l];
-  }
-  int vec4 = R % 4 == 0 && ((uintptr_t)req & 15) == 0;
-  for (int l = 0; l < L; ++l)
-    vec4 = vec4 && ((uintptr_t)lv.base[l] & 15) == 0
+    lv.stride[l] = strides[l];
+    vec4 = vec4 && strides[l] % 4 == 0 && ((uintptr_t)lv.req[l] & 15) == 0
+           && ((uintptr_t)lv.base[l] & 15) == 0
            && ((uintptr_t)lv.limit[l] & 15) == 0;
+  }
   cudaStream_t st = (cudaStream_t)stream;
   if (R <= 4)
     segment_prefix_chain_kernel<4><<<1, THREADS, 0, st>>>(
-        (const int32_t*)seg, (const int32_t*)rank, (const float*)req,
-        (const uint8_t*)active, lv, L, P, R, vec4, eps, (uint8_t*)out);
+        (const int32_t*)seg, (const int32_t*)rank, (const uint8_t*)active,
+        lv, L, P, R, vec4, eps, (uint8_t*)out);
   else
     segment_prefix_chain_kernel<MAX_R><<<1, THREADS, 0, st>>>(
-        (const int32_t*)seg, (const int32_t*)rank, (const float*)req,
-        (const uint8_t*)active, lv, L, P, R, vec4, eps, (uint8_t*)out);
+        (const int32_t*)seg, (const int32_t*)rank, (const uint8_t*)active,
+        lv, L, P, R, vec4, eps, (uint8_t*)out);
   return (int)cudaGetLastError();
 }

@@ -14,13 +14,17 @@ from typing import Dict
 
 def _wrappers():
     from koordinator_tpu_torch.kernels import (
+        numa_terms,
         scatter,
         score_topk,
         segment_prefix,
+        topology,
     )
     return {"score_topk": score_topk.score_topk,
             "segment_prefix_ok": segment_prefix.segment_prefix_chain,
-            "ordered_scatter_add": scatter.ordered_scatter_add}
+            "ordered_scatter_add": scatter.ordered_scatter_add,
+            "numa_pair_terms": numa_terms.numa_pair_terms,
+            "topology_admit": topology.topology_admit}
 
 
 def launch_counts() -> Dict[str, int]:

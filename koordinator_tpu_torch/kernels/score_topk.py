@@ -6,8 +6,10 @@ koordinator_tpu/scheduler/core.py schedule_batch (cascade.static_gates
 and the deviceshare prefilter, read there as one [P, N] mask;
 core.py:565-577 fit, :675-684 quota admission, loadaware.score_matrix,
 :721-742 jitter, mask and lax.top_k) without writing any [P, N] matrix:
-the static gates come in factored form (`cascade.GateTerms`), and an
-optional bool[P, N] pair mask carries gates that do not factor.
+the static gates come in factored form (`cascade.GateTerms`), an
+optional bool[P, N] pair mask carries gates that do not factor, and an
+optional f32[P, N] pair score is added to the LoadAware score (the
+NUMA zone score of core.py:693-696, from K4).
 """
 
 from __future__ import annotations
@@ -51,13 +53,14 @@ def score_topk_plain(gates: GateTerms, pair_ok: Optional[torch.Tensor],
                      row_ok, req_fit, requested_fit, alloc_fit, est,
                      prod_scored, node_term, prod_term, alloc_score,
                      weights, k: int, tie_break: bool, eps: float,
-                     fma_sum: bool):
+                     fma_sum: bool, pair_score: Optional[torch.Tensor] = None):
     """(val f32[P, k], idx i32[P, k]): the k best nodes of each pod by
     value descending then index ascending (lax.top_k's order), where a
-    pair's value is its LoadAware score (+ jitter) if it passes the
-    static gates (`gates` expanded, and `pair_ok` where given), the row
-    mask and the resource fit, else -1. `fma_sum` picks the rounding of
-    the score's weighted sum (loadaware.weighted_sum)."""
+    pair's value is its LoadAware score (+ pair_score where given, then
+    + jitter) if it passes the static gates (`gates` expanded, and
+    `pair_ok` where given), the row mask and the resource fit, else -1.
+    `fma_sum` picks the rounding of the score's weighted sum
+    (loadaware.weighted_sum)."""
     static_ok = expand_gates(gates)
     if pair_ok is not None:
         static_ok = static_ok & pair_ok
@@ -67,6 +70,8 @@ def score_topk_plain(gates: GateTerms, pair_ok: Optional[torch.Tensor],
     scores = loadaware.least_requested_score(
         est, prod_scored, node_term, prod_term, alloc_score,
         gates.metric_fresh, weights, fma_sum)
+    if pair_score is not None:
+        scores = scores + pair_score
     if tie_break:
         scores = tie_break_jitter(scores)
     masked = torch.where(feasible, scores, -1.0)
@@ -85,11 +90,12 @@ def _tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
 def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
                req_fit, requested_fit, alloc_fit, est, prod_scored,
                node_term, prod_term, alloc_score, weights, k: int,
-               tie_break: bool, eps: float, fma_sum: bool):
+               tie_break: bool, eps: float, fma_sum: bool,
+               pair_score: Optional[torch.Tensor] = None):
     """The selection of `score_topk_plain`: the kernel for CUDA tensors,
     the plain version for CPU tensors. Shapes: `gates` over P pods and N
     nodes (selector table S x L, L <= MAX_LABELS); pair_ok bool[P, N] or
-    None; row_ok, prod_scored bool[P]; req_fit f32[P, F]; requested_fit,
+    None; pair_score f32[P, N] or None; row_ok, prod_scored bool[P]; req_fit f32[P, F]; requested_fit,
     alloc_fit f32[N, F]; est f32[P, D]; node_term, prod_term,
     alloc_score f32[N, D]; weights f32[D]; k <= 32;
     F, D <= NUM_RESOURCES.
@@ -127,6 +133,8 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
         ("weights", weights, torch.float32, (d,))]
     if pair_ok is not None:
         checks.append(("pair_ok", pair_ok, torch.bool, (p, n)))
+    if pair_score is not None:
+        checks.append(("pair_score", pair_score, torch.float32, (p, n)))
     for name, t, dt, shape in checks:
         _launch.check_tensor(name, t, dt, shape, dev)
     if not 0 < k <= min(n, MAX_K):
@@ -137,7 +145,7 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
         return score_topk_plain(gates, pair_ok, row_ok, req_fit,
                                 requested_fit, alloc_fit, est, prod_scored,
                                 node_term, prod_term, alloc_score, weights,
-                                k, tie_break, eps, fma_sum)
+                                k, tie_break, eps, fma_sum, pair_score)
     if dev.type != "cuda":
         raise ValueError(f"score_topk: unsupported device {dev}")
     if labels > MAX_LABELS:
@@ -145,8 +153,8 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
                          f"{MAX_LABELS}")
     stream = _launch.stream(dev)
     grid = TOOLCHAIN.function("score_topk", "koord_score_topk_blocks",
-                              [ctypes.c_int] * 3)
-    blocks = grid(p, f, d)
+                              [ctypes.c_int] * 4)
+    blocks = grid(p, f, d, int(pair_score is not None))
     check(0 if blocks > 0 else -blocks, "score_topk (occupancy)")
     val = torch.empty((p, k), dtype=torch.float32, device=dev)
     idx = torch.empty((p, k), dtype=torch.int32, device=dev)
@@ -160,7 +168,8 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
                gates.metric_fresh, gates.schedulable, requested_fit,
                alloc_fit, node_term, prod_term, alloc_score,
                gates.selector_match, pair_ok, weights, part_val, part_idx,
-               _tickets(dev, stream.value or 0, blocks), val, idx)
+               _tickets(dev, stream.value or 0, blocks), val, idx,
+               pair_score)
     ptrs = (ctypes.c_void_p * len(tensors))(
         *(None if t is None else t.data_ptr() for t in tensors))
     dims = (ctypes.c_int * 10)(p, n, f, d, k, s, labels,

@@ -26,6 +26,42 @@ MAX_LEVELS = 8
 Table = Tuple[torch.Tensor, torch.Tensor, int]
 
 
+def _check_table(name: str, t: torch.Tensor, rows: int, cols: int,
+                 device) -> None:
+    """A level's base or limit: f32[rows, cols] on `device`, unit column
+    stride, any row stride of at least `cols`."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected torch.float32, got {t.dtype}")
+    if tuple(t.shape) != (rows, cols):
+        raise ValueError(f"{name}: expected shape {(rows, cols)}, got "
+                         f"{tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.stride(1) != 1 or (rows > 1 and t.stride(0) < cols):
+        raise ValueError(f"{name}: needs unit column stride and rows "
+                         f"apart by at least {cols}")
+
+
+def _check_req(req: torch.Tensor, levels: int, p: int, r: int,
+               device) -> None:
+    """The requests: f32[P, R] shared by the levels or f32[L, P, R] one
+    a level, on `device`, unit column stride, rows at least R apart
+    (any level stride: a zone's columns of a [P, Z, R] take, seen as
+    [Z, P, R], are read in place)."""
+    if req.dtype != torch.float32:
+        raise TypeError(f"req: expected torch.float32, got {req.dtype}")
+    shapes = ((p, r), (levels, p, r))
+    if tuple(req.shape) not in shapes:
+        raise ValueError(f"req: expected shape {shapes[0]} or {shapes[1]}, "
+                         f"got {tuple(req.shape)}")
+    if req.device != device:
+        raise ValueError(f"req: on {req.device}, expected {device}")
+    if (r > 1 and req.stride(-1) != 1) or (p > 1 and req.stride(-2) < r) or (
+            req.dim() == 3 and req.stride(0) < 0):
+        raise ValueError(f"req: needs unit column stride and rows apart by "
+                         f"at least {r}")
+
+
 def segment_prefix_ok_plain(seg: torch.Tensor, rank: torch.Tensor,
                             req: torch.Tensor, base_used: torch.Tensor,
                             limit: torch.Tensor, num_segments: int,
@@ -47,12 +83,16 @@ def segment_prefix_chain_plain(seg: torch.Tensor, rank: torch.Tensor,
                                tables: Sequence[Table],
                                eps: float) -> torch.Tensor:
     """bool[P]: `active`, narrowed level by level: at level l the pods
-    still alive are gated by `segment_prefix_ok_plain` on seg[l] and
-    tables[l]; the others sit out (segment out of range, no request)."""
+    still alive are gated by `segment_prefix_ok_plain` on seg[l],
+    tables[l] and the level's requests (req[l] of a per-level req
+    [L, P, R], else the shared req [P, R]); the others sit out (segment
+    out of range, no request)."""
     alive = active
-    for level, (base_used, limit, num_segments) in zip(seg, tables):
+    for l, (level, (base_used, limit, num_segments)) in enumerate(
+            zip(seg, tables)):
         seg_l = torch.where(alive, level, num_segments).to(torch.int32)
-        req_l = torch.where(alive[:, None], req, 0.0)
+        req_l = torch.where(alive[:, None], req[l] if req.dim() == 3 else req,
+                            0.0)
         alive = alive & segment_prefix_ok_plain(
             seg_l, rank, req_l, base_used, limit, num_segments, eps)
     return alive
@@ -64,25 +104,30 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
     """The chained gate of `segment_prefix_chain_plain`: the kernel for
     CUDA tensors (one launch for all levels; L = 1 is the reference's
     single-level gate), the plain version for CPU tensors. seg:
-    i32[L, P]; rank: i32[P]; req: f32[P, R]; active: bool[P]; tables: L
-    levels of (base, limit, S). Takes P <= 2048, R <= 11, L <= 8.
+    i32[L, P]; rank: i32[P]; req: f32[P, R] shared by the levels, or
+    f32[L, P, R] one a level; active: bool[P]; tables: L levels of
+    (base, limit, S), base and limit f32[S, R] with unit column stride
+    and one row stride (a column slice of a wider table is taken as it
+    is); req likewise needs only unit column stride. Takes P <= 2048,
+    R <= 11, L <= 8.
 
     rank must be a permutation of [0, P) and every active pod's
     segments >= -1. On the host a call that breaks this raises
     ValueError; on the card the kernel checks it and stops with a
     launch failure, which the next synchronisation raises."""
-    p, r = req.shape
+    p, r = req.shape[-2:]
     levels = len(tables)
     dev = req.device
     _launch.check_tensor("seg", seg, torch.int32, (levels, p), dev)
     _launch.check_tensor("rank", rank, torch.int32, (p,), dev)
-    _launch.check_tensor("req", req, torch.float32, (p, r), dev)
+    _check_req(req, levels, p, r, dev)
     _launch.check_tensor("active", active, torch.bool, (p,), dev)
     for l, (base_used, limit, num_segments) in enumerate(tables):
-        _launch.check_tensor(f"base[{l}]", base_used, torch.float32,
-                             (num_segments, r), dev)
-        _launch.check_tensor(f"limit[{l}]", limit, torch.float32,
-                             (num_segments, r), dev)
+        for name, t in (("base", base_used), ("limit", limit)):
+            _check_table(f"{name}[{l}]", t, num_segments, r, dev)
+        if base_used.stride(0) != limit.stride(0):
+            raise ValueError(f"tables[{l}]: base and limit row strides "
+                             f"differ")
     if dev.type == "cpu":
         if p and (rank.min() < 0 or rank.max() >= p or not bool(
                 torch.all(torch.bincount(rank, minlength=p) == 1))):
@@ -102,19 +147,25 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
         raise ValueError("segment_prefix_chain: empty table")
     out = torch.empty((p,), dtype=torch.bool, device=dev)
     fn = TOOLCHAIN.function("segment_prefix_ok", "koord_segment_prefix_chain",
-                            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                            + [ctypes.c_float, ctypes.c_void_p,
+                            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                            + [ctypes.c_longlong, ctypes.c_int,
+                               ctypes.c_float, ctypes.c_void_p,
                                ctypes.c_void_p])
     bases = (ctypes.c_void_p * max(levels, 1))(
         *(t[0].data_ptr() for t in tables))
     limits = (ctypes.c_void_p * max(levels, 1))(
         *(t[1].data_ptr() for t in tables))
     nseg = (ctypes.c_int * max(levels, 1))(*(t[2] for t in tables))
+    strides = (ctypes.c_int * max(levels, 1))(
+        *(t[0].stride(0) for t in tables))
     rc = fn(_launch.ptr(seg), _launch.ptr(rank), _launch.ptr(req),
             _launch.ptr(active), ctypes.cast(bases, ctypes.c_void_p),
             ctypes.cast(limits, ctypes.c_void_p),
-            ctypes.cast(nseg, ctypes.c_void_p), levels, p, r, eps,
-            _launch.ptr(out), _launch.stream(dev))
+            ctypes.cast(nseg, ctypes.c_void_p),
+            ctypes.cast(strides, ctypes.c_void_p), levels, p, r,
+            req.stride(0) if req.dim() == 3 else 0,
+            req.stride(-2) if p > 1 else r, eps, _launch.ptr(out),
+            _launch.stream(dev))
     check(rc, "segment_prefix_chain")
     segment_prefix_chain.launches += 1
     return out

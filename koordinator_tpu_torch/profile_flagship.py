@@ -1,9 +1,12 @@
-"""Where the slim flagship's time goes on the card.
+"""Where the slim flagship's (or BASELINE config 2's) time goes on the
+card.
 
     python -m koordinator_tpu_torch.profile_flagship
-        [--out chiprun_out/profile_flagship.json]
+        [--workload flagship|config2]
+        [--out chiprun_out/profile_<workload>.json]
 
-Builds the kernels, runs the 100k x 10k flagship once to warm up and
+Builds the kernels, runs the workload (the 100k x 10k slim flagship, or
+config 2: 10k pods x 1k nodes on the NUMA path) once to warm up and
 once untraced, then traces one more run of the same size with
 torch.profiler recording device activity only (no host-side operator
 events), so the traced wall time stays close to the untraced one. It
@@ -17,6 +20,7 @@ count of each kernel name, largest first. Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -25,6 +29,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from koordinator_tpu_torch.configs import run_config_2_numa
 from koordinator_tpu_torch.flagship import run_northstar
 from koordinator_tpu_torch.kernels.build import build_all
 
@@ -47,8 +52,17 @@ def _busy_us(events) -> float:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default="chiprun_out/profile_flagship.json")
+    ap.add_argument("--workload", choices=("flagship", "config2"),
+                    default="flagship")
+    ap.add_argument("--out", default=None,
+                    help="default chiprun_out/profile_<workload>.json")
     args = ap.parse_args()
+    out = args.out or f"chiprun_out/profile_{args.workload}.json"
+    if args.workload == "flagship":
+        warm_up = functools.partial(run_northstar, device="cuda", snap_seed=0)
+        run = functools.partial(run_northstar, device="cuda", snap_seed=7)
+    else:
+        warm_up = run = functools.partial(run_config_2_numa, device="cuda")
     if not torch.cuda.is_available():
         raise SystemExit("profile_flagship: no CUDA device")
     card = subprocess.run(
@@ -56,12 +70,12 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     build_all()
-    run_northstar(device="cuda", snap_seed=0)            # warm-up
-    untraced, _ = run_northstar(device="cuda", snap_seed=7)
+    warm_up()
+    untraced, _ = run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        line, _ = run_northstar(device="cuda", snap_seed=7)
+        line, _ = run()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -76,6 +90,7 @@ def main() -> None:
         agg[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
     report = {
+        "workload": args.workload,
         "card": card,
         "untraced_run": untraced,
         "traced_run": {"line": line,
@@ -86,8 +101,8 @@ def main() -> None:
             {"name": n[:120], "device_us": t, "launches": c}
             for n, (t, c) in top],
     }
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    with open(args.out, "w") as f:
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    with open(out, "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps(report, indent=1))
 

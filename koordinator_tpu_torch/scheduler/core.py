@@ -1,9 +1,10 @@
-"""The batched scheduling core, slim form: feasibility, score and the
+"""The batched scheduling core: feasibility, score and the
 conflict-resolving commit of one pod batch, then the straggler tail.
 
 Counterpart of `koordinator_tpu/scheduler/core.py` schedule_batch,
-tail_select, tail_pass and tail_compaction_loop for the slim flagship:
-no NUMA, no device instances, no reservation slots, no
+tail_select, tail_pass and tail_compaction_loop for the slim flagship
+and the NodeNUMAResource path (`enable_numa`, with the topology
+manager): no device instances, no reservation slots, no
 spread/anti-affinity/affinity terms, no taint penalty, no
 amplification, cascade off. Anything outside that raises
 NotImplementedError.
@@ -17,9 +18,14 @@ admits it if it fits the node, and then each quota level, after every
 earlier-ranked pod that chose the same node or quota, and kernel K3
 (`ordered_scatter_add`) commits the accepted requests, one launch for
 the node and one for all quota levels; a rejected pod falls through
-to its next choice. After the rounds, strict gangs below
-quorum roll back, and the snapshot is rebuilt from the final
-assignment. The reference runs the rounds and steps as lax.scan loops
+to its next choice. With `enable_numa`, kernel K4 (`numa_pair_terms`)
+gives each (pod, node) pair its batch-start NUMA gates and zone score,
+which K1 takes as a pair mask and a score addend; in each inner step,
+after the node and quota gates, kernel K5 (`topology_admit`) runs the
+topology manager for every trying pod on its chosen node, a second K2
+launch gates the zone takes zone by zone, and K3 commits them. After
+the rounds, strict gangs below quorum roll back, and the snapshot is
+rebuilt from the final assignment. The reference runs the rounds and steps as lax.scan loops
 inside one jitted program; here they are Python loops over launches,
 with no host readback inside a batch.
 """
@@ -32,15 +38,17 @@ from typing import Callable, Tuple
 import torch
 
 from koordinator_tpu_torch.api.extension import NUM_AUX_TYPES, PriorityClass
+from koordinator_tpu_torch.kernels.numa_terms import numa_pair_terms
 from koordinator_tpu_torch.kernels.scatter import ordered_scatter_add
 from koordinator_tpu_torch.kernels.score_topk import score_topk
+from koordinator_tpu_torch.kernels.topology import topology_admit
 from koordinator_tpu_torch.scheduler.batching import (
     EPS,
     rank_by_priority,
     segment_prefix_chain,
 )
 from koordinator_tpu_torch.scheduler.cascade import static_gate_terms
-from koordinator_tpu_torch.scheduler.plugins import loadaware
+from koordinator_tpu_torch.scheduler.plugins import loadaware, numaaware
 from koordinator_tpu_torch.scheduler.plugins.reservation import (
     rebuild_reservations,
     slot_columns,
@@ -60,8 +68,9 @@ PROD = int(PriorityClass.PROD)
 class ScheduleResult(Struct):
     assignment: torch.Tensor     # i32[P] node index, -1 = unschedulable
     chosen_score: torch.Tensor   # f32[P] score of the chosen node, -1
-    numa_zone: torch.Tensor      # i32[P], -1 (no NUMA on the slim path)
-    numa_take: torch.Tensor      # f32[P, Z, 2], zero
+    numa_zone: torch.Tensor      # i32[P] zone taken by NUMA-bound pods, -1
+    numa_take: torch.Tensor      # f32[P, Z, 2] per-zone (cpu, mem) charged
+                                 # by topology-engaged pods, zero elsewhere
     gpu_take: torch.Tensor       # bool[P, I], False
     aux_inst: torch.Tensor       # i32[P, 2], -1
     res_slot: torch.Tensor       # i32[P] reservation slot consumed, -1
@@ -73,14 +82,15 @@ class ScheduleResult(Struct):
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: the port covers the slim flagship path "
-        "(ROADMAP queue A item 6 holds the full-gate form)")
+        "and NodeNUMAResource (ROADMAP queue A item 6 holds the rest of "
+        "the full-gate form)")
 
 
 def _check_slim(snap: ClusterSnapshot, pods: PodBatch, *, enable_numa,
-                enable_devices, enable_amplification, cascade,
+                numa_strategy, enable_devices, enable_amplification, cascade,
                 approx_topk) -> None:
-    if enable_numa:
-        raise _unported("enable_numa=True")
+    if enable_numa and numa_strategy not in ("most", "least"):
+        raise ValueError(f"numa_strategy {numa_strategy!r}")
     if enable_amplification:
         raise _unported("enable_amplification=True")
     if cascade:
@@ -114,6 +124,7 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                    approx_topk: bool = False,
                    tie_break: bool = False,
                    enable_numa: bool = True,
+                   numa_strategy: str = "most",
                    enable_devices: bool = True,
                    quota_depth: int = MAX_QUOTA_DEPTH,
                    fit_dims: tuple = None,
@@ -122,14 +133,17 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     """Schedule a pod batch against the snapshot. Pure: the caller
     publishes `result.snapshot`.
 
-    The arguments are the reference's slim-path subset, with its
-    defaults, so a slim caller passes enable_numa=False. `fit_dims` are
-    the resource dims the capacity and quota gates check (None = all);
-    `score_dims` the dims LoadAware scores. The reference's packing
-    contracts (topo/numa/gpu prefixes, domain classes) and strategies
-    belong to the full-gate path and are not arguments here."""
+    The arguments are the reference's subset for the slim path and the
+    NUMA path, with its defaults, so a slim caller passes
+    enable_numa=False. `fit_dims` are the resource dims the capacity and
+    quota gates check (None = all); `score_dims` the dims LoadAware
+    scores; `numa_strategy` ("most" or "least") the NUMA allocation
+    strategy of the zone score, the hint order and the zone take. The
+    reference's packing contracts (topo/numa/gpu prefixes, domain
+    classes) and the device strategy belong to the rest of the
+    full-gate path and are not arguments here."""
     _check_slim(snap, pods, enable_numa=enable_numa,
-                enable_devices=enable_devices,
+                numa_strategy=numa_strategy, enable_devices=enable_devices,
                 enable_amplification=enable_amplification, cascade=cascade,
                 approx_topk=approx_topk)
     nodes0, quotas0, gangs0 = snap.nodes, snap.quotas, snap.gangs
@@ -168,6 +182,22 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                               snap.devices if enable_devices else None)
     slot_columns(snap, pods)  # raises on live slots
     n_ext = n_nodes  # no slot columns
+
+    # NodeNUMAResource at batch start (K4): the single-NUMA prefilter and
+    # the policy nodes' combined fit as a pair mask, the zone score as an
+    # addend of the LoadAware score
+    n_zones = nodes0.numa_cap.shape[1]
+    pair_ok = pair_score = None
+    if enable_numa:
+        demand = numaaware.zone_demand(pods)
+        pair_ok, pair_score = numa_pair_terms(
+            demand, pods.numa_single, nodes0.numa_cap, nodes0.numa_free,
+            nodes0.numa_valid, nodes0.numa_policy, numa_strategy)
+        numa_used = (nodes0.numa_cap - nodes0.numa_free).contiguous()
+        numa_cap_flat = nodes0.numa_cap.reshape(n_nodes, n_zones * 2)
+        out_zone = torch.full((p,), -1, dtype=torch.int32, device=dev)
+        out_take = torch.zeros((p, n_zones, 2), dtype=torch.float32,
+                               device=dev)
 
     req_fit = dims(pods.requests)
     alloc_fit = dims(nodes0.allocatable)
@@ -216,9 +246,10 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         node_term, prod_term, alloc_score, weights = loadaware.score_terms(
             nodes, cfg, score_dims)
         topk_val, topk_idx = score_topk(
-            gates, None, row_ok, req_fit, dims(requested), alloc_fit,
+            gates, pair_ok, row_ok, req_fit, dims(requested), alloc_fit,
             est_score, is_prod_scored, node_term, prod_term, alloc_score,
-            weights, k, tie_break, EPS, fma_sum=score_dims is not None)
+            weights, k, tie_break, EPS, fma_sum=score_dims is not None,
+            pair_score=pair_score)
 
         kptr = torch.zeros((p,), dtype=torch.int64, device=dev)
         for _ in range(k):
@@ -235,6 +266,35 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                 torch.cat([choice_eff[None], quota_seg]), rank, req_fit,
                 trying, [(dims(requested), alloc_fit, n_ext)]
                 + [quota_table] * quota_depth, EPS)
+
+            if enable_numa:
+                # the topology manager on the chosen node (K5), then the
+                # zone capacity prefix, zone by zone, over the engaged
+                # pods it admitted (K2: each zone sees the previous
+                # zone's gate); pods it rejects still counted in the
+                # node prefix above, as in the reference
+                adm = topology_admit(
+                    choice_eff, trying, pods.numa_single, demand,
+                    nodes0.numa_cap, numa_used, nodes0.numa_valid,
+                    nodes0.numa_policy, numa_strategy)
+                accept = accept & adm.admit
+                used_flat = numa_used.view(n_nodes, n_zones * 2)
+                zone_ok = segment_prefix_chain(
+                    choice_eff[None].expand(n_zones, p).contiguous(), rank,
+                    adm.take.transpose(0, 1), accept & adm.engaged,
+                    [(used_flat[:, 2 * z:2 * z + 2],
+                      numa_cap_flat[:, 2 * z:2 * z + 2], n_nodes)
+                     for z in range(n_zones)], EPS)
+                accept = (accept & ~adm.engaged) | zone_ok
+                took_z = accept & adm.engaged
+                numa_used = ordered_scatter_add(
+                    used_flat, _where_i32(took_z, choice, n_nodes),
+                    (adm.take * took_z[:, None, None]).reshape(
+                        p, n_zones * 2)).view(n_nodes, n_zones, 2)
+                out_take = torch.where(took_z[:, None, None], adm.take,
+                                       out_take)
+                out_zone = _where_i32(took_z & pods.numa_single, adm.zone1,
+                                      out_zone)
 
             # scatter-commit (assume)
             acc_req = pods.requests * accept[:, None]
@@ -285,12 +345,27 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     gang_assumed = gangs0.assumed + _count(n_gangs, _where_i32(
         ok & (pods.gang_id >= 0), pods.gang_id, n_gangs))[:, 0].to(torch.int32)
 
-    n_zones = nodes0.numa_cap.shape[1]
+    # zone usage from the surviving assignment (revoked gang members give
+    # their takes back)
+    numa_free = nodes0.numa_free
+    if enable_numa:
+        numa_free = torch.clamp_min(ordered_scatter_add(
+            nodes0.numa_free.reshape(n_nodes, n_zones * 2), tgt,
+            (-out_take * ok[:, None, None]).reshape(p, n_zones * 2)),
+            0.0).view(n_nodes, n_zones, 2)
+        numa_zone = _where_i32(ok & pods.numa_single, out_zone, -1)
+        numa_take = out_take * ok[:, None, None]
+    else:
+        numa_zone = torch.full((p,), -1, dtype=torch.int32, device=dev)
+        numa_take = torch.zeros((p, n_zones, 2), dtype=torch.float32,
+                                device=dev)
+
     n_inst = snap.devices.gpu_free.shape[1]
     new_snap = snap.replace(
         nodes=nodes0.replace(requested=requested,
                              assigned_estimated=assigned_est,
-                             prod_assigned_estimated=prod_assigned_est),
+                             prod_assigned_estimated=prod_assigned_est,
+                             numa_free=numa_free),
         quotas=quotas0.replace(used=quota_used),
         gangs=gangs0.replace(assumed=gang_assumed),
         reservations=rebuild_reservations(snap.reservations, pods, res_slot,
@@ -299,9 +374,7 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     return ScheduleResult(
         assignment=placed,
         chosen_score=torch.where(ok, out_score, -1.0),
-        numa_zone=torch.full((p,), -1, dtype=torch.int32, device=dev),
-        numa_take=torch.zeros((p, n_zones, 2), dtype=torch.float32,
-                              device=dev),
+        numa_zone=numa_zone, numa_take=numa_take,
         gpu_take=torch.zeros((p, n_inst), dtype=torch.bool, device=dev),
         aux_inst=torch.full((p, NUM_AUX_TYPES), -1, dtype=torch.int32,
                             device=dev),

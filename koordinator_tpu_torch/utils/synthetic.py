@@ -1,11 +1,11 @@
 """Synthetic cluster and pod queue for the slim flagship, in numpy.
 
 A copy of the parts of `koordinator_tpu/utils/synthetic.py` that the
-slim flagship needs: the same generator calls in the same order, so a
-seed gives the same arrays as the reference (tests/test_torch_schema.py
-holds the two equal). The arrays are built on the host and moved to
-`device` once. GPU nodes and reservation slots belong to the full-gate
-workload and are not ported yet.
+slim flagship and BASELINE config 2 need: the same generator calls in
+the same order, so a seed gives the same arrays as the reference
+(tests/test_torch_schema.py holds the two equal). The arrays are built
+on the host and moved to `device` once. GPU nodes and reservation slots
+belong to the full-gate workload and are not ported yet.
 """
 
 from __future__ import annotations
@@ -273,3 +273,45 @@ def slice_batch(batch: PodBatch, start: int, size: int) -> PodBatch:
     """A pod-chunk view; the batch-global matrices stay whole."""
     return batch.replace(**{f: getattr(batch, f)[start:start + size]
                             for f in PER_POD_FIELDS})
+
+
+def with_two_numa_zones(snap: ClusterSnapshot) -> ClusterSnapshot:
+    """Every node with two NUMA zones at half its cpu and memory each
+    (the dual-socket shape), the zone axis cut to exactly 2, and the
+    reservation zone columns cut to match; raises where the cut would
+    drop a reservation's zone hold."""
+    nodes, resv = snap.nodes, snap.reservations
+    z = 2
+    if resv.numa_valid.shape[1] < z:
+        raise ValueError(
+            "with_two_numa_zones needs >= 2 reservation zone slots to "
+            "keep the node/reservation zone axes consistent")
+    if bool(resv.numa_valid[:, z:].any()):
+        raise ValueError(
+            "with_two_numa_zones would silently drop reservation NUMA "
+            "holds in zones >= 2; this helper is for dual-socket "
+            "workloads only")
+    half = torch.stack([nodes.allocatable[:, CPU], nodes.allocatable[:, MEM]],
+                       dim=-1) / 2
+    numa_cap = half[:, None, :].expand(-1, z, -1).contiguous()
+    return snap.replace(
+        nodes=nodes.replace(
+            numa_cap=numa_cap, numa_free=numa_cap.clone(),
+            numa_valid=torch.ones((nodes.num_nodes, z), dtype=torch.bool,
+                                  device=numa_cap.device)),
+        reservations=resv.replace(
+            numa_free=resv.numa_free[:, :z].contiguous(),
+            numa_valid=resv.numa_valid[:, :z].contiguous()))
+
+
+def config_2_inputs(num_pods: int = 10_000, num_nodes: int = 1000,
+                    device="cuda") -> Tuple[ClusterSnapshot, PodBatch]:
+    """BASELINE config 2 (bench_configs.config_2_numa): nodes seed 0 with
+    32 quotas and two populated NUMA zones, pods seed 1 (60 % prod, 32
+    quotas), every prod pod single-NUMA bound."""
+    snap = with_two_numa_zones(synthetic_cluster(
+        num_nodes, num_quotas=32, seed=0, device=device))
+    pods = synthetic_pods(num_pods, seed=1, prod_frac=0.6, num_quotas=32,
+                          device=device)
+    return snap, pods.replace(
+        numa_single=pods.priority_class == int(PriorityClass.PROD))

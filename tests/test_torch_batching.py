@@ -172,3 +172,77 @@ def test_segment_prefix_chain_checks_its_inputs():
         batching.segment_prefix_chain(
             *meta, [(torch.zeros((3, r), device="meta"),) * 2 + (3,)] * 2,
             0.5)
+
+
+@pytest.mark.parametrize("zones", [2, 4])
+@settings(max_examples=30, deadline=None)
+@given(data=st.data())
+def test_segment_prefix_chain_per_level_requests_equal_reference(zones, data):
+    """The zone gates of a NUMA step as one chained call (K2's plain
+    path): per-level requests req[z] = each pod's take in zone z, read
+    in place from the [P, Z, 2] take (a strided view), and each level's
+    base and limit a zone's columns of the [S, Z * 2] zone tables (a
+    strided view), against the reference's per-zone loop of
+    segment_prefix_ok (core.py:949-956), each zone seeing the previous
+    zone's gate."""
+    ints = lambda lo, hi, n: np.array(  # noqa: E731
+        data.draw(st.lists(st.integers(lo, hi), min_size=n, max_size=n)))
+    s = data.draw(st.integers(1, 6))
+    choice = ints(0, s, P).astype(np.int32)          # s: not trying
+    prio = ints(0, 3, P).astype(np.int32)
+    acc = (ints(0, 4, P) > 0) & (choice < s)
+    engaged = ints(0, 3, P) > 0
+    take = ints(0, 6, P * zones * 2).reshape(P, zones, 2).astype(
+        np.float32) * 500.0
+    used = ints(0, 20, s * zones * 2).reshape(s, zones, 2).astype(
+        np.float32) * 500.0
+    cap = used + ints(0, 12, s * zones * 2).reshape(s, zones, 2).astype(
+        np.float32) * 500.0
+    jrank = jbatching.stable_rank(jnp.asarray(-prio))
+    earlier = jrank[None, :] < jrank[:, None]
+    want = jnp.asarray(acc)
+    for z in range(zones):
+        znow = want & jnp.asarray(engaged)
+        zseg = jnp.where(znow, jnp.asarray(choice), s)
+        want = want & jbatching.segment_prefix_ok(
+            zseg, earlier, jnp.asarray(take[:, z, :]) * znow[:, None],
+            jnp.asarray(used[:, z, :]), jnp.asarray(cap[:, z, :]), s)
+    used_t = torch.from_numpy(used).reshape(s, zones * 2)
+    cap_t = torch.from_numpy(cap).reshape(s, zones * 2)
+    alive = batching.segment_prefix_chain(
+        torch.from_numpy(choice)[None].expand(zones, P).contiguous(),
+        batching.stable_rank(torch.from_numpy(-prio)),
+        torch.from_numpy(take).transpose(0, 1),
+        torch.from_numpy(acc & engaged),
+        [(used_t[:, 2 * z:2 * z + 2], cap_t[:, 2 * z:2 * z + 2], s)
+         for z in range(zones)], batching.EPS)
+    got = (torch.from_numpy(acc & ~engaged) | alive).numpy()
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_segment_prefix_chain_checks_per_level_inputs():
+    p, r = 4, 2
+    rank = torch.arange(p, dtype=torch.int32)
+    active = torch.ones(p, dtype=torch.bool)
+    seg = torch.zeros((2, p), dtype=torch.int32)
+    table = (torch.zeros((3, r)), torch.ones((3, r)), 3)
+    with pytest.raises(ValueError, match="req"):   # 3 levels of requests
+        batching.segment_prefix_chain(seg, rank, torch.zeros((3, p, r)),
+                                      active, [table] * 2, 0.5)
+    wide = torch.zeros((3, 2 * r))
+    with pytest.raises(ValueError, match="column stride"):
+        batching.segment_prefix_chain(seg, rank, torch.zeros((2, p, r)),
+                                      active, [(wide[:, ::2], wide[:, ::2],
+                                                3)] * 2, 0.5)
+    with pytest.raises(ValueError, match="req: needs unit column stride"):
+        batching.segment_prefix_chain(
+            seg, rank, torch.zeros((2, p, 2 * r))[:, :, ::2], active,
+            [table] * 2, 0.5)
+    with pytest.raises(ValueError, match="row strides"):
+        batching.segment_prefix_chain(
+            seg, rank, torch.zeros((2, p, r)), active,
+            [(wide[:, :r], torch.ones((3, r)), 3)] * 2, 0.5)
+    got = batching.segment_prefix_chain(
+        seg, rank, torch.zeros((2, p, r)), active,
+        [(wide[:, :r], wide[:, r:], 3)] * 2, 0.5)
+    assert bool(got.all())   # limit 0 + eps admits a zero request

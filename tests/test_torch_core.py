@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import functools
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -12,6 +13,7 @@ import torch
 from koordinator_tpu.api.extension import ResourceKind as RK
 from koordinator_tpu.scheduler import core as jcore
 from koordinator_tpu.scheduler.plugins.loadaware import LoadAwareConfig as JCfg
+from koordinator_tpu.snapshot.schema import PER_POD_FIELDS
 from koordinator_tpu.utils import synthetic as jsyn
 from koordinator_tpu_torch.scheduler import cascade, core
 from koordinator_tpu_torch.scheduler.plugins import deviceshare, loadaware
@@ -119,8 +121,8 @@ def _slim_inputs():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(enable_numa=True), dict(cascade=True), dict(approx_topk=True),
-    dict(enable_amplification=True)], ids=str)
+    dict(enable_numa=True, enable_amplification=True), dict(cascade=True),
+    dict(approx_topk=True), dict(enable_amplification=True)], ids=str)
 def test_unported_options_raise(kw):
     snap, pods, cfg = _slim_inputs()
     with pytest.raises(NotImplementedError):
@@ -138,6 +140,14 @@ def test_unported_inputs_raise():
             (snap, pods.replace(has_taints=True))):
         with pytest.raises(NotImplementedError):
             core.schedule_batch(bad_snap, bad_pods, cfg, **BENCH_KW)
+    # reservation slots with the NUMA path (their zone holds wait for the
+    # slot columns)
+    with pytest.raises(NotImplementedError, match="reservation slots"):
+        core.schedule_batch(to_port("ClusterSnapshot", resv), pods, cfg,
+                            **dict(BENCH_KW, enable_numa=True))
+    with pytest.raises(ValueError, match="numa_strategy"):
+        core.schedule_batch(snap, pods, cfg, numa_strategy="spread",
+                            **dict(BENCH_KW, enable_numa=True))
 
 
 @pytest.mark.parametrize("weights", [None, "fractional"])
@@ -165,3 +175,189 @@ def test_all_dims_equal_reference(weights):
                  (want.snapshot.nodes.assigned_estimated,
                   got.snapshot.nodes.assigned_estimated)):
         assert _np(g).tobytes() == _np(w).tobytes()
+
+
+# --- the NodeNUMAResource path (enable_numa=True) -------------------------
+
+NUMA_KW = dict(BENCH_KW, enable_numa=True)
+NUMA_FIELDS = ["assignment", "numa_zone", "gang_failed", "numa_take",
+               "chosen_score", "res_slot", "snapshot.nodes.numa_free",
+               "snapshot.nodes.requested", "snapshot.quotas.used"]
+
+
+def _field(res, path):
+    for part in path.split("."):
+        res = getattr(res, part)
+    return _np(res)
+
+
+def _chunk(pods, start, size):
+    return pods.replace(**{f: getattr(pods, f)[start:start + size]
+                           for f in PER_POD_FIELDS})
+
+
+@functools.lru_cache(maxsize=None)
+def _run_config2_shaped(seed, strategy):
+    """BASELINE config 2's shape cut to 400 pods x 60 nodes, chunks of
+    200 (each on the previous chunk's snapshot): two populated zones a
+    node, 60 % prod pods, every prod pod NUMA-bound."""
+    snap = jsyn.with_two_numa_zones(jsyn.synthetic_cluster(
+        60, num_quotas=32, seed=seed))
+    pods = jsyn.synthetic_pods(400, seed=seed + 1, prod_frac=0.6,
+                               num_quotas=32)
+    pods = pods.replace(numa_single=jnp.asarray(
+        np.asarray(pods.priority_class) == 4))
+    tsnap = to_port("ClusterSnapshot", snap)
+    tpods = to_port("PodBatch", pods)
+    cfg = LoadAwareConfig.make(device="cpu")
+    out = []
+    for start in (0, 200):
+        want = jcore.schedule_batch(snap, _chunk(pods, start, 200),
+                                    JCfg.make(), numa_strategy=strategy,
+                                    **NUMA_KW)
+        got = core.schedule_batch(tsnap, synthetic.slice_batch(
+            tpods, start, 200), cfg, numa_strategy=strategy, **NUMA_KW)
+        out.append((want, got))
+        snap, tsnap = want.snapshot, got.snapshot
+    return out
+
+
+@pytest.mark.parametrize("field", NUMA_FIELDS)
+@pytest.mark.parametrize("strategy", ["most", "least"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_numa_config2_shaped_equal_reference(seed, strategy, field):
+    """Every chunk's field equal to the reference's, bit for bit."""
+    for want, got in _run_config2_shaped(seed, strategy):
+        w, g = _field(want, field), _field(got, field)
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert g.tobytes() == w.tobytes(), field
+    want, _ = _run_config2_shaped(seed, strategy)[1]
+    assert (np.asarray(want.numa_zone) >= 0).sum() > 50
+
+
+def _policy_snapshot(n, seed, z):
+    """n nodes whose zone capacity splits each node's allocatable over z
+    zones (about 15 % of zones invalid, zone 0 valid), partly used,
+    every topology policy code."""
+    snap = jsyn.synthetic_cluster(n, num_quotas=8, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    alloc = np.asarray(snap.nodes.allocatable)
+    share = rng.dirichlet(np.ones(z), n).astype(np.float32)
+    cap = np.zeros((n, z, 2), np.float32)
+    cap[:, :, 0] = np.floor(alloc[:, None, 0] * share / 500) * 500
+    cap[:, :, 1] = np.floor(alloc[:, None, 1] * share / 512) * 512
+    valid = rng.uniform(size=(n, z)) < 0.85
+    valid[:, 0] = True
+    cap = cap * valid[:, :, None]
+    used = np.floor(cap * rng.uniform(0, 0.6, (n, z, 1)) / 500) * 500
+    resv = snap.reservations
+    return snap.replace(
+        nodes=snap.nodes.replace(
+            numa_cap=jnp.asarray(cap),
+            numa_free=jnp.asarray((cap - used).astype(np.float32)),
+            numa_valid=jnp.asarray(valid),
+            numa_policy=jnp.asarray(np.arange(n, dtype=np.int32) % 4)),
+        reservations=resv.replace(numa_free=resv.numa_free[:, :z],
+                                  numa_valid=resv.numa_valid[:, :z]))
+
+
+@functools.lru_cache(maxsize=None)
+def _run_policy(z, strategy):
+    """16 nodes with every policy code against 300 pods (70 % prod, half
+    of those NUMA-bound): contended, so zone gates reject, and
+    best-effort / restricted nodes split takes across zones."""
+    snap = _policy_snapshot(16, z, z)
+    pods = jsyn.synthetic_pods(300, seed=z + 1, prod_frac=0.7, num_quotas=8)
+    rng = np.random.default_rng(z)
+    pods = pods.replace(numa_single=jnp.asarray(
+        (np.asarray(pods.priority_class) == 4)
+        & (rng.uniform(size=300) < 0.5)))
+    want = jcore.schedule_batch(snap, pods, JCfg.make(),
+                                numa_strategy=strategy, **NUMA_KW)
+    got = core.schedule_batch(to_port("ClusterSnapshot", snap),
+                              to_port("PodBatch", pods),
+                              LoadAwareConfig.make(device="cpu"),
+                              numa_strategy=strategy, **NUMA_KW)
+    return want, got
+
+
+@pytest.mark.parametrize("field", NUMA_FIELDS)
+@pytest.mark.parametrize("strategy", ["most", "least"])
+@pytest.mark.parametrize("zones", [2, 4])
+def test_numa_policy_nodes_equal_reference(zones, strategy, field):
+    want, got = _run_policy(zones, strategy)
+    w, g = _field(want, field), _field(got, field)
+    assert g.dtype == w.dtype and g.shape == w.shape
+    assert g.tobytes() == w.tobytes(), field
+    take = np.asarray(want.numa_take)
+    assert ((take[:, :, 0] > 0).sum(axis=1) > 1).any()   # split takes
+    assert 0 < (np.asarray(want.assignment) >= 0).sum() < 300
+
+
+def _scenario(nodes, pods):
+    from koordinator_tpu.snapshot.builder import SnapshotBuilder
+    from test_numaaware import NOW
+    from koordinator_tpu.api.types import NodeMetric
+    b = SnapshotBuilder(max_nodes=len(nodes), max_reservations=0)
+    for n in nodes:
+        b.add_node(n)
+        b.set_node_metric(NodeMetric(node_name=n.meta.name,
+                                     update_time=NOW - 2,
+                                     node_usage={RK.CPU: 0.0}))
+    snap, ctx = b.build(now=NOW)
+    return snap, b.build_pod_batch(pods, ctx)
+
+
+def _scenarios():
+    """The end-to-end NUMA scenarios of tests/test_numaaware.py
+    (single-zone fit, zone contention, packing, unbound pods, and the
+    four topology policies on plain pods), on snapshots built without
+    reservation rows."""
+    from test_numaaware import bind_pod, numa_node, plain_pod, policy_node
+    return {
+        "single_numa_fit": ([numa_node("small", zone_cpu=4000.0),
+                             numa_node("big", zone_cpu=8000.0)],
+                            [bind_pod("p", 6000.0, 1024.0)]),
+        "zone_contention": ([numa_node("n0")],
+                            [bind_pod(f"p{i}", 5000.0, 1024.0,
+                                      priority=9500 - i) for i in range(3)]),
+        "packing": ([numa_node("n0")],
+                    [bind_pod("a", 2000.0, 1024.0, priority=9500),
+                     bind_pod("b", 2000.0, 1024.0, priority=9400)]),
+        "unbound": ([numa_node("n0", zone_cpu=2000.0)],
+                    [plain_pod("p", 3000.0, 0.0)]),
+        "policy_none": ([policy_node("n0", "None")],
+                        [plain_pod("p", 3000.0, 1024.0)]),
+        "best_effort_split": ([policy_node("n0", "BestEffort")],
+                              [plain_pod("p", 3000.0, 1024.0)]),
+        "restricted": ([policy_node("ok", "Restricted", zone_cpu=4000.0)],
+                       [plain_pod("p", 3000.0, 1024.0)]),
+        "single_numa_policy": ([policy_node("strict", "SingleNUMANode"),
+                                policy_node("soft", "BestEffort")],
+                               [plain_pod("p", 3000.0, 1024.0)]),
+        "single_numa_policy_alone": ([policy_node("strict", "SingleNUMANode")],
+                                     [plain_pod("p", 3000.0, 1024.0)]),
+        "policy_contention": ([policy_node("n0", "BestEffort")],
+                              [plain_pod(f"p{i}", 1500.0, 512.0,
+                                         priority=9500 - i)
+                               for i in range(3)]),
+    }
+
+
+@pytest.mark.parametrize("strategy", ["most", "least"])
+@pytest.mark.parametrize("name", sorted(_scenarios()))
+def test_numa_scenarios_equal_reference(name, strategy):
+    """Each scenario through both packages with the reference's defaults
+    (3 rounds; all dims fitted and scored; 4 zone slots, 2 populated):
+    every result field and the zone state equal."""
+    snap, pods = _scenario(*_scenarios()[name])
+    want = jcore.schedule_batch(snap, pods, JCfg.make(), num_rounds=3,
+                                numa_strategy=strategy)
+    got = core.schedule_batch(to_port("ClusterSnapshot", snap),
+                              to_port("PodBatch", pods),
+                              LoadAwareConfig.make(device="cpu"),
+                              num_rounds=3, numa_strategy=strategy)
+    for field in NUMA_FIELDS:
+        w, g = _field(want, field), _field(got, field)
+        assert g.dtype == w.dtype and g.shape == w.shape, field
+        assert g.tobytes() == w.tobytes(), field

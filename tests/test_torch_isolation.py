@@ -11,7 +11,7 @@ import sys
 import pytest
 import torch
 
-from koordinator_tpu_torch import flagship
+from koordinator_tpu_torch import configs, flagship
 from koordinator_tpu_torch.bridge import from_reference
 from koordinator_tpu_torch.scheduler.plugins.loadaware import LoadAwareConfig
 from koordinator_tpu_torch.utils import synthetic
@@ -55,8 +55,9 @@ def test_port_and_chip_smoke_import_no_jax():
     lambda: LoadAwareConfig.make(),
     lambda: from_reference("GangState", {}),
     lambda: flagship.run_northstar(8, 4, 8),
+    lambda: configs.run_config_2_numa(8, 4, 8),
 ], ids=["synthetic_cluster", "synthetic_pods", "LoadAwareConfig.make",
-        "from_reference", "run_northstar"])
+        "from_reference", "run_northstar", "run_config_2_numa"])
 def test_entry_points_default_to_the_card(call):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device; the default would run")

@@ -112,3 +112,56 @@ def test_estimate_vectorized_equal_reference():
     pc = rng.integers(0, 5, 50).astype(np.int8)
     np.testing.assert_array_equal(synthetic.estimate_vectorized(req, lim, pc),
                                   jsyn.estimate_vectorized(req, lim, pc))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_with_two_numa_zones_equal_reference(seed):
+    jsnap = jsyn.with_two_numa_zones(
+        jsyn.synthetic_cluster(48, seed=seed, num_quotas=8))
+    tsnap = synthetic.with_two_numa_zones(
+        synthetic.synthetic_cluster(48, seed=seed, num_quotas=8,
+                                    device="cpu"))
+    assert_trees_equal(to_numpy(tsnap), numpy_tree(jsnap))
+    resv = jsyn.synthetic_cluster(8, num_reservations=2)
+    bad = resv.replace(reservations=resv.reservations.replace(
+        numa_valid=np.ones_like(np.asarray(resv.reservations.numa_valid))))
+    for make in (lambda: jsyn.with_two_numa_zones(bad),
+                 lambda: synthetic.with_two_numa_zones(
+                     from_reference("ClusterSnapshot", numpy_tree(bad),
+                                    device="cpu"))):
+        with pytest.raises(ValueError, match="zones >= 2"):
+            make()
+
+
+def test_config_2_inputs_equal_reference():
+    """The port's BASELINE config 2 builder against
+    bench_configs.config_2_numa's inputs, cut to 2000 pods x 100 nodes
+    (the same generator calls; only the counts differ)."""
+    jsnap = jsyn.with_two_numa_zones(
+        jsyn.synthetic_cluster(100, num_quotas=32, seed=0))
+    jpods = jsyn.synthetic_pods(2000, seed=1, prod_frac=0.6, num_quotas=32)
+    jpods = jpods.replace(numa_single=np.asarray(jpods.priority_class) == 4)
+    tsnap, tpods = synthetic.config_2_inputs(2000, 100, device="cpu")
+    assert_trees_equal(to_numpy(tsnap), numpy_tree(jsnap))
+    assert_trees_equal(to_numpy(tpods), numpy_tree(jpods))
+    assert 0 < int(tpods.numa_single.sum()) < 2000
+
+
+@pytest.mark.parametrize("zones", [2, 4])
+def test_zone_fields_cross_the_bridge(zones):
+    """NodeState's zone columns, the reservations' and
+    ScheduleResult.numa_take at Z = 2 and Z = 4, both ways."""
+    snap = jsyn.synthetic_cluster(6, seed=2, num_reservations=2)
+    if zones == 2:
+        snap = jsyn.with_two_numa_zones(snap)
+    rng = np.random.default_rng(zones)
+    result = numpy_tree(_reference_structs()["ScheduleResult"])
+    result.pop("amplified")
+    result["numa_take"] = rng.uniform(0, 5, (12, zones, 2)).astype(np.float32)
+    result["snapshot"] = numpy_tree(snap)
+    port = from_reference("ScheduleResult", result, device="cpu")
+    assert port.numa_take.shape == (12, zones, 2)
+    assert port.snapshot.nodes.numa_cap.shape == (6, zones, 2)
+    assert port.snapshot.reservations.numa_free.shape[1] == zones
+    assert_trees_equal({k: v for k, v in to_numpy(port).items()
+                        if k in result}, result)

@@ -21,7 +21,9 @@ from koordinator_tpu.api.extension import ResourceKind as RK
 from koordinator_tpu.scheduler import cascade as jcascade
 from koordinator_tpu.scheduler.plugins import deviceshare as jds
 from koordinator_tpu.scheduler.plugins import loadaware as jla
+from koordinator_tpu.scheduler.plugins import numaaware as jnuma
 from koordinator_tpu.utils import synthetic as jsyn
+from koordinator_tpu_torch.kernels.numa_terms import numa_pair_terms
 from koordinator_tpu_torch.kernels.scatter import (
     ordered_scatter_add,
     ordered_scatter_add_plain,
@@ -32,7 +34,7 @@ from koordinator_tpu_torch.scheduler.cascade import (
     expand_gates,
     static_gate_terms,
 )
-from koordinator_tpu_torch.scheduler.plugins import loadaware
+from koordinator_tpu_torch.scheduler.plugins import loadaware, numaaware
 
 from torch_port_ref import to_port
 
@@ -57,6 +59,26 @@ def reference_select(nodes, pods, cfg, static_ok, row_ok, *, k, tie_break):
                   <= nodes.allocatable[None][..., fd] + EPS, axis=-1)
     feasible = fit & static_ok & row_ok[:, None]
     scores = jla.score_matrix(nodes, pods, cfg, SCORE_DIMS)
+    if tie_break:
+        p, n = scores.shape
+        pi = jnp.arange(p, dtype=jnp.uint32)[:, None]
+        ni = jnp.arange(n, dtype=jnp.uint32)[None, :]
+        h = (pi * jnp.uint32(2654435761) + ni * jnp.uint32(40503)) & 1023
+        scores = scores + h.astype(jnp.float32) * (0.49 / 1024.0)
+    masked = jnp.where(feasible, scores, -1.0)
+    return jax.lax.top_k(masked, k)
+
+
+@functools.partial(jax.jit, static_argnames=("k", "tie_break"))
+def reference_select_numa(nodes, pods, cfg, static_ok, row_ok, numa_scores,
+                          *, k, tie_break):
+    """`reference_select` with the NUMA zone score added to the LoadAware
+    score before the jitter, as core.py:693-696 adds it."""
+    fd = list(FIT_DIMS)
+    fit = jnp.all(pods.requests[:, None, fd] + nodes.requested[None][..., fd]
+                  <= nodes.allocatable[None][..., fd] + EPS, axis=-1)
+    feasible = fit & static_ok & row_ok[:, None]
+    scores = jla.score_matrix(nodes, pods, cfg, SCORE_DIMS) + numa_scores
     if tie_break:
         p, n = scores.shape
         pi = jnp.arange(p, dtype=jnp.uint32)[:, None]
@@ -213,7 +235,8 @@ def test_gate_terms_without_devices_and_with_taints():
         static_gate_terms(tn, tp, cfg, to_port("DeviceState", gpu.devices))
 
 
-def _port_select(tn, tp, cfg, gates, pair_ok, row_ok, k, tie_break):
+def _port_select(tn, tp, cfg, gates, pair_ok, row_ok, k, tie_break,
+                 pair_score=None):
     node_term, prod_term, alloc_s, weights = loadaware.score_terms(
         tn, cfg, SCORE_DIMS)
     return score_topk(
@@ -223,7 +246,48 @@ def _port_select(tn, tp, cfg, gates, pair_ok, row_ok, k, tie_break):
         tn.allocatable[:, list(FIT_DIMS)].contiguous(),
         tp.estimated[:, list(SCORE_DIMS)].contiguous(),
         loadaware.prod_scored(tp, cfg), node_term, prod_term, alloc_s,
-        weights, k, tie_break, EPS, fma_sum=True)
+        weights, k, tie_break, EPS, fma_sum=True, pair_score=pair_score)
+
+
+@pytest.mark.parametrize("strategy", ["most", "least"])
+@pytest.mark.parametrize("tie_break", [True, False])
+@pytest.mark.parametrize("k", [8, 32])
+def test_score_topk_pair_score_equals_reference(k, tie_break, strategy):
+    """K1's plain version with the NUMA zone score as its addend (and the
+    NUMA gates as its pair mask) against the reference's
+    top_k(where(feasible, la + numa + jitter, -1)): two-zone nodes,
+    40 % of the pods NUMA-bound."""
+    nodes, pods, devices, static_ok, row_ok = _case(5, 96, 64, False)
+    nodes = jsyn.with_two_numa_zones(jsyn.synthetic_cluster(64, seed=5)
+                                     ).nodes.replace(
+        requested=nodes.requested)
+    rng = np.random.default_rng(11)
+    free = np.asarray(nodes.numa_cap) * rng.uniform(0.05, 1.0, (64, 2, 1))
+    nodes = nodes.replace(numa_free=jnp.asarray(
+        (np.floor(free / 500) * 500).astype(np.float32)))
+    pods = pods.replace(numa_single=jnp.asarray(rng.uniform(size=96) < 0.4))
+    numa_ok = np.asarray(jnuma.zone_prefilter(nodes, pods))
+    numa_scores = jnuma.numa_score_matrix(nodes, pods, strategy)
+    jcfg = jla.LoadAwareConfig.make()
+    want_static = np.asarray(reference_gates(nodes, pods, devices, jcfg))
+    want_val, want_idx = reference_select_numa(
+        nodes, pods, jcfg, jnp.asarray(want_static & numa_ok),
+        jnp.asarray(row_ok), numa_scores, k=k, tie_break=tie_break)
+    want_val, want_idx = np.asarray(want_val), np.asarray(want_idx)
+
+    cfg = loadaware.LoadAwareConfig.make(device="cpu")
+    tn, tp = to_port("NodeState", nodes), to_port("PodBatch", pods)
+    gates = static_gate_terms(tn, tp, cfg, to_port("DeviceState", devices))
+    pair_ok, pair_score = numa_pair_terms(
+        numaaware.zone_demand(tp), tp.numa_single, tn.numa_cap,
+        tn.numa_free, tn.numa_valid, tn.numa_policy, strategy)
+    val, idx = _port_select(tn, tp, cfg, gates, pair_ok, row_ok, k,
+                            tie_break, pair_score)
+    np.testing.assert_array_equal(idx.numpy(), want_idx)
+    assert val.numpy().tobytes() == want_val.tobytes()
+    # the addend moves values above the LoadAware range, and some bound
+    # pods are gated off nodes whose zones they do not fit
+    assert (want_val > 100.0).any() and not numa_ok.all()
 
 
 @pytest.mark.parametrize("tie_break", [True, False])
