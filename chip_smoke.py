@@ -27,7 +27,20 @@ in order:
    requests, every pod trying and P = 1; K1 with K4's pair mask and
    score addend (the config-2 chunk; k = 32 without jitter, negative
    estimates, N = 10 000); K2 as the zone gates (per-level requests,
-   strided zone tables; Z = 2 and 4). Each timed case with its time
+   strided zone tables; Z = 2 and 4). The DeviceShare path's kernels:
+   K6 device_pair_terms at a gpu_share chunk (P = 2000 against N =
+   10 000 nodes, 8 instances a node; ANDed into a pair mask in place),
+   both strategies, and untimed on an edge state (odd per-GPU memory,
+   invalid and zone -1 instances, nodes where none, one or all
+   instances fit, memory-specified and non-divisible requests), without
+   a mask and at P = 1; K5 with DeviceShare's hint provider at a
+   gpu_share step, both strategies, every policy code, the edge state,
+   P = 1; K7 gpu_instance_pick's two launches around the K2 gate
+   (shared pods' instances, one multi-GPU pod a node, whole instances
+   but the shared pods' takes) at a gpu_share step, both strategies,
+   the edge state, the topology manager off, P = 1; K1 with two
+   addends (K4's zone score, then K6's pool score; k = 32 without
+   jitter, negative estimates, K6's alone). Each timed case with its time
    (CUDA events over back-to-back calls, and the kernel's device time
    from torch.profiler), the plain version's, one library call's where
    there is one, and the card's lower bound for the same work;
@@ -39,7 +52,7 @@ in order:
    an inner step; K3 at most twice an inner step plus its round and
    rebuild commits), peak device memory, and the invariants (no
    overcommit, quota used within runtime, every straggler retried, the
-   sweep's stragglers unchanged; K4 and K5 never launched);
+   sweep's stragglers unchanged; K4 to K7 never launched);
 5. config 2: BASELINE config 2 (10 000 pods x 1000 nodes, chunks of
    2000, LoadAware + NodeNUMAResource, `configs.run_config_2_numa`) on
    the card after a warm-up run, then on the host: the bench line, the
@@ -47,7 +60,20 @@ in order:
    K2 twice an inner step, K1 once a round), the card's assignment,
    zones, takes, zone free and requested equal to the host's, each
    zone's takes within its capacity, no overcommit, quota within
-   runtime.
+   runtime; K6 and K7 never launched;
+6. gpu_share: `configs.run_gpu_share` (the DeviceShare path with
+   NodeNUMAResource) at 8000 pods x 1000 nodes on the card and on the
+   host, every result field equal (assignment, tail stats, instance
+   takes, requested, zone free, instance free, quotas, gangs); then
+   100 000 x 10 000 on the card: the bench line, the launch counts its
+   design fixes (K4 and K6 once a batch, K1 once a round, K5 once an
+   inner step, K7 twice, K2 three times, K3 four times an inner step,
+   three times a round and eight times a batch), every placed GPU pod
+   holding its count of instances, the takes times the per-instance
+   requests equal to each valid instance's total minus its free, no
+   negative free, no overcommit, quota within runtime, and never_retried
+   what the tail's pass budget leaves (each pass retries a full window
+   of never-retried stragglers first).
 
 The last three lines are one JSON object listing the kernels, the
 card's name and power limit, and one JSON object stating the result.
@@ -66,7 +92,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from koordinator_tpu_torch import kernels, resolve_device
 from koordinator_tpu_torch.api.extension import ResourceKind
-from koordinator_tpu_torch.configs import CONFIG_2_KW, run_config_2_numa
+from koordinator_tpu_torch.configs import (
+    CONFIG_2_KW,
+    GPU_SHARE_KW,
+    GPU_SHARE_TAIL_KW,
+    run_config_2_numa,
+    run_gpu_share,
+)
 from koordinator_tpu_torch.flagship import (
     STEP_KW,
     TAIL_KW,
@@ -74,6 +106,15 @@ from koordinator_tpu_torch.flagship import (
     sweep_and_tail,
 )
 from koordinator_tpu_torch.kernels.build import build_all
+from koordinator_tpu_torch.kernels.device_terms import (
+    device_pair_terms,
+    device_pair_terms_plain,
+)
+from koordinator_tpu_torch.kernels.gpu_instances import (
+    gpu_choose_plain,
+    gpu_instance_pick,
+    gpu_take_plain,
+)
 from koordinator_tpu_torch.kernels.numa_terms import (
     numa_pair_terms,
     numa_pair_terms_plain,
@@ -110,6 +151,7 @@ from koordinator_tpu_torch.scheduler.plugins import (
 )
 from koordinator_tpu_torch.utils.synthetic import (
     config_2_inputs,
+    gpu_share_inputs,
     slice_batch,
     synthetic_cluster,
     synthetic_pods,
@@ -127,8 +169,11 @@ QUOTA_DEPTH = STEP_KW["quota_depth"]
 # stragglers after its sweep; a kernel change that moves a placement
 # changes it
 STRAGGLERS_AFTER_SWEEP = 510
-# the slim path's kernels; the NUMA path adds K4 and K5
+# the slim path's kernels; the NUMA path adds K4 and K5, the DeviceShare
+# path K6 and K7
 SLIM_KERNELS = ("score_topk", "segment_prefix_ok", "ordered_scatter_add")
+NUMA_KERNELS = SLIM_KERNELS + ("numa_pair_terms", "topology_admit")
+GPU_KERNELS = ("device_pair_terms", "gpu_instance_pick")
 SOURCES = {
     "score_topk": ("koordinator_tpu_torch/csrc/score_topk.cu",
                    "koordinator_tpu/scheduler/core.py:721"),
@@ -141,6 +186,11 @@ SOURCES = {
                         "koordinator_tpu/scheduler/plugins/numaaware.py:70"),
     "topology_admit": ("koordinator_tpu_torch/csrc/topology_admit.cu",
                        "koordinator_tpu/scheduler/core.py:907"),
+    "device_pair_terms": ("koordinator_tpu_torch/csrc/device_terms.cu",
+                          "koordinator_tpu/scheduler/plugins/"
+                          "deviceshare.py:152"),
+    "gpu_instance_pick": ("koordinator_tpu_torch/csrc/gpu_instances.cu",
+                          "koordinator_tpu/scheduler/core.py:962"),
 }
 
 
@@ -378,6 +428,8 @@ def k1_needed_pairs(kw, checked, val, idx):
     ub = ub[prod.long()]                                     # [P, N]
     if kw.get("pair_score") is not None:
         ub = ub + kw["pair_score"]
+    if kw.get("pair_score2") is not None:
+        ub = ub + kw["pair_score2"]
     if kw["tie_break"]:
         ub = loadaware.fma_f32(torch.full_like(ub, 1023.0), JITTER, ub)
     kv, ki = val[:, -1:], idx[:, -1:].long()
@@ -952,6 +1004,406 @@ def check_k2_zones(dev, gen):
     return out
 
 
+# --- the DeviceShare path's kernels (K6, K7, K5's GPU provider, K1's two
+# addends) ------------------------------------------------------------------
+
+
+def gpu_state(dev, gen, n_nodes, p0=0, p=2000, edge=False):
+    """gpu_share_100kx10k's pods [p0, p0 + p) against n_nodes of its nodes
+    (a quarter GPU nodes with 8 instances over two zones), the instances
+    partly used (integer shares of their totals, half untouched) and the
+    zones partly used. With `edge`: 60 % GPU pods, a quarter of the pods
+    asking for GPU memory in odd MiB, ratios 100 does not divide (150,
+    250, 333) and larger multiples (300, 800); a third of the nodes with
+    an odd per-GPU memory, 10 % of the instances invalid, 10 % of zone
+    -1, and nodes on which no instance, one, or all fit. Returns
+    (snapshot, batch)."""
+    snap, pods = gpu_share_inputs(max(p0 + p, 10_000), n_nodes, device=dev)
+    batch = slice_batch(pods, p0, p)
+    d = snap.devices
+    n, i, _ = d.gpu_free.shape
+    total, valid, numa = d.gpu_total.clone(), d.gpu_valid, d.gpu_numa
+    if edge:
+        total[::3, 1] = torch.where(total[::3, 1] > 0, 40007.0, 0.0)
+    full = total[:, None, :].expand(n, i, 3)
+    free = torch.floor(full * torch.rand((n, i, 1), generator=gen,
+                                         device=dev))
+    keep = torch.rand((n, i), generator=gen, device=dev) < 0.5
+    free = torch.where(keep[..., None], full, free)
+    if edge:
+        group = torch.arange(n, device=dev) % 7
+        free = torch.where((group == 0)[:, None, None], 0.0, free)
+        free = torch.where((group == 1)[:, None, None], full, free)
+        one = (group == 2)[:, None] & (torch.arange(i, device=dev) > 0)
+        free = torch.where(one[..., None], 0.0, free)
+        valid = valid & (torch.rand((n, i), generator=gen, device=dev) < 0.9)
+        numa = torch.where(torch.rand((n, i), generator=gen, device=dev)
+                           < 0.1, -1, numa).to(torch.int32)
+        req, ratio = batch.requests.clone(), batch.gpu_ratio.clone()
+        shapes = torch.tensor([50.0, 100.0, 200.0, 400.0], device=dev)
+        gpu = torch.rand((p,), generator=gen, device=dev) < 0.6
+        ratio = torch.where(gpu, shapes[torch.randint(
+            0, 4, (p,), generator=gen, device=dev)], 0.0)
+        odd = torch.tensor([150.0, 250.0, 300.0, 333.0, 800.0], device=dev)
+        ratio = torch.where(
+            torch.rand((p,), generator=gen, device=dev) < 0.15,
+            odd[torch.randint(0, 5, (p,), generator=gen, device=dev)], ratio)
+        req[:, deviceshare.GPU_CORE] = ratio
+        mem = torch.rand((p,), generator=gen, device=dev) < 0.25
+        req[:, deviceshare.GPU_MEMORY] = torch.where(
+            mem, torch.randint(1, 90_000, (p,), generator=gen,
+                               device=dev).to(torch.float32), 0.0)
+        batch = batch.replace(requests=req, gpu_ratio=ratio)
+    cap = snap.nodes.numa_cap
+    used = torch.floor(cap * torch.rand((n, cap.shape[1], 1), generator=gen,
+                                        device=dev) * 0.8 / 500.0) * 500.0
+    snap = snap.replace(
+        nodes=snap.nodes.replace(numa_free=(cap - used).contiguous()),
+        devices=d.replace(gpu_total=total, gpu_free=free.contiguous(),
+                          gpu_valid=valid, gpu_numa=numa))
+    return snap, batch
+
+
+def gpu_req_of(batch):
+    return deviceshare.gpu_request(batch.requests,
+                                   batch.gpu_ratio).contiguous()
+
+
+def check_k6(dev, gen):
+    """K6 at a gpu_share chunk (P=2000 against N=10 000 nodes, I=8),
+    ANDing into a pair mask in place, both strategies; untimed, the edge
+    state at N=1000 (odd memory, invalid and zone -1 instances, nodes
+    where none, one or all fit, memory-specified and non-divisible
+    requests), without a mask, and P=1. Equal to the plain version
+    (bools, scores bit for bit)."""
+    out = {}
+    for label, n, edge, strategy, p, mask, timed in (
+            ("gpu_share least", 10_000, False, "least", 2000, True, True),
+            ("gpu_share most", 10_000, False, "most", 2000, True, False),
+            ("edge least", 1000, True, "least", 2000, True, False),
+            ("edge most, no mask", 1000, True, "most", 2000, False, False),
+            ("P=1", 1000, True, "least", 1, True, False)):
+        snap, batch = gpu_state(dev, gen, n, 2000, p, edge)
+        n, p = snap.num_nodes, batch.num_pods
+        gpu_req, d = gpu_req_of(batch), snap.devices
+        pair = (torch.rand((p, n), generator=gen, device=dev) < 0.8
+                if mask else None)
+        ok, score = device_pair_terms(
+            gpu_req, d, strategy, None if pair is None else pair.clone())
+        want_ok, want_score = device_pair_terms_plain(gpu_req, d, strategy,
+                                                      pair)
+        err = float((score - want_score).abs().max())
+        if not (torch.equal(ok, want_ok) and torch.equal(
+                score.view(torch.int32), want_score.view(torch.int32))):
+            raise SystemExit(f"K6 device_pair_terms ({label}) differs from "
+                             f"its plain version, max abs err {err}")
+        n_gpu = int((gpu_req > 0).any(dim=1).sum())
+        if not timed:
+            out[label] = dict(max_abs_err=err, pairs_ok=int(ok.sum()),
+                              gpu_pods=n_gpu)
+            continue
+        # bytes: the pod columns (3 floats), the node columns (total,
+        # and each instance's free and valid byte) once, the mask read
+        # and written and the score written. Operations this data needs:
+        # one for each pair of a pod without a GPU request; for each
+        # pair of a GPU pod, the per-instance request (20), each
+        # instance's fit (7) and the pool score (25)
+        i = d.gpu_free.shape[1]
+        nbytes = p * 12 + n * (12 + i * 13) + p * n * 6
+        ops = (p - n_gpu) * n + n_gpu * n * (45 + 7 * i)
+        b_ms, b_by = bound(nbytes, ops)
+        buf = pair.clone()
+        out[label] = dict(
+            ms=cuda_ms(lambda: device_pair_terms(gpu_req, d, strategy, buf)),
+            device_ms=device_ms(
+                lambda: device_pair_terms(gpu_req, d, strategy, buf),
+                "device_pair_terms_kernel"),
+            plain_ms=cuda_ms(lambda: device_pair_terms_plain(
+                gpu_req, d, strategy, pair), reps=3),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            shape=f"P={p} N={n} I={i} and-into mask", gpu_pods=n_gpu,
+            pairs_ok=int(ok.sum()))
+    return out
+
+
+def gpu_step(snap, batch, gen):
+    """One inner step's K5/K7 operands at a gpu_share state: GPU pods
+    choose GPU nodes (half of them among 16 popular ones, so shared and
+    multi-GPU pods contend for instances), the others any node; 90 % of
+    the pods trying and 85 % of those admitted by the node and quota
+    gates; every topology policy code on the nodes. Returns a dict."""
+    dev = batch.valid.device
+    p, n = batch.num_pods, snap.num_nodes
+    gpu_nodes = snap.devices.gpu_valid.any(dim=1).nonzero()[:, 0]
+    gpu = (gpu_req_of(batch) > 0).any(dim=1)
+    g = gpu_nodes[torch.where(
+        torch.rand((p,), generator=gen, device=dev) < 0.5,
+        torch.randint(0, 16, (p,), generator=gen, device=dev),
+        torch.randint(0, gpu_nodes.numel(), (p,), generator=gen,
+                      device=dev))]
+    choice = torch.where(gpu, g, torch.randint(0, n, (p,), generator=gen,
+                                               device=dev))
+    trying = torch.rand((p,), generator=gen, device=dev) < 0.9
+    nodes = snap.nodes.replace(numa_policy=torch.randint(
+        0, 4, (n,), generator=gen, device=dev, dtype=torch.int32))
+    return dict(
+        choice=torch.where(trying, choice, n).to(torch.int32), trying=trying,
+        accept=trying & (torch.rand((p,), generator=gen, device=dev) < 0.85),
+        nodes=nodes, rank=rank_by_priority(batch),
+        gpu_req=gpu_req_of(batch), demand=numaaware.zone_demand(batch),
+        numa_single=batch.numa_single.contiguous())
+
+
+def k5_gpu_args(snap, st, strategy):
+    nodes = st["nodes"]
+    return (st["choice"], st["trying"], st["numa_single"], st["demand"],
+            nodes.numa_cap, (nodes.numa_cap - nodes.numa_free).contiguous(),
+            nodes.numa_valid, nodes.numa_policy, strategy, st["gpu_req"],
+            snap.devices)
+
+
+def same_outputs(name, got, want):
+    for field, g, w in zip(got._fields, got, want):
+        ok = (torch.equal(g.view(torch.int32), w.view(torch.int32))
+              if g.dtype == torch.float32 else torch.equal(g, w))
+        if not ok:
+            raise SystemExit(f"{name} differs from its plain version in "
+                             f"{field}")
+
+
+def check_k5_gpu(dev, gen):
+    """K5 with DeviceShare's hint provider at a gpu_share step (P=2000,
+    S=10 000, Z=2, I=8), both strategies, every policy code; untimed,
+    the edge state (zone -1 and invalid instances, nodes where none,
+    one or all fit) and P=1. Equal to the plain version."""
+    out = {}
+    for label, n, edge, strategy, p, timed in (
+            ("gpu_share most", 10_000, False, "most", 2000, True),
+            ("gpu_share least", 10_000, False, "least", 2000, False),
+            ("edge most", 1000, True, "most", 2000, False),
+            ("P=1", 1000, True, "least", 1, False)):
+        snap, batch = gpu_state(dev, gen, n, 4000, p, edge)
+        n, p = snap.num_nodes, batch.num_pods
+        st = gpu_step(snap, batch, gen)
+        args = k5_gpu_args(snap, st, strategy)
+        got, want = topology_admit(*args), topology_admit_plain(*args)
+        same_outputs(f"K5 topology_admit with the GPU provider ({label})",
+                     got, want)
+        err = float((got.take - want.take).abs().max())
+        engaged = int(got.engaged.sum())
+        gpu_engaged = int((got.engaged & (st["gpu_req"] > 0).any(1)).sum())
+        if not timed:
+            out[label] = dict(max_abs_err=err, engaged=engaged,
+                              gpu_engaged=gpu_engaged,
+                              admitted=int((got.admit & got.engaged).sum()))
+            continue
+        # as check_k5, plus the pods' GPU requests (12 bytes), the chosen
+        # nodes' instance rows (13 bytes an instance, once a node), and
+        # for each engaged pod the per-instance request (20), each
+        # instance's fit (8) and the count provider over the M masks
+        # (Z + 3 a mask)
+        z = snap.nodes.numa_cap.shape[1]
+        i = snap.devices.gpu_free.shape[1]
+        m = 1 << z
+        n_rows = int(torch.unique(st["choice"][st["trying"]]).numel())
+        nbytes = (p * 14 + n_rows * (z * 17 + 4) + p * (z * 17 + 6)
+                  + p * 12 + n_rows * (12 + 13 * i))
+        ops = (engaged * (m * (8 * z + 13) + 10 * z + 2 + 20 + 8 * i
+                          + m * (z + 3)) + (p - engaged) * 2)
+        b_ms, b_by = bound(nbytes, ops)
+        out[label] = dict(
+            ms=cuda_ms(lambda: topology_admit(*args)),
+            device_ms=device_ms(lambda: topology_admit(*args),
+                                "topology_admit_kernel"),
+            plain_ms=cuda_ms(lambda: topology_admit_plain(*args), reps=5),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            shape=f"P={p} S={n} Z={z} I={i}", engaged=engaged,
+            gpu_engaged=gpu_engaged)
+    return out
+
+
+def check_k7(dev, gen):
+    """K7's two launches and the K2 gate between them at a gpu_share
+    step (P=2000, N=10 000, I=8, the affinity from K5), both strategies;
+    untimed, the edge state (none, one or all instances fitting, zone -1
+    and invalid instances), the topology manager off, and P=1. Each
+    launch equal to its plain version on the same inputs (the take
+    launch on the kernel's K2 result, which is held to K2's plain
+    version too)."""
+    out = {}
+    for label, n, edge, strategy, numa, p, timed in (
+            ("gpu_share least", 10_000, False, "least", True, 2000, True),
+            ("gpu_share most", 10_000, False, "most", True, 2000, False),
+            ("edge least", 1000, True, "least", True, 2000, False),
+            ("edge most, NUMA off", 1000, True, "most", False, 2000, False),
+            ("P=1", 1000, True, "least", True, 1, False)):
+        snap, batch = gpu_state(dev, gen, n, 6000, p, edge)
+        n, p = snap.num_nodes, batch.num_pods
+        st = gpu_step(snap, batch, gen)
+        d = snap.devices
+        i = d.gpu_free.shape[1]
+        zone = (None, None)
+        if numa:
+            adm = topology_admit(*k5_gpu_args(snap, st, "most"))
+            zone = (adm.affinity, adm.engaged)
+        base = (st["choice"], st["accept"], st["gpu_req"], d, *zone,
+                strategy)
+        pick = gpu_instance_pick(*base)
+        same_outputs(f"K7 gpu_instance_pick choose ({label})", pick,
+                     gpu_choose_plain(*base))
+        gate_base = torch.zeros((n * i, 3), device=dev)
+        one_pod = torch.zeros((n, 3), device=dev)
+        one_pod[:, 0] = 1.0
+        chain = dict(seg=pick.seg, rank=st["rank"], req=pick.req,
+                     active=pick.gate_active,
+                     tables=[(gate_base, d.gpu_free.view(n * i, 3), n * i),
+                             (gate_base[:n], one_pod, n)], eps=EPS)
+        alive = segment_prefix_chain(**chain)
+        if not torch.equal(alive, segment_prefix_chain_plain(**chain)):
+            raise SystemExit(f"K2 as the GPU gate ({label}) differs from "
+                             "its plain version")
+        take_args = (st["choice"], alive, st["gpu_req"], d, *zone, strategy)
+        fin = gpu_instance_pick(*take_args, chosen=pick)
+        same_outputs(f"K7 gpu_instance_pick take ({label})", fin,
+                     gpu_take_plain(st["choice"], alive, pick, d, *zone))
+        count = pick.count
+        stats = dict(
+            shared_tried=int((st["accept"] & (count == 1)).sum()),
+            shared_took=int((fin.accept & (count == 1)).sum()),
+            multi_tried=int((st["accept"] & (count > 1)).sum()),
+            multi_took=int((fin.accept & (count > 1)).sum()),
+            instances_taken=int(fin.take.sum()))
+        if not timed:
+            out[label] = dict(max_abs_err=0.0, **stats)
+            continue
+        # choose: the pods' columns (choice, active, GPU request,
+        # affinity, engaged) and the chosen nodes' instance rows once a
+        # node, the outputs (45 bytes a pod); per GPU pod the
+        # per-instance request (20) and 9 a fitting test and key per
+        # instance. take: the pods' columns and the multi-GPU pods'
+        # node rows, the outputs (1 + I bytes a pod); per multi-GPU pod
+        # one compare per shared take listed and 9 an instance
+        n_gpu = int((count > 0).sum())
+        rows = int(torch.unique(st["choice"][count > 0]).numel())
+        multi = st["accept"] & (count > 1)
+        n_multi, n_shared = int(multi.sum()), int(
+            (alive & (count == 1)).sum())
+        rows_multi = int(torch.unique(st["choice"][multi]).numel())
+        b_choose = bound(p * 21 + rows * (12 + 13 * i) + p * 45,
+                         n_gpu * (20 + 9 * i))
+        b_take = bound(p * 25 + rows_multi * 13 * i + p * (1 + i),
+                       n_multi * (n_shared + 9 * i))
+        chosen = gpu_instance_pick(*base)
+        ms_c = cuda_ms(lambda: gpu_instance_pick(*base))
+        ms_t = cuda_ms(lambda: gpu_instance_pick(*take_args, chosen=chosen))
+        dev_c = device_ms(lambda: gpu_instance_pick(*base),
+                          "gpu_choose_kernel")
+        dev_t = device_ms(lambda: gpu_instance_pick(*take_args,
+                                                    chosen=chosen),
+                          "gpu_take_kernel")
+        plain_c = cuda_ms(lambda: gpu_choose_plain(*base), reps=5)
+        plain_t = cuda_ms(lambda: gpu_take_plain(st["choice"], alive, pick,
+                                                 d, *zone), reps=5)
+        by = b_choose[1] if b_choose[0] >= b_take[0] else b_take[1]
+        out[label] = dict(
+            ms=ms_c + ms_t, device_ms=dev_c + dev_t,
+            plain_ms=plain_c + plain_t, library_ms=None,
+            bound_ms=b_choose[0] + b_take[0], bound_by=by, max_abs_err=0.0,
+            shape=f"P={p} N={n} I={i}, choose + take",
+            choose=dict(ms=ms_c, device_ms=dev_c, plain_ms=plain_c,
+                        bound_ms=b_choose[0], bound_by=b_choose[1]),
+            take=dict(ms=ms_t, device_ms=dev_t, plain_ms=plain_t,
+                      bound_ms=b_take[0], bound_by=b_take[1]),
+            gpu_gate=dict(
+                ms=cuda_ms(lambda: segment_prefix_chain(**chain)),
+                device_ms=device_ms(lambda: segment_prefix_chain(**chain),
+                                    "segment_prefix_chain_kernel"),
+                shape=f"P={p} L=2 R=3 S=[{n * i}, {n}]"),
+            **stats)
+    return out
+
+
+def check_k1_gpu(dev, gen):
+    """K1 with two pair addends, K4's zone score then K6's pool score,
+    and both gates in its pair mask, at a gpu_share chunk (P=2000,
+    N=10 000, k=8, jitter on; timed); untimed, the tail's k=32 without
+    jitter, negative estimates, and the NUMA path off (K6's score the
+    only addend). Equal to the plain version."""
+    out = {}
+    cfg = loadaware.LoadAwareConfig.make(device=dev)
+    for label, n, p, k, tie_break, numa in (
+            ("gpu_share", 10_000, 2000, 8, True, True),
+            ("k=32, no jitter", 10_000, 512, 32, False, True),
+            ("negative estimates", 1000, 2000, 8, True, True),
+            ("NUMA off", 1000, 2000, 8, True, False)):
+        snap, batch = gpu_state(dev, gen, n, 8000, p)
+        n, p = snap.num_nodes, batch.num_pods
+        alloc = snap.nodes.allocatable
+        load = torch.rand(alloc.shape, generator=gen, device=dev) * 0.9
+        snap = snap.replace(nodes=snap.nodes.replace(
+            requested=torch.floor(alloc * load / 500.0) * 500.0))
+        kw = k1_case(snap, batch, cfg, 0, p, k, gen, FIT_DIMS, SCORE_DIMS,
+                     tie_break=tie_break)
+        mask = None
+        if numa:
+            mask, kw["pair_score"] = numa_pair_terms(
+                *k4_args(snap, batch, "most"))
+        mask, dev_score = device_pair_terms(gpu_req_of(batch), snap.devices,
+                                            "least", mask)
+        kw["pair_ok"] = mask
+        if numa:
+            kw["pair_score2"] = dev_score
+        else:
+            kw["pair_score"] = dev_score
+        if label == "negative estimates":
+            kw["est"][::3, 0] -= 3000.0
+        (val, idx), err = k1_equal(f"two addends, {label}", kw)
+        if label != "gpu_share":
+            out[label] = dict(max_abs_err=err,
+                              feasible_pairs=int((val >= 0).sum()))
+            continue
+        gates = kw["gates"]
+        f, d = kw["req_fit"].shape[1], kw["est"].shape[1]
+        checked = expand_gates(gates) & kw["pair_ok"] & kw["row_ok"][:, None]
+        fit = torch.all(kw["req_fit"][:, None, :] + kw["requested_fit"][None]
+                        <= kw["alloc_fit"][None] + EPS, dim=-1)
+        n_rows = int(kw["row_ok"].sum())
+        n_checked = int(checked.sum())
+        n_feasible = int((checked & fit).sum())
+        n_needed, n_terms = k1_needed_pairs(kw, checked, val, idx)
+        active = int((kw["row_ok"] & gates.device_ok).sum())
+        # as K1 with one addend (check_k1_numa), with the second addend
+        # read (4 bytes) and added (one operation) wherever the first is
+        shared = p * (f + d) * 4 + n * (2 * f + 3 * d) * 4 + d * 4 \
+            + p * k * 8 + p * 9 + n * 8 + gates.selector_match.numel()
+        nbytes = shared + active * n + n_checked * 8
+        ops = active * n + 2 * n_checked + n * (3 + n_terms * (5 * d + 3)) \
+            + n_needed * (2 * f + 8 * d + 6)
+        ops_all = (n_rows * n + n_checked * 2 * f + n * (f + 2 * d)
+                   + n_feasible * (8 * d + 6))
+        b_ms, b_by = bound(nbytes, ops)
+        masked = torch.where(checked & fit, tie_break_jitter(
+            loadaware.least_requested_score(
+                kw["est"], kw["prod_scored"], kw["node_term"],
+                kw["prod_term"], kw["alloc_score"], gates.metric_fresh,
+                kw["weights"], kw["fma_sum"]) + kw["pair_score"]
+            + kw["pair_score2"]), -1.0)
+        out[label] = dict(
+            ms=cuda_ms(lambda: score_topk(**kw)),
+            device_ms=device_ms(lambda: score_topk(**kw),
+                                "score_topk_kernel"),
+            plain_ms=cuda_ms(lambda: score_topk_plain(**kw), reps=3),
+            library_ms=cuda_ms(lambda: torch.topk(masked, k, dim=1)),
+            bound_ms=b_ms, bound_by=b_by,
+            bound_ms_all_pairs=bound(shared + p * n * 9, ops_all)[0],
+            max_abs_err=err,
+            shape=f"P={p} N={n} k={k} F={f} D={d} + two pair scores",
+            feasible_pairs=n_feasible, needed_pairs=n_needed,
+            both_addends=int(((kw["pair_score"] > 0)
+                              & (kw["pair_score2"] > 0) & checked).sum()))
+    return out
+
+
 def config_2_phase():
     """BASELINE config 2 (10 000 pods x 1000 nodes, chunks of 2000, the
     NUMA path) on the card after a warm-up run, then on the host: the
@@ -1009,7 +1461,8 @@ def check_config_2(run, line, launches):
     rounds = chunks * CONFIG_2_KW["num_rounds"]
     steps = rounds * CONFIG_2_KW["k_choices"]
     want = {"numa_pair_terms": chunks, "topology_admit": steps,
-            "segment_prefix_ok": 2 * steps, "score_topk": rounds}
+            "segment_prefix_ok": 2 * steps, "score_topk": rounds,
+            "device_pair_terms": 0, "gpu_instance_pick": 0}
     for name, count in want.items():
         if launches[name] != count:
             raise SystemExit(f"config 2: {name} launched {launches[name]} "
@@ -1019,6 +1472,114 @@ def check_config_2(run, line, launches):
         raise SystemExit(f"config 2: K3 launched "
                          f"{launches['ordered_scatter_add']} times, not in "
                          f"(0, {k3_most}]")
+
+
+GPU_SHARE_FIELDS = ("assignment", "stats", "gpu_take", "nodes.requested",
+                    "nodes.numa_free", "devices.gpu_free", "quotas.used",
+                    "gangs.assumed", "nodes.assigned_estimated")
+
+
+def _run_field(run, path):
+    if path in ("assignment", "stats", "gpu_take"):
+        return getattr(run, path).cpu()
+    part, field = path.split(".")
+    return getattr(getattr(run.snapshot, part), field).cpu()
+
+
+def gpu_share_phase():
+    """gpu_share_100kx10k: at 8000 pods x 1000 nodes on the card and on
+    the host (every result field equal), then at 100 000 x 10 000 on the
+    card, counting launches, with its invariants. Returns (line,
+    launches, small-run summary)."""
+    small = {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        line, run = run_gpu_share(8000, 1000, chunk=2000, device=d)
+        small[d] = (line, run, time.perf_counter() - t0)
+    equal = {f: torch.equal(_run_field(small["cuda"][1], f),
+                            _run_field(small["cpu"][1], f))
+             for f in GPU_SHARE_FIELDS}
+    summary = {"equal_to_host": equal, "cuda_s": small["cuda"][2],
+               "cpu_s": small["cpu"][2],
+               **{k: small["cuda"][0][k] for k in (
+                   "placed", "gpu_pods_placed", "numa_bound_placed",
+                   "stragglers_after_sweep", "stragglers_final",
+                   "tail_passes")}}
+    print("gpu_share 8000x1000: " + json.dumps(summary), flush=True)
+    if not all(equal.values()):
+        raise SystemExit(f"gpu_share: the card's results differ from the "
+                         f"host's: {equal}")
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    line, run = run_gpu_share(device="cuda")
+    launches = kernels.launch_counts()
+    line["launches"] = launches
+    line["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    print("gpu_share: " + json.dumps(line), flush=True)
+    check_gpu_share(run, line, launches)
+    return line, launches, summary
+
+
+def check_gpu_share(run, line, launches):
+    """gpu_share's invariants: the launch counts its design fixes (K4 and
+    K6 once a batch, K1 once a round, K5 once an inner step, K7 twice,
+    K2 three times, K3 four times an inner step, three times a round and
+    eight times a batch); every placed GPU pod holds `count` instances
+    of its node, the takes times the per-instance requests equal each
+    valid instance's total minus its final free, and no free is
+    negative; no overcommit, quota within runtime; every pass retried a
+    full window of never-retried stragglers while any remained (the
+    tail's order), so that never_retried is what the pass budget leaves:
+    max(0, stragglers_after_sweep - passes * window)."""
+    chunks = line["num_pods"] // line["chunk"]
+    passes = line["tail_passes"]
+    batches = chunks + passes
+    rounds = (chunks * GPU_SHARE_KW["num_rounds"]
+              + passes * GPU_SHARE_TAIL_KW["num_rounds"])
+    steps = (chunks * GPU_SHARE_KW["num_rounds"] * GPU_SHARE_KW["k_choices"]
+             + passes * GPU_SHARE_TAIL_KW["num_rounds"]
+             * GPU_SHARE_TAIL_KW["k_choices"])
+    want = {"numa_pair_terms": batches, "device_pair_terms": batches,
+            "score_topk": rounds, "topology_admit": steps,
+            "gpu_instance_pick": 2 * steps, "segment_prefix_ok": 3 * steps,
+            "ordered_scatter_add": 4 * steps + 3 * rounds + 8 * batches}
+    for name, count in want.items():
+        if launches[name] != count:
+            raise SystemExit(f"gpu_share: {name} launched {launches[name]} "
+                             f"times, not {count}")
+    snap0, pods = gpu_share_inputs(line["num_pods"], line["num_nodes"],
+                                   device="cuda")
+    dev0 = snap0.devices
+    assign, take = run.assignment, run.gpu_take
+    count, per = deviceshare.per_instance_at(dev0, gpu_req_of(pods), assign)
+    placed = assign >= 0
+    if not torch.equal(take.sum(dim=1), torch.where(placed, count, 0)):
+        raise SystemExit("gpu_share: a placed GPU pod holds other than its "
+                         "count of instances")
+    n, i, _ = dev0.gpu_free.shape
+    used = torch.zeros((n + 1, i, 3), device=assign.device).index_add_(
+        0, torch.where(placed, assign, n).long(),
+        take[:, :, None] * per[:, None, :])[:n]
+    free = run.snapshot.devices.gpu_free
+    valid = dev0.gpu_valid[:, :, None]
+    if not bool((free >= 0).all()):
+        raise SystemExit("gpu_share: an instance's free is negative")
+    if not torch.equal((dev0.gpu_free - free) * valid, used * valid):
+        raise SystemExit("gpu_share: instance takes differ from total minus "
+                         "free")
+    if not (overcommit_ok(run.snapshot) and quota_ok(run.snapshot)):
+        raise SystemExit("gpu_share: overcommit or quota over runtime")
+    window = min(line["chunk"], 512)
+    left = max(0, line["stragglers_after_sweep"] - passes * window)
+    if line["never_retried"] != left:
+        raise SystemExit(f"gpu_share: {line['never_retried']} stragglers "
+                         f"never retried, not {left}")
+    if not (0 < line["gpu_pods_placed"] <= line["placed"]
+            and 0 < line["numa_bound_placed"] <= line["placed"]):
+        raise SystemExit(f"gpu_share: placed {line['placed']}, GPU "
+                         f"{line['gpu_pods_placed']}, NUMA-bound "
+                         f"{line['numa_bound_placed']}")
 
 
 def expected_launches(line):
@@ -1068,10 +1629,16 @@ def main() -> int:
     k5 = check_k5(dev, gen)
     k1_numa = check_k1_numa(dev, gen)
     k2_zones = check_k2_zones(dev, gen)
+    k6 = check_k6(dev, gen)
+    k5_gpu = check_k5_gpu(dev, gen)
+    k7 = check_k7(dev, gen)
+    k1_gpu = check_k1_gpu(dev, gen)
     for name, res in (("score_topk", k1), ("segment_prefix_ok", k2),
                       ("ordered_scatter_add", k3), ("numa_pair_terms", k4),
                       ("topology_admit", k5), ("score_topk", k1_numa),
-                      ("segment_prefix_ok", k2_zones)):
+                      ("segment_prefix_ok", k2_zones),
+                      ("device_pair_terms", k6), ("topology_admit", k5_gpu),
+                      ("gpu_instance_pick", k7), ("score_topk", k1_gpu)):
         for label, r in res.items():
             print(f"kernel {name} [{label}]: " + json.dumps(r), flush=True)
 
@@ -1108,7 +1675,8 @@ def main() -> int:
     if min(launches[k] for k in SLIM_KERNELS) <= 0:
         raise SystemExit(f"a kernel of the path never launched: {launches}")
     if any(launches[k] for k in launches if k not in SLIM_KERNELS):
-        raise SystemExit(f"the slim path launched a NUMA kernel: {launches}")
+        raise SystemExit(f"the slim path launched a NUMA or DeviceShare "
+                         f"kernel: {launches}")
     steps, k3_launches = expected_launches(line)
     if launches["segment_prefix_ok"] != steps:
         raise SystemExit(f"K2 launched {launches['segment_prefix_ok']} "
@@ -1132,22 +1700,42 @@ def main() -> int:
     # --- 5. BASELINE config 2, the NUMA path, at 10k x 1k ------------------
     _, launches_cfg2 = config_2_phase()
 
+    # --- 6. gpu_share_100kx10k, the DeviceShare path ----------------------
+    _, launches_gpu, _ = gpu_share_phase()
+
+    # each kernel's numbers at the shapes of the path it came with (K1-K3
+    # the flagship, K4-K5 config 2, K6-K7 gpu_share), and K1, K2, K5 at
+    # gpu_share's too
     timings = {"score_topk": k1["sweep"], "segment_prefix_ok": k2["chain"],
                "ordered_scatter_add": k3["node commit"],
                "numa_pair_terms": k4["cfg2 most"],
-               "topology_admit": k5["cfg2 most"]}
+               "topology_admit": k5["cfg2 most"],
+               "device_pair_terms": k6["gpu_share least"],
+               "gpu_instance_pick": k7["gpu_share least"]}
+    at_gpu_share = {"score_topk": k1_gpu["gpu_share"],
+                    "segment_prefix_ok": k7["gpu_share least"]["gpu_gate"],
+                    "topology_admit": k5_gpu["gpu_share most"]}
     report = []
     for name, r in timings.items():
         source, replaces = SOURCES[name]
-        path = launches if name in SLIM_KERNELS else launches_cfg2
-        report.append({
+        path = (launches if name in SLIM_KERNELS else launches_cfg2
+                if name in NUMA_KERNELS else launches_gpu)
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": path[name],
             "launches_by_path": {"flagship": launches[name],
-                                 "config_2": launches_cfg2[name]},
+                                 "config_2": launches_cfg2[name],
+                                 "gpu_share": launches_gpu[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if name in at_gpu_share:
+            g = at_gpu_share[name]
+            entry["at_gpu_share"] = {
+                k: g[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms", "shape")
+                if k in g}
+        report.append(entry)
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

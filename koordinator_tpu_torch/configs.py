@@ -1,4 +1,4 @@
-"""BASELINE configurations beside the flagship.
+"""Configurations beside the slim flagship.
 
 `run_config_2_numa` is the counterpart of `bench_configs.config_2_numa`
 in the JAX package (BASELINE.json configs[1]): 10 000 pods against
@@ -10,6 +10,21 @@ prod pod is single-NUMA bound. The pods run in chunks of 2000 through
 tie-break on, cascade off, NUMA strategy "most"), each chunk on the previous one's snapshot;
 there is no straggler tail. The reference scans the chunks on device;
 here they are a Python loop.
+
+`run_gpu_share` (`gpu_share_100kx10k`) is the reference's full-gate
+flagship (bench.py:226-250 knobs, :398-470 sweep and tail, :84-89 tail
+passes; utils/synthetic.py:369-420 full_gate_cluster and
+full_gate_pods) cut to the gates the port has: 100 000 pods against
+10 000 nodes, a quarter of the nodes with 8 A100-like GPU instances
+split over their two NUMA zones, 10 % GPU pods (shared half-GPUs, whole
+GPUs, 2- and 4-GPU trainers), a third of the prod pods single-NUMA
+bound, 32 quotas and 64 gangs of 8. It runs the DeviceShare path with
+NodeNUMAResource (NUMA strategy "most", device strategy "least") at
+full width (no packing prefixes), chunks of 2000 with the bench's knobs,
+then the straggler tail (4 rounds x 32 choices, windows of 512, 2 to 10
+passes). Cut from the full-gate workload, each a gate the port does not
+have yet: taints and tolerations, the spread/anti-affinity/affinity
+groups, the 64 reservation slots, and the cascade.
 """
 
 from __future__ import annotations
@@ -20,16 +35,33 @@ import time
 import torch
 
 from koordinator_tpu_torch import resolve_device
+from koordinator_tpu_torch.flagship import FlagshipRun, sweep_and_tail
 from koordinator_tpu_torch.scheduler.core import schedule_batch
 from koordinator_tpu_torch.scheduler.plugins.loadaware import LoadAwareConfig
 from koordinator_tpu_torch.snapshot.schema import ClusterSnapshot, PodBatch
-from koordinator_tpu_torch.utils.synthetic import config_2_inputs, slice_batch
+from koordinator_tpu_torch.scheduler.plugins.deviceshare import (
+    has_gpu_request,
+)
+from koordinator_tpu_torch.utils.synthetic import (
+    config_2_inputs,
+    gpu_share_inputs,
+    slice_batch,
+)
 
 CONFIG_2_METRIC = "baseline_cfg2_numa_10kx1k"
 # bench_configs._run_scheduler_config's step
 CONFIG_2_KW = dict(num_rounds=2, k_choices=8, score_dims=(0, 1),
                    tie_break=True, quota_depth=2, fit_dims=(0, 1, 2, 3),
                    cascade=False, enable_numa=True, numa_strategy="most")
+
+GPU_SHARE_METRIC = "gpu_share_100kx10k"
+# bench.py's full-gate step at full width, less the gates not ported
+GPU_SHARE_KW = dict(num_rounds=2, k_choices=8, score_dims=(0, 1),
+                    tie_break=True, quota_depth=2, fit_dims=(0, 1, 2, 3),
+                    cascade=False, enable_numa=True, numa_strategy="most",
+                    enable_devices=True, device_strategy="least")
+GPU_SHARE_TAIL_KW = dict(GPU_SHARE_KW, num_rounds=4, k_choices=32)
+FULL_GATE_MAX_TAIL_PASSES = 10
 
 
 @dataclasses.dataclass
@@ -83,6 +115,52 @@ def run_config_2_numa(num_pods: int = 10_000, num_nodes: int = 1000,
         "pods_per_sec": num_pods / elapsed,
         "placed": int((assign >= 0).sum()),
         "numa_bound_placed": int((run.numa_zone >= 0).sum()),
+        "num_pods": num_pods,
+        "num_nodes": num_nodes,
+        "chunk": chunk,
+        "platform": dev.type,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+    }
+    return line, run
+
+
+def run_gpu_share(num_pods: int = 100_000, num_nodes: int = 10_000,
+                  chunk: int = 2000, device="cuda"):
+    """Build `gpu_share_100kx10k` (`utils.synthetic.gpu_share_inputs`),
+    time one sweep-and-tail on it, and return (line, run): `line` holds
+    the bench line's fields (value = seconds of the timed region, which
+    ends with the assignment's readback; pods_per_sec, placed,
+    gpu_pods_placed, numa_bound_placed, the stragglers, tail passes) and
+    the device it ran on; `run` the final snapshot, the assignment and
+    the placed pods' GPU instance takes. The first call on a card also
+    pays the kernels' build unless `kernels.build.build_all()` ran
+    before."""
+    dev = resolve_device(device)
+    snap, pods = gpu_share_inputs(num_pods, num_nodes, device=dev)
+    cfg = LoadAwareConfig.make(device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    run: FlagshipRun = sweep_and_tail(
+        snap, pods, cfg, chunk, step_kw=GPU_SHARE_KW,
+        tail_kw=GPU_SHARE_TAIL_KW, max_passes=FULL_GATE_MAX_TAIL_PASSES)
+    assign = run.assignment.cpu()
+    elapsed = time.perf_counter() - t0
+    placed = assign >= 0
+    gpu = has_gpu_request(pods.requests, pods.gpu_ratio).cpu()
+    stats = [int(x) for x in run.stats]
+    line = {
+        "metric": GPU_SHARE_METRIC,
+        "value": elapsed,
+        "pods_per_sec": num_pods / elapsed,
+        "placed": int(placed.sum()),
+        "gpu_pods_placed": int((placed & gpu).sum()),
+        "numa_bound_placed": int((placed & pods.numa_single.cpu()).sum()),
+        "stragglers_after_sweep": stats[0],
+        "stragglers_final": stats[1],
+        "never_retried": stats[2],
+        "tail_passes": stats[3],
         "num_pods": num_pods,
         "num_nodes": num_nodes,
         "chunk": chunk,

@@ -18,9 +18,11 @@
 // selector table; a pair passes when every term does. The selector
 // rows of a block's pods are staged in shared memory as bits over the
 // label groups. An optional bool[P, N] pair mask carries gates that do
-// not factor, and an optional f32[P, N] pair score is added to the
-// LoadAware score before the jitter, as the reference adds its NUMA zone
-// score (core.py:693-696); both are null on the slim path.
+// not factor, and up to two f32[P, N] pair scores are added to the
+// LoadAware score before the jitter, in the reference's order
+// (core.py:693-699: the NUMA zone score from K4, then the DeviceShare
+// pool score from K6, or the latter alone); all are null on the slim
+// path.
 //
 // What bounds it on the H100: operations. A pair that passes the gates
 // and the fit costs D + 1 correctly rounded divisions (__fdiv_rn, tens
@@ -77,6 +79,20 @@
 //   the index order by `better`, as for the slim rows. A gated-off
 //   class stages -inf, and -inf + a stays -inf for a finite a. The
 //   slim instance is unchanged.
+// - Two pair scores (the ADD2 instance, the DeviceShare path with
+//   NUMA): the value is jit(fl(fl(la + a1) + a2)), a1 K4's zone score
+//   and a2 K6's pool score, added in that order as the reference adds
+//   them. Pre-summing the addends is not the same: where a pod has
+//   both (a NUMA-bound GPU pod), fl(fl(la + a1) + a2) and
+//   fl(la + fl(a1 + a2)) can differ in the last bit. The filter bounds
+//   the pair by jit_1023(fl(fl(U + a1) + a2)), reading both addends.
+//   Proof that this bounds every value: la <= U as above, so
+//   fl(la + a1) <= fl(U + a1) (rounding is monotone), and adding a2
+//   and rounding again keeps the order: fl(fl(la + a1) + a2) <=
+//   fl(fl(U + a1) + a2); the jitter does not decrease in its argument
+//   nor in h. A gated-off class stages -inf, and -inf plus two finite
+//   addends stays -inf. The slim and one-addend instances are
+//   unchanged.
 //
 // Exactness against the reference (bit for bit): the file builds with
 // -fmad=false, and the arithmetic names its rounding. The floors sit on
@@ -159,7 +175,8 @@ struct Args {
   const float* alloc_score;    // [N, D]
   const uint8_t* selector_match;  // [S, L]
   const uint8_t* pair_ok;         // [P, N] or null
-  const float* pair_score;        // [P, N] (the ADD instance) or null
+  const float* pair_score;        // [P, N] (the ADD instances) or null
+  const float* pair_score2;       // [P, N] (the ADD2 instance) or null
   const float* weights;           // [D]
   float* part_val;                // [gridDim.x, RB, k]
   int32_t* part_idx;
@@ -369,7 +386,7 @@ __device__ __forceinline__ bool node_gate(const Args& a, int n, int g) {
          (cls == 0 || (cls == 1 ? a.node_ok[n] : a.prod_node_ok[n]) || stale);
 }
 
-template <class C, bool ADD>
+template <class C, int ADD>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     score_topk_kernel(const Args a) {
   constexpr int MAXD = C::MAXD, THREADS = C::THREADS, TILE = C::TILE;
@@ -565,7 +582,10 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
                                           s_w, wsum, a.fma_sum)
                   : 0.0f;
     }
-    if (ADD && ok) v = __fadd_rn(v, a.pair_score[(size_t)prow[r] * N + n]);
+    if (ADD >= 1 && ok)
+      v = __fadd_rn(v, a.pair_score[(size_t)prow[r] * N + n]);
+    if (ADD == 2 && ok)
+      v = __fadd_rn(v, a.pair_score2[(size_t)prow[r] * N + n]);
     if (ok && a.tie_break) {
       const uint32_t h =
           ((uint32_t)prow[r] * 2654435761u + (uint32_t)n * 40503u) & 1023u;
@@ -652,8 +672,10 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
           float ub = ubr[r][ii];
-          if (ADD && live[r] && in) {
+          if (ADD >= 1 && live[r] && in) {
             ub = __fadd_rn(ub, a.pair_score[(size_t)prow[r] * N + n]);
+            if (ADD == 2)
+              ub = __fadd_rn(ub, a.pair_score2[(size_t)prow[r] * N + n]);
             if (a.tie_break) ub = __fmaf_rn(1023.0f, JITTER, ub);
           }
           bool sel = true;
@@ -746,7 +768,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 
 // Allow the instance its dynamic shared memory and count its resident
 // blocks an SM (once).
-template <class C, bool ADD>
+template <class C, int ADD>
 int prepare(int* occupancy) {
   static int occ = 0;
   if (occ == 0) {
@@ -765,7 +787,7 @@ int prepare(int* occupancy) {
   return 0;
 }
 
-template <class C, bool ADD>
+template <class C, int ADD>
 int launch(const Args& a, int blocks, cudaStream_t s) {
   const int rc = prepare<C, ADD>(nullptr);
   if (rc) return rc;
@@ -776,20 +798,22 @@ int launch(const Args& a, int blocks, cudaStream_t s) {
 
 template <class C>
 int launch(const Args& a, int blocks, cudaStream_t s) {
-  return a.pair_score != nullptr ? launch<C, true>(a, blocks, s)
-                                 : launch<C, false>(a, blocks, s);
+  if (a.pair_score2 != nullptr) return launch<C, 2>(a, blocks, s);
+  return a.pair_score != nullptr ? launch<C, 1>(a, blocks, s)
+                                 : launch<C, 0>(a, blocks, s);
 }
 
 template <class C>
-int prepare(bool add, int* occupancy) {
-  return add ? prepare<C, true>(occupancy) : prepare<C, false>(occupancy);
+int prepare(int add, int* occupancy) {
+  if (add == 2) return prepare<C, 2>(occupancy);
+  return add ? prepare<C, 1>(occupancy) : prepare<C, 0>(occupancy);
 }
 
 }  // namespace
 
 // The grid of one launch for P pods: at least one block per 16 rows,
 // and enough blocks to fill every SM as far as the instance's occupancy
-// allows (`add`: the instance with a pair score). Returns the block
+// allows (`add`: the number of pair scores, 0 to 2). Returns the block
 // count, or minus a CUDA error code.
 extern "C" int koord_score_topk_blocks(int P, int F, int D, int add) {
   const int need = (P + RB - 1) / RB;
@@ -808,7 +832,8 @@ extern "C" int koord_score_topk_blocks(int P, int F, int D, int add) {
 // prod_scored, req_fit, est, label_group, node_ok, prod_node_ok, fresh,
 // schedulable, requested_fit, alloc_fit, node_term, prod_term,
 // alloc_score, selector_match, pair_ok (or null), weights, part_val,
-// part_idx, tickets, out_val, out_idx, pair_score (or null). dims: P,
+// part_idx, tickets, out_val, out_idx, pair_score (or null),
+// pair_score2 (or null; only with pair_score). dims: P,
 // N, F, D, k, S, L, tie_break, fma_sum, blocks (from
 // koord_score_topk_blocks).
 extern "C" int koord_score_topk(const void* const* ptr, const int* dims,
@@ -841,6 +866,7 @@ extern "C" int koord_score_topk(const void* const* ptr, const int* dims,
   a.out_val = (float*)ptr[24];
   a.out_idx = (int32_t*)ptr[25];
   a.pair_score = (const float*)ptr[26];
+  a.pair_score2 = (const float*)ptr[27];
   a.P = dims[0];
   a.N = dims[1];
   a.F = dims[2];
@@ -854,7 +880,8 @@ extern "C" int koord_score_topk(const void* const* ptr, const int* dims,
   const int blocks = dims[9];
   if (a.P <= 0) return 0;
   if (a.F > MAX_DIMS || a.D > MAX_DIMS || a.k > MAX_K || a.k > a.N ||
-      a.k <= 0 || a.L > MAX_LABELS || a.N >= SENTINEL || blocks <= 0)
+      a.k <= 0 || a.L > MAX_LABELS || a.N >= SENTINEL || blocks <= 0 ||
+      (a.pair_score2 != nullptr && a.pair_score == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return a.F <= NARROW && a.D <= NARROW ? launch<Narrow>(a, blocks, s)

@@ -9,9 +9,15 @@
 // - the effective policy: single-numa-node for a NUMA-bound pod, else
 //   the node's, none for a pod that is not trying; engaged = policy set;
 // - scheduler/topologymanager.py capacity_hints (the CPU+memory
-//   provider; the request is zero where not engaged), merge_hints over
-//   that one provider, resolve (the four policies, either strategy) and
-//   greedy_take.
+//   provider; the request is zero where not engaged);
+// - with GPU instances (I > 0, the DeviceShare path, core.py:930-940):
+//   the pod's per-instance request at the chosen node
+//   (deviceshare.py:111 per_instance_at), the node's instances that fit
+//   it per zone on the live instance free (:184 gpu_zone_counts; zone
+//   -1 counts in none) and topologymanager.py:97 count_hints with need =
+//   count where engaged, else 0;
+// - merge_hints over the providers (capacity first, then count),
+//   resolve (the four policies, either strategy) and greedy_take.
 // It writes the affinity bool[P, Z], engaged bool[P], admit bool[P]
 // (policy admission and, where engaged, a take that fills the request),
 // the take f32[P, Z, 2] (K2 reads its zone columns as the per-level
@@ -44,6 +50,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_share.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -53,6 +61,16 @@ constexpr int POLICY_NONE = 0;
 constexpr int POLICY_BEST_EFFORT = 1;
 constexpr int POLICY_RESTRICTED = 2;
 constexpr int POLICY_SINGLE_NUMA_NODE = 3;
+
+// The DeviceShare provider's inputs (I = 0: no provider).
+struct Gpu {
+  const float* req;      // [P, 3] core, memory, memory ratio
+  const float* total;    // [S, 3]
+  const float* free_;    // [S, I, 3] live
+  const uint8_t* valid;  // [S, I]
+  const int32_t* numa;   // [S, I]
+  int I;
+};
 
 struct Out {
   uint8_t* affinity;   // [P, Z]
@@ -67,7 +85,8 @@ __global__ void __launch_bounds__(THREADS) topology_admit_kernel(
     const uint8_t* __restrict__ single, const float* __restrict__ demand,
     const float* __restrict__ cap, const float* __restrict__ used,
     const uint8_t* __restrict__ valid_, const int32_t* __restrict__ policy_,
-    int P, int S, int Z, int least, float eps, float eps_scale, Out out) {
+    int P, int S, int Z, int least, float eps, float eps_scale, Gpu gpu,
+    Out out) {
   const int p = blockIdx.x * THREADS + threadIdx.x;
   if (p >= P) return;
   const int M = 1 << Z;
@@ -121,7 +140,40 @@ __global__ void __launch_bounds__(THREADS) topology_admit_kernel(
     if (((fit >> m) & 1u) && __popc(m) == min_cnt) pref |= 1u << m;
   const unsigned all = M >= 32 ? 0xffffffffu : (1u << M) - 1u;
   if (no_request) fit = pref = all;
-  // merge_hints over one provider: pref & fit (already)
+
+  // count_hints (DeviceShare): fitting instances per zone of the node
+  if (gpu.I > 0) {
+    const koord_dev::PerInst pi = koord_dev::per_instance(
+        gpu.total[(size_t)nc * 3 + 1], gpu.req[(size_t)p * 3],
+        gpu.req[(size_t)p * 3 + 1], gpu.req[(size_t)p * 3 + 2]);
+    int zc[MAX_Z] = {0, 0, 0, 0};
+    for (int i = 0; i < gpu.I; ++i) {
+      const size_t o = (size_t)nc * gpu.I + i;
+      const int zid = gpu.numa[o];
+      if (gpu.valid[o] && zid >= 0 && zid < Z &&
+          koord_dev::covers(gpu.free_ + o * 3, pi.v, eps))
+        ++zc[zid];
+    }
+    const int need = engaged ? pi.count : 0;
+    unsigned cfit = 0, cpref = 0;
+    int cmin = Z + 1;
+    for (int m = 1; m < M; ++m) {
+      int have = 0;
+      for (int z = 0; z < Z; ++z)
+        if ((m >> z) & 1) have += zc[z];
+      if (have >= need) {
+        cfit |= 1u << m;
+        cmin = min(cmin, __popc(m));
+      }
+    }
+    for (int m = 1; m < M; ++m)
+      if (((cfit >> m) & 1u) && __popc(m) == cmin) cpref |= 1u << m;
+    if (need <= 0) cfit = cpref = all;
+    fit &= cfit;
+    pref &= cpref;
+  }
+  // merge_hints: the AND of the providers, preferred only where it fits
+  pref &= fit;
 
   // resolve: the hint key of every mask
   float mask_free[MAX_M];
@@ -227,21 +279,26 @@ __global__ void __launch_bounds__(THREADS) topology_admit_kernel(
 
 // ptr: choice, trying, numa_single, demand [P, 2], numa_cap [S, Z, 2],
 // numa_used [S, Z, 2], numa_valid [S, Z], numa_policy [S], then the
-// outputs affinity, engaged, admit, take, zone1. least: 0 for "most", 1
-// for "least". eps: the gate tolerance; eps_scale: 1 + eps as the
-// reference rounds it to f32.
+// outputs affinity, engaged, admit, take, zone1, then the DeviceShare
+// provider's gpu_req [P, 3], gpu_total [S, 3], gpu_free [S, I, 3],
+// gpu_valid [S, I], gpu_numa [S, I] (read only when I > 0). least: 0
+// for "most", 1 for "least". eps: the gate tolerance; eps_scale: 1 +
+// eps as the reference rounds it to f32.
 extern "C" int koord_topology_admit(const void* const* ptr, int P, int S,
-                                    int Z, int least, float eps,
+                                    int Z, int I, int least, float eps,
                                     float eps_scale, void* stream) {
   if (P <= 0) return 0;
-  if (S <= 0 || Z <= 0 || Z > MAX_Z) return (int)cudaErrorInvalidValue;
+  if (S <= 0 || Z <= 0 || Z > MAX_Z || I < 0) return (int)cudaErrorInvalidValue;
   Out out{(uint8_t*)ptr[8], (uint8_t*)ptr[9], (uint8_t*)ptr[10],
           (float*)ptr[11], (int32_t*)ptr[12]};
+  Gpu gpu{(const float*)ptr[13], (const float*)ptr[14],
+          (const float*)ptr[15], (const uint8_t*)ptr[16],
+          (const int32_t*)ptr[17], I};
   topology_admit_kernel<<<(P + THREADS - 1) / THREADS, THREADS, 0,
                           (cudaStream_t)stream>>>(
       (const int32_t*)ptr[0], (const uint8_t*)ptr[1], (const uint8_t*)ptr[2],
       (const float*)ptr[3], (const float*)ptr[4], (const float*)ptr[5],
       (const uint8_t*)ptr[6], (const int32_t*)ptr[7], P, S, Z, least, eps,
-      eps_scale, out);
+      eps_scale, gpu, out);
   return (int)cudaGetLastError();
 }

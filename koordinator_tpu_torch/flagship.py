@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
+from typing import Optional
 
 import torch
 
@@ -48,29 +49,44 @@ class FlagshipRun:
     assignment: torch.Tensor     # i32[P] node per pod, -1 = unplaced
     stats: torch.Tensor          # i32[4] after_sweep, final, never_retried,
                                  # passes
+    gpu_take: Optional[torch.Tensor] = None  # bool[P, I] placed pods' GPU
+                                             # instances, where the path
+                                             # has them
 
 
 def sweep_and_tail(snap: ClusterSnapshot, pods: PodBatch,
                    cfg: LoadAwareConfig, chunk: int,
-                   tail_chunk: int = None) -> FlagshipRun:
-    """Schedule `pods` chunk by chunk, each chunk on the previous one's
-    snapshot, then retry the stragglers in windows of `tail_chunk`
-    (default min(chunk, 512))."""
+                   tail_chunk: int = None, step_kw: dict = None,
+                   tail_kw: dict = None,
+                   max_passes: int = DEFAULT_MAX_TAIL_PASSES) -> FlagshipRun:
+    """Schedule `pods` chunk by chunk with `schedule_batch(**step_kw)`,
+    each chunk on the previous one's snapshot, then retry the stragglers
+    in windows of `tail_chunk` (default min(chunk, 512)) with
+    `schedule_batch(**tail_kw)`, 2 to `max_passes` passes. The kwargs
+    default to the slim flagship's (STEP_KW, TAIL_KW); a path with GPU
+    instances also returns every placed pod's instance takes."""
+    step_kw = STEP_KW if step_kw is None else step_kw
+    tail_kw = TAIL_KW if tail_kw is None else tail_kw
     num = pods.num_pods
     if num % chunk:
         raise ValueError(f"{num} pods not divisible by chunk {chunk}")
     tail_chunk = min(chunk, 512) if tail_chunk is None else tail_chunk
-    assigns = []
+    results = []
     for start in range(0, num, chunk):
         res = schedule_batch(snap, slice_batch(pods, start, chunk), cfg,
-                             **STEP_KW)
+                             **step_kw)
         snap = res.snapshot
-        assigns.append(res.assignment)
-    snap, assign, stats = tail_compaction_loop(
-        functools.partial(schedule_batch, **TAIL_KW), snap,
-        torch.cat(assigns), pods, cfg, tail_chunk=tail_chunk,
-        min_passes=MIN_TAIL_PASSES, max_passes=DEFAULT_MAX_TAIL_PASSES)
-    return FlagshipRun(snapshot=snap, assignment=assign, stats=stats)
+        results.append(res)
+    gpu_take = None
+    if snap.devices.num_instances and step_kw.get("enable_devices", True):
+        gpu_take = torch.cat([r.gpu_take for r in results])
+    snap, assign, stats, gpu_take = tail_compaction_loop(
+        functools.partial(schedule_batch, **tail_kw), snap,
+        torch.cat([r.assignment for r in results]), pods, cfg,
+        tail_chunk=tail_chunk, min_passes=MIN_TAIL_PASSES,
+        max_passes=max_passes, gpu_take=gpu_take)
+    return FlagshipRun(snapshot=snap, assignment=assign, stats=stats,
+                       gpu_take=gpu_take)
 
 
 def run_northstar(num_pods: int = 100_000, num_nodes: int = 10_000,

@@ -14,6 +14,8 @@ from typing import Dict
 
 def _wrappers():
     from koordinator_tpu_torch.kernels import (
+        device_terms,
+        gpu_instances,
         numa_terms,
         scatter,
         score_topk,
@@ -24,7 +26,9 @@ def _wrappers():
             "segment_prefix_ok": segment_prefix.segment_prefix_chain,
             "ordered_scatter_add": scatter.ordered_scatter_add,
             "numa_pair_terms": numa_terms.numa_pair_terms,
-            "topology_admit": topology.topology_admit}
+            "topology_admit": topology.topology_admit,
+            "device_pair_terms": device_terms.device_pair_terms,
+            "gpu_instance_pick": gpu_instances.gpu_instance_pick}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C function and compiles on its
 own into `build/kernels/lib<name>-<hash>.so` at the repository root
-(the hash is of the source, so an edited source rebuilds). All sources
+(the hash is of the source and the shared headers `csrc/*.cuh`, so an
+edited source or header rebuilds). All sources
 compile in parallel, one `nvcc` each, at the first launch of any
 kernel, or up front through `build_all()`. Flags: sm_90a, -O3, and
 `-fmad=false`, so that nvcc contracts no multiply-add the reference
@@ -26,7 +27,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(ROOT, "build", "kernels")
 SOURCES = ("score_topk", "segment_prefix_ok", "ordered_scatter_add",
-           "numa_terms", "topology_admit")
+           "numa_terms", "topology_admit", "device_terms", "gpu_instances")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -52,8 +53,11 @@ class Toolchain:
         return found
 
     def _target(self, name: str) -> str:
-        with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+        for src in [name + ".cu"] + headers:
+            with open(os.path.join(CSRC, src), "rb") as f:
+                digest.update(f.read())
         return os.path.join(BUILD_DIR,
                             f"lib{name}-{digest.hexdigest()[:12]}.so")
 

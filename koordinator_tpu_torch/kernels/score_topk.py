@@ -7,9 +7,10 @@ and the deviceshare prefilter, read there as one [P, N] mask;
 core.py:565-577 fit, :675-684 quota admission, loadaware.score_matrix,
 :721-742 jitter, mask and lax.top_k) without writing any [P, N] matrix:
 the static gates come in factored form (`cascade.GateTerms`), an
-optional bool[P, N] pair mask carries gates that do not factor, and an
-optional f32[P, N] pair score is added to the LoadAware score (the
-NUMA zone score of core.py:693-696, from K4).
+optional bool[P, N] pair mask carries gates that do not factor, and up
+to two f32[P, N] pair scores are added to the LoadAware score in the
+reference's order (core.py:693-699: the NUMA zone score from K4, then
+the DeviceShare pool score from K6).
 """
 
 from __future__ import annotations
@@ -53,12 +54,14 @@ def score_topk_plain(gates: GateTerms, pair_ok: Optional[torch.Tensor],
                      row_ok, req_fit, requested_fit, alloc_fit, est,
                      prod_scored, node_term, prod_term, alloc_score,
                      weights, k: int, tie_break: bool, eps: float,
-                     fma_sum: bool, pair_score: Optional[torch.Tensor] = None):
+                     fma_sum: bool, pair_score: Optional[torch.Tensor] = None,
+                     pair_score2: Optional[torch.Tensor] = None):
     """(val f32[P, k], idx i32[P, k]): the k best nodes of each pod by
     value descending then index ascending (lax.top_k's order), where a
-    pair's value is its LoadAware score (+ pair_score where given, then
-    + jitter) if it passes the static gates (`gates` expanded, and
-    `pair_ok` where given), the row mask and the resource fit, else -1.
+    pair's value is its LoadAware score (+ pair_score, then +
+    pair_score2, where given, each sum rounded, then + jitter) if it
+    passes the static gates (`gates` expanded, and `pair_ok` where
+    given), the row mask and the resource fit, else -1.
     `fma_sum` picks the rounding of the score's weighted sum
     (loadaware.weighted_sum)."""
     static_ok = expand_gates(gates)
@@ -72,6 +75,8 @@ def score_topk_plain(gates: GateTerms, pair_ok: Optional[torch.Tensor],
         gates.metric_fresh, weights, fma_sum)
     if pair_score is not None:
         scores = scores + pair_score
+    if pair_score2 is not None:
+        scores = scores + pair_score2
     if tie_break:
         scores = tie_break_jitter(scores)
     masked = torch.where(feasible, scores, -1.0)
@@ -91,11 +96,13 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
                req_fit, requested_fit, alloc_fit, est, prod_scored,
                node_term, prod_term, alloc_score, weights, k: int,
                tie_break: bool, eps: float, fma_sum: bool,
-               pair_score: Optional[torch.Tensor] = None):
+               pair_score: Optional[torch.Tensor] = None,
+               pair_score2: Optional[torch.Tensor] = None):
     """The selection of `score_topk_plain`: the kernel for CUDA tensors,
     the plain version for CPU tensors. Shapes: `gates` over P pods and N
     nodes (selector table S x L, L <= MAX_LABELS); pair_ok bool[P, N] or
-    None; pair_score f32[P, N] or None; row_ok, prod_scored bool[P]; req_fit f32[P, F]; requested_fit,
+    None; pair_score, pair_score2 f32[P, N] or None (the second only with
+    the first); row_ok, prod_scored bool[P]; req_fit f32[P, F]; requested_fit,
     alloc_fit f32[N, F]; est f32[P, D]; node_term, prod_term,
     alloc_score f32[N, D]; weights f32[D]; k <= 32;
     F, D <= NUM_RESOURCES.
@@ -135,6 +142,10 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
         checks.append(("pair_ok", pair_ok, torch.bool, (p, n)))
     if pair_score is not None:
         checks.append(("pair_score", pair_score, torch.float32, (p, n)))
+    if pair_score2 is not None:
+        if pair_score is None:
+            raise ValueError("score_topk: pair_score2 needs pair_score")
+        checks.append(("pair_score2", pair_score2, torch.float32, (p, n)))
     for name, t, dt, shape in checks:
         _launch.check_tensor(name, t, dt, shape, dev)
     if not 0 < k <= min(n, MAX_K):
@@ -145,7 +156,8 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
         return score_topk_plain(gates, pair_ok, row_ok, req_fit,
                                 requested_fit, alloc_fit, est, prod_scored,
                                 node_term, prod_term, alloc_score, weights,
-                                k, tie_break, eps, fma_sum, pair_score)
+                                k, tie_break, eps, fma_sum, pair_score,
+                                pair_score2)
     if dev.type != "cuda":
         raise ValueError(f"score_topk: unsupported device {dev}")
     if labels > MAX_LABELS:
@@ -154,7 +166,8 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
     stream = _launch.stream(dev)
     grid = TOOLCHAIN.function("score_topk", "koord_score_topk_blocks",
                               [ctypes.c_int] * 4)
-    blocks = grid(p, f, d, int(pair_score is not None))
+    blocks = grid(p, f, d, int(pair_score is not None)
+                  + int(pair_score2 is not None))
     check(0 if blocks > 0 else -blocks, "score_topk (occupancy)")
     val = torch.empty((p, k), dtype=torch.float32, device=dev)
     idx = torch.empty((p, k), dtype=torch.int32, device=dev)
@@ -169,7 +182,7 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
                alloc_fit, node_term, prod_term, alloc_score,
                gates.selector_match, pair_ok, weights, part_val, part_idx,
                _tickets(dev, stream.value or 0, blocks), val, idx,
-               pair_score)
+               pair_score, pair_score2)
     ptrs = (ctypes.c_void_p * len(tensors))(
         *(None if t is None else t.data_ptr() for t in tensors))
     dims = (ctypes.c_int * 10)(p, n, f, d, k, s, labels,

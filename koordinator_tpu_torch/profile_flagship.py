@@ -1,12 +1,13 @@
-"""Where the slim flagship's (or BASELINE config 2's) time goes on the
-card.
+"""Where the slim flagship's (or BASELINE config 2's, or gpu_share's)
+time goes on the card.
 
     python -m koordinator_tpu_torch.profile_flagship
-        [--workload flagship|config2]
+        [--workload flagship|config2|gpushare]
         [--out chiprun_out/profile_<workload>.json]
 
-Builds the kernels, runs the workload (the 100k x 10k slim flagship, or
-config 2: 10k pods x 1k nodes on the NUMA path) once to warm up and
+Builds the kernels, runs the workload (the 100k x 10k slim flagship;
+config 2: 10k pods x 1k nodes on the NUMA path; or gpu_share_100kx10k,
+the DeviceShare path with NUMA) once to warm up and
 once untraced, then traces one more run of the same size with
 torch.profiler recording device activity only (no host-side operator
 events), so the traced wall time stays close to the untraced one. It
@@ -29,7 +30,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from koordinator_tpu_torch.configs import run_config_2_numa
+from koordinator_tpu_torch.configs import run_config_2_numa, run_gpu_share
 from koordinator_tpu_torch.flagship import run_northstar
 from koordinator_tpu_torch.kernels.build import build_all
 
@@ -52,7 +53,8 @@ def _busy_us(events) -> float:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=("flagship", "config2"),
+    ap.add_argument("--workload", choices=("flagship", "config2",
+                                           "gpushare"),
                     default="flagship")
     ap.add_argument("--out", default=None,
                     help="default chiprun_out/profile_<workload>.json")
@@ -61,8 +63,10 @@ def main() -> None:
     if args.workload == "flagship":
         warm_up = functools.partial(run_northstar, device="cuda", snap_seed=0)
         run = functools.partial(run_northstar, device="cuda", snap_seed=7)
-    else:
+    elif args.workload == "config2":
         warm_up = run = functools.partial(run_config_2_numa, device="cuda")
+    else:
+        warm_up = run = functools.partial(run_gpu_share, device="cuda")
     if not torch.cuda.is_available():
         raise SystemExit("profile_flagship: no CUDA device")
     card = subprocess.run(

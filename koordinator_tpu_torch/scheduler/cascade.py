@@ -3,7 +3,7 @@
 Counterpart of `koordinator_tpu/scheduler/cascade.py` static_gates:
 nodeSelector, the LoadAware filter, `schedulable` and the taint
 forbids/penalty, as one bool[P, N] mask. `static_gate_terms` gives the
-same gates, with the zero-instance device prefilter, in factored form:
+same gates, with the device prefilter's per-pod part, in factored form:
 a few values per pod, a few per node and the selector table, which
 kernel K1 combines pair by pair, so the slim path never builds the
 [P, N] mask (`expand_gates` builds it for K1's plain version). The
@@ -75,15 +75,20 @@ def static_gate_terms(nodes: NodeState, pods: PodBatch,
                       devices: Optional[DeviceState]) -> GateTerms:
     """The gates of `static_gates(...)[0] & deviceshare.prefilter(...)`
     as `GateTerms`; `devices` None leaves the device prefilter out (every
-    pod passes it). Raises NotImplementedError where a gate does not
-    factor: taints (the taint penalty belongs to the full-gate form) and
-    a snapshot with device instances."""
+    pod passes it). On a snapshot with GPU instances the GPU part of the
+    prefilter is pairwise and left to kernel K6 (`device_pair_terms`);
+    `device_ok` keeps its aux part (no aux pool: a pod asking for an aux
+    resource passes nowhere). Raises NotImplementedError where a gate
+    does not factor: taints (the taint penalty belongs to the full-gate
+    form) and aux pools."""
     if pods.has_taints:
         raise NotImplementedError(
             "the taint gate and score penalty (pods.has_taints) are not "
             "ported yet (ROADMAP queue A item 6)")
     if devices is None:
         device_ok = torch.ones_like(pods.valid)
+    elif devices.gpu_free.shape[1]:
+        device_ok = deviceshare.no_aux_term(devices, pods)
     else:
         device_ok = deviceshare.zero_instance_term(devices, pods)
     node_ok, prod_node_ok = loadaware.filter_terms(nodes, cfg)

@@ -2,9 +2,10 @@
 conflict-resolving commit of one pod batch, then the straggler tail.
 
 Counterpart of `koordinator_tpu/scheduler/core.py` schedule_batch,
-tail_select, tail_pass and tail_compaction_loop for the slim flagship
-and the NodeNUMAResource path (`enable_numa`, with the topology
-manager): no device instances, no reservation slots, no
+tail_select, tail_pass and tail_compaction_loop for the slim flagship,
+the NodeNUMAResource path (`enable_numa`, with the topology manager)
+and DeviceShare's GPU instances (`enable_devices` on a snapshot with
+them): no aux (RDMA/FPGA) pools, no reservation slots, no
 spread/anti-affinity/affinity terms, no taint penalty, no
 amplification, cascade off. Anything outside that raises
 NotImplementedError.
@@ -23,7 +24,15 @@ gives each (pod, node) pair its batch-start NUMA gates and zone score,
 which K1 takes as a pair mask and a score addend; in each inner step,
 after the node and quota gates, kernel K5 (`topology_admit`) runs the
 topology manager for every trying pod on its chosen node, a second K2
-launch gates the zone takes zone by zone, and K3 commits them. After
+launch gates the zone takes zone by zone, and K3 commits them. With GPU
+instances, kernel K6 (`device_pair_terms`) gives each pair its
+batch-start instance gate, ANDed into the pair mask, and its pool
+score, K1's second addend (the first without NUMA); in each inner step
+K5 also runs DeviceShare's hint provider, kernel K7
+(`gpu_instance_pick`) picks each shared pod's instance, a third K2
+launch gates the shared pods per (node, instance) and admits one
+multi-GPU pod a node, K7 again gives the multi-GPU pods whole
+instances, and one K3 launch commits every pod's instance takes. After
 the rounds, strict gangs below quorum roll back, and the snapshot is
 rebuilt from the final assignment. The reference runs the rounds and steps as lax.scan loops
 inside one jitted program; here they are Python loops over launches,
@@ -33,11 +42,13 @@ with no host readback inside a batch.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from koordinator_tpu_torch.api.extension import NUM_AUX_TYPES, PriorityClass
+from koordinator_tpu_torch.kernels.device_terms import device_pair_terms
+from koordinator_tpu_torch.kernels.gpu_instances import gpu_instance_pick
 from koordinator_tpu_torch.kernels.numa_terms import numa_pair_terms
 from koordinator_tpu_torch.kernels.scatter import ordered_scatter_add
 from koordinator_tpu_torch.kernels.score_topk import score_topk
@@ -48,7 +59,11 @@ from koordinator_tpu_torch.scheduler.batching import (
     segment_prefix_chain,
 )
 from koordinator_tpu_torch.scheduler.cascade import static_gate_terms
-from koordinator_tpu_torch.scheduler.plugins import loadaware, numaaware
+from koordinator_tpu_torch.scheduler.plugins import (
+    deviceshare,
+    loadaware,
+    numaaware,
+)
 from koordinator_tpu_torch.scheduler.plugins.reservation import (
     rebuild_reservations,
     slot_columns,
@@ -81,25 +96,26 @@ class ScheduleResult(Struct):
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: the port covers the slim flagship path "
-        "and NodeNUMAResource (ROADMAP queue A item 6 holds the rest of "
-        "the full-gate form)")
+        f"{what} is not ported yet: the port covers the slim flagship "
+        "path, NodeNUMAResource and DeviceShare's GPU instances (ROADMAP "
+        "queue A item 6 holds the rest of the full-gate form)")
 
 
 def _check_slim(snap: ClusterSnapshot, pods: PodBatch, *, enable_numa,
-                numa_strategy, enable_devices, enable_amplification, cascade,
-                approx_topk) -> None:
+                numa_strategy, enable_devices, device_strategy,
+                enable_amplification, cascade, approx_topk) -> None:
     if enable_numa and numa_strategy not in ("most", "least"):
         raise ValueError(f"numa_strategy {numa_strategy!r}")
+    if enable_devices and device_strategy not in deviceshare.STRATEGIES:
+        raise ValueError(f"device_strategy {device_strategy!r}")
     if enable_amplification:
         raise _unported("enable_amplification=True")
     if cascade:
         raise _unported("cascade=True")
     if approx_topk:
         raise _unported("approx_topk=True")
-    if enable_devices and (snap.devices.gpu_free.shape[1]
-                           or snap.devices.aux_free.shape[2]):
-        raise _unported("a snapshot with GPU instances or aux pools")
+    if enable_devices and snap.devices.aux_free.shape[2]:
+        raise _unported("a snapshot with aux (RDMA/FPGA) instance pools")
     if pods.has_spread or pods.has_anti or pods.has_aff:
         raise _unported("pod topology spread and inter-pod (anti-)affinity")
 
@@ -126,6 +142,7 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                    enable_numa: bool = True,
                    numa_strategy: str = "most",
                    enable_devices: bool = True,
+                   device_strategy: str = "least",
                    quota_depth: int = MAX_QUOTA_DEPTH,
                    fit_dims: tuple = None,
                    enable_amplification: bool = False,
@@ -133,17 +150,20 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     """Schedule a pod batch against the snapshot. Pure: the caller
     publishes `result.snapshot`.
 
-    The arguments are the reference's subset for the slim path and the
-    NUMA path, with its defaults, so a slim caller passes
-    enable_numa=False. `fit_dims` are the resource dims the capacity and
-    quota gates check (None = all); `score_dims` the dims LoadAware
-    scores; `numa_strategy` ("most" or "least") the NUMA allocation
-    strategy of the zone score, the hint order and the zone take. The
-    reference's packing contracts (topo/numa/gpu prefixes, domain
-    classes) and the device strategy belong to the rest of the
-    full-gate path and are not arguments here."""
+    The arguments are the reference's subset for the slim path, the
+    NUMA path and the DeviceShare path, with its defaults, so a slim
+    caller passes enable_numa=False. `fit_dims` are the resource dims
+    the capacity and quota gates check (None = all); `score_dims` the
+    dims LoadAware scores; `numa_strategy` ("most" or "least") the NUMA
+    allocation strategy of the zone score, the hint order and the zone
+    take; `device_strategy` ("least" or "most") DeviceShare's, of the
+    pool score and the shared pods' instance choice. The reference's
+    packing contracts (topo/numa/gpu prefixes, domain classes) belong
+    to the rest of the full-gate path and are not arguments here: this
+    is its full-width form."""
     _check_slim(snap, pods, enable_numa=enable_numa,
                 numa_strategy=numa_strategy, enable_devices=enable_devices,
+                device_strategy=device_strategy,
                 enable_amplification=enable_amplification, cascade=cascade,
                 approx_topk=approx_topk)
     nodes0, quotas0, gangs0 = snap.nodes, snap.quotas, snap.gangs
@@ -176,10 +196,14 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     quota_seg = torch.where(pod_anc >= 0, pod_anc, n_quotas)[
         :, :quota_depth].T.to(torch.int32).contiguous()
 
-    # the static gates (selector, LoadAware filter, schedulable, device
-    # prefilter) in factored form: K1 combines them pair by pair
+    # the static gates (selector, LoadAware filter, schedulable, the
+    # device prefilter of a snapshot without instances) in factored
+    # form: K1 combines them pair by pair
+    devices0 = snap.devices
+    n_inst = devices0.gpu_free.shape[1]
+    use_gpu = enable_devices and n_inst > 0
     gates = static_gate_terms(nodes0, pods, cfg,
-                              snap.devices if enable_devices else None)
+                              devices0 if enable_devices else None)
     slot_columns(snap, pods)  # raises on live slots
     n_ext = n_nodes  # no slot columns
 
@@ -198,6 +222,30 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         out_zone = torch.full((p,), -1, dtype=torch.int32, device=dev)
         out_take = torch.zeros((p, n_zones, 2), dtype=torch.float32,
                                device=dev)
+
+    # DeviceShare at batch start (K6): the instance prefilter ANDed into
+    # the pair mask, the pool score a second addend after the zone
+    # score (the first without NUMA), as the reference sums them
+    pair_score2 = None
+    if use_gpu:
+        gpu_req = deviceshare.gpu_request(pods.requests,
+                                          pods.gpu_ratio).contiguous()
+        pair_ok, dev_score = device_pair_terms(gpu_req, devices0,
+                                               device_strategy, pair_ok)
+        if pair_score is None:
+            pair_score = dev_score
+        else:
+            pair_score2 = dev_score
+        gpu_free = devices0.gpu_free.contiguous()
+        n_slots_gpu = n_nodes * n_inst
+        # K2's tables for the shared gate (used 0, capacity the live
+        # instance free) and the one-multi-pod-a-node level (capacity 1)
+        gate_base = torch.zeros((n_slots_gpu, 3), dtype=torch.float32,
+                                device=dev)
+        one_pod = torch.zeros((n_nodes, 3), dtype=torch.float32, device=dev)
+        one_pod[:, 0] = 1.0
+        out_gpu_take = torch.zeros((p, n_inst), dtype=torch.bool, device=dev)
+        out_per = torch.zeros((p, 3), dtype=torch.float32, device=dev)
 
     req_fit = dims(pods.requests)
     alloc_fit = dims(nodes0.allocatable)
@@ -249,7 +297,7 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
             gates, pair_ok, row_ok, req_fit, dims(requested), alloc_fit,
             est_score, is_prod_scored, node_term, prod_term, alloc_score,
             weights, k, tie_break, EPS, fma_sum=score_dims is not None,
-            pair_score=pair_score)
+            pair_score=pair_score, pair_score2=pair_score2)
 
         kptr = torch.zeros((p,), dtype=torch.int64, device=dev)
         for _ in range(k):
@@ -267,16 +315,21 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                 trying, [(dims(requested), alloc_fit, n_ext)]
                 + [quota_table] * quota_depth, EPS)
 
+            if use_gpu:
+                live = devices0.replace(gpu_free=gpu_free)
             if enable_numa:
-                # the topology manager on the chosen node (K5), then the
-                # zone capacity prefix, zone by zone, over the engaged
-                # pods it admitted (K2: each zone sees the previous
-                # zone's gate); pods it rejects still counted in the
-                # node prefix above, as in the reference
+                # the topology manager on the chosen node (K5, with
+                # DeviceShare's hint provider on the live instance free
+                # where there are instances), then the zone capacity
+                # prefix, zone by zone, over the engaged pods it admitted
+                # (K2: each zone sees the previous zone's gate); pods it
+                # rejects still counted in the node prefix above, as in
+                # the reference
                 adm = topology_admit(
                     choice_eff, trying, pods.numa_single, demand,
                     nodes0.numa_cap, numa_used, nodes0.numa_valid,
-                    nodes0.numa_policy, numa_strategy)
+                    nodes0.numa_policy, numa_strategy,
+                    *((gpu_req, live) if use_gpu else ()))
                 accept = accept & adm.admit
                 used_flat = numa_used.view(n_nodes, n_zones * 2)
                 zone_ok = segment_prefix_chain(
@@ -286,6 +339,27 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                       numa_cap_flat[:, 2 * z:2 * z + 2], n_nodes)
                      for z in range(n_zones)], EPS)
                 accept = (accept & ~adm.engaged) | zone_ok
+
+            if use_gpu:
+                # the GPU instance gates (K7, K2, K7): shared pods'
+                # instances, their (node, instance) prefix gate and the
+                # first multi-GPU pod of each node in one K2 launch, then
+                # the multi-GPU pods' whole instances; engaged pods keep
+                # to the topology manager's affinity
+                zone = ((adm.affinity, adm.engaged) if enable_numa
+                        else (None, None))
+                pick = gpu_instance_pick(choice_eff, accept, gpu_req, live,
+                                         *zone, device_strategy)
+                alive = segment_prefix_chain(
+                    pick.seg, rank, pick.req, pick.gate_active,
+                    [(gate_base, gpu_free.view(n_slots_gpu, 3), n_slots_gpu),
+                     (gate_base[:n_nodes], one_pod, n_nodes)], EPS)
+                fin = gpu_instance_pick(choice_eff, alive, gpu_req, live,
+                                        *zone, device_strategy, chosen=pick)
+                accept = fin.accept
+
+            # scatter-commit (assume): accept is final from here on
+            if enable_numa:
                 took_z = accept & adm.engaged
                 numa_used = ordered_scatter_add(
                     used_flat, _where_i32(took_z, choice, n_nodes),
@@ -295,8 +369,23 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                                        out_take)
                 out_zone = _where_i32(took_z & pods.numa_single, adm.zone1,
                                       out_zone)
+            if use_gpu:
+                # every pod's instance takes in one ordered scatter over
+                # [N, I * 3]: no instance gets adds from a shared and a
+                # multi-GPU pod in one step (the take launch excludes the
+                # shared pods' instances), so this equals the
+                # reference's shared scatter followed by its multi-GPU
+                # one bit for bit (the other columns add -0.0)
+                took_gpu = accept & (pick.count > 0)
+                gpu_free = ordered_scatter_add(
+                    gpu_free.view(n_nodes, n_inst * 3),
+                    _where_i32(took_gpu, choice, n_nodes),
+                    -(fin.take[:, :, None] * pick.per_inst[:, None, :])
+                    .reshape(p, n_inst * 3)).view(n_nodes, n_inst, 3)
+                out_gpu_take = out_gpu_take | fin.take
+                out_per = torch.where(took_gpu[:, None], pick.per_inst,
+                                      out_per)
 
-            # scatter-commit (assume)
             acc_req = pods.requests * accept[:, None]
             requested = ordered_scatter_add(requested, choice_eff, acc_req)
             quota_used = quota_commit(quota_used, accept, acc_req)
@@ -360,7 +449,20 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         numa_take = torch.zeros((p, n_zones, 2), dtype=torch.float32,
                                 device=dev)
 
-    n_inst = snap.devices.gpu_free.shape[1]
+    # instance free from the surviving assignment (revoked gang members
+    # give their instances back); a take's per-instance request is the
+    # one of its pod at its node, carried from the step that took it
+    gpu_take = torch.zeros((p, n_inst), dtype=torch.bool, device=dev)
+    new_devices = devices0
+    if use_gpu:
+        gpu_take = out_gpu_take & ok[:, None]
+        new_devices = devices0.replace(gpu_free=torch.clamp_min(
+            ordered_scatter_add(
+                devices0.gpu_free.reshape(n_nodes, n_inst * 3),
+                _where_i32(ok & gpu_take.any(dim=1), placed, n_nodes),
+                -(gpu_take[:, :, None] * out_per[:, None, :]).reshape(
+                    p, n_inst * 3)), 0.0).view(n_nodes, n_inst, 3))
+
     new_snap = snap.replace(
         nodes=nodes0.replace(requested=requested,
                              assigned_estimated=assigned_est,
@@ -368,14 +470,18 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                              numa_free=numa_free),
         quotas=quotas0.replace(used=quota_used),
         gangs=gangs0.replace(assumed=gang_assumed),
-        reservations=rebuild_reservations(snap.reservations, pods, res_slot,
-                                          ok),
+        reservations=rebuild_reservations(
+            snap.reservations, pods, res_slot, ok,
+            numa_take=out_take if enable_numa else None,
+            gpu_take=gpu_take if use_gpu else None,
+            gpu_per_inst=out_per if use_gpu else None),
+        devices=new_devices,
         version=snap.version + 1)
     return ScheduleResult(
         assignment=placed,
         chosen_score=torch.where(ok, out_score, -1.0),
         numa_zone=numa_zone, numa_take=numa_take,
-        gpu_take=torch.zeros((p, n_inst), dtype=torch.bool, device=dev),
+        gpu_take=gpu_take,
         aux_inst=torch.full((p, NUM_AUX_TYPES), -1, dtype=torch.int32,
                             device=dev),
         res_slot=res_slot, gang_failed=gang_fail, snapshot=new_snap)
@@ -414,10 +520,13 @@ def tail_select(pods: PodBatch, assign: torch.Tensor, tried: torch.Tensor,
 
 
 def tail_pass(step_fn: Callable, snap: ClusterSnapshot, assign: torch.Tensor,
-              tried: torch.Tensor, pods: PodBatch, cfg, *, tail_chunk: int):
+              tried: torch.Tensor, pods: PodBatch, cfg, *, tail_chunk: int,
+              gpu_take: Optional[torch.Tensor] = None):
     """One retry pass: gather the selected stragglers into a compact
     [tail_chunk] batch, re-schedule it with `step_fn(snap, retry, cfg)`
-    and scatter the placements back. Returns (snap, assign, tried)."""
+    and scatter the placements back, and the placed pods' GPU instance
+    takes into `gpu_take` bool[P, I] where given. Returns (snap,
+    assign, tried, gpu_take)."""
     idx, attempt = tail_select(pods, assign, tried, tail_chunk)
     retry = pods.replace(
         **{f: getattr(pods, f)[idx] for f in PER_POD_FIELDS if f != "valid"},
@@ -428,28 +537,35 @@ def tail_pass(step_fn: Callable, snap: ClusterSnapshot, assign: torch.Tensor,
     got = attempt & (res.assignment >= 0)
     assign = assign.clone()
     assign[idx] = torch.where(got, res.assignment, assign[idx])
-    return res.snapshot, assign, tried
+    if gpu_take is not None:
+        gpu_take = gpu_take.clone()
+        gpu_take[idx] = torch.where(got[:, None], res.gpu_take, gpu_take[idx])
+    return res.snapshot, assign, tried, gpu_take
 
 
 def tail_compaction_loop(step_fn: Callable, snap: ClusterSnapshot,
                          assign: torch.Tensor, pods: PodBatch, cfg, *,
-                         tail_chunk: int, min_passes: int, max_passes: int):
+                         tail_chunk: int, min_passes: int, max_passes: int,
+                         gpu_take: Optional[torch.Tensor] = None):
     """Run tail passes until the stragglers drain or the budget is
     spent: min(min_passes, max_passes) passes always run; more run while
     stragglers remain and (the count improved or never-retried ones
     remain), up to max_passes. The reference loops on device; here the
     host reads two counts after each pass.
 
-    Returns (snap, assign, stats i32[4]) with stats =
-    [stragglers_after_sweep, stragglers_final, never_retried, passes]."""
+    Returns (snap, assign, stats i32[4], gpu_take) with stats =
+    [stragglers_after_sweep, stragglers_final, never_retried, passes]
+    and gpu_take the placed pods' GPU instance takes bool[P, I], carried
+    from the argument (None stays None)."""
     min_eff = min(int(min_passes), int(max_passes))
     left0 = int((pods.valid & (assign < 0)).sum())
     tried = torch.zeros_like(pods.valid)
     passes, left, improved, never_retried = 0, left0, False, left0
     while passes < min_eff or (passes < max_passes and left > 0
                                and (improved or never_retried > 0)):
-        snap, assign, tried = tail_pass(step_fn, snap, assign, tried, pods,
-                                        cfg, tail_chunk=tail_chunk)
+        snap, assign, tried, gpu_take = tail_pass(
+            step_fn, snap, assign, tried, pods, cfg, tail_chunk=tail_chunk,
+            gpu_take=gpu_take)
         bad = pods.valid & (assign < 0)
         new_left, never_retried = (
             int(x) for x in torch.stack([bad.sum(), (bad & ~tried).sum()]).cpu())
@@ -458,4 +574,4 @@ def tail_compaction_loop(step_fn: Callable, snap: ClusterSnapshot,
         left = new_left
     stats = torch.tensor([left0, left, never_retried, passes],
                          dtype=torch.int32)
-    return snap, assign, stats
+    return snap, assign, stats, gpu_take

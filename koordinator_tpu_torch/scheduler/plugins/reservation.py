@@ -7,7 +7,7 @@ snapshot. Live slots (V > 0) belong to the full-gate path and raise.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,8 +36,14 @@ def slot_columns(snap: ClusterSnapshot, pods: PodBatch
 
 
 def rebuild_reservations(resv: ReservationState, pods: PodBatch,
-                         res_slot: torch.Tensor,
-                         ok: torch.Tensor) -> ReservationState:
-    """The reservation state after the batch: with no slots, unchanged."""
+                         res_slot: torch.Tensor, ok: torch.Tensor,
+                         numa_take: Optional[torch.Tensor] = None,
+                         gpu_take: Optional[torch.Tensor] = None,
+                         gpu_per_inst: Optional[torch.Tensor] = None
+                         ) -> ReservationState:
+    """The reservation state after the batch, given the consumers'
+    slots, the placed pods, and their zone takes, GPU instance takes
+    and per-instance requests where the batch ran those paths (the
+    reference's arguments): with no slots, unchanged."""
     _require_no_slots(resv)
     return resv

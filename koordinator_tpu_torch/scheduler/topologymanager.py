@@ -8,8 +8,9 @@ single-numa-node). Every affinity candidate is one row of a fixed
 tensors, `fit` (the request fits the mask's combined free) and `pref`
 (the mask is minimal for the provider). These functions are the plain
 version that kernel K5 (`kernels/topology.py`) is held against; the
-scheduler's inner step calls K5. The DeviceShare provider
-(`count_hints`) is not ported yet.
+scheduler's inner step calls K5. Two providers: the CPU+memory one
+(`capacity_hints`) and DeviceShare's (`count_hints`, GPU instances per
+zone), merged in that order.
 
 Float note: the sums over zones run in zone order. The scheduler's
 zone free and requests are integer-valued (milli-CPU, MiB), so every
@@ -81,6 +82,24 @@ def capacity_hints(free_z: torch.Tensor, req: torch.Tensor,
     pref = fit & (popcnt[None] == min_cnt[:, None])
     no_request = torch.all(req <= EPS, dim=-1)[:, None]
     return fit | no_request, pref | no_request
+
+
+def count_hints(zone_counts: torch.Tensor, need: torch.Tensor) -> Hints:
+    """The DeviceShare provider (deviceshare topology hints): zone_counts
+    i32[P, Z] fitting instances per zone of the chosen node, need i32[P]
+    instances -> (fit, pref) bool[P, M]. A mask fits when its zones hold
+    `need` instances; pods with need <= 0 fit and prefer every mask."""
+    z = zone_counts.shape[1]
+    masks, popcnt = _table(z, zone_counts.device)
+    have = torch.zeros((zone_counts.shape[0], masks.shape[0]),
+                       dtype=torch.int32, device=zone_counts.device)
+    for zz in range(z):
+        have = have + zone_counts[:, zz, None] * masks[None, :, zz]
+    fit = (have >= need[:, None]) & (popcnt > 0)[None]
+    min_cnt = torch.where(fit, popcnt[None], z + 1).min(dim=-1).values
+    pref = fit & (popcnt[None] == min_cnt[:, None])
+    none = (need <= 0)[:, None]
+    return fit | none, pref | none
 
 
 def merge_hints(hints: List[Hints]) -> Hints:

@@ -4,8 +4,9 @@ A copy of the parts of `koordinator_tpu/utils/synthetic.py` that the
 slim flagship and BASELINE config 2 need: the same generator calls in
 the same order, so a seed gives the same arrays as the reference
 (tests/test_torch_schema.py holds the two equal). The arrays are built
-on the host and moved to `device` once. GPU nodes and reservation slots
-belong to the full-gate workload and are not ported yet.
+on the host and moved to `device` once. GPU nodes (`gpu_node_frac`) and
+GPU pods (`gpu_pod_frac`) draw in the reference's order; reservation
+slots belong to the full-gate workload and are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ from koordinator_tpu_torch.snapshot.schema import (
 R = NUM_RESOURCES
 CPU, MEM = int(ResourceKind.CPU), int(ResourceKind.MEMORY)
 BCPU, BMEM = int(ResourceKind.BATCH_CPU), int(ResourceKind.BATCH_MEMORY)
+GPU_CORE = int(ResourceKind.GPU_CORE)
+GPU_MEMORY = int(ResourceKind.GPU_MEMORY)
 
 
 def estimate_vectorized(requests: np.ndarray, limits: np.ndarray,
@@ -69,11 +72,18 @@ def synthetic_cluster(num_nodes: int, seed: int = 0,
                       gang_min_member: int = 8,
                       batch_overcommit_ratio: float = 0.5,
                       usage_cpu_frac: Tuple[float, float] = (0.0, 0.6),
+                      gpu_node_frac: float = 0.0,
+                      gpus_per_node: int = 8,
+                      gpu_memory_mib: float = 81920.0,
                       now_version: int = 0,
                       device="cuda") -> ClusterSnapshot:
     """Heterogeneous nodes with fresh NodeMetrics, batch-tier overcommit
     resources, a two-level quota tree (root + num_quotas - 1 children)
-    and gangs; no GPU pools and no reservation slots."""
+    and gangs; no reservation slots. With gpu_node_frac > 0, that share
+    of the nodes (drawn after the quotas, on the same generator) carries
+    gpus_per_node A100-like instances (100 core, gpu_memory_mib, 100
+    ratio each), split over two NUMA zones and two a PCIe root, and
+    their aggregate in the node's allocatable."""
     rng = np.random.default_rng(seed)
     n = num_nodes
     f32 = np.float32
@@ -160,23 +170,39 @@ def synthetic_cluster(num_nodes: int, seed: int = 0,
         satisfied=np.zeros((g,), bool),
         valid=np.arange(g) < num_gangs,
     )
+    i = gpus_per_node if gpu_node_frac > 0 else 0
     reservations = dict(
         node=np.full((0,), -1, np.int32),
         free=np.zeros((0, R), f32),
         owner_group=np.zeros((0,), np.int32),
         allocate_once=np.zeros((0,), bool),
         valid=np.ones((0,), bool),
-        gpu_free=np.zeros((0, 0, NUM_DEV_DIMS), f32),
-        gpu_valid=np.zeros((0, 0), bool),
+        gpu_free=np.zeros((0, i, NUM_DEV_DIMS), f32),
+        gpu_valid=np.zeros((0, i), bool),
         numa_free=np.zeros((0, 4, 2), f32),
         numa_valid=np.zeros((0, 4), bool),
     )
+    gpu_total = np.zeros((n, NUM_DEV_DIMS), f32)
+    is_gpu_node = np.zeros((n,), bool)
+    if gpu_node_frac > 0:
+        is_gpu_node = rng.uniform(size=n) < gpu_node_frac
+        gpu_total[is_gpu_node] = (100.0, gpu_memory_mib, 100.0)
+        alloc[is_gpu_node, GPU_CORE] = i * 100.0
+        alloc[is_gpu_node, GPU_MEMORY] = i * gpu_memory_mib
+    inst = np.arange(i)
+    gpu_numa = np.broadcast_to((inst * 2 // max(i, 1))[None, :],
+                               (n, i)).astype(np.int32).copy()
+    gpu_pcie = np.broadcast_to((inst // 2)[None, :],
+                               (n, i)).astype(np.int32).copy()
+    gpu_numa[~is_gpu_node] = -1
+    gpu_pcie[~is_gpu_node] = -1
     devices = dict(
-        gpu_total=np.zeros((n, NUM_DEV_DIMS), f32),
-        gpu_free=np.zeros((n, 0, NUM_DEV_DIMS), f32),
-        gpu_valid=np.zeros((n, 0), bool),
-        gpu_numa=np.full((n, 0), -1, np.int32),
-        gpu_pcie=np.full((n, 0), -1, np.int32),
+        gpu_total=gpu_total,
+        gpu_free=np.broadcast_to(gpu_total[:, None, :],
+                                 (n, i, NUM_DEV_DIMS)).copy(),
+        gpu_valid=np.broadcast_to(is_gpu_node[:, None], (n, i)).copy(),
+        gpu_numa=gpu_numa,
+        gpu_pcie=gpu_pcie,
         aux_free=np.zeros((n, NUM_AUX_TYPES, 0), f32),
         aux_valid=np.zeros((n, NUM_AUX_TYPES, 0), bool),
     )
@@ -189,9 +215,14 @@ def synthetic_pods(num_pods: int, seed: int = 1,
                    prod_frac: float = 0.6,
                    num_quotas: int = 0, num_gangs: int = 0,
                    gang_min_member: int = 8,
+                   gpu_pod_frac: float = 0.0,
                    device="cuda") -> PodBatch:
     """A pending-pod queue: prod pods request native cpu/mem, batch pods
-    batch-tier resources; requests are multiples of 500 mC and 512 MiB."""
+    batch-tier resources; requests are multiples of 500 mC and 512 MiB.
+    With gpu_pod_frac > 0, that share of the pods asks for GPU ratio
+    and core 50, 100, 200 or 400 (shared half-GPUs, whole GPUs, 2- and
+    4-GPU trainers; probabilities 0.4/0.3/0.2/0.1), drawn before the
+    gang and quota draws, as the reference draws them."""
     rng = np.random.default_rng(seed)
     p = num_pods
     f32 = np.float32
@@ -209,6 +240,15 @@ def synthetic_pods(num_pods: int, seed: int = 1,
     requests[~is_prod, BCPU] = cpu_req[~is_prod]
     requests[~is_prod, BMEM] = mem_req[~is_prod]
     limits = np.zeros((p, R), f32)
+
+    gpu_ratio = np.zeros((p,), f32)
+    if gpu_pod_frac > 0:
+        is_gpu = rng.uniform(size=p) < gpu_pod_frac
+        shape = rng.choice([50, 100, 200, 400], p,
+                           p=[0.4, 0.3, 0.2, 0.1]).astype(f32)
+        gpu_ratio = np.where(is_gpu, shape, 0.0).astype(f32)
+        requests[:, GPU_CORE] = np.where(is_gpu, shape, 0.0)
+
     estimated = estimate_vectorized(requests, limits, prio_class)
 
     gang_id = np.full((p,), -1, np.int32)
@@ -229,7 +269,7 @@ def synthetic_pods(num_pods: int, seed: int = 1,
         selector_id=np.full((p,), -1, np.int32),
         selector_match=np.zeros((8, 64), bool),
         reservation_owner=np.full((p,), -1, np.int32),
-        gpu_ratio=np.zeros((p,), f32),
+        gpu_ratio=gpu_ratio,
         numa_single=np.zeros((p,), bool),
         daemonset=np.zeros((p,), bool),
         toleration_id=np.zeros((p,), np.int32),
@@ -315,3 +355,25 @@ def config_2_inputs(num_pods: int = 10_000, num_nodes: int = 1000,
                           device=device)
     return snap, pods.replace(
         numa_single=pods.priority_class == int(PriorityClass.PROD))
+
+
+def gpu_share_inputs(num_pods: int = 100_000, num_nodes: int = 10_000,
+                     device="cuda") -> Tuple[ClusterSnapshot, PodBatch]:
+    """The reference's full-gate flagship workload (`synthetic.py`
+    full_gate_cluster / full_gate_pods) cut to the gates the port has:
+    nodes seed 0 with 32 quotas, 64 gangs, a quarter of them GPU nodes
+    with 8 instances each, and two populated NUMA zones; pods seed 1
+    with 32 quotas, 64 gangs of 8 and 10 % GPU pods, a third of the
+    prod pods single-NUMA bound (the first draw of full_gate_pods'
+    second generator). Cut: taints, spread/anti/affinity groups and the
+    reservation slots."""
+    snap = with_two_numa_zones(synthetic_cluster(
+        num_nodes, seed=0, num_quotas=32, num_gangs=64, gpu_node_frac=0.25,
+        gpus_per_node=8, device=device))
+    pods = synthetic_pods(num_pods, seed=1, num_quotas=32, num_gangs=64,
+                          gpu_pod_frac=0.1, device=device)
+    rng = np.random.default_rng(1 + 29)
+    bind = torch.from_numpy(rng.uniform(size=num_pods) < 0.33).to(
+        pods.valid.device)
+    prod = pods.priority_class == int(PriorityClass.PROD)
+    return snap, pods.replace(numa_single=prod & bind)

@@ -1,7 +1,10 @@
 """The port's BASELINE config 2 (configs.run_config_2_numa, the NUMA
 path) against the JAX composition bench_configs.config_2_numa runs:
 core.schedule_batch(enable_numa=True) in lax.scan over the pod chunks,
-with the bench's arguments, at a cut size."""
+with the bench's arguments, at a cut size; and gpu_share_100kx10k
+(configs.run_gpu_share, the DeviceShare path) against the reference's
+sweep and straggler tail with the full-gate knobs, at a cut size and
+two seeds. Tolerances: none."""
 
 from __future__ import annotations
 
@@ -11,12 +14,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from koordinator_tpu.scheduler import core as jcore
 from koordinator_tpu.scheduler.plugins.loadaware import LoadAwareConfig as JCfg
 from koordinator_tpu.utils import synthetic as jsyn
-from koordinator_tpu_torch import configs
+from koordinator_tpu_torch import configs, flagship
 from koordinator_tpu_torch.scheduler.core import overcommit_ok, quota_ok
+from koordinator_tpu_torch.scheduler.plugins.loadaware import LoadAwareConfig
+
+from torch_port_ref import to_port
 
 PODS, NODES, CHUNK = 1200, 80, 400
 
@@ -82,3 +89,125 @@ def test_final_snapshot_sound():
     assert line["platform"] == "cpu" and line["num_pods"] == PODS
     assert line["placed"] == int((run.assignment >= 0).sum()) > 0
     assert 0 < line["numa_bound_placed"] <= line["placed"]
+
+
+# --- gpu_share_100kx10k (configs.run_gpu_share, the DeviceShare path) ----
+
+GPU_PODS, GPU_NODES, GPU_CHUNK = 1200, 300, 400
+
+
+def gpu_share_reference_inputs(snap_seed, pod_seed):
+    """The gpu_share cluster and pods at GPU_PODS x GPU_NODES from the
+    reference's generators (utils.synthetic.gpu_share_inputs' calls)."""
+    snap = jsyn.with_two_numa_zones(jsyn.synthetic_cluster(
+        GPU_NODES, seed=snap_seed, num_quotas=32, num_gangs=64,
+        gpu_node_frac=0.25, gpus_per_node=8))
+    pods = jsyn.synthetic_pods(GPU_PODS, seed=pod_seed, num_quotas=32,
+                               num_gangs=64, gpu_pod_frac=0.1)
+    bind = np.random.default_rng(pod_seed + 29).uniform(size=GPU_PODS) < 0.33
+    return snap, pods.replace(numa_single=jnp.asarray(
+        (np.asarray(pods.priority_class) == 4) & bind))
+
+
+@functools.lru_cache(maxsize=None)
+def _gpu_share_reference_program():
+    step = functools.partial(jcore.schedule_batch, **configs.GPU_SHARE_KW)
+    tail_step = functools.partial(jcore.schedule_batch,
+                                  **configs.GPU_SHARE_TAIL_KW)
+
+    @jax.jit
+    def run(snap, stacked, pods, cfg):
+        def body(s, cols):
+            res = step(s, pods.replace(**cols), cfg)
+            return res.snapshot, res.assignment
+        snap, assign = jax.lax.scan(body, snap, stacked)
+        counts = tuple(getattr(pods, f) for f in jcore.COUNT_FIELDS)
+        return jcore.tail_compaction_loop(
+            tail_step, snap, counts, assign.reshape(-1), pods, cfg,
+            tail_chunk=min(GPU_CHUNK, 512),
+            min_passes=flagship.MIN_TAIL_PASSES,
+            max_passes=configs.FULL_GATE_MAX_TAIL_PASSES,
+            charge_counts=False)
+    return run
+
+
+@functools.lru_cache(maxsize=None)
+def _gpu_share_both(snap_seed, pod_seed):
+    """(reference (snap, assign, stats), port run, port line or None):
+    the config's own seeds (0, 1) through run_gpu_share, others through
+    flagship.sweep_and_tail with the config's kwargs."""
+    snap, pods = gpu_share_reference_inputs(snap_seed, pod_seed)
+    want_snap, _, assign, stats = _gpu_share_reference_program()(
+        snap, jsyn.stack_pod_chunks(pods, GPU_CHUNK), pods, JCfg.make())
+    want = (want_snap, np.asarray(assign), np.asarray(stats))
+    if (snap_seed, pod_seed) == (0, 1):
+        line, run = configs.run_gpu_share(GPU_PODS, GPU_NODES, GPU_CHUNK,
+                                          device="cpu")
+        return want, run, line
+    run = flagship.sweep_and_tail(
+        to_port("ClusterSnapshot", snap), to_port("PodBatch", pods),
+        LoadAwareConfig.make(device="cpu"), GPU_CHUNK,
+        step_kw=configs.GPU_SHARE_KW, tail_kw=configs.GPU_SHARE_TAIL_KW,
+        max_passes=configs.FULL_GATE_MAX_TAIL_PASSES)
+    return want, run, None
+
+
+GPU_SEEDS = [(0, 1), (3, 4)]
+
+
+@pytest.mark.parametrize("seeds", GPU_SEEDS, ids=str)
+def test_gpu_share_sweep_and_tail_equal_reference(seeds):
+    """The assignment and the tail's stats equal the reference's
+    sweep-and-tail at a cut size (full width, no packing prefixes)."""
+    (_, want_assign, want_stats), run, _ = _gpu_share_both(*seeds)
+    np.testing.assert_array_equal(run.assignment.numpy(), want_assign)
+    np.testing.assert_array_equal(run.stats.numpy(), want_stats)
+    assert want_stats[0] > 0 and want_stats[2] == 0
+
+
+@pytest.mark.parametrize("part,field", [
+    ("nodes", "requested"), ("nodes", "numa_free"), ("devices", "gpu_free"),
+    ("quotas", "used"), ("gangs", "assumed"),
+    ("nodes", "assigned_estimated")])
+@pytest.mark.parametrize("seeds", GPU_SEEDS, ids=str)
+def test_gpu_share_final_snapshot_equal(seeds, part, field):
+    (want_snap, _, _), run, _ = _gpu_share_both(*seeds)
+    w = np.asarray(getattr(getattr(want_snap, part), field))
+    g = getattr(getattr(run.snapshot, part), field).numpy()
+    assert g.dtype == w.dtype and g.shape == w.shape
+    assert g.tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("seeds", GPU_SEEDS, ids=str)
+def test_gpu_share_instances_conserved(seeds):
+    """Each placed GPU pod holds `count` instances of its node; the
+    takes times each pod's per-instance request at its node equal the
+    instance total minus the final free on every valid instance, and
+    no free is negative; the run's line counts what it placed."""
+    from koordinator_tpu_torch.scheduler.plugins import deviceshare
+    snap0, pods = gpu_share_reference_inputs(*seeds)
+    _, run, line = _gpu_share_both(*seeds)
+    dev0 = to_port("DeviceState", snap0.devices)
+    tpods = to_port("PodBatch", pods)
+    assign, take = run.assignment, run.gpu_take
+    count, per = deviceshare.per_instance_at(
+        dev0, deviceshare.gpu_request(tpods.requests, tpods.gpu_ratio),
+        assign)
+    placed = assign >= 0
+    assert torch.equal(take.sum(dim=1), torch.where(placed, count, 0))
+    n, i, _ = dev0.gpu_free.shape
+    used = torch.zeros((n + 1, i, 3)).index_add_(
+        0, torch.where(placed, assign, n).long(),
+        take[:, :, None] * per[:, None, :])[:n]
+    free = run.snapshot.devices.gpu_free
+    valid = dev0.gpu_valid[:, :, None]
+    assert torch.equal((dev0.gpu_free - free) * valid, used * valid)
+    assert bool((free >= 0).all()) and int(take.sum()) > 0
+    assert overcommit_ok(run.snapshot) and quota_ok(run.snapshot)
+    if line is not None:
+        gpu = deviceshare.has_gpu_request(tpods.requests, tpods.gpu_ratio)
+        assert line["metric"] == configs.GPU_SHARE_METRIC
+        assert line["placed"] == int(placed.sum()) > 0
+        assert line["gpu_pods_placed"] == int((placed & gpu).sum()) > 0
+        assert 0 < line["numa_bound_placed"] <= line["placed"]
+        assert line["tail_passes"] >= flagship.MIN_TAIL_PASSES

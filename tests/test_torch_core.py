@@ -131,10 +131,14 @@ def test_unported_options_raise(kw):
 
 def test_unported_inputs_raise():
     snap, pods, cfg = _slim_inputs()
-    gpu = jsyn.synthetic_cluster(8, gpu_node_frac=1.0, gpus_per_node=2)
+    gpu = to_port("ClusterSnapshot", jsyn.synthetic_cluster(
+        8, gpu_node_frac=1.0, gpus_per_node=2))
+    aux = gpu.replace(devices=gpu.devices.replace(
+        aux_free=torch.ones((8, 2, 1)),
+        aux_valid=torch.ones((8, 2, 1), dtype=torch.bool)))
     resv = jsyn.synthetic_cluster(8, num_reservations=2)
     for bad_snap, bad_pods in (
-            (to_port("ClusterSnapshot", gpu), pods),
+            (aux, pods),
             (to_port("ClusterSnapshot", resv), pods),
             (snap, pods.replace(has_spread=True)),
             (snap, pods.replace(has_taints=True))):
@@ -148,6 +152,14 @@ def test_unported_inputs_raise():
     with pytest.raises(ValueError, match="numa_strategy"):
         core.schedule_batch(snap, pods, cfg, numa_strategy="spread",
                             **dict(BENCH_KW, enable_numa=True))
+    with pytest.raises(ValueError, match="device_strategy"):
+        core.schedule_batch(gpu, pods, cfg, device_strategy="spread",
+                            **BENCH_KW)
+    # GPU instances schedule (aux pools without enable_devices are not
+    # looked at, as in the reference)
+    core.schedule_batch(gpu, pods, cfg, **BENCH_KW)
+    core.schedule_batch(aux, pods, cfg, **dict(BENCH_KW,
+                                               enable_devices=False))
 
 
 @pytest.mark.parametrize("weights", [None, "fractional"])
@@ -361,3 +373,186 @@ def test_numa_scenarios_equal_reference(name, strategy):
         w, g = _field(want, field), _field(got, field)
         assert g.dtype == w.dtype and g.shape == w.shape, field
         assert g.tobytes() == w.tobytes(), field
+
+
+# --- the DeviceShare path (enable_devices=True with GPU instances) --------
+
+GPU_FIELDS = ["assignment", "chosen_score", "numa_zone", "numa_take",
+              "gpu_take", "gang_failed", "snapshot.nodes.requested",
+              "snapshot.nodes.numa_free", "snapshot.devices.gpu_free",
+              "snapshot.quotas.used", "snapshot.gangs.assumed"]
+
+
+def _assert_fields_equal(want, got, fields=GPU_FIELDS):
+    for field in fields:
+        w, g = _field(want, field), _field(got, field)
+        assert g.dtype == w.dtype and g.shape == w.shape, field
+        assert g.tobytes() == w.tobytes(), field
+
+
+def _gpu_scenarios():
+    """The end-to-end DeviceShare scenarios of tests/test_deviceshare.py
+    (:93-252), built with the reference's SnapshotBuilder without
+    reservation rows: (SnapshotBuilder, pods, schedule_batch kwargs)."""
+    from koordinator_tpu.api.types import (
+        Device,
+        DeviceInfo,
+        Node,
+        NodeMetric,
+        ObjectMeta,
+    )
+    from koordinator_tpu.snapshot.builder import SnapshotBuilder
+    from test_deviceshare import CPU, GC, GM, MEM, _topo, gpu_pod
+
+    def nodes(**kw):
+        from test_deviceshare import make_builder
+        return make_builder(max_reservations=0, **kw)
+
+    def running(b, name, core_, minors):
+        r = gpu_pod(name, core=core_, ratio=core_)
+        r.node_name = "n0"
+        r.allocated_gpu_minors = minors
+        b.add_running_pod(r)
+        return b
+
+    def bare(gpus):
+        b = SnapshotBuilder(max_nodes=len(gpus), max_gpu_inst=1,
+                            max_reservations=0)
+        for i, gmem in enumerate(gpus):
+            b.add_node(Node(meta=ObjectMeta(name=f"n{i}"),
+                            allocatable={CPU: 32000.0, MEM: 64000.0}))
+            b.set_node_metric(NodeMetric(node_name=f"n{i}", update_time=1e9,
+                                         node_usage={CPU: 100.0,
+                                                     MEM: 100.0}))
+            if gmem:
+                b.add_device(Device(node_name=f"n{i}", devices=[
+                    DeviceInfo(minor=0, type="gpu",
+                               resources={GC: 100.0, GM: gmem})]))
+        return b
+
+    def numa_nodes(gpus):
+        b = nodes(num_nodes=1, gpus=gpus)
+        b.nodes[0].topology = _topo()
+        return b
+
+    out = {
+        "shared_pack": (nodes(num_nodes=1, gpus=2),
+                        [gpu_pod(f"p{i}", core=60, ratio=60, prio=9000 - i)
+                         for i in range(3)], {}),
+        "multi_whole_p4": (running(nodes(num_nodes=1, gpus=4), "r", 10,
+                                   (2,)),
+                           [gpu_pod("p4", core=400, ratio=400)], {}),
+        "multi_whole_p3": (running(nodes(num_nodes=1, gpus=4), "r", 10,
+                                   (2,)),
+                           [gpu_pod("p3", core=300, ratio=300)], {}),
+        "ratio_only_no_gpus": (bare([0.0]), [gpu_pod("p", ratio=50)], {}),
+        "gpuless_node": (bare([1000.0, 0.0]),
+                         [gpu_pod("p", core=50, ratio=50)], {}),
+        "memory_per_node": (bare([500.0, 1000.0]),
+                            [gpu_pod("p", core=10, mem=600.0)], {}),
+        "numa_alignment_p4": (numa_nodes(4),
+                              [gpu_pod("p4", core=400, ratio=400,
+                                       required_cpu_bind=True)], {}),
+        "numa_alignment_p2": (numa_nodes(4),
+                              [gpu_pod("p2", core=200, ratio=200,
+                                       required_cpu_bind=True)], {}),
+        "zone_merges_gpu_hint": (numa_nodes(4),
+                                 [gpu_pod(f"p{i}", core=200, ratio=200,
+                                          prio=9000 - i,
+                                          required_cpu_bind=True)
+                                  for i in range(2)], {}),
+        "numa_disabled": (nodes(num_nodes=1, gpus=2),
+                          [gpu_pod("p", core=50, ratio=50,
+                                   required_cpu_bind=True)],
+                          dict(enable_numa=False)),
+        "restored_full": (running(nodes(num_nodes=1, gpus=2), "r", 200,
+                                  (0, 1)),
+                          [gpu_pod("p", core=50, ratio=50)], {}),
+    }
+    for strategy in ("least", "most"):
+        out[f"strategy_{strategy}"] = (
+            running(nodes(num_nodes=1, gpus=2), "r", 50, (0,)),
+            [gpu_pod("p", core=30, ratio=30)],
+            dict(device_strategy=strategy))
+    return out
+
+
+def _schedule_both(snap, pods, **kw):
+    """The reference's and the port's schedule_batch on the same inputs,
+    with the scenario tests' defaults (3 rounds, 4 choices)."""
+    kw = dict(dict(num_rounds=3, k_choices=4), **kw)
+    want = jcore.schedule_batch(snap, pods, JCfg.make(), **kw)
+    got = core.schedule_batch(to_port("ClusterSnapshot", snap),
+                              to_port("PodBatch", pods),
+                              LoadAwareConfig.make(device="cpu"), **kw)
+    return want, got
+
+
+@pytest.mark.parametrize("name", sorted(_gpu_scenarios()))
+def test_gpu_scenarios_equal_reference(name):
+    """Each DeviceShare scenario through both packages with the
+    reference's defaults (NUMA on, all dims, device strategy "least"
+    unless the scenario names one): every result field, the instance
+    free and the zone state equal."""
+    b, pod_list, kw = _gpu_scenarios()[name]
+    snap, ctx = b.build(now=1e9)
+    want, got = _schedule_both(snap, b.build_pod_batch(pod_list, ctx), **kw)
+    _assert_fields_equal(want, got)
+
+
+def test_gpu_scenarios_place_as_the_reference_tests_expect():
+    """The outcomes tests/test_deviceshare.py asserts, on the port."""
+    def run(name):
+        b, pod_list, kw = _gpu_scenarios()[name]
+        snap, ctx = b.build(now=1e9)
+        return _schedule_both(snap, b.build_pod_batch(pod_list, ctx),
+                              **kw)[1]
+
+    res = run("shared_pack")
+    assert res.assignment.tolist() == [0, 0, -1]
+    assert not (res.gpu_take[0] & res.gpu_take[1]).any()
+    assert res.snapshot.devices.gpu_free[0, :, 0].tolist() == [40.0, 40.0]
+    assert run("multi_whole_p4").assignment.tolist() == [-1]
+    res = run("multi_whole_p3")
+    assert res.gpu_take[0].nonzero()[:, 0].tolist() == [0, 1, 3]
+    assert run("ratio_only_no_gpus").assignment.tolist() == [-1]
+    assert run("gpuless_node").assignment.tolist() == [0]
+    assert run("memory_per_node").assignment.tolist() == [1]
+    assert run("numa_alignment_p4").assignment.tolist() == [-1]
+    res = run("zone_merges_gpu_hint")
+    assert sorted(res.numa_zone.tolist()) == [0, 1]
+    res = run("numa_disabled")
+    assert res.assignment.tolist() == [0] and int(res.gpu_take.sum()) == 1
+    assert run("restored_full").assignment.tolist() == [-1]
+    assert run("strategy_least").gpu_take[0].nonzero()[:, 0].tolist() == [1]
+    assert run("strategy_most").gpu_take[0].nonzero()[:, 0].tolist() == [0]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_gpu_chunk1_matches_batch_capacity_as_reference(seed):
+    """test_deviceshare.py test_chunk1_matches_batch_capacity through
+    both packages: the batch and the one-pod-at-a-time runs (each pod on
+    the previous pod's snapshot) equal field for field, and their placed
+    GPU demand within one multi-GPU pod of each other."""
+    snap = jsyn.synthetic_cluster(16, gpu_node_frac=1.0, seed=seed,
+                                  gpus_per_node=4)
+    pods = jsyn.synthetic_pods(48, gpu_pod_frac=1.0, seed=seed + 10)
+    want, got = _schedule_both(snap, pods, k_choices=4, num_rounds=4)
+    _assert_fields_equal(want, got)
+    s, ts = snap, to_port("ClusterSnapshot", snap)
+    tpods = to_port("PodBatch", pods)
+    cfg, jcfg = LoadAwareConfig.make(device="cpu"), JCfg.make()
+    placed_seq = np.zeros(48, bool)
+    for i in np.argsort(-np.asarray(pods.priority), kind="stable"):
+        w = jcore.schedule_batch(s, jsyn.slice_batch(pods, int(i), 1), jcfg,
+                                 num_rounds=1, k_choices=4)
+        g = core.schedule_batch(ts, synthetic.slice_batch(tpods, int(i), 1),
+                                cfg, num_rounds=1, k_choices=4)
+        _assert_fields_equal(w, g)
+        s, ts = w.snapshot, g.snapshot
+        placed_seq[i] = bool(g.assignment[0] >= 0)
+    ratio = np.asarray(pods.gpu_ratio)
+    count = np.where(ratio > 100, ratio // 100, 1)
+    placed_b = got.assignment.numpy() >= 0
+    assert abs((count * placed_b).sum() - (count * placed_seq).sum()) \
+        <= count.max()

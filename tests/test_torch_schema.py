@@ -165,3 +165,65 @@ def test_zone_fields_cross_the_bridge(zones):
     assert port.snapshot.reservations.numa_free.shape[1] == zones
     assert_trees_equal({k: v for k, v in to_numpy(port).items()
                         if k in result}, result)
+
+
+@pytest.mark.parametrize("frac", [0.25, 1.0])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_synthetic_gpu_draws_equal_reference(seed, frac):
+    """GPU nodes (drawn after the quotas) and GPU pods (drawn before the
+    gangs and quotas, so quota_id moves with them) as the reference
+    draws them, with gangs and quotas in play."""
+    jsnap = jsyn.synthetic_cluster(64, seed=seed, num_quotas=8, num_gangs=3,
+                                   gpu_node_frac=frac, gpus_per_node=4,
+                                   gpu_memory_mib=40960.0)
+    tsnap = synthetic.synthetic_cluster(64, seed=seed, num_quotas=8,
+                                        num_gangs=3, gpu_node_frac=frac,
+                                        gpus_per_node=4,
+                                        gpu_memory_mib=40960.0, device="cpu")
+    assert_trees_equal(to_numpy(tsnap), numpy_tree(jsnap))
+    jpods = jsyn.synthetic_pods(300, seed=seed, num_quotas=8, num_gangs=3,
+                                gpu_pod_frac=frac)
+    tpods = synthetic.synthetic_pods(300, seed=seed, num_quotas=8,
+                                     num_gangs=3, gpu_pod_frac=frac,
+                                     device="cpu")
+    assert_trees_equal(to_numpy(tpods), numpy_tree(jpods))
+    assert tsnap.devices.gpu_free.shape == (64, 4, 3)
+    assert bool((tpods.gpu_ratio > 0).any())
+
+
+def test_gpu_share_inputs_equal_reference():
+    """The port's gpu_share inputs against the reference's full-gate
+    cluster and pods with the cut gates left out: the same nodes but
+    for taint_group (and no reservation slots), the same pods but for
+    the tolerations and topology groups."""
+    tsnap, tpods = synthetic.gpu_share_inputs(2000, 300, device="cpu")
+    jsnap = jsyn.full_gate_cluster(300, num_quotas=32, num_reservations=0)
+    jpods = jsyn.full_gate_pods(2000, 300, seed=1, num_quotas=32,
+                                num_reservations=0)
+    want = numpy_tree(jsnap)
+    want["nodes"]["taint_group"] = np.zeros_like(want["nodes"]["taint_group"])
+    assert_trees_equal(to_numpy(tsnap), want)
+    got = to_numpy(tpods)
+    for field in ("requests", "estimated", "priority", "priority_class",
+                  "gang_id", "quota_id", "gpu_ratio", "numa_single", "qos"):
+        np.testing.assert_array_equal(got[field], np.asarray(
+            getattr(jpods, field)), err_msg=field)
+    assert 0 < int((tpods.numa_single & (tpods.gpu_ratio > 0)).sum())
+
+
+def test_device_fields_cross_the_bridge():
+    """DeviceState with instances and ScheduleResult.gpu_take, both
+    ways."""
+    snap = jsyn.with_two_numa_zones(jsyn.synthetic_cluster(
+        6, seed=2, gpu_node_frac=0.5, gpus_per_node=8))
+    rng = np.random.default_rng(3)
+    result = numpy_tree(_reference_structs()["ScheduleResult"])
+    result.pop("amplified")
+    result["gpu_take"] = rng.uniform(size=(12, 8)) < 0.3
+    result["snapshot"] = numpy_tree(snap)
+    port = from_reference("ScheduleResult", result, device="cpu")
+    assert port.gpu_take.shape == (12, 8)
+    assert port.snapshot.devices.gpu_free.shape == (6, 8, 3)
+    assert port.snapshot.reservations.gpu_free.shape == (0, 8, 3)
+    assert_trees_equal({k: v for k, v in to_numpy(port).items()
+                        if k in result}, result)

@@ -218,7 +218,9 @@ def test_gate_terms_index_the_table_as_reference(seed):
 
 def test_gate_terms_without_devices_and_with_taints():
     """devices=None leaves the device prefilter out; a batch with taints
-    or a snapshot with GPU instances does not factor and raises."""
+    or a snapshot with aux pools does not factor and raises; on a
+    snapshot with GPU instances the factored device term is the
+    prefilter's aux part (K6 gives the GPU part pair by pair)."""
     nodes, pods, devices = _gated_case(4, 32, 24)
     _, cfg = _port_cfg("default")
     tn, tp = to_port("NodeState", nodes), to_port("PodBatch", pods)
@@ -230,13 +232,20 @@ def test_gate_terms_without_devices_and_with_taints():
     np.testing.assert_array_equal(expand_gates(gates).numpy(), want)
     with pytest.raises(NotImplementedError):
         static_gate_terms(tn, tp.replace(has_taints=True), cfg, None)
-    gpu = jsyn.synthetic_cluster(24, gpu_node_frac=1.0, gpus_per_node=2)
+    gpu = to_port("DeviceState", jsyn.synthetic_cluster(
+        24, gpu_node_frac=1.0, gpus_per_node=2).devices)
+    aux = np.asarray(pods.requests)[:, [int(RK.RDMA), int(RK.FPGA)]]
+    np.testing.assert_array_equal(
+        static_gate_terms(tn, tp, cfg, gpu).device_ok.numpy(),
+        ~(aux > 0).any(axis=1))
     with pytest.raises(NotImplementedError):
-        static_gate_terms(tn, tp, cfg, to_port("DeviceState", gpu.devices))
+        static_gate_terms(tn, tp, cfg, gpu.replace(
+            aux_free=torch.ones((24, 2, 1)),
+            aux_valid=torch.ones((24, 2, 1), dtype=torch.bool)))
 
 
 def _port_select(tn, tp, cfg, gates, pair_ok, row_ok, k, tie_break,
-                 pair_score=None):
+                 pair_score=None, pair_score2=None):
     node_term, prod_term, alloc_s, weights = loadaware.score_terms(
         tn, cfg, SCORE_DIMS)
     return score_topk(
@@ -246,7 +255,8 @@ def _port_select(tn, tp, cfg, gates, pair_ok, row_ok, k, tie_break,
         tn.allocatable[:, list(FIT_DIMS)].contiguous(),
         tp.estimated[:, list(SCORE_DIMS)].contiguous(),
         loadaware.prod_scored(tp, cfg), node_term, prod_term, alloc_s,
-        weights, k, tie_break, EPS, fma_sum=True, pair_score=pair_score)
+        weights, k, tie_break, EPS, fma_sum=True, pair_score=pair_score,
+        pair_score2=pair_score2)
 
 
 @pytest.mark.parametrize("strategy", ["most", "least"])
@@ -288,6 +298,84 @@ def test_score_topk_pair_score_equals_reference(k, tie_break, strategy):
     # the addend moves values above the LoadAware range, and some bound
     # pods are gated off nodes whose zones they do not fit
     assert (want_val > 100.0).any() and not numa_ok.all()
+
+
+@functools.partial(jax.jit, static_argnames=("k", "tie_break"))
+def reference_select_two(nodes, pods, cfg, static_ok, row_ok, numa_scores,
+                         dev_scores, *, k, tie_break):
+    """`reference_select` with the NUMA zone score and then the
+    DeviceShare pool score added to the LoadAware score, as
+    core.py:693-699 adds them: (la + numa) + dev."""
+    fd = list(FIT_DIMS)
+    fit = jnp.all(pods.requests[:, None, fd] + nodes.requested[None][..., fd]
+                  <= nodes.allocatable[None][..., fd] + EPS, axis=-1)
+    feasible = fit & static_ok & row_ok[:, None]
+    scores = jla.score_matrix(nodes, pods, cfg, SCORE_DIMS) + numa_scores
+    scores = scores + dev_scores
+    if tie_break:
+        p, n = scores.shape
+        pi = jnp.arange(p, dtype=jnp.uint32)[:, None]
+        ni = jnp.arange(n, dtype=jnp.uint32)[None, :]
+        h = (pi * jnp.uint32(2654435761) + ni * jnp.uint32(40503)) & 1023
+        scores = scores + h.astype(jnp.float32) * (0.49 / 1024.0)
+    masked = jnp.where(feasible, scores, -1.0)
+    return jax.lax.top_k(masked, k)
+
+
+@pytest.mark.parametrize("strategy", ["least", "most"])
+@pytest.mark.parametrize("tie_break", [True, False])
+@pytest.mark.parametrize("k", [8, 32])
+def test_score_topk_two_addends_equal_reference(k, tie_break, strategy):
+    """K1's plain version with two addends, K4's zone score then K6's
+    pool score (and both gates in its pair mask), against the
+    reference's top_k(where(feasible, (la + numa) + dev + jitter, -1)):
+    two-zone nodes, half of them GPU nodes, 40 % of the pods
+    NUMA-bound and 50 % asking for GPUs, so some pods carry both."""
+    from koordinator_tpu_torch.kernels.device_terms import device_pair_terms
+    from koordinator_tpu_torch.scheduler.plugins import deviceshare
+
+    nodes, pods, _, _, row_ok = _case(6, 96, 64, False)
+    snap = jsyn.with_two_numa_zones(jsyn.synthetic_cluster(
+        64, seed=6, gpu_node_frac=0.5, gpus_per_node=4))
+    rng = np.random.default_rng(12)
+    devices = snap.devices
+    free = np.floor(np.asarray(devices.gpu_free)
+                    * rng.uniform(0, 1, (64, 4, 1)))
+    devices = devices.replace(gpu_free=jnp.asarray(free.astype(np.float32)))
+    nodes = snap.nodes.replace(requested=nodes.requested)
+    zfree = np.asarray(nodes.numa_cap) * rng.uniform(0.05, 1.0, (64, 2, 1))
+    nodes = nodes.replace(numa_free=jnp.asarray(
+        (np.floor(zfree / 500) * 500).astype(np.float32)))
+    gpods = jsyn.synthetic_pods(96, seed=13, gpu_pod_frac=0.5)
+    pods = pods.replace(requests=gpods.requests, gpu_ratio=gpods.gpu_ratio,
+                        numa_single=jnp.asarray(rng.uniform(size=96) < 0.4))
+    numa_ok = np.asarray(jnuma.zone_prefilter(nodes, pods))
+    numa_scores = jnuma.numa_score_matrix(nodes, pods, "most")
+    dev_scores = jds.score_matrix(devices, pods, strategy)
+    jcfg = jla.LoadAwareConfig.make()
+    want_static = np.asarray(reference_gates(nodes, pods, devices, jcfg))
+    want_val, want_idx = reference_select_two(
+        nodes, pods, jcfg, jnp.asarray(want_static & numa_ok),
+        jnp.asarray(row_ok), numa_scores, dev_scores, k=k,
+        tie_break=tie_break)
+    want_val, want_idx = np.asarray(want_val), np.asarray(want_idx)
+
+    cfg = loadaware.LoadAwareConfig.make(device="cpu")
+    tn, tp = to_port("NodeState", nodes), to_port("PodBatch", pods)
+    tdev = to_port("DeviceState", devices)
+    gates = static_gate_terms(tn, tp, cfg, tdev)
+    pair_ok, numa_score = numa_pair_terms(
+        numaaware.zone_demand(tp), tp.numa_single, tn.numa_cap,
+        tn.numa_free, tn.numa_valid, tn.numa_policy, "most")
+    pair_ok, dev_score = device_pair_terms(
+        deviceshare.gpu_request(tp.requests, tp.gpu_ratio), tdev, strategy,
+        pair_ok)
+    val, idx = _port_select(tn, tp, cfg, gates, pair_ok, row_ok, k,
+                            tie_break, numa_score, dev_score)
+    np.testing.assert_array_equal(idx.numpy(), want_idx)
+    assert val.numpy().tobytes() == want_val.tobytes()
+    both = (numa_score > 0) & (dev_score > 0) & pair_ok
+    assert bool(both.any()) and (want_val > 100.0).any()
 
 
 @pytest.mark.parametrize("tie_break", [True, False])

@@ -1,5 +1,6 @@
 """The port's topology manager (scheduler/topologymanager.py) and kernel
-K5's plain version against the JAX package's topologymanager module."""
+K5's plain version against the JAX package's topologymanager module,
+with the CPU+memory hint provider and DeviceShare's."""
 
 from __future__ import annotations
 
@@ -12,11 +13,14 @@ import pytest
 import torch
 
 from koordinator_tpu.scheduler import topologymanager as jtm
+from koordinator_tpu.scheduler.plugins import deviceshare as jds
 from koordinator_tpu_torch.kernels.topology import (
     topology_admit,
     topology_admit_plain,
 )
 from koordinator_tpu_torch.scheduler import topologymanager as tm
+
+from torch_port_ref import to_port
 
 POLICIES = (tm.POLICY_NONE, tm.POLICY_BEST_EFFORT, tm.POLICY_RESTRICTED,
             tm.POLICY_SINGLE_NUMA_NODE)
@@ -199,3 +203,127 @@ def test_topology_admit_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="numa_used"):
         topology_admit(*bad, "most")
     assert topology_admit_plain(*args, "least").admit.all()
+
+
+@pytest.mark.parametrize("z", [1, 2, 4])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_count_hints_and_both_providers_equal_reference(seed, z):
+    """DeviceShare's provider alone (need <= 0 pods: no preference), and
+    merged after the CPU+memory provider, as the reference merges them."""
+    rng = np.random.default_rng(seed + 30)
+    p = 256
+    counts = rng.integers(0, 4, (p, z)).astype(np.int32)
+    need = rng.integers(-1, 6, p).astype(np.int32)
+    free, req, valid, _ = hint_inputs(seed, p, z)
+
+    @jax.jit
+    def ref(c, nd, f, r, v):
+        cnt = jtm.count_hints(c, nd)
+        return cnt, jtm.merge_hints([jtm.capacity_hints(f, r, v), cnt])
+
+    want_cnt, want_merged = ref(counts, need, free, req, valid)
+    cnt = tm.count_hints(torch.from_numpy(counts), torch.from_numpy(need))
+    merged = tm.merge_hints([tm.capacity_hints(
+        *(torch.from_numpy(x) for x in (free, req, valid))), cnt])
+    for got, want in ((cnt, want_cnt), (merged, want_merged)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    fit, pref = (np.asarray(x) for x in want_merged)
+    assert fit.any() and not fit.all()
+    assert (fit & ~pref).any() == (z > 1)   # one zone: every fit preferred
+
+
+def gpu_pool(seed, s, z, i=4):
+    """numpy gpu_total f32[S, 3], gpu_free f32[S, I, 3], gpu_valid
+    bool[S, I], gpu_numa i32[S, I] (instances spread over the z zones,
+    about 10 % of zone -1 and 10 % invalid, partly used), and a pod
+    batch's gpu requests (JAX PodBatch, 60 % GPU pods)."""
+    rng = np.random.default_rng(seed + 90)
+    total = np.tile(np.array([[100.0, 81920.0, 100.0]], np.float32), (s, 1))
+    total[rng.uniform(size=s) < 0.2] = 0.0
+    free = np.floor(total[:, None, :] * rng.uniform(0, 1, (s, i, 1)))
+    full = rng.uniform(size=(s, i)) < 0.5
+    free[full] = np.broadcast_to(total[:, None, :], (s, i, 3))[full]
+    valid = (total[:, None, 0] > 0) & (rng.uniform(size=(s, i)) < 0.9)
+    numa = np.tile(np.arange(i) * z // i, (s, 1)).astype(np.int32)
+    numa[rng.uniform(size=(s, i)) < 0.1] = -1
+    return total, free.astype(np.float32), valid, numa
+
+
+@functools.partial(jax.jit, static_argnums=10)
+def reference_step_gpu(choice, trying, single, demand, cap, used, valid,
+                       node_policy, devices, pods, strategy):
+    """`reference_step` with DeviceShare's provider merged after the
+    CPU+memory one (core.py:898-906, :930-940)."""
+    s = cap.shape[0]
+    nc = jnp.clip(choice, 0, s - 1)
+    pol = jnp.where(single, jtm.POLICY_SINGLE_NUMA_NODE, node_policy[nc])
+    pol = jnp.where(trying, pol, 0)
+    engaged = pol > jtm.POLICY_NONE
+    free_z = jnp.maximum(cap[nc] - used[nc], 0.0)
+    validz = valid[nc]
+    req = demand * engaged[:, None]
+    g_count, g_per = jds.per_instance_at(devices, pods, choice)
+    zcounts = jds.gpu_zone_counts(devices.gpu_free, devices, choice, g_per,
+                                  cap.shape[1])
+    fit, pref = jtm.merge_hints([jtm.capacity_hints(free_z, req, validz),
+                                 jtm.count_hints(zcounts, g_count * engaged)])
+    affinity, admit, _ = jtm.resolve(fit, pref, pol, free_z[..., 0], validz,
+                                     strategy)
+    take, filled = jtm.greedy_take(free_z, req, affinity, strategy)
+    zone1 = jnp.argmax(affinity, axis=-1).astype(jnp.int32)
+    return affinity, engaged, admit & (~engaged | filled), take, zone1
+
+
+@pytest.mark.parametrize("strategy", ["most", "least"])
+@pytest.mark.parametrize("z", [2, 4])
+def test_topology_admit_plain_with_gpu_provider_equals_reference(z, strategy):
+    """K5's plain version with DeviceShare's hint provider against the
+    reference's composition: GPU pods that are NUMA-bound or on policy
+    nodes, instances of zone -1, invalid and partly used instances."""
+    from koordinator_tpu.snapshot.schema import DeviceState
+    from koordinator_tpu.utils import synthetic as jsyn
+    from koordinator_tpu_torch.scheduler.plugins import deviceshare
+
+    rng = np.random.default_rng(z + 5)
+    s, p = 24, 300
+    cap = np.stack([rng.integers(4, 24, (s, z)) * 500,
+                    rng.integers(4, 24, (s, z)) * 512],
+                   axis=-1).astype(np.float32)
+    used = (np.floor(cap * rng.uniform(0, 0.8, (s, z, 1)) / 500)
+            * 500).astype(np.float32)
+    valid = rng.uniform(size=(s, z)) < 0.9
+    valid[:, 0] = True
+    node_policy = rng.integers(0, 4, s).astype(np.int32)
+    choice = rng.integers(0, s + 1, p).astype(np.int32)
+    trying = (rng.uniform(size=p) < 0.8) & (choice < s)
+    single = rng.uniform(size=p) < 0.4
+    demand = np.stack([rng.integers(0, 8, p) * 500,
+                       rng.integers(0, 8, p) * 512],
+                      axis=-1).astype(np.float32)
+    total, free, gvalid, numa = gpu_pool(z, s, z)
+    pods = jsyn.synthetic_pods(p, seed=z, gpu_pod_frac=0.6)
+    devices = DeviceState(
+        gpu_total=total, gpu_free=free, gpu_valid=gvalid, gpu_numa=numa,
+        gpu_pcie=np.zeros_like(numa),
+        aux_free=np.zeros((s, 2, 0), np.float32),
+        aux_valid=np.zeros((s, 2, 0), bool))
+    want = reference_step_gpu(choice, trying, single, demand, cap, used,
+                              valid, node_policy, devices, pods, strategy)
+    args = [torch.from_numpy(x) for x in (choice, trying, single, demand,
+                                          cap, used, valid, node_policy)]
+    tdev = to_port("DeviceState", devices)
+    tpods = to_port("PodBatch", pods)
+    gpu_req = deviceshare.gpu_request(tpods.requests, tpods.gpu_ratio)
+    got = topology_admit(*args, strategy, gpu_req, tdev)
+    for name, w in zip(("affinity", "engaged", "admit", "take", "zone1"),
+                       want):
+        g = getattr(got, name).numpy()
+        assert g.dtype == np.asarray(w).dtype, name
+        assert g.tobytes() == np.asarray(w).tobytes(), name
+    # the GPU provider changes some outcome against the CPU+memory one
+    alone = topology_admit(*args, strategy)
+    assert not (torch.equal(alone.affinity, got.affinity)
+                and torch.equal(alone.admit, got.admit))
+    with pytest.raises(ValueError, match="go together"):
+        topology_admit(*args, strategy, gpu_req, None)
