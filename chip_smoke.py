@@ -40,7 +40,16 @@ in order:
    but the shared pods' takes) at a gpu_share step, both strategies,
    the edge state, the topology manager off, P = 1; K1 with two
    addends (K4's zone score, then K6's pool score; k = 32 without
-   jitter, negative estimates, K6's alone). Each timed case with its time
+   jitter, negative estimates, K6's alone). The taint and reservation
+   slot paths: K1 with the taint term and the 64 slot columns at a
+   gpu_share chunk (both addends, taken once slots), the taint term
+   with no addend and with one, k = 32 without jitter, N = 16 with
+   k = 24 (the selection reaches into the slot columns), toleration ids
+   and taint groups out of the tables' range, a penalty table of zeros,
+   slots without taints; K2 as the AllocateOnce level (64 once slots,
+   every pod on one slot, P = 1); K5 and K7 (with the K2 gate between
+   K7's launches) over the extended rows of slots that hold zones and
+   instances. Each timed case with its time
    (CUDA events over back-to-back calls, and the kernel's device time
    from torch.profiler), the plain version's, one library call's where
    there is one, and the card's lower bound for the same work;
@@ -62,18 +71,23 @@ in order:
    zone's takes within its capacity, no overcommit, quota within
    runtime; K6 and K7 never launched;
 6. gpu_share: `configs.run_gpu_share` (the DeviceShare path with
-   NodeNUMAResource) at 8000 pods x 1000 nodes on the card and on the
-   host, every result field equal (assignment, tail stats, instance
-   takes, requested, zone free, instance free, quotas, gangs); then
-   100 000 x 10 000 on the card: the bench line, the launch counts its
-   design fixes (K4 and K6 once a batch, K1 once a round, K5 once an
-   inner step, K7 twice, K2 three times, K3 four times an inner step,
-   three times a round and eight times a batch), every placed GPU pod
-   holding its count of instances, the takes times the per-instance
-   requests equal to each valid instance's total minus its free, no
-   negative free, no overcommit, quota within runtime, and never_retried
-   what the tail's pass budget leaves (each pass retries a full window
-   of never-retried stragglers first).
+   NodeNUMAResource, taints and tolerations and 64 reservation slots)
+   at 8000 pods x 1000 nodes on the card and on the host, every result
+   field equal (assignment, tail stats, instance takes, slots consumed,
+   requested, zone free, instance free, quotas, gangs, the reservation
+   state); then 100 000 x 10 000 on the card: the bench line, the
+   launch counts its design fixes (K4 and K6 once a batch, K1 once a
+   round, K5 once an inner step, K7 twice, K2 four times, K3 four
+   times an inner step, three times a round and eleven times a batch),
+   every placed GPU pod holding its count of instances, the takes times
+   the per-instance requests equal to each valid instance's total minus
+   its free, no negative free; every slot consumer on its slot's node
+   and owning it, at most one consumer an AllocateOnce slot, each
+   slot's free its initial free less its consumers' requests, node
+   requested not charged by consumers, no pod on a node whose taints
+   its toleration set forbids; no overcommit, quota within runtime,
+   and never_retried what the tail's pass budget leaves (each pass
+   retries a full window of never-retried stragglers first).
 
 The last three lines are one JSON object listing the kernels, the
 card's name and power limit, and one JSON object stating the result.
@@ -125,6 +139,7 @@ from koordinator_tpu_torch.kernels.scatter import (
 )
 from koordinator_tpu_torch.kernels.score_topk import (
     JITTER,
+    masked_scores,
     score_topk,
     score_topk_plain,
     tie_break_jitter,
@@ -140,8 +155,10 @@ from koordinator_tpu_torch.kernels.topology import (
 )
 from koordinator_tpu_torch.scheduler.batching import EPS, rank_by_priority
 from koordinator_tpu_torch.scheduler.cascade import (
+    _table_index,
     expand_gates,
     static_gate_terms,
+    taint_penalty,
 )
 from koordinator_tpu_torch.scheduler.core import overcommit_ok, quota_ok
 from koordinator_tpu_torch.scheduler.plugins import (
@@ -149,6 +166,7 @@ from koordinator_tpu_torch.scheduler.plugins import (
     loadaware,
     numaaware,
 )
+from koordinator_tpu_torch.scheduler.plugins.reservation import slot_columns
 from koordinator_tpu_torch.utils.synthetic import (
     config_2_inputs,
     gpu_share_inputs,
@@ -430,10 +448,14 @@ def k1_needed_pairs(kw, checked, val, idx):
         ub = ub + kw["pair_score"]
     if kw.get("pair_score2") is not None:
         ub = ub + kw["pair_score2"]
+    penalty = taint_penalty(gates)
+    if penalty is not None:
+        ub = torch.clamp_min(ub - penalty, 0.0)
     if kw["tie_break"]:
         ub = loadaware.fma_f32(torch.full_like(ub, 1023.0), JITTER, ub)
     kv, ki = val[:, -1:], idx[:, -1:].long()
     node = torch.arange(ub.shape[1], device=ub.device)[None, :]
+    checked = checked[:, :ub.shape[1]]
     reach = (ub > kv) | ((ub == kv) & (node <= ki))
     bounded = (kw["est"] >= 0).all(dim=1) & bool((kw["weights"] >= 0).all())
     needed = checked & (reach | ~bounded[:, None])
@@ -1173,18 +1195,25 @@ def same_outputs(name, got, want):
 
 def check_k5_gpu(dev, gen):
     """K5 with DeviceShare's hint provider at a gpu_share step (P=2000,
-    S=10 000, Z=2, I=8), both strategies, every policy code; untimed,
-    the edge state (zone -1 and invalid instances, nodes where none,
-    one or all fit) and P=1. Equal to the plain version."""
+    S=10 000, Z=2, I=8), both strategies, every policy code, and over
+    the extended rows of the 64 reservation slots holding zones and
+    instances (S=10 064; timed too); untimed, the edge state (zone -1
+    and invalid instances, nodes where none, one or all fit) and P=1.
+    Equal to the plain version."""
     out = {}
-    for label, n, edge, strategy, p, timed in (
-            ("gpu_share most", 10_000, False, "most", 2000, True),
-            ("gpu_share least", 10_000, False, "least", 2000, False),
-            ("edge most", 1000, True, "most", 2000, False),
-            ("P=1", 1000, True, "least", 1, False)):
+    for label, n, edge, strategy, p, timed, slots in (
+            ("gpu_share most", 10_000, False, "most", 2000, True, False),
+            ("gpu_share + slot rows", 10_000, False, "most", 2000, True,
+             True),
+            ("gpu_share least", 10_000, False, "least", 2000, False, False),
+            ("edge most", 1000, True, "most", 2000, False, False),
+            ("P=1", 1000, True, "least", 1, False, False)):
         snap, batch = gpu_state(dev, gen, n, 4000, p, edge)
         n, p = snap.num_nodes, batch.num_pods
         st = gpu_step(snap, batch, gen)
+        if slots:
+            snap, st = with_slot_rows(snap, st, gen)
+            n = snap.devices.gpu_free.shape[0]
         args = k5_gpu_args(snap, st, strategy)
         got, want = topology_admit(*args), topology_admit_plain(*args)
         same_outputs(f"K5 topology_admit with the GPU provider ({label})",
@@ -1224,22 +1253,31 @@ def check_k5_gpu(dev, gen):
 
 def check_k7(dev, gen):
     """K7's two launches and the K2 gate between them at a gpu_share
-    step (P=2000, N=10 000, I=8, the affinity from K5), both strategies;
-    untimed, the edge state (none, one or all instances fitting, zone -1
-    and invalid instances), the topology manager off, and P=1. Each
-    launch equal to its plain version on the same inputs (the take
-    launch on the kernel's K2 result, which is held to K2's plain
-    version too)."""
+    step (P=2000, N=10 000, I=8, the affinity from K5), both strategies,
+    and over the extended rows of the 64 reservation slots holding
+    instances and zones (N + V = 10 064; timed too); untimed, the edge
+    state (none, one or all instances fitting, zone -1 and invalid
+    instances), the topology manager off, and P=1. Each launch equal to
+    its plain version on the same inputs (the take launch on the
+    kernel's K2 result, which is held to K2's plain version too)."""
     out = {}
-    for label, n, edge, strategy, numa, p, timed in (
-            ("gpu_share least", 10_000, False, "least", True, 2000, True),
-            ("gpu_share most", 10_000, False, "most", True, 2000, False),
-            ("edge least", 1000, True, "least", True, 2000, False),
-            ("edge most, NUMA off", 1000, True, "most", False, 2000, False),
-            ("P=1", 1000, True, "least", True, 1, False)):
+    for label, n, edge, strategy, numa, p, timed, slots in (
+            ("gpu_share least", 10_000, False, "least", True, 2000, True,
+             False),
+            ("gpu_share + slot rows", 10_000, False, "least", True, 2000,
+             True, True),
+            ("gpu_share most", 10_000, False, "most", True, 2000, False,
+             False),
+            ("edge least", 1000, True, "least", True, 2000, False, False),
+            ("edge most, NUMA off", 1000, True, "most", False, 2000, False,
+             False),
+            ("P=1", 1000, True, "least", True, 1, False, False)):
         snap, batch = gpu_state(dev, gen, n, 6000, p, edge)
         n, p = snap.num_nodes, batch.num_pods
         st = gpu_step(snap, batch, gen)
+        if slots:
+            snap, st = with_slot_rows(snap, st, gen)
+            n = snap.devices.gpu_free.shape[0]
         d = snap.devices
         i = d.gpu_free.shape[1]
         zone = (None, None)
@@ -1373,21 +1411,19 @@ def check_k1_gpu(dev, gen):
         n_needed, n_terms = k1_needed_pairs(kw, checked, val, idx)
         active = int((kw["row_ok"] & gates.device_ok).sum())
         # as K1 with one addend (check_k1_numa), with the second addend
-        # read (4 bytes) and added (one operation) wherever the first is
+        # read (4 bytes) and added (one operation) wherever the first is,
+        # and the taint term (`k1_taint_cost`)
+        t_bytes, t_ops = k1_taint_cost(kw, n_checked)
         shared = p * (f + d) * 4 + n * (2 * f + 3 * d) * 4 + d * 4 \
-            + p * k * 8 + p * 9 + n * 8 + gates.selector_match.numel()
+            + p * k * 8 + p * 9 + n * 8 + gates.selector_match.numel() \
+            + t_bytes
         nbytes = shared + active * n + n_checked * 8
         ops = active * n + 2 * n_checked + n * (3 + n_terms * (5 * d + 3)) \
-            + n_needed * (2 * f + 8 * d + 6)
+            + n_needed * (2 * f + 8 * d + 6) + t_ops
         ops_all = (n_rows * n + n_checked * 2 * f + n * (f + 2 * d)
                    + n_feasible * (8 * d + 6))
         b_ms, b_by = bound(nbytes, ops)
-        masked = torch.where(checked & fit, tie_break_jitter(
-            loadaware.least_requested_score(
-                kw["est"], kw["prod_scored"], kw["node_term"],
-                kw["prod_term"], kw["alloc_score"], gates.metric_fresh,
-                kw["weights"], kw["fma_sum"]) + kw["pair_score"]
-            + kw["pair_score2"]), -1.0)
+        masked = k1_masked(kw)
         out[label] = dict(
             ms=cuda_ms(lambda: score_topk(**kw)),
             device_ms=device_ms(lambda: score_topk(**kw),
@@ -1402,6 +1438,232 @@ def check_k1_gpu(dev, gen):
             both_addends=int(((kw["pair_score"] > 0)
                               & (kw["pair_score2"] > 0) & checked).sum()))
     return out
+
+
+def k1_masked(kw):
+    """The masked [P, N + V] matrix of K1's arguments `kw`, which one
+    `torch.topk` call selects from (the library yardstick)."""
+    return masked_scores(**{key: x for key, x in kw.items() if key != "k"})
+
+
+def k1_taint_cost(kw, n_checked):
+    """(bytes, operations) the taint term adds to K1's bound: the pods'
+    toleration ids and the nodes' taint groups (4 bytes each) and both
+    tables (5 bytes an entry) read once; a subtraction and a floor for
+    each pair that passes the gates (`n_checked`)."""
+    gates = kw["gates"]
+    if gates.tol_forbid is None:
+        return 0, 0
+    p, n = gates.toleration_id.shape[0], gates.taint_group.shape[0]
+    return p * 4 + n * 4 + gates.tol_forbid.numel() * 5, 2 * n_checked
+
+
+def with_slots(snap, batch, kw, gen, owners=0.3, block=0.3):
+    """K1's arguments `kw` (from k1_case on snap and batch) with the
+    snapshot's V reservation slots as columns N..N+V-1, as
+    schedule_batch forms them (`slot_columns`): a share `owners` of the
+    pods owning a random slot, each slot's free partly used (integer
+    shares), a share `block` of them taken once slots."""
+    dev = batch.valid.device
+    p, v = batch.num_pods, snap.reservations.valid.shape[0]
+    owner = torch.where(
+        torch.rand((p,), generator=gen, device=dev) < owners,
+        torch.randint(0, v, (p,), generator=gen, device=dev,
+                      dtype=torch.int32), batch.reservation_owner)
+    slot_ok, free, _ = slot_columns(
+        snap, batch.replace(reservation_owner=owner), kw["gates"])
+    used = torch.floor(free * torch.rand((v, 1), generator=gen, device=dev)
+                       / 500.0) * 500.0
+    kw.update(
+        slot_ok=slot_ok,
+        slot_block=torch.rand((v,), generator=gen, device=dev) < block,
+        requested_fit=torch.cat([kw["requested_fit"],
+                                 used[:, FIT_DIMS]]).contiguous(),
+        alloc_fit=torch.cat([kw["alloc_fit"],
+                             free[:, FIT_DIMS]]).contiguous())
+    return kw
+
+
+def check_k1_slots(dev, gen):
+    """K1 with the taint term and the reservation slot columns at a
+    gpu_share chunk (P=2000 against N=10 000 nodes and V=64 slots, both
+    addends, a third of the slots taken once slots; timed), and
+    untimed: the tail's setting (P=512, N=10 000, V=64, k=32, jitter,
+    both addends), the taint term with no addend and with one, k=32
+    without jitter, N=16 with k=24 (the selection reaches into the
+    slot columns), toleration ids and taint groups out of the tables'
+    range, a penalty table of zeros, and slots without taints. Equal to
+    the plain version."""
+    out = {}
+    cfg = loadaware.LoadAwareConfig.make(device=dev)
+    for label, n, p, k, tie_break, adds, slots, edit in (
+            ("gpu_share", 10_000, 2000, 8, True, 2, True, None),
+            ("gpu_share tail", 10_000, 512, 32, True, 2, True, None),
+            ("taints, no addend", 10_000, 2000, 8, True, 0, False, None),
+            ("taints, NUMA addend", 1000, 2000, 8, True, 1, False, None),
+            ("k=32, no jitter", 1000, 512, 32, False, 2, True, None),
+            ("N=16, k=24", 16, 512, 24, True, 2, True, None),
+            ("taint indices out of range", 1000, 2000, 8, True, 2, True,
+             "wild"),
+            ("penalties all zero", 1000, 2000, 8, True, 2, True, "zero"),
+            ("slots, no taints", 1000, 2000, 8, True, 0, True,
+             "no taints")):
+        snap, batch = gpu_state(dev, gen, n, 8000, p)
+        n, p = snap.num_nodes, batch.num_pods
+        alloc = snap.nodes.allocatable
+        load = torch.rand(alloc.shape, generator=gen, device=dev) * 0.9
+        snap = snap.replace(nodes=snap.nodes.replace(
+            requested=torch.floor(alloc * load / 500.0) * 500.0))
+        if edit == "wild":
+            t, g = batch.tol_forbid.shape
+            batch = batch.replace(toleration_id=torch.randint(
+                -3, t + 3, (p,), generator=gen, device=dev,
+                dtype=torch.int32))
+            snap = snap.replace(nodes=snap.nodes.replace(
+                taint_group=torch.randint(-g - 3, g + 3, (n,), generator=gen,
+                                          device=dev, dtype=torch.int32)))
+        if edit == "zero":
+            batch = batch.replace(tol_prefer=torch.zeros_like(
+                batch.tol_prefer))
+        if edit == "no taints":
+            batch = batch.replace(has_taints=False)
+        kw = k1_case(snap, batch, cfg, 0, p, k, gen, FIT_DIMS, SCORE_DIMS,
+                     tie_break=tie_break)
+        mask = None
+        if adds:
+            mask, kw["pair_score"] = numa_pair_terms(
+                *k4_args(snap, batch, "most"))
+        if adds == 2:
+            mask, kw["pair_score2"] = device_pair_terms(
+                gpu_req_of(batch), snap.devices, "least", mask)
+        kw["pair_ok"] = mask
+        if slots:
+            kw = with_slots(snap, batch, kw, gen)
+        (val, idx), err = k1_equal(f"taints and slots, {label}", kw)
+        on_slot = int((idx >= n).sum())
+        stats = dict(max_abs_err=err, feasible=int((val >= 0).sum()),
+                     on_slot=on_slot, floored=int((
+                         (val >= 0) & (val < 0.5)).sum()))
+        if label != "gpu_share":
+            out[label] = stats
+            continue
+        gates = kw["gates"]
+        f, d = kw["req_fit"].shape[1], kw["est"].shape[1]
+        v = kw["slot_ok"].shape[1]
+        checked = expand_gates(gates) & kw["pair_ok"] & kw["row_ok"][:, None]
+        n_checked = int(checked.sum())
+        n_needed, n_terms = k1_needed_pairs(kw, checked, val, idx)
+        active = int((kw["row_ok"] & gates.device_ok).sum())
+        t_bytes, t_ops = k1_taint_cost(kw, n_checked)
+        # check_k1_gpu's count (two addends, the taint term), and the slot
+        # columns: slot_ok (a byte a pair), the taken flags, the slots'
+        # fit rows (8 bytes a dim) read once; the fit and a compare for
+        # each slot pair of an active row
+        nbytes = (p * (f + d) * 4 + n * (2 * f + 3 * d) * 4 + d * 4
+                  + p * k * 8 + p * 9 + n * 8 + gates.selector_match.numel()
+                  + t_bytes + active * n + n_checked * 8
+                  + p * v + v + v * f * 8)
+        ops = (active * n + 2 * n_checked + n * (3 + n_terms * (5 * d + 3))
+               + n_needed * (2 * f + 8 * d + 6) + t_ops
+               + active * v * (2 * f + 2))
+        b_ms, b_by = bound(nbytes, ops)
+        masked = k1_masked(kw)
+        out[label] = dict(
+            ms=cuda_ms(lambda: score_topk(**kw)),
+            device_ms=device_ms(lambda: score_topk(**kw),
+                                "score_topk_kernel"),
+            plain_ms=cuda_ms(lambda: score_topk_plain(**kw), reps=3),
+            library_ms=cuda_ms(lambda: torch.topk(masked, k, dim=1)),
+            bound_ms=b_ms, bound_by=b_by,
+            shape=(f"P={p} N={n} V={v} k={k} F={f} D={d} + two pair "
+                   "scores, taints"),
+            needed_pairs=n_needed, **stats)
+    return out
+
+
+def check_k2_once(dev, gen):
+    """K2 as the AllocateOnce level of a gpu_share step (P=2000, V=64
+    once-slot segments, a request of one against a capacity of one; 5 %
+    of the pods accepted on a once slot, many on the same ones), and
+    with every pod on one slot, and P=1. Equal to the plain version;
+    the first case timed."""
+    out = {}
+    snap, pods = gpu_share_inputs(10_000, 1000, device=dev)
+    v = snap.reservations.valid.shape[0]
+    for label, p, share, timed in (("gpu_share", 2000, 0.05, True),
+                                   ("all on one slot", 2000, 1.0, False),
+                                   ("P=1", 1, 1.0, False)):
+        batch = slice_batch(pods, 0, p)
+        here = torch.rand((p,), generator=gen, device=dev) < share
+        slot = torch.randint(0, 8 if share < 1 else 1, (p,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        chain = dict(
+            seg=torch.where(here, slot, v).to(torch.int32)[None],
+            rank=rank_by_priority(batch),
+            req=torch.ones((p, 1), device=dev), active=here,
+            tables=[(torch.zeros((v, 1), device=dev),
+                     torch.ones((v, 1), device=dev), v)], eps=EPS)
+        got = segment_prefix_chain(**chain)
+        if not torch.equal(got, segment_prefix_chain_plain(**chain)):
+            raise SystemExit(f"K2 as the AllocateOnce level ({label}) "
+                             "differs from its plain version")
+        stats = dict(max_abs_err=0.0, once_here=int(here.sum()),
+                     won=int(got.sum()))
+        if not timed:
+            out[label] = stats
+            continue
+        # the pods' segment, rank, request and flag, the tables and the
+        # result once; one add and three compares for each pod on a slot
+        b_ms, b_by = bound(p * 14 + v * 8, int(here.sum()) * 4)
+        out[label] = dict(
+            ms=cuda_ms(lambda: segment_prefix_chain(**chain)),
+            device_ms=device_ms(lambda: segment_prefix_chain(**chain),
+                                "segment_prefix_chain_kernel"),
+            plain_ms=cuda_ms(lambda: segment_prefix_chain_plain(**chain)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            shape=f"P={p} L=1 R=1 S={v}", **stats)
+    return out
+
+
+def with_slot_rows(snap, st, gen):
+    """A gpu_step state `st` on `snap` with the snapshot's V reservation
+    slots as extended pool rows N..N+V-1, as schedule_batch forms them
+    (core.py:406-449): each slot's zone hold (half its host node's
+    capacity of one zone) as a zone row with policy none and nothing
+    used, its reserved instances (about 40 % of its GPU host's valid
+    instances, at their live free) as an instance row with the host's
+    totals and topology; 20 % of the trying pods choose a slot row."""
+    dev = st["trying"].device
+    n, v = snap.num_nodes, snap.reservations.valid.shape[0]
+    host = snap.reservations.node.long()
+    nodes, d = st["nodes"], snap.devices
+    z = nodes.numa_cap.shape[1]
+    zone = torch.randint(0, z, (v,), generator=gen, device=dev)
+    zmask = torch.arange(z, device=dev)[None, :] == zone[:, None]
+    hold = torch.floor(nodes.numa_cap[host] / 2.0) * zmask[..., None]
+    resv_valid = d.gpu_valid[host] & (torch.rand(
+        d.gpu_valid[host].shape, generator=gen, device=dev) < 0.4)
+    nodes = nodes.replace(
+        numa_cap=torch.cat([nodes.numa_cap, hold]),
+        numa_free=torch.cat([nodes.numa_free, hold]),
+        numa_valid=torch.cat([nodes.numa_valid, zmask]),
+        numa_policy=torch.cat([nodes.numa_policy, torch.zeros(
+            (v,), dtype=torch.int32, device=dev)]))
+    devices = d.replace(
+        gpu_total=torch.cat([d.gpu_total, d.gpu_total[host]]),
+        gpu_free=torch.cat([d.gpu_free, d.gpu_free[host]
+                            * resv_valid[..., None]]),
+        gpu_valid=torch.cat([d.gpu_valid, resv_valid]),
+        gpu_numa=torch.cat([d.gpu_numa, d.gpu_numa[host]]),
+        gpu_pcie=torch.cat([d.gpu_pcie, d.gpu_pcie[host]]))
+    p = st["trying"].shape[0]
+    to_slot = st["trying"] & (torch.rand((p,), generator=gen, device=dev)
+                              < 0.2)
+    choice = torch.where(st["trying"], st["choice"], n + v)
+    choice = torch.where(to_slot, n + torch.randint(
+        0, v, (p,), generator=gen, device=dev), choice).to(torch.int32)
+    return snap.replace(devices=devices), dict(st, nodes=nodes,
+                                               choice=choice)
 
 
 def config_2_phase():
@@ -1474,13 +1736,16 @@ def check_config_2(run, line, launches):
                          f"(0, {k3_most}]")
 
 
-GPU_SHARE_FIELDS = ("assignment", "stats", "gpu_take", "nodes.requested",
-                    "nodes.numa_free", "devices.gpu_free", "quotas.used",
-                    "gangs.assumed", "nodes.assigned_estimated")
+GPU_SHARE_FIELDS = ("assignment", "stats", "gpu_take", "res_slot",
+                    "nodes.requested", "nodes.numa_free", "devices.gpu_free",
+                    "quotas.used", "gangs.assumed",
+                    "nodes.assigned_estimated", "reservations.free",
+                    "reservations.valid", "reservations.gpu_free",
+                    "reservations.numa_free")
 
 
 def _run_field(run, path):
-    if path in ("assignment", "stats", "gpu_take"):
+    if path in ("assignment", "stats", "gpu_take", "res_slot"):
         return getattr(run, path).cpu()
     part, field = path.split(".")
     return getattr(getattr(run.snapshot, part), field).cpu()
@@ -1503,6 +1768,7 @@ def gpu_share_phase():
                "cpu_s": small["cpu"][2],
                **{k: small["cuda"][0][k] for k in (
                    "placed", "gpu_pods_placed", "numa_bound_placed",
+                   "slot_consumers", "once_slots_taken",
                    "stragglers_after_sweep", "stragglers_final",
                    "tail_passes")}}
     print("gpu_share 8000x1000: " + json.dumps(summary), flush=True)
@@ -1524,14 +1790,22 @@ def gpu_share_phase():
 def check_gpu_share(run, line, launches):
     """gpu_share's invariants: the launch counts its design fixes (K4 and
     K6 once a batch, K1 once a round, K5 once an inner step, K7 twice,
-    K2 three times, K3 four times an inner step, three times a round and
-    eight times a batch); every placed GPU pod holds `count` instances
-    of its node, the takes times the per-instance requests equal each
-    valid instance's total minus its final free, and no free is
-    negative; no overcommit, quota within runtime; every pass retried a
-    full window of never-retried stragglers while any remained (the
-    tail's order), so that never_retried is what the pass budget leaves:
-    max(0, stragglers_after_sweep - passes * window)."""
+    K2 four times an inner step: node and quotas, zones, GPU instances,
+    AllocateOnce; K3 four times an inner step, three times a round and
+    eleven times a batch: the eight rebuild scatters and the three
+    reservation draw-downs); every placed GPU pod holds `count`
+    instances of its node, the takes times the per-instance requests
+    equal each valid instance's total minus its final free, and no free
+    is negative; every slot consumer owns its slot, each AllocateOnce
+    slot has at most one consumer (and is closed if it has one), each
+    slot's free is its initial free less its consumers' requests and
+    not negative, the nodes' requested is their initial requested plus
+    the placed pods' that consumed no slot; no pod sits on a node whose
+    taints its toleration set forbids; no overcommit, quota within
+    runtime; every pass retried a full window of never-retried
+    stragglers while any remained (the tail's order), so that
+    never_retried is what the pass budget leaves: max(0,
+    stragglers_after_sweep - passes * window)."""
     chunks = line["num_pods"] // line["chunk"]
     passes = line["tail_passes"]
     batches = chunks + passes
@@ -1542,8 +1816,8 @@ def check_gpu_share(run, line, launches):
              * GPU_SHARE_TAIL_KW["k_choices"])
     want = {"numa_pair_terms": batches, "device_pair_terms": batches,
             "score_topk": rounds, "topology_admit": steps,
-            "gpu_instance_pick": 2 * steps, "segment_prefix_ok": 3 * steps,
-            "ordered_scatter_add": 4 * steps + 3 * rounds + 8 * batches}
+            "gpu_instance_pick": 2 * steps, "segment_prefix_ok": 4 * steps,
+            "ordered_scatter_add": 4 * steps + 3 * rounds + 11 * batches}
     for name, count in want.items():
         if launches[name] != count:
             raise SystemExit(f"gpu_share: {name} launched {launches[name]} "
@@ -1568,6 +1842,7 @@ def check_gpu_share(run, line, launches):
     if not torch.equal((dev0.gpu_free - free) * valid, used * valid):
         raise SystemExit("gpu_share: instance takes differ from total minus "
                          "free")
+    check_slots_and_taints(snap0, pods, run, line)
     if not (overcommit_ok(run.snapshot) and quota_ok(run.snapshot)):
         raise SystemExit("gpu_share: overcommit or quota over runtime")
     window = min(line["chunk"], 512)
@@ -1576,10 +1851,64 @@ def check_gpu_share(run, line, launches):
         raise SystemExit(f"gpu_share: {line['never_retried']} stragglers "
                          f"never retried, not {left}")
     if not (0 < line["gpu_pods_placed"] <= line["placed"]
-            and 0 < line["numa_bound_placed"] <= line["placed"]):
+            and 0 < line["numa_bound_placed"] <= line["placed"]
+            and 0 < line["once_slots_taken"] <= line["slot_consumers"]):
         raise SystemExit(f"gpu_share: placed {line['placed']}, GPU "
                          f"{line['gpu_pods_placed']}, NUMA-bound "
-                         f"{line['numa_bound_placed']}")
+                         f"{line['numa_bound_placed']}, slot consumers "
+                         f"{line['slot_consumers']}, once slots taken "
+                         f"{line['once_slots_taken']}")
+
+
+def check_slots_and_taints(snap0, pods, run, line):
+    """The reservation and taint invariants of a gpu_share run (see
+    `check_gpu_share`), on the host: integer-valued sums, exact in any
+    order."""
+    assign = run.assignment.cpu().long()
+    res_slot = run.res_slot.cpu().long()
+    req = pods.requests.cpu()
+    resv0 = snap0.reservations.to("cpu")
+    resv = run.snapshot.reservations.to("cpu")
+    v = resv0.valid.shape[0]
+    placed = assign >= 0
+    consumer = res_slot >= 0
+    if bool((consumer & ~placed).any()):
+        raise SystemExit("gpu_share: an unplaced pod holds a slot")
+    slot = res_slot.clamp_min(0)
+    owner = pods.reservation_owner.cpu()
+    if not bool((owner[consumer] == resv0.owner_group[slot[consumer]]).all()
+                and (assign[consumer]
+                     == resv0.node[slot[consumer]].long()).all()):
+        raise SystemExit("gpu_share: a slot consumer does not own its slot "
+                         "or sits off its node")
+    per_slot = torch.bincount(res_slot[consumer], minlength=v)
+    once = resv0.allocate_once
+    if bool((per_slot[once] > 1).any()) or not torch.equal(
+            resv.valid, resv0.valid & ~(once & (per_slot > 0))):
+        raise SystemExit("gpu_share: an AllocateOnce slot has two consumers "
+                         "or its state is off")
+    consumed = torch.zeros((v, req.shape[1])).index_add_(
+        0, res_slot[consumer], req[consumer])
+    if not (torch.equal(resv.free, resv0.free - consumed)
+            and bool((resv.free >= 0).all())):
+        raise SystemExit("gpu_share: a slot's free is not its initial free "
+                         "less its consumers' requests")
+    n = snap0.num_nodes
+    on_node = placed & ~consumer
+    requested = snap0.nodes.requested.cpu().index_add(
+        0, assign[on_node], req[on_node])
+    if not torch.equal(run.snapshot.nodes.requested.cpu(), requested):
+        raise SystemExit("gpu_share: node requested is not the initial one "
+                         "plus the non-consumers' requests")
+    t, g = pods.tol_forbid.shape
+    tol = _table_index(pods.toleration_id.cpu().clamp_min(0), t)
+    taint = _table_index(snap0.nodes.taint_group.cpu(), g)
+    forbid = pods.tol_forbid.cpu()[tol, taint[assign.clamp(0, n - 1)]]
+    if bool((forbid & placed).any()):
+        raise SystemExit("gpu_share: a pod sits on a node whose taints its "
+                         "toleration set forbids")
+    if int(consumer.sum()) != line["slot_consumers"]:
+        raise SystemExit("gpu_share: slot_consumers disagrees with res_slot")
 
 
 def expected_launches(line):
@@ -1633,12 +1962,16 @@ def main() -> int:
     k5_gpu = check_k5_gpu(dev, gen)
     k7 = check_k7(dev, gen)
     k1_gpu = check_k1_gpu(dev, gen)
+    k1_slots = check_k1_slots(dev, gen)
+    k2_once = check_k2_once(dev, gen)
     for name, res in (("score_topk", k1), ("segment_prefix_ok", k2),
                       ("ordered_scatter_add", k3), ("numa_pair_terms", k4),
                       ("topology_admit", k5), ("score_topk", k1_numa),
                       ("segment_prefix_ok", k2_zones),
                       ("device_pair_terms", k6), ("topology_admit", k5_gpu),
-                      ("gpu_instance_pick", k7), ("score_topk", k1_gpu)):
+                      ("gpu_instance_pick", k7), ("score_topk", k1_gpu),
+                      ("score_topk", k1_slots),
+                      ("segment_prefix_ok", k2_once)):
         for label, r in res.items():
             print(f"kernel {name} [{label}]: " + json.dumps(r), flush=True)
 
@@ -1712,9 +2045,10 @@ def main() -> int:
                "topology_admit": k5["cfg2 most"],
                "device_pair_terms": k6["gpu_share least"],
                "gpu_instance_pick": k7["gpu_share least"]}
-    at_gpu_share = {"score_topk": k1_gpu["gpu_share"],
+    at_gpu_share = {"score_topk": k1_slots["gpu_share"],
                     "segment_prefix_ok": k7["gpu_share least"]["gpu_gate"],
-                    "topology_admit": k5_gpu["gpu_share most"]}
+                    "topology_admit": k5_gpu["gpu_share most"],
+                    "gpu_instance_pick": k7["gpu_share + slot rows"]}
     report = []
     for name, r in timings.items():
         source, replaces = SOURCES[name]
@@ -1729,6 +2063,11 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if name == "segment_prefix_ok":
+            entry["at_allocate_once"] = {
+                k: k2_once["gpu_share"][k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "shape")}
         if name in at_gpu_share:
             g = at_gpu_share[name]
             entry["at_gpu_share"] = {

@@ -13,18 +13,21 @@ here they are a Python loop.
 
 `run_gpu_share` (`gpu_share_100kx10k`) is the reference's full-gate
 flagship (bench.py:226-250 knobs, :398-470 sweep and tail, :84-89 tail
-passes; utils/synthetic.py:369-420 full_gate_cluster and
+passes; utils/synthetic.py:369-554 full_gate_cluster and
 full_gate_pods) cut to the gates the port has: 100 000 pods against
 10 000 nodes, a quarter of the nodes with 8 A100-like GPU instances
-split over their two NUMA zones, 10 % GPU pods (shared half-GPUs, whole
-GPUs, 2- and 4-GPU trainers), a third of the prod pods single-NUMA
-bound, 32 quotas and 64 gangs of 8. It runs the DeviceShare path with
-NodeNUMAResource (NUMA strategy "most", device strategy "least") at
-full width (no packing prefixes), chunks of 2000 with the bench's knobs,
-then the straggler tail (4 rounds x 32 choices, windows of 512, 2 to 10
-passes). Cut from the full-gate workload, each a gate the port does not
-have yet: taints and tolerations, the spread/anti-affinity/affinity
-groups, the 64 reservation slots, and the cascade.
+split over their two NUMA zones, three taint classes on the nodes and
+three toleration sets on the pods, 64 live reservation slots with two
+owners each (half of them AllocateOnce), 10 % GPU pods (shared
+half-GPUs, whole GPUs, 2- and 4-GPU trainers), a third of the prod pods
+single-NUMA bound, 32 quotas and 64 gangs of 8. It runs the DeviceShare
+path with NodeNUMAResource (NUMA strategy "most", device strategy
+"least"), the taint gate and penalty and the slot columns at full width
+(no packing prefixes), chunks of 2000 with the bench's knobs, then the
+straggler tail (4 rounds x 32 choices, windows of 512, 2 to 10 passes).
+Cut from the full-gate workload (`GPU_SHARE_CUTS`), each a gate the
+port does not have yet: the spread/anti-affinity/affinity groups and
+the cascade.
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ GPU_SHARE_KW = dict(num_rounds=2, k_choices=8, score_dims=(0, 1),
                     cascade=False, enable_numa=True, numa_strategy="most",
                     enable_devices=True, device_strategy="least")
 GPU_SHARE_TAIL_KW = dict(GPU_SHARE_KW, num_rounds=4, k_choices=32)
+GPU_SHARE_CUTS = ("spread_anti_affinity", "cascade")
 FULL_GATE_MAX_TAIL_PASSES = 10
 
 
@@ -131,11 +135,12 @@ def run_gpu_share(num_pods: int = 100_000, num_nodes: int = 10_000,
     time one sweep-and-tail on it, and return (line, run): `line` holds
     the bench line's fields (value = seconds of the timed region, which
     ends with the assignment's readback; pods_per_sec, placed,
-    gpu_pods_placed, numa_bound_placed, the stragglers, tail passes) and
-    the device it ran on; `run` the final snapshot, the assignment and
-    the placed pods' GPU instance takes. The first call on a card also
-    pays the kernels' build unless `kernels.build.build_all()` ran
-    before."""
+    gpu_pods_placed, numa_bound_placed, slot_consumers,
+    once_slots_taken, the stragglers, tail passes, the cuts) and the
+    device it ran on; `run` the final snapshot, the assignment, the
+    placed pods' GPU instance takes and their reservation slots. The
+    first call on a card also pays the kernels' build unless
+    `kernels.build.build_all()` ran before."""
     dev = resolve_device(device)
     snap, pods = gpu_share_inputs(num_pods, num_nodes, device=dev)
     cfg = LoadAwareConfig.make(device=dev)
@@ -149,6 +154,8 @@ def run_gpu_share(num_pods: int = 100_000, num_nodes: int = 10_000,
     elapsed = time.perf_counter() - t0
     placed = assign >= 0
     gpu = has_gpu_request(pods.requests, pods.gpu_ratio).cpu()
+    res_slot = run.res_slot.cpu()
+    consumed = torch.unique(res_slot[res_slot >= 0]).long()
     stats = [int(x) for x in run.stats]
     line = {
         "metric": GPU_SHARE_METRIC,
@@ -157,10 +164,14 @@ def run_gpu_share(num_pods: int = 100_000, num_nodes: int = 10_000,
         "placed": int(placed.sum()),
         "gpu_pods_placed": int((placed & gpu).sum()),
         "numa_bound_placed": int((placed & pods.numa_single.cpu()).sum()),
+        "slot_consumers": int((res_slot >= 0).sum()),
+        "once_slots_taken": int(
+            snap.reservations.allocate_once.cpu()[consumed].sum()),
         "stragglers_after_sweep": stats[0],
         "stragglers_final": stats[1],
         "never_retried": stats[2],
         "tail_passes": stats[3],
+        "cuts": list(GPU_SHARE_CUTS),
         "num_pods": num_pods,
         "num_nodes": num_nodes,
         "chunk": chunk,

@@ -94,6 +94,40 @@
 //   addends stays -inf. The slim and one-addend instances are
 //   unchanged.
 //
+// - The taint term (the TAINT instances, a batch with tolerations): a
+//   pod's toleration set t and a node's taint group g pick a forbid bit
+//   and a penalty pen = tol_penalty[t][g] >= 0 from two tables over
+//   (set, group); the block stages its rows' table rows in shared
+//   memory (bits and floats over the groups, as the selector rows are
+//   staged), and the tile stages each node's group beside its label
+//   (one 16-bit word: label in the low 10 bits, group in the high 6).
+//   A forbidden pair is gated off, like a selector miss. The value of a
+//   pair becomes jit(max(fl(S - pen), 0)), S the LoadAware sum with its
+//   0 to 2 addends added in order (the reference's core.py:693-704),
+//   and the -1 mask comes after the floor (core.py:732). The filter
+//   bounds the pair by jit_1023(max(fl(B - pen), 0)), B the pair's
+//   bound without the penalty (U, or fl(U + a1), or fl(fl(U + a1) +
+//   a2), as above), reading the pair's own penalty. Proof that this
+//   bounds every value: S <= B (above), so S - pen <= B - pen and,
+//   rounding being monotone, fl(S - pen) <= fl(B - pen); max(., 0) and
+//   the jitter do not decrease in their argument. (pen >= 0 is not
+//   even needed: the filter subtracts the pair's own pen.) A gated-off
+//   class stages -inf, and the floor would lift -inf - pen to 0: the
+//   filter keeps -inf there, so a gated pair stays out of the queue.
+//   Without tolerations the instances are the ones above.
+// - Reservation slots (V > 0): slot v is column N + v of the selection
+//   (extended index order, so it ranks after every node of equal
+//   value; the jitter hashes the extended index). Its value is
+//   3 * MAX_NODE_SCORE + 1 = 301 plus jitter where slot_ok[p][v] (the
+//   owner match and the static gates at the slot's host node, computed
+//   on the host as bool[P, V]), the fit of the request against row
+//   N + v of the fit tables (the slot's free and its carried use) and
+//   not slot_block[v] (a taken AllocateOnce slot) hold, else -1; no
+//   addend and no penalty. The last split of each row group scores its
+//   rows' V slot columns exactly, 32 a batch, after its node tiles
+//   (V is small: the full-gate workload has 64), and the split merge
+//   takes them with the rest. No [P, N + V] tensor exists.
+//
 // Exactness against the reference (bit for bit): the file builds with
 // -fmad=false, and the arithmetic names its rounding. The floors sit on
 // IEEE divisions (__fdiv_rn). The reference's compiler contracts the
@@ -128,6 +162,10 @@ constexpr int MAX_K = 32;
 constexpr int QUEUE = 64;            // queue of pairs to score, a row
 constexpr int MAX_LABELS = 1024;
 constexpr int SEL_WORDS = MAX_LABELS / 32;
+constexpr int MAX_TG = 64;             // taint groups (table columns)
+constexpr int TG_WORDS = MAX_TG / 32;
+constexpr int LABEL_BITS = 10;         // a staged word: label | group << 10
+constexpr float SLOT_SCORE = 301.0f;   // 3 * MAX_NODE_SCORE + 1
 constexpr int SENTINEL = 0x7fffffff - MAX_K;  // list padding: SENTINEL + j
 constexpr float JITTER = (float)(0.49 / 1024.0);
 constexpr unsigned FULL = 0xffffffffu;
@@ -177,13 +215,19 @@ struct Args {
   const uint8_t* pair_ok;         // [P, N] or null
   const float* pair_score;        // [P, N] (the ADD instances) or null
   const float* pair_score2;       // [P, N] (the ADD2 instance) or null
+  const int32_t* toleration_id;   // [P] (the TAINT instances) or null
+  const int32_t* taint_group;     // [N]
+  const uint8_t* tol_forbid;      // [T, G]
+  const float* tol_penalty;       // [T, G]
+  const uint8_t* slot_ok;         // [P, V] or null (V = 0)
+  const uint8_t* slot_block;      // [V]
   const float* weights;           // [D]
   float* part_val;                // [gridDim.x, RB, k]
   int32_t* part_idx;
   int32_t* tickets;               // [gridDim.x], zero between launches
   float* out_val;                 // [P, k]
   int32_t* out_idx;
-  int P, N, F, D, k, S, L, tie_break, fma_sum;
+  int P, N, F, D, k, S, L, tie_break, fma_sum, V, T, G;
   float eps;
 };
 
@@ -364,11 +408,17 @@ __device__ __forceinline__ float score_bound(Cap cap, Term term, int D,
   return s == s && !huge ? s : INFINITY;
 }
 
-// The column of label group `lab` in a selector table of L columns, by
-// the reference's index rule: a negative index counts from the end, and
-// an index out of range is clamped to it.
+// The column of label (or taint) group `lab` in a table of L columns,
+// by the reference's index rule: a negative index counts from the end,
+// and an index out of range is clamped to it.
 __device__ __forceinline__ int label_column(int lab, int L) {
   return min(max(lab < 0 ? lab + L : lab, 0), max(L - 1, 0));
+}
+
+// The row of toleration set `t` in tables of T rows: a negative one
+// reads row 0, one out of range the last.
+__device__ __forceinline__ int tol_row(int t, int T) {
+  return min(max(t, 0), max(T - 1, 0));
 }
 
 // A pod's gate class and usage term, as an index of the staged bounds.
@@ -386,7 +436,7 @@ __device__ __forceinline__ bool node_gate(const Args& a, int n, int g) {
          (cls == 0 || (cls == 1 ? a.node_ok[n] : a.prod_node_ok[n]) || stale);
 }
 
-template <class C, int ADD>
+template <class C, int ADD, bool TAINT>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     score_topk_kernel(const Args a) {
   constexpr int MAXD = C::MAXD, THREADS = C::THREADS, TILE = C::TILE;
@@ -406,6 +456,8 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   __shared__ float s_es[RB][MAX_DIMS];
   __shared__ float s_w[MAX_DIMS];
   __shared__ int s_queue[RB][QUEUE];  // a row's pairs to score, by node
+  __shared__ unsigned s_forbid[TAINT ? RB : 1][TG_WORDS];  // bits by group
+  __shared__ float s_pen[TAINT ? RB : 1][MAX_TG];          // by group
   __shared__ typename cub::BlockScan<int, THREADS>::TempStorage scan_tmp;
   __shared__ int s_last, s_gates;
 
@@ -479,6 +531,23 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
                              | (a.selector_id[row] >= 0 ? SELECTOR_USED : 0));
   }
   if (tid < D) s_w[tid] = a.weights[tid];
+  if (TAINT) {  // each row's toleration set: forbid bits and penalties
+    for (int e = tid; e < RB * MAX_TG; e += THREADS) {
+      const int slot = e / MAX_TG, grp = e - slot * MAX_TG;
+      const int row = s_rows[slot];
+      float pen = 0.0f;
+      unsigned bits = 0;
+      if (row >= 0 && grp < a.G) {
+        const size_t o = (size_t)tol_row(a.toleration_id[row], a.T) * a.G;
+        pen = a.tol_penalty[o + grp];
+        if ((grp & 31) == 0)
+          for (int b = 0; b < 32 && grp + b < a.G; ++b)
+            bits |= (unsigned)(a.tol_forbid[o + grp + b] != 0) << b;
+      }
+      s_pen[slot][grp] = pen;
+      if ((grp & 31) == 0) s_forbid[slot][grp >> 5] = bits;
+    }
+  }
   __syncthreads();
   float wsum = 0.0f;
   bool w_nonneg = true;
@@ -536,6 +605,11 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
       const int label = label_column(a.label_group[n], a.L);
       ok = ok && ((s_sel[slot0 + r][label >> 5] >> (label & 31)) & 1u);
     }
+    int tg = 0;
+    if (TAINT) {
+      tg = label_column(a.taint_group[n], a.G);
+      ok = ok && !((s_forbid[slot0 + r][tg >> 5] >> (tg & 31)) & 1u);
+    }
     if (a.pair_ok != nullptr)
       ok = ok && a.pair_ok[(size_t)prow[r] * N + n];
     const float* est = s_es[slot0 + r];
@@ -586,6 +660,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
       v = __fadd_rn(v, a.pair_score[(size_t)prow[r] * N + n]);
     if (ADD == 2 && ok)
       v = __fadd_rn(v, a.pair_score2[(size_t)prow[r] * N + n]);
+    if (TAINT && ok) v = fmaxf(__fsub_rn(v, s_pen[slot0 + r][tg]), 0.0f);
     if (ok && a.tie_break) {
       const uint32_t h =
           ((uint32_t)prow[r] * 2654435761u + (uint32_t)n * 40503u) & 1023u;
@@ -625,8 +700,10 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
         const bool sched = a.schedulable[n] != 0;
         const bool ok_cls[3] = {sched, sched && (a.node_ok[n] || !fresh),
                                 sched && (a.prod_node_ok[n] || !fresh)};
-        if (gates_used & SELECTOR_USED)
-          lab[i] = (uint16_t)label_column(a.label_group[n], a.L);
+        if ((gates_used & SELECTOR_USED) || TAINT)
+          lab[i] = (uint16_t)(
+              label_column(a.label_group[n], a.L) |
+              (TAINT ? label_column(a.taint_group[n], a.G) << LABEL_BITS : 0));
         // the node's bound: the largest value a pod can give it
         float ub_t[2] = {0.0f, 0.0f};
         if (fresh) {
@@ -638,7 +715,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
                                         [&](int d) { return pt[d]; }, D, s_w,
                                         wsum);
         }
-        if (a.tie_break && !ADD) {  // ADD: in the filter, after the addend
+        if (a.tie_break && !ADD && !TAINT) {  // else in the filter, last
           ub_t[0] = __fmaf_rn(1023.0f, JITTER, ub_t[0]);
           ub_t[1] = __fmaf_rn(1023.0f, JITTER, ub_t[1]);
         }
@@ -667,21 +744,28 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
         const bool in = i < tn;
         const int ii = in ? i : 0;
         const int n = t0 + i;
-        const int label = any_sel ? lab[ii] : 0;
+        const int packed = any_sel || TAINT ? lab[ii] : 0;
+        const int label = packed & ((1 << LABEL_BITS) - 1);
+        const int tg = packed >> LABEL_BITS;
         any_m = 0;
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
           float ub = ubr[r][ii];
-          if (ADD >= 1 && live[r] && in) {
-            ub = __fadd_rn(ub, a.pair_score[(size_t)prow[r] * N + n]);
+          if ((ADD >= 1 || TAINT) && live[r] && in) {
+            if (ADD >= 1)
+              ub = __fadd_rn(ub, a.pair_score[(size_t)prow[r] * N + n]);
             if (ADD == 2)
               ub = __fadd_rn(ub, a.pair_score2[(size_t)prow[r] * N + n]);
+            if (TAINT && ub != -INFINITY)  // a gated class stays out
+              ub = fmaxf(__fsub_rn(ub, s_pen[slot0 + r][tg]), 0.0f);
             if (a.tie_break) ub = __fmaf_rn(1023.0f, JITTER, ub);
           }
           bool sel = true;
           if (any_sel)
             sel = sel_all[r] ||
                   ((s_sel[slot0 + r][label >> 5] >> (label & 31)) & 1u);
+          if (TAINT)
+            sel = sel && !((s_forbid[slot0 + r][tg >> 5] >> (tg & 31)) & 1u);
           const bool cand =
               live[r] & in &
               ((tk[r].tv == -INFINITY) |
@@ -712,6 +796,38 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   for (int r = 0; r < ROWS; ++r) {
     if (prow[r] < 0) continue;
     while (qt[r] > qh[r]) flush(r);
+  }
+
+  // the slot columns N..N+V-1, in the group's last split, each scored
+  // exactly: 301 plus jitter where the pod may use the slot, the slot
+  // is open and the request fits its free less its carried use
+  if (a.V > 0 && split == splits - 1) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (prow[r] < 0) continue;
+      for (int v0 = 0; v0 < a.V; v0 += 32) {
+        const int sv = v0 + lane;
+        const bool has = sv < a.V;
+        const int n = N + sv;
+        bool ok = has && a.slot_ok[(size_t)prow[r] * a.V + sv] &&
+                  !a.slot_block[sv];
+        if (ok)
+          for (int f = 0; f < F; ++f)
+            ok = ok && (__fadd_rn(s_rq[slot0 + r][f],
+                                  a.requested_fit[(size_t)n * F + f])
+                        <= __fadd_rn(a.alloc_fit[(size_t)n * F + f], a.eps));
+        float v = -1.0f;
+        if (ok) {
+          v = SLOT_SCORE;
+          if (a.tie_break) {
+            const uint32_t h = ((uint32_t)prow[r] * 2654435761u +
+                                (uint32_t)n * 40503u) & 1023u;
+            v = __fmaf_rn((float)h, JITTER, v);
+          }
+        }
+        topk_add(tk[r], k, lane, v, n, has);
+      }
+    }
   }
 
   // 4. splits: the last block of the group merges the other splits'
@@ -747,7 +863,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
               ((size_t)(g * splits + sp) * RB + slot0 + r) * k + (e - sp * k);
           v = __ldcg(a.part_val + o);
           i = __ldcg(a.part_idx + o);
-          valid = i < N;  // padding of a split with fewer than k nodes
+          valid = i < N + a.V;  // not the padding of a short split
         }
         topk_add(tk[r], k, lane, v, i, valid);
       }
@@ -768,18 +884,18 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 
 // Allow the instance its dynamic shared memory and count its resident
 // blocks an SM (once).
-template <class C, int ADD>
+template <class C, int ADD, bool TAINT>
 int prepare(int* occupancy) {
   static int occ = 0;
   if (occ == 0) {
     const size_t smem = smem_bytes(C::TILE);
     cudaError_t err = cudaFuncSetAttribute(
-        score_topk_kernel<C, ADD>,
+        score_topk_kernel<C, ADD, TAINT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, score_topk_kernel<C, ADD>, C::THREADS, smem);
+        &blocks, score_topk_kernel<C, ADD, TAINT>, C::THREADS, smem);
     if (err != cudaSuccess) return (int)err;
     occ = max(blocks, 1);
   }
@@ -787,39 +903,55 @@ int prepare(int* occupancy) {
   return 0;
 }
 
-template <class C, int ADD>
+template <class C, int ADD, bool TAINT>
 int launch(const Args& a, int blocks, cudaStream_t s) {
-  const int rc = prepare<C, ADD>(nullptr);
+  const int rc = prepare<C, ADD, TAINT>(nullptr);
   if (rc) return rc;
-  score_topk_kernel<C, ADD>
+  score_topk_kernel<C, ADD, TAINT>
       <<<blocks, C::THREADS, smem_bytes(C::TILE), s>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <class C>
+template <class C, bool TAINT>
 int launch(const Args& a, int blocks, cudaStream_t s) {
-  if (a.pair_score2 != nullptr) return launch<C, 2>(a, blocks, s);
-  return a.pair_score != nullptr ? launch<C, 1>(a, blocks, s)
-                                 : launch<C, 0>(a, blocks, s);
+  if (a.pair_score2 != nullptr) return launch<C, 2, TAINT>(a, blocks, s);
+  return a.pair_score != nullptr ? launch<C, 1, TAINT>(a, blocks, s)
+                                 : launch<C, 0, TAINT>(a, blocks, s);
 }
 
 template <class C>
+int launch(const Args& a, int blocks, cudaStream_t s) {
+  return a.tol_forbid != nullptr ? launch<C, true>(a, blocks, s)
+                                 : launch<C, false>(a, blocks, s);
+}
+
+template <class C, bool TAINT>
 int prepare(int add, int* occupancy) {
-  if (add == 2) return prepare<C, 2>(occupancy);
-  return add ? prepare<C, 1>(occupancy) : prepare<C, 0>(occupancy);
+  if (add == 2) return prepare<C, 2, TAINT>(occupancy);
+  return add ? prepare<C, 1, TAINT>(occupancy)
+             : prepare<C, 0, TAINT>(occupancy);
+}
+
+template <class C>
+int prepare(int add, int taint, int* occupancy) {
+  return taint ? prepare<C, true>(add, occupancy)
+               : prepare<C, false>(add, occupancy);
 }
 
 }  // namespace
 
 // The grid of one launch for P pods: at least one block per 16 rows,
 // and enough blocks to fill every SM as far as the instance's occupancy
-// allows (`add`: the number of pair scores, 0 to 2). Returns the block
-// count, or minus a CUDA error code.
-extern "C" int koord_score_topk_blocks(int P, int F, int D, int add) {
+// allows (`add`: the number of pair scores, 0 to 2; `taint`: whether the
+// batch has tolerations). Returns the block count, or minus a CUDA
+// error code.
+extern "C" int koord_score_topk_blocks(int P, int F, int D, int add,
+                                       int taint) {
   const int need = (P + RB - 1) / RB;
   int occ = 0, dev = 0, sms = 0;
-  const int rc = F <= NARROW && D <= NARROW ? prepare<Narrow>(add, &occ)
-                                            : prepare<Wide>(add, &occ);
+  const int rc = F <= NARROW && D <= NARROW
+                     ? prepare<Narrow>(add, taint, &occ)
+                     : prepare<Wide>(add, taint, &occ);
   if (rc) return -rc;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -833,9 +965,10 @@ extern "C" int koord_score_topk_blocks(int P, int F, int D, int add) {
 // schedulable, requested_fit, alloc_fit, node_term, prod_term,
 // alloc_score, selector_match, pair_ok (or null), weights, part_val,
 // part_idx, tickets, out_val, out_idx, pair_score (or null),
-// pair_score2 (or null; only with pair_score). dims: P,
-// N, F, D, k, S, L, tie_break, fma_sum, blocks (from
-// koord_score_topk_blocks).
+// pair_score2 (or null; only with pair_score), toleration_id,
+// taint_group, tol_forbid, tol_penalty (all four or none), slot_ok,
+// slot_block (null where V = 0). dims: P, N, F, D, k, S, L, tie_break,
+// fma_sum, blocks (from koord_score_topk_blocks), V, T, G.
 extern "C" int koord_score_topk(const void* const* ptr, const int* dims,
                                 float eps, void* stream) {
   Args a;
@@ -867,6 +1000,12 @@ extern "C" int koord_score_topk(const void* const* ptr, const int* dims,
   a.out_idx = (int32_t*)ptr[25];
   a.pair_score = (const float*)ptr[26];
   a.pair_score2 = (const float*)ptr[27];
+  a.toleration_id = (const int32_t*)ptr[28];
+  a.taint_group = (const int32_t*)ptr[29];
+  a.tol_forbid = (const uint8_t*)ptr[30];
+  a.tol_penalty = (const float*)ptr[31];
+  a.slot_ok = (const uint8_t*)ptr[32];
+  a.slot_block = (const uint8_t*)ptr[33];
   a.P = dims[0];
   a.N = dims[1];
   a.F = dims[2];
@@ -878,10 +1017,19 @@ extern "C" int koord_score_topk(const void* const* ptr, const int* dims,
   a.fma_sum = dims[8];
   a.eps = eps;
   const int blocks = dims[9];
+  a.V = dims[10];
+  a.T = dims[11];
+  a.G = dims[12];
   if (a.P <= 0) return 0;
-  if (a.F > MAX_DIMS || a.D > MAX_DIMS || a.k > MAX_K || a.k > a.N ||
-      a.k <= 0 || a.L > MAX_LABELS || a.N >= SENTINEL || blocks <= 0 ||
-      (a.pair_score2 != nullptr && a.pair_score == nullptr))
+  const bool taint = a.tol_forbid != nullptr;
+  if (a.F > MAX_DIMS || a.D > MAX_DIMS || a.k > MAX_K || a.V < 0 ||
+      a.k > a.N + a.V || a.k <= 0 || a.L > MAX_LABELS ||
+      a.N >= SENTINEL - a.V || blocks <= 0 ||
+      (a.pair_score2 != nullptr && a.pair_score == nullptr) ||
+      (taint && (a.T <= 0 || a.G <= 0 || a.G > MAX_TG ||
+                 a.toleration_id == nullptr || a.taint_group == nullptr ||
+                 a.tol_penalty == nullptr)) ||
+      (a.V > 0 && (a.slot_ok == nullptr || a.slot_block == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return a.F <= NARROW && a.D <= NARROW ? launch<Narrow>(a, blocks, s)

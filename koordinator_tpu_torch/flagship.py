@@ -52,6 +52,9 @@ class FlagshipRun:
     gpu_take: Optional[torch.Tensor] = None  # bool[P, I] placed pods' GPU
                                              # instances, where the path
                                              # has them
+    res_slot: Optional[torch.Tensor] = None  # i32[P] placed pods'
+                                             # reservation slot, -1, where
+                                             # the snapshot has slots
 
 
 def sweep_and_tail(snap: ClusterSnapshot, pods: PodBatch,
@@ -64,7 +67,8 @@ def sweep_and_tail(snap: ClusterSnapshot, pods: PodBatch,
     in windows of `tail_chunk` (default min(chunk, 512)) with
     `schedule_batch(**tail_kw)`, 2 to `max_passes` passes. The kwargs
     default to the slim flagship's (STEP_KW, TAIL_KW); a path with GPU
-    instances also returns every placed pod's instance takes."""
+    instances also returns every placed pod's instance takes, and one
+    with reservation slots every placed pod's slot."""
     step_kw = STEP_KW if step_kw is None else step_kw
     tail_kw = TAIL_KW if tail_kw is None else tail_kw
     num = pods.num_pods
@@ -77,16 +81,20 @@ def sweep_and_tail(snap: ClusterSnapshot, pods: PodBatch,
                              **step_kw)
         snap = res.snapshot
         results.append(res)
-    gpu_take = None
+    fields = []
     if snap.devices.num_instances and step_kw.get("enable_devices", True):
-        gpu_take = torch.cat([r.gpu_take for r in results])
-    snap, assign, stats, gpu_take = tail_compaction_loop(
+        fields.append("gpu_take")
+    if snap.reservations.valid.shape[0]:
+        fields.append("res_slot")
+    carry = {f: torch.cat([getattr(r, f) for r in results])
+             for f in fields} or None
+    snap, assign, stats, carry = tail_compaction_loop(
         functools.partial(schedule_batch, **tail_kw), snap,
         torch.cat([r.assignment for r in results]), pods, cfg,
         tail_chunk=tail_chunk, min_passes=MIN_TAIL_PASSES,
-        max_passes=max_passes, gpu_take=gpu_take)
+        max_passes=max_passes, carry=carry)
     return FlagshipRun(snapshot=snap, assignment=assign, stats=stats,
-                       gpu_take=gpu_take)
+                       **(carry or {}))
 
 
 def run_northstar(num_pods: int = 100_000, num_nodes: int = 10_000,

@@ -5,12 +5,17 @@ Kernel: `csrc/score_topk.cu`. Replaces the round prologue of
 koordinator_tpu/scheduler/core.py schedule_batch (cascade.static_gates
 and the deviceshare prefilter, read there as one [P, N] mask;
 core.py:565-577 fit, :675-684 quota admission, loadaware.score_matrix,
-:721-742 jitter, mask and lax.top_k) without writing any [P, N] matrix:
-the static gates come in factored form (`cascade.GateTerms`), an
-optional bool[P, N] pair mask carries gates that do not factor, and up
-to two f32[P, N] pair scores are added to the LoadAware score in the
-reference's order (core.py:693-699: the NUMA zone score from K4, then
-the DeviceShare pool score from K6).
+:693-742 addends, taint penalty, slot columns, jitter, mask and
+lax.top_k) without writing any [P, N] matrix: the static gates come in
+factored form (`cascade.GateTerms`, with the taint forbid and penalty
+tables for a batch with tolerations), an optional bool[P, N] pair mask
+carries gates that do not factor, up to two f32[P, N] pair scores are
+added to the LoadAware score in the reference's order (core.py:693-699:
+the NUMA zone score from K4, then the DeviceShare pool score from K6),
+the taint penalty is subtracted and the result floored at 0
+(:700-704), and V reservation slots are extra columns N..N+V-1 of the
+selection (:713-720, the owner-restricted virtual nodes of
+plugins/reservation.py) scoring 3 * MAX_NODE_SCORE + 1.
 """
 
 from __future__ import annotations
@@ -24,13 +29,21 @@ import torch
 from koordinator_tpu_torch.api.extension import NUM_RESOURCES
 from koordinator_tpu_torch.kernels import _launch
 from koordinator_tpu_torch.kernels.build import TOOLCHAIN, check
-from koordinator_tpu_torch.scheduler.cascade import GateTerms, expand_gates
+from koordinator_tpu_torch.scheduler.batching import MAX_NODE_SCORE
+from koordinator_tpu_torch.scheduler.cascade import (
+    GateTerms,
+    expand_gates,
+    taint_penalty,
+)
 from koordinator_tpu_torch.scheduler.plugins import loadaware
 
 # the tie-break jitter step, float32 as the reference rounds it
 JITTER = float(np.float32(0.49 / 1024.0))
 MAX_K = 32
 MAX_LABELS = 1024   # label groups (selector table columns) the kernel takes
+MAX_TAINT_GROUPS = 64  # taint groups (forbid/penalty table columns)
+# a reservation slot column's score: above any node's sum of plugin scores
+SLOT_SCORE = 3.0 * MAX_NODE_SCORE + 1.0
 ROWS_PER_BLOCK = 16  # pod rows a block of the kernel takes
 
 # per (device, stream): the kernel's split-merge tickets, zero between
@@ -50,26 +63,24 @@ def tie_break_jitter(scores: torch.Tensor) -> torch.Tensor:
     return loadaware.fma_f32(h.to(torch.float32), JITTER, scores)
 
 
-def score_topk_plain(gates: GateTerms, pair_ok: Optional[torch.Tensor],
-                     row_ok, req_fit, requested_fit, alloc_fit, est,
-                     prod_scored, node_term, prod_term, alloc_score,
-                     weights, k: int, tie_break: bool, eps: float,
-                     fma_sum: bool, pair_score: Optional[torch.Tensor] = None,
-                     pair_score2: Optional[torch.Tensor] = None):
-    """(val f32[P, k], idx i32[P, k]): the k best nodes of each pod by
-    value descending then index ascending (lax.top_k's order), where a
-    pair's value is its LoadAware score (+ pair_score, then +
-    pair_score2, where given, each sum rounded, then + jitter) if it
-    passes the static gates (`gates` expanded, and `pair_ok` where
-    given), the row mask and the resource fit, else -1.
-    `fma_sum` picks the rounding of the score's weighted sum
-    (loadaware.weighted_sum)."""
+def masked_scores(gates: GateTerms, pair_ok: Optional[torch.Tensor],
+                  row_ok, req_fit, requested_fit, alloc_fit, est,
+                  prod_scored, node_term, prod_term, alloc_score, weights,
+                  tie_break: bool, eps: float, fma_sum: bool,
+                  pair_score: Optional[torch.Tensor] = None,
+                  pair_score2: Optional[torch.Tensor] = None,
+                  slot_ok: Optional[torch.Tensor] = None,
+                  slot_block: Optional[torch.Tensor] = None):
+    """f32[P, N + V]: each pair's value in the selection of
+    `score_topk_plain`, -1 where it is not feasible (the reference's
+    masked matrix, core.py:693-735)."""
+    n = gates.label_group.shape[0]
     static_ok = expand_gates(gates)
     if pair_ok is not None:
         static_ok = static_ok & pair_ok
     fit = torch.all(req_fit[:, None, :] + requested_fit[None]
-                    <= alloc_fit[None] + eps, dim=-1)
-    feasible = fit & static_ok & row_ok[:, None]
+                    <= alloc_fit[None] + eps, dim=-1)          # [P, N+V]
+    feasible = fit[:, :n] & static_ok & row_ok[:, None]
     scores = loadaware.least_requested_score(
         est, prod_scored, node_term, prod_term, alloc_score,
         gates.metric_fresh, weights, fma_sum)
@@ -77,9 +88,44 @@ def score_topk_plain(gates: GateTerms, pair_ok: Optional[torch.Tensor],
         scores = scores + pair_score
     if pair_score2 is not None:
         scores = scores + pair_score2
+    penalty = taint_penalty(gates)
+    if penalty is not None:
+        scores = torch.clamp_min(scores - penalty, 0.0)
+    if slot_ok is not None:
+        feasible = torch.cat([feasible, fit[:, n:] & slot_ok
+                              & ~slot_block[None, :] & row_ok[:, None]], 1)
+        scores = torch.cat([scores, torch.full_like(slot_ok, SLOT_SCORE,
+                                                    dtype=scores.dtype)], 1)
     if tie_break:
         scores = tie_break_jitter(scores)
-    masked = torch.where(feasible, scores, -1.0)
+    return torch.where(feasible, scores, -1.0)
+
+
+def score_topk_plain(gates: GateTerms, pair_ok: Optional[torch.Tensor],
+                     row_ok, req_fit, requested_fit, alloc_fit, est,
+                     prod_scored, node_term, prod_term, alloc_score,
+                     weights, k: int, tie_break: bool, eps: float,
+                     fma_sum: bool, pair_score: Optional[torch.Tensor] = None,
+                     pair_score2: Optional[torch.Tensor] = None,
+                     slot_ok: Optional[torch.Tensor] = None,
+                     slot_block: Optional[torch.Tensor] = None):
+    """(val f32[P, k], idx i32[P, k]): the k best of each pod's N node
+    columns and V slot columns by value descending then index ascending
+    (lax.top_k's order). A node pair's value is its LoadAware score
+    (+ pair_score, then + pair_score2, where given, each sum rounded;
+    then minus the taint penalty where `gates` carries one, floored at
+    0), plus jitter, if it passes the static gates (`gates` expanded,
+    and `pair_ok` where given), the row mask and the resource fit, else
+    -1. Slot column N + v (`slot_ok` bool[P, V] given) is worth
+    SLOT_SCORE plus jitter if slot_ok[p, v], the row mask, the fit of
+    the request against row N + v of requested_fit / alloc_fit, and not
+    slot_block[v] hold, else -1. `fma_sum` picks the rounding of the
+    score's weighted sum (loadaware.weighted_sum)."""
+    masked = masked_scores(gates, pair_ok, row_ok, req_fit, requested_fit,
+                           alloc_fit, est, prod_scored, node_term,
+                           prod_term, alloc_score, weights, tie_break, eps,
+                           fma_sum, pair_score, pair_score2, slot_ok,
+                           slot_block)
     val, idx = torch.sort(masked, dim=1, descending=True, stable=True)
     return val[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
 
@@ -97,15 +143,19 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
                node_term, prod_term, alloc_score, weights, k: int,
                tie_break: bool, eps: float, fma_sum: bool,
                pair_score: Optional[torch.Tensor] = None,
-               pair_score2: Optional[torch.Tensor] = None):
+               pair_score2: Optional[torch.Tensor] = None,
+               slot_ok: Optional[torch.Tensor] = None,
+               slot_block: Optional[torch.Tensor] = None):
     """The selection of `score_topk_plain`: the kernel for CUDA tensors,
     the plain version for CPU tensors. Shapes: `gates` over P pods and N
-    nodes (selector table S x L, L <= MAX_LABELS); pair_ok bool[P, N] or
-    None; pair_score, pair_score2 f32[P, N] or None (the second only with
-    the first); row_ok, prod_scored bool[P]; req_fit f32[P, F]; requested_fit,
-    alloc_fit f32[N, F]; est f32[P, D]; node_term, prod_term,
-    alloc_score f32[N, D]; weights f32[D]; k <= 32;
-    F, D <= NUM_RESOURCES.
+    nodes (selector table S x L, L <= MAX_LABELS; with tolerations,
+    forbid and penalty tables T x G, G <= MAX_TAINT_GROUPS); pair_ok
+    bool[P, N] or None; pair_score, pair_score2 f32[P, N] or None (the
+    second only with the first); slot_ok bool[P, V] and slot_block
+    bool[V], or both None (V = 0); row_ok, prod_scored bool[P];
+    req_fit f32[P, F]; requested_fit, alloc_fit f32[N + V, F]; est
+    f32[P, D]; node_term, prod_term, alloc_score f32[N, D]; weights
+    f32[D]; k <= min(N + V, 32); F, D <= NUM_RESOURCES.
 
     On the card, a launch merges the partial lists of its node splits by
     tickets kept for its (device, stream) and reset by the launch
@@ -116,6 +166,9 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
     n = gates.label_group.shape[0]
     d = est.shape[1]
     s, labels = gates.selector_match.shape
+    if (slot_ok is None) != (slot_block is None):
+        raise ValueError("score_topk: slot_ok and slot_block go together")
+    v = 0 if slot_ok is None else slot_ok.shape[1]
     dev = req_fit.device
     checks = [
         ("row_ok", row_ok, torch.bool, (p,)),
@@ -131,13 +184,27 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
         ("prod_node_ok", gates.prod_node_ok, torch.bool, (n,)),
         ("metric_fresh", gates.metric_fresh, torch.bool, (n,)),
         ("schedulable", gates.schedulable, torch.bool, (n,)),
-        ("requested_fit", requested_fit, torch.float32, (n, f)),
-        ("alloc_fit", alloc_fit, torch.float32, (n, f)),
+        ("requested_fit", requested_fit, torch.float32, (n + v, f)),
+        ("alloc_fit", alloc_fit, torch.float32, (n + v, f)),
         ("node_term", node_term, torch.float32, (n, d)),
         ("prod_term", prod_term, torch.float32, (n, d)),
         ("alloc_score", alloc_score, torch.float32, (n, d)),
         ("selector_match", gates.selector_match, torch.bool, (s, labels)),
         ("weights", weights, torch.float32, (d,))]
+    taints = gates.tol_forbid is not None
+    t = groups = 0
+    if taints:
+        t, groups = gates.tol_forbid.shape
+        checks += [
+            ("toleration_id", gates.toleration_id, torch.int32, (p,)),
+            ("taint_group", gates.taint_group, torch.int32, (n,)),
+            ("tol_forbid", gates.tol_forbid, torch.bool, (t, groups)),
+            ("tol_penalty", gates.tol_penalty, torch.float32, (t, groups))]
+        if t == 0 or groups == 0:
+            raise ValueError("score_topk: empty toleration table")
+    if slot_ok is not None:
+        checks += [("slot_ok", slot_ok, torch.bool, (p, v)),
+                   ("slot_block", slot_block, torch.bool, (v,))]
     if pair_ok is not None:
         checks.append(("pair_ok", pair_ok, torch.bool, (p, n)))
     if pair_score is not None:
@@ -146,10 +213,11 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
         if pair_score is None:
             raise ValueError("score_topk: pair_score2 needs pair_score")
         checks.append(("pair_score2", pair_score2, torch.float32, (p, n)))
-    for name, t, dt, shape in checks:
-        _launch.check_tensor(name, t, dt, shape, dev)
-    if not 0 < k <= min(n, MAX_K):
-        raise ValueError(f"score_topk: k={k} must be in [1, min(N, {MAX_K})]")
+    for name, x, dt, shape in checks:
+        _launch.check_tensor(name, x, dt, shape, dev)
+    if not 0 < k <= min(n + v, MAX_K):
+        raise ValueError(f"score_topk: k={k} must be in [1, min(N + V, "
+                         f"{MAX_K})]")
     if max(f, d) > NUM_RESOURCES:
         raise ValueError(f"score_topk: F={f}, D={d} above {NUM_RESOURCES}")
     if dev.type == "cpu":
@@ -157,17 +225,18 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
                                 requested_fit, alloc_fit, est, prod_scored,
                                 node_term, prod_term, alloc_score, weights,
                                 k, tie_break, eps, fma_sum, pair_score,
-                                pair_score2)
+                                pair_score2, slot_ok, slot_block)
     if dev.type != "cuda":
         raise ValueError(f"score_topk: unsupported device {dev}")
-    if labels > MAX_LABELS:
-        raise ValueError(f"score_topk: {labels} label groups above "
-                         f"{MAX_LABELS}")
+    if labels > MAX_LABELS or groups > MAX_TAINT_GROUPS:
+        raise ValueError(f"score_topk: {labels} label groups or {groups} "
+                         f"taint groups above {MAX_LABELS}, "
+                         f"{MAX_TAINT_GROUPS}")
     stream = _launch.stream(dev)
     grid = TOOLCHAIN.function("score_topk", "koord_score_topk_blocks",
-                              [ctypes.c_int] * 4)
+                              [ctypes.c_int] * 5)
     blocks = grid(p, f, d, int(pair_score is not None)
-                  + int(pair_score2 is not None))
+                  + int(pair_score2 is not None), int(taints))
     check(0 if blocks > 0 else -blocks, "score_topk (occupancy)")
     val = torch.empty((p, k), dtype=torch.float32, device=dev)
     idx = torch.empty((p, k), dtype=torch.int32, device=dev)
@@ -182,12 +251,14 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
                alloc_fit, node_term, prod_term, alloc_score,
                gates.selector_match, pair_ok, weights, part_val, part_idx,
                _tickets(dev, stream.value or 0, blocks), val, idx,
-               pair_score, pair_score2)
+               pair_score, pair_score2, gates.toleration_id,
+               gates.taint_group, gates.tol_forbid, gates.tol_penalty,
+               slot_ok, slot_block)
     ptrs = (ctypes.c_void_p * len(tensors))(
-        *(None if t is None else t.data_ptr() for t in tensors))
-    dims = (ctypes.c_int * 10)(p, n, f, d, k, s, labels,
+        *(None if x is None else x.data_ptr() for x in tensors))
+    dims = (ctypes.c_int * 13)(p, n, f, d, k, s, labels,
                                int(bool(tie_break)), int(bool(fma_sum)),
-                               blocks)
+                               blocks, v, t, groups)
     fn = TOOLCHAIN.function("score_topk", "koord_score_topk",
                             [ctypes.c_void_p, ctypes.c_void_p,
                              ctypes.c_float, ctypes.c_void_p])

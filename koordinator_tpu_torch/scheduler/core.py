@@ -3,46 +3,58 @@ conflict-resolving commit of one pod batch, then the straggler tail.
 
 Counterpart of `koordinator_tpu/scheduler/core.py` schedule_batch,
 tail_select, tail_pass and tail_compaction_loop for the slim flagship,
-the NodeNUMAResource path (`enable_numa`, with the topology manager)
-and DeviceShare's GPU instances (`enable_devices` on a snapshot with
-them): no aux (RDMA/FPGA) pools, no reservation slots, no
-spread/anti-affinity/affinity terms, no taint penalty, no
+the NodeNUMAResource path (`enable_numa`, with the topology manager),
+DeviceShare's GPU instances (`enable_devices` on a snapshot with them),
+taints and tolerations (`pods.has_taints`: the forbid gate and the
+PreferNoSchedule score penalty) and live reservation slots (V > 0):
+no aux (RDMA/FPGA) pools, no spread/anti-affinity/affinity terms, no
 amplification, cascade off. Anything outside that raises
 NotImplementedError.
 
 Per round (num_rounds of them), kernel K1 (`score_topk`) picks each
-active pod's k best feasible nodes; it takes the batch's static gates
-in factored form (`cascade.static_gate_terms`), so no [P, N] gate mask
-is built. Then k inner steps run: each pod
-tries its next choice, kernel K2 (`segment_prefix_chain`, one launch)
-admits it if it fits the node, and then each quota level, after every
-earlier-ranked pod that chose the same node or quota, and kernel K3
-(`ordered_scatter_add`) commits the accepted requests, one launch for
-the node and one for all quota levels; a rejected pod falls through
-to its next choice. With `enable_numa`, kernel K4 (`numa_pair_terms`)
-gives each (pod, node) pair its batch-start NUMA gates and zone score,
-which K1 takes as a pair mask and a score addend; in each inner step,
-after the node and quota gates, kernel K5 (`topology_admit`) runs the
-topology manager for every trying pod on its chosen node, a second K2
-launch gates the zone takes zone by zone, and K3 commits them. With GPU
+active pod's k best feasible columns: the N nodes and the V reservation
+slots (columns N..N+V-1, owner-restricted virtual nodes whose capacity
+is the slot's free, scored above any node). It takes the batch's
+static gates in factored form (`cascade.static_gate_terms`, with the
+taint forbid and penalty tables) and the slots' gates as bool[P, V]
+(`reservation.slot_columns`), so no [P, N] gate mask is built. Then k
+inner steps run: each pod tries its next choice, kernel K2
+(`segment_prefix_chain`, one launch) admits it if it fits the node or
+slot, and then each quota level, after every earlier-ranked pod that
+chose the same column or quota, and kernel K3 (`ordered_scatter_add`)
+commits the accepted requests, one launch for the nodes and slots and
+one for all quota levels; a rejected pod falls through to its next
+choice. With `enable_numa`, kernel K4 (`numa_pair_terms`) gives each
+(pod, node) pair its batch-start NUMA gates and zone score, which K1
+takes as a pair mask and a score addend; in each inner step, after the
+node and quota gates, kernel K5 (`topology_admit`) runs the topology
+manager for every trying pod on its chosen row, a second K2 launch
+gates the zone takes zone by zone, and K3 commits them. With GPU
 instances, kernel K6 (`device_pair_terms`) gives each pair its
 batch-start instance gate, ANDed into the pair mask, and its pool
 score, K1's second addend (the first without NUMA); in each inner step
 K5 also runs DeviceShare's hint provider, kernel K7
 (`gpu_instance_pick`) picks each shared pod's instance, a third K2
-launch gates the shared pods per (node, instance) and admits one
-multi-GPU pod a node, K7 again gives the multi-GPU pods whole
-instances, and one K3 launch commits every pod's instance takes. After
+launch gates the shared pods per (row, instance) and admits one
+multi-GPU pod a row, K7 again gives the multi-GPU pods whole
+instances, and one K3 launch commits every pod's instance takes. The
+zone and instance pools carry one extended row a slot (its zone and
+instance holds), so a consumer takes the reserved zone and minors
+through the same gates. With slots, one more K2 launch a step admits
+the first consumer of each AllocateOnce slot, which then closes. After
 the rounds, strict gangs below quorum roll back, and the snapshot is
-rebuilt from the final assignment. The reference runs the rounds and steps as lax.scan loops
-inside one jitted program; here they are Python loops over launches,
-with no host readback inside a batch.
+rebuilt from the final assignment: a slot's consumer charges its quota
+and its estimate (on the slot's host node), not the node's requested or
+pools, and is drawn from the slot (`reservation.rebuild_reservations`).
+The reference runs the rounds and steps as lax.scan loops inside one
+jitted program; here they are Python loops over launches, with no host
+readback inside a batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -55,6 +67,7 @@ from koordinator_tpu_torch.kernels.score_topk import score_topk
 from koordinator_tpu_torch.kernels.topology import topology_admit
 from koordinator_tpu_torch.scheduler.batching import (
     EPS,
+    MAX_NODE_SCORE,
     rank_by_priority,
     segment_prefix_chain,
 )
@@ -97,7 +110,8 @@ class ScheduleResult(Struct):
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: the port covers the slim flagship "
-        "path, NodeNUMAResource and DeviceShare's GPU instances (ROADMAP "
+        "path, NodeNUMAResource, DeviceShare's GPU instances, taints and "
+        "reservation slots (ROADMAP "
         "queue A item 6 holds the rest of the full-gate form)")
 
 
@@ -150,17 +164,16 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     """Schedule a pod batch against the snapshot. Pure: the caller
     publishes `result.snapshot`.
 
-    The arguments are the reference's subset for the slim path, the
-    NUMA path and the DeviceShare path, with its defaults, so a slim
-    caller passes enable_numa=False. `fit_dims` are the resource dims
-    the capacity and quota gates check (None = all); `score_dims` the
-    dims LoadAware scores; `numa_strategy` ("most" or "least") the NUMA
-    allocation strategy of the zone score, the hint order and the zone
-    take; `device_strategy` ("least" or "most") DeviceShare's, of the
-    pool score and the shared pods' instance choice. The reference's
-    packing contracts (topo/numa/gpu prefixes, domain classes) belong
-    to the rest of the full-gate path and are not arguments here: this
-    is its full-width form."""
+    The arguments are the reference's subset for the ported paths, with
+    its defaults, so a slim caller passes enable_numa=False. `fit_dims`
+    are the resource dims the capacity and quota gates check (None =
+    all); `score_dims` the dims LoadAware scores; `numa_strategy`
+    ("most" or "least") the NUMA allocation strategy of the zone score,
+    the hint order and the zone take; `device_strategy` ("least" or
+    "most") DeviceShare's, of the pool score and the shared pods'
+    instance choice. The reference's packing contracts (topo/numa/gpu
+    prefixes, domain classes) belong to the rest of the full-gate path
+    and are not arguments here: this is its full-width form."""
     _check_slim(snap, pods, enable_numa=enable_numa,
                 numa_strategy=numa_strategy, enable_devices=enable_devices,
                 device_strategy=device_strategy,
@@ -196,20 +209,42 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     quota_seg = torch.where(pod_anc >= 0, pod_anc, n_quotas)[
         :, :quota_depth].T.to(torch.int32).contiguous()
 
-    # the static gates (selector, LoadAware filter, schedulable, the
-    # device prefilter of a snapshot without instances) in factored
-    # form: K1 combines them pair by pair
+    # the static gates (selector, LoadAware filter, schedulable, taint
+    # forbids and penalty, the device prefilter of a snapshot without
+    # instances) in factored form: K1 combines them pair by pair
     devices0 = snap.devices
     n_inst = devices0.gpu_free.shape[1]
     use_gpu = enable_devices and n_inst > 0
     gates = static_gate_terms(nodes0, pods, cfg,
                               devices0 if enable_devices else None)
-    slot_columns(snap, pods)  # raises on live slots
-    n_ext = n_nodes  # no slot columns
+
+    # reservation slots as virtual node columns N..N+V-1 (owner-
+    # restricted, capacity the slot's free, scored above any node): the
+    # slot gates read the static gates at the host node, before the
+    # device and NUMA prefilters (a consumer draws from the slot's hold)
+    resv0 = snap.reservations
+    slot_ok, slot_alloc0, slot_node = slot_columns(snap, pods, gates)
+    n_slots = slot_node.shape[0]
+    n_ext = n_nodes + n_slots
+    is_once = resv0.allocate_once
+    slot_node_c = slot_node.clamp_min(0).long()
+
+    def extend(node_rows, slot_rows):
+        """Rows of the extended pool: the nodes', then the slots'."""
+        return (torch.cat([node_rows, slot_rows]).contiguous() if n_slots
+                else node_rows)
+
+    def to_real(ext_idx):
+        """An extended column's real node (a slot's host node)."""
+        if not n_slots:
+            return ext_idx
+        slot = (ext_idx - n_nodes).clamp(0, n_slots - 1).long()
+        return _where_i32(ext_idx >= n_nodes, slot_node[slot], ext_idx)
 
     # NodeNUMAResource at batch start (K4): the single-NUMA prefilter and
     # the policy nodes' combined fit as a pair mask, the zone score as an
-    # addend of the LoadAware score
+    # addend of the LoadAware score; the zone pools gain a row per slot
+    # (its zone hold, policy none, nothing used)
     n_zones = nodes0.numa_cap.shape[1]
     pair_ok = pair_score = None
     if enable_numa:
@@ -217,15 +252,22 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         pair_ok, pair_score = numa_pair_terms(
             demand, pods.numa_single, nodes0.numa_cap, nodes0.numa_free,
             nodes0.numa_valid, nodes0.numa_policy, numa_strategy)
-        numa_used = (nodes0.numa_cap - nodes0.numa_free).contiguous()
-        numa_cap_flat = nodes0.numa_cap.reshape(n_nodes, n_zones * 2)
+        numa_cap_x = extend(nodes0.numa_cap, resv0.numa_free)
+        numa_valid_x = extend(nodes0.numa_valid, resv0.numa_valid)
+        numa_policy_x = extend(nodes0.numa_policy, torch.zeros(
+            (n_slots,), dtype=torch.int32, device=dev))
+        numa_used = extend(nodes0.numa_cap - nodes0.numa_free,
+                           torch.zeros_like(resv0.numa_free))
+        numa_cap_flat = numa_cap_x.reshape(n_ext, n_zones * 2)
         out_zone = torch.full((p,), -1, dtype=torch.int32, device=dev)
         out_take = torch.zeros((p, n_zones, 2), dtype=torch.float32,
                                device=dev)
 
     # DeviceShare at batch start (K6): the instance prefilter ANDed into
     # the pair mask, the pool score a second addend after the zone
-    # score (the first without NUMA), as the reference sums them
+    # score (the first without NUMA), as the reference sums them; the
+    # instance pool gains a row per slot (its reserved instances, the
+    # host node's totals and topology)
     pair_score2 = None
     if use_gpu:
         gpu_req = deviceshare.gpu_request(pods.requests,
@@ -236,19 +278,32 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
             pair_score = dev_score
         else:
             pair_score2 = dev_score
-        gpu_free = devices0.gpu_free.contiguous()
-        n_slots_gpu = n_nodes * n_inst
+        devices_x = devices0.replace(**{
+            f: extend(getattr(devices0, f), getattr(devices0, f)[slot_node_c])
+            for f in ("gpu_total", "gpu_numa", "gpu_pcie")}, **{
+            f: extend(getattr(devices0, f), getattr(resv0, f))
+            for f in ("gpu_free", "gpu_valid")}) if n_slots else devices0
+        gpu_free = devices_x.gpu_free
+        n_slots_gpu = n_ext * n_inst
         # K2's tables for the shared gate (used 0, capacity the live
-        # instance free) and the one-multi-pod-a-node level (capacity 1)
+        # instance free) and the one-multi-pod-a-row level (capacity 1)
         gate_base = torch.zeros((n_slots_gpu, 3), dtype=torch.float32,
                                 device=dev)
-        one_pod = torch.zeros((n_nodes, 3), dtype=torch.float32, device=dev)
+        one_pod = torch.zeros((n_ext, 3), dtype=torch.float32, device=dev)
         one_pod[:, 0] = 1.0
         out_gpu_take = torch.zeros((p, n_inst), dtype=torch.bool, device=dev)
         out_per = torch.zeros((p, 3), dtype=torch.float32, device=dev)
 
+    if n_slots:
+        # K2's table of the AllocateOnce level: one winner a once slot
+        once_base = torch.zeros((n_slots, 1), dtype=torch.float32,
+                                device=dev)
+        once_cap = torch.ones((n_slots, 1), dtype=torch.float32, device=dev)
+        once_req = torch.ones((p, 1), dtype=torch.float32, device=dev)
+        once_taken = torch.zeros((n_slots,), dtype=torch.bool, device=dev)
+
     req_fit = dims(pods.requests)
-    alloc_fit = dims(nodes0.allocatable)
+    alloc_fit = dims(extend(nodes0.allocatable, slot_alloc0))
     runtime_fit = dims(quotas0.runtime)
     est_score = (pods.estimated if sd is None
                  else pods.estimated[:, sd]).contiguous()
@@ -256,7 +311,7 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     is_prod_scored = loadaware.prod_scored(pods, cfg)
     k = min(k_choices, n_ext)
 
-    requested = nodes0.requested
+    requested = extend(nodes0.requested, torch.zeros_like(slot_alloc0))
     quota_used = quotas0.used
     assigned_est = nodes0.assigned_estimated
     prod_assigned_est = nodes0.prod_assigned_estimated
@@ -293,11 +348,14 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                                prod_assigned_estimated=prod_assigned_est)
         node_term, prod_term, alloc_score, weights = loadaware.score_terms(
             nodes, cfg, score_dims)
+        # consumed AllocateOnce slots admit nobody (plugin.go:509-510)
+        slots = (dict(slot_ok=slot_ok, slot_block=is_once & once_taken)
+                 if n_slots else {})
         topk_val, topk_idx = score_topk(
             gates, pair_ok, row_ok, req_fit, dims(requested), alloc_fit,
             est_score, is_prod_scored, node_term, prod_term, alloc_score,
             weights, k, tie_break, EPS, fma_sum=score_dims is not None,
-            pair_score=pair_score, pair_score2=pair_score2)
+            pair_score=pair_score, pair_score2=pair_score2, **slots)
 
         kptr = torch.zeros((p,), dtype=torch.int64, device=dev)
         for _ in range(k):
@@ -305,10 +363,15 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
             val = topk_val.gather(1, at)[:, 0]
             choice = topk_idx.gather(1, at)[:, 0]
             trying = active & (placed < 0) & (kptr < k) & (val > -0.5)
+            if n_slots:
+                # a once slot taken in an earlier step admits nobody
+                slot_of = (choice - n_nodes).clamp(0, n_slots - 1).long()
+                on_slot = choice >= n_nodes
+                trying = trying & ~(on_slot & (is_once & once_taken)[slot_of])
             choice_eff = _where_i32(trying, choice, drop_node)
 
-            # node capacity prefix in priority order, then the quota
-            # prefix per tree level among the pods the node admitted
+            # node (and slot) capacity prefix in priority order, then the
+            # quota prefix per tree level among the pods it admitted
             quota_table = (dims(quota_used), runtime_fit, n_quotas)
             accept = segment_prefix_chain(
                 torch.cat([choice_eff[None], quota_seg]), rank, req_fit,
@@ -316,9 +379,9 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                 + [quota_table] * quota_depth, EPS)
 
             if use_gpu:
-                live = devices0.replace(gpu_free=gpu_free)
+                live = devices_x.replace(gpu_free=gpu_free)
             if enable_numa:
-                # the topology manager on the chosen node (K5, with
+                # the topology manager on the chosen row (K5, with
                 # DeviceShare's hint provider on the live instance free
                 # where there are instances), then the zone capacity
                 # prefix, zone by zone, over the engaged pods it admitted
@@ -327,23 +390,22 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                 # the reference
                 adm = topology_admit(
                     choice_eff, trying, pods.numa_single, demand,
-                    nodes0.numa_cap, numa_used, nodes0.numa_valid,
-                    nodes0.numa_policy, numa_strategy,
-                    *((gpu_req, live) if use_gpu else ()))
+                    numa_cap_x, numa_used, numa_valid_x, numa_policy_x,
+                    numa_strategy, *((gpu_req, live) if use_gpu else ()))
                 accept = accept & adm.admit
-                used_flat = numa_used.view(n_nodes, n_zones * 2)
+                used_flat = numa_used.view(n_ext, n_zones * 2)
                 zone_ok = segment_prefix_chain(
                     choice_eff[None].expand(n_zones, p).contiguous(), rank,
                     adm.take.transpose(0, 1), accept & adm.engaged,
                     [(used_flat[:, 2 * z:2 * z + 2],
-                      numa_cap_flat[:, 2 * z:2 * z + 2], n_nodes)
+                      numa_cap_flat[:, 2 * z:2 * z + 2], n_ext)
                      for z in range(n_zones)], EPS)
                 accept = (accept & ~adm.engaged) | zone_ok
 
             if use_gpu:
                 # the GPU instance gates (K7, K2, K7): shared pods'
-                # instances, their (node, instance) prefix gate and the
-                # first multi-GPU pod of each node in one K2 launch, then
+                # instances, their (row, instance) prefix gate and the
+                # first multi-GPU pod of each row in one K2 launch, then
                 # the multi-GPU pods' whole instances; engaged pods keep
                 # to the topology manager's affinity
                 zone = ((adm.affinity, adm.engaged) if enable_numa
@@ -353,35 +415,51 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                 alive = segment_prefix_chain(
                     pick.seg, rank, pick.req, pick.gate_active,
                     [(gate_base, gpu_free.view(n_slots_gpu, 3), n_slots_gpu),
-                     (gate_base[:n_nodes], one_pod, n_nodes)], EPS)
+                     (gate_base[:n_ext], one_pod, n_ext)], EPS)
                 fin = gpu_instance_pick(choice_eff, alive, gpu_req, live,
                                         *zone, device_strategy, chosen=pick)
                 accept = fin.accept
+
+            if n_slots:
+                # AllocateOnce: among this step's accepted consumers of a
+                # once slot only the first in priority order wins
+                # (plugin.go:509-510; K2, a request of one against a
+                # capacity of one), then the slot closes
+                once_here = accept & on_slot & is_once[slot_of]
+                won = segment_prefix_chain(
+                    _where_i32(once_here, slot_of, n_slots)[None], rank,
+                    once_req, once_here, [(once_base, once_cap, n_slots)],
+                    EPS)
+                accept = (accept & ~once_here) | won
+                hit = torch.zeros((n_slots + 1,), dtype=torch.bool,
+                                  device=dev)
+                hit[torch.where(won, slot_of, n_slots)] = True
+                once_taken = once_taken | hit[:n_slots]
 
             # scatter-commit (assume): accept is final from here on
             if enable_numa:
                 took_z = accept & adm.engaged
                 numa_used = ordered_scatter_add(
-                    used_flat, _where_i32(took_z, choice, n_nodes),
+                    used_flat, _where_i32(took_z, choice, n_ext),
                     (adm.take * took_z[:, None, None]).reshape(
-                        p, n_zones * 2)).view(n_nodes, n_zones, 2)
+                        p, n_zones * 2)).view(n_ext, n_zones, 2)
                 out_take = torch.where(took_z[:, None, None], adm.take,
                                        out_take)
                 out_zone = _where_i32(took_z & pods.numa_single, adm.zone1,
                                       out_zone)
             if use_gpu:
                 # every pod's instance takes in one ordered scatter over
-                # [N, I * 3]: no instance gets adds from a shared and a
-                # multi-GPU pod in one step (the take launch excludes the
-                # shared pods' instances), so this equals the
+                # [N + V, I * 3]: no instance gets adds from a shared and
+                # a multi-GPU pod in one step (the take launch excludes
+                # the shared pods' instances), so this equals the
                 # reference's shared scatter followed by its multi-GPU
                 # one bit for bit (the other columns add -0.0)
                 took_gpu = accept & (pick.count > 0)
                 gpu_free = ordered_scatter_add(
-                    gpu_free.view(n_nodes, n_inst * 3),
-                    _where_i32(took_gpu, choice, n_nodes),
+                    gpu_free.view(n_ext, n_inst * 3),
+                    _where_i32(took_gpu, choice, n_ext),
                     -(fin.take[:, :, None] * pick.per_inst[:, None, :])
-                    .reshape(p, n_inst * 3)).view(n_nodes, n_inst, 3)
+                    .reshape(p, n_inst * 3)).view(n_ext, n_inst, 3)
                 out_gpu_take = out_gpu_take | fin.take
                 out_per = torch.where(took_gpu[:, None], pick.per_inst,
                                       out_per)
@@ -394,9 +472,10 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
             # a rejected pod's chosen node just filled up: fall through
             kptr = torch.where(trying & ~accept, kptr + 1, kptr)
 
-        # newly placed pods' estimates feed the next round's scores
+        # newly placed pods' estimates feed the next round's scores (a
+        # slot consumer's on its host node)
         new = (placed >= 0) & active
-        tgt = _where_i32(new, placed, n_nodes)
+        tgt = _where_i32(new, to_real(placed), n_nodes)
         est = pods.estimated * new[:, None]
         assigned_est = ordered_scatter_add(assigned_est, tgt, est)
         prod_assigned_est = ordered_scatter_add(
@@ -418,14 +497,26 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     revoke = (placed >= 0) & (pods.gang_id >= 0) & gang_fail[gid]
     placed = _where_i32(revoke, -1, placed)
 
-    # rebuild the post-commit state from the final assignment (no slot
-    # consumers: every placed pod charges its node)
+    # rebuild the post-commit state from the final assignment; a slot's
+    # consumer charges neither its node's requested nor the node's zone
+    # and instance pools (the hold was charged when the slot was made),
+    # but its estimate and its quota
     ok = placed >= 0
-    res_slot = torch.full((p,), -1, dtype=torch.int32, device=dev)
-    tgt = _where_i32(ok, placed, n_nodes)
     fin_req = pods.requests * ok[:, None]
     fin_est = pods.estimated * ok[:, None]
-    requested = ordered_scatter_add(nodes0.requested, tgt, fin_req)
+    if n_slots:
+        res_slot = _where_i32(placed >= n_nodes, placed - n_nodes, -1)
+        on_slot_fin = res_slot >= 0
+        placed_real = _where_i32(ok, to_real(placed.clamp_min(0)), -1)
+        tgt = _where_i32(ok, placed_real, n_nodes)
+        on_node = _where_i32(ok & ~on_slot_fin, tgt, n_nodes)
+        node_req = fin_req * ~on_slot_fin[:, None]
+    else:
+        res_slot = torch.full((p,), -1, dtype=torch.int32, device=dev)
+        placed_real = placed
+        tgt = on_node = _where_i32(ok, placed, n_nodes)
+        node_req = fin_req
+    requested = ordered_scatter_add(nodes0.requested, tgt, node_req)
     assigned_est = ordered_scatter_add(nodes0.assigned_estimated, tgt,
                                        fin_est)
     prod_assigned_est = ordered_scatter_add(
@@ -439,7 +530,7 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     numa_free = nodes0.numa_free
     if enable_numa:
         numa_free = torch.clamp_min(ordered_scatter_add(
-            nodes0.numa_free.reshape(n_nodes, n_zones * 2), tgt,
+            nodes0.numa_free.reshape(n_nodes, n_zones * 2), on_node,
             (-out_take * ok[:, None, None]).reshape(p, n_zones * 2)),
             0.0).view(n_nodes, n_zones, 2)
         numa_zone = _where_i32(ok & pods.numa_single, out_zone, -1)
@@ -459,10 +550,16 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         new_devices = devices0.replace(gpu_free=torch.clamp_min(
             ordered_scatter_add(
                 devices0.gpu_free.reshape(n_nodes, n_inst * 3),
-                _where_i32(ok & gpu_take.any(dim=1), placed, n_nodes),
+                _where_i32(gpu_take.any(dim=1), on_node, n_nodes),
                 -(gpu_take[:, :, None] * out_per[:, None, :]).reshape(
                     p, n_inst * 3)), 0.0).view(n_nodes, n_inst, 3))
 
+    # a slot's score outranks any node sum for the owner's preference;
+    # it is reported capped at MaxNodeScore
+    if n_slots:
+        out_score = torch.where(on_slot_fin, torch.clamp_max(
+            out_score, MAX_NODE_SCORE), out_score)
+    chosen_score = torch.where(ok, out_score, -1.0)
     new_snap = snap.replace(
         nodes=nodes0.replace(requested=requested,
                              assigned_estimated=assigned_est,
@@ -471,15 +568,15 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         quotas=quotas0.replace(used=quota_used),
         gangs=gangs0.replace(assumed=gang_assumed),
         reservations=rebuild_reservations(
-            snap.reservations, pods, res_slot, ok,
+            resv0, pods, res_slot, ok,
             numa_take=out_take if enable_numa else None,
             gpu_take=gpu_take if use_gpu else None,
             gpu_per_inst=out_per if use_gpu else None),
         devices=new_devices,
         version=snap.version + 1)
     return ScheduleResult(
-        assignment=placed,
-        chosen_score=torch.where(ok, out_score, -1.0),
+        assignment=placed_real,
+        chosen_score=chosen_score,
         numa_zone=numa_zone, numa_take=numa_take,
         gpu_take=gpu_take,
         aux_inst=torch.full((p, NUM_AUX_TYPES), -1, dtype=torch.int32,
@@ -521,12 +618,12 @@ def tail_select(pods: PodBatch, assign: torch.Tensor, tried: torch.Tensor,
 
 def tail_pass(step_fn: Callable, snap: ClusterSnapshot, assign: torch.Tensor,
               tried: torch.Tensor, pods: PodBatch, cfg, *, tail_chunk: int,
-              gpu_take: Optional[torch.Tensor] = None):
+              carry: Optional[Dict[str, torch.Tensor]] = None):
     """One retry pass: gather the selected stragglers into a compact
     [tail_chunk] batch, re-schedule it with `step_fn(snap, retry, cfg)`
-    and scatter the placements back, and the placed pods' GPU instance
-    takes into `gpu_take` bool[P, I] where given. Returns (snap,
-    assign, tried, gpu_take)."""
+    and scatter the placements back, and the placed pods' result fields
+    named in `carry` ({field: [P, ...]}, e.g. `gpu_take`, `res_slot`)
+    where given. Returns (snap, assign, tried, carry)."""
     idx, attempt = tail_select(pods, assign, tried, tail_chunk)
     retry = pods.replace(
         **{f: getattr(pods, f)[idx] for f in PER_POD_FIELDS if f != "valid"},
@@ -537,35 +634,40 @@ def tail_pass(step_fn: Callable, snap: ClusterSnapshot, assign: torch.Tensor,
     got = attempt & (res.assignment >= 0)
     assign = assign.clone()
     assign[idx] = torch.where(got, res.assignment, assign[idx])
-    if gpu_take is not None:
-        gpu_take = gpu_take.clone()
-        gpu_take[idx] = torch.where(got[:, None], res.gpu_take, gpu_take[idx])
-    return res.snapshot, assign, tried, gpu_take
+    if carry is not None:
+        carry = dict(carry)
+        for field, full in carry.items():
+            full = full.clone()
+            new = getattr(res, field)
+            full[idx] = torch.where(got.view(-1, *[1] * (new.dim() - 1)),
+                                    new, full[idx])
+            carry[field] = full
+    return res.snapshot, assign, tried, carry
 
 
 def tail_compaction_loop(step_fn: Callable, snap: ClusterSnapshot,
                          assign: torch.Tensor, pods: PodBatch, cfg, *,
                          tail_chunk: int, min_passes: int, max_passes: int,
-                         gpu_take: Optional[torch.Tensor] = None):
+                         carry: Optional[Dict[str, torch.Tensor]] = None):
     """Run tail passes until the stragglers drain or the budget is
     spent: min(min_passes, max_passes) passes always run; more run while
     stragglers remain and (the count improved or never-retried ones
     remain), up to max_passes. The reference loops on device; here the
     host reads two counts after each pass.
 
-    Returns (snap, assign, stats i32[4], gpu_take) with stats =
+    Returns (snap, assign, stats i32[4], carry) with stats =
     [stragglers_after_sweep, stragglers_final, never_retried, passes]
-    and gpu_take the placed pods' GPU instance takes bool[P, I], carried
-    from the argument (None stays None)."""
+    and carry the placed pods' result fields, carried from the argument
+    (None stays None)."""
     min_eff = min(int(min_passes), int(max_passes))
     left0 = int((pods.valid & (assign < 0)).sum())
     tried = torch.zeros_like(pods.valid)
     passes, left, improved, never_retried = 0, left0, False, left0
     while passes < min_eff or (passes < max_passes and left > 0
                                and (improved or never_retried > 0)):
-        snap, assign, tried, gpu_take = tail_pass(
+        snap, assign, tried, carry = tail_pass(
             step_fn, snap, assign, tried, pods, cfg, tail_chunk=tail_chunk,
-            gpu_take=gpu_take)
+            carry=carry)
         bad = pods.valid & (assign < 0)
         new_left, never_retried = (
             int(x) for x in torch.stack([bad.sum(), (bad & ~tried).sum()]).cpu())
@@ -574,4 +676,4 @@ def tail_compaction_loop(step_fn: Callable, snap: ClusterSnapshot,
         left = new_left
     stats = torch.tensor([left0, left, never_retried, passes],
                          dtype=torch.int32)
-    return snap, assign, stats, gpu_take
+    return snap, assign, stats, carry

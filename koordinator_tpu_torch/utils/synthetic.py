@@ -1,12 +1,14 @@
-"""Synthetic cluster and pod queue for the slim flagship, in numpy.
+"""Synthetic clusters and pod queues, in numpy.
 
 A copy of the parts of `koordinator_tpu/utils/synthetic.py` that the
-slim flagship and BASELINE config 2 need: the same generator calls in
-the same order, so a seed gives the same arrays as the reference
-(tests/test_torch_schema.py holds the two equal). The arrays are built
-on the host and moved to `device` once. GPU nodes (`gpu_node_frac`) and
-GPU pods (`gpu_pod_frac`) draw in the reference's order; reservation
-slots belong to the full-gate workload and are not ported yet.
+slim flagship, BASELINE config 2 and gpu_share need: the same generator
+calls in the same order, so a seed gives the same arrays as the
+reference (tests/test_torch_schema.py and tests/test_torch_reservation.py
+hold the two equal). The arrays are built on the host and moved to
+`device` once. GPU nodes (`gpu_node_frac`), GPU pods (`gpu_pod_frac`),
+live reservation slots (`num_reservations`, on their own generator) and
+the full-gate workload's taint classes, toleration sets and slot owners
+draw in the reference's order.
 """
 
 from __future__ import annotations
@@ -23,7 +25,11 @@ from koordinator_tpu_torch.api.extension import (
     QoSClass,
     ResourceKind,
 )
+from koordinator_tpu_torch import resolve_device
 from koordinator_tpu_torch.bridge import from_reference
+from koordinator_tpu_torch.scheduler.plugins.deviceshare import (
+    has_device_request,
+)
 from koordinator_tpu_torch.snapshot.schema import (
     MAX_QUOTA_DEPTH,
     NUM_AGG,
@@ -38,6 +44,8 @@ CPU, MEM = int(ResourceKind.CPU), int(ResourceKind.MEMORY)
 BCPU, BMEM = int(ResourceKind.BATCH_CPU), int(ResourceKind.BATCH_MEMORY)
 GPU_CORE = int(ResourceKind.GPU_CORE)
 GPU_MEMORY = int(ResourceKind.GPU_MEMORY)
+# a live reservation slot's hold (synthetic_cluster num_reservations > 0)
+RESV_SLOT_CPU, RESV_SLOT_MEM = 4000.0, 8192.0
 
 
 def estimate_vectorized(requests: np.ndarray, limits: np.ndarray,
@@ -75,15 +83,20 @@ def synthetic_cluster(num_nodes: int, seed: int = 0,
                       gpu_node_frac: float = 0.0,
                       gpus_per_node: int = 8,
                       gpu_memory_mib: float = 81920.0,
+                      num_reservations: int = 0,
                       now_version: int = 0,
                       device="cuda") -> ClusterSnapshot:
     """Heterogeneous nodes with fresh NodeMetrics, batch-tier overcommit
     resources, a two-level quota tree (root + num_quotas - 1 children)
-    and gangs; no reservation slots. With gpu_node_frac > 0, that share
-    of the nodes (drawn after the quotas, on the same generator) carries
-    gpus_per_node A100-like instances (100 core, gpu_memory_mib, 100
-    ratio each), split over two NUMA zones and two a PCIe root, and
-    their aggregate in the node's allocatable."""
+    and gangs. With num_reservations = V > 0, V live reservation slots
+    on V distinct nodes (drawn from their own generator, seed + 41),
+    each holding RESV_SLOT_CPU / RESV_SLOT_MEM, charged onto its host
+    node's `requested`, owned by owner group v, the even ones
+    AllocateOnce, with no zone or instance hold. With gpu_node_frac > 0,
+    that share of the nodes (drawn after the quotas, on the same
+    generator) carries gpus_per_node A100-like instances (100 core,
+    gpu_memory_mib, 100 ratio each), split over two NUMA zones and two
+    a PCIe root, and their aggregate in the node's allocatable."""
     rng = np.random.default_rng(seed)
     n = num_nodes
     f32 = np.float32
@@ -171,16 +184,29 @@ def synthetic_cluster(num_nodes: int, seed: int = 0,
         valid=np.arange(g) < num_gangs,
     )
     i = gpus_per_node if gpu_node_frac > 0 else 0
+    v = int(num_reservations)
+    if v > n:
+        raise ValueError(f"num_reservations={v} needs at least that many "
+                         f"nodes; got {n}")
+    r_nodes = np.full((v,), -1, np.int32)
+    r_free = np.zeros((v, R), f32)
+    if v:
+        r_nodes = np.random.default_rng(seed + 41).choice(
+            n, v, replace=False).astype(np.int32)
+        r_free[:, CPU] = RESV_SLOT_CPU
+        r_free[:, MEM] = RESV_SLOT_MEM
+        nodes["requested"][r_nodes, CPU] += RESV_SLOT_CPU
+        nodes["requested"][r_nodes, MEM] += RESV_SLOT_MEM
     reservations = dict(
-        node=np.full((0,), -1, np.int32),
-        free=np.zeros((0, R), f32),
-        owner_group=np.zeros((0,), np.int32),
-        allocate_once=np.zeros((0,), bool),
-        valid=np.ones((0,), bool),
-        gpu_free=np.zeros((0, i, NUM_DEV_DIMS), f32),
-        gpu_valid=np.zeros((0, i), bool),
-        numa_free=np.zeros((0, 4, 2), f32),
-        numa_valid=np.zeros((0, 4), bool),
+        node=r_nodes,
+        free=r_free,
+        owner_group=np.arange(v, dtype=np.int32),
+        allocate_once=np.arange(v) % 2 == 0,
+        valid=np.ones((v,), bool),
+        gpu_free=np.zeros((v, i, NUM_DEV_DIMS), f32),
+        gpu_valid=np.zeros((v, i), bool),
+        numa_free=np.zeros((v, 4, 2), f32),
+        numa_valid=np.zeros((v, 4), bool),
     )
     gpu_total = np.zeros((n, NUM_DEV_DIMS), f32)
     is_gpu_node = np.zeros((n,), bool)
@@ -357,23 +383,125 @@ def config_2_inputs(num_pods: int = 10_000, num_nodes: int = 1000,
         numa_single=pods.priority_class == int(PriorityClass.PROD))
 
 
+def full_gate_reservations(num_nodes: int) -> int:
+    """The live-slot count full_gate_cluster and full_gate_pods share
+    (owner ids line up with the slots' owner groups)."""
+    return min(64, num_nodes // 2)
+
+
+# the reference full_gate_cluster's and full_gate_pods' defaults
+FULL_GATE_CLUSTER_KW = dict(num_quotas=32, max_quotas=64, num_gangs=64,
+                            max_gangs=64, gpu_node_frac=0.25,
+                            gpus_per_node=8)
+FULL_GATE_PODS_KW = dict(num_quotas=32, num_gangs=64, gang_min_member=8,
+                         gpu_pod_frac=0.1)
+NUMA_BIND_FRAC = 0.33
+# its topology groups: (groups, members) of anti-affinity and affinity,
+# and the spread group count; drawn and thrown away by the cut form
+N_SPREAD_GROUPS = 8
+ANTI_GROUPS, ANTI_MEMBERS = 16, 64
+AFF_GROUPS, AFF_MEMBERS = 8, 48
+
+
+def full_gate_cluster(num_nodes: int, seed: int = 0,
+                      device="cuda") -> ClusterSnapshot:
+    """The full-gate flagship cluster: `synthetic_cluster` with
+    FULL_GATE_CLUSTER_KW (a quarter GPU nodes) and
+    full_gate_reservations(num_nodes) live reservation slots, two
+    populated NUMA zones a node, and three taint classes (0 untainted,
+    1 dedicated, 2 GPU-exclusive; p = 0.8 / 0.15 / 0.05, drawn from
+    their own generator, seed + 17)."""
+    snap = with_two_numa_zones(synthetic_cluster(
+        num_nodes, seed=seed,
+        num_reservations=full_gate_reservations(num_nodes), device=device,
+        **FULL_GATE_CLUSTER_KW))
+    taint_group = np.random.default_rng(seed + 17).choice(
+        3, num_nodes, p=[0.8, 0.15, 0.05]).astype(np.int32)
+    return snap.replace(nodes=snap.nodes.replace(
+        taint_group=torch.from_numpy(taint_group).to(
+            snap.nodes.allocatable.device)))
+
+
+def _draw_topology_groups(rng: np.random.Generator, p: int) -> None:
+    """Advance `rng` past the reference full_gate_pods' spread,
+    anti-affinity and affinity draws (in its order, with its group
+    sizes), which the cut form does not keep: the reservation owners
+    come after them on the same generator."""
+    rng.uniform(size=p)                                  # in_spread
+    rng.integers(0, N_SPREAD_GROUPS, p)                  # sgrp
+    anti_members = max(min(ANTI_MEMBERS, p // (4 * ANTI_GROUPS)), 1)
+    aff_members = max(min(AFF_MEMBERS, p // (4 * AFF_GROUPS)), 1)
+    total_anti = ANTI_GROUPS * anti_members
+    total_aff = AFF_GROUPS * aff_members
+    if total_anti + total_aff > p:
+        raise ValueError(
+            f"full_gate_pods needs at least {ANTI_GROUPS + AFF_GROUPS}"
+            f" pods for {ANTI_GROUPS} anti + {AFF_GROUPS} affinity "
+            f"groups; got {p}")
+    a_idx = rng.choice(p, total_anti, replace=False)
+    rng.choice(np.setdiff1d(np.arange(p), a_idx), total_aff, replace=False)
+
+
+def full_gate_pods(num_pods: int, num_nodes: int, seed: int = 1,
+                   device="cuda") -> PodBatch:
+    """The full-gate flagship's pods, cut to the gates the port has:
+    `synthetic_pods` with FULL_GATE_PODS_KW (10 % GPU pods), then on one
+    generator (seed + 29) in the reference's order: NUMA_BIND_FRAC of
+    the prod pods single-NUMA bound, three toleration sets (p = 0.7 /
+    0.2 / 0.1; set 0 tolerates nothing, set 1 the dedicated class, set
+    2 both; the dedicated and the GPU-exclusive class also carry a
+    PreferNoSchedule taint for the sets that do not tolerate them), the
+    spread/anti-affinity/affinity draws (made and thrown away: the cut
+    keeps `synthetic_pods`' no-topology fields, has_spread/has_anti/
+    has_aff False), and two owners for each of the
+    full_gate_reservations(num_nodes) slots among the pods that fit a
+    slot's hold (no batch-tier, device or single-NUMA pod). has_taints
+    is True."""
+    pods = synthetic_pods(num_pods, seed=seed, device="cpu",
+                          **FULL_GATE_PODS_KW)
+    rng = np.random.default_rng(seed + 29)
+    p = num_pods
+    requests = pods.requests.numpy()
+    is_prod = pods.priority_class.numpy() == int(PriorityClass.PROD)
+    numa_single = is_prod & (rng.uniform(size=p) < NUMA_BIND_FRAC)
+    toleration_id = rng.choice(3, p, p=[0.7, 0.2, 0.1]).astype(np.int32)
+    tol_forbid = np.array([[False, True, True],
+                           [False, False, True],
+                           [False, False, False]])
+    tol_prefer = np.array([[0.0, 1.0, 1.0],
+                           [0.0, 0.0, 1.0],
+                           [0.0, 0.0, 0.0]], np.float32)
+    _draw_topology_groups(rng, p)
+    v = full_gate_reservations(num_nodes)
+    owner = np.full((p,), -1, np.int32)
+    if v:
+        slot_free = np.zeros((R,), np.float32)
+        slot_free[CPU], slot_free[MEM] = RESV_SLOT_CPU, RESV_SLOT_MEM
+        fits_slot = (requests <= slot_free[None, :]).all(axis=1)
+        device_req = has_device_request(pods.requests, pods.gpu_ratio).numpy()
+        plain = np.flatnonzero(fits_slot & ~device_req & ~numa_single)
+        owners = rng.choice(plain, min(2 * v, plain.size), replace=False)
+        owner[owners] = (np.arange(owners.size) % v).astype(np.int32)
+    return pods.replace(
+        numa_single=torch.from_numpy(numa_single),
+        reservation_owner=torch.from_numpy(owner),
+        toleration_id=torch.from_numpy(toleration_id),
+        tol_forbid=torch.from_numpy(tol_forbid),
+        tol_prefer=torch.from_numpy(tol_prefer),
+        has_taints=True).to(resolve_device(device))
+
+
 def gpu_share_inputs(num_pods: int = 100_000, num_nodes: int = 10_000,
                      device="cuda") -> Tuple[ClusterSnapshot, PodBatch]:
-    """The reference's full-gate flagship workload (`synthetic.py`
-    full_gate_cluster / full_gate_pods) cut to the gates the port has:
-    nodes seed 0 with 32 quotas, 64 gangs, a quarter of them GPU nodes
-    with 8 instances each, and two populated NUMA zones; pods seed 1
-    with 32 quotas, 64 gangs of 8 and 10 % GPU pods, a third of the
-    prod pods single-NUMA bound (the first draw of full_gate_pods'
-    second generator). Cut: taints, spread/anti/affinity groups and the
-    reservation slots."""
-    snap = with_two_numa_zones(synthetic_cluster(
-        num_nodes, seed=0, num_quotas=32, num_gangs=64, gpu_node_frac=0.25,
-        gpus_per_node=8, device=device))
-    pods = synthetic_pods(num_pods, seed=1, num_quotas=32, num_gangs=64,
-                          gpu_pod_frac=0.1, device=device)
-    rng = np.random.default_rng(1 + 29)
-    bind = torch.from_numpy(rng.uniform(size=num_pods) < 0.33).to(
-        pods.valid.device)
-    prod = pods.priority_class == int(PriorityClass.PROD)
-    return snap, pods.replace(numa_single=prod & bind)
+    """The reference's full-gate flagship workload (`full_gate_cluster`
+    and `full_gate_pods`, seeds 0 and 1) cut to the gates the port has:
+    10 000 nodes with 32 quotas, 64 gangs, a quarter of them GPU nodes
+    with 8 instances each, two populated NUMA zones, three taint classes
+    and 64 live reservation slots; 100 000 pods with 32 quotas, 64 gangs
+    of 8, 10 % GPU pods, a third of the prod pods single-NUMA bound,
+    three toleration sets and two owners a slot. Cut: the
+    spread/anti-affinity/affinity groups (and the cascade, a knob of
+    the run)."""
+    snap = full_gate_cluster(num_nodes, seed=0, device=device)
+    pods = full_gate_pods(num_pods, num_nodes, seed=1, device=device)
+    return snap, pods

@@ -93,20 +93,17 @@ def test_final_snapshot_sound():
 
 # --- gpu_share_100kx10k (configs.run_gpu_share, the DeviceShare path) ----
 
-GPU_PODS, GPU_NODES, GPU_CHUNK = 1200, 300, 400
+GPU_PODS, GPU_NODES, GPU_CHUNK = 1200, 300, 600
 
 
 def gpu_share_reference_inputs(snap_seed, pod_seed):
     """The gpu_share cluster and pods at GPU_PODS x GPU_NODES from the
-    reference's generators (utils.synthetic.gpu_share_inputs' calls)."""
-    snap = jsyn.with_two_numa_zones(jsyn.synthetic_cluster(
-        GPU_NODES, seed=snap_seed, num_quotas=32, num_gangs=64,
-        gpu_node_frac=0.25, gpus_per_node=8))
-    pods = jsyn.synthetic_pods(GPU_PODS, seed=pod_seed, num_quotas=32,
-                               num_gangs=64, gpu_pod_frac=0.1)
-    bind = np.random.default_rng(pod_seed + 29).uniform(size=GPU_PODS) < 0.33
-    return snap, pods.replace(numa_single=jnp.asarray(
-        (np.asarray(pods.priority_class) == 4) & bind))
+    reference's generators (utils.synthetic.gpu_share_inputs' calls:
+    full_gate_cluster, and full_gate_pods with its spread, anti-affinity
+    and affinity groups cut)."""
+    from test_torch_reservation import cut_full_gate_pods
+    return (jsyn.full_gate_cluster(GPU_NODES, seed=snap_seed),
+            cut_full_gate_pods(GPU_PODS, GPU_NODES, seed=pod_seed))
 
 
 @functools.lru_cache(maxsize=None)
@@ -119,27 +116,30 @@ def _gpu_share_reference_program():
     def run(snap, stacked, pods, cfg):
         def body(s, cols):
             res = step(s, pods.replace(**cols), cfg)
-            return res.snapshot, res.assignment
-        snap, assign = jax.lax.scan(body, snap, stacked)
+            return res.snapshot, (res.assignment, res.res_slot)
+        snap, (assign, res_slot) = jax.lax.scan(body, snap, stacked)
         counts = tuple(getattr(pods, f) for f in jcore.COUNT_FIELDS)
         return jcore.tail_compaction_loop(
             tail_step, snap, counts, assign.reshape(-1), pods, cfg,
             tail_chunk=min(GPU_CHUNK, 512),
             min_passes=flagship.MIN_TAIL_PASSES,
             max_passes=configs.FULL_GATE_MAX_TAIL_PASSES,
-            charge_counts=False)
+            charge_counts=False), res_slot.reshape(-1)
     return run
 
 
 @functools.lru_cache(maxsize=None)
 def _gpu_share_both(snap_seed, pod_seed):
-    """(reference (snap, assign, stats), port run, port line or None):
-    the config's own seeds (0, 1) through run_gpu_share, others through
-    flagship.sweep_and_tail with the config's kwargs."""
+    """(reference (snap, assign, stats, the sweep's res_slot), port run,
+    port line or None): the config's own seeds (0, 1) through
+    run_gpu_share, others through flagship.sweep_and_tail with the
+    config's kwargs."""
     snap, pods = gpu_share_reference_inputs(snap_seed, pod_seed)
-    want_snap, _, assign, stats = _gpu_share_reference_program()(
-        snap, jsyn.stack_pod_chunks(pods, GPU_CHUNK), pods, JCfg.make())
-    want = (want_snap, np.asarray(assign), np.asarray(stats))
+    (want_snap, _, assign, stats), sweep_slot = \
+        _gpu_share_reference_program()(
+            snap, jsyn.stack_pod_chunks(pods, GPU_CHUNK), pods, JCfg.make())
+    want = (want_snap, np.asarray(assign), np.asarray(stats),
+            np.asarray(sweep_slot))
     if (snap_seed, pod_seed) == (0, 1):
         line, run = configs.run_gpu_share(GPU_PODS, GPU_NODES, GPU_CHUNK,
                                           device="cpu")
@@ -159,7 +159,7 @@ GPU_SEEDS = [(0, 1), (3, 4)]
 def test_gpu_share_sweep_and_tail_equal_reference(seeds):
     """The assignment and the tail's stats equal the reference's
     sweep-and-tail at a cut size (full width, no packing prefixes)."""
-    (_, want_assign, want_stats), run, _ = _gpu_share_both(*seeds)
+    (_, want_assign, want_stats, _), run, _ = _gpu_share_both(*seeds)
     np.testing.assert_array_equal(run.assignment.numpy(), want_assign)
     np.testing.assert_array_equal(run.stats.numpy(), want_stats)
     assert want_stats[0] > 0 and want_stats[2] == 0
@@ -168,10 +168,12 @@ def test_gpu_share_sweep_and_tail_equal_reference(seeds):
 @pytest.mark.parametrize("part,field", [
     ("nodes", "requested"), ("nodes", "numa_free"), ("devices", "gpu_free"),
     ("quotas", "used"), ("gangs", "assumed"),
-    ("nodes", "assigned_estimated")])
+    ("nodes", "assigned_estimated"), ("nodes", "prod_assigned_estimated"),
+    ("reservations", "free"), ("reservations", "valid"),
+    ("reservations", "gpu_free"), ("reservations", "numa_free")])
 @pytest.mark.parametrize("seeds", GPU_SEEDS, ids=str)
 def test_gpu_share_final_snapshot_equal(seeds, part, field):
-    (want_snap, _, _), run, _ = _gpu_share_both(*seeds)
+    (want_snap, _, _, _), run, _ = _gpu_share_both(*seeds)
     w = np.asarray(getattr(getattr(want_snap, part), field))
     g = getattr(getattr(run.snapshot, part), field).numpy()
     assert g.dtype == w.dtype and g.shape == w.shape
@@ -211,3 +213,52 @@ def test_gpu_share_instances_conserved(seeds):
         assert line["gpu_pods_placed"] == int((placed & gpu).sum()) > 0
         assert 0 < line["numa_bound_placed"] <= line["placed"]
         assert line["tail_passes"] >= flagship.MIN_TAIL_PASSES
+
+
+@pytest.mark.parametrize("seeds", GPU_SEEDS, ids=str)
+def test_gpu_share_slot_consumers(seeds):
+    """The port's carried res_slot agrees with the reference's sweep
+    where the tail did not place the pod, and the tail places some
+    consumers; every consumer sits on its
+    slot's node and owns it; each slot's final free (the reference's)
+    is its initial free less its consumers' requests; an AllocateOnce
+    slot has at most one consumer; the line counts them."""
+    (want_snap, assign, _, sweep_slot), run, line = _gpu_share_both(*seeds)
+    snap, pods = gpu_share_reference_inputs(*seeds)
+    res_slot = run.res_slot.numpy()
+    consumer = res_slot >= 0
+    swept = sweep_slot >= 0
+    np.testing.assert_array_equal(res_slot[swept], sweep_slot[swept])
+    resv0 = snap.reservations
+    assert consumer.any() and (assign[consumer] >= 0).all()
+    assert (consumer & ~swept).any()
+    np.testing.assert_array_equal(
+        np.asarray(pods.reservation_owner)[consumer],
+        np.asarray(resv0.owner_group)[res_slot[consumer]])
+    np.testing.assert_array_equal(
+        assign[consumer], np.asarray(resv0.node)[res_slot[consumer]])
+    consumed = np.zeros_like(np.asarray(resv0.free))
+    np.add.at(consumed, res_slot[consumer],
+              np.asarray(pods.requests)[consumer])
+    np.testing.assert_array_equal(np.asarray(want_snap.reservations.free),
+                                  np.asarray(resv0.free) - consumed)
+    once = np.asarray(resv0.allocate_once)
+    per_slot = np.bincount(res_slot[consumer], minlength=once.size)
+    assert per_slot[once].max() <= 1
+    if line is not None:
+        assert line["cuts"] == list(configs.GPU_SHARE_CUTS)
+        assert line["slot_consumers"] == int(consumer.sum())
+        assert line["once_slots_taken"] == int((once & (per_slot > 0)).sum())
+
+
+@pytest.mark.parametrize("seeds", GPU_SEEDS, ids=str)
+def test_gpu_share_taints_hold(seeds):
+    """No pod sits on a node whose taints its toleration set forbids,
+    and some sit on tainted nodes their sets tolerate."""
+    (_, assign, _, _), _, _ = _gpu_share_both(*seeds)
+    snap, pods = gpu_share_reference_inputs(*seeds)
+    placed = assign >= 0
+    tol = np.asarray(pods.toleration_id)[placed]
+    taint = np.asarray(snap.nodes.taint_group)[assign[placed]]
+    assert not np.asarray(pods.tol_forbid)[tol, taint].any()
+    assert (taint > 0).any()

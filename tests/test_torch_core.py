@@ -137,18 +137,18 @@ def test_unported_inputs_raise():
         aux_free=torch.ones((8, 2, 1)),
         aux_valid=torch.ones((8, 2, 1), dtype=torch.bool)))
     resv = jsyn.synthetic_cluster(8, num_reservations=2)
-    for bad_snap, bad_pods in (
-            (aux, pods),
-            (to_port("ClusterSnapshot", resv), pods),
-            (snap, pods.replace(has_spread=True)),
-            (snap, pods.replace(has_taints=True))):
+    for bad_snap, bad_pods in ((aux, pods),
+                               (snap, pods.replace(has_spread=True))):
         with pytest.raises(NotImplementedError):
             core.schedule_batch(bad_snap, bad_pods, cfg, **BENCH_KW)
-    # reservation slots with the NUMA path (their zone holds wait for the
-    # slot columns)
-    with pytest.raises(NotImplementedError, match="reservation slots"):
-        core.schedule_batch(to_port("ClusterSnapshot", resv), pods, cfg,
-                            **dict(BENCH_KW, enable_numa=True))
+    # reservation slots (with the NUMA path too) and taints schedule
+    for ok_snap, ok_pods, kw in (
+            (to_port("ClusterSnapshot", resv), pods, BENCH_KW),
+            (to_port("ClusterSnapshot", resv), pods,
+             dict(BENCH_KW, enable_numa=True)),
+            (snap, pods.replace(has_taints=True), BENCH_KW)):
+        res = core.schedule_batch(ok_snap, ok_pods, cfg, **kw)
+        assert int((res.assignment >= 0).sum()) > 0
     with pytest.raises(ValueError, match="numa_strategy"):
         core.schedule_batch(snap, pods, cfg, numa_strategy="spread",
                             **dict(BENCH_KW, enable_numa=True))

@@ -193,22 +193,25 @@ def test_synthetic_gpu_draws_equal_reference(seed, frac):
 
 def test_gpu_share_inputs_equal_reference():
     """The port's gpu_share inputs against the reference's full-gate
-    cluster and pods with the cut gates left out: the same nodes but
-    for taint_group (and no reservation slots), the same pods but for
-    the tolerations and topology groups."""
+    cluster (taint classes and 64 live slots included) leaf for leaf,
+    and its full-gate pods with the spread, anti-affinity and affinity
+    groups cut: the same requests, priorities, gangs, quotas, GPU
+    requests, NUMA binding, tolerations and reservation owners."""
     tsnap, tpods = synthetic.gpu_share_inputs(2000, 300, device="cpu")
-    jsnap = jsyn.full_gate_cluster(300, num_quotas=32, num_reservations=0)
-    jpods = jsyn.full_gate_pods(2000, 300, seed=1, num_quotas=32,
-                                num_reservations=0)
-    want = numpy_tree(jsnap)
-    want["nodes"]["taint_group"] = np.zeros_like(want["nodes"]["taint_group"])
-    assert_trees_equal(to_numpy(tsnap), want)
+    jsnap = jsyn.full_gate_cluster(300, num_quotas=32)
+    jpods = jsyn.full_gate_pods(2000, 300, seed=1, num_quotas=32)
+    assert_trees_equal(to_numpy(tsnap), numpy_tree(jsnap))
     got = to_numpy(tpods)
     for field in ("requests", "estimated", "priority", "priority_class",
-                  "gang_id", "quota_id", "gpu_ratio", "numa_single", "qos"):
+                  "gang_id", "quota_id", "gpu_ratio", "numa_single", "qos",
+                  "toleration_id", "tol_forbid", "tol_prefer",
+                  "reservation_owner"):
         np.testing.assert_array_equal(got[field], np.asarray(
             getattr(jpods, field)), err_msg=field)
+    assert tpods.has_taints and not (tpods.has_spread or tpods.has_anti
+                                     or tpods.has_aff)
     assert 0 < int((tpods.numa_single & (tpods.gpu_ratio > 0)).sum())
+    assert int((tpods.reservation_owner >= 0).sum()) == 128
 
 
 def test_device_fields_cross_the_bridge():

@@ -218,9 +218,10 @@ def test_gate_terms_index_the_table_as_reference(seed):
 
 def test_gate_terms_without_devices_and_with_taints():
     """devices=None leaves the device prefilter out; a batch with taints
-    or a snapshot with aux pools does not factor and raises; on a
-    snapshot with GPU instances the factored device term is the
-    prefilter's aux part (K6 gives the GPU part pair by pair)."""
+    factors with its forbid table (the expanded mask equals the
+    reference's static gates) and a snapshot with aux pools does not and
+    raises; on a snapshot with GPU instances the factored device term is
+    the prefilter's aux part (K6 gives the GPU part pair by pair)."""
     nodes, pods, devices = _gated_case(4, 32, 24)
     _, cfg = _port_cfg("default")
     tn, tp = to_port("NodeState", nodes), to_port("PodBatch", pods)
@@ -230,8 +231,11 @@ def test_gate_terms_without_devices_and_with_taints():
     want = np.asarray(jax.jit(
         lambda n, p, c: jcascade.static_gates(n, p, c)[0])(nodes, pods, jcfg))
     np.testing.assert_array_equal(expand_gates(gates).numpy(), want)
-    with pytest.raises(NotImplementedError):
-        static_gate_terms(tn, tp.replace(has_taints=True), cfg, None)
+    tainted = pods.replace(has_taints=True)
+    want = np.asarray(jax.jit(lambda n, p, c: jcascade.static_gates(
+        n, p, c)[0])(nodes, tainted, jcfg))
+    np.testing.assert_array_equal(expand_gates(static_gate_terms(
+        tn, tp.replace(has_taints=True), cfg, None)).numpy(), want)
     gpu = to_port("DeviceState", jsyn.synthetic_cluster(
         24, gpu_node_frac=1.0, gpus_per_node=2).devices)
     aux = np.asarray(pods.requests)[:, [int(RK.RDMA), int(RK.FPGA)]]
