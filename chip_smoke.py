@@ -49,7 +49,17 @@ in order:
    slots without taints; K2 as the AllocateOnce level (64 once slots,
    every pod on one slot, P = 1); K5 and K7 (with the K2 gate between
    K7's launches) over the extended rows of slots that hold zones and
-   instances. Each timed case with its time
+   instances. The pod topology families: K1 with the topology term
+   (the factored gate over the node and slot columns and the spread
+   penalty) at a gpu_share chunk with both addends, the taint term and
+   the slots, and at the tail's setting (P = 512, k = 32, jitter), and
+   untimed with no addend, one, no taints and no slots, no spread
+   family, pods carrying three spread groups, k = 32 without jitter;
+   K8 topology_prefix_gate at a gpu_share step (P = 2000) and the
+   tail's (P = 512), every pod trying on one column, every column
+   keyless, every spread group soft, each family alone, P = 1; K2 with
+   K8's verdict ANDed in after the node level. Each timed case with
+   its time
    (CUDA events over back-to-back calls, and the kernel's device time
    from torch.profiler), the plain version's, one library call's where
    there is one, and the card's lower bound for the same work;
@@ -61,7 +71,7 @@ in order:
    an inner step; K3 at most twice an inner step plus its round and
    rebuild commits), peak device memory, and the invariants (no
    overcommit, quota used within runtime, every straggler retried, the
-   sweep's stragglers unchanged; K4 to K7 never launched);
+   sweep's stragglers unchanged; K4 to K8 never launched);
 5. config 2: BASELINE config 2 (10 000 pods x 1000 nodes, chunks of
    2000, LoadAware + NodeNUMAResource, `configs.run_config_2_numa`) on
    the card after a warm-up run, then on the host: the bench line, the
@@ -69,25 +79,30 @@ in order:
    K2 twice an inner step, K1 once a round), the card's assignment,
    zones, takes, zone free and requested equal to the host's, each
    zone's takes within its capacity, no overcommit, quota within
-   runtime; K6 and K7 never launched;
+   runtime; K6 to K8 never launched;
 6. gpu_share: `configs.run_gpu_share` (the DeviceShare path with
-   NodeNUMAResource, taints and tolerations and 64 reservation slots)
-   at 8000 pods x 1000 nodes on the card and on the host, every result
-   field equal (assignment, tail stats, instance takes, slots consumed,
-   requested, zone free, instance free, quotas, gangs, the reservation
-   state); then 100 000 x 10 000 on the card: the bench line, the
-   launch counts its design fixes (K4 and K6 once a batch, K1 once a
-   round, K5 once an inner step, K7 twice, K2 four times, K3 four
-   times an inner step, three times a round and eleven times a batch),
+   NodeNUMAResource, taints and tolerations, 64 reservation slots and
+   the spread, anti-affinity and affinity groups) at 8000 pods x 1000
+   nodes on the card and on the host, every result field equal
+   (assignment, tail stats, instance takes, slots consumed, requested,
+   zone free, instance free, quotas, gangs, the reservation state, the
+   four topology count tables, the placed pods of each family); then
+   100 000 x 10 000 on the card: the bench line, the launch counts its
+   design fixes (K4 and K6 once a batch, K1 once a round, K5 and K8
+   once an inner step, K7 twice, K2 four times, K3 eight times an inner
+   step, three times a round and fifteen times a batch),
    every placed GPU pod holding its count of instances, the takes times
    the per-instance requests equal to each valid instance's total minus
    its free, no negative free; every slot consumer on its slot's node
    and owning it, at most one consumer an AllocateOnce slot, each
    slot's free its initial free less its consumers' requests, node
    requested not charged by consumers, no pod on a node whose taints
-   its toleration set forbids; no overcommit, quota within runtime,
-   and never_retried what the tail's pass budget leaves (each pass
-   retries a full window of never-retried stragglers first).
+   its toleration set forbids; no node holding two placed carriers of
+   one anti-affinity group, the carried counts equal to the recount
+   from the final assignment (each hard spread group's final skew and
+   each affinity group's zones printed); no overcommit, quota within
+   runtime, and never_retried what the tail's pass budget leaves (each
+   pass retries a full window of never-retried stragglers first).
 
 The last three lines are one JSON object listing the kernels, the
 card's name and power limit, and one JSON object stating the result.
@@ -142,7 +157,9 @@ from koordinator_tpu_torch.kernels.score_topk import (
     masked_scores,
     score_topk,
     score_topk_plain,
+    spread_penalty,
     tie_break_jitter,
+    topo_blocked,
 )
 from koordinator_tpu_torch.kernels.segment_prefix import (
     segment_prefix_chain,
@@ -153,6 +170,13 @@ from koordinator_tpu_torch.kernels.topology import (
     topology_admit,
     topology_admit_plain,
 )
+from koordinator_tpu_torch.kernels.topology_prefix import (
+    CAP,
+    OPENER,
+    PrefixFamily,
+    topology_prefix_gate,
+    topology_prefix_gate_plain,
+)
 from koordinator_tpu_torch.scheduler.batching import EPS, rank_by_priority
 from koordinator_tpu_torch.scheduler.cascade import (
     _table_index,
@@ -160,6 +184,7 @@ from koordinator_tpu_torch.scheduler.cascade import (
     static_gate_terms,
     taint_penalty,
 )
+from koordinator_tpu_torch.scheduler import domains
 from koordinator_tpu_torch.scheduler.core import overcommit_ok, quota_ok
 from koordinator_tpu_torch.scheduler.plugins import (
     deviceshare,
@@ -209,6 +234,8 @@ SOURCES = {
                           "deviceshare.py:152"),
     "gpu_instance_pick": ("koordinator_tpu_torch/csrc/gpu_instances.cu",
                           "koordinator_tpu/scheduler/core.py:962"),
+    "topology_prefix_gate": ("koordinator_tpu_torch/csrc/topology_prefix.cu",
+                             "koordinator_tpu/scheduler/core.py:776"),
 }
 
 
@@ -234,8 +261,9 @@ def device_ms(fn, kernel: str, reps: int = 20) -> float:
     fn()
     torch.cuda.synchronize()
     # the tracer may miss launches (a few at its start, or now and then a
-    # whole trace): the mean of those seen, from up to three traces
-    for _ in range(3):
+    # whole trace, twice in a row at times): the mean of those seen, from
+    # up to six traces
+    for _ in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -248,7 +276,7 @@ def device_ms(fn, kernel: str, reps: int = 20) -> float:
             return sum(spans) / len(spans) / 1e3
         print(f"device_ms: the trace holds {len(spans)} launches of "
               f"{kernel}, not {reps}; tracing again", file=sys.stderr)
-    raise SystemExit(f"three traces missed most launches of {kernel}")
+    raise SystemExit(f"six traces missed most launches of {kernel}")
 
 
 def bound(nbytes: float, ops: float):
@@ -451,6 +479,9 @@ def k1_needed_pairs(kw, checked, val, idx):
     penalty = taint_penalty(gates)
     if penalty is not None:
         ub = torch.clamp_min(ub - penalty, 0.0)
+    topo = kw.get("topo")
+    if topo is not None and topo.penalty is not None:
+        ub = torch.clamp_min(ub - spread_penalty(topo, ub.shape[1]), 0.0)
     if kw["tie_break"]:
         ub = loadaware.fma_f32(torch.full_like(ub, 1023.0), JITTER, ub)
     kv, ki = val[:, -1:], idx[:, -1:].long()
@@ -640,7 +671,10 @@ def check_k3(snap, pods, gen):
     repeats and drops) and the quota commit (P=2000 into the 64-row
     quota table, 2 levels from a real chunk's pod_anc, half the pods
     accepted: every accepted quota pod lands on the root at level 0),
-    non-integer rows in both; and, untimed, indices below 0 (wrapped
+    non-integer rows in both, and a step's count commit into a topology
+    count table (16 groups x 10^4 domains, one level a group, 2 % of the
+    pods charging each group, rows of 1.0: gpu_share's spread and
+    anti-affinity tables); and, untimed, indices below 0 (wrapped
     or dropped as in the reference). The plain version runs on the
     host, whose index_add_ adds in order (the card's uses atomics)."""
     dev = snap.nodes.allocatable.device
@@ -670,11 +704,24 @@ def check_k3(snap, pods, gen):
                                                  rows.cpu())):
         raise SystemExit("K3 ordered_scatter_add (negative indices) differs "
                          "from its plain version on the host")
+    groups, domains_ = 16, 10_000
+    cidx = torch.where(
+        torch.rand((groups, p), generator=gen, device=dev) < 0.02,
+        torch.arange(groups, device=dev)[:, None] * domains_
+        + torch.randint(0, domains_, (groups, p), generator=gen, device=dev),
+        groups * domains_).to(torch.int32)
     out = {}
-    for label, s, index in (("node commit", s_node, idx),
-                            ("quota commit", n_quotas, qidx)):
-        target = torch.rand((s, c), generator=gen, device=dev) * 5000.0
-        rows = torch.rand((p, c), generator=gen, device=dev) * 3000.0 + 0.1
+    for label, s, c, index in (("node commit", s_node, c, idx),
+                               ("quota commit", n_quotas, c, qidx),
+                               ("count commit", groups * domains_, 1, cidx)):
+        if label == "count commit":
+            target = torch.randint(0, 5, (s, c), generator=gen,
+                                   device=dev).to(torch.float32)
+            rows = torch.ones((p, c), device=dev)
+        else:
+            target = torch.rand((s, c), generator=gen, device=dev) * 5000.0
+            rows = torch.rand((p, c), generator=gen, device=dev) * 3000.0 \
+                + 0.1
         got = ordered_scatter_add(target, index, rows)
         want = ordered_scatter_add_plain(target.cpu(), index.cpu(),
                                          rows.cpu())
@@ -1625,6 +1672,293 @@ def check_k2_once(dev, gen):
     return out
 
 
+# --- the pod topology families (K1's topology term, K8, K2's mask, K3's
+# count commits) ------------------------------------------------------------
+
+
+def topo_state(snap, batch, gen, slots=True):
+    """A round's topology at a gpu_share state: the counts (COUNT_FIELDS
+    order) after the first 8000 pods of the workload placed on random
+    nodes, the affinity counts of the odd groups cleared (their
+    self-matching carriers may open a zone), and every other zone
+    spread group's skew set to 1 (so that the spread gate bites); then
+    the batch's families over the node and slot columns (only the node
+    columns where `slots` is False) and the round's terms for its
+    valid rows. Returns (batch, topo, counts, terms, lim)."""
+    dev = batch.valid.device
+    n = snap.num_nodes
+    _, pods = gpu_share_inputs(10_000, n, device=dev)
+    past = slice_batch(pods, 0, 8000)
+    skew = batch.spread_max_skew.clone()
+    skew[0:8:2] = 1.0
+    batch = batch.replace(spread_max_skew=skew)
+    assign = torch.randint(0, n, (8000,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    counts = list(domains.charge_all_counts(domains.batch_counts(batch),
+                                            past, assign))
+    counts[3] = counts[3].clone()
+    counts[3][1::2] = 0.0
+    slot_node = snap.reservations.node
+    topo = domains.batch_topology(batch, slot_node if slots
+                                  else slot_node[:0], n)
+    terms, lim = domains.round_terms(topo, counts, batch.valid)
+    return batch, topo, tuple(counts), terms, lim
+
+
+def k1_topo_cost(terms, n_checked, n_ext, spread_pairs):
+    """(bytes, operations) the topology term adds to K1's bound: the
+    pods' words (20 bytes a pod), the columns' words (20 bytes a column)
+    and the penalty map (4 bytes a group and column) read once; an AND
+    and a test of each family for each pair that passes the other gates
+    (`n_checked`), one add for each carried spread group of a pair
+    (`spread_pairs`) and a subtraction and a floor for each node pair."""
+    p = terms.pod_words.shape[0]
+    pen = 0 if terms.penalty is None else terms.penalty.numel() * 4
+    return (p * 20 + n_ext * 20 + pen,
+            10 * n_checked + spread_pairs + 2 * n_checked)
+
+
+def check_k1_topo(dev, gen):
+    """K1 with the topology term: the factored gate (node and slot
+    columns) and the spread penalty, beside the taint term, the two
+    addends and the 64 slot columns, at a gpu_share chunk (P=2000, N=10
+    000, k=8, jitter; timed) and the tail's setting (P=512, k=32,
+    jitter); untimed, with no addend and with one, no taints, no slots,
+    no spread family (no penalty, no floor), pods carrying three spread
+    groups, k=32 without jitter. Equal to the plain version."""
+    out = {}
+    cfg = loadaware.LoadAwareConfig.make(device=dev)
+    for label, n, p, k, tie_break, adds, slots, edit in (
+            ("gpu_share", 10_000, 2000, 8, True, 2, True, None),
+            ("gpu_share tail", 10_000, 512, 32, True, 2, True, None),
+            ("no addend", 1000, 2000, 8, True, 0, True, None),
+            ("one addend", 1000, 2000, 8, True, 1, True, None),
+            ("no taints, no slots", 1000, 2000, 8, True, 0, False,
+             "no taints"),
+            ("no spread family", 1000, 2000, 8, True, 2, True, "no spread"),
+            ("three spread groups", 1000, 2000, 8, True, 2, True, "wide"),
+            ("k=32, no jitter", 1000, 512, 32, False, 2, True, None)):
+        snap, batch = gpu_state(dev, gen, n, 8000, p)
+        n, p = snap.num_nodes, batch.num_pods
+        alloc = snap.nodes.allocatable
+        load = torch.rand(alloc.shape, generator=gen, device=dev) * 0.9
+        snap = snap.replace(nodes=snap.nodes.replace(
+            requested=torch.floor(alloc * load / 500.0) * 500.0))
+        if edit == "no taints":
+            batch = batch.replace(has_taints=False)
+        if edit == "no spread":
+            batch = batch.replace(has_spread=False)
+        if edit == "wide":
+            extra = torch.rand(batch.spread_carrier.shape, generator=gen,
+                               device=dev) < 0.15
+            batch = batch.replace(spread_carrier=batch.spread_carrier
+                                  | (extra & batch.spread_carrier.any(
+                                      dim=1, keepdim=True)))
+        batch, _, _, terms, _ = topo_state(snap, batch, gen, slots=slots)
+        kw = k1_case(snap, batch, cfg, 0, p, k, gen, FIT_DIMS, SCORE_DIMS,
+                     tie_break=tie_break)
+        mask = None
+        if adds:
+            mask, kw["pair_score"] = numa_pair_terms(
+                *k4_args(snap, batch, "most"))
+        if adds == 2:
+            mask, kw["pair_score2"] = device_pair_terms(
+                gpu_req_of(batch), snap.devices, "least", mask)
+        kw["pair_ok"] = mask
+        if slots:
+            kw = with_slots(snap, batch, kw, gen)
+        v = kw["slot_ok"].shape[1] if slots else 0
+        kw["topo"] = terms
+        (val, idx), err = k1_equal(f"topology, {label}", kw)
+        blocked = topo_blocked(terms)
+        stats = dict(max_abs_err=err, feasible=int((val >= 0).sum()),
+                     blocked_pairs=int(blocked.sum()),
+                     on_slot=int((idx >= n).sum()),
+                     floored=int(((val >= 0) & (val < 0.5)).sum()))
+        if not stats["blocked_pairs"]:
+            raise SystemExit(f"K1 topology ({label}): the gate blocks no "
+                             "pair")
+        if label not in ("gpu_share",):
+            out[label] = stats
+            continue
+        gates = kw["gates"]
+        f, d = kw["req_fit"].shape[1], kw["est"].shape[1]
+        checked = (expand_gates(gates) & kw["pair_ok"]
+                   & kw["row_ok"][:, None] & ~blocked[:, :n])
+        n_checked = int(checked.sum())
+        n_needed, n_terms = k1_needed_pairs(kw, checked, val, idx)
+        active = int((kw["row_ok"] & gates.device_ok).sum())
+        t_bytes, t_ops = k1_taint_cost(kw, n_checked)
+        words = terms.pod_words[:, 0]
+        carried = torch.stack([(words >> g) & 1 for g in range(32)]).sum(0)
+        spread_pairs = int((checked.sum(dim=1) * carried).sum())
+        o_bytes, o_ops = k1_topo_cost(terms, n_checked, n + v, spread_pairs)
+        # check_k1_slots' count, and the topology term
+        nbytes = (p * (f + d) * 4 + n * (2 * f + 3 * d) * 4 + d * 4
+                  + p * k * 8 + p * 9 + n * 8 + gates.selector_match.numel()
+                  + t_bytes + active * n + n_checked * 8
+                  + p * v + v + v * f * 8 + o_bytes)
+        ops = (active * n + 2 * n_checked + n * (3 + n_terms * (5 * d + 3))
+               + n_needed * (2 * f + 8 * d + 6) + t_ops
+               + active * v * (2 * f + 2) + o_ops)
+        b_ms, b_by = bound(nbytes, ops)
+        masked = k1_masked(kw)
+        out[label] = dict(
+            ms=cuda_ms(lambda: score_topk(**kw)),
+            device_ms=device_ms(lambda: score_topk(**kw),
+                                "score_topk_kernel"),
+            plain_ms=cuda_ms(lambda: score_topk_plain(**kw), reps=3),
+            library_ms=cuda_ms(lambda: torch.topk(masked, k, dim=1)),
+            bound_ms=b_ms, bound_by=b_by,
+            shape=(f"P={p} N={n} V={v} k={k} F={f} D={d} + two pair "
+                   "scores, taints, topology"),
+            needed_pairs=n_needed, **stats)
+    return out
+
+
+def k8_step(snap, batch, gen, trying_frac=0.7):
+    """One step's K8 operands at a gpu_share state: each trying pod's
+    extended column (a third of them among 32 popular nodes, 5 % on a
+    slot column), the pods' priority order."""
+    dev = batch.valid.device
+    p, n = batch.num_pods, snap.num_nodes
+    v = snap.reservations.valid.shape[0]
+    choice = torch.randint(0, n, (p,), generator=gen, device=dev)
+    r = torch.rand((p,), generator=gen, device=dev)
+    choice = torch.where(r < 0.33, torch.randint(
+        0, 32, (p,), generator=gen, device=dev), choice)
+    choice = torch.where(r > 0.95, n + torch.randint(
+        0, v, (p,), generator=gen, device=dev), choice)
+    trying = torch.rand((p,), generator=gen, device=dev) < trying_frac
+    return (torch.where(trying, choice, n + v).to(torch.int32), trying,
+            rank_by_priority(batch))
+
+
+def k8_cost(choice, trying, families):
+    """(bytes, operations) of one K8 call on these inputs: the pods'
+    choice, trying flag and rank and each family's charge and gate words
+    read once, each trying pod's domain of each group and each gated
+    pod's count read once (an opener group's counts all), the result
+    written; a domain lookup a trying pod and group, and two operations
+    for each gated pod and earlier-or-not charging pod of its group."""
+    p = choice.shape[0]
+    nbytes, ops = p * 10 + len(families) * p * 8, 0
+    n_try = int(trying.sum())
+    for fam in families:
+        x = fam.dom_x.shape[1]
+        c = choice.clamp(0, x - 1).long()
+        for g in range(fam.dom_x.shape[0]):
+            dom = fam.dom_x[g, c]
+            has = trying & (dom >= 0)
+            if fam.kind == OPENER:
+                at = fam.counts[g, dom.clamp_min(0).long()]
+                charge = gate = has & (((fam.gate >> g) & 1) != 0) & (at < 0.5)
+                nbytes += fam.counts.shape[1] * 4
+            else:
+                charge = has & (((fam.charge >> g) & 1) != 0)
+                gate = has & (((fam.gate >> g) & 1) != 0)
+            n_gate = int(gate.sum())
+            nbytes += n_try * 4 + n_gate * 4
+            ops += n_try + 2 * n_gate * int(charge.sum())
+    return nbytes, ops
+
+
+def check_k8(dev, gen):
+    """K8 at a gpu_share step (P=2000 against N=10 000 nodes and 64
+    slots, the workload's 16 spread, 16 anti-affinity and 8 affinity
+    groups, every other zone group's skew 1, the odd affinity groups
+    empty; timed) and the tail's (P=512; timed); untimed, every pod
+    trying on
+    one column, every column keyless, every spread group soft, each
+    family alone, and P=1. Equal to the plain version."""
+    out = {}
+    for label, p, edit in (("gpu_share", 2000, None),
+                           ("gpu_share tail", 512, None),
+                           ("one column", 2000, "one column"),
+                           ("keyless", 2000, "keyless"),
+                           ("soft spread", 2000, "soft"),
+                           ("spread alone", 2000, "spread"),
+                           ("anti-affinity alone", 2000, "anti"),
+                           ("affinity alone", 2000, "aff"),
+                           ("P=1", 1, None)):
+        snap, batch = gpu_state(dev, gen, 10_000, 8000, p)
+        batch, topo, counts, _, lim = topo_state(snap, batch, gen)
+        choice, trying, rank = k8_step(snap, batch, gen)
+        if edit == "one column":
+            trying = torch.ones_like(trying)
+            choice = torch.full_like(choice, 7)
+        fams = domains.step_families(topo, counts, lim)
+        if edit == "keyless":
+            fams = [PrefixFamily(torch.full_like(f.dom_x, -1), f.counts,
+                                 f.charge, f.gate, f.kind, f.lim)
+                    for f in fams]
+        if edit == "soft":
+            fams = [PrefixFamily(f.dom_x, f.counts, f.charge, f.gate, f.kind,
+                                 torch.full_like(f.lim, float("inf")))
+                    if f.kind == CAP else f for f in fams]
+        if edit in ("spread", "anti", "aff"):
+            fams = {"spread": fams[:1], "anti": fams[1:3],
+                    "aff": fams[3:]}[edit]
+        got = topology_prefix_gate(choice, trying, rank, fams)
+        want = topology_prefix_gate_plain(choice, trying, rank, fams)
+        if not torch.equal(got, want):
+            raise SystemExit(f"K8 topology_prefix_gate ({label}) differs "
+                             f"from its plain version at "
+                             f"{(got != want).nonzero()[:5, 0].tolist()}")
+        stats = dict(max_abs_err=0.0, trying=int(trying.sum()),
+                     rejected=int((trying & ~got).sum()))
+        if label not in ("gpu_share", "gpu_share tail"):
+            out[label] = stats
+            continue
+        if not stats["rejected"]:
+            raise SystemExit(f"K8 ({label}): the gates reject no pod")
+        nbytes, ops = k8_cost(choice, trying, fams)
+        b_ms, b_by = bound(nbytes, ops)
+        out[label] = dict(
+            ms=cuda_ms(lambda: topology_prefix_gate(choice, trying, rank,
+                                                    fams)),
+            device_ms=device_ms(
+                lambda: topology_prefix_gate(choice, trying, rank, fams),
+                "topology_prefix_kernel"),
+            plain_ms=cuda_ms(lambda: topology_prefix_gate_plain(
+                choice, trying, rank, fams), reps=3),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            shape=(f"P={batch.num_pods} X={snap.num_nodes + 64} columns="
+                   f"{sum(f.dom_x.shape[0] for f in fams)}"), **stats)
+    return out
+
+
+def check_k2_mask(snap, pods, gen):
+    """K2's chained gate (node + 2 quota levels) with the step's
+    topology verdict ANDed in after the node level, at P=2000 with 70 %
+    trying and a random verdict (80 % pass; timed), and with the node
+    level alone (the mask on the output). Equal to the plain version."""
+    out = {}
+    for label, p0, levels in (("chain + mask", 8000, None),
+                              ("node level + mask", 10_000, 1)):
+        kw = k2_case(snap, pods, gen, p0, 0.7, FIT_DIMS)
+        if levels:
+            kw["seg"], kw["tables"] = kw["seg"][:levels], kw["tables"][:levels]
+        kw["mask"] = torch.rand((2000,), generator=gen,
+                                device=kw["rank"].device) < 0.8
+        got = segment_prefix_chain(**kw)
+        want = segment_prefix_chain_plain(**kw)
+        if not torch.equal(got, want):
+            raise SystemExit(f"K2 with a mask ({label}) differs from its "
+                             "plain version")
+        stats = dict(max_abs_err=0.0, accepted=int(got.sum()))
+        if levels:
+            out[label] = stats
+            continue
+        out[label] = dict(
+            ms=cuda_ms(lambda: segment_prefix_chain(**kw)),
+            device_ms=device_ms(lambda: segment_prefix_chain(**kw),
+                                "segment_prefix_chain_kernel"),
+            plain_ms=cuda_ms(lambda: segment_prefix_chain_plain(**kw)),
+            shape=f"P=2000 L={len(kw['tables'])} R=4 + mask", **stats)
+    return out
+
+
 def with_slot_rows(snap, st, gen):
     """A gpu_step state `st` on `snap` with the snapshot's V reservation
     slots as extended pool rows N..N+V-1, as schedule_batch forms them
@@ -1724,7 +2058,8 @@ def check_config_2(run, line, launches):
     steps = rounds * CONFIG_2_KW["k_choices"]
     want = {"numa_pair_terms": chunks, "topology_admit": steps,
             "segment_prefix_ok": 2 * steps, "score_topk": rounds,
-            "device_pair_terms": 0, "gpu_instance_pick": 0}
+            "device_pair_terms": 0, "gpu_instance_pick": 0,
+            "topology_prefix_gate": 0}
     for name, count in want.items():
         if launches[name] != count:
             raise SystemExit(f"config 2: {name} launched {launches[name]} "
@@ -1741,13 +2076,18 @@ GPU_SHARE_FIELDS = ("assignment", "stats", "gpu_take", "res_slot",
                     "quotas.used", "gangs.assumed",
                     "nodes.assigned_estimated", "reservations.free",
                     "reservations.valid", "reservations.gpu_free",
-                    "reservations.numa_free")
+                    "reservations.numa_free") + tuple(
+                        f"counts.{f}" for f in domains.COUNT_FIELDS)
+# the line's topology fields, card against host
+GPU_SHARE_TOPO_LINE = ("spread_placed", "anti_placed", "aff_placed")
 
 
 def _run_field(run, path):
     if path in ("assignment", "stats", "gpu_take", "res_slot"):
         return getattr(run, path).cpu()
     part, field = path.split(".")
+    if part == "counts":
+        return run.counts[domains.COUNT_FIELDS.index(field)].cpu()
     return getattr(getattr(run.snapshot, part), field).cpu()
 
 
@@ -1764,13 +2104,15 @@ def gpu_share_phase():
     equal = {f: torch.equal(_run_field(small["cuda"][1], f),
                             _run_field(small["cpu"][1], f))
              for f in GPU_SHARE_FIELDS}
+    equal.update({f: small["cuda"][0][f] == small["cpu"][0][f]
+                  for f in GPU_SHARE_TOPO_LINE})
     summary = {"equal_to_host": equal, "cuda_s": small["cuda"][2],
                "cpu_s": small["cpu"][2],
                **{k: small["cuda"][0][k] for k in (
                    "placed", "gpu_pods_placed", "numa_bound_placed",
                    "slot_consumers", "once_slots_taken",
                    "stragglers_after_sweep", "stragglers_final",
-                   "tail_passes")}}
+                   "tail_passes") + GPU_SHARE_TOPO_LINE}}
     print("gpu_share 8000x1000: " + json.dumps(summary), flush=True)
     if not all(equal.values()):
         raise SystemExit(f"gpu_share: the card's results differ from the "
@@ -1790,10 +2132,12 @@ def gpu_share_phase():
 def check_gpu_share(run, line, launches):
     """gpu_share's invariants: the launch counts its design fixes (K4 and
     K6 once a batch, K1 once a round, K5 once an inner step, K7 twice,
-    K2 four times an inner step: node and quotas, zones, GPU instances,
-    AllocateOnce; K3 four times an inner step, three times a round and
-    eleven times a batch: the eight rebuild scatters and the three
-    reservation draw-downs); every placed GPU pod holds `count`
+    K2 four times an inner step: node and quotas (with K8's verdict),
+    zones, GPU instances, AllocateOnce; K8 once an inner step; K3 eight
+    times an inner step (node, quotas, zones, instances and the four
+    count tables), three times a round and fifteen times a batch: the
+    eight rebuild scatters, the three reservation draw-downs and the
+    four count charges after it); every placed GPU pod holds `count`
     instances of its node, the takes times the per-instance requests
     equal each valid instance's total minus its final free, and no free
     is negative; every slot consumer owns its slot, each AllocateOnce
@@ -1817,7 +2161,8 @@ def check_gpu_share(run, line, launches):
     want = {"numa_pair_terms": batches, "device_pair_terms": batches,
             "score_topk": rounds, "topology_admit": steps,
             "gpu_instance_pick": 2 * steps, "segment_prefix_ok": 4 * steps,
-            "ordered_scatter_add": 4 * steps + 3 * rounds + 11 * batches}
+            "topology_prefix_gate": steps,
+            "ordered_scatter_add": 8 * steps + 3 * rounds + 15 * batches}
     for name, count in want.items():
         if launches[name] != count:
             raise SystemExit(f"gpu_share: {name} launched {launches[name]} "
@@ -1843,6 +2188,7 @@ def check_gpu_share(run, line, launches):
         raise SystemExit("gpu_share: instance takes differ from total minus "
                          "free")
     check_slots_and_taints(snap0, pods, run, line)
+    check_topology(pods, run, line)
     if not (overcommit_ok(run.snapshot) and quota_ok(run.snapshot)):
         raise SystemExit("gpu_share: overcommit or quota over runtime")
     window = min(line["chunk"], 512)
@@ -1858,6 +2204,49 @@ def check_gpu_share(run, line, launches):
                          f"{line['numa_bound_placed']}, slot consumers "
                          f"{line['slot_consumers']}, once slots taken "
                          f"{line['once_slots_taken']}")
+
+
+def check_topology(pods, run, line):
+    """The pod topology invariants of a gpu_share run: no node holds two
+    placed carriers of one anti-affinity group; the final counts the
+    run carried equal the counts recounted on the host from the final
+    assignment; the line's placed counts of each family. Prints each
+    hard spread group's final skew over its eligible domains and each
+    affinity group's zones."""
+    assign = run.assignment.cpu()
+    hpods = pods.to("cpu")
+    placed = assign >= 0
+    carrier = hpods.anti_carrier & placed[:, None]
+    for g in range(carrier.shape[1]):
+        nodes = assign[carrier[:, g]]
+        if nodes.numel() != torch.unique(nodes).numel():
+            raise SystemExit(f"gpu_share: two carriers of anti-affinity "
+                             f"group {g} share a node")
+    recount = domains.charge_all_counts(domains.batch_counts(hpods), hpods,
+                                        assign)
+    for f, got, want in zip(domains.COUNT_FIELDS, run.counts, recount):
+        if not torch.equal(got.cpu(), want):
+            raise SystemExit(f"gpu_share: the carried {f} differ from the "
+                             "recount of the final assignment")
+    for fam in ("spread", "anti", "aff"):
+        want = int((placed & getattr(hpods, f"{fam}_carrier").any(
+            dim=1)).sum())
+        if line[f"{fam}_placed"] != want or not want:
+            raise SystemExit(f"gpu_share: {fam}_placed "
+                             f"{line[f'{fam}_placed']}, not {want}")
+    counts = recount[0]
+    skew = {}
+    for g in range(counts.shape[0]):
+        if torch.isfinite(hpods.spread_max_skew[g]):
+            c = counts[g][hpods.spread_dvalid[g]]
+            skew[g] = [float(c.max() - c.min()),
+                       float(hpods.spread_max_skew[g])]
+    zones = {g: sorted(set(hpods.aff_domain[g][
+        assign[hpods.aff_member[:, g] & placed].long()].tolist()))
+        for g in range(hpods.aff_member.shape[1])}
+    print("gpu_share topology: " + json.dumps(
+        {"spread_skew_and_bound": skew, "affinity_zones": zones}),
+        flush=True)
 
 
 def check_slots_and_taints(snap0, pods, run, line):
@@ -1964,6 +2353,9 @@ def main() -> int:
     k1_gpu = check_k1_gpu(dev, gen)
     k1_slots = check_k1_slots(dev, gen)
     k2_once = check_k2_once(dev, gen)
+    k1_topo = check_k1_topo(dev, gen)
+    k8 = check_k8(dev, gen)
+    k2_mask = check_k2_mask(snap, pods, gen)
     for name, res in (("score_topk", k1), ("segment_prefix_ok", k2),
                       ("ordered_scatter_add", k3), ("numa_pair_terms", k4),
                       ("topology_admit", k5), ("score_topk", k1_numa),
@@ -1971,7 +2363,10 @@ def main() -> int:
                       ("device_pair_terms", k6), ("topology_admit", k5_gpu),
                       ("gpu_instance_pick", k7), ("score_topk", k1_gpu),
                       ("score_topk", k1_slots),
-                      ("segment_prefix_ok", k2_once)):
+                      ("segment_prefix_ok", k2_once),
+                      ("score_topk", k1_topo),
+                      ("topology_prefix_gate", k8),
+                      ("segment_prefix_ok", k2_mask)):
         for label, r in res.items():
             print(f"kernel {name} [{label}]: " + json.dumps(r), flush=True)
 
@@ -2044,8 +2439,9 @@ def main() -> int:
                "numa_pair_terms": k4["cfg2 most"],
                "topology_admit": k5["cfg2 most"],
                "device_pair_terms": k6["gpu_share least"],
-               "gpu_instance_pick": k7["gpu_share least"]}
-    at_gpu_share = {"score_topk": k1_slots["gpu_share"],
+               "gpu_instance_pick": k7["gpu_share least"],
+               "topology_prefix_gate": k8["gpu_share"]}
+    at_gpu_share = {"score_topk": k1_topo["gpu_share"],
                     "segment_prefix_ok": k7["gpu_share least"]["gpu_gate"],
                     "topology_admit": k5_gpu["gpu_share most"],
                     "gpu_instance_pick": k7["gpu_share + slot rows"]}
@@ -2068,6 +2464,17 @@ def main() -> int:
                 k: k2_once["gpu_share"][k] for k in (
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                     "shape")}
+            entry["with_topology_mask"] = {
+                k: k2_mask["chain + mask"][k] for k in (
+                    "ms", "device_ms", "plain_ms", "shape")}
+        if name == "ordered_scatter_add":
+            entry["at_count_commit"] = {
+                k: k3["count commit"][k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "shape")}
+        if name == "topology_prefix_gate":
+            entry["device_ms"] = r["device_ms"]
+            entry["at_tail"] = k8["gpu_share tail"]
         if name in at_gpu_share:
             g = at_gpu_share[name]
             entry["at_gpu_share"] = {

@@ -14,20 +14,23 @@ here they are a Python loop.
 `run_gpu_share` (`gpu_share_100kx10k`) is the reference's full-gate
 flagship (bench.py:226-250 knobs, :398-470 sweep and tail, :84-89 tail
 passes; utils/synthetic.py:369-554 full_gate_cluster and
-full_gate_pods) cut to the gates the port has: 100 000 pods against
-10 000 nodes, a quarter of the nodes with 8 A100-like GPU instances
-split over their two NUMA zones, three taint classes on the nodes and
-three toleration sets on the pods, 64 live reservation slots with two
-owners each (half of them AllocateOnce), 10 % GPU pods (shared
-half-GPUs, whole GPUs, 2- and 4-GPU trainers), a third of the prod pods
-single-NUMA bound, 32 quotas and 64 gangs of 8. It runs the DeviceShare
-path with NodeNUMAResource (NUMA strategy "most", device strategy
-"least"), the taint gate and penalty and the slot columns at full width
-(no packing prefixes), chunks of 2000 with the bench's knobs, then the
-straggler tail (4 rounds x 32 choices, windows of 512, 2 to 10 passes).
-Cut from the full-gate workload (`GPU_SHARE_CUTS`), each a gate the
-port does not have yet: the spread/anti-affinity/affinity groups and
-the cascade.
+full_gate_pods): 100 000 pods against 10 000 nodes, a quarter of the
+nodes with 8 A100-like GPU instances split over their two NUMA zones,
+three taint classes on the nodes and three toleration sets on the pods,
+64 live reservation slots with two owners each (half of them
+AllocateOnce), 10 % GPU pods (shared half-GPUs, whole GPUs, 2- and
+4-GPU trainers), a third of the prod pods single-NUMA bound, 32 quotas,
+64 gangs of 8, 15 % spread pods (8 zone groups over 16 zones with skew
+64, each with a hostname companion group of loose skew), 16 hostname
+anti-affinity groups of 64 and 8 zone affinity groups of 48 (in dual
+pairs). It runs the DeviceShare path with NodeNUMAResource (NUMA
+strategy "most", device strategy "least"), the taint gate and penalty,
+the slot columns and the three pod topology families at full width (no
+packing prefixes, singleton domain classes), chunks of 2000 with the
+bench's knobs, the topology counts threaded from chunk to chunk, then
+the straggler tail (4 rounds x 32 choices, windows of 512, 2 to 10
+passes). Cut from the full-gate workload (`GPU_SHARE_CUTS`): the
+cascade, a gate the port does not have yet.
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ GPU_SHARE_KW = dict(num_rounds=2, k_choices=8, score_dims=(0, 1),
                     cascade=False, enable_numa=True, numa_strategy="most",
                     enable_devices=True, device_strategy="least")
 GPU_SHARE_TAIL_KW = dict(GPU_SHARE_KW, num_rounds=4, k_choices=32)
-GPU_SHARE_CUTS = ("spread_anti_affinity", "cascade")
+GPU_SHARE_CUTS = ("cascade",)
 FULL_GATE_MAX_TAIL_PASSES = 10
 
 
@@ -136,9 +139,11 @@ def run_gpu_share(num_pods: int = 100_000, num_nodes: int = 10_000,
     the bench line's fields (value = seconds of the timed region, which
     ends with the assignment's readback; pods_per_sec, placed,
     gpu_pods_placed, numa_bound_placed, slot_consumers,
-    once_slots_taken, the stragglers, tail passes, the cuts) and the
-    device it ran on; `run` the final snapshot, the assignment, the
-    placed pods' GPU instance takes and their reservation slots. The
+    once_slots_taken, spread_placed, anti_placed and aff_placed (placed
+    pods carrying a group of each family), the stragglers, tail passes,
+    the cuts) and the device it ran on; `run` the final snapshot, the
+    assignment, the placed pods' GPU instance takes and reservation
+    slots, and the final topology counts. The
     first call on a card also pays the kernels' build unless
     `kernels.build.build_all()` ran before."""
     dev = resolve_device(device)
@@ -167,6 +172,9 @@ def run_gpu_share(num_pods: int = 100_000, num_nodes: int = 10_000,
         "slot_consumers": int((res_slot >= 0).sum()),
         "once_slots_taken": int(
             snap.reservations.allocate_once.cpu()[consumed].sum()),
+        **{f"{fam}_placed": int((placed & getattr(
+            pods, f"{fam}_carrier").cpu().any(dim=1)).sum())
+           for fam in ("spread", "anti", "aff")},
         "stragglers_after_sweep": stats[0],
         "stragglers_final": stats[1],
         "never_retried": stats[2],

@@ -127,6 +127,33 @@
 //   rows' V slot columns exactly, 32 a batch, after its node tiles
 //   (V is small: the full-gate workload has 64), and the split merge
 //   takes them with the rest. No [P, N + V] tensor exists.
+// - The pod topology term (the TOPO instances, a batch with spread,
+//   anti-affinity or affinity groups; core.py:587-675 and :705-712).
+//   The reference builds blocked[P, N + V] from four 0/1 matmuls over
+//   the carried groups. Here a pod has one bit word a family (its
+//   spread groups, its anti-affinity carried groups, its anti-affinity
+//   matched groups, its affinity groups it cannot open, those it may
+//   open) and a column the matching word of the groups that reject it
+//   (scheduler/domains.py round_terms, over the slot-extended domain
+//   map, so the slot columns are gated through their host node's
+//   domain); a pair is blocked where a pod word ANDed with its column
+//   word is non-zero: gated off, like a selector miss, on node and slot
+//   columns alike. The matmul's sums are of 0s and 1s, so "> 0.5" is
+//   "any bit". With a spread penalty map, a node pair's value becomes
+//   jit(max(fl(S' - sp), 0)), S' the value before the jitter above (the
+//   taint floor included) and sp the pod's carried spread groups'
+//   entries of the map at the node, summed in ascending group order
+//   from 0 (the reference's f32 matmul: with at most two non-zero terms
+//   every order gives these bits); the floor applies to every row, sp
+//   = 0 included. Slot columns keep 301 plus jitter. The filter bounds
+//   a pair by jit_1023(max(fl(B' - sp), 0)), B' the pair's bound
+//   without the spread term (as above), and a blocked pair by -inf.
+//   Proof that this bounds every value: the gate only removes pairs;
+//   S' <= B' (above), so S' - sp <= B' - sp and, rounding being
+//   monotone, fl(S' - sp) <= fl(B' - sp) (sp >= 0 is not needed: the
+//   filter subtracts the pair's own sp); max(., 0) and the jitter do
+//   not decrease in their argument. A gated-off class stages -inf, and
+//   the floor would lift -inf - sp to 0: the filter keeps -inf there.
 //
 // Exactness against the reference (bit for bit): the file builds with
 // -fmad=false, and the arithmetic names its rounding. The floors sit on
@@ -175,6 +202,8 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int GATES = 6;
 constexpr int PROD_TERM_GATES = 0x2a;      // gate indices 1, 3, 5
 constexpr int SELECTOR_USED = 1 << GATES;  // a pod of the block has one
+constexpr int TOPO_FAM = 5;  // pod topology families (bit words)
+constexpr int TOPO_SPREAD = 0;
 
 // An instance: dims, threads a block and nodes a tile (rows a warp
 // follow: RB rows a block).
@@ -221,13 +250,16 @@ struct Args {
   const float* tol_penalty;       // [T, G]
   const uint8_t* slot_ok;         // [P, V] or null (V = 0)
   const uint8_t* slot_block;      // [V]
+  const int32_t* pod_words;       // [P, 5] (the TOPO instances) or null
+  const int32_t* col_words;       // [5, N + V]
+  const float* penalty;           // [SG, LDP] or null
   const float* weights;           // [D]
   float* part_val;                // [gridDim.x, RB, k]
   int32_t* part_idx;
   int32_t* tickets;               // [gridDim.x], zero between launches
   float* out_val;                 // [P, k]
   int32_t* out_idx;
-  int P, N, F, D, k, S, L, tie_break, fma_sum, V, T, G;
+  int P, N, F, D, k, S, L, tie_break, fma_sum, V, T, G, SG, LDP;
   float eps;
 };
 
@@ -421,6 +453,26 @@ __device__ __forceinline__ int tol_row(int t, int T) {
   return min(max(t, 0), max(T - 1, 0));
 }
 
+// Whether a pod's topology words (pw) share a bit with column col's.
+__device__ __forceinline__ bool topo_blocked(const Args& a, const uint32_t* pw,
+                                             int col) {
+  const size_t X = (size_t)a.N + a.V;
+  uint32_t hit = 0u;
+#pragma unroll
+  for (int f = 0; f < TOPO_FAM; ++f)
+    if (pw[f]) hit |= pw[f] & (uint32_t)a.col_words[f * X + col];
+  return hit != 0u;
+}
+
+// A pod's spread penalty at node n: its spread groups' (bits of sw)
+// entries of the penalty map, summed in ascending group order from 0.
+__device__ __forceinline__ float spread_at(const Args& a, uint32_t sw, int n) {
+  float sp = 0.0f;
+  for (uint32_t m = sw; m; m &= m - 1u)
+    sp = __fadd_rn(sp, a.penalty[(size_t)(__ffs(m) - 1) * a.LDP + n]);
+  return sp;
+}
+
 // A pod's gate class and usage term, as an index of the staged bounds.
 __device__ __forceinline__ int gate_of(const Args& a, int row) {
   const int cls = a.daemonset[row] ? 0 : (a.prod_gate[row] ? 2 : 1);
@@ -436,7 +488,7 @@ __device__ __forceinline__ bool node_gate(const Args& a, int n, int g) {
          (cls == 0 || (cls == 1 ? a.node_ok[n] : a.prod_node_ok[n]) || stale);
 }
 
-template <class C, int ADD, bool TAINT>
+template <class C, int ADD, bool TAINT, bool TOPO>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     score_topk_kernel(const Args a) {
   constexpr int MAXD = C::MAXD, THREADS = C::THREADS, TILE = C::TILE;
@@ -568,6 +620,8 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   bool live[ROWS];     // the slot holds a row
   RowTopK tk[ROWS];
   int qh[ROWS], qt[ROWS];  // the row's queue: taken and added counts
+  uint32_t pw[ROWS][TOPO ? TOPO_FAM : 1];  // the row's topology words
+  uint32_t fams = 0u;  // the families with a bit in a row of the warp
   bool any = false, any_sel = false;
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
@@ -583,6 +637,14 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     bool nonneg = w_nonneg;
     for (int d = 0; d < D; ++d) nonneg = nonneg && s_es[slot0 + i][d] >= 0.0f;
     bounded[i] = nonneg;
+    if (TOPO) {
+#pragma unroll
+      for (int f = 0; f < TOPO_FAM; ++f) {
+        pw[i][f] = row >= 0 ? (uint32_t)a.pod_words[(size_t)rr * TOPO_FAM + f]
+                            : 0u;
+        if (pw[i][f]) fams |= 1u << f;
+      }
+    }
     tk[i] = RowTopK{slot0 + i, 0.0f, 0};
     qh[i] = qt[i] = 0;
     topk_init(tk[i], k, lane);
@@ -612,6 +674,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     }
     if (a.pair_ok != nullptr)
       ok = ok && a.pair_ok[(size_t)prow[r] * N + n];
+    if (TOPO) ok = ok && !topo_blocked(a, pw[r], n);
     const float* est = s_es[slot0 + r];
     const float* req = a.requested_fit + (size_t)n * F;
     const float* alloc = a.alloc_fit + (size_t)n * F;
@@ -661,6 +724,8 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     if (ADD == 2 && ok)
       v = __fadd_rn(v, a.pair_score2[(size_t)prow[r] * N + n]);
     if (TAINT && ok) v = fmaxf(__fsub_rn(v, s_pen[slot0 + r][tg]), 0.0f);
+    if (TOPO && ok && a.penalty != nullptr)
+      v = fmaxf(__fsub_rn(v, spread_at(a, pw[r][TOPO_SPREAD], n)), 0.0f);
     if (ok && a.tie_break) {
       const uint32_t h =
           ((uint32_t)prow[r] * 2654435761u + (uint32_t)n * 40503u) & 1023u;
@@ -715,7 +780,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
                                         [&](int d) { return pt[d]; }, D, s_w,
                                         wsum);
         }
-        if (a.tie_break && !ADD && !TAINT) {  // else in the filter, last
+        if (a.tie_break && !ADD && !TAINT && !TOPO) {  // else in the filter
           ub_t[0] = __fmaf_rn(1023.0f, JITTER, ub_t[0]);
           ub_t[1] = __fmaf_rn(1023.0f, JITTER, ub_t[1]);
         }
@@ -747,17 +812,35 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
         const int packed = any_sel || TAINT ? lab[ii] : 0;
         const int label = packed & ((1 << LABEL_BITS) - 1);
         const int tg = packed >> LABEL_BITS;
+        uint32_t cw[TOPO ? TOPO_FAM : 1];  // the column's topology words
+        if (TOPO) {
+#pragma unroll
+          for (int f = 0; f < TOPO_FAM; ++f)
+            cw[f] = ((fams >> f) & 1u) && in
+                        ? (uint32_t)a.col_words[(size_t)f * (N + a.V) + n]
+                        : 0u;
+        }
         any_m = 0;
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
           float ub = ubr[r][ii];
-          if ((ADD >= 1 || TAINT) && live[r] && in) {
+          if ((ADD >= 1 || TAINT || TOPO) && live[r] && in) {
             if (ADD >= 1)
               ub = __fadd_rn(ub, a.pair_score[(size_t)prow[r] * N + n]);
             if (ADD == 2)
               ub = __fadd_rn(ub, a.pair_score2[(size_t)prow[r] * N + n]);
             if (TAINT && ub != -INFINITY)  // a gated class stays out
               ub = fmaxf(__fsub_rn(ub, s_pen[slot0 + r][tg]), 0.0f);
+            if (TOPO) {
+              uint32_t hit = 0u;
+#pragma unroll
+              for (int f = 0; f < TOPO_FAM; ++f) hit |= pw[r][f] & cw[f];
+              if (hit)
+                ub = -INFINITY;
+              else if (a.penalty != nullptr && ub != -INFINITY)
+                ub = fmaxf(__fsub_rn(ub, spread_at(a, pw[r][TOPO_SPREAD], n)),
+                           0.0f);
+            }
             if (a.tie_break) ub = __fmaf_rn(1023.0f, JITTER, ub);
           }
           bool sel = true;
@@ -811,6 +894,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
         const int n = N + sv;
         bool ok = has && a.slot_ok[(size_t)prow[r] * a.V + sv] &&
                   !a.slot_block[sv];
+        if (TOPO) ok = ok && !topo_blocked(a, pw[r], n);
         if (ok)
           for (int f = 0; f < F; ++f)
             ok = ok && (__fadd_rn(s_rq[slot0 + r][f],
@@ -884,18 +968,18 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 
 // Allow the instance its dynamic shared memory and count its resident
 // blocks an SM (once).
-template <class C, int ADD, bool TAINT>
+template <class C, int ADD, bool TAINT, bool TOPO>
 int prepare(int* occupancy) {
   static int occ = 0;
   if (occ == 0) {
     const size_t smem = smem_bytes(C::TILE);
     cudaError_t err = cudaFuncSetAttribute(
-        score_topk_kernel<C, ADD, TAINT>,
+        score_topk_kernel<C, ADD, TAINT, TOPO>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, score_topk_kernel<C, ADD, TAINT>, C::THREADS, smem);
+        &blocks, score_topk_kernel<C, ADD, TAINT, TOPO>, C::THREADS, smem);
     if (err != cudaSuccess) return (int)err;
     occ = max(blocks, 1);
   }
@@ -903,39 +987,52 @@ int prepare(int* occupancy) {
   return 0;
 }
 
-template <class C, int ADD, bool TAINT>
+template <class C, int ADD, bool TAINT, bool TOPO>
 int launch(const Args& a, int blocks, cudaStream_t s) {
-  const int rc = prepare<C, ADD, TAINT>(nullptr);
+  const int rc = prepare<C, ADD, TAINT, TOPO>(nullptr);
   if (rc) return rc;
-  score_topk_kernel<C, ADD, TAINT>
+  score_topk_kernel<C, ADD, TAINT, TOPO>
       <<<blocks, C::THREADS, smem_bytes(C::TILE), s>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <class C, bool TAINT>
+template <class C, bool TAINT, bool TOPO>
 int launch(const Args& a, int blocks, cudaStream_t s) {
-  if (a.pair_score2 != nullptr) return launch<C, 2, TAINT>(a, blocks, s);
-  return a.pair_score != nullptr ? launch<C, 1, TAINT>(a, blocks, s)
-                                 : launch<C, 0, TAINT>(a, blocks, s);
+  if (a.pair_score2 != nullptr)
+    return launch<C, 2, TAINT, TOPO>(a, blocks, s);
+  return a.pair_score != nullptr ? launch<C, 1, TAINT, TOPO>(a, blocks, s)
+                                 : launch<C, 0, TAINT, TOPO>(a, blocks, s);
+}
+
+template <class C, bool TOPO>
+int launch(const Args& a, int blocks, cudaStream_t s) {
+  return a.tol_forbid != nullptr ? launch<C, true, TOPO>(a, blocks, s)
+                                 : launch<C, false, TOPO>(a, blocks, s);
 }
 
 template <class C>
 int launch(const Args& a, int blocks, cudaStream_t s) {
-  return a.tol_forbid != nullptr ? launch<C, true>(a, blocks, s)
-                                 : launch<C, false>(a, blocks, s);
+  return a.pod_words != nullptr ? launch<C, true>(a, blocks, s)
+                                : launch<C, false>(a, blocks, s);
 }
 
-template <class C, bool TAINT>
+template <class C, bool TAINT, bool TOPO>
 int prepare(int add, int* occupancy) {
-  if (add == 2) return prepare<C, 2, TAINT>(occupancy);
-  return add ? prepare<C, 1, TAINT>(occupancy)
-             : prepare<C, 0, TAINT>(occupancy);
+  if (add == 2) return prepare<C, 2, TAINT, TOPO>(occupancy);
+  return add ? prepare<C, 1, TAINT, TOPO>(occupancy)
+             : prepare<C, 0, TAINT, TOPO>(occupancy);
+}
+
+template <class C, bool TOPO>
+int prepare(int add, int taint, int* occupancy) {
+  return taint ? prepare<C, true, TOPO>(add, occupancy)
+               : prepare<C, false, TOPO>(add, occupancy);
 }
 
 template <class C>
-int prepare(int add, int taint, int* occupancy) {
-  return taint ? prepare<C, true>(add, occupancy)
-               : prepare<C, false>(add, occupancy);
+int prepare(int add, int taint, int topo, int* occupancy) {
+  return topo ? prepare<C, true>(add, taint, occupancy)
+              : prepare<C, false>(add, taint, occupancy);
 }
 
 }  // namespace
@@ -943,15 +1040,15 @@ int prepare(int add, int taint, int* occupancy) {
 // The grid of one launch for P pods: at least one block per 16 rows,
 // and enough blocks to fill every SM as far as the instance's occupancy
 // allows (`add`: the number of pair scores, 0 to 2; `taint`: whether the
-// batch has tolerations). Returns the block count, or minus a CUDA
-// error code.
+// batch has tolerations; `topo`: whether it has pod topology terms).
+// Returns the block count, or minus a CUDA error code.
 extern "C" int koord_score_topk_blocks(int P, int F, int D, int add,
-                                       int taint) {
+                                       int taint, int topo) {
   const int need = (P + RB - 1) / RB;
   int occ = 0, dev = 0, sms = 0;
   const int rc = F <= NARROW && D <= NARROW
-                     ? prepare<Narrow>(add, taint, &occ)
-                     : prepare<Wide>(add, taint, &occ);
+                     ? prepare<Narrow>(add, taint, topo, &occ)
+                     : prepare<Wide>(add, taint, topo, &occ);
   if (rc) return -rc;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -967,8 +1064,10 @@ extern "C" int koord_score_topk_blocks(int P, int F, int D, int add,
 // part_idx, tickets, out_val, out_idx, pair_score (or null),
 // pair_score2 (or null; only with pair_score), toleration_id,
 // taint_group, tol_forbid, tol_penalty (all four or none), slot_ok,
-// slot_block (null where V = 0). dims: P, N, F, D, k, S, L, tie_break,
-// fma_sum, blocks (from koord_score_topk_blocks), V, T, G.
+// slot_block (null where V = 0), pod_words, col_words (both or none),
+// penalty (or null; only with the words). dims: P, N, F, D, k, S, L,
+// tie_break, fma_sum, blocks (from koord_score_topk_blocks), V, T, G,
+// SG (the penalty map's groups), LDP (its row stride).
 extern "C" int koord_score_topk(const void* const* ptr, const int* dims,
                                 float eps, void* stream) {
   Args a;
@@ -1006,6 +1105,9 @@ extern "C" int koord_score_topk(const void* const* ptr, const int* dims,
   a.tol_penalty = (const float*)ptr[31];
   a.slot_ok = (const uint8_t*)ptr[32];
   a.slot_block = (const uint8_t*)ptr[33];
+  a.pod_words = (const int32_t*)ptr[34];
+  a.col_words = (const int32_t*)ptr[35];
+  a.penalty = (const float*)ptr[36];
   a.P = dims[0];
   a.N = dims[1];
   a.F = dims[2];
@@ -1020,6 +1122,8 @@ extern "C" int koord_score_topk(const void* const* ptr, const int* dims,
   a.V = dims[10];
   a.T = dims[11];
   a.G = dims[12];
+  a.SG = dims[13];
+  a.LDP = dims[14];
   if (a.P <= 0) return 0;
   const bool taint = a.tol_forbid != nullptr;
   if (a.F > MAX_DIMS || a.D > MAX_DIMS || a.k > MAX_K || a.V < 0 ||
@@ -1029,7 +1133,10 @@ extern "C" int koord_score_topk(const void* const* ptr, const int* dims,
       (taint && (a.T <= 0 || a.G <= 0 || a.G > MAX_TG ||
                  a.toleration_id == nullptr || a.taint_group == nullptr ||
                  a.tol_penalty == nullptr)) ||
-      (a.V > 0 && (a.slot_ok == nullptr || a.slot_block == nullptr)))
+      (a.V > 0 && (a.slot_ok == nullptr || a.slot_block == nullptr)) ||
+      ((a.pod_words == nullptr) != (a.col_words == nullptr)) ||
+      (a.penalty != nullptr && (a.pod_words == nullptr || a.SG <= 0 ||
+                                a.SG > 32 || a.LDP < a.N)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return a.F <= NARROW && a.D <= NARROW ? launch<Narrow>(a, blocks, s)

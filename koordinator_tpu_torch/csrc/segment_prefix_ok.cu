@@ -15,7 +15,12 @@
 //           or seg_l[p] >= S_l            (out of range = not gated here)
 //   alive[p] &= ok[p]
 //
-// and the result is alive. A pod with seg -1 checks against row 0 but
+// and the result is alive. An optional mask [P] (the step's pod topology
+// verdict, K8) is ANDed into alive after level 0: in the reference the
+// topology gates sit between the node gate and the quota levels
+// (core.py:768, :776-884, :886-891), so the node level charges every
+// trying pod and the quota levels only those that pass both. A pod with
+// seg -1 checks against row 0 but
 // counts only with the other -1 pods, as in the reference. The requests
 // are one [P, R] array shared by the levels (node and quota levels), or
 // one a level (the zone gates of a NUMA step, core.py:949-956, where
@@ -120,7 +125,8 @@ union LevelStorage {
 template <int NR>
 __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
     const int32_t* __restrict__ seg, const int32_t* __restrict__ rank,
-    const uint8_t* __restrict__ active, Levels lv, int L, int P, int R, int vec4, float eps,
+    const uint8_t* __restrict__ active, const uint8_t* __restrict__ mask,
+    Levels lv, int L, int P, int R, int vec4, float eps,
     uint8_t* __restrict__ out) {
   __shared__ LevelStorage sh;
   __shared__ int warp_count[2][WARPS];  // by level parity
@@ -156,6 +162,13 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
   }
 
   for (int l = 0; l < L; ++l) {
+    if (l == 1 && mask != nullptr) {
+      // after level 0: each pod's owner narrows it, before reading it
+      // below (level 0's writes precede its closing barrier)
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k)
+        if (mine[k] >= 0) alive[mine[k]] &= mask[mine[k]];
+    }
     const int S = lv.S[l];
     const float* base = lv.base[l];
     const float* limit = lv.limit[l];
@@ -418,7 +431,8 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
       if (key[k] != out_key && !ok[k]) alive[pod[k]] = 0;
     __syncthreads();
   }
-  for (int i = t; i < P; i += THREADS) out[i] = alive[i];
+  for (int i = t; i < P; i += THREADS)
+    out[i] = alive[i] && (L != 1 || mask == nullptr || mask[i]);
 }
 
 }  // namespace
@@ -427,9 +441,10 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
 // (0: shared by the levels), rows req_row_stride (>= R) apart, unit
 // column stride; strides: each level's row stride of base and limit
 // (>= R).
+// mask: bool[P] ANDed in after level 0, or null.
 extern "C" int koord_segment_prefix_chain(
     const void* seg, const void* rank, const void* req, const void* active,
-    const void* const* bases, const void* const* limits, const int* nseg,
+    const void* mask, const void* const* bases, const void* const* limits, const int* nseg,
     const int* strides, int L, int P, int R, long long req_level_stride,
     int req_row_stride, float eps, void* out, void* stream) {
   if (P <= 0) return 0;
@@ -456,10 +471,10 @@ extern "C" int koord_segment_prefix_chain(
   if (R <= 4)
     segment_prefix_chain_kernel<4><<<1, THREADS, 0, st>>>(
         (const int32_t*)seg, (const int32_t*)rank, (const uint8_t*)active,
-        lv, L, P, R, vec4, eps, (uint8_t*)out);
+        (const uint8_t*)mask, lv, L, P, R, vec4, eps, (uint8_t*)out);
   else
     segment_prefix_chain_kernel<MAX_R><<<1, THREADS, 0, st>>>(
         (const int32_t*)seg, (const int32_t*)rank, (const uint8_t*)active,
-        lv, L, P, R, vec4, eps, (uint8_t*)out);
+        (const uint8_t*)mask, lv, L, P, R, vec4, eps, (uint8_t*)out);
   return (int)cudaGetLastError();
 }

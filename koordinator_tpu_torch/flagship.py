@@ -7,7 +7,9 @@ package: 100k pods against 10k nodes by default, chunks of 2000 through
 (retry windows of 512, 4 rounds, 32 choices, 2 to 6 passes). The
 reference scans the chunks and loops the tail on device; here both are
 Python loops, and the host reads the straggler counts once per tail
-pass.
+pass. A workload with pod topology groups threads the (group x domain)
+counts from chunk to chunk and through the tail passes, as bench.py's
+charge_all and with_counts do (bench.py:435-444).
 """
 
 from __future__ import annotations
@@ -23,6 +25,11 @@ from koordinator_tpu_torch import resolve_device
 from koordinator_tpu_torch.scheduler.core import (
     schedule_batch,
     tail_compaction_loop,
+)
+from koordinator_tpu_torch.scheduler.domains import (
+    COUNT_FIELDS,
+    batch_counts,
+    charge_all_counts,
 )
 from koordinator_tpu_torch.scheduler.plugins.loadaware import LoadAwareConfig
 from koordinator_tpu_torch.snapshot.schema import ClusterSnapshot, PodBatch
@@ -55,6 +62,9 @@ class FlagshipRun:
     res_slot: Optional[torch.Tensor] = None  # i32[P] placed pods'
                                              # reservation slot, -1, where
                                              # the snapshot has slots
+    counts: Optional[tuple] = None  # the final (group x domain) counts,
+                                    # COUNT_FIELDS order, where the pods
+                                    # have topology groups
 
 
 def sweep_and_tail(snap: ClusterSnapshot, pods: PodBatch,
@@ -68,17 +78,26 @@ def sweep_and_tail(snap: ClusterSnapshot, pods: PodBatch,
     `schedule_batch(**tail_kw)`, 2 to `max_passes` passes. The kwargs
     default to the slim flagship's (STEP_KW, TAIL_KW); a path with GPU
     instances also returns every placed pod's instance takes, and one
-    with reservation slots every placed pod's slot."""
+    with reservation slots every placed pod's slot. With pod topology
+    groups each chunk's count0 fields are the counts so far, charged
+    after it from its final (node-level, post-rollback) assignment, and
+    the tail carries them on; the run returns them."""
     step_kw = STEP_KW if step_kw is None else step_kw
     tail_kw = TAIL_KW if tail_kw is None else tail_kw
     num = pods.num_pods
     if num % chunk:
         raise ValueError(f"{num} pods not divisible by chunk {chunk}")
     tail_chunk = min(chunk, 512) if tail_chunk is None else tail_chunk
+    counts = (batch_counts(pods)
+              if pods.has_spread or pods.has_anti or pods.has_aff else None)
     results = []
     for start in range(0, num, chunk):
-        res = schedule_batch(snap, slice_batch(pods, start, chunk), cfg,
-                             **step_kw)
+        batch = slice_batch(pods, start, chunk)
+        if counts is not None:
+            batch = batch.replace(**dict(zip(COUNT_FIELDS, counts)))
+        res = schedule_batch(snap, batch, cfg, **step_kw)
+        if counts is not None:
+            counts = charge_all_counts(counts, batch, res.assignment)
         snap = res.snapshot
         results.append(res)
     fields = []
@@ -88,13 +107,13 @@ def sweep_and_tail(snap: ClusterSnapshot, pods: PodBatch,
         fields.append("res_slot")
     carry = {f: torch.cat([getattr(r, f) for r in results])
              for f in fields} or None
-    snap, assign, stats, carry = tail_compaction_loop(
+    snap, assign, stats, carry, counts = tail_compaction_loop(
         functools.partial(schedule_batch, **tail_kw), snap,
         torch.cat([r.assignment for r in results]), pods, cfg,
         tail_chunk=tail_chunk, min_passes=MIN_TAIL_PASSES,
-        max_passes=max_passes, carry=carry)
+        max_passes=max_passes, carry=carry, counts=counts)
     return FlagshipRun(snapshot=snap, assignment=assign, stats=stats,
-                       **(carry or {}))
+                       counts=counts, **(carry or {}))
 
 
 def run_northstar(num_pods: int = 100_000, num_nodes: int = 10_000,

@@ -21,6 +21,7 @@ def _wrappers():
         score_topk,
         segment_prefix,
         topology,
+        topology_prefix,
     )
     return {"score_topk": score_topk.score_topk,
             "segment_prefix_ok": segment_prefix.segment_prefix_chain,
@@ -28,7 +29,8 @@ def _wrappers():
             "numa_pair_terms": numa_terms.numa_pair_terms,
             "topology_admit": topology.topology_admit,
             "device_pair_terms": device_terms.device_pair_terms,
-            "gpu_instance_pick": gpu_instances.gpu_instance_pick}
+            "gpu_instance_pick": gpu_instances.gpu_instance_pick,
+            "topology_prefix_gate": topology_prefix.topology_prefix_gate}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -27,7 +27,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(ROOT, "build", "kernels")
 SOURCES = ("score_topk", "segment_prefix_ok", "ordered_scatter_add",
-           "numa_terms", "topology_admit", "device_terms", "gpu_instances")
+           "numa_terms", "topology_admit", "device_terms", "gpu_instances",
+           "topology_prefix")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")

@@ -16,6 +16,22 @@ from koordinator_tpu_torch.kernels import _launch
 from koordinator_tpu_torch.kernels.build import TOOLCHAIN, check
 
 MAX_COLUMNS = 32  # one lane a column (csrc/ordered_scatter_add.cu)
+# csrc/ordered_scatter_add.cu: the shared memory a launch may use, in
+# 4-byte words, and the warps of a block
+_SMEM_WORDS = 200 * 1024 // 4
+_WARPS = 8
+
+
+def levels_per_launch(s: int, c: int, p: int) -> int:
+    """How many levels of P indices one launch of the kernel takes into a
+    target of S rows and C columns: its shared memory holds each warp's
+    tile of target rows, the [P, C] rows where a warp owns one row, and
+    the [L, P] indices (the kernel's smem_bytes)."""
+    tr = 1
+    while tr < 32 and tr * 1024 < s:
+        tr *= 2
+    fixed = _WARPS * tr * c + (p * c if tr == 1 else 0)
+    return max((_SMEM_WORDS - fixed) // max(p, 1), 0)
 
 
 def ordered_scatter_add_plain(target: torch.Tensor, idx: torch.Tensor,
@@ -40,7 +56,9 @@ def ordered_scatter_add(target: torch.Tensor, idx: torch.Tensor,
     tensors, the plain version for CPU tensors. target: f32[S, C];
     idx: i32[P] or i32[L, P] (L scatters of the same rows, applied in
     order: bit-equal to L calls in a row); rows: f32[P, C]. Returns a
-    new tensor."""
+    new tensor. One launch takes up to `levels_per_launch(S, C, P)`
+    levels; more levels take that many launches, each on the last one's
+    result, in order."""
     s, c = target.shape
     p = rows.shape[0]
     dev = target.device
@@ -54,18 +72,24 @@ def ordered_scatter_add(target: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"ordered_scatter_add: unsupported device {dev}")
     if c > MAX_COLUMNS:
         raise ValueError(f"ordered_scatter_add: C={c} above {MAX_COLUMNS}")
-    levels = 1 if idx.dim() == 1 else idx.shape[0]
-    out = torch.empty_like(target)
+    if idx.dim() == 1:
+        idx = idx[None]
+    per = levels_per_launch(s, c, p)
+    if per <= 0:
+        raise ValueError(f"ordered_scatter_add: P={p} rows of C={c} do not "
+                         f"fit a block's shared memory")
     fn = TOOLCHAIN.function("ordered_scatter_add",
                             "koord_ordered_scatter_add",
                             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                             + [ctypes.c_void_p, ctypes.c_void_p])
-    # the kernel refuses (cudaErrorInvalidValue) indices and rows that do
-    # not fit a block's shared memory
-    rc = fn(_launch.ptr(target), _launch.ptr(idx), _launch.ptr(rows), s, c,
-            p, levels, _launch.ptr(out), _launch.stream(dev))
-    check(rc, "ordered_scatter_add")
-    ordered_scatter_add.launches += 1
+    out = target
+    for l0 in range(0, max(idx.shape[0], 1), per):
+        part = idx[l0:l0 + per]
+        src, out = out, torch.empty_like(target)
+        rc = fn(_launch.ptr(src), _launch.ptr(part), _launch.ptr(rows), s, c,
+                p, part.shape[0], _launch.ptr(out), _launch.stream(dev))
+        check(rc, "ordered_scatter_add")
+        ordered_scatter_add.launches += 1
     return out
 
 

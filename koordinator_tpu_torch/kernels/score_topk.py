@@ -13,14 +13,18 @@ carries gates that do not factor, up to two f32[P, N] pair scores are
 added to the LoadAware score in the reference's order (core.py:693-699:
 the NUMA zone score from K4, then the DeviceShare pool score from K6),
 the taint penalty is subtracted and the result floored at 0
-(:700-704), and V reservation slots are extra columns N..N+V-1 of the
-selection (:713-720, the owner-restricted virtual nodes of
-plugins/reservation.py) scoring 3 * MAX_NODE_SCORE + 1.
+(:700-704), the pod topology gates (spread, anti-affinity and affinity,
+:587-675) come as bit words a pod and a column (`TopoTerms`), the spread
+penalty is subtracted and the result floored at 0 again (:705-712), and
+V reservation slots are extra columns N..N+V-1 of the selection
+(:713-720, the owner-restricted virtual nodes of plugins/reservation.py)
+scoring 3 * MAX_NODE_SCORE + 1.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -45,6 +49,48 @@ MAX_TAINT_GROUPS = 64  # taint groups (forbid/penalty table columns)
 # a reservation slot column's score: above any node's sum of plugin scores
 SLOT_SCORE = 3.0 * MAX_NODE_SCORE + 1.0
 ROWS_PER_BLOCK = 16  # pod rows a block of the kernel takes
+# the pod topology gate's families: a pod's word of each is ANDed with
+# the column's word of the same family
+TOPO_FAMILIES = 5
+TOPO_SPREAD, TOPO_ANTI_A, TOPO_ANTI_B, TOPO_AFF, TOPO_AFF_BOOT = range(5)
+
+
+@dataclasses.dataclass
+class TopoTerms:
+    """A round's pod topology gates and spread penalty in factored form
+    (scheduler/domains.py round_terms). `pod_words` i32[P, 5]: a pod's
+    bits over each family's groups (spread carried groups, anti-affinity
+    carried groups, anti-affinity matched groups, affinity carried
+    groups it cannot open, affinity groups it may open); `col_words`
+    i32[5, N + V]: each column's bits of the groups that reject it (a
+    spread group's domain at its skew, or keyless for a hard group; an
+    anti-affinity domain holding a member; one holding a carrier; an
+    affinity domain holding no member, or keyless; keyless). A pair is
+    blocked where any family's words share a bit. `penalty` f32[Sg,
+    N + V] or None: the spread penalty map; a node pair's penalty is the
+    sum, in ascending group order, of its spread groups' entries, and
+    with a map every node value is floored at 0 after it."""
+    pod_words: torch.Tensor
+    col_words: torch.Tensor
+    penalty: Optional[torch.Tensor] = None
+
+
+def topo_blocked(topo: TopoTerms) -> torch.Tensor:
+    """bool[P, N + V]: the pairs the words block."""
+    hit = topo.pod_words[:, :, None] & topo.col_words[None, :, :]
+    return (hit != 0).any(dim=1)
+
+
+def spread_penalty(topo: TopoTerms, n: int) -> torch.Tensor:
+    """f32[P, n]: each pod's spread penalty on the first n columns, its
+    carried groups' entries summed in ascending group order."""
+    words = topo.pod_words[:, TOPO_SPREAD]
+    out = torch.zeros((words.shape[0], n), dtype=torch.float32,
+                      device=words.device)
+    for g in range(topo.penalty.shape[0]):
+        bit = ((words >> g) & 1) != 0
+        out = torch.where(bit[:, None], out + topo.penalty[g, :n], out)
+    return out
 
 # per (device, stream): the kernel's split-merge tickets, zero between
 # launches (each launch's last block of a row group resets its own);
@@ -70,7 +116,8 @@ def masked_scores(gates: GateTerms, pair_ok: Optional[torch.Tensor],
                   pair_score: Optional[torch.Tensor] = None,
                   pair_score2: Optional[torch.Tensor] = None,
                   slot_ok: Optional[torch.Tensor] = None,
-                  slot_block: Optional[torch.Tensor] = None):
+                  slot_block: Optional[torch.Tensor] = None,
+                  topo: Optional[TopoTerms] = None):
     """f32[P, N + V]: each pair's value in the selection of
     `score_topk_plain`, -1 where it is not feasible (the reference's
     masked matrix, core.py:693-735)."""
@@ -91,11 +138,15 @@ def masked_scores(gates: GateTerms, pair_ok: Optional[torch.Tensor],
     penalty = taint_penalty(gates)
     if penalty is not None:
         scores = torch.clamp_min(scores - penalty, 0.0)
+    if topo is not None and topo.penalty is not None:
+        scores = torch.clamp_min(scores - spread_penalty(topo, n), 0.0)
     if slot_ok is not None:
         feasible = torch.cat([feasible, fit[:, n:] & slot_ok
                               & ~slot_block[None, :] & row_ok[:, None]], 1)
         scores = torch.cat([scores, torch.full_like(slot_ok, SLOT_SCORE,
                                                     dtype=scores.dtype)], 1)
+    if topo is not None:
+        feasible = feasible & ~topo_blocked(topo)
     if tie_break:
         scores = tie_break_jitter(scores)
     return torch.where(feasible, scores, -1.0)
@@ -108,7 +159,8 @@ def score_topk_plain(gates: GateTerms, pair_ok: Optional[torch.Tensor],
                      fma_sum: bool, pair_score: Optional[torch.Tensor] = None,
                      pair_score2: Optional[torch.Tensor] = None,
                      slot_ok: Optional[torch.Tensor] = None,
-                     slot_block: Optional[torch.Tensor] = None):
+                     slot_block: Optional[torch.Tensor] = None,
+                     topo: Optional[TopoTerms] = None):
     """(val f32[P, k], idx i32[P, k]): the k best of each pod's N node
     columns and V slot columns by value descending then index ascending
     (lax.top_k's order). A node pair's value is its LoadAware score
@@ -119,13 +171,16 @@ def score_topk_plain(gates: GateTerms, pair_ok: Optional[torch.Tensor],
     -1. Slot column N + v (`slot_ok` bool[P, V] given) is worth
     SLOT_SCORE plus jitter if slot_ok[p, v], the row mask, the fit of
     the request against row N + v of requested_fit / alloc_fit, and not
-    slot_block[v] hold, else -1. `fma_sum` picks the rounding of the
-    score's weighted sum (loadaware.weighted_sum)."""
+    slot_block[v] hold, else -1. With `topo`, a pair its words block is
+    -1 (slot columns included), and with a spread penalty map a node
+    pair's value before the jitter is max(v - spread, 0), v the value
+    above (the reference's order, core.py:700-712). `fma_sum` picks the
+    rounding of the score's weighted sum (loadaware.weighted_sum)."""
     masked = masked_scores(gates, pair_ok, row_ok, req_fit, requested_fit,
                            alloc_fit, est, prod_scored, node_term,
                            prod_term, alloc_score, weights, tie_break, eps,
                            fma_sum, pair_score, pair_score2, slot_ok,
-                           slot_block)
+                           slot_block, topo)
     val, idx = torch.sort(masked, dim=1, descending=True, stable=True)
     return val[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
 
@@ -145,7 +200,8 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
                pair_score: Optional[torch.Tensor] = None,
                pair_score2: Optional[torch.Tensor] = None,
                slot_ok: Optional[torch.Tensor] = None,
-               slot_block: Optional[torch.Tensor] = None):
+               slot_block: Optional[torch.Tensor] = None,
+               topo: Optional[TopoTerms] = None):
     """The selection of `score_topk_plain`: the kernel for CUDA tensors,
     the plain version for CPU tensors. Shapes: `gates` over P pods and N
     nodes (selector table S x L, L <= MAX_LABELS; with tolerations,
@@ -155,7 +211,9 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
     bool[V], or both None (V = 0); row_ok, prod_scored bool[P];
     req_fit f32[P, F]; requested_fit, alloc_fit f32[N + V, F]; est
     f32[P, D]; node_term, prod_term, alloc_score f32[N, D]; weights
-    f32[D]; k <= min(N + V, 32); F, D <= NUM_RESOURCES.
+    f32[D]; topo (`TopoTerms`: pod_words i32[P, 5], col_words
+    i32[5, N + V], penalty f32[Sg, N + V] with Sg <= 32, or None) or
+    None; k <= min(N + V, 32); F, D <= NUM_RESOURCES.
 
     On the card, a launch merges the partial lists of its node splits by
     tickets kept for its (device, stream) and reset by the launch
@@ -205,6 +263,17 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
     if slot_ok is not None:
         checks += [("slot_ok", slot_ok, torch.bool, (p, v)),
                    ("slot_block", slot_block, torch.bool, (v,))]
+    if topo is not None:
+        checks += [("pod_words", topo.pod_words, torch.int32,
+                    (p, TOPO_FAMILIES)),
+                   ("col_words", topo.col_words, torch.int32,
+                    (TOPO_FAMILIES, n + v))]
+        if topo.penalty is not None:
+            checks.append(("penalty", topo.penalty, torch.float32,
+                           (None, n + v)))
+            if not 0 < topo.penalty.shape[0] <= 32:
+                raise ValueError("score_topk: the spread penalty map needs "
+                                 "1 to 32 groups")
     if pair_ok is not None:
         checks.append(("pair_ok", pair_ok, torch.bool, (p, n)))
     if pair_score is not None:
@@ -225,7 +294,7 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
                                 requested_fit, alloc_fit, est, prod_scored,
                                 node_term, prod_term, alloc_score, weights,
                                 k, tie_break, eps, fma_sum, pair_score,
-                                pair_score2, slot_ok, slot_block)
+                                pair_score2, slot_ok, slot_block, topo)
     if dev.type != "cuda":
         raise ValueError(f"score_topk: unsupported device {dev}")
     if labels > MAX_LABELS or groups > MAX_TAINT_GROUPS:
@@ -234,9 +303,10 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
                          f"{MAX_TAINT_GROUPS}")
     stream = _launch.stream(dev)
     grid = TOOLCHAIN.function("score_topk", "koord_score_topk_blocks",
-                              [ctypes.c_int] * 5)
+                              [ctypes.c_int] * 6)
     blocks = grid(p, f, d, int(pair_score is not None)
-                  + int(pair_score2 is not None), int(taints))
+                  + int(pair_score2 is not None), int(taints),
+                  int(topo is not None))
     check(0 if blocks > 0 else -blocks, "score_topk (occupancy)")
     val = torch.empty((p, k), dtype=torch.float32, device=dev)
     idx = torch.empty((p, k), dtype=torch.int32, device=dev)
@@ -253,12 +323,16 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
                _tickets(dev, stream.value or 0, blocks), val, idx,
                pair_score, pair_score2, gates.toleration_id,
                gates.taint_group, gates.tol_forbid, gates.tol_penalty,
-               slot_ok, slot_block)
+               slot_ok, slot_block,
+               *((topo.pod_words, topo.col_words, topo.penalty)
+                 if topo is not None else (None, None, None)))
     ptrs = (ctypes.c_void_p * len(tensors))(
         *(None if x is None else x.data_ptr() for x in tensors))
-    dims = (ctypes.c_int * 13)(p, n, f, d, k, s, labels,
+    sg = 0 if topo is None or topo.penalty is None else topo.penalty.shape[0]
+    ld = 0 if not sg else topo.penalty.stride(0)
+    dims = (ctypes.c_int * 15)(p, n, f, d, k, s, labels,
                                int(bool(tie_break)), int(bool(fma_sum)),
-                               blocks, v, t, groups)
+                               blocks, v, t, groups, sg, ld)
     fn = TOOLCHAIN.function("score_topk", "koord_score_topk",
                             [ctypes.c_void_p, ctypes.c_void_p,
                              ctypes.c_float, ctypes.c_void_p])

@@ -5,13 +5,15 @@ Kernel: `csrc/segment_prefix_ok.cu`. Replaces
 koordinator_tpu/scheduler/batching.py segment_prefix_ok (a masked
 [P, P] x [P, R] matmul on the TPU), run for node capacity and then for
 each quota level in every inner commit step: one launch takes the node
-gate and every quota level.
+gate and every quota level, with the step's pod topology verdict (K8)
+ANDed in between them, where the reference's topology gates sit
+(core.py:776-884).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -80,13 +82,16 @@ def segment_prefix_ok_plain(seg: torch.Tensor, rank: torch.Tensor,
 
 def segment_prefix_chain_plain(seg: torch.Tensor, rank: torch.Tensor,
                                req: torch.Tensor, active: torch.Tensor,
-                               tables: Sequence[Table],
-                               eps: float) -> torch.Tensor:
+                               tables: Sequence[Table], eps: float,
+                               mask: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """bool[P]: `active`, narrowed level by level: at level l the pods
     still alive are gated by `segment_prefix_ok_plain` on seg[l],
     tables[l] and the level's requests (req[l] of a per-level req
     [L, P, R], else the shared req [P, R]); the others sit out (segment
-    out of range, no request)."""
+    out of range, no request). `mask` (bool[P]), where given, is ANDed
+    into the alive pods after level 0: level 0 charges every active
+    pod, the later levels only those that pass both."""
     alive = active
     for l, (level, (base_used, limit, num_segments)) in enumerate(
             zip(seg, tables)):
@@ -95,12 +100,15 @@ def segment_prefix_chain_plain(seg: torch.Tensor, rank: torch.Tensor,
                             0.0)
         alive = alive & segment_prefix_ok_plain(
             seg_l, rank, req_l, base_used, limit, num_segments, eps)
+        if l == 0 and mask is not None:
+            alive = alive & mask
     return alive
 
 
 def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
                          req: torch.Tensor, active: torch.Tensor,
-                         tables: Sequence[Table], eps: float) -> torch.Tensor:
+                         tables: Sequence[Table], eps: float,
+                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The chained gate of `segment_prefix_chain_plain`: the kernel for
     CUDA tensors (one launch for all levels; L = 1 is the reference's
     single-level gate), the plain version for CPU tensors. seg:
@@ -108,8 +116,9 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
     f32[L, P, R] one a level; active: bool[P]; tables: L levels of
     (base, limit, S), base and limit f32[S, R] with unit column stride
     and one row stride (a column slice of a wider table is taken as it
-    is); req likewise needs only unit column stride. Takes P <= 2048,
-    R <= 11, L <= 8.
+    is); req likewise needs only unit column stride; mask: bool[P] or
+    None, ANDed in after level 0 (L >= 1). Takes P <= 2048, R <= 11,
+    L <= 8.
 
     rank must be a permutation of [0, P) and every active pod's
     segments >= -1. On the host a call that breaks this raises
@@ -122,6 +131,10 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
     _launch.check_tensor("rank", rank, torch.int32, (p,), dev)
     _check_req(req, levels, p, r, dev)
     _launch.check_tensor("active", active, torch.bool, (p,), dev)
+    if mask is not None:
+        _launch.check_tensor("mask", mask, torch.bool, (p,), dev)
+        if not levels:
+            raise ValueError("segment_prefix_chain: a mask needs a level")
     for l, (base_used, limit, num_segments) in enumerate(tables):
         for name, t in (("base", base_used), ("limit", limit)):
             _check_table(f"{name}[{l}]", t, num_segments, r, dev)
@@ -136,7 +149,8 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
         if bool(torch.any((seg < -1) & active)):
             raise ValueError("segment_prefix_chain: an active pod has a "
                              "segment below -1")
-        return segment_prefix_chain_plain(seg, rank, req, active, tables, eps)
+        return segment_prefix_chain_plain(seg, rank, req, active, tables, eps,
+                                          mask)
     if dev.type != "cuda":
         raise ValueError(f"segment_prefix_chain: unsupported device {dev}")
     if p > MAX_PODS or r > NUM_RESOURCES or levels > MAX_LEVELS:
@@ -147,7 +161,7 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
         raise ValueError("segment_prefix_chain: empty table")
     out = torch.empty((p,), dtype=torch.bool, device=dev)
     fn = TOOLCHAIN.function("segment_prefix_ok", "koord_segment_prefix_chain",
-                            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
                             + [ctypes.c_longlong, ctypes.c_int,
                                ctypes.c_float, ctypes.c_void_p,
                                ctypes.c_void_p])
@@ -159,7 +173,9 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
     strides = (ctypes.c_int * max(levels, 1))(
         *(t[0].stride(0) for t in tables))
     rc = fn(_launch.ptr(seg), _launch.ptr(rank), _launch.ptr(req),
-            _launch.ptr(active), ctypes.cast(bases, ctypes.c_void_p),
+            _launch.ptr(active),
+            None if mask is None else _launch.ptr(mask),
+            ctypes.cast(bases, ctypes.c_void_p),
             ctypes.cast(limits, ctypes.c_void_p),
             ctypes.cast(nseg, ctypes.c_void_p),
             ctypes.cast(strides, ctypes.c_void_p), levels, p, r,

@@ -7,10 +7,10 @@ time goes on the card.
 
 Builds the kernels, runs the workload (the 100k x 10k slim flagship;
 config 2: 10k pods x 1k nodes on the NUMA path; or gpu_share_100kx10k,
-the DeviceShare path with NUMA, taints and reservation slots) once to
-warm up and
-once untraced, then traces one more run of the same size with
-torch.profiler recording device activity only (no host-side operator
+the DeviceShare path with NUMA, taints, reservation slots and the pod
+topology groups) once to warm up and once untraced, then traces one
+more run of the same size with torch.profiler recording device
+activity only (no host-side operator
 events), so the traced wall time stays close to the untraced one. It
 prints, and writes as JSON to `--out`: the untraced run, the traced
 run's wall time, the device's busy time (the union of its kernels'

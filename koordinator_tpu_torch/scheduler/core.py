@@ -6,10 +6,11 @@ tail_select, tail_pass and tail_compaction_loop for the slim flagship,
 the NodeNUMAResource path (`enable_numa`, with the topology manager),
 DeviceShare's GPU instances (`enable_devices` on a snapshot with them),
 taints and tolerations (`pods.has_taints`: the forbid gate and the
-PreferNoSchedule score penalty) and live reservation slots (V > 0):
-no aux (RDMA/FPGA) pools, no spread/anti-affinity/affinity terms, no
-amplification, cascade off. Anything outside that raises
-NotImplementedError.
+PreferNoSchedule score penalty), live reservation slots (V > 0) and
+pod topology spread, inter-pod anti-affinity and affinity
+(`pods.has_spread` / `has_anti` / `has_aff`, at full width with
+singleton domain classes): no aux (RDMA/FPGA) pools, no amplification,
+cascade off. Anything outside that raises NotImplementedError.
 
 Per round (num_rounds of them), kernel K1 (`score_topk`) picks each
 active pod's k best feasible columns: the N nodes and the V reservation
@@ -41,7 +42,14 @@ instances, and one K3 launch commits every pod's instance takes. The
 zone and instance pools carry one extended row a slot (its zone and
 instance holds), so a consumer takes the reserved zone and minors
 through the same gates. With slots, one more K2 launch a step admits
-the first consumer of each AllocateOnce slot, which then closes. After
+the first consumer of each AllocateOnce slot, which then closes. With
+pod topology groups, each round builds the (group x column) maps from
+the carried counts (`domains.round_terms`), which K1 takes as bit words
+with the spread penalty; in each step kernel K8 (`topology_prefix_gate`)
+runs the same-domain prefix gates of the three families on the trying
+pods, K2 ANDs its verdict in after the node level, and once accept is
+final one K3 launch a count table charges the accepted members and
+carriers into the carried counts. After
 the rounds, strict gangs below quorum roll back, and the snapshot is
 rebuilt from the final assignment: a slot's consumer charges its quota
 and its estimate (on the slot's host node), not the node's requested or
@@ -65,6 +73,7 @@ from koordinator_tpu_torch.kernels.numa_terms import numa_pair_terms
 from koordinator_tpu_torch.kernels.scatter import ordered_scatter_add
 from koordinator_tpu_torch.kernels.score_topk import score_topk
 from koordinator_tpu_torch.kernels.topology import topology_admit
+from koordinator_tpu_torch.kernels.topology_prefix import topology_prefix_gate
 from koordinator_tpu_torch.scheduler.batching import (
     EPS,
     MAX_NODE_SCORE,
@@ -72,6 +81,15 @@ from koordinator_tpu_torch.scheduler.batching import (
     segment_prefix_chain,
 )
 from koordinator_tpu_torch.scheduler.cascade import static_gate_terms
+from koordinator_tpu_torch.scheduler.domains import (
+    COUNT_FIELDS,
+    batch_counts,
+    batch_topology,
+    charge_all_counts,
+    commit_counts,
+    round_terms,
+    step_families,
+)
 from koordinator_tpu_torch.scheduler.plugins import (
     deviceshare,
     loadaware,
@@ -110,8 +128,8 @@ class ScheduleResult(Struct):
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: the port covers the slim flagship "
-        "path, NodeNUMAResource, DeviceShare's GPU instances, taints and "
-        "reservation slots (ROADMAP "
+        "path, NodeNUMAResource, DeviceShare's GPU instances, taints, "
+        "reservation slots and pod topology groups (ROADMAP "
         "queue A item 6 holds the rest of the full-gate form)")
 
 
@@ -130,8 +148,6 @@ def _check_slim(snap: ClusterSnapshot, pods: PodBatch, *, enable_numa,
         raise _unported("approx_topk=True")
     if enable_devices and snap.devices.aux_free.shape[2]:
         raise _unported("a snapshot with aux (RDMA/FPGA) instance pools")
-    if pods.has_spread or pods.has_anti or pods.has_aff:
-        raise _unported("pod topology spread and inter-pod (anti-)affinity")
 
 
 def _count(n: int, idx: torch.Tensor) -> torch.Tensor:
@@ -228,6 +244,12 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     n_ext = n_nodes + n_slots
     is_once = resv0.allocate_once
     slot_node_c = slot_node.clamp_min(0).long()
+
+    # pod topology spread and inter-pod (anti-)affinity: the families'
+    # slot-extended domain maps and bit words, and the carried (group x
+    # domain) counts, from the batch's count0 fields (COUNT_FIELDS order)
+    topo = batch_topology(pods, slot_node, n_nodes)
+    counts = batch_counts(pods)
 
     def extend(node_rows, slot_rows):
         """Rows of the extended pool: the nodes', then the slots'."""
@@ -351,11 +373,17 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         # consumed AllocateOnce slots admit nobody (plugin.go:509-510)
         slots = (dict(slot_ok=slot_ok, slot_block=is_once & once_taken)
                  if n_slots else {})
+        # the round's topology gates and spread penalty from the counts
+        # at its start, and the spread groups' in-step limits
+        topo_terms = spread_lim = None
+        if topo is not None:
+            topo_terms, spread_lim = round_terms(topo, counts, active)
         topk_val, topk_idx = score_topk(
             gates, pair_ok, row_ok, req_fit, dims(requested), alloc_fit,
             est_score, is_prod_scored, node_term, prod_term, alloc_score,
             weights, k, tie_break, EPS, fma_sum=score_dims is not None,
-            pair_score=pair_score, pair_score2=pair_score2, **slots)
+            pair_score=pair_score, pair_score2=pair_score2, topo=topo_terms,
+            **slots)
 
         kptr = torch.zeros((p,), dtype=torch.int64, device=dev)
         for _ in range(k):
@@ -370,13 +398,23 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                 trying = trying & ~(on_slot & (is_once & once_taken)[slot_of])
             choice_eff = _where_i32(trying, choice, drop_node)
 
-            # node (and slot) capacity prefix in priority order, then the
-            # quota prefix per tree level among the pods it admitted
+            # the same-domain prefix gates of the topology families (K8):
+            # charges of every trying pod, not only those the node level
+            # admits (core.py:776-884)
+            topo_ok = None
+            if topo is not None:
+                topo_ok = topology_prefix_gate(
+                    choice_eff, trying, rank,
+                    step_families(topo, counts, spread_lim))
+
+            # node (and slot) capacity prefix in priority order, then (K2
+            # ANDs in the topology verdict) the quota prefix per tree
+            # level among the pods both admitted
             quota_table = (dims(quota_used), runtime_fit, n_quotas)
             accept = segment_prefix_chain(
                 torch.cat([choice_eff[None], quota_seg]), rank, req_fit,
                 trying, [(dims(requested), alloc_fit, n_ext)]
-                + [quota_table] * quota_depth, EPS)
+                + [quota_table] * quota_depth, EPS, topo_ok)
 
             if use_gpu:
                 live = devices_x.replace(gpu_free=gpu_free)
@@ -464,6 +502,18 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                 out_per = torch.where(took_gpu[:, None], pick.per_inst,
                                       out_per)
 
+            if topo is not None:
+                # The reference recounts the (group x domain) counts from
+                # `placed` at every step and round; here the accepted
+                # members and carriers are charged into carried counts
+                # as they commit. The two are equal bit for bit: within
+                # a batch a placement is never undone before the gang
+                # rollback at its end (which the reference's in-batch
+                # counts do not see either), so the carried counts hold
+                # count0 plus one 1.0 for each placed member, as the
+                # recount does, and 0/1 adds onto whole numbers in f32
+                # are exact below 2^24 in any order.
+                counts = commit_counts(topo, counts, accept, choice)
             acc_req = pods.requests * accept[:, None]
             requested = ordered_scatter_add(requested, choice_eff, acc_req)
             quota_used = quota_commit(quota_used, accept, acc_req)
@@ -601,8 +651,9 @@ def quota_ok(snap: ClusterSnapshot) -> bool:
 
 
 # --- the straggler tail ---------------------------------------------------
-# The slim form: no topology-constrained budget in the selection and no
-# (group x domain) counts to carry between passes.
+# The full-width form: no topology-constrained budget in the selection
+# (that needs the reference's packing prefix, which the port does not
+# take); the (group x domain) counts ride between passes where given.
 
 
 def tail_select(pods: PodBatch, assign: torch.Tensor, tried: torch.Tensor,
@@ -618,19 +669,27 @@ def tail_select(pods: PodBatch, assign: torch.Tensor, tried: torch.Tensor,
 
 def tail_pass(step_fn: Callable, snap: ClusterSnapshot, assign: torch.Tensor,
               tried: torch.Tensor, pods: PodBatch, cfg, *, tail_chunk: int,
-              carry: Optional[Dict[str, torch.Tensor]] = None):
+              carry: Optional[Dict[str, torch.Tensor]] = None,
+              counts: Optional[tuple] = None):
     """One retry pass: gather the selected stragglers into a compact
     [tail_chunk] batch, re-schedule it with `step_fn(snap, retry, cfg)`
     and scatter the placements back, and the placed pods' result fields
     named in `carry` ({field: [P, ...]}, e.g. `gpu_take`, `res_slot`)
-    where given. Returns (snap, assign, tried, carry)."""
+    where given. `counts` (COUNT_FIELDS order), where given, are the
+    retry batch's count0 fields and come back with its placements
+    charged (core.py:1506-1510). Returns (snap, assign, tried, carry,
+    counts)."""
     idx, attempt = tail_select(pods, assign, tried, tail_chunk)
     retry = pods.replace(
         **{f: getattr(pods, f)[idx] for f in PER_POD_FIELDS if f != "valid"},
         valid=attempt)
+    if counts is not None:
+        retry = retry.replace(**dict(zip(COUNT_FIELDS, counts)))
     tried = tried.clone()
     tried[idx] = tried[idx] | attempt
     res = step_fn(snap, retry, cfg)
+    if counts is not None:
+        counts = charge_all_counts(counts, retry, res.assignment)
     got = attempt & (res.assignment >= 0)
     assign = assign.clone()
     assign[idx] = torch.where(got, res.assignment, assign[idx])
@@ -642,32 +701,34 @@ def tail_pass(step_fn: Callable, snap: ClusterSnapshot, assign: torch.Tensor,
             full[idx] = torch.where(got.view(-1, *[1] * (new.dim() - 1)),
                                     new, full[idx])
             carry[field] = full
-    return res.snapshot, assign, tried, carry
+    return res.snapshot, assign, tried, carry, counts
 
 
 def tail_compaction_loop(step_fn: Callable, snap: ClusterSnapshot,
                          assign: torch.Tensor, pods: PodBatch, cfg, *,
                          tail_chunk: int, min_passes: int, max_passes: int,
-                         carry: Optional[Dict[str, torch.Tensor]] = None):
+                         carry: Optional[Dict[str, torch.Tensor]] = None,
+                         counts: Optional[tuple] = None):
     """Run tail passes until the stragglers drain or the budget is
     spent: min(min_passes, max_passes) passes always run; more run while
     stragglers remain and (the count improved or never-retried ones
     remain), up to max_passes. The reference loops on device; here the
     host reads two counts after each pass.
 
-    Returns (snap, assign, stats i32[4], carry) with stats =
-    [stragglers_after_sweep, stragglers_final, never_retried, passes]
-    and carry the placed pods' result fields, carried from the argument
-    (None stays None)."""
+    Returns (snap, assign, stats i32[4], carry, counts) with stats =
+    [stragglers_after_sweep, stragglers_final, never_retried, passes],
+    carry the placed pods' result fields and counts the (group x domain)
+    counts (COUNT_FIELDS order) with every pass's placements charged,
+    each carried from its argument (None stays None)."""
     min_eff = min(int(min_passes), int(max_passes))
     left0 = int((pods.valid & (assign < 0)).sum())
     tried = torch.zeros_like(pods.valid)
     passes, left, improved, never_retried = 0, left0, False, left0
     while passes < min_eff or (passes < max_passes and left > 0
                                and (improved or never_retried > 0)):
-        snap, assign, tried, carry = tail_pass(
+        snap, assign, tried, carry, counts = tail_pass(
             step_fn, snap, assign, tried, pods, cfg, tail_chunk=tail_chunk,
-            carry=carry)
+            carry=carry, counts=counts)
         bad = pods.valid & (assign < 0)
         new_left, never_retried = (
             int(x) for x in torch.stack([bad.sum(), (bad & ~tried).sum()]).cpu())
@@ -676,4 +737,4 @@ def tail_compaction_loop(step_fn: Callable, snap: ClusterSnapshot,
         left = new_left
     stats = torch.tensor([left0, left, never_retried, passes],
                          dtype=torch.int32)
-    return snap, assign, stats, carry
+    return snap, assign, stats, carry, counts

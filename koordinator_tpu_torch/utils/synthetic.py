@@ -7,8 +7,8 @@ reference (tests/test_torch_schema.py and tests/test_torch_reservation.py
 hold the two equal). The arrays are built on the host and moved to
 `device` once. GPU nodes (`gpu_node_frac`), GPU pods (`gpu_pod_frac`),
 live reservation slots (`num_reservations`, on their own generator) and
-the full-gate workload's taint classes, toleration sets and slot owners
-draw in the reference's order.
+the full-gate workload's taint classes, toleration sets, pod topology
+groups and slot owners draw in the reference's order.
 """
 
 from __future__ import annotations
@@ -396,9 +396,10 @@ FULL_GATE_CLUSTER_KW = dict(num_quotas=32, max_quotas=64, num_gangs=64,
 FULL_GATE_PODS_KW = dict(num_quotas=32, num_gangs=64, gang_min_member=8,
                          gpu_pod_frac=0.1)
 NUMA_BIND_FRAC = 0.33
-# its topology groups: (groups, members) of anti-affinity and affinity,
-# and the spread group count; drawn and thrown away by the cut form
-N_SPREAD_GROUPS = 8
+# its topology groups: zone spread groups (each with a hostname
+# companion), their zone count and skew, the spread share of the pods,
+# and the (groups, members) of anti-affinity and affinity
+N_SPREAD_GROUPS, NUM_ZONES, SPREAD_FRAC, MAX_SKEW = 8, 16, 0.15, 64.0
 ANTI_GROUPS, ANTI_MEMBERS = 16, 64
 AFF_GROUPS, AFF_MEMBERS = 8, 48
 
@@ -422,13 +423,40 @@ def full_gate_cluster(num_nodes: int, seed: int = 0,
             snap.nodes.allocatable.device)))
 
 
-def _draw_topology_groups(rng: np.random.Generator, p: int) -> None:
-    """Advance `rng` past the reference full_gate_pods' spread,
-    anti-affinity and affinity draws (in its order, with its group
-    sizes), which the cut form does not keep: the reservation owners
-    come after them on the same generator."""
-    rng.uniform(size=p)                                  # in_spread
-    rng.integers(0, N_SPREAD_GROUPS, p)                  # sgrp
+def _topology_groups(rng: np.random.Generator, p: int,
+                     num_nodes: int) -> dict:
+    """The reference full_gate_pods' pod topology fields
+    (utils/synthetic.py:439-529), drawn from `rng` in its order.
+
+    Spread: every spread pod (SPREAD_FRAC of them) carries and matches a
+    zone group g < N_SPREAD_GROUPS (NUM_ZONES domains, node n in zone
+    n % NUM_ZONES, skew MAX_SKEW) and its hostname companion
+    g + N_SPREAD_GROUPS (one domain a node, a loose skew). Anti-affinity:
+    ANTI_GROUPS hostname groups of ANTI_MEMBERS pods, each member its
+    group's carrier. Affinity: AFF_GROUPS zone groups of AFF_MEMBERS
+    pods, disjoint from the anti pods; every member of an odd group also
+    carries and matches its even partner. Member counts scale down with
+    small batches, as the reference's do."""
+    f32 = np.float32
+    zone_of_node = (np.arange(num_nodes) % NUM_ZONES).astype(np.int32)
+    host_of_node = np.arange(num_nodes, dtype=np.int32)
+    n_sg = 2 * N_SPREAD_GROUPS
+    spread_domain = np.empty((n_sg, num_nodes), np.int32)
+    spread_domain[:N_SPREAD_GROUPS] = zone_of_node
+    spread_domain[N_SPREAD_GROUPS:] = host_of_node
+    in_spread = rng.uniform(size=p) < SPREAD_FRAC
+    sgrp = rng.integers(0, N_SPREAD_GROUPS, p).astype(np.int32)
+    spread_member = np.zeros((p, n_sg), bool)
+    rows = np.flatnonzero(in_spread)
+    spread_member[rows, sgrp[in_spread]] = True
+    spread_member[rows, sgrp[in_spread] + N_SPREAD_GROUPS] = True
+    d_cap = max(NUM_ZONES, num_nodes)
+    spread_dvalid = np.zeros((n_sg, d_cap), bool)
+    spread_dvalid[:N_SPREAD_GROUPS, :NUM_ZONES] = True
+    spread_dvalid[N_SPREAD_GROUPS:, :num_nodes] = True
+    host_skew = max(float(np.ceil(p * SPREAD_FRAC / N_SPREAD_GROUPS
+                                  / max(num_nodes, 1))) + 3.0, 4.0)
+
     anti_members = max(min(ANTI_MEMBERS, p // (4 * ANTI_GROUPS)), 1)
     aff_members = max(min(AFF_MEMBERS, p // (4 * AFF_GROUPS)), 1)
     total_anti = ANTI_GROUPS * anti_members
@@ -438,25 +466,58 @@ def _draw_topology_groups(rng: np.random.Generator, p: int) -> None:
             f"full_gate_pods needs at least {ANTI_GROUPS + AFF_GROUPS}"
             f" pods for {ANTI_GROUPS} anti + {AFF_GROUPS} affinity "
             f"groups; got {p}")
+    anti_id = np.full((p,), -1, np.int32)
+    anti_member = np.zeros((p, ANTI_GROUPS), bool)
     a_idx = rng.choice(p, total_anti, replace=False)
-    rng.choice(np.setdiff1d(np.arange(p), a_idx), total_aff, replace=False)
+    a_grp = np.repeat(np.arange(ANTI_GROUPS, dtype=np.int32), anti_members)
+    anti_id[a_idx] = a_grp
+    anti_member[a_idx, a_grp] = True
+
+    aff_id = np.full((p,), -1, np.int32)
+    aff_member = np.zeros((p, AFF_GROUPS), bool)
+    f_idx = rng.choice(np.setdiff1d(np.arange(p), a_idx), total_aff,
+                       replace=False)
+    f_grp = np.repeat(np.arange(AFF_GROUPS, dtype=np.int32), aff_members)
+    aff_id[f_idx] = f_grp
+    aff_member[f_idx, f_grp] = True
+    for g in range(1, AFF_GROUPS, 2):
+        aff_member[f_idx[f_grp == g], g - 1] = True
+
+    return dict(
+        spread_id=np.where(in_spread, sgrp, -1).astype(np.int32),
+        spread_carrier=spread_member.copy(), spread_member=spread_member,
+        spread_max_skew=np.concatenate([
+            np.full((N_SPREAD_GROUPS,), MAX_SKEW, f32),
+            np.full((N_SPREAD_GROUPS,), host_skew, f32)]),
+        spread_domain=spread_domain,
+        spread_count0=np.zeros((n_sg, d_cap), f32),
+        spread_dvalid=spread_dvalid,
+        anti_id=anti_id, anti_member=anti_member,
+        anti_carrier=anti_member.copy(),
+        anti_domain=np.broadcast_to(
+            host_of_node, (ANTI_GROUPS, num_nodes)).copy(),
+        anti_count0=np.zeros((ANTI_GROUPS, num_nodes), f32),
+        anti_carrier_count0=np.zeros((ANTI_GROUPS, num_nodes), f32),
+        aff_id=aff_id, aff_carrier=aff_member.copy(), aff_member=aff_member,
+        aff_domain=np.broadcast_to(
+            zone_of_node, (AFF_GROUPS, num_nodes)).copy(),
+        aff_count0=np.zeros((AFF_GROUPS, NUM_ZONES), f32))
 
 
 def full_gate_pods(num_pods: int, num_nodes: int, seed: int = 1,
                    device="cuda") -> PodBatch:
-    """The full-gate flagship's pods, cut to the gates the port has:
-    `synthetic_pods` with FULL_GATE_PODS_KW (10 % GPU pods), then on one
-    generator (seed + 29) in the reference's order: NUMA_BIND_FRAC of
-    the prod pods single-NUMA bound, three toleration sets (p = 0.7 /
-    0.2 / 0.1; set 0 tolerates nothing, set 1 the dedicated class, set
-    2 both; the dedicated and the GPU-exclusive class also carry a
-    PreferNoSchedule taint for the sets that do not tolerate them), the
-    spread/anti-affinity/affinity draws (made and thrown away: the cut
-    keeps `synthetic_pods`' no-topology fields, has_spread/has_anti/
-    has_aff False), and two owners for each of the
-    full_gate_reservations(num_nodes) slots among the pods that fit a
-    slot's hold (no batch-tier, device or single-NUMA pod). has_taints
-    is True."""
+    """The full-gate flagship's pods: `synthetic_pods` with
+    FULL_GATE_PODS_KW (10 % GPU pods), then on one generator (seed + 29)
+    in the reference's order: NUMA_BIND_FRAC of the prod pods
+    single-NUMA bound, three toleration sets (p = 0.7 / 0.2 / 0.1; set 0
+    tolerates nothing, set 1 the dedicated class, set 2 both; the
+    dedicated and the GPU-exclusive class also carry a PreferNoSchedule
+    taint for the sets that do not tolerate them), the spread,
+    anti-affinity and affinity groups (`_topology_groups`), and two
+    owners for each of the full_gate_reservations(num_nodes) slots among
+    the pods that fit a slot's hold (no batch-tier, device or
+    single-NUMA pod). has_taints, has_spread, has_anti and has_aff are
+    True."""
     pods = synthetic_pods(num_pods, seed=seed, device="cpu",
                           **FULL_GATE_PODS_KW)
     rng = np.random.default_rng(seed + 29)
@@ -471,7 +532,7 @@ def full_gate_pods(num_pods: int, num_nodes: int, seed: int = 1,
     tol_prefer = np.array([[0.0, 1.0, 1.0],
                            [0.0, 0.0, 1.0],
                            [0.0, 0.0, 0.0]], np.float32)
-    _draw_topology_groups(rng, p)
+    topo = _topology_groups(rng, p, num_nodes)
     v = full_gate_reservations(num_nodes)
     owner = np.full((p,), -1, np.int32)
     if v:
@@ -488,20 +549,23 @@ def full_gate_pods(num_pods: int, num_nodes: int, seed: int = 1,
         toleration_id=torch.from_numpy(toleration_id),
         tol_forbid=torch.from_numpy(tol_forbid),
         tol_prefer=torch.from_numpy(tol_prefer),
-        has_taints=True).to(resolve_device(device))
+        **{f: torch.from_numpy(x) for f, x in topo.items()},
+        has_taints=True, has_spread=True, has_anti=True,
+        has_aff=True).to(resolve_device(device))
 
 
 def gpu_share_inputs(num_pods: int = 100_000, num_nodes: int = 10_000,
                      device="cuda") -> Tuple[ClusterSnapshot, PodBatch]:
     """The reference's full-gate flagship workload (`full_gate_cluster`
-    and `full_gate_pods`, seeds 0 and 1) cut to the gates the port has:
+    and `full_gate_pods`, seeds 0 and 1):
     10 000 nodes with 32 quotas, 64 gangs, a quarter of them GPU nodes
     with 8 instances each, two populated NUMA zones, three taint classes
     and 64 live reservation slots; 100 000 pods with 32 quotas, 64 gangs
     of 8, 10 % GPU pods, a third of the prod pods single-NUMA bound,
-    three toleration sets and two owners a slot. Cut: the
-    spread/anti-affinity/affinity groups (and the cascade, a knob of
-    the run)."""
+    three toleration sets, two owners a slot, 16 spread groups (8 zone
+    groups, each with a hostname companion), 16 hostname anti-affinity
+    groups and 8 zone affinity groups. The one cut, the cascade, is a
+    knob of the run."""
     snap = full_gate_cluster(num_nodes, seed=0, device=device)
     pods = full_gate_pods(num_pods, num_nodes, seed=1, device=device)
     return snap, pods

@@ -106,16 +106,19 @@ def test_segment_prefix_chain_refuses_broken_preconditions(case):
                                       active, [table], 0.5)
 
 
-def _reference_chain(seg, earlier, req, active, tables):
+def _reference_chain(seg, earlier, req, active, tables, mask=None):
     """schedule_batch's inner-step gate in the reference: the node level
-    on the trying pods (core.py:767-770), then each quota level on the
+    on the trying pods (core.py:767-770), the topology gates' verdict
+    (`mask`, core.py:776-884) where given, then each quota level on the
     pods accepted so far (core.py:884-890)."""
     accept = jnp.asarray(active)
-    for level, (base, limit, s) in zip(seg, tables):
+    for l, (level, (base, limit, s)) in enumerate(zip(seg, tables)):
         seg_l = jnp.where(accept, jnp.asarray(level), s)
         req_l = jnp.where(accept[:, None], jnp.asarray(req), 0.0)
         accept = accept & jbatching.segment_prefix_ok(
             seg_l, earlier, req_l, jnp.asarray(base), jnp.asarray(limit), s)
+        if l == 0 and mask is not None:
+            accept = accept & jnp.asarray(mask)
     return np.asarray(accept)
 
 
@@ -151,6 +154,40 @@ def test_segment_prefix_chain_equal_reference(levels, data):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("levels", [1, 2, 3])
+@settings(max_examples=30, deadline=None)
+@given(data=st.data())
+def test_segment_prefix_chain_mask_after_level_0_equal_reference(levels,
+                                                                 data):
+    """The chain with the step's topology verdict ANDed in after the
+    node level: the node level charges every active pod, the quota
+    levels only those that pass both (the reference's order of gates)."""
+    ints = lambda lo, hi, n: np.array(  # noqa: E731
+        data.draw(st.lists(st.integers(lo, hi), min_size=n, max_size=n)))
+    sizes = [data.draw(st.integers(1, 6)) for _ in range(levels)]
+    seg = np.stack([ints(-1, s + 1, P) for s in sizes]).astype(np.int32)
+    prio = ints(0, 3, P).astype(np.int32)
+    active = ints(0, 4, P) > 0
+    mask = ints(0, 2, P) > 0
+    req = ints(0, 8, P * R).reshape(P, R).astype(np.float32) * 500.0
+    tables = []
+    for s in sizes:
+        base = ints(0, 20, s * R).reshape(s, R).astype(np.float32) * 500.0
+        limit = base + ints(0, 8, s * R).reshape(s, R).astype(
+            np.float32) * 500.0
+        tables.append((base, limit, s))
+    jrank = jbatching.stable_rank(jnp.asarray(-prio))
+    want = _reference_chain(seg, jrank[None, :] < jrank[:, None], req,
+                            active, tables, mask)
+    got = batching.segment_prefix_chain(
+        torch.from_numpy(seg), batching.stable_rank(torch.from_numpy(-prio)),
+        torch.from_numpy(req), torch.from_numpy(active),
+        [(torch.from_numpy(b), torch.from_numpy(lim), s)
+         for b, lim, s in tables], batching.EPS,
+        torch.from_numpy(mask)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_segment_prefix_chain_checks_its_inputs():
     p, r = 4, 2
     rank = torch.arange(p, dtype=torch.int32)
@@ -163,6 +200,12 @@ def test_segment_prefix_chain_checks_its_inputs():
     with pytest.raises(TypeError, match="active"):
         batching.segment_prefix_chain(seg, rank, req, active.int(),
                                       [table] * 2, 0.5)
+    with pytest.raises(ValueError, match="mask"):
+        batching.segment_prefix_chain(seg, rank, req, active, [table] * 2,
+                                      0.5, torch.ones(p + 1, dtype=torch.bool))
+    with pytest.raises(ValueError, match="a mask needs a level"):
+        batching.segment_prefix_chain(seg[:0], rank, req, active, [], 0.5,
+                                      active)
     with pytest.raises(ValueError, match=r"base\[1\]"):
         batching.segment_prefix_chain(
             seg, rank, req, active,

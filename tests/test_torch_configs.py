@@ -2,9 +2,10 @@
 path) against the JAX composition bench_configs.config_2_numa runs:
 core.schedule_batch(enable_numa=True) in lax.scan over the pod chunks,
 with the bench's arguments, at a cut size; and gpu_share_100kx10k
-(configs.run_gpu_share, the DeviceShare path) against the reference's
-sweep and straggler tail with the full-gate knobs, at a cut size and
-two seeds. Tolerances: none."""
+(configs.run_gpu_share, the DeviceShare path with taints, slots and the
+pod topology families) against the reference's sweep and straggler tail
+with the full-gate knobs and bench.py's count threading, at a cut size
+and two seeds. Tolerances: none."""
 
 from __future__ import annotations
 
@@ -99,11 +100,9 @@ GPU_PODS, GPU_NODES, GPU_CHUNK = 1200, 300, 600
 def gpu_share_reference_inputs(snap_seed, pod_seed):
     """The gpu_share cluster and pods at GPU_PODS x GPU_NODES from the
     reference's generators (utils.synthetic.gpu_share_inputs' calls:
-    full_gate_cluster, and full_gate_pods with its spread, anti-affinity
-    and affinity groups cut)."""
-    from test_torch_reservation import cut_full_gate_pods
+    full_gate_cluster and full_gate_pods)."""
     return (jsyn.full_gate_cluster(GPU_NODES, seed=snap_seed),
-            cut_full_gate_pods(GPU_PODS, GPU_NODES, seed=pod_seed))
+            jsyn.full_gate_pods(GPU_PODS, GPU_NODES, seed=pod_seed))
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,32 +113,39 @@ def _gpu_share_reference_program():
 
     @jax.jit
     def run(snap, stacked, pods, cfg):
-        def body(s, cols):
-            res = step(s, pods.replace(**cols), cfg)
-            return res.snapshot, (res.assignment, res.res_slot)
-        snap, (assign, res_slot) = jax.lax.scan(body, snap, stacked)
+        # bench.py's sweep (:435-456): each chunk's count0 fields are the
+        # counts so far, charged with its assignment after it
+        def body(carry, cols):
+            s, counts = carry
+            batch = pods.replace(**cols, **dict(zip(jcore.COUNT_FIELDS,
+                                                    counts)))
+            res = step(s, batch, cfg)
+            counts = jcore.charge_all_counts(counts, batch, res.assignment)
+            return (res.snapshot, counts), (res.assignment, res.res_slot)
         counts = tuple(getattr(pods, f) for f in jcore.COUNT_FIELDS)
+        (snap, counts), (assign, res_slot) = jax.lax.scan(
+            body, (snap, counts), stacked)
         return jcore.tail_compaction_loop(
             tail_step, snap, counts, assign.reshape(-1), pods, cfg,
             tail_chunk=min(GPU_CHUNK, 512),
             min_passes=flagship.MIN_TAIL_PASSES,
             max_passes=configs.FULL_GATE_MAX_TAIL_PASSES,
-            charge_counts=False), res_slot.reshape(-1)
+            charge_counts=True), res_slot.reshape(-1)
     return run
 
 
 @functools.lru_cache(maxsize=None)
 def _gpu_share_both(snap_seed, pod_seed):
-    """(reference (snap, assign, stats, the sweep's res_slot), port run,
-    port line or None): the config's own seeds (0, 1) through
-    run_gpu_share, others through flagship.sweep_and_tail with the
-    config's kwargs."""
+    """(reference (snap, assign, stats, the sweep's res_slot, the final
+    counts), port run, port line or None): the config's own seeds (0, 1)
+    through run_gpu_share, others through flagship.sweep_and_tail with
+    the config's kwargs."""
     snap, pods = gpu_share_reference_inputs(snap_seed, pod_seed)
-    (want_snap, _, assign, stats), sweep_slot = \
+    (want_snap, counts, assign, stats), sweep_slot = \
         _gpu_share_reference_program()(
             snap, jsyn.stack_pod_chunks(pods, GPU_CHUNK), pods, JCfg.make())
     want = (want_snap, np.asarray(assign), np.asarray(stats),
-            np.asarray(sweep_slot))
+            np.asarray(sweep_slot), tuple(np.asarray(c) for c in counts))
     if (snap_seed, pod_seed) == (0, 1):
         line, run = configs.run_gpu_share(GPU_PODS, GPU_NODES, GPU_CHUNK,
                                           device="cpu")
@@ -159,7 +165,7 @@ GPU_SEEDS = [(0, 1), (3, 4)]
 def test_gpu_share_sweep_and_tail_equal_reference(seeds):
     """The assignment and the tail's stats equal the reference's
     sweep-and-tail at a cut size (full width, no packing prefixes)."""
-    (_, want_assign, want_stats, _), run, _ = _gpu_share_both(*seeds)
+    (_, want_assign, want_stats, *_), run, _ = _gpu_share_both(*seeds)
     np.testing.assert_array_equal(run.assignment.numpy(), want_assign)
     np.testing.assert_array_equal(run.stats.numpy(), want_stats)
     assert want_stats[0] > 0 and want_stats[2] == 0
@@ -173,7 +179,7 @@ def test_gpu_share_sweep_and_tail_equal_reference(seeds):
     ("reservations", "gpu_free"), ("reservations", "numa_free")])
 @pytest.mark.parametrize("seeds", GPU_SEEDS, ids=str)
 def test_gpu_share_final_snapshot_equal(seeds, part, field):
-    (want_snap, _, _, _), run, _ = _gpu_share_both(*seeds)
+    (want_snap, *_), run, _ = _gpu_share_both(*seeds)
     w = np.asarray(getattr(getattr(want_snap, part), field))
     g = getattr(getattr(run.snapshot, part), field).numpy()
     assert g.dtype == w.dtype and g.shape == w.shape
@@ -223,7 +229,8 @@ def test_gpu_share_slot_consumers(seeds):
     slot's node and owns it; each slot's final free (the reference's)
     is its initial free less its consumers' requests; an AllocateOnce
     slot has at most one consumer; the line counts them."""
-    (want_snap, assign, _, sweep_slot), run, line = _gpu_share_both(*seeds)
+    (want_snap, assign, _, sweep_slot, _), run, line = \
+        _gpu_share_both(*seeds)
     snap, pods = gpu_share_reference_inputs(*seeds)
     res_slot = run.res_slot.numpy()
     consumer = res_slot >= 0
@@ -255,10 +262,68 @@ def test_gpu_share_slot_consumers(seeds):
 def test_gpu_share_taints_hold(seeds):
     """No pod sits on a node whose taints its toleration set forbids,
     and some sit on tainted nodes their sets tolerate."""
-    (_, assign, _, _), _, _ = _gpu_share_both(*seeds)
+    (_, assign, *_), _, _ = _gpu_share_both(*seeds)
     snap, pods = gpu_share_reference_inputs(*seeds)
     placed = assign >= 0
     tol = np.asarray(pods.toleration_id)[placed]
     taint = np.asarray(snap.nodes.taint_group)[assign[placed]]
     assert not np.asarray(pods.tol_forbid)[tol, taint].any()
     assert (taint > 0).any()
+
+
+@pytest.mark.parametrize("seeds", GPU_SEEDS, ids=str)
+def test_gpu_share_topology_counts_equal(seeds):
+    """The (group x domain) counts the port threads through the chunks
+    and the tail passes equal the reference's bit for bit, and equal
+    the counts recounted from the final assignment (the workload's
+    count0 are zero)."""
+    from koordinator_tpu_torch.scheduler.domains import (
+        COUNT_FIELDS,
+        charge_all_counts,
+    )
+    (*_, want_counts), run, _ = _gpu_share_both(*seeds)
+    _, pods = gpu_share_reference_inputs(*seeds)
+    tpods = to_port("PodBatch", pods)
+    recount = charge_all_counts(
+        tuple(torch.zeros_like(getattr(tpods, f)) for f in COUNT_FIELDS),
+        tpods, run.assignment)
+    for got, want, again in zip(run.counts, want_counts, recount):
+        assert got.numpy().tobytes() == want.tobytes()
+        assert torch.equal(got, again)
+    assert all(float(c.sum()) > 0 for c in run.counts)
+
+
+@pytest.mark.parametrize("seeds", GPU_SEEDS, ids=str)
+def test_gpu_share_topology_holds(seeds):
+    """On the final placement: no node holds two carriers of one
+    anti-affinity group; each hard spread group's skew over its zones
+    is within its bound; each affinity group sits in one zone, and each
+    dual pair in the same one; the line counts the placed pods of each
+    family."""
+    (_, assign, *_), _, line = _gpu_share_both(*seeds)
+    _, pods = gpu_share_reference_inputs(*seeds)
+    placed = assign >= 0
+    carrier = np.asarray(pods.anti_carrier) & placed[:, None]
+    for g in range(carrier.shape[1]):
+        nodes = assign[carrier[:, g]]
+        assert len(nodes) == len(set(nodes.tolist()))
+    dom = np.asarray(pods.spread_domain)
+    member = np.asarray(pods.spread_member) & placed[:, None]
+    skew = np.asarray(pods.spread_max_skew)
+    dvalid = np.asarray(pods.spread_dvalid)
+    for g in range(member.shape[1]):
+        cnt = np.bincount(dom[g, assign[member[:, g]]],
+                          minlength=dvalid.shape[1])[dvalid[g]]
+        assert cnt.max() - cnt.min() <= skew[g] + 0.5
+    aff = np.asarray(pods.aff_member) & placed[:, None]
+    zone = np.asarray(pods.aff_domain)
+    zones = [set(zone[g, assign[aff[:, g]]].tolist())
+             for g in range(aff.shape[1])]
+    assert all(len(z) <= 1 for z in zones) and any(zones)
+    for g in range(1, len(zones), 2):
+        assert not zones[g] or zones[g] == zones[g - 1]
+    if line is not None:
+        for fam in ("spread", "anti", "aff"):
+            want = int((placed & np.asarray(
+                getattr(pods, f"{fam}_carrier")).any(axis=1)).sum())
+            assert line[f"{fam}_placed"] == want > 0

@@ -137,16 +137,23 @@ def test_unported_inputs_raise():
         aux_free=torch.ones((8, 2, 1)),
         aux_valid=torch.ones((8, 2, 1), dtype=torch.bool)))
     resv = jsyn.synthetic_cluster(8, num_reservations=2)
-    for bad_snap, bad_pods in ((aux, pods),
-                               (snap, pods.replace(has_spread=True))):
-        with pytest.raises(NotImplementedError):
-            core.schedule_batch(bad_snap, bad_pods, cfg, **BENCH_KW)
-    # reservation slots (with the NUMA path too) and taints schedule
+    with pytest.raises(NotImplementedError):
+        core.schedule_batch(aux, pods, cfg, **BENCH_KW)
+    # a spread family whose domain map is not one column a node
+    with pytest.raises(ValueError, match="spread_domain"):
+        core.schedule_batch(snap, pods.replace(has_spread=True), cfg,
+                            **BENCH_KW)
+    # reservation slots (with the NUMA path too), taints and a spread
+    # family (one keyless group no pod carries) schedule
+    spread = pods.replace(has_spread=True,
+                          spread_domain=torch.full((1, 8), -1,
+                                                   dtype=torch.int32))
     for ok_snap, ok_pods, kw in (
             (to_port("ClusterSnapshot", resv), pods, BENCH_KW),
             (to_port("ClusterSnapshot", resv), pods,
              dict(BENCH_KW, enable_numa=True)),
-            (snap, pods.replace(has_taints=True), BENCH_KW)):
+            (snap, pods.replace(has_taints=True), BENCH_KW),
+            (snap, spread, BENCH_KW)):
         res = core.schedule_batch(ok_snap, ok_pods, cfg, **kw)
         assert int((res.assignment >= 0).sum()) > 0
     with pytest.raises(ValueError, match="numa_strategy"):

@@ -2,7 +2,7 @@
 `plugins/reservation.py` slot_columns and rebuild_reservations, K1's
 plain version with the slot columns against the reference's masked
 lax.top_k over N + V columns, schedule_batch on the scenarios of
-tests/test_reservation.py, and the full-gate builders (the cut
+tests/test_reservation.py, and the full-gate builders (the
 full-gate sweep and tail, `configs.run_gpu_share`'s workload, is held
 against the reference in tests/test_torch_configs.py).
 
@@ -43,22 +43,6 @@ from torch_port_ref import assert_trees_equal, numpy_tree, to_port
 
 FIT_DIMS = (0, 1, 2, 3)
 SCORE_DIMS = (0, 1)
-TOPO_FIELDS = ("spread_id", "spread_carrier", "spread_member",
-               "spread_max_skew", "spread_domain", "spread_count0",
-               "spread_dvalid", "anti_id", "anti_member", "anti_carrier",
-               "anti_domain", "anti_count0", "anti_carrier_count0", "aff_id",
-               "aff_carrier", "aff_member", "aff_domain", "aff_count0")
-
-
-def cut_full_gate_pods(num_pods, num_nodes, seed=1):
-    """The reference's full_gate_pods with the spread/anti/affinity
-    groups cut, as the port's `synthetic.full_gate_pods` cuts them: the
-    no-topology fields of synthetic_pods, the switches off."""
-    full = jsyn.full_gate_pods(num_pods, num_nodes, seed=seed)
-    base = jsyn.synthetic_pods(num_pods, seed=seed, num_quotas=32,
-                               num_gangs=64, gpu_pod_frac=0.1)
-    return full.replace(has_spread=False, has_anti=False, has_aff=False,
-                        **{f: getattr(base, f) for f in TOPO_FIELDS})
 
 
 def _flat(tree, prefix=""):
@@ -90,13 +74,13 @@ def assert_results_equal(want, got):
 def test_full_gate_builders_equal_reference(nodes, pods, seed):
     """full_gate_cluster (slots from their own generator, their holds
     charged on the host nodes, taint classes) equal to the reference's
-    leaf for leaf; full_gate_pods equal to the reference's cut form leaf
-    for leaf, the reservation owners (drawn after the thrown-away
-    topology draws) included."""
+    leaf for leaf; full_gate_pods equal to the reference's leaf for
+    leaf, the pod topology groups and the reservation owners (drawn
+    after them) included."""
     jsnap = jsyn.full_gate_cluster(nodes, seed=seed)
     tsnap = synthetic.full_gate_cluster(nodes, seed=seed, device="cpu")
     assert_trees_equal(to_numpy(tsnap), numpy_tree(jsnap))
-    jpods = cut_full_gate_pods(pods, nodes, seed=seed + 1)
+    jpods = jsyn.full_gate_pods(pods, nodes, seed=seed + 1)
     tpods = synthetic.full_gate_pods(pods, nodes, seed=seed + 1, device="cpu")
     assert_trees_equal(to_numpy(tpods), numpy_tree(jpods))
     v = jsyn.full_gate_reservations(nodes)
@@ -129,7 +113,7 @@ def _slot_case(seed):
     single-NUMA and GPU owners, and selector rows that bite."""
     rng = np.random.default_rng(seed)
     snap = jsyn.full_gate_cluster(120, seed=seed)
-    pods = cut_full_gate_pods(600, 120, seed=seed + 1)
+    pods = jsyn.full_gate_pods(600, 120, seed=seed + 1)
     resv = snap.reservations
     v = resv.valid.shape[0]
     i = resv.gpu_valid.shape[1]

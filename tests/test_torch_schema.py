@@ -194,9 +194,9 @@ def test_synthetic_gpu_draws_equal_reference(seed, frac):
 def test_gpu_share_inputs_equal_reference():
     """The port's gpu_share inputs against the reference's full-gate
     cluster (taint classes and 64 live slots included) leaf for leaf,
-    and its full-gate pods with the spread, anti-affinity and affinity
-    groups cut: the same requests, priorities, gangs, quotas, GPU
-    requests, NUMA binding, tolerations and reservation owners."""
+    and its full-gate pods: the same requests, priorities, gangs,
+    quotas, GPU requests, NUMA binding, tolerations, reservation owners
+    and spread, anti-affinity and affinity groups."""
     tsnap, tpods = synthetic.gpu_share_inputs(2000, 300, device="cpu")
     jsnap = jsyn.full_gate_cluster(300, num_quotas=32)
     jpods = jsyn.full_gate_pods(2000, 300, seed=1, num_quotas=32)
@@ -205,11 +205,14 @@ def test_gpu_share_inputs_equal_reference():
     for field in ("requests", "estimated", "priority", "priority_class",
                   "gang_id", "quota_id", "gpu_ratio", "numa_single", "qos",
                   "toleration_id", "tol_forbid", "tol_prefer",
-                  "reservation_owner"):
+                  "reservation_owner", "spread_carrier", "spread_member",
+                  "spread_domain", "spread_max_skew", "anti_member",
+                  "anti_carrier", "anti_domain", "aff_member",
+                  "aff_carrier", "aff_domain", "aff_count0"):
         np.testing.assert_array_equal(got[field], np.asarray(
             getattr(jpods, field)), err_msg=field)
-    assert tpods.has_taints and not (tpods.has_spread or tpods.has_anti
-                                     or tpods.has_aff)
+    assert tpods.has_taints and (tpods.has_spread and tpods.has_anti
+                                 and tpods.has_aff)
     assert 0 < int((tpods.numa_single & (tpods.gpu_ratio > 0)).sum())
     assert int((tpods.reservation_owner >= 0).sum()) == 128
 

@@ -29,7 +29,6 @@ from koordinator_tpu_torch.scheduler.plugins.loadaware import LoadAwareConfig
 
 from test_torch_reservation import (
     assert_results_equal,
-    cut_full_gate_pods,
     k1_slot_inputs,
     reference_select_slots,
 )
@@ -37,14 +36,14 @@ from torch_port_ref import to_port
 
 
 def _taint_case(variant, seed=0):
-    """A full-gate cluster and its cut pods (no slots) with the taint
+    """A full-gate cluster and its pods (no slots) with the taint
     tables edited by `variant`: as drawn; toleration ids and taint
     groups negative and past the tables' ends; a PreferNoSchedule table
     of zeros; one of counts (normalised by the largest); and one of all
     ones (a penalty of MaxNodeScore on every pair, above most scores)."""
     rng = np.random.default_rng(seed)
     snap = jsyn.full_gate_cluster(150, seed=seed, num_reservations=0)
-    pods = cut_full_gate_pods(600, 150, seed=seed + 1)
+    pods = jsyn.full_gate_pods(600, 150, seed=seed + 1)
     t, g = np.asarray(pods.tol_forbid).shape
     if variant == "wild_indices":
         pods = pods.replace(toleration_id=jnp.asarray(
@@ -247,15 +246,16 @@ def test_taint_scenarios_equal_reference(name):
 
 @pytest.mark.parametrize("kw", ["gpu_share", "slim"])
 def test_full_gate_taints_without_slots_equal_reference(kw):
-    """One batch of the cut full-gate workload without slots (taints,
-    NUMA, GPU instances) under gpu_share's sweep arguments and under the
+    """One batch of the full-gate workload without slots (taints, NUMA,
+    GPU instances, pod topology groups) under gpu_share's sweep
+    arguments and under the
     slim flagship's: every field equal (the tail's arguments run in
     tests/test_torch_configs.py's sweep and tail)."""
     kwargs = {"gpu_share": configs.GPU_SHARE_KW,
               "slim": dict(configs.GPU_SHARE_KW, enable_numa=False,
                            enable_devices=False)}[kw]
     snap = jsyn.full_gate_cluster(200, seed=2, num_reservations=0)
-    pods = cut_full_gate_pods(800, 200, seed=3)
+    pods = jsyn.full_gate_pods(800, 200, seed=3)
     pods = pods.replace(reservation_owner=jnp.full((800,), -1, jnp.int32))
     want = jcore.schedule_batch(snap, pods, JCfg.make(), **kwargs)
     got = core.schedule_batch(to_port("ClusterSnapshot", snap),
