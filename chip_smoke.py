@@ -58,7 +58,13 @@ in order:
    K8 topology_prefix_gate at a gpu_share step (P = 2000) and the
    tail's (P = 512), every pod trying on one column, every column
    keyless, every spread group soft, each family alone, P = 1; K2 with
-   K8's verdict ANDed in after the node level. Each timed case with
+   K8's verdict ANDed in after the node level. The cascade: K9
+   stage1_mask at a full-gate chunk (the first packed chunk, P = 2000
+   against N = 10 000, the taint tables in, a quota at its ceiling,
+   whose pods must lose every candidate), at N = 1001, with fit_dims
+   None and on an all-dead batch; K4 and K6 on the numa and gpu
+   prefixes' rows, 0 rows and P rows, ANDing into K9's mask in place,
+   and K1 with addends of those rows. Each timed case with
    its time
    (CUDA events over back-to-back calls, and the kernel's device time
    from torch.profiler), the plain version's, one library call's where
@@ -102,7 +108,19 @@ in order:
    from the final assignment (each hard spread group's final skew and
    each affinity group's zones printed); no overcommit, quota within
    runtime, and never_retried what the tail's pass budget leaves (each
-   pass retries a full window of never-retried stragglers first).
+   pass retries a full window of never-retried stragglers first);
+7. the full gate: `configs.run_full_gate`
+   (score_bind_100k_pods_10k_nodes_full_gate: gpu_share's workload
+   packed by `pack_gate_prefixes`, the cascade on, the topology, numa
+   and gpu prefixes and the domain classes, the tail budgeted by the
+   topology prefix) at 8000 pods x 1000 nodes on the card with the
+   cascade on and off and on the host with it on, every field equal
+   (assignment, stats, instance takes, slots, zones, the four count
+   tables, every leaf of the snapshot); then 100 000 x 10 000 on the
+   card after a warm-up run: the bench line with the prefixes, the
+   first chunk's candidate counts (min, median, max), launches and
+   peak memory, gpu_share's launch formulas with K9 once a batch, its
+   invariants, and no straggler left never retried.
 
 The last three lines are one JSON object listing the kernels, the
 card's name and power limit, and one JSON object stating the result.
@@ -116,16 +134,21 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from koordinator_tpu_torch import kernels, resolve_device
 from koordinator_tpu_torch.api.extension import ResourceKind
+from koordinator_tpu_torch.bridge import to_numpy
 from koordinator_tpu_torch.configs import (
     CONFIG_2_KW,
     GPU_SHARE_KW,
     GPU_SHARE_TAIL_KW,
+    full_gate_sweep,
+    pack_full_gate,
     run_config_2_numa,
+    run_full_gate,
     run_gpu_share,
 )
 from koordinator_tpu_torch.flagship import (
@@ -154,6 +177,7 @@ from koordinator_tpu_torch.kernels.scatter import (
 )
 from koordinator_tpu_torch.kernels.score_topk import (
     JITTER,
+    add_rows,
     masked_scores,
     score_topk,
     score_topk_plain,
@@ -165,6 +189,10 @@ from koordinator_tpu_torch.kernels.segment_prefix import (
     segment_prefix_chain,
     segment_prefix_chain_plain,
     segment_prefix_ok_plain,
+)
+from koordinator_tpu_torch.kernels.stage1 import (
+    stage1_mask,
+    stage1_mask_plain,
 )
 from koordinator_tpu_torch.kernels.topology import (
     topology_admit,
@@ -184,7 +212,8 @@ from koordinator_tpu_torch.scheduler.cascade import (
     static_gate_terms,
     taint_penalty,
 )
-from koordinator_tpu_torch.scheduler import domains
+from koordinator_tpu_torch.ops import feasibility
+from koordinator_tpu_torch.scheduler import cascade, domains
 from koordinator_tpu_torch.scheduler.core import overcommit_ok, quota_ok
 from koordinator_tpu_torch.scheduler.plugins import (
     deviceshare,
@@ -236,6 +265,9 @@ SOURCES = {
                           "koordinator_tpu/scheduler/core.py:962"),
     "topology_prefix_gate": ("koordinator_tpu_torch/csrc/topology_prefix.cu",
                              "koordinator_tpu/scheduler/core.py:776"),
+    "stage1_mask": ("koordinator_tpu_torch/csrc/stage1_mask.cu",
+                    "koordinator_tpu/scheduler/cascade.py:117 "
+                    "(ops/feasibility.py:44)"),
 }
 
 
@@ -473,9 +505,9 @@ def k1_needed_pairs(kw, checked, val, idx):
         kw["weights"], kw["fma_sum"])
     ub = ub[prod.long()]                                     # [P, N]
     if kw.get("pair_score") is not None:
-        ub = ub + kw["pair_score"]
+        ub = add_rows(ub, kw["pair_score"])
     if kw.get("pair_score2") is not None:
-        ub = ub + kw["pair_score2"]
+        ub = add_rows(ub, kw["pair_score2"])
     penalty = taint_penalty(gates)
     if penalty is not None:
         ub = torch.clamp_min(ub - penalty, 0.0)
@@ -2059,7 +2091,7 @@ def check_config_2(run, line, launches):
     want = {"numa_pair_terms": chunks, "topology_admit": steps,
             "segment_prefix_ok": 2 * steps, "score_topk": rounds,
             "device_pair_terms": 0, "gpu_instance_pick": 0,
-            "topology_prefix_gate": 0}
+            "topology_prefix_gate": 0, "stage1_mask": 0}
     for name, count in want.items():
         if launches[name] != count:
             raise SystemExit(f"config 2: {name} launched {launches[name]} "
@@ -2129,52 +2161,58 @@ def gpu_share_phase():
     return line, launches, summary
 
 
-def check_gpu_share(run, line, launches):
-    """gpu_share's invariants: the launch counts its design fixes (K4 and
-    K6 once a batch, K1 once a round, K5 once an inner step, K7 twice,
-    K2 four times an inner step: node and quotas (with K8's verdict),
-    zones, GPU instances, AllocateOnce; K8 once an inner step; K3 eight
-    times an inner step (node, quotas, zones, instances and the four
-    count tables), three times a round and fifteen times a batch: the
-    eight rebuild scatters, the three reservation draw-downs and the
-    four count charges after it); every placed GPU pod holds `count`
-    instances of its node, the takes times the per-instance requests
-    equal each valid instance's total minus its final free, and no free
-    is negative; every slot consumer owns its slot, each AllocateOnce
-    slot has at most one consumer (and is closed if it has one), each
-    slot's free is its initial free less its consumers' requests and
-    not negative, the nodes' requested is their initial requested plus
-    the placed pods' that consumed no slot; no pod sits on a node whose
-    taints its toleration set forbids; no overcommit, quota within
-    runtime; every pass retried a full window of never-retried
-    stragglers while any remained (the tail's order), so that
-    never_retried is what the pass budget leaves: max(0,
-    stragglers_after_sweep - passes * window)."""
+def check_gpu_share(run, line, launches, snap0=None, pods=None,
+                    step_kw=GPU_SHARE_KW, tail_kw=GPU_SHARE_TAIL_KW,
+                    name="gpu_share"):
+    """gpu_share's invariants (and the full gate's: `snap0` and the
+    packed `pods` given, the full gate's kwargs, `name`): the launch
+    counts its design fixes (K4 and K6 once a batch, K1 once a round, K5
+    once an inner step, K7 twice, K2 four times an inner step: node and
+    quotas (with K8's verdict), zones, GPU instances, AllocateOnce; K8
+    once an inner step; K3 eight times an inner step (node, quotas,
+    zones, instances and the four count tables), three times a round
+    and fifteen times a batch: the eight rebuild scatters, the three
+    reservation draw-downs and the four count charges after it; K9 once
+    a batch with the cascade on, else never); every placed GPU pod holds
+    `count` instances of its node, the takes times the per-instance
+    requests equal each valid instance's total minus its final free,
+    and no free is negative; every slot consumer owns its slot, each
+    AllocateOnce slot has at most one consumer (and is closed if it has
+    one), each slot's free is its initial free less its consumers'
+    requests and not negative, the nodes' requested is their initial
+    requested plus the placed pods' that consumed no slot; no pod sits
+    on a node whose taints its toleration set forbids; no overcommit,
+    quota within runtime. Without the tail's topology budget every pass
+    retried a full window of never-retried stragglers while any
+    remained, so never_retried is what the pass budget leaves:
+    max(0, stragglers_after_sweep - passes * window); with it, the run
+    must leave none."""
     chunks = line["num_pods"] // line["chunk"]
     passes = line["tail_passes"]
     batches = chunks + passes
-    rounds = (chunks * GPU_SHARE_KW["num_rounds"]
-              + passes * GPU_SHARE_TAIL_KW["num_rounds"])
-    steps = (chunks * GPU_SHARE_KW["num_rounds"] * GPU_SHARE_KW["k_choices"]
-             + passes * GPU_SHARE_TAIL_KW["num_rounds"]
-             * GPU_SHARE_TAIL_KW["k_choices"])
+    rounds = (chunks * step_kw["num_rounds"]
+              + passes * tail_kw["num_rounds"])
+    steps = (chunks * step_kw["num_rounds"] * step_kw["k_choices"]
+             + passes * tail_kw["num_rounds"] * tail_kw["k_choices"])
     want = {"numa_pair_terms": batches, "device_pair_terms": batches,
             "score_topk": rounds, "topology_admit": steps,
             "gpu_instance_pick": 2 * steps, "segment_prefix_ok": 4 * steps,
             "topology_prefix_gate": steps,
-            "ordered_scatter_add": 8 * steps + 3 * rounds + 15 * batches}
-    for name, count in want.items():
-        if launches[name] != count:
-            raise SystemExit(f"gpu_share: {name} launched {launches[name]} "
+            "ordered_scatter_add": 8 * steps + 3 * rounds + 15 * batches,
+            "stage1_mask": batches if step_kw["cascade"] else 0}
+    for kernel, count in want.items():
+        if launches[kernel] != count:
+            raise SystemExit(f"{name}: {kernel} launched {launches[kernel]} "
                              f"times, not {count}")
-    snap0, pods = gpu_share_inputs(line["num_pods"], line["num_nodes"],
-                                   device="cuda")
+    if snap0 is None:
+        snap0, pods = gpu_share_inputs(line["num_pods"], line["num_nodes"],
+                                       device="cuda")
     dev0 = snap0.devices
     assign, take = run.assignment, run.gpu_take
     count, per = deviceshare.per_instance_at(dev0, gpu_req_of(pods), assign)
     placed = assign >= 0
     if not torch.equal(take.sum(dim=1), torch.where(placed, count, 0)):
-        raise SystemExit("gpu_share: a placed GPU pod holds other than its "
+        raise SystemExit(f"{name}: a placed GPU pod holds other than its "
                          "count of instances")
     n, i, _ = dev0.gpu_free.shape
     used = torch.zeros((n + 1, i, 3), device=assign.device).index_add_(
@@ -2183,23 +2221,24 @@ def check_gpu_share(run, line, launches):
     free = run.snapshot.devices.gpu_free
     valid = dev0.gpu_valid[:, :, None]
     if not bool((free >= 0).all()):
-        raise SystemExit("gpu_share: an instance's free is negative")
+        raise SystemExit(f"{name}: an instance's free is negative")
     if not torch.equal((dev0.gpu_free - free) * valid, used * valid):
-        raise SystemExit("gpu_share: instance takes differ from total minus "
+        raise SystemExit(f"{name}: instance takes differ from total minus "
                          "free")
     check_slots_and_taints(snap0, pods, run, line)
     check_topology(pods, run, line)
     if not (overcommit_ok(run.snapshot) and quota_ok(run.snapshot)):
-        raise SystemExit("gpu_share: overcommit or quota over runtime")
+        raise SystemExit(f"{name}: overcommit or quota over runtime")
     window = min(line["chunk"], 512)
-    left = max(0, line["stragglers_after_sweep"] - passes * window)
+    left = (max(0, line["stragglers_after_sweep"] - passes * window)
+            if tail_kw.get("topo_prefix") is None else 0)
     if line["never_retried"] != left:
-        raise SystemExit(f"gpu_share: {line['never_retried']} stragglers "
+        raise SystemExit(f"{name}: {line['never_retried']} stragglers "
                          f"never retried, not {left}")
     if not (0 < line["gpu_pods_placed"] <= line["placed"]
             and 0 < line["numa_bound_placed"] <= line["placed"]
             and 0 < line["once_slots_taken"] <= line["slot_consumers"]):
-        raise SystemExit(f"gpu_share: placed {line['placed']}, GPU "
+        raise SystemExit(f"{name}: placed {line['placed']}, GPU "
                          f"{line['gpu_pods_placed']}, NUMA-bound "
                          f"{line['numa_bound_placed']}, slot consumers "
                          f"{line['slot_consumers']}, once slots taken "
@@ -2300,6 +2339,293 @@ def check_slots_and_taints(snap0, pods, run, line):
         raise SystemExit("gpu_share: slot_consumers disagrees with res_slot")
 
 
+def fullgate_state(dev, gen, n_nodes, p=2000, num_pods=10_000):
+    """The full-gate workload's pods packed in chunks of p
+    (`configs.pack_full_gate`) against n_nodes of its nodes, its first
+    chunk: the nodes partly filled (multiples of 500), every quota at
+    half its runtime but the first pod's, which is at its ceiling.
+    Returns (snapshot, batch, prefixes, the full quota's id)."""
+    snap, pods = gpu_share_inputs(num_pods, n_nodes, device=dev)
+    packed, prefixes, _, _, _ = pack_full_gate(snap, pods, p)
+    batch = slice_batch(packed, 0, p)
+    alloc = snap.nodes.allocatable
+    load = torch.rand(alloc.shape, generator=gen, device=dev) * 0.95
+    runtime = snap.quotas.runtime
+    finite = torch.isfinite(runtime)
+    used = torch.where(finite, torch.floor(runtime * 0.5 / 500.0) * 500.0,
+                       0.0)
+    qid = int(batch.quota_id[0])
+    used[qid] = torch.where(finite[qid], runtime[qid], 0.0)
+    snap = snap.replace(
+        nodes=snap.nodes.replace(
+            requested=torch.floor(alloc * load / 500.0) * 500.0),
+        quotas=snap.quotas.replace(used=used))
+    return snap, batch, prefixes, qid
+
+
+def k9_args(snap, batch, gates, fit_dims, depth=QUOTA_DEPTH):
+    """K9's operands as cascade.stage1_mask forms them."""
+    def dims(x):
+        return (x if fit_dims is None else x[:, fit_dims]).contiguous()
+    return (gates, dims(batch.requests), dims(snap.nodes.requested),
+            dims(snap.nodes.allocatable),
+            feasibility.pod_ancestors(snap.quotas, batch),
+            dims(snap.quotas.used), dims(snap.quotas.runtime), depth, EPS)
+
+
+def check_k9(dev, gen):
+    """K9 at a full-gate chunk (the first packed chunk, P=2000 against
+    N=10 000 nodes, the taint tables in, a quota at its ceiling; timed),
+    and untimed at N=1001 (not a multiple of 32), with fit_dims None (all
+    11 dims, quota depth 6) and on an all-dead batch (every device term
+    off). Equal to the plain version; the full quota's pods that ask for
+    a capped dim have no candidate."""
+    out = {}
+    cfg = loadaware.LoadAwareConfig.make(device=dev)
+    for label, n, fit_dims, depth, dead, timed in (
+            ("full gate", 10_000, FIT_DIMS, QUOTA_DEPTH, False, True),
+            ("N=1001", 1001, FIT_DIMS, QUOTA_DEPTH, False, False),
+            ("fit_dims=None", 1000, None, 6, False, False),
+            ("all dead", 1000, FIT_DIMS, QUOTA_DEPTH, True, False)):
+        snap, batch, _, qid = fullgate_state(dev, gen, n)
+        n = snap.num_nodes
+        gates = static_gate_terms(snap.nodes, batch, cfg, snap.devices)
+        if dead:
+            gates = gates.replace(device_ok=torch.zeros_like(gates.device_ok))
+        args = k9_args(snap, batch, gates, fit_dims, depth)
+        got = stage1_mask(*args)
+        want = stage1_mask_plain(*args)
+        err = float((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        if not torch.equal(got, want):
+            raise SystemExit(f"K9 stage1_mask ({label}) differs from its "
+                             f"plain version in {int((got != want).sum())} "
+                             "pairs")
+        p = batch.num_pods
+        fd = ALL_DIMS if fit_dims is None else fit_dims
+        capped = torch.isfinite(snap.quotas.runtime[qid, fd])
+        full = (batch.quota_id == qid) & (
+            batch.requests[:, fd][:, capped] > 0.5).any(dim=1)
+        if bool(got[full].any()) or (dead and bool(got.any())):
+            raise SystemExit(f"K9 stage1_mask ({label}): a row that its "
+                             "quota ceiling or device term kills survives")
+        counts = cascade.candidate_counts(got)
+        summary = dict(max_abs_err=err, pairs_ok=int(got.sum()),
+                       ceiling_rows=int(full.sum()),
+                       empty_rows=int((counts == 0).sum()))
+        if not timed:
+            out[label] = summary
+            continue
+        # bytes: the pod columns (ids, flags, requests, ancestor chain)
+        # and node columns (label and taint group, flags, requested,
+        # allocatable) once, the selector, forbid and quota tables once,
+        # the [P, N] mask written. Operations this data needs: a pair's
+        # F adds and compares and its gate terms (6); each pod's quota
+        # ceiling (an add and a compare a dim a level); alloc + eps once
+        # a node
+        f = args[1].shape[1]
+        d = args[4].shape[1]
+        q = args[5].shape[0]
+        nbytes = (p * (11 + 4 * f + 4 * d) + n * (12 + 8 * f)
+                  + gates.selector_match.numel() + gates.tol_forbid.numel()
+                  + q * f * 8 + p * n)
+        ops = p * n * (2 * f + 6) + p * depth * f * 2 + n * f
+        b_ms, b_by = bound(nbytes, ops)
+        out[label] = dict(
+            summary, ms=cuda_ms(lambda: stage1_mask(*args)),
+            device_ms=device_ms(lambda: stage1_mask(*args),
+                                "stage1_mask_kernel"),
+            plain_ms=cuda_ms(lambda: stage1_mask_plain(*args), reps=3),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            shape=f"P={p} N={n} F={f} D={d} quota depth {depth}, taints")
+    return out
+
+
+def check_prefix_rows(dev, gen):
+    """K4, K6 and K1 with the cascade's row counts at the flagship's
+    first packed full-gate chunk (P=2000, N=10 000): K4 on the numa
+    prefix's rows and
+    K6 on the gpu prefix's (timed), then 0 and P rows, each ANDing into
+    K9's mask in place; K1 with the two addends of those rows (timed at
+    the prefixes), of no rows, and of P rows. Equal to the plain
+    versions."""
+    out = {}
+    cfg = loadaware.LoadAwareConfig.make(device=dev)
+    # the flagship's own packing (100 000 pods): its prefixes' rows
+    snap, batch, prefixes, _ = fullgate_state(dev, gen, 10_000,
+                                              num_pods=100_000)
+    nodes, devices = snap.nodes, snap.devices
+    p, n = batch.num_pods, snap.num_nodes
+    gates = static_gate_terms(nodes, batch, cfg, devices)
+    base = stage1_mask(*k9_args(snap, batch, gates, FIT_DIMS))
+    demand, gpu_req = numaaware.zone_demand(batch), gpu_req_of(batch)
+    rn, rg = prefixes["numa"], prefixes["gpu"]
+    terms = {}
+    for rows in sorted({rn, rg, 0, p}):
+        k4 = (demand[:rows], batch.numa_single[:rows], nodes.numa_cap,
+              nodes.numa_free, nodes.numa_valid, nodes.numa_policy, "most")
+        k6 = (gpu_req[:rows], devices, "least")
+        for name, fn, plain, a in (
+                ("K4", numa_pair_terms, numa_pair_terms_plain, k4),
+                ("K6", device_pair_terms, device_pair_terms_plain, k6)):
+            ok, score = fn(*a, base.clone())
+            want_ok, want_score = plain(*a, base)
+            if not (torch.equal(ok, want_ok) and torch.equal(
+                    score.view(torch.int32), want_score.view(torch.int32))):
+                raise SystemExit(f"{name} with {rows} rows differs from its "
+                                 "plain version")
+            terms[name, rows] = (ok, score)
+    for name, fn, plain, kernel, rows, a in (
+            ("numa_pair_terms", numa_pair_terms, numa_pair_terms_plain,
+             "numa_pair_terms_kernel", rn,
+             (demand[:rn], batch.numa_single[:rn], nodes.numa_cap,
+              nodes.numa_free, nodes.numa_valid, nodes.numa_policy,
+              "most")),
+            ("device_pair_terms", device_pair_terms, device_pair_terms_plain,
+             "device_pair_terms_kernel", rg,
+             (gpu_req[:rg], devices, "least"))):
+        buf = base.clone()
+        z = nodes.numa_cap.shape[1]
+        i = devices.gpu_free.shape[1]
+        # as check_k4 / check_k6: the rows' pod columns and the node
+        # columns once, the rows' mask bytes read and written and their
+        # scores written; a few operations a pair (the per-zone fit or
+        # per-instance fit and the score of the pods that ask)
+        per_node = n * (z * 17 + 4) if name == "numa_pair_terms" \
+            else n * (12 + i * 13)
+        nbytes = rows * 12 + per_node + rows * n * 6
+        ops = rows * n * (4 * z + 12 if name == "numa_pair_terms"
+                          else 1 + 7 * i)
+        b_ms, b_by = bound(nbytes, ops)
+        out[name] = dict(
+            ms=cuda_ms(lambda: fn(*a, buf)),
+            device_ms=device_ms(lambda: fn(*a, buf), kernel),
+            plain_ms=cuda_ms(lambda: plain(*a, base), reps=3),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+            shape=f"{rows} of P={p} rows, N={n}, and-into K9's mask")
+    for r1, r2, timed in ((rn, rg, True), (0, 0, False), (p, p, False),
+                          (0, rg, False)):
+        kw = k1_case(snap, batch, cfg, 0, p, 8, gen, FIT_DIMS, SCORE_DIMS,
+                     tie_break=True)
+        kw["pair_ok"] = terms["K4", r1][0] & terms["K6", r2][0]
+        kw["pair_score"], kw["pair_score2"] = (terms["K4", r1][1],
+                                               terms["K6", r2][1])
+        (val, idx), err = k1_equal(f"addend rows {r1}, {r2}", kw)
+        label = f"addend rows {r1}, {r2}"
+        if not timed:
+            out[label] = dict(max_abs_err=err,
+                              feasible_pairs=int((val >= 0).sum()))
+            continue
+        f, d = kw["req_fit"].shape[1], kw["est"].shape[1]
+        checked = expand_gates(kw["gates"]) & kw["pair_ok"] \
+            & kw["row_ok"][:, None]
+        n_checked = int(checked.sum())
+        n_needed, n_terms = k1_needed_pairs(kw, checked, val, idx)
+        active = int((kw["row_ok"] & kw["gates"].device_ok).sum())
+        # as check_k1_gpu, the addends read and added on their rows only
+        added = int(checked[:r1].sum()) + int(checked[:r2].sum())
+        t_bytes, t_ops = k1_taint_cost(kw, n_checked)
+        shared = p * (f + d) * 4 + n * (2 * f + 3 * d) * 4 + d * 4 \
+            + p * 8 * 8 + p * 9 + n * 8 + kw["gates"].selector_match.numel() \
+            + t_bytes
+        nbytes = shared + active * n + added * 4
+        ops = active * n + n_checked + added \
+            + n * (3 + n_terms * (5 * d + 3)) \
+            + n_needed * (2 * f + 8 * d + 6) + t_ops
+        b_ms, b_by = bound(nbytes, ops)
+        masked = k1_masked(kw)
+        out[label] = dict(
+            ms=cuda_ms(lambda: score_topk(**kw)),
+            device_ms=device_ms(lambda: score_topk(**kw),
+                                "score_topk_kernel"),
+            plain_ms=cuda_ms(lambda: score_topk_plain(**kw), reps=3),
+            library_ms=cuda_ms(lambda: torch.topk(masked, 8, dim=1)),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            shape=f"P={p} N={n} k=8, addends of {r1} and {r2} rows, "
+                  "K9's mask, taints")
+    return out
+
+
+def flat_run(run):
+    """{name: np.ndarray} of a full-gate run: the per-pod results, the
+    carried counts and every leaf of the final snapshot."""
+    out = {f: getattr(run, f).cpu().numpy()
+           for f in ("assignment", "stats", "gpu_take", "res_slot",
+                     "numa_zone")}
+    out.update({f"counts.{f}": c.cpu().numpy()
+                for f, c in zip(domains.COUNT_FIELDS, run.counts)})
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            elif isinstance(v, np.ndarray):
+                out[prefix + k] = v
+    walk(to_numpy(run.snapshot), "snapshot.")
+    return out
+
+
+def full_gate_phase():
+    """score_bind_100k_pods_10k_nodes_full_gate: the packed full gate at
+    8000 pods x 1000 nodes on the card with the cascade on and off and on
+    the host with it on, every field equal; then at 100 000 x 10 000 on
+    the card after a warm-up run, counting launches, with gpu_share's
+    invariants and launch formulas (and K9 once a batch). Returns (line,
+    launches, small-run summary)."""
+    small = {}
+    for label, d, on in (("cuda", "cuda", True), ("cuda off", "cuda", False),
+                         ("cpu", "cpu", True)):
+        snap, pods = gpu_share_inputs(8000, 1000, device=d)
+        packed, prefixes, masks, step_kw, tail_kw = pack_full_gate(
+            snap, pods, 2000)
+        if not on:
+            step_kw = dict(step_kw, cascade=False)
+            tail_kw = dict(tail_kw, cascade=False)
+        t0 = time.perf_counter()
+        run = full_gate_sweep(snap, packed,
+                              loadaware.LoadAwareConfig.make(device=d), 2000,
+                              prefixes, masks, step_kw, tail_kw)
+        small[label] = (flat_run(run), time.perf_counter() - t0, prefixes)
+    ref = small["cuda"][0]
+    equal = {other: [f for f in ref if not (
+        ref[f].dtype == small[other][0][f].dtype
+        and np.array_equal(ref[f], small[other][0][f]))]
+        for other in ("cuda off", "cpu")}
+    assign = ref["assignment"]
+    summary = {"differing_fields": equal, "fields": len(ref),
+               "prefixes": small["cuda"][2],
+               "seconds": {k: v[1] for k, v in small.items()},
+               "placed": int((assign >= 0).sum()),
+               "stats": ref["stats"].tolist()}
+    print("full gate 8000x1000: " + json.dumps(summary), flush=True)
+    if any(equal.values()):
+        raise SystemExit(f"full gate: the card with the cascade on differs "
+                         f"from the card with it off or the host: {equal}")
+    dev = torch.device("cuda")
+    run_full_gate(device="cuda")                       # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    line, run, setup = run_full_gate(device="cuda")
+    launches = kernels.launch_counts()
+    line["launches"] = launches
+    line["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    # the first chunk's candidate counts (observability, after the run's
+    # counts are read)
+    snap0, pods = setup["snap"], setup["pods"]
+    batch0 = slice_batch(pods, 0, line["chunk"])
+    gates = static_gate_terms(snap0.nodes, batch0,
+                              loadaware.LoadAwareConfig.make(device=dev),
+                              snap0.devices)
+    cand = cascade.candidate_counts(cascade.stage1_mask(
+        snap0, batch0, gates, FIT_DIMS, QUOTA_DEPTH))[batch0.valid].float()
+    line["candidates_first_chunk"] = {
+        "min": float(cand.min()), "median": float(cand.median()),
+        "max": float(cand.max())}
+    print("full gate: " + json.dumps(line), flush=True)
+    check_gpu_share(run, line, launches, snap0, pods, setup["step_kw"],
+                    setup["tail_kw"], name="full gate")
+    return line, launches, summary
+
+
 def expected_launches(line):
     """(inner steps, K3 launches) of one flagship run: K2 launches once
     an inner step; K3 twice an inner step (node, all quota levels),
@@ -2356,6 +2682,8 @@ def main() -> int:
     k1_topo = check_k1_topo(dev, gen)
     k8 = check_k8(dev, gen)
     k2_mask = check_k2_mask(snap, pods, gen)
+    k9 = check_k9(dev, gen)
+    rows = check_prefix_rows(dev, gen)
     for name, res in (("score_topk", k1), ("segment_prefix_ok", k2),
                       ("ordered_scatter_add", k3), ("numa_pair_terms", k4),
                       ("topology_admit", k5), ("score_topk", k1_numa),
@@ -2366,7 +2694,8 @@ def main() -> int:
                       ("segment_prefix_ok", k2_once),
                       ("score_topk", k1_topo),
                       ("topology_prefix_gate", k8),
-                      ("segment_prefix_ok", k2_mask)):
+                      ("segment_prefix_ok", k2_mask),
+                      ("stage1_mask", k9), ("prefix rows", rows)):
         for label, r in res.items():
             print(f"kernel {name} [{label}]: " + json.dumps(r), flush=True)
 
@@ -2431,6 +2760,9 @@ def main() -> int:
     # --- 6. gpu_share_100kx10k, the DeviceShare path ----------------------
     _, launches_gpu, _ = gpu_share_phase()
 
+    # --- 7. the full gate: the cascade and the packing prefixes ------------
+    _, launches_full, _ = full_gate_phase()
+
     # each kernel's numbers at the shapes of the path it came with (K1-K3
     # the flagship, K4-K5 config 2, K6-K7 gpu_share), and K1, K2, K5 at
     # gpu_share's too
@@ -2440,7 +2772,8 @@ def main() -> int:
                "topology_admit": k5["cfg2 most"],
                "device_pair_terms": k6["gpu_share least"],
                "gpu_instance_pick": k7["gpu_share least"],
-               "topology_prefix_gate": k8["gpu_share"]}
+               "topology_prefix_gate": k8["gpu_share"],
+               "stage1_mask": k9["full gate"]}
     at_gpu_share = {"score_topk": k1_topo["gpu_share"],
                     "segment_prefix_ok": k7["gpu_share least"]["gpu_gate"],
                     "topology_admit": k5_gpu["gpu_share most"],
@@ -2449,13 +2782,15 @@ def main() -> int:
     for name, r in timings.items():
         source, replaces = SOURCES[name]
         path = (launches if name in SLIM_KERNELS else launches_cfg2
-                if name in NUMA_KERNELS else launches_gpu)
+                if name in NUMA_KERNELS else launches_full
+                if name == "stage1_mask" else launches_gpu)
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": path[name],
             "launches_by_path": {"flagship": launches[name],
                                  "config_2": launches_cfg2[name],
-                                 "gpu_share": launches_gpu[name]},
+                                 "gpu_share": launches_gpu[name],
+                                 "full_gate": launches_full[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
@@ -2475,6 +2810,14 @@ def main() -> int:
         if name == "topology_prefix_gate":
             entry["device_ms"] = r["device_ms"]
             entry["at_tail"] = k8["gpu_share tail"]
+        if name in ("numa_pair_terms", "device_pair_terms"):
+            entry["at_prefix_rows"] = rows[name]
+        if name == "score_topk":
+            entry["at_prefix_rows"] = next(
+                v for k, v in rows.items() if k.startswith("addend rows")
+                and "device_ms" in v)
+        if name == "stage1_mask":
+            entry["device_ms"] = r["device_ms"]
         if name in at_gpu_share:
             g = at_gpu_share[name]
             entry["at_gpu_share"] = {

@@ -1,9 +1,12 @@
-"""PyTorch/CUDA port of `koordinator_tpu`'s slim score-and-bind path.
+"""PyTorch/CUDA port of `koordinator_tpu`'s score-and-bind paths.
 
-The JAX package stays the reference; this package re-states its slim
-flagship (schedule a pending-pod queue against a node snapshot in
-chunks, then retry the stragglers) in plain PyTorch around three CUDA
-kernels written for Hopper (`csrc/`, bound in `kernels/`). Module names
+The JAX package stays the reference; this package re-states its
+flagships (schedule a pending-pod queue against a node snapshot in
+chunks, then retry the stragglers: the slim one, BASELINE config 2's
+NUMA path, and the full gate with DeviceShare, taints, reservation
+slots, pod topology groups, the cascade and its packing prefixes) in
+plain PyTorch around CUDA kernels written for Hopper (`csrc/`, bound in
+`kernels/`). Module names
 mirror the JAX package so that each function's counterpart is easy to
 find. The package imports torch and numpy only.
 

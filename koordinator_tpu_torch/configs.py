@@ -29,8 +29,21 @@ the slot columns and the three pod topology families at full width (no
 packing prefixes, singleton domain classes), chunks of 2000 with the
 bench's knobs, the topology counts threaded from chunk to chunk, then
 the straggler tail (4 rounds x 32 choices, windows of 512, 2 to 10
-passes). Cut from the full-gate workload (`GPU_SHARE_CUTS`): the
-cascade, a gate the port does not have yet.
+passes). It is the full-gate workload unpacked and with the cascade off
+(`GPU_SHARE_CUTS`): the cascade and the packing prefixes live in
+`run_full_gate`.
+
+`run_full_gate` (`score_bind_100k_pods_10k_nodes_full_gate`) is the
+reference's full-gate flagship uncut (bench.py:226-253, :346-355,
+:398-416, :483-496): gpu_share's cluster and pods, the pods packed by
+`utils.synthetic.pack_gate_prefixes` into nested prefixes of each chunk
+of 2000 (topology, CPU-bind, device pods), the snapshot checked free of
+topology-manager policies, `dom_classes` derived from the domain maps,
+and the sweep run with the cascade on and the three prefixes
+(`FULL_GATE_KW`); the tail keeps the cascade, the topology prefix and
+the domain classes but not the numa and gpu prefixes (a retry window
+is not packed), and budgets its constrained stragglers by the topology
+prefix.
 """
 
 from __future__ import annotations
@@ -50,7 +63,9 @@ from koordinator_tpu_torch.scheduler.plugins.deviceshare import (
 )
 from koordinator_tpu_torch.utils.synthetic import (
     config_2_inputs,
+    dom_classes,
     gpu_share_inputs,
+    pack_gate_prefixes,
     slice_batch,
 )
 
@@ -61,7 +76,7 @@ CONFIG_2_KW = dict(num_rounds=2, k_choices=8, score_dims=(0, 1),
                    cascade=False, enable_numa=True, numa_strategy="most")
 
 GPU_SHARE_METRIC = "gpu_share_100kx10k"
-# bench.py's full-gate step at full width, less the gates not ported
+# bench.py's full-gate step unpacked and with the cascade off
 GPU_SHARE_KW = dict(num_rounds=2, k_choices=8, score_dims=(0, 1),
                     tie_break=True, quota_depth=2, fit_dims=(0, 1, 2, 3),
                     cascade=False, enable_numa=True, numa_strategy="most",
@@ -69,6 +84,12 @@ GPU_SHARE_KW = dict(num_rounds=2, k_choices=8, score_dims=(0, 1),
 GPU_SHARE_TAIL_KW = dict(GPU_SHARE_KW, num_rounds=4, k_choices=32)
 GPU_SHARE_CUTS = ("cascade",)
 FULL_GATE_MAX_TAIL_PASSES = 10
+
+FULL_GATE_METRIC = "score_bind_100k_pods_10k_nodes_full_gate"
+# bench.py's full-gate step (:398-405, cascade on for full gate); the
+# prefixes and domain classes come from the packed pods
+FULL_GATE_KW = dict(GPU_SHARE_KW, cascade=True)
+FULL_GATE_TAIL_KW = dict(FULL_GATE_KW, num_rounds=4, k_choices=32)
 
 
 @dataclasses.dataclass
@@ -136,16 +157,11 @@ def run_gpu_share(num_pods: int = 100_000, num_nodes: int = 10_000,
                   chunk: int = 2000, device="cuda"):
     """Build `gpu_share_100kx10k` (`utils.synthetic.gpu_share_inputs`),
     time one sweep-and-tail on it, and return (line, run): `line` holds
-    the bench line's fields (value = seconds of the timed region, which
-    ends with the assignment's readback; pods_per_sec, placed,
-    gpu_pods_placed, numa_bound_placed, slot_consumers,
-    once_slots_taken, spread_placed, anti_placed and aff_placed (placed
-    pods carrying a group of each family), the stragglers, tail passes,
-    the cuts) and the device it ran on; `run` the final snapshot, the
-    assignment, the placed pods' GPU instance takes and reservation
-    slots, and the final topology counts. The
-    first call on a card also pays the kernels' build unless
-    `kernels.build.build_all()` ran before."""
+    the bench line's fields (`placed_line`, the cuts) and the device it
+    ran on; `run` the final snapshot, the assignment, the placed pods'
+    GPU instance takes and reservation slots, and the final topology
+    counts. The first call on a card also pays the kernels' build
+    unless `kernels.build.build_all()` ran before."""
     dev = resolve_device(device)
     snap, pods = gpu_share_inputs(num_pods, num_nodes, device=dev)
     cfg = LoadAwareConfig.make(device=dev)
@@ -157,13 +173,29 @@ def run_gpu_share(num_pods: int = 100_000, num_nodes: int = 10_000,
         tail_kw=GPU_SHARE_TAIL_KW, max_passes=FULL_GATE_MAX_TAIL_PASSES)
     assign = run.assignment.cpu()
     elapsed = time.perf_counter() - t0
+    line = placed_line(GPU_SHARE_METRIC, elapsed, snap, pods, run, assign,
+                       chunk)
+    line["cuts"] = list(GPU_SHARE_CUTS)
+    return line, run
+
+
+def placed_line(metric: str, elapsed: float, snap: ClusterSnapshot,
+                pods: PodBatch, run: FlagshipRun, assign: torch.Tensor,
+                chunk: int) -> dict:
+    """A full-gate bench line: value (the timed seconds), pods_per_sec,
+    placed, gpu_pods_placed, numa_bound_placed, slot_consumers,
+    once_slots_taken, spread_placed, anti_placed and aff_placed (placed
+    pods carrying a group of each family), the stragglers and tail
+    passes, the shape and the device."""
+    num_pods = pods.num_pods
     placed = assign >= 0
     gpu = has_gpu_request(pods.requests, pods.gpu_ratio).cpu()
     res_slot = run.res_slot.cpu()
     consumed = torch.unique(res_slot[res_slot >= 0]).long()
     stats = [int(x) for x in run.stats]
-    line = {
-        "metric": GPU_SHARE_METRIC,
+    dev = pods.valid.device
+    return {
+        "metric": metric,
         "value": elapsed,
         "pods_per_sec": num_pods / elapsed,
         "placed": int(placed.sum()),
@@ -179,12 +211,73 @@ def run_gpu_share(num_pods: int = 100_000, num_nodes: int = 10_000,
         "stragglers_final": stats[1],
         "never_retried": stats[2],
         "tail_passes": stats[3],
-        "cuts": list(GPU_SHARE_CUTS),
         "num_pods": num_pods,
-        "num_nodes": num_nodes,
+        "num_nodes": snap.num_nodes,
         "chunk": chunk,
         "platform": dev.type,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
     }
-    return line, run
+
+
+def pack_full_gate(snap: ClusterSnapshot, pods: PodBatch, chunk: int):
+    """The full-gate run's set-up (bench.py:226-253, :346-355): (packed
+    pods, prefixes, masks, step kwargs, tail kwargs). Packs the pods
+    (`pack_gate_prefixes`), derives the domain classes, and adds the
+    cascade's prefixes to FULL_GATE_KW; the tail's kwargs keep the
+    topology prefix and the classes but drop the numa and gpu prefixes.
+    Raises ValueError on a snapshot with a topology-manager policy node,
+    where the numa prefix would be unsound."""
+    if bool(snap.nodes.numa_policy.ne(0).any()):
+        raise ValueError("numa_prefix needs a policy-free snapshot "
+                         "(the schedule_batch contract)")
+    packed, prefixes, masks = pack_gate_prefixes(pods, chunk)
+    contracts = dict(topo_prefix=prefixes["topo"],
+                     dom_classes=dom_classes(packed))
+    step_kw = dict(FULL_GATE_KW, numa_prefix=prefixes["numa"],
+                   gpu_prefix=prefixes["gpu"], **contracts)
+    tail_kw = dict(FULL_GATE_TAIL_KW, numa_prefix=None, gpu_prefix=None,
+                   **contracts)
+    return packed, prefixes, masks, step_kw, tail_kw
+
+
+def full_gate_sweep(snap: ClusterSnapshot, packed: PodBatch,
+                    cfg: LoadAwareConfig, chunk: int, prefixes: dict,
+                    masks: dict, step_kw: dict, tail_kw: dict) -> FlagshipRun:
+    """The full-gate sweep and tail over pods packed by
+    `pack_full_gate`, the tail budgeted by the topology prefix."""
+    return sweep_and_tail(snap, packed, cfg, chunk, step_kw=step_kw,
+                          tail_kw=tail_kw,
+                          max_passes=FULL_GATE_MAX_TAIL_PASSES,
+                          topo_prefix=prefixes["topo"],
+                          topo_mask=masks["topo"])
+
+
+def run_full_gate(num_pods: int = 100_000, num_nodes: int = 10_000,
+                  chunk: int = 2000, device="cuda"):
+    """Build the full-gate flagship (`gpu_share_inputs`, packed by
+    `pack_full_gate`: set-up, untimed as in the bench), time one
+    sweep-and-tail on it, and return (line, run, setup): `line` is
+    `placed_line` with the three prefixes; `run` as run_gpu_share's, in
+    the packed order; `setup` the initial snapshot, the packed pods, the
+    prefixes, masks and kwargs. The first call on a card also pays the
+    kernels' build unless `kernels.build.build_all()` ran before."""
+    dev = resolve_device(device)
+    snap, pods = gpu_share_inputs(num_pods, num_nodes, device=dev)
+    cfg = LoadAwareConfig.make(device=dev)
+    packed, prefixes, masks, step_kw, tail_kw = pack_full_gate(snap, pods,
+                                                               chunk)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    run = full_gate_sweep(snap, packed, cfg, chunk, prefixes, masks,
+                          step_kw, tail_kw)
+    assign = run.assignment.cpu()
+    elapsed = time.perf_counter() - t0
+    line = placed_line(FULL_GATE_METRIC, elapsed, snap, packed, run, assign,
+                       chunk)
+    line.update(topo_prefix=prefixes["topo"], numa_prefix=prefixes["numa"],
+                gpu_prefix=prefixes["gpu"], cascade=True)
+    setup = dict(snap=snap, pods=packed, prefixes=prefixes, masks=masks,
+                 step_kw=step_kw, tail_kw=tail_kw)
+    return line, run, setup

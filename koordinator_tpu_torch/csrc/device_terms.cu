@@ -12,8 +12,11 @@
 //   averaged over the device dims the pod asks for, times 100;
 // pods without a GPU request pass everywhere and score 0. It writes
 // bool pair_ok[P, N] (ANDed into K4's NUMA mask in place when the
-// caller passes one) and f32 pair_score[P, N]; K1 reads both. The gate
-// tolerance eps comes from the host (scheduler/batching.py EPS).
+// caller passes one) and f32 pair_score[P, N]; K1 reads both. Under
+// the cascade's stage 2 (core.py:304-327) P is the batch's gpu prefix:
+// the caller passes the first P pods and the pair mask, whose first P
+// rows it ANDs. The gate tolerance eps comes from the host
+// (scheduler/batching.py EPS).
 //
 // What bounds it on the H100: bytes. A pair writes 5 bytes (6 where it
 // ANDs into a mask it reads); a GPU pod's pair costs I fit tests and a

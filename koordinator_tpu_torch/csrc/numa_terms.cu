@@ -12,9 +12,12 @@
 // - plugins/numaaware.py numa_score_matrix: the NUMA-bound pod's
 //   allocation score of the best zone it fits (most/least allocated
 //   over the zone's cpu and memory after the pod), 0 elsewhere.
-// It writes bool pair_ok[P, N] (both gates) and f32 pair_score[P, N];
-// K1 reads them as its pair mask and score addend. The gate tolerance
-// eps comes from the host (scheduler/batching.py EPS).
+// It writes bool pair_ok[P, N] (both gates, ANDed into a given mask in
+// place when the caller passes one) and f32 pair_score[P, N]; K1 reads
+// them as its pair mask and score addend. Under the cascade's stage 2
+// (core.py:330-367) P is the batch's numa prefix: the caller passes the
+// first P pods and the stage-1 mask, whose first P rows it ANDs. The
+// gate tolerance eps comes from the host (scheduler/batching.py EPS).
 //
 // What bounds it on the H100: bytes. A pair costs a few compares, two
 // correctly rounded divisions a zone for NUMA-bound pods, and 5 bytes
@@ -51,8 +54,8 @@ __global__ void __launch_bounds__(THREADS) numa_pair_terms_kernel(
     const float* __restrict__ demand, const uint8_t* __restrict__ single,
     const float* __restrict__ cap, const float* __restrict__ free_,
     const uint8_t* __restrict__ valid, const int32_t* __restrict__ policy,
-    int P, int N, int Z, int least, float eps, uint8_t* __restrict__ out_ok,
-    float* __restrict__ out_score) {
+    int P, int N, int Z, int least, float eps, const uint8_t* and_in,
+    uint8_t* out_ok, float* __restrict__ out_score) {
   __shared__ float s_cap[MAX_Z][2][TILE];
   __shared__ float s_free[MAX_Z][2][TILE];
   __shared__ uint8_t s_valid[MAX_Z][TILE];
@@ -123,7 +126,7 @@ __global__ void __launch_bounds__(THREADS) numa_pair_terms_kernel(
     const bool policy_ok = none || (__fadd_rn(s_total[0][t], eps) >= d0
                                     && __fadd_rn(s_total[1][t], eps) >= d1);
     const size_t o = (size_t)p * N + n;
-    out_ok[o] = zone_ok && policy_ok;
+    out_ok[o] = (and_in == nullptr || and_in[o]) && zone_ok && policy_ok;
     out_score[o] = sg ? __fmul_rn(fminf(fmaxf(best, 0.0f), 1.0f), 100.0f)
                       : 0.0f;
   }
@@ -132,9 +135,9 @@ __global__ void __launch_bounds__(THREADS) numa_pair_terms_kernel(
 }  // namespace
 
 // ptr: demand [P, 2], numa_single [P], numa_cap [N, Z, 2], numa_free
-// [N, Z, 2], numa_valid [N, Z], numa_policy [N], pair_ok [P, N],
-// pair_score [P, N]. least: 0 for "most", 1 for "least"; eps: the gate
-// tolerance.
+// [N, Z, 2], numa_valid [N, Z], numa_policy [N], and_in [P, N] (or
+// null; may be pair_ok itself), pair_ok [P, N], pair_score [P, N].
+// least: 0 for "most", 1 for "least"; eps: the gate tolerance.
 extern "C" int koord_numa_pair_terms(const void* const* ptr, int P, int N,
                                      int Z, int least, float eps,
                                      void* stream) {
@@ -145,6 +148,7 @@ extern "C" int koord_numa_pair_terms(const void* const* ptr, int P, int N,
   numa_pair_terms_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)ptr[0], (const uint8_t*)ptr[1], (const float*)ptr[2],
       (const float*)ptr[3], (const uint8_t*)ptr[4], (const int32_t*)ptr[5],
-      P, N, Z, least, eps, (uint8_t*)ptr[6], (float*)ptr[7]);
+      P, N, Z, least, eps, (const uint8_t*)ptr[6], (uint8_t*)ptr[7],
+      (float*)ptr[8]);
   return (int)cudaGetLastError();
 }

@@ -93,6 +93,12 @@
 //   nor in h. A gated-off class stages -inf, and -inf plus two finite
 //   addends stays -inf. The slim and one-addend instances are
 //   unchanged.
+// - Addend rows (the cascade's stage 2, core.py:304-367): each addend
+//   covers the batch's first R1 (R2) pod rows, the numa (gpu) prefix;
+//   a row at or beyond them adds nothing, in the value and in the
+//   bound. The reference concatenates zero rows there, and x + 0 is x
+//   exactly (a -0.0 aside, which compares equal), so the values are
+//   the reference's.
 //
 // - The taint term (the TAINT instances, a batch with tolerations): a
 //   pod's toleration set t and a node's taint group g pick a forbid bit
@@ -242,8 +248,8 @@ struct Args {
   const float* alloc_score;    // [N, D]
   const uint8_t* selector_match;  // [S, L]
   const uint8_t* pair_ok;         // [P, N] or null
-  const float* pair_score;        // [P, N] (the ADD instances) or null
-  const float* pair_score2;       // [P, N] (the ADD2 instance) or null
+  const float* pair_score;        // [R1, N] (the ADD instances) or null
+  const float* pair_score2;       // [R2, N] (the ADD2 instance) or null
   const int32_t* toleration_id;   // [P] (the TAINT instances) or null
   const int32_t* taint_group;     // [N]
   const uint8_t* tol_forbid;      // [T, G]
@@ -260,6 +266,7 @@ struct Args {
   float* out_val;                 // [P, k]
   int32_t* out_idx;
   int P, N, F, D, k, S, L, tie_break, fma_sum, V, T, G, SG, LDP;
+  int R1, R2;  // the addends' rows: pod rows at or beyond add nothing
   float eps;
 };
 
@@ -719,9 +726,9 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
                                           s_w, wsum, a.fma_sum)
                   : 0.0f;
     }
-    if (ADD >= 1 && ok)
+    if (ADD >= 1 && ok && prow[r] < a.R1)
       v = __fadd_rn(v, a.pair_score[(size_t)prow[r] * N + n]);
-    if (ADD == 2 && ok)
+    if (ADD == 2 && ok && prow[r] < a.R2)
       v = __fadd_rn(v, a.pair_score2[(size_t)prow[r] * N + n]);
     if (TAINT && ok) v = fmaxf(__fsub_rn(v, s_pen[slot0 + r][tg]), 0.0f);
     if (TOPO && ok && a.penalty != nullptr)
@@ -825,9 +832,9 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
         for (int r = 0; r < ROWS; ++r) {
           float ub = ubr[r][ii];
           if ((ADD >= 1 || TAINT || TOPO) && live[r] && in) {
-            if (ADD >= 1)
+            if (ADD >= 1 && prow[r] < a.R1)
               ub = __fadd_rn(ub, a.pair_score[(size_t)prow[r] * N + n]);
-            if (ADD == 2)
+            if (ADD == 2 && prow[r] < a.R2)
               ub = __fadd_rn(ub, a.pair_score2[(size_t)prow[r] * N + n]);
             if (TAINT && ub != -INFINITY)  // a gated class stays out
               ub = fmaxf(__fsub_rn(ub, s_pen[slot0 + r][tg]), 0.0f);
@@ -1067,7 +1074,8 @@ extern "C" int koord_score_topk_blocks(int P, int F, int D, int add,
 // slot_block (null where V = 0), pod_words, col_words (both or none),
 // penalty (or null; only with the words). dims: P, N, F, D, k, S, L,
 // tie_break, fma_sum, blocks (from koord_score_topk_blocks), V, T, G,
-// SG (the penalty map's groups), LDP (its row stride).
+// SG (the penalty map's groups), LDP (its row stride), R1, R2 (the
+// rows of pair_score and pair_score2, each at most P).
 extern "C" int koord_score_topk(const void* const* ptr, const int* dims,
                                 float eps, void* stream) {
   Args a;
@@ -1124,12 +1132,16 @@ extern "C" int koord_score_topk(const void* const* ptr, const int* dims,
   a.G = dims[12];
   a.SG = dims[13];
   a.LDP = dims[14];
+  a.R1 = dims[15];
+  a.R2 = dims[16];
   if (a.P <= 0) return 0;
   const bool taint = a.tol_forbid != nullptr;
   if (a.F > MAX_DIMS || a.D > MAX_DIMS || a.k > MAX_K || a.V < 0 ||
       a.k > a.N + a.V || a.k <= 0 || a.L > MAX_LABELS ||
       a.N >= SENTINEL - a.V || blocks <= 0 ||
       (a.pair_score2 != nullptr && a.pair_score == nullptr) ||
+      (a.pair_score != nullptr && (a.R1 <= 0 || a.R1 > a.P)) ||
+      (a.pair_score2 != nullptr && (a.R2 <= 0 || a.R2 > a.P)) ||
       (taint && (a.T <= 0 || a.G <= 0 || a.G > MAX_TG ||
                  a.toleration_id == nullptr || a.taint_group == nullptr ||
                  a.tol_penalty == nullptr)) ||

@@ -19,6 +19,7 @@ import functools
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from koordinator_tpu_torch import resolve_device
@@ -65,23 +66,31 @@ class FlagshipRun:
     counts: Optional[tuple] = None  # the final (group x domain) counts,
                                     # COUNT_FIELDS order, where the pods
                                     # have topology groups
+    numa_zone: Optional[torch.Tensor] = None  # i32[P] placed NUMA-bound
+                                              # pods' zone, -1, on the
+                                              # NUMA path
 
 
 def sweep_and_tail(snap: ClusterSnapshot, pods: PodBatch,
                    cfg: LoadAwareConfig, chunk: int,
                    tail_chunk: int = None, step_kw: dict = None,
                    tail_kw: dict = None,
-                   max_passes: int = DEFAULT_MAX_TAIL_PASSES) -> FlagshipRun:
+                   max_passes: int = DEFAULT_MAX_TAIL_PASSES,
+                   topo_prefix: Optional[int] = None,
+                   topo_mask: Optional[np.ndarray] = None) -> FlagshipRun:
     """Schedule `pods` chunk by chunk with `schedule_batch(**step_kw)`,
     each chunk on the previous one's snapshot, then retry the stragglers
     in windows of `tail_chunk` (default min(chunk, 512)) with
     `schedule_batch(**tail_kw)`, 2 to `max_passes` passes. The kwargs
     default to the slim flagship's (STEP_KW, TAIL_KW); a path with GPU
-    instances also returns every placed pod's instance takes, and one
-    with reservation slots every placed pod's slot. With pod topology
+    instances also returns every placed pod's instance takes, one with
+    reservation slots every placed pod's slot, and the NUMA path every
+    placed NUMA-bound pod's zone. With pod topology
     groups each chunk's count0 fields are the counts so far, charged
     after it from its final (node-level, post-rollback) assignment, and
-    the tail carries them on; the run returns them."""
+    the tail carries them on; the run returns them. `topo_prefix` and
+    `topo_mask` (bool[P], the topology class of packed pods) give the
+    tail its topology budget (bench.py:483-496)."""
     step_kw = STEP_KW if step_kw is None else step_kw
     tail_kw = TAIL_KW if tail_kw is None else tail_kw
     num = pods.num_pods
@@ -103,6 +112,8 @@ def sweep_and_tail(snap: ClusterSnapshot, pods: PodBatch,
     fields = []
     if snap.devices.num_instances and step_kw.get("enable_devices", True):
         fields.append("gpu_take")
+    if step_kw.get("enable_numa", True):
+        fields.append("numa_zone")
     if snap.reservations.valid.shape[0]:
         fields.append("res_slot")
     carry = {f: torch.cat([getattr(r, f) for r in results])
@@ -111,7 +122,10 @@ def sweep_and_tail(snap: ClusterSnapshot, pods: PodBatch,
         functools.partial(schedule_batch, **tail_kw), snap,
         torch.cat([r.assignment for r in results]), pods, cfg,
         tail_chunk=tail_chunk, min_passes=MIN_TAIL_PASSES,
-        max_passes=max_passes, carry=carry, counts=counts)
+        max_passes=max_passes, carry=carry, counts=counts,
+        topo_prefix=topo_prefix,
+        topo_mask=(None if topo_mask is None else torch.as_tensor(
+            topo_mask, device=pods.valid.device)))
     return FlagshipRun(snapshot=snap, assignment=assign, stats=stats,
                        counts=counts, **(carry or {}))
 

@@ -20,6 +20,7 @@ def _wrappers():
         scatter,
         score_topk,
         segment_prefix,
+        stage1,
         topology,
         topology_prefix,
     )
@@ -30,7 +31,8 @@ def _wrappers():
             "topology_admit": topology.topology_admit,
             "device_pair_terms": device_terms.device_pair_terms,
             "gpu_instance_pick": gpu_instances.gpu_instance_pick,
-            "topology_prefix_gate": topology_prefix.topology_prefix_gate}
+            "topology_prefix_gate": topology_prefix.topology_prefix_gate,
+            "stage1_mask": stage1.stage1_mask}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,8 +1,10 @@
-"""Shared checks and ctypes plumbing of the kernel wrappers."""
+"""Shared checks, ctypes plumbing and row helpers of the kernel
+wrappers."""
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -29,3 +31,14 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 def stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
+
+
+def and_rows(mask: Optional[torch.Tensor], rows_ok: torch.Tensor
+             ) -> torch.Tensor:
+    """`mask` (bool[P, N]) with rows_ok (bool[rows, N], rows <= P) ANDed
+    into its first rows, the rows beyond as they are (the reference's
+    and_rows, core.py:291-296); rows_ok itself where mask is None."""
+    if mask is None:
+        return rows_ok
+    rows = rows_ok.shape[0]
+    return torch.cat([mask[:rows] & rows_ok, mask[rows:]])

@@ -6,13 +6,15 @@ gates of koordinator_tpu/scheduler/core.py schedule_batch (:329-370):
 plugins/numaaware.py:54 zone_prefilter and :70 numa_score_matrix over
 [P, N, Z, 2], and the policy node's combined-fit prefilter. It writes
 what the reference ANDs into its static mask and adds to its scores;
-K1 reads both.
+K1 reads both. Under the cascade's stage 2 (core.py:330-367) it runs on
+the batch's first `rows` pods (the numa prefix) and ANDs them into the
+first rows of the stage-1 mask; the rows beyond pass and score 0.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,11 +30,14 @@ STRATEGIES = ("most", "least")
 def numa_pair_terms_plain(demand: torch.Tensor, numa_single: torch.Tensor,
                           numa_cap: torch.Tensor, numa_free: torch.Tensor,
                           numa_valid: torch.Tensor, numa_policy: torch.Tensor,
-                          strategy: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(pair_ok bool[P, N], pair_score f32[P, N]): the zone prefilter of
-    the NUMA-bound pods AND the policy nodes' combined fit, and the zone
-    score of the NUMA-bound pods (0 elsewhere), by the plain [P, N]
-    functions of `scheduler/plugins/numaaware.py`."""
+                          strategy: str, pair_ok: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pair_ok, pair_score f32[rows, N]) of the first `rows` pods (the
+    rows of `demand`): the zone prefilter of the NUMA-bound pods AND the
+    policy nodes' combined fit (bool[rows, N], or a given pair_ok
+    bool[P, N] with its first rows ANDed), and the zone score of the
+    NUMA-bound pods (0 elsewhere), by the plain [P, N] functions of
+    `scheduler/plugins/numaaware.py`."""
     req2 = demand * numa_single[:, None]
     ok = (numaaware.zone_prefilter_terms(req2, numa_single, numa_free,
                                          numa_valid)
@@ -40,48 +45,61 @@ def numa_pair_terms_plain(demand: torch.Tensor, numa_single: torch.Tensor,
                                        numa_policy))
     score = numaaware.numa_score_terms(req2, numa_single, numa_cap,
                                        numa_free, numa_valid, strategy)
-    return ok, score
+    return _launch.and_rows(pair_ok, ok), score
 
 
 def numa_pair_terms(demand: torch.Tensor, numa_single: torch.Tensor,
                     numa_cap: torch.Tensor, numa_free: torch.Tensor,
                     numa_valid: torch.Tensor, numa_policy: torch.Tensor,
-                    strategy: str) -> Tuple[torch.Tensor, torch.Tensor]:
+                    strategy: str, pair_ok: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The pair terms of `numa_pair_terms_plain`: the kernel for CUDA
-    tensors, the plain version for CPU tensors. demand f32[P, 2] (every
-    pod's cpu and memory request); numa_single bool[P]; numa_cap,
-    numa_free f32[N, Z, 2]; numa_valid bool[N, Z]; numa_policy i32[N];
-    strategy "most" or "least". Takes Z <= 4; P and N unlimited."""
-    p = demand.shape[0]
+    tensors, the plain version for CPU tensors. demand f32[rows, 2] (the
+    cpu and memory requests of the batch's first rows pods);
+    numa_single bool[rows]; numa_cap, numa_free f32[N, Z, 2];
+    numa_valid bool[N, Z]; numa_policy i32[N]; strategy "most" or
+    "least"; pair_ok bool[P, N] (P >= rows) or None. On the card a given
+    pair_ok has its first rows ANDed in place and is returned. Takes
+    Z <= 4; rows and N unlimited (rows = 0 launches nothing)."""
+    rows = demand.shape[0]
     n, z, _ = numa_cap.shape
     dev = demand.device
-    for name, t, dt, shape in (
-            ("demand", demand, torch.float32, (p, 2)),
-            ("numa_single", numa_single, torch.bool, (p,)),
-            ("numa_cap", numa_cap, torch.float32, (n, z, 2)),
-            ("numa_free", numa_free, torch.float32, (n, z, 2)),
-            ("numa_valid", numa_valid, torch.bool, (n, z)),
-            ("numa_policy", numa_policy, torch.int32, (n,))):
+    checks = [("demand", demand, torch.float32, (rows, 2)),
+              ("numa_single", numa_single, torch.bool, (rows,)),
+              ("numa_cap", numa_cap, torch.float32, (n, z, 2)),
+              ("numa_free", numa_free, torch.float32, (n, z, 2)),
+              ("numa_valid", numa_valid, torch.bool, (n, z)),
+              ("numa_policy", numa_policy, torch.int32, (n,))]
+    if pair_ok is not None:
+        checks.append(("pair_ok", pair_ok, torch.bool, (None, n)))
+        if pair_ok.shape[0] < rows:
+            raise ValueError(f"numa_pair_terms: pair_ok has "
+                             f"{pair_ok.shape[0]} rows, fewer than {rows}")
+    for name, t, dt, shape in checks:
         _launch.check_tensor(name, t, dt, shape, dev)
     if strategy not in STRATEGIES:
         raise ValueError(f"numa_pair_terms: strategy {strategy!r}")
     if dev.type == "cpu":
         return numa_pair_terms_plain(demand, numa_single, numa_cap,
                                      numa_free, numa_valid, numa_policy,
-                                     strategy)
+                                     strategy, pair_ok)
     if dev.type != "cuda":
         raise ValueError(f"numa_pair_terms: unsupported device {dev}")
     if z > MAX_ZONES:
         raise ValueError(f"numa_pair_terms: Z={z} above {MAX_ZONES}")
-    ok = torch.empty((p, n), dtype=torch.bool, device=dev)
-    score = torch.empty((p, n), dtype=torch.float32, device=dev)
+    ok = (pair_ok if pair_ok is not None
+          else torch.empty((rows, n), dtype=torch.bool, device=dev))
+    score = torch.empty((rows, n), dtype=torch.float32, device=dev)
+    if not (rows and n):
+        return ok, score
     tensors = (demand, numa_single, numa_cap, numa_free, numa_valid,
-               numa_policy, ok, score)
-    ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+               numa_policy, pair_ok, ok, score)
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *(None if t is None else t.data_ptr() for t in tensors))
     fn = TOOLCHAIN.function("numa_terms", "koord_numa_pair_terms",
                             [ctypes.c_void_p] + [ctypes.c_int] * 4
                             + [ctypes.c_float, ctypes.c_void_p])
-    rc = fn(ptrs, p, n, z, STRATEGIES.index(strategy), EPS,
+    rc = fn(ptrs, rows, n, z, STRATEGIES.index(strategy), EPS,
             _launch.stream(dev))
     check(rc, "numa_pair_terms")
     numa_pair_terms.launches += 1

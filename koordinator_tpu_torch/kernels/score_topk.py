@@ -109,6 +109,14 @@ def tie_break_jitter(scores: torch.Tensor) -> torch.Tensor:
     return loadaware.fma_f32(h.to(torch.float32), JITTER, scores)
 
 
+def add_rows(scores: torch.Tensor, addend: torch.Tensor) -> torch.Tensor:
+    """scores f32[P, N] with addend f32[rows, N] (rows <= P) added to its
+    first rows, the rows beyond as they are (the reference adds zero
+    rows there)."""
+    rows = addend.shape[0]
+    return torch.cat([scores[:rows] + addend, scores[rows:]])
+
+
 def masked_scores(gates: GateTerms, pair_ok: Optional[torch.Tensor],
                   row_ok, req_fit, requested_fit, alloc_fit, est,
                   prod_scored, node_term, prod_term, alloc_score, weights,
@@ -132,9 +140,9 @@ def masked_scores(gates: GateTerms, pair_ok: Optional[torch.Tensor],
         est, prod_scored, node_term, prod_term, alloc_score,
         gates.metric_fresh, weights, fma_sum)
     if pair_score is not None:
-        scores = scores + pair_score
+        scores = add_rows(scores, pair_score)
     if pair_score2 is not None:
-        scores = scores + pair_score2
+        scores = add_rows(scores, pair_score2)
     penalty = taint_penalty(gates)
     if penalty is not None:
         scores = torch.clamp_min(scores - penalty, 0.0)
@@ -164,7 +172,8 @@ def score_topk_plain(gates: GateTerms, pair_ok: Optional[torch.Tensor],
     """(val f32[P, k], idx i32[P, k]): the k best of each pod's N node
     columns and V slot columns by value descending then index ascending
     (lax.top_k's order). A node pair's value is its LoadAware score
-    (+ pair_score, then + pair_score2, where given, each sum rounded;
+    (+ pair_score, then + pair_score2, where given and on the rows each
+    covers, each sum rounded;
     then minus the taint penalty where `gates` carries one, floored at
     0), plus jitter, if it passes the static gates (`gates` expanded,
     and `pair_ok` where given), the row mask and the resource fit, else
@@ -206,8 +215,9 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
     the plain version for CPU tensors. Shapes: `gates` over P pods and N
     nodes (selector table S x L, L <= MAX_LABELS; with tolerations,
     forbid and penalty tables T x G, G <= MAX_TAINT_GROUPS); pair_ok
-    bool[P, N] or None; pair_score, pair_score2 f32[P, N] or None (the
-    second only with the first); slot_ok bool[P, V] and slot_block
+    bool[P, N] or None; pair_score f32[R1, N], pair_score2 f32[R2, N]
+    or None (the second only with the first; R1, R2 <= P: an addend
+    covers the batch's first rows, and adds nothing beyond); slot_ok bool[P, V] and slot_block
     bool[V], or both None (V = 0); row_ok, prod_scored bool[P];
     req_fit f32[P, F]; requested_fit, alloc_fit f32[N + V, F]; est
     f32[P, D]; node_term, prod_term, alloc_score f32[N, D]; weights
@@ -276,12 +286,15 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
                                  "1 to 32 groups")
     if pair_ok is not None:
         checks.append(("pair_ok", pair_ok, torch.bool, (p, n)))
-    if pair_score is not None:
-        checks.append(("pair_score", pair_score, torch.float32, (p, n)))
-    if pair_score2 is not None:
-        if pair_score is None:
-            raise ValueError("score_topk: pair_score2 needs pair_score")
-        checks.append(("pair_score2", pair_score2, torch.float32, (p, n)))
+    if pair_score2 is not None and pair_score is None:
+        raise ValueError("score_topk: pair_score2 needs pair_score")
+    for name, x in (("pair_score", pair_score),
+                    ("pair_score2", pair_score2)):
+        if x is not None:
+            checks.append((name, x, torch.float32, (None, n)))
+            if x.shape[0] > p:
+                raise ValueError(f"score_topk: {name} has {x.shape[0]} "
+                                 f"rows, more than {p}")
     for name, x, dt, shape in checks:
         _launch.check_tensor(name, x, dt, shape, dev)
     if not 0 < k <= min(n + v, MAX_K):
@@ -297,6 +310,10 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
                                 pair_score2, slot_ok, slot_block, topo)
     if dev.type != "cuda":
         raise ValueError(f"score_topk: unsupported device {dev}")
+    # an addend of no rows adds nothing: the kernel takes the others
+    addends = [x for x in (pair_score, pair_score2)
+               if x is not None and x.shape[0]]
+    pair_score, pair_score2 = (addends + [None, None])[:2]
     if labels > MAX_LABELS or groups > MAX_TAINT_GROUPS:
         raise ValueError(f"score_topk: {labels} label groups or {groups} "
                          f"taint groups above {MAX_LABELS}, "
@@ -330,9 +347,10 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
         *(None if x is None else x.data_ptr() for x in tensors))
     sg = 0 if topo is None or topo.penalty is None else topo.penalty.shape[0]
     ld = 0 if not sg else topo.penalty.stride(0)
-    dims = (ctypes.c_int * 15)(p, n, f, d, k, s, labels,
+    rows = [0 if x is None else x.shape[0] for x in (pair_score, pair_score2)]
+    dims = (ctypes.c_int * 17)(p, n, f, d, k, s, labels,
                                int(bool(tie_break)), int(bool(fma_sum)),
-                               blocks, v, t, groups, sg, ld)
+                               blocks, v, t, groups, sg, ld, *rows)
     fn = TOOLCHAIN.function("score_topk", "koord_score_topk",
                             [ctypes.c_void_p, ctypes.c_void_p,
                              ctypes.c_float, ctypes.c_void_p])

@@ -1,14 +1,15 @@
-"""Where the slim flagship's (or BASELINE config 2's, or gpu_share's)
-time goes on the card.
+"""Where the slim flagship's (or BASELINE config 2's, gpu_share's or the
+full gate's) time goes on the card.
 
     python -m koordinator_tpu_torch.profile_flagship
-        [--workload flagship|config2|gpushare]
+        [--workload flagship|config2|gpushare|fullgate]
         [--out chiprun_out/profile_<workload>.json]
 
 Builds the kernels, runs the workload (the 100k x 10k slim flagship;
-config 2: 10k pods x 1k nodes on the NUMA path; or gpu_share_100kx10k,
+config 2: 10k pods x 1k nodes on the NUMA path; gpu_share_100kx10k,
 the DeviceShare path with NUMA, taints, reservation slots and the pod
-topology groups) once to warm up and once untraced, then traces one
+topology groups; or score_bind_100k_pods_10k_nodes_full_gate, the same
+pods packed, with the cascade and the packing prefixes) once to warm up and once untraced, then traces one
 more run of the same size with torch.profiler recording device
 activity only (no host-side operator
 events), so the traced wall time stays close to the untraced one. It
@@ -31,7 +32,11 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from koordinator_tpu_torch.configs import run_config_2_numa, run_gpu_share
+from koordinator_tpu_torch.configs import (
+    run_config_2_numa,
+    run_full_gate,
+    run_gpu_share,
+)
 from koordinator_tpu_torch.flagship import run_northstar
 from koordinator_tpu_torch.kernels.build import build_all
 
@@ -55,7 +60,7 @@ def _busy_us(events) -> float:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", choices=("flagship", "config2",
-                                           "gpushare"),
+                                           "gpushare", "fullgate"),
                     default="flagship")
     ap.add_argument("--out", default=None,
                     help="default chiprun_out/profile_<workload>.json")
@@ -66,8 +71,13 @@ def main() -> None:
         run = functools.partial(run_northstar, device="cuda", snap_seed=7)
     elif args.workload == "config2":
         warm_up = run = functools.partial(run_config_2_numa, device="cuda")
-    else:
+    elif args.workload == "gpushare":
         warm_up = run = functools.partial(run_gpu_share, device="cuda")
+    else:
+        def run():
+            line, result, _ = run_full_gate(device="cuda")
+            return line, result
+        warm_up = run
     if not torch.cuda.is_available():
         raise SystemExit("profile_flagship: no CUDA device")
     card = subprocess.run(

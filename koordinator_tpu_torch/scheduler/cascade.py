@@ -9,9 +9,16 @@ batch with tolerations, the forbid and penalty tables over (toleration
 set, taint group), which kernel K1 combines pair by pair, so no path
 builds the [P, N] mask (`expand_gates` and `taint_penalty` build the
 [P, N] forms for K1's plain version; `expand_gates` also evaluates the
-gates at a few given nodes, the reservation slots' hosts). The cascade's stage-1
-fit and quota-ceiling mask (`stage1_mask`) is not ported: the port
-runs with the cascade off.
+gates at a few given nodes, the reservation slots' hosts).
+
+`stage1_mask` is the cascade's stage-1 candidate mask (cascade.py:117):
+the static gates AND the batch-start fit AND the quota ceiling, as one
+bool[P, N] from kernel K9 (`kernels/stage1.py`); `candidate_counts`
+(:145) counts each pod's surviving nodes. Within a batch node
+`requested` and quota `used` only grow, so a pair the mask drops fails
+every commit round: `schedule_batch(cascade=True)` places exactly as
+with the cascade off. The mask is never applied to the reservation
+slot columns (a consumer draws from the slot's own hold).
 """
 
 from __future__ import annotations
@@ -21,9 +28,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from koordinator_tpu_torch.scheduler.batching import MAX_NODE_SCORE
+from koordinator_tpu_torch.scheduler.batching import EPS, MAX_NODE_SCORE
 from koordinator_tpu_torch.scheduler.plugins import deviceshare, loadaware
 from koordinator_tpu_torch.snapshot.schema import (
+    MAX_QUOTA_DEPTH,
+    ClusterSnapshot,
     DeviceState,
     NodeState,
     PodBatch,
@@ -169,3 +178,31 @@ def taint_penalty(g: GateTerms) -> Optional[torch.Tensor]:
         return None
     row, col = _taint_cells(g, None)
     return g.tol_penalty[row, col]
+
+
+def stage1_mask(snap: ClusterSnapshot, pods: PodBatch, gates: GateTerms,
+                fit_dims: Optional[tuple] = None,
+                quota_depth: int = MAX_QUOTA_DEPTH) -> torch.Tensor:
+    """bool[P, N]: the stage-1 candidate mask, the pairs that pass
+    `gates` (`static_gate_terms` of the batch), fit the nodes'
+    batch-start headroom on the checked dims (`fit_dims`, None = all)
+    and whose pod passes its quota ceiling at the first quota_depth
+    levels. Kernel K9 on the card, its plain version on the host."""
+    # the kernel module reads GateTerms from this one
+    from koordinator_tpu_torch.kernels import stage1
+    from koordinator_tpu_torch.ops import feasibility
+
+    def dims(x):
+        return (x if fit_dims is None else x[..., list(fit_dims)]).contiguous()
+
+    nodes, quotas = snap.nodes, snap.quotas
+    return stage1.stage1_mask(
+        gates, dims(pods.requests), dims(nodes.requested),
+        dims(nodes.allocatable), feasibility.pod_ancestors(quotas, pods),
+        dims(quotas.used), dims(quotas.runtime), quota_depth, EPS)
+
+
+def candidate_counts(mask: torch.Tensor) -> torch.Tensor:
+    """i32[P]: each pod's surviving candidate nodes in a stage-1 mask (a
+    zero row is a pod stage 1 already proved unschedulable)."""
+    return mask.sum(dim=1, dtype=torch.int32)

@@ -8,9 +8,11 @@ DeviceShare's GPU instances (`enable_devices` on a snapshot with them),
 taints and tolerations (`pods.has_taints`: the forbid gate and the
 PreferNoSchedule score penalty), live reservation slots (V > 0) and
 pod topology spread, inter-pod anti-affinity and affinity
-(`pods.has_spread` / `has_anti` / `has_aff`, at full width with
-singleton domain classes): no aux (RDMA/FPGA) pools, no amplification,
-cascade off. Anything outside that raises NotImplementedError.
+(`pods.has_spread` / `has_anti` / `has_aff`), the Filter->Score gate
+cascade (`cascade=True`) and the packing-prefix contracts
+(`topo_prefix`, `numa_prefix`, `gpu_prefix`, `dom_classes`): no aux
+(RDMA/FPGA) pools, no amplification, no approximate top-k. Anything
+outside that raises NotImplementedError.
 
 Per round (num_rounds of them), kernel K1 (`score_topk`) picks each
 active pod's k best feasible columns: the N nodes and the V reservation
@@ -43,6 +45,15 @@ zone and instance pools carry one extended row a slot (its zone and
 instance holds), so a consumer takes the reserved zone and minors
 through the same gates. With slots, one more K2 launch a step admits
 the first consumer of each AllocateOnce slot, which then closes. With
+the cascade on, kernel K9 (`stage1_mask`) writes the batch-start
+candidate mask (the static gates, the fit and the quota ceilings) as
+the pair mask, and K4 and K6 run on the numa and gpu prefixes' rows
+only (stage 2), ANDing them into it. The prefixes slice the in-step
+gates whether the cascade is on or not: the topology families run on
+the first topo_prefix pods, the topology manager and zone gates on the
+first numa_prefix, the GPU instance gates on the first gpu_prefix, each
+K2 launch of such a block with the ranks of its pods re-ranked among
+themselves. With
 pod topology groups, each round builds the (group x column) maps from
 the carried counts (`domains.round_terms`), which K1 takes as bit words
 with the spread penalty; in each step kernel K8 (`topology_prefix_gate`)
@@ -79,8 +90,16 @@ from koordinator_tpu_torch.scheduler.batching import (
     MAX_NODE_SCORE,
     rank_by_priority,
     segment_prefix_chain,
+    stable_rank,
 )
-from koordinator_tpu_torch.scheduler.cascade import static_gate_terms
+from koordinator_tpu_torch.ops.feasibility import (
+    pod_ancestors,
+    quota_ceiling_terms,
+)
+from koordinator_tpu_torch.scheduler.cascade import (
+    stage1_mask,
+    static_gate_terms,
+)
 from koordinator_tpu_torch.scheduler.domains import (
     COUNT_FIELDS,
     batch_counts,
@@ -129,21 +148,20 @@ def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: the port covers the slim flagship "
         "path, NodeNUMAResource, DeviceShare's GPU instances, taints, "
-        "reservation slots and pod topology groups (ROADMAP "
-        "queue A item 6 holds the rest of the full-gate form)")
+        "reservation slots, pod topology groups and the cascade with "
+        "its packing prefixes (ROADMAP queue A item 6 holds the rest of "
+        "the full-gate form)")
 
 
 def _check_slim(snap: ClusterSnapshot, pods: PodBatch, *, enable_numa,
                 numa_strategy, enable_devices, device_strategy,
-                enable_amplification, cascade, approx_topk) -> None:
+                enable_amplification, approx_topk) -> None:
     if enable_numa and numa_strategy not in ("most", "least"):
         raise ValueError(f"numa_strategy {numa_strategy!r}")
     if enable_devices and device_strategy not in deviceshare.STRATEGIES:
         raise ValueError(f"device_strategy {device_strategy!r}")
     if enable_amplification:
         raise _unported("enable_amplification=True")
-    if cascade:
-        raise _unported("cascade=True")
     if approx_topk:
         raise _unported("approx_topk=True")
     if enable_devices and snap.devices.aux_free.shape[2]:
@@ -163,6 +181,45 @@ def _where_i32(cond: torch.Tensor, a, b) -> torch.Tensor:
     return torch.where(cond, a, b).to(torch.int32)
 
 
+def _prefix(value: Optional[int], p: int) -> int:
+    """A packing prefix's row count in a batch of p pods: p where None,
+    else clamped into [0, p] (core.py:246-248)."""
+    return p if value is None else max(min(int(value), p), 0)
+
+
+def _norm_classes(cls, n_g: int) -> None:
+    """Check one family's domain classes (core.py:495-507): None, or a
+    partition of range(n_g) into non-empty classes; else ValueError.
+    The reference batches a class's per-group matvecs into one matmul,
+    bit-identical to the per-group form the port runs, so a valid
+    partition changes nothing here."""
+    if cls is None:
+        return
+    got = sorted(g for c in cls for g in c)
+    if got != list(range(n_g)) or not all(len(c) for c in cls):
+        raise ValueError(f"dom_classes must partition range({n_g}) "
+                         f"into non-empty classes; got {cls}")
+
+
+def _fit_rows(x: torch.Tensor, rows: int, fill) -> torch.Tensor:
+    """x's leading axis cut or padded with `fill` to `rows` (core.py:
+    484-493: the NUMA block reads the GPU rows of the gpu width, the GPU
+    block the zone rows of the numa width)."""
+    if x.shape[0] >= rows:
+        return x[:rows]
+    pad = torch.full((rows - x.shape[0],) + tuple(x.shape[1:]), fill,
+                     dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad])
+
+
+def _with_head(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """x with its first rows replaced by `head` (the verdict of a gate
+    run on a prefix; the rows beyond pass through)."""
+    if head.shape[0] == x.shape[0]:
+        return head
+    return torch.cat([head, x[head.shape[0]:]])
+
+
 def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                    cfg: loadaware.LoadAwareConfig,
                    num_rounds: int = 4, k_choices: int = 8,
@@ -176,6 +233,10 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                    quota_depth: int = MAX_QUOTA_DEPTH,
                    fit_dims: tuple = None,
                    enable_amplification: bool = False,
+                   topo_prefix: int = None,
+                   dom_classes: tuple = None,
+                   numa_prefix: int = None,
+                   gpu_prefix: int = None,
                    cascade: bool = False) -> ScheduleResult:
     """Schedule a pod batch against the snapshot. Pure: the caller
     publishes `result.snapshot`.
@@ -187,13 +248,27 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     ("most" or "least") the NUMA allocation strategy of the zone score,
     the hint order and the zone take; `device_strategy` ("least" or
     "most") DeviceShare's, of the pool score and the shared pods'
-    instance choice. The reference's packing contracts (topo/numa/gpu
-    prefixes, domain classes) belong to the rest of the full-gate path
-    and are not arguments here: this is its full-width form."""
+    instance choice.
+
+    The packing contracts, as the reference states them (core.py:
+    171-228; `utils.synthetic.pack_gate_prefixes` establishes all
+    three): with `topo_prefix` every pod with a spread, anti-affinity or
+    affinity membership sits in rows [0, topo_prefix), and the topology
+    families gate, score and count those rows only; with `numa_prefix`
+    every CPU-bind pod sits below it and no node has a topology-manager
+    policy, and the topology manager and zone gates run on those rows;
+    with `gpu_prefix` every device-requesting pod sits below it, and the
+    GPU instance gates run on those rows. A prefix above the batch is
+    the batch. `dom_classes` (spread, anti, affinity classes of groups
+    with equal domain rows) is checked (ValueError unless each
+    partitions its family) and changes nothing else. `cascade` folds the
+    stage-1 mask in (K9) and, where a numa or gpu prefix is below the
+    batch, runs the batch-start NUMA and device gates and scores on its
+    rows only; the placements equal those with the cascade off."""
     _check_slim(snap, pods, enable_numa=enable_numa,
                 numa_strategy=numa_strategy, enable_devices=enable_devices,
                 device_strategy=device_strategy,
-                enable_amplification=enable_amplification, cascade=cascade,
+                enable_amplification=enable_amplification,
                 approx_topk=approx_topk)
     nodes0, quotas0, gangs0 = snap.nodes, snap.quotas, snap.gangs
     dev = nodes0.allocatable.device
@@ -209,6 +284,24 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         return (x if fd is None else x[..., fd]).contiguous()
 
     rank = rank_by_priority(pods)
+    # the packing prefixes' row counts; a gate run on a prefix ranks its
+    # pods among themselves (the reference's earlier[:w, :w])
+    pc, pn, pg = (_prefix(w, p) for w in (topo_prefix, numa_prefix,
+                                          gpu_prefix))
+    ranks = {p: rank}
+
+    def rank_of(rows):
+        if rows not in ranks:
+            ranks[rows] = stable_rank(rank[:rows])
+        return ranks[rows]
+
+    s_cls, a_cls, f_cls = (dom_classes if dom_classes is not None
+                           else (None, None, None))
+    for on, cls, count0 in ((pods.has_spread, s_cls, pods.spread_count0),
+                            (pods.has_anti, a_cls, pods.anti_count0),
+                            (pods.has_aff, f_cls, pods.aff_count0)):
+        if on:
+            _norm_classes(cls, count0.shape[0])
 
     # gang quorum (coscheduling PreFilter, core.go:220-274)
     gid = pods.gang_id.clamp_min(0).long()
@@ -216,11 +309,7 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                    | gangs0.satisfied) & gangs0.valid
     gang_ok = (pods.gang_id < 0) | gang_quorum[gid]
 
-    # ancestor chain per pod per depth, -1 = none
-    pod_anc = torch.where(
-        pods.quota_id[:, None] >= 0,
-        quotas0.depth_ancestor[pods.quota_id.clamp_min(0).long()],
-        -1).to(torch.int32)                                     # [P, D]
+    pod_anc = pod_ancestors(quotas0, pods)                      # [P, D]
     # the quota segment of each checked level, n_quotas = none: [D', P]
     quota_seg = torch.where(pod_anc >= 0, pod_anc, n_quotas)[
         :, :quota_depth].T.to(torch.int32).contiguous()
@@ -233,6 +322,15 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     use_gpu = enable_devices and n_inst > 0
     gates = static_gate_terms(nodes0, pods, cfg,
                               devices0 if enable_devices else None)
+    # stage 2 of the cascade (core.py:286-367): with a gpu (numa) prefix
+    # below the batch the batch-start device (NUMA) gates and scores run
+    # on its rows only, and the rows beyond pass them and score 0
+    dev_pg = pg if (cascade and pg < p) else p
+    numa_pn = pn if (cascade and pn < p) else p
+    if enable_devices and dev_pg < p:
+        gates = gates.replace(device_ok=torch.cat([
+            gates.device_ok[:dev_pg],
+            torch.ones((p - dev_pg,), dtype=torch.bool, device=dev)]))
 
     # reservation slots as virtual node columns N..N+V-1 (owner-
     # restricted, capacity the slot's free, scored above any node): the
@@ -248,7 +346,7 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     # pod topology spread and inter-pod (anti-)affinity: the families'
     # slot-extended domain maps and bit words, and the carried (group x
     # domain) counts, from the batch's count0 fields (COUNT_FIELDS order)
-    topo = batch_topology(pods, slot_node, n_nodes)
+    topo = batch_topology(pods, slot_node, n_nodes, pc)
     counts = batch_counts(pods)
 
     def extend(node_rows, slot_rows):
@@ -263,17 +361,25 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         slot = (ext_idx - n_nodes).clamp(0, n_slots - 1).long()
         return _where_i32(ext_idx >= n_nodes, slot_node[slot], ext_idx)
 
-    # NodeNUMAResource at batch start (K4): the single-NUMA prefilter and
-    # the policy nodes' combined fit as a pair mask, the zone score as an
-    # addend of the LoadAware score; the zone pools gain a row per slot
-    # (its zone hold, policy none, nothing used)
-    n_zones = nodes0.numa_cap.shape[1]
+    # stage 1 of the cascade (K9): the static gates, the batch-start fit
+    # and the quota ceilings as the pair mask of the node columns (never
+    # of the slot columns, which read the gates above)
     pair_ok = pair_score = None
+    if cascade:
+        pair_ok = stage1_mask(snap, pods, gates, fit_dims, quota_depth)
+
+    # NodeNUMAResource at batch start (K4, on the first numa_pn rows):
+    # the single-NUMA prefilter and the policy nodes' combined fit ANDed
+    # into the pair mask, the zone score as an addend of the LoadAware
+    # score; the zone pools gain a row per slot (its zone hold, policy
+    # none, nothing used)
+    n_zones = nodes0.numa_cap.shape[1]
     if enable_numa:
         demand = numaaware.zone_demand(pods)
         pair_ok, pair_score = numa_pair_terms(
-            demand, pods.numa_single, nodes0.numa_cap, nodes0.numa_free,
-            nodes0.numa_valid, nodes0.numa_policy, numa_strategy)
+            demand[:numa_pn], pods.numa_single[:numa_pn], nodes0.numa_cap,
+            nodes0.numa_free, nodes0.numa_valid, nodes0.numa_policy,
+            numa_strategy, pair_ok)
         numa_cap_x = extend(nodes0.numa_cap, resv0.numa_free)
         numa_valid_x = extend(nodes0.numa_valid, resv0.numa_valid)
         numa_policy_x = extend(nodes0.numa_policy, torch.zeros(
@@ -285,16 +391,16 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         out_take = torch.zeros((p, n_zones, 2), dtype=torch.float32,
                                device=dev)
 
-    # DeviceShare at batch start (K6): the instance prefilter ANDed into
-    # the pair mask, the pool score a second addend after the zone
-    # score (the first without NUMA), as the reference sums them; the
-    # instance pool gains a row per slot (its reserved instances, the
-    # host node's totals and topology)
+    # DeviceShare at batch start (K6, on the first dev_pg rows): the
+    # instance prefilter ANDed into the pair mask, the pool score a
+    # second addend after the zone score (the first without NUMA), as
+    # the reference sums them; the instance pool gains a row per slot
+    # (its reserved instances, the host node's totals and topology)
     pair_score2 = None
     if use_gpu:
         gpu_req = deviceshare.gpu_request(pods.requests,
                                           pods.gpu_ratio).contiguous()
-        pair_ok, dev_score = device_pair_terms(gpu_req, devices0,
+        pair_ok, dev_score = device_pair_terms(gpu_req[:dev_pg], devices0,
                                                device_strategy, pair_ok)
         if pair_score is None:
             pair_score = dev_score
@@ -355,13 +461,8 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
 
         # quota admission (ElasticQuota PreFilter): used + request <=
         # runtime at every tree level
-        quota_admit = torch.ones((p,), dtype=torch.bool, device=dev)
-        for d in range(quota_depth):
-            anc = pod_anc[:, d]
-            a = anc.clamp_min(0).long()
-            level_ok = torch.all(dims(quota_used)[a] + req_fit
-                                 <= runtime_fit[a] + EPS, dim=-1)
-            quota_admit = quota_admit & ((anc < 0) | level_ok)
+        quota_admit = quota_ceiling_terms(pod_anc, dims(quota_used),
+                                          runtime_fit, req_fit, quota_depth)
         row_ok = (active & quota_admit).contiguous()
 
         # score inputs frozen for the round (the reference's NodeMetric
@@ -398,14 +499,15 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                 trying = trying & ~(on_slot & (is_once & once_taken)[slot_of])
             choice_eff = _where_i32(trying, choice, drop_node)
 
-            # the same-domain prefix gates of the topology families (K8):
-            # charges of every trying pod, not only those the node level
-            # admits (core.py:776-884)
+            # the same-domain prefix gates of the topology families (K8,
+            # on the first pc pods; the rest pass): charges of every
+            # trying pod, not only those the node level admits
+            # (core.py:776-884)
             topo_ok = None
-            if topo is not None:
-                topo_ok = topology_prefix_gate(
-                    choice_eff, trying, rank,
-                    step_families(topo, counts, spread_lim))
+            if topo is not None and pc:
+                topo_ok = _fit_rows(topology_prefix_gate(
+                    choice_eff[:pc], trying[:pc], rank_of(pc),
+                    step_families(topo, counts, spread_lim, pc)), p, True)
 
             # node (and slot) capacity prefix in priority order, then (K2
             # ANDs in the topology verdict) the quota prefix per tree
@@ -418,45 +520,58 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
 
             if use_gpu:
                 live = devices_x.replace(gpu_free=gpu_free)
-            if enable_numa:
+            adm = None
+            if enable_numa and pn:
                 # the topology manager on the chosen row (K5, with
                 # DeviceShare's hint provider on the live instance free
                 # where there are instances), then the zone capacity
                 # prefix, zone by zone, over the engaged pods it admitted
                 # (K2: each zone sees the previous zone's gate); pods it
                 # rejects still counted in the node prefix above, as in
-                # the reference
+                # the reference. All on the first pn pods (the rest pass),
+                # which read the GPU requests of the first pg, zero beyond
                 adm = topology_admit(
-                    choice_eff, trying, pods.numa_single, demand,
-                    numa_cap_x, numa_used, numa_valid_x, numa_policy_x,
-                    numa_strategy, *((gpu_req, live) if use_gpu else ()))
-                accept = accept & adm.admit
+                    choice_eff[:pn], trying[:pn], pods.numa_single[:pn],
+                    demand[:pn], numa_cap_x, numa_used, numa_valid_x,
+                    numa_policy_x, numa_strategy,
+                    *((_fit_rows(gpu_req[:pg], pn, 0.0), live) if use_gpu
+                      else ()))
+                acc = accept[:pn] & adm.admit
                 used_flat = numa_used.view(n_ext, n_zones * 2)
                 zone_ok = segment_prefix_chain(
-                    choice_eff[None].expand(n_zones, p).contiguous(), rank,
-                    adm.take.transpose(0, 1), accept & adm.engaged,
+                    choice_eff[:pn][None].expand(n_zones, pn).contiguous(),
+                    rank_of(pn), adm.take.transpose(0, 1), acc & adm.engaged,
                     [(used_flat[:, 2 * z:2 * z + 2],
                       numa_cap_flat[:, 2 * z:2 * z + 2], n_ext)
                      for z in range(n_zones)], EPS)
-                accept = (accept & ~adm.engaged) | zone_ok
+                accept = _with_head(accept, (acc & ~adm.engaged) | zone_ok)
 
-            if use_gpu:
-                # the GPU instance gates (K7, K2, K7): shared pods'
-                # instances, their (row, instance) prefix gate and the
-                # first multi-GPU pod of each row in one K2 launch, then
-                # the multi-GPU pods' whole instances; engaged pods keep
-                # to the topology manager's affinity
-                zone = ((adm.affinity, adm.engaged) if enable_numa
-                        else (None, None))
-                pick = gpu_instance_pick(choice_eff, accept, gpu_req, live,
+            if use_gpu and pg:
+                # the GPU instance gates (K7, K2, K7) on the first pg pods
+                # (the rest pass): shared pods' instances, their (row,
+                # instance) prefix gate and the first multi-GPU pod of
+                # each row in one K2 launch, then the multi-GPU pods'
+                # whole instances; engaged pods keep to the topology
+                # manager's affinity (rows beyond the numa prefix: any
+                # zone, not engaged)
+                zone = (None, None)
+                if enable_numa:
+                    aff, eng = ((adm.affinity, adm.engaged) if adm is not None
+                                else (torch.ones((0, n_zones), dtype=torch.bool,
+                                                 device=dev),
+                                      torch.zeros((0,), dtype=torch.bool,
+                                                  device=dev)))
+                    zone = (_fit_rows(aff, pg, True), _fit_rows(eng, pg, False))
+                choice_pg, gpu_pg = choice_eff[:pg], gpu_req[:pg]
+                pick = gpu_instance_pick(choice_pg, accept[:pg], gpu_pg, live,
                                          *zone, device_strategy)
                 alive = segment_prefix_chain(
-                    pick.seg, rank, pick.req, pick.gate_active,
+                    pick.seg, rank_of(pg), pick.req, pick.gate_active,
                     [(gate_base, gpu_free.view(n_slots_gpu, 3), n_slots_gpu),
                      (gate_base[:n_ext], one_pod, n_ext)], EPS)
-                fin = gpu_instance_pick(choice_eff, alive, gpu_req, live,
+                fin = gpu_instance_pick(choice_pg, alive, gpu_pg, live,
                                         *zone, device_strategy, chosen=pick)
-                accept = fin.accept
+                accept = _with_head(accept, fin.accept)
 
             if n_slots:
                 # AllocateOnce: among this step's accepted consumers of a
@@ -474,35 +589,37 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                 hit[torch.where(won, slot_of, n_slots)] = True
                 once_taken = once_taken | hit[:n_slots]
 
-            # scatter-commit (assume): accept is final from here on
-            if enable_numa:
-                took_z = accept & adm.engaged
+            # scatter-commit (assume): accept is final from here on; the
+            # zone and instance commits read their prefix rows only
+            if adm is not None:
+                took_z = accept[:pn] & adm.engaged
                 numa_used = ordered_scatter_add(
-                    used_flat, _where_i32(took_z, choice, n_ext),
+                    used_flat, _where_i32(took_z, choice[:pn], n_ext),
                     (adm.take * took_z[:, None, None]).reshape(
-                        p, n_zones * 2)).view(n_ext, n_zones, 2)
-                out_take = torch.where(took_z[:, None, None], adm.take,
-                                       out_take)
-                out_zone = _where_i32(took_z & pods.numa_single, adm.zone1,
-                                      out_zone)
-            if use_gpu:
+                        pn, n_zones * 2)).view(n_ext, n_zones, 2)
+                out_take = _with_head(out_take, torch.where(
+                    took_z[:, None, None], adm.take, out_take[:pn]))
+                out_zone = _with_head(out_zone, _where_i32(
+                    took_z & pods.numa_single[:pn], adm.zone1, out_zone[:pn]))
+            if use_gpu and pg:
                 # every pod's instance takes in one ordered scatter over
                 # [N + V, I * 3]: no instance gets adds from a shared and
                 # a multi-GPU pod in one step (the take launch excludes
                 # the shared pods' instances), so this equals the
                 # reference's shared scatter followed by its multi-GPU
                 # one bit for bit (the other columns add -0.0)
-                took_gpu = accept & (pick.count > 0)
+                took_gpu = accept[:pg] & (pick.count > 0)
                 gpu_free = ordered_scatter_add(
                     gpu_free.view(n_ext, n_inst * 3),
-                    _where_i32(took_gpu, choice, n_ext),
+                    _where_i32(took_gpu, choice[:pg], n_ext),
                     -(fin.take[:, :, None] * pick.per_inst[:, None, :])
-                    .reshape(p, n_inst * 3)).view(n_ext, n_inst, 3)
-                out_gpu_take = out_gpu_take | fin.take
-                out_per = torch.where(took_gpu[:, None], pick.per_inst,
-                                      out_per)
+                    .reshape(pg, n_inst * 3)).view(n_ext, n_inst, 3)
+                out_gpu_take = _with_head(out_gpu_take,
+                                          out_gpu_take[:pg] | fin.take)
+                out_per = _with_head(out_per, torch.where(
+                    took_gpu[:, None], pick.per_inst, out_per[:pg]))
 
-            if topo is not None:
+            if topo is not None and pc:
                 # The reference recounts the (group x domain) counts from
                 # `placed` at every step and round; here the accepted
                 # members and carriers are charged into carried counts
@@ -513,7 +630,8 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                 # count0 plus one 1.0 for each placed member, as the
                 # recount does, and 0/1 adds onto whole numbers in f32
                 # are exact below 2^24 in any order.
-                counts = commit_counts(topo, counts, accept, choice)
+                counts = commit_counts(topo, counts, accept[:pc],
+                                       choice[:pc])
             acc_req = pods.requests * accept[:, None]
             requested = ordered_scatter_add(requested, choice_eff, acc_req)
             quota_used = quota_commit(quota_used, accept, acc_req)
@@ -651,35 +769,65 @@ def quota_ok(snap: ClusterSnapshot) -> bool:
 
 
 # --- the straggler tail ---------------------------------------------------
-# The full-width form: no topology-constrained budget in the selection
-# (that needs the reference's packing prefix, which the port does not
-# take); the (group x domain) counts ride between passes where given.
+# The (group x domain) counts ride between passes where given; with a
+# topo_prefix the selection keeps the constrained stragglers of a pass
+# inside the retry batch's prefix (the budget, core.py:1437-1469).
 
 
 def tail_select(pods: PodBatch, assign: torch.Tensor, tried: torch.Tensor,
-                tail_chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                tail_chunk: int, topo_prefix: Optional[int] = None,
+                topo_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(idx i64[tail_chunk], attempt bool[tail_chunk]): the batch rows of
     up to tail_chunk stragglers, never-retried ones first, and which of
-    them are true leftovers (the rest pad the window)."""
+    them are true leftovers this pass may retry (the rest pad the
+    window).
+
+    With `topo_prefix` and `topo_mask` (bool[P], the pods with a
+    topology membership, in the batch's packed order): at most
+    topo_prefix constrained stragglers, untried first, go to the front
+    of the window, inside the retry batch's packing prefix, and the rest
+    of it goes to the unconstrained stragglers, untried first; untried
+    pods of either class come before every tried one. Constrained
+    overflow is not attempted, so it stays never-retried for a later
+    pass (tail_pass marks only attempted rows tried)."""
     bad = pods.valid & (assign < 0)
-    key = torch.where(bad & ~tried, 0, torch.where(bad, 1, 2))
+    if topo_prefix is None:
+        key = torch.where(bad & ~tried, 0, torch.where(bad, 1, 2))
+    else:
+        cb = bad & topo_mask
+        ckey = torch.where(cb & ~tried, 0, torch.where(cb, 1, 2))
+        adm = cb & (stable_rank(ckey) < topo_prefix)
+        free = bad & ~topo_mask
+        key = torch.where(
+            adm & ~tried, 0, torch.where(
+                free & ~tried, 1, torch.where(
+                    adm, 2, torch.where(free, 3, torch.where(bad, 4, 5)))))
     idx = torch.sort(key, stable=True).indices[:tail_chunk]
-    return idx, bad[idx]
+    attempt = bad[idx]
+    if topo_prefix is not None:
+        in_prefix = torch.arange(idx.shape[0], device=idx.device) < topo_prefix
+        attempt = attempt & (~topo_mask[idx] | in_prefix)
+    return idx, attempt
 
 
 def tail_pass(step_fn: Callable, snap: ClusterSnapshot, assign: torch.Tensor,
               tried: torch.Tensor, pods: PodBatch, cfg, *, tail_chunk: int,
               carry: Optional[Dict[str, torch.Tensor]] = None,
-              counts: Optional[tuple] = None):
-    """One retry pass: gather the selected stragglers into a compact
-    [tail_chunk] batch, re-schedule it with `step_fn(snap, retry, cfg)`
-    and scatter the placements back, and the placed pods' result fields
-    named in `carry` ({field: [P, ...]}, e.g. `gpu_take`, `res_slot`)
-    where given. `counts` (COUNT_FIELDS order), where given, are the
-    retry batch's count0 fields and come back with its placements
-    charged (core.py:1506-1510). Returns (snap, assign, tried, carry,
-    counts)."""
-    idx, attempt = tail_select(pods, assign, tried, tail_chunk)
+              counts: Optional[tuple] = None,
+              topo_prefix: Optional[int] = None,
+              topo_mask: Optional[torch.Tensor] = None):
+    """One retry pass: gather the selected stragglers (`tail_select`,
+    with the topology budget where `topo_prefix` and `topo_mask` are
+    given) into a compact [tail_chunk] batch, re-schedule it with
+    `step_fn(snap, retry, cfg)` and scatter the placements back, and the
+    placed pods' result fields named in `carry` ({field: [P, ...]}, e.g.
+    `gpu_take`, `res_slot`) where given. `counts` (COUNT_FIELDS order),
+    where given, are the retry batch's count0 fields and come back with
+    its placements charged (core.py:1506-1510). Returns (snap, assign,
+    tried, carry, counts)."""
+    idx, attempt = tail_select(pods, assign, tried, tail_chunk, topo_prefix,
+                               topo_mask)
     retry = pods.replace(
         **{f: getattr(pods, f)[idx] for f in PER_POD_FIELDS if f != "valid"},
         valid=attempt)
@@ -708,12 +856,15 @@ def tail_compaction_loop(step_fn: Callable, snap: ClusterSnapshot,
                          assign: torch.Tensor, pods: PodBatch, cfg, *,
                          tail_chunk: int, min_passes: int, max_passes: int,
                          carry: Optional[Dict[str, torch.Tensor]] = None,
-                         counts: Optional[tuple] = None):
+                         counts: Optional[tuple] = None,
+                         topo_prefix: Optional[int] = None,
+                         topo_mask: Optional[torch.Tensor] = None):
     """Run tail passes until the stragglers drain or the budget is
     spent: min(min_passes, max_passes) passes always run; more run while
     stragglers remain and (the count improved or never-retried ones
     remain), up to max_passes. The reference loops on device; here the
-    host reads two counts after each pass.
+    host reads two counts after each pass. `topo_prefix` and `topo_mask`
+    budget each pass's constrained stragglers (`tail_select`).
 
     Returns (snap, assign, stats i32[4], carry, counts) with stats =
     [stragglers_after_sweep, stragglers_final, never_retried, passes],
@@ -728,7 +879,8 @@ def tail_compaction_loop(step_fn: Callable, snap: ClusterSnapshot,
                                and (improved or never_retried > 0)):
         snap, assign, tried, carry, counts = tail_pass(
             step_fn, snap, assign, tried, pods, cfg, tail_chunk=tail_chunk,
-            carry=carry, counts=counts)
+            carry=carry, counts=counts, topo_prefix=topo_prefix,
+            topo_mask=topo_mask)
         bad = pods.valid & (assign < 0)
         new_left, never_retried = (
             int(x) for x in torch.stack([bad.sum(), (bad & ~tried).sum()]).cpu())

@@ -4,8 +4,10 @@ their charges and the per-round maps.
 
 Counterpart of koordinator_tpu/scheduler/core.py domain_machinery
 (:456-481), charge_domain_counts and charge_all_counts (:1331-1390), the
-round gates (:587-675) and the spread penalty (:705-712), at full width
-with singleton domain classes (every group its own). The maps are plain
+round gates (:587-675) and the spread penalty (:705-712), with singleton
+domain classes (every group its own: the reference's classes batch its
+per-group matvecs bit-identically) and, under the topo_prefix packing
+contract, for the batch's first rows only. The maps are plain
 torch over [G, N + V] and [P, G], once a round; no [P, N] tensor is
 built. What they feed: kernel K1 (`score_topk`) takes a round's gates as
 bit words (`TopoTerms`), kernel K8 (`topology_prefix_gate`) the in-step
@@ -135,7 +137,7 @@ class BatchTopology:
     # in its table and its table's drop index G * D; and each table's
     # (count index, first row, end row)
     commit_dom: Optional[torch.Tensor] = None    # i32[R, N + V]
-    commit_bits: Optional[torch.Tensor] = None   # bool[R, P]
+    commit_bits: Optional[torch.Tensor] = None   # bool[R, rows]
     commit_off: Optional[torch.Tensor] = None    # i32[R, 1]
     commit_drop: Optional[torch.Tensor] = None   # i32[R, 1]
     commit_tables: Tuple[Tuple[int, int, int], ...] = ()
@@ -154,12 +156,25 @@ class BatchTopology:
 
 
 def batch_topology(pods: PodBatch, slot_node: torch.Tensor,
-                   n_nodes: int) -> Optional[BatchTopology]:
+                   n_nodes: int, rows: Optional[int] = None
+                   ) -> Optional[BatchTopology]:
     """The batch's families (`pods.has_spread` / `has_anti` / `has_aff`),
-    or None where it has none. Raises where a domain map is not one
-    column a node or a family has more than 32 groups."""
+    or None where it has none. With `rows` (the topo_prefix packing
+    contract, core.py:456-481) only the batch's first rows pods take
+    part: the pods beyond get zero words (no gate, no penalty, no
+    charge) and the step commits read the first rows only. Raises where
+    a domain map is not one column a node or a family has more than 32
+    groups."""
     if not (pods.has_spread or pods.has_anti or pods.has_aff):
         return None
+    p = pods.num_pods
+    rows = p if rows is None else rows
+    in_rows = (torch.arange(p, device=pods.valid.device) < rows)[:, None]
+
+    def bits(name):
+        """A [P, G] membership field, False beyond the rows."""
+        return getattr(pods, name) & in_rows
+
     kw = {f.name: None for f in dataclasses.fields(BatchTopology)}
 
     def dom(name):
@@ -171,31 +186,31 @@ def batch_topology(pods: PodBatch, slot_node: torch.Tensor,
 
     if pods.has_spread:
         kw.update(spread_dom=dom("spread_domain"),
-                  spread_member=pack_bits(pods.spread_member, 1),
-                  spread_carrier=pack_bits(pods.spread_carrier, 1),
+                  spread_member=pack_bits(bits("spread_member"), 1),
+                  spread_carrier=pack_bits(bits("spread_carrier"), 1),
                   spread_skew=pods.spread_max_skew,
                   spread_dvalid=pods.spread_dvalid)
     if pods.has_anti:
         kw.update(anti_dom=dom("anti_domain"),
-                  anti_member=pack_bits(pods.anti_member, 1),
-                  anti_carrier=pack_bits(pods.anti_carrier, 1))
+                  anti_member=pack_bits(bits("anti_member"), 1),
+                  anti_carrier=pack_bits(bits("anti_carrier"), 1))
     if pods.has_aff:
         kw.update(aff_dom=dom("aff_domain"),
-                  aff_carrier=pack_bits(pods.aff_carrier, 1),
-                  aff_self=pods.aff_member & pods.aff_carrier)
+                  aff_carrier=pack_bits(bits("aff_carrier"), 1),
+                  aff_self=bits("aff_member") & pods.aff_carrier)
     topo = BatchTopology(**kw)
-    rows, bits, off, drop, tables, r0 = [], [], [], [], [], 0
+    maps, members, off, drop, tables, r0 = [], [], [], [], [], 0
     for i, dom_x in topo.families():
         g_n, d_n = getattr(pods, COUNT_FIELDS[i]).shape
         g_idx = torch.arange(g_n, dtype=torch.int32, device=dom_x.device)
-        rows.append(dom_x)
-        bits.append(getattr(pods, _COUNT_RULE[i][1]).T)
+        maps.append(dom_x)
+        members.append(getattr(pods, _COUNT_RULE[i][1])[:rows].T)
         off.append(g_idx * d_n)
         drop.append(torch.full_like(g_idx, g_n * d_n))
         tables.append((i, r0, r0 + g_n))
         r0 += g_n
-    topo.commit_dom = torch.cat(rows).contiguous()
-    topo.commit_bits = torch.cat(bits).contiguous()
+    topo.commit_dom = torch.cat(maps).contiguous()
+    topo.commit_bits = torch.cat(members).contiguous()
     topo.commit_off = torch.cat(off)[:, None]
     topo.commit_drop = torch.cat(drop)[:, None]
     topo.commit_tables = tuple(tables)
@@ -283,25 +298,30 @@ def round_terms(topo: BatchTopology, counts: Sequence[torch.Tensor],
 
 
 def step_families(topo: BatchTopology, counts: Sequence[torch.Tensor],
-                  lim: Optional[torch.Tensor]) -> List[PrefixFamily]:
-    """K8's families for a step over the carried counts: spread (members
-    charge, carriers are gated, capped at `lim`), anti-affinity in both
-    directions (members charge and carriers are gated over member
-    counts; carriers charge and members are gated over carrier counts),
-    and affinity's openers."""
+                  lim: Optional[torch.Tensor],
+                  rows: Optional[int] = None) -> List[PrefixFamily]:
+    """K8's families for a step over the carried counts, for the batch's
+    first `rows` pods (all where None): spread (members charge, carriers
+    are gated, capped at `lim`), anti-affinity in both directions
+    (members charge and carriers are gated over member counts; carriers
+    charge and members are gated over carrier counts), and affinity's
+    openers."""
+    def w(words):
+        return words if rows is None else words[:rows]
+
     fams = []
     if topo.spread_dom is not None:
         fams.append(PrefixFamily(topo.spread_dom, counts[0],
-                                 topo.spread_member, topo.spread_carrier,
-                                 CAP, lim))
+                                 w(topo.spread_member),
+                                 w(topo.spread_carrier), CAP, lim))
     if topo.anti_dom is not None:
-        fams += [PrefixFamily(topo.anti_dom, counts[1], topo.anti_member,
-                              topo.anti_carrier, OCCUPY),
-                 PrefixFamily(topo.anti_dom, counts[2], topo.anti_carrier,
-                              topo.anti_member, OCCUPY)]
+        fams += [PrefixFamily(topo.anti_dom, counts[1], w(topo.anti_member),
+                              w(topo.anti_carrier), OCCUPY),
+                 PrefixFamily(topo.anti_dom, counts[2], w(topo.anti_carrier),
+                              w(topo.anti_member), OCCUPY)]
     if topo.aff_dom is not None:
-        fams.append(PrefixFamily(topo.aff_dom, counts[3], topo.aff_carrier,
-                                 topo.aff_carrier, OPENER))
+        fams.append(PrefixFamily(topo.aff_dom, counts[3], w(topo.aff_carrier),
+                                 w(topo.aff_carrier), OPENER))
     return fams
 
 
@@ -310,8 +330,10 @@ def commit_counts(topo: BatchTopology, counts: Sequence[torch.Tensor],
     """The carried counts with this step's accepted pods charged: each
     accepted member (carrier, for the anti-affinity carrier counts) of
     group g at dom_x[g, choice] (an extended column: a slot's consumer
-    on its host's domain). The indices of every table come from one
-    gather over the batch's commit rows; then one K3 launch a count
+    on its host's domain). `accept` and `choice` are the first rows of
+    the batch that `batch_topology` took (core.py:479: the in-batch
+    counts charge `member[:pc]`). The indices of every table come from
+    one gather over the batch's commit rows; then one K3 launch a count
     table."""
     x = topo.commit_dom.shape[1]
     dom = topo.commit_dom[:, choice.clamp(0, x - 1)]          # [R, P]

@@ -8,7 +8,9 @@ hold the two equal). The arrays are built on the host and moved to
 `device` once. GPU nodes (`gpu_node_frac`), GPU pods (`gpu_pod_frac`),
 live reservation slots (`num_reservations`, on their own generator) and
 the full-gate workload's taint classes, toleration sets, pod topology
-groups and slot owners draw in the reference's order.
+groups and slot owners draw in the reference's order. The full-gate
+packers (`pack_gate_prefixes`, `topo_constrained_mask`, `dom_classes`)
+compute on the host, as the reference's do.
 """
 
 from __future__ import annotations
@@ -339,6 +341,93 @@ def slice_batch(batch: PodBatch, start: int, size: int) -> PodBatch:
     """A pod-chunk view; the batch-global matrices stay whole."""
     return batch.replace(**{f: getattr(batch, f)[start:start + size]
                             for f in PER_POD_FIELDS})
+
+
+# --- the full-gate packing contracts (utils/synthetic.py:576-690) --------
+
+
+def dom_classes(pods: PodBatch) -> tuple:
+    """(spread, anti, affinity) domain classes for schedule_batch's
+    `dom_classes`: each family's groups whose domain-map rows are equal
+    (the upstream topologyKey sets the row), in first-seen order."""
+    def classes(dom):
+        seen = {}
+        for g, row in enumerate(dom.cpu().numpy()):
+            seen.setdefault(row.tobytes(), []).append(g)
+        return tuple(tuple(v) for v in seen.values())
+    return (classes(pods.spread_domain), classes(pods.anti_domain),
+            classes(pods.aff_domain))
+
+
+def topo_constrained_mask(pods: PodBatch) -> np.ndarray:
+    """bool[P]: the pods carrying or matching any spread, anti-affinity
+    or affinity group, the rows the topo_prefix contract puts first."""
+    p = pods.num_pods
+    constrained = np.zeros((p,), bool)
+    for f in ("spread_member", "spread_carrier", "anti_member",
+              "anti_carrier", "aff_member", "aff_carrier"):
+        m = getattr(pods, f).cpu().numpy()
+        if m.shape[0] == p:
+            constrained |= m.any(axis=1)
+    return constrained
+
+
+def pack_topo_prefix(pods: PodBatch, chunk: int, align: int = 128) -> tuple:
+    """(packed pods, topo_prefix, constrained mask in packed order): the
+    topology class of `pack_gate_prefixes`."""
+    packed, prefixes, masks = pack_gate_prefixes(pods, chunk, align=align)
+    return packed, prefixes["topo"], masks["topo"]
+
+
+def pack_gate_prefixes(pods: PodBatch, chunk: int, align: int = 128) -> tuple:
+    """(packed pods, prefixes, masks): the pods of each chunk reordered,
+    stably, by (topology, CPU-bind, device request) membership, so that
+    each class lies inside a nested prefix of every chunk (topo <= numa
+    <= gpu): the schedule_batch packing contracts. `prefixes` maps
+    "topo", "numa", "gpu" to the largest class count of a chunk rounded
+    up to `align` (at most the chunk); `masks` maps them to each class's
+    bool[P] in packed order, and "perm" to the permutation (packed row i
+    is row perm[i] of `pods`). Raises ValueError where a class escapes
+    its prefix (`check_gate_prefixes`). The numa contract also needs a
+    snapshot without topology-manager policies, which the caller
+    checks."""
+    p = pods.num_pods
+    if p % chunk:
+        raise ValueError(f"{p} pods not divisible by chunk {chunk}")
+    topo = topo_constrained_mask(pods)
+    numa = pods.numa_single.cpu().numpy().astype(bool)
+    gpu = has_device_request(pods.requests, pods.gpu_ratio).cpu().numpy()
+    perm = np.empty((p,), np.int64)
+    worst = {"topo": 0, "numa": 0, "gpu": 0}
+    for s in range(0, p, chunk):
+        t = topo[s:s + chunk]
+        n = t | numa[s:s + chunk]
+        g = n | gpu[s:s + chunk]
+        perm[s:s + chunk] = s + np.lexsort((~g, ~n, ~t))
+        worst["topo"] = max(worst["topo"], int(t.sum()))
+        worst["numa"] = max(worst["numa"], int(n.sum()))
+        worst["gpu"] = max(worst["gpu"], int(g.sum()))
+    prefixes = {k: min(-(-v // align) * align, chunk)
+                for k, v in worst.items()}
+    index = torch.from_numpy(perm).to(pods.valid.device)
+    packed = pods.replace(**{f: getattr(pods, f)[index]
+                             for f in PER_POD_FIELDS})
+    masks = {"topo": topo[perm], "numa": numa[perm], "gpu": gpu[perm],
+             "perm": perm}
+    check_gate_prefixes(masks, prefixes, chunk)
+    return packed, prefixes, masks
+
+
+def check_gate_prefixes(masks: dict, prefixes: dict, chunk: int) -> None:
+    """Raise ValueError where a pod of class "topo", "numa" or "gpu"
+    (`masks`, packed order) sits at or beyond its prefix in its chunk:
+    the scheduler would silently leave it out of that class's gates."""
+    for key in ("topo", "numa", "gpu"):
+        m, pref = masks[key], prefixes[key]
+        for s in range(0, m.shape[0], chunk):
+            if m[s + pref:s + chunk].any():
+                raise ValueError(
+                    f"pack_gate_prefixes: {key} pod escaped its prefix")
 
 
 def with_two_numa_zones(snap: ClusterSnapshot) -> ClusterSnapshot:

@@ -121,7 +121,8 @@ def _slim_inputs():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(enable_numa=True, enable_amplification=True), dict(cascade=True),
+    dict(enable_numa=True, enable_amplification=True),
+    dict(cascade=True, enable_amplification=True),
     dict(approx_topk=True), dict(enable_amplification=True)], ids=str)
 def test_unported_options_raise(kw):
     snap, pods, cfg = _slim_inputs()
