@@ -64,7 +64,14 @@ in order:
    whose pods must lose every candidate), at N = 1001, with fit_dims
    None and on an all-dead batch; K4 and K6 on the numa and gpu
    prefixes' rows, 0 rows and P rows, ANDing into K9's mask in place,
-   and K1 with addends of those rows. Each timed case with
+   and K1 with addends of those rows. The descheduler's kernels, chained
+   as the LowNodeLoad plan chains them (K11 lnl_eviction_order, K10
+   lnl_node_fit on its low nodes, K12 lnl_plan_prefix and K13
+   lnl_plan_capped on its order): at config 5's shape (10 000 nodes,
+   11 796 pods; timed, K11 beside one stable `torch.argsort` of as many
+   keys), in deviation mode, at P = 1, with every pod nodeless, with a
+   budget that binds and with every cap binding, K11's order, flags
+   and floats bit for bit and the takes equal. Each timed case with
    its time
    (CUDA events over back-to-back calls, and the kernel's device time
    from torch.profiler), the plain version's, one library call's where
@@ -120,7 +127,18 @@ in order:
    card after a warm-up run: the bench line with the prefixes, the
    first chunk's candidate counts (min, median, max), launches and
    peak memory, gpu_share's launch formulas with K9 once a batch, its
-   invariants, and no straggler left never retried.
+   invariants, and no straggler left never retried;
+8. config 5: BASELINE config 5, koord-descheduler's LowNodeLoad plan
+   over 10 000 nodes (`configs.run_config_5_descheduler`: a warm plan,
+   then the timed one), plain (K10, K11, K12) and capped (per cycle
+   4000, per node 2, per namespace 2000: K10, K11, K13) on the card,
+   then on the host (the port's plan through the plain versions, and
+   the host loop LowNodeLoad): the evicted pods equal name for name and
+   in order, each kernel's launches over the two plans (K10 and K11
+   once a plan, K12 once a plain plan, K13 once a capped plan, nothing
+   else), every evicted pod on a source node, the caps held, and no
+   node losing a pod once it is at or under its high threshold on
+   every dim; the two bench lines printed.
 
 The last three lines are one JSON object listing the kernels, the
 card's name and power limit, and one JSON object stating the result.
@@ -130,7 +148,6 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
@@ -143,14 +160,24 @@ from koordinator_tpu_torch.api.extension import ResourceKind
 from koordinator_tpu_torch.bridge import to_numpy
 from koordinator_tpu_torch.configs import (
     CONFIG_2_KW,
+    CONFIG_5_CAPS,
     GPU_SHARE_KW,
     GPU_SHARE_TAIL_KW,
+    card_name_and_power_limit,
     full_gate_sweep,
     pack_full_gate,
     run_config_2_numa,
+    run_config_5_descheduler,
     run_full_gate,
     run_gpu_share,
 )
+from koordinator_tpu_torch.descheduler import (
+    EvictionLimiter,
+    LowNodeLoad,
+    LowNodeLoadArgs,
+    RecordingEvictor,
+)
+from koordinator_tpu_torch.descheduler.lownodeload_device import columnarize
 from koordinator_tpu_torch.flagship import (
     STEP_KW,
     TAIL_KW,
@@ -166,6 +193,18 @@ from koordinator_tpu_torch.kernels.gpu_instances import (
     gpu_choose_plain,
     gpu_instance_pick,
     gpu_take_plain,
+)
+from koordinator_tpu_torch.kernels.lownodeload import (
+    EPS as LNL_EPS,
+    lnl_eviction_order,
+    lnl_eviction_order_plain,
+    lnl_node_fit,
+    lnl_node_fit_plain,
+    lnl_plan_capped,
+    lnl_plan_capped_plain,
+    lnl_plan_prefix,
+    lnl_plan_prefix_plain,
+    weighted_sum,
 )
 from koordinator_tpu_torch.kernels.numa_terms import (
     numa_pair_terms,
@@ -222,7 +261,9 @@ from koordinator_tpu_torch.scheduler.plugins import (
 )
 from koordinator_tpu_torch.scheduler.plugins.reservation import slot_columns
 from koordinator_tpu_torch.utils.synthetic import (
+    CONFIG_5_NOW,
     config_2_inputs,
+    config_5_cluster,
     gpu_share_inputs,
     slice_batch,
     synthetic_cluster,
@@ -268,6 +309,17 @@ SOURCES = {
     "stage1_mask": ("koordinator_tpu_torch/csrc/stage1_mask.cu",
                     "koordinator_tpu/scheduler/cascade.py:117 "
                     "(ops/feasibility.py:44)"),
+    "lnl_node_fit": ("koordinator_tpu_torch/csrc/lownodeload_fit.cu",
+                     "koordinator_tpu/descheduler/lownodeload_device.py:103"),
+    "lnl_eviction_order": (
+        "koordinator_tpu_torch/csrc/lownodeload_order.cu",
+        "koordinator_tpu/descheduler/lownodeload_device.py:75"),
+    "lnl_plan_prefix": (
+        "koordinator_tpu_torch/csrc/lownodeload_prefix.cu",
+        "koordinator_tpu/descheduler/lownodeload_device.py:162"),
+    "lnl_plan_capped": (
+        "koordinator_tpu_torch/csrc/lownodeload_capped.cu",
+        "koordinator_tpu/descheduler/lownodeload_device.py:231"),
 }
 
 
@@ -285,11 +337,13 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Mean device milliseconds of the kernel whose symbol holds
-    `kernel`, a call of fn() (one launch), from torch.profiler's device
-    trace: the host's time between launches, which `cuda_ms` sees when
-    the host is slower than the kernel, is not in it."""
+def device_ms(fn, kernel, reps: int = 20) -> float:
+    """Mean device milliseconds a call of fn() from torch.profiler's
+    device trace: `kernel` is a symbol fragment, or a tuple of them when
+    a call launches one kernel of each (their times summed). The host's
+    time between launches, which `cuda_ms` sees when the host is slower
+    than the kernel, is not in it."""
+    symbols = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     fn()
     torch.cuda.synchronize()
     # the tracer may miss launches (a few at its start, or now and then a
@@ -303,12 +357,14 @@ def device_ms(fn, kernel: str, reps: int = 20) -> float:
         spans = [e.time_range.end - e.time_range.start
                  for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA
-                 and kernel in e.name]
-        if len(spans) >= reps // 2:
-            return sum(spans) / len(spans) / 1e3
+                 and any(s in e.name for s in symbols)]
+        calls = len(spans) / len(symbols)
+        if calls >= reps // 2:
+            return sum(spans) / calls / 1e3
         print(f"device_ms: the trace holds {len(spans)} launches of "
-              f"{kernel}, not {reps}; tracing again", file=sys.stderr)
-    raise SystemExit(f"six traces missed most launches of {kernel}")
+              f"{symbols}, not {reps * len(symbols)}; tracing again",
+              file=sys.stderr)
+    raise SystemExit(f"six traces missed most launches of {symbols}")
 
 
 def bound(nbytes: float, ops: float):
@@ -2626,6 +2682,326 @@ def full_gate_phase():
     return line, launches, summary
 
 
+# --- the descheduler: K10-K13 and BASELINE config 5 ------------------------
+
+LNL_KERNELS = ("lnl_node_fit", "lnl_eviction_order", "lnl_plan_prefix",
+               "lnl_plan_capped")
+# the device symbols of each kernel (K10 is two launches on the stream)
+LNL_SYMBOLS = {"lnl_node_fit": ("low_node_rows", "pod_fits"),
+               "lnl_eviction_order": ("eviction_order_kernel",),
+               "lnl_plan_prefix": ("plan_prefix_kernel",),
+               "lnl_plan_capped": ("plan_capped_kernel",)}
+DEVIATION_THRESHOLDS = dict(
+    low_thresholds={ResourceKind.CPU: 10.0, ResourceKind.MEMORY: 10.0},
+    high_thresholds={ResourceKind.CPU: 10.0, ResourceKind.MEMORY: 10.0})
+
+
+def lnl_columns(dev, deviation=False, n_nodes=10_000):
+    """Config 5's plan inputs (the columns DeviceLowNodeLoad.balance_once
+    hands the plan) on `dev`, with the threshold dims as `rdims`; in
+    deviation mode with thresholds of 10/10 around the average (the
+    defaults leave no source there). Returns (columns, fit_dims)."""
+    nodes, metrics, by_node = config_5_cluster(n_nodes)
+    args = LowNodeLoadArgs(consecutive_abnormalities=1,
+                           use_deviation_thresholds=deviation,
+                           **(DEVIATION_THRESHOLDS if deviation else {}))
+    plugin = LowNodeLoad(args)
+    usage, capacity, fresh = plugin.node_columns(nodes, metrics,
+                                                 CONFIG_5_NOW)
+    _, _, _, high, _ = plugin.classify_columns(usage, capacity, fresh)
+    source = plugin._gate_anomalies([n.meta.name for n in nodes], high)
+    cols = columnarize(nodes, metrics, by_node, args, usage, capacity, fresh)
+    cols.pop("pods")
+    fit_dims = cols.pop("fit_dims")
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+         for k, v in cols.items()}
+    t["source_mask"] = torch.from_numpy(source).to(dev)
+    t["rdims"] = t.pop("rdims_onehot").argmax(dim=1).to(torch.int32)
+    return t, fit_dims
+
+
+def lnl_k11_args(t, deviation):
+    return (t["usage"], t["capacity"], t["fresh"], t["source_mask"],
+            t["pod_node"], t["pod_usage_r"], t["pod_eligible"], t["low"],
+            t["high"], t["weights"], t["rdims"], deviation)
+
+
+def lnl_host(x):
+    return tuple(v.cpu() if isinstance(v, torch.Tensor) else v for v in x)
+
+
+def lnl_equal(label, name, got, want):
+    """Max abs difference of the kernel's outputs and the plain
+    version's (bools as 0/1); raises unless they are equal."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for g, w in zip(got, want):
+        g = g.cpu()
+        if not torch.equal(g, w):
+            raise SystemExit(f"{name} ({label}) differs from its plain "
+                             f"version on the host")
+        err = max(err, float((g.double() - w.double()).abs().max())
+                  if g.numel() else 0.0)
+    return err
+
+
+def lnl_pod_keys(t):
+    """K11's sort keys of the pods outside deviation mode, int64, from
+    the plain version's terms on the host: the rank of the pod's node
+    (sources by weighted usage% descending, stable; non-sources after in
+    index order; n for a nodeless pod) above the order bits of -pod_w
+    (-0.0 as +0.0). A stable argsort of them is K11's order."""
+    t = {k: v.cpu() for k, v in t.items()}
+    n = t["usage"].shape[0]
+    rd = t["rdims"].long()
+    cap = torch.maximum(t["capacity"][:, rd] + 0.0,
+                        torch.tensor(LNL_EPS, dtype=torch.float32))
+    pct = 100.0 * (t["usage"][:, rd] + 0.0) / cap
+    source = t["source_mask"] & t["fresh"] & (pct > t["high"]).any(1)
+    node_key = torch.where(source, -weighted_sum(pct, t["weights"]),
+                           float("inf"))
+    src_rank = torch.empty(n, dtype=torch.int64)
+    src_rank[torch.argsort(node_key, stable=True)] = torch.arange(n)
+    pn = t["pod_node"].long()
+    pod_rank = torch.where(pn >= 0, src_rank[pn.clamp_min(0)], n)
+    neg_w = -weighted_sum(t["pod_usage_r"], t["weights"]) + 0.0
+    bits = neg_w.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    ordered = torch.where(bits >= 1 << 31, bits ^ 0xFFFFFFFF,
+                          bits | 1 << 31)
+    return pod_rank << 32 | ordered
+
+
+def lnl_bounds(t, eo, fits, fit_dims, ns_n):
+    """(bytes, operations) of each kernel on these inputs: each input
+    column it needs read once, each output written once; operations as
+    this data needs them: K10 the requests of the pods on low nodes
+    added, one compare of the fit dims a pod that fits (its first
+    candidate can fit) and one a low node for a pod that fits none; K11
+    about 8 a node and dim (pct, masks, high_abs, budget term, weight),
+    2 a pod and dim, and a comparison sort's N log2 N + P log2 P; K12
+    two scan adds and four more a pod and dim; K13 the same and six a
+    pod for the caps."""
+    n, rd = t["usage"].shape[0], t["pod_usage_r"].shape[1]
+    p = t["pod_node"].shape[0]
+    f = len(fit_dims)
+    low = int(eo.low_mask.sum())
+    on_low = int(eo.low_mask.cpu()[t["pod_node"].cpu().clamp_min(0).long()]
+                 .logical_and(t["pod_node"].cpu() >= 0).sum())
+    n_fit = int(fits.sum())
+    k10 = (p * (4 * f + 4) + n * (4 * f + 1) + p,
+           on_low * f + low * 2 * f + n_fit * f + (p - n_fit) * low * f)
+    k11 = (n * (16 * rd + 3) + p * (10 + 4 * rd) + 20 * rd,
+           8 * n * rd + 2 * p * rd + n * np.log2(max(n, 2))
+           + p * np.log2(max(p, 2)))
+    plan_bytes = p * (4 + 1 + 4 + 4 * rd) + n * 8 * rd + rd * 4 + p
+    k12 = (plan_bytes, 6 * p * rd)
+    k13 = (plan_bytes + p * 4 + ns_n * 4 + n * 4, 6 * p * rd + 6 * p)
+    return {"lnl_node_fit": k10, "lnl_eviction_order": k11,
+            "lnl_plan_prefix": k12, "lnl_plan_capped": k13}
+
+
+def check_lnl(dev, gen):
+    """K10-K13 against their plain versions on the host, chained as the
+    plan chains them: at config 5's shape (10 000 nodes, the hot nodes'
+    pods; timed, with the capped plan's caps), in deviation mode, at
+    P = 1, with every pod nodeless, with a budget that binds (a
+    thousandth of config 5's), and with every cap binding (8
+    namespaces, per-node 1, per-namespace 5, per-cycle 30, seeded
+    counts). K11's order, flags and floats bit for bit, the takes
+    equal. Returns {case: result}."""
+    base, fit_dims = lnl_columns(dev)
+    dev_cols, _ = lnl_columns(dev, deviation=True)
+    p0, n0 = base["pod_node"].shape[0], base["usage"].shape[0]
+    one = dict(base, **{k: base[k][:1].contiguous() for k in (
+        "pod_node", "pod_usage_r", "pod_req", "pod_eligible")})
+    nodeless = dict(base, pod_node=torch.full_like(base["pod_node"], -1))
+    ns8 = torch.randint(0, 8, (p0,), generator=gen, device=dev).to(
+        torch.int32)
+    caps_cfg5 = (torch.zeros(p0, dtype=torch.int32, device=dev),
+                 torch.zeros(8, dtype=torch.int32, device=dev),
+                 torch.zeros(n0, dtype=torch.int32, device=dev),
+                 4000, 2, 2000)
+    caps_bind = (ns8, torch.tensor([1, 0, 2, 0, 0, 1, 0, 0],
+                                   dtype=torch.int32, device=dev),
+                 torch.randint(0, 2, (n0,), generator=gen, device=dev).to(
+                     torch.int32), 30, 1, 5)
+    cases = (("config 5", base, False, None, caps_cfg5, True),
+             ("deviation", dev_cols, True, None, caps_cfg5, False),
+             ("P=1", one, False, None,
+              (caps_cfg5[0][:1].contiguous(),) + caps_cfg5[1:], False),
+             ("nodeless", nodeless, False, None, caps_cfg5, False),
+             ("budget binds", base, False, 0.001, caps_cfg5, False),
+             ("caps bind", base, False, None, caps_bind, False))
+    out = {}
+    for label, t, deviation, budget_scale, caps, timed in cases:
+        k11_args = lnl_k11_args(t, deviation)
+        eo = lnl_eviction_order(*k11_args)
+        eo_h = lnl_eviction_order_plain(*lnl_host(k11_args))
+        err = {"lnl_eviction_order": lnl_equal(label, "K11", tuple(eo),
+                                               tuple(eo_h))}
+        fit_args = (t["pod_req"], t["pod_node"], t["capacity"], eo.low_mask,
+                    fit_dims)
+        fits = lnl_node_fit(*fit_args)
+        err["lnl_node_fit"] = lnl_equal(
+            label, "K10", fits, lnl_node_fit_plain(*lnl_host(fit_args)))
+        budget0 = eo.budget0 if budget_scale is None else \
+            eo.budget0 * budget_scale
+        plan = (eo.order, eo.active & fits, t["pod_node"], t["pod_usage_r"],
+                eo.usage_sel, eo.high_abs, budget0)
+        take = lnl_plan_prefix(*plan, 1 << 30)
+        err["lnl_plan_prefix"] = lnl_equal(
+            label, "K12", take, lnl_plan_prefix_plain(*lnl_host(plan),
+                                                      1 << 30))
+        capped = plan + caps
+        take_c = lnl_plan_capped(*capped)
+        err["lnl_plan_capped"] = lnl_equal(
+            label, "K13", take_c, lnl_plan_capped_plain(*lnl_host(capped)))
+        summary = {"max_abs_err": err, "pods": int(t["pod_node"].shape[0]),
+                   "fits": int(fits.sum()), "take": int(take.sum()),
+                   "take_capped": int(take_c.sum()),
+                   "sources": int(t["source_mask"].sum()),
+                   "low_nodes": int(eo.low_mask.sum())}
+        if budget_scale is not None:
+            unbound = lnl_plan_prefix(*plan[:6], eo.budget0, 1 << 30)
+            summary["take_unbound"] = int(unbound.sum())
+            if not summary["take"] < summary["take_unbound"]:
+                raise SystemExit("K12 (budget binds): the budget did not "
+                                 "bind")
+        if not timed:
+            out[label] = summary
+            continue
+        calls = {
+            "lnl_eviction_order": (lambda: lnl_eviction_order(*k11_args),
+                                   lambda: lnl_eviction_order_plain(
+                                       *k11_args)),
+            "lnl_node_fit": (lambda: lnl_node_fit(*fit_args),
+                             lambda: lnl_node_fit_plain(*fit_args)),
+            "lnl_plan_prefix": (lambda: lnl_plan_prefix(*plan, 1 << 30),
+                                lambda: lnl_plan_prefix_plain(
+                                    *plan, 1 << 30)),
+            "lnl_plan_capped": (lambda: lnl_plan_capped(*capped),
+                                lambda: lnl_plan_capped_plain(*capped))}
+        bounds = lnl_bounds(t, eo, fits, fit_dims, 8)
+        # the one PyTorch call that computes K11's pod order from its
+        # keys: a stable argsort of the pods' (node rank, -weight) keys
+        # (the node ranks' own sort not counted)
+        keys = lnl_pod_keys(t).to(dev)
+        if not torch.equal(torch.argsort(keys, stable=True).int(),
+                           eo.order):
+            raise SystemExit("K11: argsort of its keys differs from its "
+                             "order")
+        library = {"lnl_eviction_order": cuda_ms(
+            lambda: torch.argsort(keys, stable=True))}
+        timing = {}
+        for name, (kern, plain) in calls.items():
+            b_ms, b_by = bound(*bounds[name])
+            timing[name] = dict(
+                ms=cuda_ms(kern),
+                device_ms=device_ms(kern, LNL_SYMBOLS[name]),
+                plain_ms=cuda_ms(plain, reps=3),
+                library_ms=library.get(name), bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err[name],
+                shape=f"N={n0} P={p0} Rd={t['pod_usage_r'].shape[1]} "
+                      f"F={len(fit_dims)}")
+        out[label] = dict(summary, timing=timing)
+    return out
+
+
+def check_descheduler(line, run, host_names, golden_names, capped):
+    """Config 5's plan on the card against the host's (the port's plan
+    through the plain versions, and the host loop): equal names in
+    order; every evicted pod on a source node; in the capped run the
+    caps held; and no node losing a pod once its usage, less the pods
+    already taken from it, is at or under high_abs on every threshold
+    dim."""
+    got = [e.pod.meta.namespaced_name for e in run.evictor.evictions]
+    if got != host_names or got != golden_names:
+        raise SystemExit(f"{line['metric']}: the card's plan differs from "
+                         "the host's")
+    if line["evictions_planned"] != len(host_names):
+        raise SystemExit(f"{line['metric']}: evictions_planned differs")
+    plugin = LowNodeLoad(LowNodeLoadArgs(consecutive_abnormalities=1))
+    usage, capacity, low, high, rdims = plugin.classify(
+        run.nodes, run.metrics, CONFIG_5_NOW)
+    names_ = [n.meta.name for n in run.nodes]
+    index = {n: i for i, n in enumerate(names_)}
+    sources = {names_[i] for i in np.flatnonzero(high)}
+    high_t = np.array([plugin.args.high_thresholds[ResourceKind(d)]
+                       for d in rdims], np.float32)
+    high_abs = (capacity[:, rdims] * high_t).astype(np.float32) * \
+        np.float32(0.01)
+    removed = {}
+    per_ns = {}
+    for e in run.evictor.evictions:
+        node = e.pod.node_name
+        if node not in sources:
+            raise SystemExit(f"{line['metric']}: {e.pod.meta.name} evicted "
+                             f"from {node}, not a source node")
+        i = index[node]
+        rem = removed.get(node, np.zeros(len(rdims), np.float32))
+        if not ((usage[i, rdims] - rem) > high_abs[i]).any():
+            raise SystemExit(f"{line['metric']}: {node} lost "
+                             f"{e.pod.meta.name} below its high threshold")
+        req = np.array([e.pod.requests.get(ResourceKind(d), 0.0)
+                        for d in rdims], np.float32)
+        removed[node] = rem + req
+        per_ns[e.pod.meta.namespace] = per_ns.get(e.pod.meta.namespace,
+                                                  0) + 1
+    if capped:
+        caps = CONFIG_5_CAPS
+        per_node = {}
+        for e in run.evictor.evictions:
+            per_node[e.pod.node_name] = per_node.get(e.pod.node_name, 0) + 1
+        if (len(got) > caps["max_per_cycle"]
+                or max(per_node.values()) > caps["max_per_node"]
+                or max(per_ns.values()) > caps["max_per_namespace"]):
+            raise SystemExit(f"{line['metric']}: a cap did not hold")
+
+
+def descheduler_phase():
+    """BASELINE config 5 plain and capped at 10 000 nodes on the card
+    (`configs.run_config_5_descheduler`: a warm plan, then the timed
+    one), counting launches over both plans, then on the host (the
+    port's plan through the plain versions, and the host loop LowNodeLoad
+    with the same evictor): the plans equal and the invariants held.
+    Returns ({metric: line}, {metric: launches})."""
+    lines, launches = {}, {}
+    for capped in (False, True):
+        kernels.reset_launch_counts()
+        line, run = run_config_5_descheduler(capped, device="cuda")
+        counts = kernels.launch_counts()
+        host_line, host_run = run_config_5_descheduler(capped, device="cpu")
+        evictor = RecordingEvictor(
+            EvictionLimiter(**CONFIG_5_CAPS) if capped else None)
+        t0 = time.perf_counter()
+        LowNodeLoad(LowNodeLoadArgs(consecutive_abnormalities=1),
+                    evictor).balance_once(run.nodes, run.metrics,
+                                          run.pods_by_node, CONFIG_5_NOW)
+        loop_s = time.perf_counter() - t0
+        host_names = [e.pod.meta.namespaced_name
+                      for e in host_run.evictor.evictions]
+        check_descheduler(line, run, host_names,
+                          [e.pod.meta.namespaced_name
+                           for e in evictor.evictions], capped)
+        # two plans a run (the warm one and the timed one): K10 and K11
+        # once a plan, K12 once a plain plan, K13 once a capped plan
+        want = {"lnl_node_fit": 2, "lnl_eviction_order": 2,
+                "lnl_plan_prefix": 0 if capped else 2,
+                "lnl_plan_capped": 2 if capped else 0}
+        got = {k: counts[k] for k in want}
+        others = {k: v for k, v in counts.items() if k not in want and v}
+        if got != want or others:
+            raise SystemExit(f"{line['metric']}: launches {counts}, "
+                             f"expected {want}")
+        line.update(launches=got, plans=2, host_value=host_line["value"],
+                    host_loop_value=loop_s)
+        print(json.dumps(line), flush=True)
+        lines[line["metric"]] = line
+        launches[line["metric"]] = got
+    return lines, launches
+
+
 def expected_launches(line):
     """(inner steps, K3 launches) of one flagship run: K2 launches once
     an inner step; K3 twice an inner step (node, all quota levels),
@@ -2647,10 +3023,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     dev = resolve_device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    smi = card_name_and_power_limit()
     print(smi, flush=True)
     tc = build_all()
     print(f"build: {tc.build_s:.1f} s for {len(tc.libs)} kernels", flush=True)
@@ -2684,6 +3057,7 @@ def main() -> int:
     k2_mask = check_k2_mask(snap, pods, gen)
     k9 = check_k9(dev, gen)
     rows = check_prefix_rows(dev, gen)
+    lnl = check_lnl(dev, gen)
     for name, res in (("score_topk", k1), ("segment_prefix_ok", k2),
                       ("ordered_scatter_add", k3), ("numa_pair_terms", k4),
                       ("topology_admit", k5), ("score_topk", k1_numa),
@@ -2695,7 +3069,8 @@ def main() -> int:
                       ("score_topk", k1_topo),
                       ("topology_prefix_gate", k8),
                       ("segment_prefix_ok", k2_mask),
-                      ("stage1_mask", k9), ("prefix rows", rows)):
+                      ("stage1_mask", k9), ("prefix rows", rows),
+                      ("lownodeload", lnl)):
         for label, r in res.items():
             print(f"kernel {name} [{label}]: " + json.dumps(r), flush=True)
 
@@ -2763,6 +3138,9 @@ def main() -> int:
     # --- 7. the full gate: the cascade and the packing prefixes ------------
     _, launches_full, _ = full_gate_phase()
 
+    # --- 8. BASELINE config 5: the descheduler's LowNodeLoad plan ---------
+    _, launches_cfg5 = descheduler_phase()
+
     # each kernel's numbers at the shapes of the path it came with (K1-K3
     # the flagship, K4-K5 config 2, K6-K7 gpu_share), and K1, K2, K5 at
     # gpu_share's too
@@ -2825,6 +3203,24 @@ def main() -> int:
                                   "bound_by", "library_ms", "shape")
                 if k in g}
         report.append(entry)
+    # K10-K13 at config 5's shape; launches from phase 8's plain run (K13
+    # from the capped run), two plans each
+    by_path = {"config_5": launches_cfg5["baseline_cfg5_descheduler_10k"],
+               "config_5_capped": launches_cfg5[
+                   "baseline_cfg5_descheduler_10k_capped"]}
+    for name in LNL_KERNELS:
+        source, replaces = SOURCES[name]
+        r = lnl["config 5"]["timing"][name]
+        path = by_path["config_5_capped" if name == "lnl_plan_capped"
+                       else "config_5"]
+        report.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": path[name],
+            "launches_by_path": {k: v[name] for k, v in by_path.items()},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"]})
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,11 @@
 from the arrays of the JAX package's struct of the same name (nested
 structs as nested mappings), and `to_numpy(struct)` gives them back.
 The two packages never meet in one import: a caller that holds both
-flattens the reference's struct to numpy and hands it over. Leaf dtypes
+flattens the reference's struct to numpy and hands it over.
+`api_from_reference(obj)` carries the reference's typed host objects
+(`Node`, `Pod`, `NodeMetric`, `PodMetricInfo` and what they hold) into
+the port's `api.types` by their attributes, so that both packages'
+descheduler plans the same cluster. Leaf dtypes
 must match `schema.STRUCT_SPECS` exactly; a mismatch raises instead of
 casting, so a silently widened column cannot slip through.
 """
@@ -18,6 +22,8 @@ import numpy as np
 import torch
 
 from koordinator_tpu_torch import resolve_device
+from koordinator_tpu_torch.api import types as api
+from koordinator_tpu_torch.api.extension import PriorityClass, ResourceKind
 from koordinator_tpu_torch.snapshot import schema
 
 
@@ -84,3 +90,39 @@ def to_numpy(struct) -> Dict[str, Any]:
         else:
             out[f.name] = v
     return out
+
+
+_API_CLASSES = {cls.__name__: cls for cls in (
+    api.ObjectMeta, api.Pod, api.Node, api.PodMetricInfo, api.NodeMetric)}
+_RESOURCE_LISTS = ("requests", "allocatable", "usage", "node_usage")
+
+
+def api_from_reference(obj):
+    """The port's counterpart of a reference typed object, found by the
+    object's class name and filled by attribute: the port class's
+    fields that the object has (resource lists re-keyed to the port's
+    ResourceKind, priority classes to its PriorityClass, nested objects
+    carried in turn). Lists, tuples and dicts are carried element by
+    element; anything else comes back as it is."""
+    if isinstance(obj, dict):
+        return {k: api_from_reference(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(api_from_reference(v) for v in obj)
+    cls = _API_CLASSES.get(type(obj).__name__)
+    if cls is None:
+        return obj
+    kw: Dict[str, Any] = {}
+    for f in dataclasses.fields(cls):
+        if not hasattr(obj, f.name):
+            continue
+        v = getattr(obj, f.name)
+        if f.name in _RESOURCE_LISTS:
+            v = {ResourceKind(int(k)): float(x) for k, x in v.items()}
+        elif f.name == "priority_class":
+            v = PriorityClass(int(v))
+        elif f.name in ("labels", "annotations"):
+            v = dict(v)
+        else:
+            v = api_from_reference(v)
+        kw[f.name] = v
+    return cls(**kw)

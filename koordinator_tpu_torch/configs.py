@@ -44,11 +44,22 @@ and the sweep run with the cascade on and the three prefixes
 the domain classes but not the numa and gpu prefixes (a retry window
 is not packed), and budgets its constrained stragglers by the topology
 prefix.
+
+`run_config_5_descheduler` is BASELINE config 5
+(`bench_configs.config_5_descheduler`, :144-200): koord-descheduler's
+LowNodeLoad balance plan over 10 000 nodes (`config_5_cluster`), about
+11 800 evictable pods on the hot nodes, `consecutive_abnormalities=1`
+and the reference's defaults otherwise (low 45/60, high 65/80, weights
+1/1, node_fit on), through `DeviceLowNodeLoad.balance_once` with a
+`RecordingEvictor`: plain (no caps: K10, K11, K12) or capped
+(`EvictionLimiter(max_per_cycle=4000, max_per_node=2,
+max_per_namespace=2000)`: K10, K11, K13).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import subprocess
 import time
 
 import torch
@@ -62,7 +73,9 @@ from koordinator_tpu_torch.scheduler.plugins.deviceshare import (
     has_gpu_request,
 )
 from koordinator_tpu_torch.utils.synthetic import (
+    CONFIG_5_NOW,
     config_2_inputs,
+    config_5_cluster,
     dom_classes,
     gpu_share_inputs,
     pack_gate_prefixes,
@@ -90,6 +103,12 @@ FULL_GATE_METRIC = "score_bind_100k_pods_10k_nodes_full_gate"
 # prefixes and domain classes come from the packed pods
 FULL_GATE_KW = dict(GPU_SHARE_KW, cascade=True)
 FULL_GATE_TAIL_KW = dict(FULL_GATE_KW, num_rounds=4, k_choices=32)
+
+CONFIG_5_METRIC = "baseline_cfg5_descheduler_10k"
+CONFIG_5_CAPPED_METRIC = "baseline_cfg5_descheduler_10k_capped"
+# bench_configs.config_5_descheduler's limiter of the capped line
+CONFIG_5_CAPS = dict(max_per_cycle=4000, max_per_node=2,
+                     max_per_namespace=2000)
 
 
 @dataclasses.dataclass
@@ -281,3 +300,65 @@ def run_full_gate(num_pods: int = 100_000, num_nodes: int = 10_000,
     setup = dict(snap=snap, pods=packed, prefixes=prefixes, masks=masks,
                  step_kw=step_kw, tail_kw=tail_kw)
     return line, run, setup
+
+
+def card_name_and_power_limit() -> str:
+    """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+@dataclasses.dataclass
+class DeschedulerRun:
+    nodes: list
+    metrics: dict
+    pods_by_node: dict
+    evictor: object       # the RecordingEvictor, holding the timed plan
+
+
+def run_config_5_descheduler(capped: bool = False, n_nodes: int = 10_000,
+                             device="cuda"):
+    """BASELINE config 5 as `bench_configs.config_5_descheduler` measures
+    it: one warm `balance_once`, then the limiter reset and the
+    evictions cleared, then one timed `balance_once` (it ends with the
+    plan's readback). Returns (line, run): `line` holds the bench line's
+    fields (metric `baseline_cfg5_descheduler_10k`, or `..._capped` with
+    the caps, value = the timed seconds, evictions_planned, nodes) and
+    the device it ran on with, on a card, its name and power limit;
+    `run` the cluster (`config_5_cluster(n_nodes)`, built once) and the
+    evictor. The first call on a card also pays the kernels' build unless
+    `kernels.build.build_all()` ran before."""
+    from koordinator_tpu_torch.descheduler import (
+        DeviceLowNodeLoad,
+        EvictionLimiter,
+        LowNodeLoadArgs,
+        RecordingEvictor,
+    )
+
+    dev = resolve_device(device)
+    nodes, metrics, pods_by_node = config_5_cluster(n_nodes)
+    evictor = RecordingEvictor(
+        EvictionLimiter(**CONFIG_5_CAPS) if capped else None)
+    plugin = DeviceLowNodeLoad(LowNodeLoadArgs(consecutive_abnormalities=1),
+                               evictor, device=dev)
+    plugin.balance_once(nodes, metrics, pods_by_node, CONFIG_5_NOW)  # warm
+    evictor.limiter.reset()
+    evictor.evictions.clear()  # the warm plan must not double-count
+    t0 = time.perf_counter()
+    plugin.balance_once(nodes, metrics, pods_by_node, CONFIG_5_NOW)
+    elapsed = time.perf_counter() - t0
+    line = {
+        "metric": CONFIG_5_CAPPED_METRIC if capped else CONFIG_5_METRIC,
+        "value": elapsed,
+        "nodes": len(nodes),
+        "evictions_planned": len(evictor.evictions),
+        "device_plan": True,
+        "platform": dev.type,
+        "device": (card_name_and_power_limit() if dev.type == "cuda"
+                   else "cpu"),
+    }
+    if capped:
+        line["caps"] = "node=2,ns=2000,cycle=4000"
+    return line, DeschedulerRun(nodes, metrics, pods_by_node, evictor)

@@ -16,6 +16,7 @@ def _wrappers():
     from koordinator_tpu_torch.kernels import (
         device_terms,
         gpu_instances,
+        lownodeload,
         numa_terms,
         scatter,
         score_topk,
@@ -32,7 +33,11 @@ def _wrappers():
             "device_pair_terms": device_terms.device_pair_terms,
             "gpu_instance_pick": gpu_instances.gpu_instance_pick,
             "topology_prefix_gate": topology_prefix.topology_prefix_gate,
-            "stage1_mask": stage1.stage1_mask}
+            "stage1_mask": stage1.stage1_mask,
+            "lnl_node_fit": lownodeload.lnl_node_fit,
+            "lnl_eviction_order": lownodeload.lnl_eviction_order,
+            "lnl_plan_prefix": lownodeload.lnl_plan_prefix,
+            "lnl_plan_capped": lownodeload.lnl_plan_capped}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,8 +1,9 @@
-"""Where the slim flagship's (or BASELINE config 2's, gpu_share's or the
-full gate's) time goes on the card.
+"""Where the slim flagship's (or BASELINE config 2's, gpu_share's, the
+full gate's or BASELINE config 5's) time goes on the card.
 
     python -m koordinator_tpu_torch.profile_flagship
-        [--workload flagship|config2|gpushare|fullgate]
+        [--workload flagship|config2|gpushare|fullgate|descheduler|
+                    descheduler_capped]
         [--out chiprun_out/profile_<workload>.json]
 
 Builds the kernels, runs the workload (the 100k x 10k slim flagship;
@@ -17,7 +18,15 @@ prints, and writes as JSON to `--out`: the untraced run, the traced
 run's wall time, the device's busy time (the union of its kernels'
 intervals), idle share and number of device activities (kernels,
 copies, memsets), and the device time and launch
-count of each kernel name, largest first. Needs a CUDA card.
+count of each kernel name, largest first. The descheduler workloads
+are BASELINE config 5 at 10 000 nodes (`configs.run_config_5_descheduler`,
+plain or capped); each run holds two plans, its warm one and its timed
+one. On the full gate one more traced run records host and device
+activity with the plain-torch parts that have no kernel of their own
+under `torch.profiler.record_function` ranges (`domains.round_terms`,
+`reservation.slot_columns` and the tail's `tail_select` with its
+topology budget): their calls a run and the device time of the kernels
+launched inside them. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -26,19 +35,28 @@ import argparse
 import functools
 import json
 import os
-import subprocess
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from koordinator_tpu_torch.configs import (
+    card_name_and_power_limit,
     run_config_2_numa,
+    run_config_5_descheduler,
     run_full_gate,
     run_gpu_share,
 )
 from koordinator_tpu_torch.flagship import run_northstar
 from koordinator_tpu_torch.kernels.build import build_all
+from koordinator_tpu_torch.scheduler import core
+
+# the full gate's plain-torch parts measured under ranges: (range name,
+# the function's name in scheduler/core.py, where its call sites look
+# it up)
+RANGES = (("domains.round_terms", "round_terms"),
+          ("reservation.slot_columns", "slot_columns"),
+          ("core.tail_select (select and topology budget)", "tail_select"))
 
 
 def _busy_us(events) -> float:
@@ -57,11 +75,48 @@ def _busy_us(events) -> float:
     return busy
 
 
+def _ranged(name, fn):
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+def range_times(run) -> list:
+    """One traced run with host and device activity and each of RANGES
+    wrapped in a record_function range: [{range, device_us, calls}]."""
+    saved = {attr: getattr(core, attr) for _, attr in RANGES}
+    try:
+        for name, attr in RANGES:
+            setattr(core, attr, _ranged(name, saved[attr]))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        for attr, fn in saved.items():
+            setattr(core, attr, fn)
+    # the host-side range events (the device-side annotation of a range
+    # spans its gaps too): each one's device time is that of the kernels
+    # launched inside it
+    totals = {name: [0.0, 0] for name, _ in RANGES}
+    for e in prof.events():
+        if e.name in totals and e.device_type == \
+                torch.autograd.DeviceType.CPU:
+            totals[e.name][0] += (getattr(e, "device_time_total", None)
+                                  or getattr(e, "cuda_time_total", 0.0))
+            totals[e.name][1] += 1
+    return [{"range": name, "device_us": t, "calls": c}
+            for name, (t, c) in totals.items()]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=("flagship", "config2",
-                                           "gpushare", "fullgate"),
-                    default="flagship")
+    ap.add_argument("--workload", choices=(
+        "flagship", "config2", "gpushare", "fullgate", "descheduler",
+        "descheduler_capped"), default="flagship")
     ap.add_argument("--out", default=None,
                     help="default chiprun_out/profile_<workload>.json")
     args = ap.parse_args()
@@ -73,6 +128,10 @@ def main() -> None:
         warm_up = run = functools.partial(run_config_2_numa, device="cuda")
     elif args.workload == "gpushare":
         warm_up = run = functools.partial(run_gpu_share, device="cuda")
+    elif args.workload.startswith("descheduler"):
+        warm_up = run = functools.partial(
+            run_config_5_descheduler, args.workload == "descheduler_capped",
+            device="cuda")
     else:
         def run():
             line, result, _ = run_full_gate(device="cuda")
@@ -80,10 +139,7 @@ def main() -> None:
         warm_up = run
     if not torch.cuda.is_available():
         raise SystemExit("profile_flagship: no CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    card = card_name_and_power_limit()
     build_all()
     warm_up()
     untraced, _ = run()
@@ -104,6 +160,7 @@ def main() -> None:
         agg[0] += e.time_range.end - e.time_range.start
         agg[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
+    ranges = range_times(run) if args.workload == "fullgate" else None
     report = {
         "workload": args.workload,
         "card": card,
@@ -116,6 +173,8 @@ def main() -> None:
             {"name": n[:120], "device_us": t, "launches": c}
             for n, (t, c) in top],
     }
+    if ranges is not None:
+        report["ranges"] = ranges
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     with open(out, "w") as f:
         json.dump(report, f, indent=1)

@@ -15,11 +15,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 
 import torch
 
 import chip_smoke
+from koordinator_tpu_torch.configs import card_name_and_power_limit
 from koordinator_tpu_torch.kernels.build import build_all
 from koordinator_tpu_torch.kernels.segment_prefix import (
     segment_prefix_chain,
@@ -34,9 +34,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
+    print(card_name_and_power_limit())
     build_all()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)

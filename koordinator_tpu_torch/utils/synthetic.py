@@ -10,7 +10,9 @@ live reservation slots (`num_reservations`, on their own generator) and
 the full-gate workload's taint classes, toleration sets, pod topology
 groups and slot owners draw in the reference's order. The full-gate
 packers (`pack_gate_prefixes`, `topo_constrained_mask`, `dom_classes`)
-compute on the host, as the reference's do.
+compute on the host, as the reference's do. `config_5_cluster` builds
+BASELINE config 5's descheduler cluster as typed objects, with the
+draws of `bench_configs.config_5_descheduler`.
 """
 
 from __future__ import annotations
@@ -658,3 +660,39 @@ def gpu_share_inputs(num_pods: int = 100_000, num_nodes: int = 10_000,
     snap = full_gate_cluster(num_nodes, seed=0, device=device)
     pods = full_gate_pods(num_pods, num_nodes, seed=1, device=device)
     return snap, pods
+
+
+CONFIG_5_NOW = 1e9
+
+
+def config_5_cluster(num_nodes: int = 10_000):
+    """BASELINE config 5 (bench_configs.py:159-183): `num_nodes` nodes of
+    64 000 mC and 262 144 MiB, each at usage `uniform(0.1, 0.95)` of both
+    (one draw of `num_nodes` from `default_rng(3)`), reported at
+    `CONFIG_5_NOW`; every node above 0.7 carries 4 BE pods of 4000 mC and 8192
+    MiB (priority 5500, namespace "default", no pod metrics, so their
+    usage falls back to their requests). Returns (nodes, metrics by node
+    name, pods by node name) as `api.types` objects."""
+    from koordinator_tpu_torch.api import types as api
+
+    rng = np.random.default_rng(3)
+    nodes, metrics, pods_by_node = [], {}, {}
+    usage_frac = rng.uniform(0.1, 0.95, size=num_nodes)
+    for i in range(num_nodes):
+        name = f"n{i}"
+        nodes.append(api.Node(meta=api.ObjectMeta(name=name),
+                              allocatable={ResourceKind.CPU: 64000.0,
+                                           ResourceKind.MEMORY: 262144.0}))
+        metrics[name] = api.NodeMetric(
+            node_name=name, update_time=CONFIG_5_NOW,
+            node_usage={ResourceKind.CPU: 64000.0 * usage_frac[i],
+                        ResourceKind.MEMORY: 262144.0 * usage_frac[i]})
+        if usage_frac[i] > 0.7:
+            pods_by_node[name] = [
+                api.Pod(meta=api.ObjectMeta(name=f"{name}-p{j}",
+                                            uid=f"{name}-p{j}"),
+                        priority=5500, qos_label="BE", node_name=name,
+                        requests={ResourceKind.CPU: 4000.0,
+                                  ResourceKind.MEMORY: 8192.0})
+                for j in range(4)]
+    return nodes, metrics, pods_by_node

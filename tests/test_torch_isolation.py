@@ -13,6 +13,7 @@ import torch
 
 from koordinator_tpu_torch import configs, flagship
 from koordinator_tpu_torch.bridge import from_reference
+from koordinator_tpu_torch.descheduler import DeviceLowNodeLoad
 from koordinator_tpu_torch.scheduler.plugins.loadaware import LoadAwareConfig
 from koordinator_tpu_torch.utils import synthetic
 
@@ -56,8 +57,13 @@ def test_port_and_chip_smoke_import_no_jax():
     lambda: from_reference("GangState", {}),
     lambda: flagship.run_northstar(8, 4, 8),
     lambda: configs.run_config_2_numa(8, 4, 8),
+    lambda: DeviceLowNodeLoad(),
+    lambda: configs.run_config_5_descheduler(n_nodes=8),
+    lambda: configs.run_config_5_descheduler(capped=True, n_nodes=8),
 ], ids=["synthetic_cluster", "synthetic_pods", "LoadAwareConfig.make",
-        "from_reference", "run_northstar", "run_config_2_numa"])
+        "from_reference", "run_northstar", "run_config_2_numa",
+        "DeviceLowNodeLoad", "run_config_5_descheduler",
+        "run_config_5_descheduler_capped"])
 def test_entry_points_default_to_the_card(call):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device; the default would run")
