@@ -71,7 +71,19 @@ in order:
    11 796 pods; timed, K11 beside one stable `torch.argsort` of as many
    keys), in deviation mode, at P = 1, with every pod nodeless, with a
    budget that binds and with every cap binding, K11's order, flags
-   and floats bit for bit and the takes equal. Each timed case with
+   and floats bit for bit and the takes equal. The guarded cycle's
+   kernels, bit for bit against their plain versions on the card: K14
+   guard_nodes and K15 guard_pods at a full-gate batch (N = 10 000,
+   P = 2000, the three topology families), healthy (outputs equal to
+   the inputs, health zero; timed) and under each of the eight column
+   faults (its bit set, its rows quarantined), and untimed with every
+   row bad, N = 1 and P = 1, a family absent, a NaN in an invalid pod
+   row, signed zeros and NaN payloads in scrubbed rows and the caller's
+   masks; K16 delta_rows at 10 000 nodes with a metric delta of 1000
+   rows and a topology delta of 64 (timed on given columns, beside
+   index_copy_ over the same columns, and again with the wrapper's
+   clones, each against its own bound), with repeated, -1 and
+   out-of-range indices, K = 1 and an empty delta. Each timed case with
    its time
    (CUDA events over back-to-back calls, and the kernel's device time
    from torch.profiler), the plain version's, one library call's where
@@ -138,7 +150,27 @@ in order:
    once a plan, K12 once a plain plan, K13 once a capped plan, nothing
    else), every evicted pod on a source node, the caps held, and no
    node losing a pod once it is at or under its high threshold on
-   every dim; the two bench lines printed.
+   every dim; the two bench lines printed;
+9. the guarded cycle: `configs.run_guarded_cycles` (10 000 nodes, ten
+   full-gate batches of 2000 through a `SnapshotStore`: a metric delta
+   of 1000 rows, a duplicate and a stale re-stamp of it, a topology
+   delta of 64 rows, `guarded_schedule_batch` a batch with the eight
+   column faults on batches 1-8, 5 % of each batch forgotten, a
+   checkpoint restored) on the card, counting launches (K14 once a
+   batch, K15 twice, K16 twice a delta applied, K1-K9 by the full
+   gate's formulas of phase 7, K3 also the count of one forget, which
+   is measured alone around one `store.forget`; nothing else), then
+   on the host: every batch's clean snapshot, result, health, masks and
+   post-forget snapshot equal; each fault's bit, its nodes
+   unschedulable and its pods unplaced, and its placements equal to the
+   unguarded batch on the clean inputs with the corrupted rows masked
+   by hand; batches 9 and 10 equal to the unguarded batch field for
+   field; the duplicate and the stale delta refused with their reasons;
+   after each forget, requested, quota used and gang assumed equal to
+   the host's numpy recount of the committed snapshot less the
+   forgotten pods' charges (gpu_free within GPU_FREE_TOL); the restored
+   store equal to the checkpointed one; the line and the guard's
+   overhead on a clean batch (guarded against unguarded, in turns).
 
 The last three lines are one JSON object listing the kernels, the
 card's name and power limit, and one JSON object stating the result.
@@ -147,6 +179,7 @@ Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import time
@@ -161,6 +194,7 @@ from koordinator_tpu_torch.bridge import to_numpy
 from koordinator_tpu_torch.configs import (
     CONFIG_2_KW,
     CONFIG_5_CAPS,
+    FULL_GATE_KW,
     GPU_SHARE_KW,
     GPU_SHARE_TAIL_KW,
     card_name_and_power_limit,
@@ -170,6 +204,7 @@ from koordinator_tpu_torch.configs import (
     run_config_5_descheduler,
     run_full_gate,
     run_gpu_share,
+    run_guarded_cycles,
 )
 from koordinator_tpu_torch.descheduler import (
     EvictionLimiter,
@@ -184,10 +219,23 @@ from koordinator_tpu_torch.flagship import (
     run_northstar,
     sweep_and_tail,
 )
+from koordinator_tpu_torch.kernels import guard
 from koordinator_tpu_torch.kernels.build import build_all
+from koordinator_tpu_torch.kernels.delta_rows import (
+    delta_rows,
+    delta_rows_into,
+    delta_rows_into_plain,
+    delta_rows_plain,
+)
 from koordinator_tpu_torch.kernels.device_terms import (
     device_pair_terms,
     device_pair_terms_plain,
+)
+from koordinator_tpu_torch.kernels.guard import (
+    guard_nodes,
+    guard_nodes_plain,
+    guard_pods,
+    guard_pods_plain,
 )
 from koordinator_tpu_torch.kernels.gpu_instances import (
     gpu_choose_plain,
@@ -211,6 +259,7 @@ from koordinator_tpu_torch.kernels.numa_terms import (
     numa_pair_terms_plain,
 )
 from koordinator_tpu_torch.kernels.scatter import (
+    levels_per_launch,
     ordered_scatter_add,
     ordered_scatter_add_plain,
 )
@@ -253,13 +302,24 @@ from koordinator_tpu_torch.scheduler.cascade import (
 )
 from koordinator_tpu_torch.ops import feasibility
 from koordinator_tpu_torch.scheduler import cascade, domains
-from koordinator_tpu_torch.scheduler.core import overcommit_ok, quota_ok
+from koordinator_tpu_torch.scheduler import guards
+from koordinator_tpu_torch.scheduler.core import (
+    overcommit_ok,
+    quota_ok,
+    schedule_batch,
+)
+from koordinator_tpu_torch.scheduler.guards import guarded_schedule_batch
 from koordinator_tpu_torch.scheduler.plugins import (
     deviceshare,
     loadaware,
     numaaware,
 )
 from koordinator_tpu_torch.scheduler.plugins.reservation import slot_columns
+from koordinator_tpu_torch.snapshot import delta as snapshot_delta
+from koordinator_tpu_torch.snapshot.delta import NodeTopologyDelta
+from koordinator_tpu_torch.snapshot.store import SnapshotStore
+from koordinator_tpu_torch.testing import faults
+from koordinator_tpu_torch.utils import synthetic
 from koordinator_tpu_torch.utils.synthetic import (
     CONFIG_5_NOW,
     config_2_inputs,
@@ -320,6 +380,12 @@ SOURCES = {
     "lnl_plan_capped": (
         "koordinator_tpu_torch/csrc/lownodeload_capped.cu",
         "koordinator_tpu/descheduler/lownodeload_device.py:231"),
+    "guard_nodes": ("koordinator_tpu_torch/csrc/guard_nodes.cu",
+                    "koordinator_tpu/scheduler/guards.py:120"),
+    "guard_pods": ("koordinator_tpu_torch/csrc/guard_pods.cu",
+                   "koordinator_tpu/scheduler/guards.py:149"),
+    "delta_rows": ("koordinator_tpu_torch/csrc/delta_rows.cu",
+                   "koordinator_tpu/snapshot/delta.py:108"),
 }
 
 
@@ -3002,6 +3068,523 @@ def descheduler_phase():
     return lines, launches
 
 
+# --- the guarded cycle: K14-K16, deltas, forget, the store -----------------
+
+GUARD_SYMBOLS = {"guard_nodes": "guard_nodes_kernel",
+                 "guard_pods": ("guard_groups_kernel", "guard_pod_rows_kernel"),
+                 "delta_rows": ("delta_winner_kernel", "delta_copy_kernel")}
+# gpu_free after a forget against the host's recount: the per-instance
+# amounts are floors of whole numbers, so the sums are exact; the bound
+# leaves room for one rounding of a 81 920 MiB instance
+GPU_FREE_TOL = 1e-2
+OVERHEAD_PAIRS = 10
+
+
+def diff_fields(got, want, path=""):
+    """The dotted names of the leaves where two port structs (or
+    tensors) differ: f32 bit for bit, other tensors exactly, plain
+    values by ==."""
+    if isinstance(want, torch.Tensor):
+        same = (got.dtype == want.dtype and got.shape == want.shape
+                and torch.equal(got.cpu().view(torch.int32)
+                                if got.dtype == torch.float32 else got.cpu(),
+                                want.cpu().view(torch.int32)
+                                if want.dtype == torch.float32
+                                else want.cpu()))
+        return [] if same else [path]
+    if dataclasses.is_dataclass(want):
+        out = []
+        for f in dataclasses.fields(want):
+            out += diff_fields(getattr(got, f.name), getattr(want, f.name),
+                               f"{path}.{f.name}" if path else f.name)
+        return out
+    if isinstance(want, (tuple, list)):
+        return sum((diff_fields(g, w, f"{path}[{i}]")
+                    for i, (g, w) in enumerate(zip(got, want))), [])
+    return [] if got == want else [path]
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def guard_state(dev, gen):
+    """A full-gate batch for K14 and K15: the first packed chunk
+    (P = 2000, three families) against 10 000 nodes, partly filled."""
+    snap, batch, _, _ = fullgate_state(dev, gen, 10_000)
+    return snap, batch
+
+
+def check_guard_pair(label, snap, batch, force_nodes=None, force_pods=None):
+    """K14 and K15 against their plain versions on the card (outputs,
+    masks and health bit for bit); returns (node health, pod health)."""
+    n_gangs = snap.gangs.min_member.shape[0]
+    n_quotas = snap.quotas.parent.shape[0]
+    dev = snap.nodes.allocatable.device
+
+    def zeros():
+        return torch.zeros(3, dtype=torch.int32, device=dev)
+    got_n, got_nb, h_n = guard_nodes(snap.nodes, force_nodes, zeros())
+    want_h_n = zeros()
+    want_n, want_nb = guard_nodes_plain(snap.nodes, force_nodes, want_h_n)
+    bad = diff_fields((got_n, got_nb, h_n), (want_n, want_nb, want_h_n))
+    got_p, got_pb, h_p = guard_pods(batch, n_gangs, n_quotas, force_pods,
+                                    zeros())
+    want_h_p = zeros()
+    want_p, want_pb = guard_pods_plain(batch, n_gangs, n_quotas, force_pods,
+                                       want_h_p)
+    bad += diff_fields((got_p, got_pb, h_p), (want_p, want_pb, want_h_p))
+    if bad:
+        raise SystemExit(f"K14/K15 ({label}) differ from their plain "
+                         f"versions in {bad}")
+    return h_n.cpu(), h_p.cpu(), got_n, got_p
+
+
+def check_guards(dev, gen):
+    """K14 guard_nodes and K15 guard_pods at a full-gate batch (N =
+    10 000, P = 2000, spread, anti-affinity and affinity), healthy
+    (outputs equal to the inputs, health zero; timed) and under each of
+    the eight column faults (its bit set, its rows in the mask); untimed
+    edges: every row bad, N = 1 and P = 1, a family absent, a NaN in an
+    invalid pod row, signed zeros and NaN payloads in scrubbed rows, the
+    caller's masks (apply_quarantine). Each bit for bit against its plain
+    version."""
+    out = {}
+    snap, batch = guard_state(dev, gen)
+    h_n, h_p, q_n, q_p = check_guard_pair("healthy", snap, batch)
+    if h_n.any() or h_p.any() or diff_fields(q_n, snap.nodes) or \
+            diff_fields(q_p, batch):
+        raise SystemExit("K14/K15: a healthy batch changed or scanned bad")
+    for i, kind in enumerate(faults.SNAPSHOT_FAULTS + faults.BATCH_FAULTS):
+        inj = faults.FaultInjector(100 + i)
+        s, b = snap, batch
+        if kind in faults.SNAPSHOT_FAULTS:
+            s, rows = inj.corrupt_snapshot(snap, kind, 3)
+        else:
+            b, rows = inj.corrupt_batch(batch, kind, 3)
+        h_n, h_p, q_n, q_p = check_guard_pair(kind, s, b)
+        word = int(h_n[0]) | int(h_p[0])
+        mask = (q_n.schedulable if kind in faults.SNAPSHOT_FAULTS
+                else q_p.valid).cpu()
+        if not word & faults.EXPECTED_BIT[kind] or mask[rows].any():
+            raise SystemExit(f"K14/K15 ({kind}): bit or quarantine missing")
+        out[kind] = dict(word=word, bad_nodes=int(h_n[1]),
+                         bad_pods=int(h_p[2]), max_abs_err=0.0)
+    # edges
+    n_gangs = snap.gangs.min_member.shape[0]
+    nodes = snap.nodes
+    all_bad = snap.replace(nodes=nodes.replace(
+        usage=torch.full_like(nodes.usage, float("nan"))))
+    pods_bad = batch.replace(requests=-batch.requests - 1.0)
+    check_guard_pair("every row bad", all_bad, pods_bad)
+    one = snap.replace(nodes=type(nodes)(**{
+        f.name: getattr(nodes, f.name)[:1].contiguous()
+        for f in dataclasses.fields(nodes)}))
+    one_pod = slice_batch(batch, 0, 1).replace(**{
+        f: getattr(batch, f)[:, :1].contiguous()
+        for f in ("spread_domain", "anti_domain", "aff_domain")})
+    check_guard_pair("N = 1, P = 1", one, one_pod)
+    check_guard_pair("no anti family", snap, batch.replace(has_anti=False))
+    pad = batch.valid.clone()
+    pad[-1] = False
+    req = batch.requests.clone()
+    req[-1, 0] = float("nan")
+    h_n, h_p, _, _ = check_guard_pair(
+        "NaN in an invalid row", snap, batch.replace(valid=pad, requests=req))
+    if not int(h_p[0]) & guards.POD_NONFINITE:
+        raise SystemExit("K15 missed a NaN in an invalid pod row")
+    special = torch.tensor([-0.0, 0.0, float("nan"), float("inf"),
+                            -float("inf"), -2.5, 3.0, -0.0, 1e-30, -1e-30,
+                            7.0], device=dev)
+    signed = snap.replace(nodes=nodes.replace(
+        usage=torch.cat([special[None].expand(4, -1), nodes.usage[4:]]),
+        requested=torch.cat([special[None].expand(4, -1),
+                             nodes.requested[4:]])))
+    spods = batch.replace(requests=torch.cat(
+        [special[None].expand(4, -1), batch.requests[4:]]))
+    check_guard_pair("signed zeros", signed, spods)
+    force_n = torch.rand(snap.num_nodes, generator=gen, device=dev) < 0.3
+    force_p = torch.rand(batch.num_pods, generator=gen, device=dev) < 0.3
+    check_guard_pair("caller's masks", signed, spods, force_n, force_p)
+    out["edges"] = dict(cases=7, max_abs_err=0.0, gangs=n_gangs)
+    # timed: the healthy batch
+    n, p = snap.num_nodes, batch.num_pods
+    health = torch.zeros(3, dtype=torch.int32, device=dev)
+    in_n = [getattr(nodes, f) for f in guard.NODE_COLUMNS] + [
+        nodes.schedulable]
+    # the scrubbed columns and schedulable read once and written once,
+    # numa_cap and numa_valid read once, the mask written
+    k14_bytes = (nbytes(*in_n) * 2 + nbytes(nodes.numa_cap, nodes.numa_valid)
+                 + n)
+    in_n += [nodes.numa_cap, nodes.numa_valid]
+    k14_ops = sum(t.numel() for t in in_n) * 2
+    n_q = snap.quotas.parent.shape[0]
+    fams = [(getattr(batch, d), getattr(batch, c))
+            for d, c in (("spread_domain", "spread_carrier"),
+                         ("anti_domain", "anti_carrier"),
+                         ("aff_domain", "aff_carrier"))]
+    rows = [batch.requests, batch.estimated, batch.gpu_ratio, batch.valid]
+    k15_bytes = (nbytes(*rows) * 2 + p
+                 + nbytes(batch.gang_id, batch.quota_id, batch.selector_id,
+                          batch.toleration_id)
+                 + sum(2 * nbytes(d) + nbytes(c) for d, c in fams))
+    k15_ops = (sum(d.numel() for d, _ in fams) * 2
+               + sum(t.numel() for t in rows) * 2 + p * 8)
+    for name, call, plain, nb, ops in (
+            ("guard_nodes",
+             lambda: guard_nodes(nodes, None, health),
+             lambda: guard_nodes_plain(nodes, None, health),
+             k14_bytes, k14_ops),
+            ("guard_pods",
+             lambda: guard_pods(batch, n_gangs, n_q, None, health),
+             lambda: guard_pods_plain(batch, n_gangs, n_q, None, health),
+             k15_bytes, k15_ops)):
+        b_ms, b_by = bound(nb, ops)
+        out[f"{name} full gate"] = dict(
+            ms=cuda_ms(call), device_ms=device_ms(call, GUARD_SYMBOLS[name]),
+            plain_ms=cuda_ms(plain, reps=5), library_ms=None,
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+            shape=f"N={n} P={p} R={nodes.allocatable.shape[1]} "
+                  f"Z={nodes.numa_cap.shape[1]} groups "
+                  f"{[d.shape[0] for d, _ in fams]}")
+    return out
+
+
+def with_repeats(idx):
+    """idx with three rows naming one node (the last wins), a -1 pad and
+    indices out of range (dropped)."""
+    out = idx.clone()
+    out[1] = out[0]
+    out[7] = out[0]
+    out[2] = -1
+    out[3] = 1 << 30
+    out[5] = -9
+    return out
+
+
+def delta_columns(snap, d):
+    """K16's (column, rows, set) table and index sets of a delta, as
+    `snapshot.delta.apply_*` form them."""
+    nodes, devices = snap.nodes, snap.devices
+    if isinstance(d, NodeTopologyDelta):
+        cols = ([(getattr(nodes, f), getattr(d, f), 0)
+                 for f in snapshot_delta.TOPOLOGY_NODE_FIELDS]
+                + [(getattr(devices, f), getattr(d, f), 0)
+                   for f in snapshot_delta.TOPOLOGY_DEVICE_FIELDS]
+                + [(getattr(nodes, f), getattr(d.metric, f), 1)
+                   for f in snapshot_delta.METRIC_FIELDS])
+        return cols, [d.idx, d.metric.idx]
+    return ([(getattr(nodes, f), getattr(d, f), 0)
+             for f in snapshot_delta.METRIC_FIELDS], [d.idx])
+
+
+def check_k16(dev, gen):
+    """K16 delta_rows at 10 000 nodes: a metric delta of 1000 rows and a
+    topology delta of 64 (its nested metric delta too), each timed
+    without repeats (beside index_copy_ over the same columns, which
+    computes the same rows when no index repeats) and untimed with
+    repeated, -1 and out-of-range indices, K = 1 and an empty delta;
+    every column bit for bit against the plain version."""
+    out = {}
+    snap = gpu_share_inputs(2000, 10_000, device=dev)[0]
+    n = snap.num_nodes
+    for label, make, k in (
+            ("metric 1000", synthetic.metric_delta_rows, 1000),
+            ("topology 64", synthetic.topology_delta_rows, 64)):
+        d = make(snap, k, 7, 1).to(dev)
+        for case, dd in (("", d), (" repeats", d.replace(
+                idx=with_repeats(d.idx)) if label.startswith("metric")
+                else d.replace(idx=with_repeats(d.idx),
+                               metric=d.metric.replace(
+                                   idx=with_repeats(d.idx)))),
+                          (" K=1", None)):
+            if dd is None:
+                one = make(snap, 1, 8, 1).to(dev)
+                cols, idx = delta_columns(snap, one)
+            else:
+                cols, idx = delta_columns(snap, dd)
+            got = delta_rows(cols, idx)
+            want = delta_rows_plain(cols, idx)
+            bad = [i for i, (g, w) in enumerate(zip(got, want))
+                   if diff_fields(g, w)]
+            if bad:
+                raise SystemExit(f"K16 delta_rows ({label}{case}) differs "
+                                 f"from its plain version in columns {bad}")
+        cols, idx = delta_columns(snap, d)
+        touched = nbytes(*(c for c, _, _ in cols))
+        rows_b, idx_b = nbytes(*(r for _, r, _ in cols)), nbytes(*idx)
+        ops = len(idx) * k + len(cols) * k
+        # the kernels (delta_rows_into on given columns): every row lands
+        # (no repeats), so each delta row is read once and written once,
+        # each index set read once, and the winner table's K entries of
+        # each set written once and read once
+        b_ms, b_by = bound(2 * rows_b + idx_b + 2 * 4 * k * len(idx), ops)
+        # the whole wrapper (its clones included): each column read once
+        # and its new copy written once, the rows and index sets read once
+        w_ms, w_by = bound(2 * touched + rows_b + idx_b, ops)
+        long_idx = [x.long() for x in idx]
+        out_k = [c.clone() for c, _, _ in cols]
+        out_p = [c.clone() for c, _, _ in cols]
+        out_l = [c.clone() for c, _, _ in cols]
+
+        def library(out=out_l, cols=cols, long_idx=long_idx):
+            for o, (_, r, s) in zip(out, cols):
+                o.index_copy_(0, long_idx[s], r)
+
+        def library_clones(cols=cols, long_idx=long_idx):
+            return [c.clone().index_copy_(0, long_idx[s], r)
+                    for c, r, s in cols]
+        library()
+        want = delta_rows(cols, idx)
+        if any(diff_fields(a, b) for a, b in zip(out_l, want)) or any(
+                diff_fields(a, b) for a, b in zip(library_clones(), want)):
+            raise SystemExit(f"K16 ({label}): index_copy_ differs without "
+                             "repeats")
+        out[label] = dict(
+            ms=cuda_ms(lambda: delta_rows_into(out_k, cols, idx)),
+            device_ms=device_ms(lambda: delta_rows_into(out_k, cols, idx),
+                                GUARD_SYMBOLS["delta_rows"]),
+            plain_ms=cuda_ms(lambda: delta_rows_into_plain(out_p, cols, idx),
+                             reps=5),
+            library_ms=cuda_ms(library), bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=0.0,
+            shape=f"N={n} K={k}, {len(cols)} columns, "
+                  f"{len(idx)} index sets (rows only: the kernels)",
+            with_clones=dict(
+                ms=cuda_ms(lambda: delta_rows(cols, idx)),
+                plain_ms=cuda_ms(lambda: delta_rows_plain(cols, idx),
+                                 reps=5),
+                library_ms=cuda_ms(library_clones), bound_ms=w_ms,
+                bound_by=w_by))
+        if any(diff_fields(a, b) for a, b in zip(out_k, want)) or any(
+                diff_fields(a, b) for a, b in zip(out_p, want)):
+            raise SystemExit(f"K16 ({label}): the timed in-place calls "
+                             "left other columns")
+    empty = synthetic.metric_delta_rows(snap, 1, 9, 1).to(dev)
+    empty = snapshot_delta.NodeMetricDelta(**{
+        f.name: (getattr(empty, f.name)[:0] if f.name != "source_version"
+                 else None) for f in dataclasses.fields(empty)})
+    cols, idx = delta_columns(snap, empty)
+    if any(diff_fields(g, c) for g, (c, _, _) in
+           zip(delta_rows(cols, idx), cols)):
+        raise SystemExit("K16: an empty delta changed a column")
+    return out
+
+
+def forget_recount(b):
+    """The host's numpy recount of a forget: (requested, used, assumed,
+    gpu_free) expected from the committed snapshot less the charges of
+    the forgotten pods (placed and masked), clamped at 0."""
+    res, batch = b["result"], b["batch"]
+    snap = res.snapshot
+    h = lambda x: x.cpu().numpy()  # noqa: E731
+    assign, slot = h(res.assignment), h(res.res_slot)
+    und = h(b["forget"]) & (assign >= 0)
+    node = und & (slot < 0)
+    req = h(batch.requests)
+    requested = h(snap.nodes.requested).astype(np.float64)
+    np.add.at(requested, assign[node], -req[node])
+    used = h(snap.quotas.used).astype(np.float64)
+    anc = h(snap.quotas.depth_ancestor)
+    qid = h(batch.quota_id)
+    for p in np.flatnonzero(und & (qid >= 0)):
+        for q in anc[qid[p]]:
+            if q >= 0:
+                used[q] -= req[p]
+    assumed = h(snap.gangs.assumed).astype(np.int64)
+    gid = h(batch.gang_id)
+    np.add.at(assumed, gid[und & (gid >= 0)], -1)
+    _, per = deviceshare.per_instance_at(
+        snap.devices, gpu_req_of(batch), res.assignment)
+    take = h(res.gpu_take).astype(np.float64)[:, :, None] * h(per)[:, None]
+    gpu_free = h(snap.devices.gpu_free).astype(np.float64)
+    np.add.at(gpu_free, assign[node], take[node])
+    return (np.maximum(requested, 0.0), np.maximum(used, 0.0),
+            np.maximum(assumed, 0), gpu_free)
+
+
+def forget_launches(run):
+    """K3's launches in one `store.forget` on the card, counted around a
+    forget of the first batch's failed binds on a store holding its
+    committed snapshot, which must end equal to the cycle's; every
+    other kernel must stay at 0. It must equal the code's count: nine
+    single-level scatters (requested, two estimates, gang count, NUMA
+    free of nodes and slots, GPU free of nodes and slots, slot free)
+    and the quota levels in launches of `levels_per_launch`."""
+    b = run.batches[0]
+    res, batch = b["result"], b["batch"]
+    store = SnapshotStore(device=res.assignment.device)
+    store.publish(res.snapshot)
+    kernels.reset_launch_counts()
+    store.forget(batch, res, b["forget"])
+    counts = kernels.launch_counts()
+    quotas = res.snapshot.quotas
+    levels = quotas.depth_ancestor.shape[1]
+    per = levels_per_launch(quotas.used.shape[0], quotas.used.shape[1],
+                            batch.num_pods)
+    want = 9 + -(-levels // per)
+    others = {k: v for k, v in counts.items()
+              if v and k != "ordered_scatter_add"}
+    print("forget launches (one store.forget, N = "
+          f"{res.snapshot.num_nodes}, P = {batch.num_pods}): "
+          + json.dumps({"measured": counts["ordered_scatter_add"],
+                        "expected": want, "quota_levels": levels,
+                        "levels_per_launch": per}), flush=True)
+    if counts["ordered_scatter_add"] != want or others:
+        raise SystemExit(f"forget: launches {counts}, expected K3 {want} "
+                         "and nothing else")
+    if diff_fields(store.current(), b["forgotten"]):
+        raise SystemExit("forget: a lone store.forget differs from the "
+                         "cycle's")
+    return want
+
+
+def guarded_phase():
+    """The guarded cycle (`configs.run_guarded_cycles`: 10 000 nodes, 10
+    batches of 2000 full-gate pods, the deltas, the eight column faults,
+    the forgets, the checkpoint and restore) on the card, counting
+    launches, then on the host: every result, health vector, mask and
+    snapshot equal; each fault's bit, quarantine and the masked oracle;
+    the clean batches equal to the unguarded program; the rejections;
+    forget's return of capacity against the host's recount; the restore.
+    Then the guard's overhead on a clean batch. Returns (line,
+    launches)."""
+    kernels.reset_launch_counts()
+    line, run = run_guarded_cycles(device="cuda")
+    launches = kernels.launch_counts()
+    line["launches"] = launches
+    t0 = time.perf_counter()
+    host_line, host = run_guarded_cycles(device="cpu")
+    host_s = time.perf_counter() - t0
+    # two runs, each: K14 once and K15 twice a batch, K16 twice a delta
+    # applied (two), the full gate's batch formulas of `check_gpu_share`
+    # (no tail), and K3 `forget_launches` times a forget, once a batch
+    batches = line["batches"]
+    rounds = batches * FULL_GATE_KW["num_rounds"]
+    steps = rounds * FULL_GATE_KW["k_choices"]
+    per_forget = forget_launches(run)
+    want = {"guard_nodes": batches, "guard_pods": 2 * batches,
+            "delta_rows": 4, "stage1_mask": batches,
+            "numa_pair_terms": batches, "device_pair_terms": batches,
+            "score_topk": rounds, "topology_admit": steps,
+            "gpu_instance_pick": 2 * steps, "segment_prefix_ok": 4 * steps,
+            "topology_prefix_gate": steps,
+            "ordered_scatter_add": (8 * steps + 3 * rounds + 15 * batches
+                                    + per_forget * batches)}
+    want = {k: 2 * v for k, v in want.items()}
+    got = {k: launches[k] for k in want}
+    if got != want or any(v for k, v in launches.items() if k not in want):
+        raise SystemExit(f"guarded cycle: launches {launches}, expected "
+                         f"{want} (two runs)")
+    diffs = []
+    for i, (b, hb) in enumerate(zip(run.batches, host.batches)):
+        for key in ("snapshot", "result", "health", "node_bad", "pod_bad",
+                    "forgotten"):
+            diffs += [f"batch {i} {key}{'.' + f if f else ''}"
+                      for f in diff_fields(b[key], hb[key])]
+    diffs += [f"final.{f}" for f in diff_fields(run.store.current(),
+                                                host.store.current())]
+    if diffs or run.rejections != host.rejections:
+        raise SystemExit(f"guarded cycle: card differs from host in "
+                         f"{diffs[:20]}")
+    if [None if r is None else r.value for r in run.rejections] != [
+            None, "duplicate_version", "stale_version", None]:
+        raise SystemExit(f"guarded cycle: rejections {run.rejections}")
+    cfg, step_kw = run.setup["cfg"], run.setup["step_kw"]
+    checks = {"oracle": 0, "clean": 0, "forget_pods": 0}
+    gpu_err = 0.0
+    for i, b in enumerate(run.batches):
+        res, kind, rows = b["result"], b["kind"], b["rows"]
+        if kind is not None:
+            if not int(b["health"][0]) & faults.EXPECTED_BIT[kind]:
+                raise SystemExit(f"guarded cycle: {kind} set no bit")
+            snap, batch = b["snapshot"], b["batch"]
+            at = torch.as_tensor(rows, dtype=torch.long,
+                                 device=res.assignment.device)
+            if kind in faults.SNAPSHOT_FAULTS:
+                if res.snapshot.nodes.schedulable[at].any():
+                    raise SystemExit(f"{kind}: a quarantined node is "
+                                     "schedulable")
+                sched = snap.nodes.schedulable.clone()
+                sched[at] = False
+                snap = snap.replace(nodes=snap.nodes.replace(
+                    schedulable=sched))
+            else:
+                if (res.assignment[at] >= 0).any():
+                    raise SystemExit(f"{kind}: a quarantined pod placed")
+                valid = batch.valid.clone()
+                valid[at] = False
+                batch = batch.replace(valid=valid)
+            oracle = schedule_batch(snap, batch, cfg, **step_kw)
+            if not torch.equal(oracle.assignment, res.assignment):
+                raise SystemExit(f"{kind}: placements differ from the "
+                                 "masked oracle")
+            checks["oracle"] += 1
+        else:
+            plain = schedule_batch(b["snapshot"], b["batch"], cfg, **step_kw)
+            bad = diff_fields(res, plain)
+            if bad or b["health"].any():
+                raise SystemExit(f"clean batch {i}: guarded differs from "
+                                 f"unguarded in {bad}")
+            checks["clean"] += 1
+        requested, used, assumed, gpu_free = forget_recount(b)
+        f = b["forgotten"]
+        got = (f.nodes.requested.cpu().numpy(), f.quotas.used.cpu().numpy(),
+               f.gangs.assumed.cpu().numpy())
+        if not (np.array_equal(got[0], requested.astype(np.float32))
+                and np.array_equal(got[1], used.astype(np.float32))
+                and np.array_equal(got[2], assumed.astype(np.int32))):
+            raise SystemExit(f"batch {i}: forget's requested, quota used or "
+                             "gang assumed differ from the host's recount")
+        gpu_err = max(gpu_err, float(np.abs(
+            f.devices.gpu_free.cpu().numpy() - gpu_free).max()))
+        checks["forget_pods"] += int((b["forget"]
+                                      & (res.assignment >= 0)).sum())
+    if gpu_err > GPU_FREE_TOL:
+        raise SystemExit(f"forget: gpu_free off the recount by {gpu_err}")
+    if diff_fields(run.restored.current(), run.store.current()) or (
+            run.restored.version != run.store.version
+            or run.restored.applied_delta_version
+            != run.store.applied_delta_version):
+        raise SystemExit("the restored store differs from the checkpointed")
+    # the guard's overhead on a clean batch: the guarded and the
+    # unguarded batch in OVERHEAD_PAIRS pairs, the order alternating
+    # (host dispatch makes a batch's time spread by several ms), and
+    # K14 and K15 alone on the same inputs
+    b = run.batches[-1]
+    snap, batch = b["snapshot"], b["batch"]
+    sizes = (snap.gangs.min_member.shape[0], snap.quotas.parent.shape[0])
+
+    def plain_call():
+        return schedule_batch(snap, batch, cfg, **step_kw)
+
+    def guard_call():
+        return guarded_schedule_batch(snap, batch, cfg, **step_kw)
+
+    def guards_only():
+        return guard_nodes(snap.nodes), guard_pods(batch, *sizes)
+    times = {"unguarded": [], "guarded": []}
+    for i in range(OVERHEAD_PAIRS):
+        order = (("unguarded", plain_call), ("guarded", guard_call))
+        for side, fn in (order if i % 2 == 0 else order[::-1]):
+            times[side].append(cuda_ms(fn, reps=2))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    q1, q3 = np.percentile(times["unguarded"], [25, 75])
+    line.update(host_value=host_line["value"], host_s=host_s,
+                checks=checks, gpu_free_max_err=gpu_err,
+                gpu_free_tol=GPU_FREE_TOL,
+                guard_overhead_ms=med["guarded"] - med["unguarded"],
+                batch_ms_median=med,
+                unguarded_iqr_ms=float(q3 - q1),
+                guarded_slower_pairs=sum(
+                    g > u for g, u in zip(times["guarded"],
+                                          times["unguarded"])),
+                pairs=OVERHEAD_PAIRS,
+                guards_only_ms=cuda_ms(guards_only))
+    print("guarded cycle: " + json.dumps(line), flush=True)
+    return line, launches
+
+
 def expected_launches(line):
     """(inner steps, K3 launches) of one flagship run: K2 launches once
     an inner step; K3 twice an inner step (node, all quota levels),
@@ -3058,6 +3641,8 @@ def main() -> int:
     k9 = check_k9(dev, gen)
     rows = check_prefix_rows(dev, gen)
     lnl = check_lnl(dev, gen)
+    guard_checks = check_guards(dev, gen)
+    k16 = check_k16(dev, gen)
     for name, res in (("score_topk", k1), ("segment_prefix_ok", k2),
                       ("ordered_scatter_add", k3), ("numa_pair_terms", k4),
                       ("topology_admit", k5), ("score_topk", k1_numa),
@@ -3070,7 +3655,8 @@ def main() -> int:
                       ("topology_prefix_gate", k8),
                       ("segment_prefix_ok", k2_mask),
                       ("stage1_mask", k9), ("prefix rows", rows),
-                      ("lownodeload", lnl)):
+                      ("lownodeload", lnl), ("guard", guard_checks),
+                      ("delta_rows", k16)):
         for label, r in res.items():
             print(f"kernel {name} [{label}]: " + json.dumps(r), flush=True)
 
@@ -3140,6 +3726,9 @@ def main() -> int:
 
     # --- 8. BASELINE config 5: the descheduler's LowNodeLoad plan ---------
     _, launches_cfg5 = descheduler_phase()
+
+    # --- 9. the guarded cycle: guards, deltas, forget, the store ----------
+    _, launches_guarded = guarded_phase()
 
     # each kernel's numbers at the shapes of the path it came with (K1-K3
     # the flagship, K4-K5 config 2, K6-K7 gpu_share), and K1, K2, K5 at
@@ -3221,6 +3810,23 @@ def main() -> int:
             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"]})
+    # K14-K16 at the guarded cycle's shapes; launches from phase 9 (two
+    # runs of ten batches, two deltas applied a run)
+    for name, r in (("guard_nodes", guard_checks["guard_nodes full gate"]),
+                    ("guard_pods", guard_checks["guard_pods full gate"]),
+                    ("delta_rows", k16["metric 1000"])):
+        source, replaces = SOURCES[name]
+        entry = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches_guarded[name],
+            "launches_by_path": {"guarded_cycle": launches_guarded[name]},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"]}
+        if name == "delta_rows":
+            entry["at_topology_delta"] = k16["topology 64"]
+        report.append(entry)
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -45,6 +45,18 @@ the domain classes but not the numa and gpu prefixes (a retry window
 is not packed), and budgets its constrained stragglers by the topology
 prefix.
 
+`run_guarded_cycles` (`guarded_cycles_10k`) is the service's inner
+cycle without the service (frameworkext.py:624-1267: the store, the
+guarded batch, the store update, forget on failed binds): the full
+gate's first ten packed chunks of 2000 against 10 000 nodes through a
+`SnapshotStore` that takes a metric delta of 1000 rows, a duplicate and
+a stale re-stamp of it (both refused) and a topology delta of 64 rows,
+then `guards.guarded_schedule_batch` a batch, eight of them each with
+one column fault (`testing.faults`), each result published and 5 % of
+the batch forgotten, and at the end a checkpoint restored into a fresh
+store (`guarded_cycle_inputs` and `guarded_cycle` are its set-up and
+its timed steps).
+
 `run_config_5_descheduler` is BASELINE config 5
 (`bench_configs.config_5_descheduler`, :144-200): koord-descheduler's
 LowNodeLoad balance plan over 10 000 nodes (`config_5_cluster`), about
@@ -59,14 +71,22 @@ max_per_namespace=2000)`: K10, K11, K13).
 from __future__ import annotations
 
 import dataclasses
+import os
 import subprocess
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 from koordinator_tpu_torch import resolve_device
 from koordinator_tpu_torch.flagship import FlagshipRun, sweep_and_tail
 from koordinator_tpu_torch.scheduler.core import schedule_batch
+from koordinator_tpu_torch.scheduler.domains import (
+    COUNT_FIELDS,
+    batch_counts,
+    charge_all_counts,
+)
 from koordinator_tpu_torch.scheduler.plugins.loadaware import LoadAwareConfig
 from koordinator_tpu_torch.snapshot.schema import ClusterSnapshot, PodBatch
 from koordinator_tpu_torch.scheduler.plugins.deviceshare import (
@@ -78,8 +98,10 @@ from koordinator_tpu_torch.utils.synthetic import (
     config_5_cluster,
     dom_classes,
     gpu_share_inputs,
+    metric_delta_rows,
     pack_gate_prefixes,
     slice_batch,
+    topology_delta_rows,
 )
 
 CONFIG_2_METRIC = "baseline_cfg2_numa_10kx1k"
@@ -300,6 +322,178 @@ def run_full_gate(num_pods: int = 100_000, num_nodes: int = 10_000,
     setup = dict(snap=snap, pods=packed, prefixes=prefixes, masks=masks,
                  step_kw=step_kw, tail_kw=tail_kw)
     return line, run, setup
+
+
+GUARDED_METRIC = "guarded_cycles_10k"
+# the guarded cycle's delta sizes and its share of failed binds
+GUARDED_METRIC_ROWS, GUARDED_TOPOLOGY_ROWS, GUARDED_FORGET_FRAC = 1000, 64, 0.05
+
+
+@dataclasses.dataclass
+class GuardedRun:
+    """The record of one `run_guarded_cycles` run.
+
+    `batches` holds a dict a batch: `kind` (its column fault or None),
+    `rows` (the corrupted rows, None on a clean batch), `snapshot` and
+    `batch` (the clean inputs, counts carried), `result`, `health`,
+    `node_bad`, `pod_bad` (what `guarded_schedule_batch` returned),
+    `forget` (the failed-bind mask) and `forgotten` (the store's
+    snapshot after the forget). `rejections` holds the four ingests'
+    reasons (None where the delta applied), `deltas` the metric, stale
+    and topology deltas, `store` the store at the end, `restored` a
+    fresh store restored from its checkpoint, and `setup` the published
+    snapshot, the LoadAware config and the step kwargs."""
+
+    batches: list
+    rejections: list
+    deltas: dict
+    store: object
+    restored: object = None
+    setup: dict = None
+
+
+def guarded_cycle_inputs(num_nodes: int = 10_000, batches: int = 10,
+                         chunk: int = 2000, seed: int = 0,
+                         device="cuda") -> dict:
+    """The set-up of `run_guarded_cycles`: the snapshot, the first
+    `batches` packed chunks, the LoadAware config, the full gate's step
+    kwargs, the metric and topology deltas and the failed-bind masks."""
+    dev = resolve_device(device)
+    snap, pods = gpu_share_inputs(100_000, num_nodes, device=dev)
+    # the whole chunks of the queue (all of it at chunk 2000)
+    pods = slice_batch(pods, 0, pods.num_pods // chunk * chunk)
+    packed, _, _, step_kw, _ = pack_full_gate(snap, pods, chunk)
+    if batches * chunk > packed.num_pods:
+        raise ValueError(f"{batches} batches of {chunk} exceed the "
+                         f"{packed.num_pods} pods")
+    deltas = dict(
+        metric=metric_delta_rows(
+            snap, min(GUARDED_METRIC_ROWS, num_nodes // 4), seed + 1, 1),
+        topology=topology_delta_rows(
+            snap, min(GUARDED_TOPOLOGY_ROWS, num_nodes // 8), seed + 2, 2))
+    forget = [torch.from_numpy(np.random.default_rng(seed + 100 + i).uniform(
+        size=chunk) < GUARDED_FORGET_FRAC).to(dev) for i in range(batches)]
+    return dict(snap=snap, cfg=LoadAwareConfig.make(device=dev),
+                step_kw=step_kw, deltas=deltas, forget=forget, seed=seed,
+                chunks=[slice_batch(packed, i * chunk, chunk)
+                        for i in range(batches)])
+
+
+def guarded_cycle(inputs: dict):
+    """Steps 2-5 of `run_guarded_cycles` on a fresh store over
+    `guarded_cycle_inputs`; returns (seconds of steps 3-5, host clock,
+    ending with a synchronise; GuardedRun)."""
+    from koordinator_tpu_torch.scheduler.guards import guarded_schedule_batch
+    from koordinator_tpu_torch.snapshot.store import SnapshotStore
+    from koordinator_tpu_torch.testing.faults import (
+        BATCH_FAULTS,
+        SNAPSHOT_FAULTS,
+        FaultInjector,
+    )
+
+    snap, cfg, step_kw = inputs["snap"], inputs["cfg"], inputs["step_kw"]
+    dev = snap.nodes.allocatable.device
+    store = SnapshotStore(device=dev)
+    store.publish(snap)
+    inj = FaultInjector(inputs["seed"])
+    faults = SNAPSHOT_FAULTS + BATCH_FAULTS
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    rejections = []
+    metric = inputs["deltas"]["metric"]
+    stale = inj.stale_delta(metric, 1)  # below version 1, applied first
+    for delta in (metric, metric, stale, inputs["deltas"]["topology"]):
+        store.ingest(delta)
+        rejections.append(store.take_delta_rejection())
+    counts = batch_counts(inputs["chunks"][0])
+    batches = []
+    for i, (batch, forget) in enumerate(zip(inputs["chunks"],
+                                            inputs["forget"])):
+        batch = batch.replace(**dict(zip(COUNT_FIELDS, counts)))
+        clean = store.current()
+        kind = faults[i] if i < len(faults) else None
+        run_snap, run_batch, rows = clean, batch, None
+        if kind in SNAPSHOT_FAULTS:
+            run_snap, rows = inj.corrupt_snapshot(clean, kind, i % 3 + 1)
+        elif kind is not None:
+            run_batch, rows = inj.corrupt_batch(batch, kind, i % 3 + 1)
+        res, health, node_bad, pod_bad = guarded_schedule_batch(
+            run_snap, run_batch, cfg, **step_kw)
+        store.update(lambda _s, res=res: res.snapshot)
+        # a quarantined carrier of a bad spread group is its member too,
+        # so the corrupted domain row charges nothing
+        counts = charge_all_counts(counts, run_batch, res.assignment)
+        forgotten = store.forget(run_batch, res, forget)
+        batches.append(dict(kind=kind, rows=rows, snapshot=clean,
+                            batch=batch, result=res, health=health,
+                            node_bad=node_bad, pod_bad=pod_bad,
+                            forget=forget, forgotten=forgotten))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    elapsed = time.perf_counter() - t0
+    return elapsed, GuardedRun(
+        batches=batches, rejections=rejections,
+        deltas=dict(inputs["deltas"], stale=stale), store=store,
+        setup=dict(snap=snap, cfg=cfg, step_kw=step_kw))
+
+
+def run_guarded_cycles(num_nodes: int = 10_000, batches: int = 10,
+                       chunk: int = 2000, seed: int = 0, device="cuda"):
+    """The service's inner cycle on the full-gate workload, without the
+    service: `gpu_share_inputs(100_000, num_nodes)` (its whole chunks)
+    packed by `pack_full_gate`, the first `batches` chunks with the full
+    gate's step kwargs; a fresh `SnapshotStore` takes the snapshot, a
+    metric delta of 1000 rows (version 1; a quarter of the nodes on a
+    smaller cluster), the same again (a duplicate), a stale re-stamp of
+    it (`FaultInjector(seed).stale_delta`) and a topology delta of 64
+    rows (version 2; an eighth of the nodes on a smaller cluster); then
+    each batch runs `guarded_schedule_batch` on the store's snapshot,
+    batch i < 8 with the i-th column fault (SNAPSHOT_FAULTS +
+    BATCH_FAULTS, on i % 3 + 1 rows of the snapshot or the batch), the
+    topology counts carried as `flagship.sweep_and_tail` carries them;
+    the store takes the result and forgets a seeded 5 % of the batch
+    (the failed binds). The cycle runs twice, each on its own store;
+    the second is timed (steps 3-5, host clock, ending with a
+    synchronise). Finally the store is checkpointed (to a temporary
+    file) and restored into a fresh store.
+
+    Returns (line, GuardedRun): `line` holds metric
+    `guarded_cycles_10k`, `value` (seconds), placed, quarantined_nodes,
+    quarantined_pods, deltas_applied, deltas_rejected, forgotten, the
+    shape and the device. The first call on a card also pays the
+    kernels' build unless `kernels.build.build_all()` ran before."""
+    inputs = guarded_cycle_inputs(num_nodes, batches, chunk, seed, device)
+    guarded_cycle(inputs)
+    elapsed, run = guarded_cycle(inputs)
+    dev = run.store.device
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "snapshot.ckpt")
+        run.store.checkpoint(path)
+        from koordinator_tpu_torch.snapshot.store import SnapshotStore
+        run.restored = SnapshotStore(device=dev)
+        if not run.restored.restore(path):
+            raise RuntimeError("the checkpoint did not restore")
+    placed = [b["result"].assignment >= 0 for b in run.batches]
+    health = torch.stack([b["health"] for b in run.batches]).cpu()
+    line = {
+        "metric": GUARDED_METRIC,
+        "value": elapsed,
+        "placed": int(sum(int(p.sum()) for p in placed)),
+        "quarantined_nodes": int(health[:, 1].sum()),
+        "quarantined_pods": int(health[:, 2].sum()),
+        "deltas_applied": sum(r is None for r in run.rejections),
+        "deltas_rejected": sum(r is not None for r in run.rejections),
+        "forgotten": int(sum(int((p & b["forget"]).sum())
+                             for p, b in zip(placed, run.batches))),
+        "batches": batches,
+        "chunk": chunk,
+        "num_nodes": num_nodes,
+        "platform": dev.type,
+        "device": (card_name_and_power_limit() if dev.type == "cuda"
+                   else "cpu"),
+    }
+    return line, run
 
 
 def card_name_and_power_limit() -> str:

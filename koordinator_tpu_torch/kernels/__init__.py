@@ -14,7 +14,9 @@ from typing import Dict
 
 def _wrappers():
     from koordinator_tpu_torch.kernels import (
+        delta_rows,
         device_terms,
+        guard,
         gpu_instances,
         lownodeload,
         numa_terms,
@@ -37,7 +39,10 @@ def _wrappers():
             "lnl_node_fit": lownodeload.lnl_node_fit,
             "lnl_eviction_order": lownodeload.lnl_eviction_order,
             "lnl_plan_prefix": lownodeload.lnl_plan_prefix,
-            "lnl_plan_capped": lownodeload.lnl_plan_capped}
+            "lnl_plan_capped": lownodeload.lnl_plan_capped,
+            "guard_nodes": guard.guard_nodes,
+            "guard_pods": guard.guard_pods,
+            "delta_rows": delta_rows.delta_rows}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -43,10 +43,12 @@ def resource_fit(allocatable: torch.Tensor, requested: torch.Tensor,
 
 def pod_ancestors(quotas: QuotaState, pods: PodBatch) -> torch.Tensor:
     """i32[P, D]: each pod's quota-tree ancestor per depth, -1 = none (a
-    quota-less pod gets an all -1 row)."""
+    quota-less pod gets an all -1 row; a quota id beyond the table reads
+    its last row, as the reference's gather clamps)."""
+    last = max(quotas.depth_ancestor.shape[0] - 1, 0)
     return torch.where(
         pods.quota_id[:, None] >= 0,
-        quotas.depth_ancestor[pods.quota_id.clamp_min(0).long()],
+        quotas.depth_ancestor[pods.quota_id.clamp(0, last).long()],
         -1).to(torch.int32)
 
 

@@ -1,9 +1,10 @@
 """Where the slim flagship's (or BASELINE config 2's, gpu_share's, the
-full gate's or BASELINE config 5's) time goes on the card.
+full gate's, BASELINE config 5's or the guarded cycle's) time goes on
+the card.
 
     python -m koordinator_tpu_torch.profile_flagship
         [--workload flagship|config2|gpushare|fullgate|descheduler|
-                    descheduler_capped]
+                    descheduler_capped|guarded]
         [--out chiprun_out/profile_<workload>.json]
 
 Builds the kernels, runs the workload (the 100k x 10k slim flagship;
@@ -21,7 +22,9 @@ copies, memsets), and the device time and launch
 count of each kernel name, largest first. The descheduler workloads
 are BASELINE config 5 at 10 000 nodes (`configs.run_config_5_descheduler`,
 plain or capped); each run holds two plans, its warm one and its timed
-one. On the full gate one more traced run records host and device
+one. The guarded workload is `configs.guarded_cycle` (steps 2-5 of
+`run_guarded_cycles` at 10 000 nodes, ten batches) on inputs built
+once, untimed. On the full gate one more traced run records host and device
 activity with the plain-torch parts that have no kernel of their own
 under `torch.profiler.record_function` ranges (`domains.round_terms`,
 `reservation.slot_columns` and the tail's `tail_select` with its
@@ -42,6 +45,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from koordinator_tpu_torch.configs import (
     card_name_and_power_limit,
+    guarded_cycle,
+    guarded_cycle_inputs,
     run_config_2_numa,
     run_config_5_descheduler,
     run_full_gate,
@@ -116,7 +121,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", choices=(
         "flagship", "config2", "gpushare", "fullgate", "descheduler",
-        "descheduler_capped"), default="flagship")
+        "descheduler_capped", "guarded"), default="flagship")
     ap.add_argument("--out", default=None,
                     help="default chiprun_out/profile_<workload>.json")
     args = ap.parse_args()
@@ -132,6 +137,15 @@ def main() -> None:
         warm_up = run = functools.partial(
             run_config_5_descheduler, args.workload == "descheduler_capped",
             device="cuda")
+    elif args.workload == "guarded":
+        inputs = {}
+
+        def run():
+            if not inputs:
+                inputs.update(guarded_cycle_inputs(device="cuda"))
+            seconds, result = guarded_cycle(inputs)
+            return {"metric": "guarded_cycles_10k", "value": seconds}, result
+        warm_up = run
     else:
         def run():
             line, result, _ = run_full_gate(device="cuda")

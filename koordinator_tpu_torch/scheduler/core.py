@@ -303,8 +303,10 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         if on:
             _norm_classes(cls, count0.shape[0])
 
-    # gang quorum (coscheduling PreFilter, core.go:220-274)
-    gid = pods.gang_id.clamp_min(0).long()
+    # gang quorum (coscheduling PreFilter, core.go:220-274); a gang id
+    # beyond the table reads its last row, as the reference's gather
+    # clamps (a quarantined pod keeps its out-of-range id)
+    gid = pods.gang_id.clamp(0, max(n_gangs - 1, 0)).long()
     gang_quorum = ((gangs0.member_count >= gangs0.min_member)
                    | gangs0.satisfied) & gangs0.valid
     gang_ok = (pods.gang_id < 0) | gang_quorum[gid]

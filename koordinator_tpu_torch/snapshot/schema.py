@@ -201,7 +201,8 @@ class ClusterSnapshot(Struct):
 
 # The JAX package's STRUCT_SPECS, field for field: dtype, dims and the
 # pad predicate of each padded dim ("~pad:<fill>"). A field whose spec
-# names another struct nests it. Bare-symbol entries of the reference
+# names another struct nests it; a leading "?" marks a leaf that may be
+# None. The delta structs live in `snapshot/delta.py`. Bare-symbol entries of the reference
 # (num_nodes = "N") are properties here and are left out.
 STRUCT_SPECS: Dict[str, Dict[str, str]] = {
     "NodeState": {
@@ -310,6 +311,41 @@ STRUCT_SPECS: Dict[str, Dict[str, str]] = {
         "reservations": "ReservationState",
         "devices": "DeviceState",
         "version": "i32[]",
+    },
+    "NodeMetricDelta": {
+        "idx": "i32[K~pad:-1]",
+        "metric_fresh": "bool[K~pad:false]",
+        "usage": "f32[K~pad:zero,R]",
+        "prod_usage": "f32[K~pad:zero,R]",
+        "agg_usage": "f32[K~pad:zero,AGG,R]",
+        "has_agg": "bool[K~pad:false]",
+        "assigned_estimated": "f32[K~pad:zero,R]",
+        "assigned_correction": "f32[K~pad:zero,R]",
+        "prod_assigned_estimated": "f32[K~pad:zero,R]",
+        "prod_assigned_correction": "f32[K~pad:zero,R]",
+        "source_version": "?i32[]",
+    },
+    "NodeTopologyDelta": {
+        "idx": "i32[K~pad:-1]",
+        "allocatable": "f32[K~pad:zero,R]",
+        "requested": "f32[K~pad:zero,R]",
+        "schedulable": "bool[K~pad:false]",
+        "label_group": "i32[K~pad:zero]",
+        "taint_group": "i32[K~pad:zero]",
+        "numa_cap": "f32[K~pad:zero,Z~pad:zero,2]",
+        "numa_free": "f32[K~pad:zero,Z~pad:zero,2]",
+        "numa_valid": "bool[K~pad:false,Z~pad:false]",
+        "numa_policy": "i32[K~pad:zero]",
+        "cpu_amplification": "f32[K~pad:one]",
+        "gpu_total": "f32[K~pad:zero,DEV]",
+        "gpu_free": "f32[K~pad:zero,I~pad:zero,DEV]",
+        "gpu_valid": "bool[K~pad:false,I~pad:false]",
+        "gpu_numa": "i32[K~pad:-1,I~pad:-1]",
+        "gpu_pcie": "i32[K~pad:-1,I~pad:-1]",
+        "aux_free": "f32[K~pad:zero,AX,J~pad:zero]",
+        "aux_valid": "bool[K~pad:false,AX,J~pad:false]",
+        "metric": "NodeMetricDelta",
+        "source_version": "?i32[]",
     },
     "ScheduleResult": {
         "assignment": "i32[P~pad:-1]",

@@ -662,6 +662,101 @@ def gpu_share_inputs(num_pods: int = 100_000, num_nodes: int = 10_000,
     return snap, pods
 
 
+# --- delta inputs of the guarded cycle --------------------------------------
+
+
+def _delta_rows_idx(snap: ClusterSnapshot, k: int,
+                    rng: np.random.Generator) -> np.ndarray:
+    """k distinct node rows, in ascending order, none hosting a
+    reservation slot (the reference's builder sends those through a
+    full rebuild)."""
+    resv = snap.reservations
+    hosts = resv.node[resv.valid].cpu().numpy()
+    eligible = np.setdiff1d(np.arange(snap.num_nodes), hosts)
+    return np.sort(rng.choice(eligible, size=k, replace=False)).astype(
+        np.int32)
+
+
+def _host_rows(struct, fields, idx: np.ndarray) -> dict:
+    return {f: getattr(struct, f).cpu().numpy()[idx] for f in fields}
+
+
+def _tensors(arrays: dict) -> dict:
+    return {f: torch.from_numpy(np.ascontiguousarray(v))
+            for f, v in arrays.items()}
+
+
+def metric_delta_rows(snap: ClusterSnapshot, k: int, seed: int,
+                      version: int):
+    """A NodeMetricDelta of k distinct node rows (no slot host) at
+    source_version `version`, on the host: fresh usage drawn as
+    `synthetic_cluster` draws it (cpu uniform(0, 0.6), memory
+    uniform(0.1, 0.7) of the row's allocatable; prod 0.8 of it; the
+    aggregates with p90 and above 1.15 of it), the assigned columns as
+    the snapshot holds them."""
+    from koordinator_tpu_torch.snapshot.delta import (
+        METRIC_FIELDS,
+        NodeMetricDelta,
+    )
+
+    rng = np.random.default_rng(seed)
+    idx = _delta_rows_idx(snap, k, rng)
+    alloc = snap.nodes.allocatable.cpu().numpy()[idx]
+    rows = _host_rows(snap.nodes, METRIC_FIELDS, idx)
+    usage = np.zeros((k, R), np.float32)
+    usage[:, CPU] = (rng.uniform(0.0, 0.6, k) * alloc[:, CPU]).astype(
+        np.float32)
+    usage[:, MEM] = (rng.uniform(0.1, 0.7, k) * alloc[:, MEM]).astype(
+        np.float32)
+    agg = np.zeros((k, NUM_AGG, R), np.float32)
+    agg[:] = usage[:, None, :]
+    agg[:, 2:] *= 1.15
+    rows.update(usage=usage, prod_usage=usage * 0.8, agg_usage=agg,
+                metric_fresh=np.ones((k,), bool), has_agg=np.ones((k,), bool))
+    return NodeMetricDelta(
+        idx=torch.from_numpy(idx), **_tensors(rows),
+        source_version=torch.tensor(version, dtype=torch.int32))
+
+
+def topology_delta_rows(snap: ClusterSnapshot, k: int, seed: int,
+                        version: int):
+    """A NodeTopologyDelta of k distinct node rows (no slot host) at
+    source_version `version`, on the host. About half (uniform < 0.5)
+    are removed nodes: zeroed rows (schedulable False, allocatable,
+    requested, zones and instances 0, invalid zones and instances,
+    instance zone and PCIe -1, amplification 1, metric_fresh False).
+    The rest keep their row with a new taint group and label group,
+    each drawn among the groups the snapshot already uses."""
+    from koordinator_tpu_torch.snapshot.delta import (
+        METRIC_FIELDS,
+        TOPOLOGY_DEVICE_FIELDS,
+        TOPOLOGY_NODE_FIELDS,
+        NodeMetricDelta,
+        NodeTopologyDelta,
+    )
+
+    rng = np.random.default_rng(seed)
+    idx = _delta_rows_idx(snap, k, rng)
+    removed = rng.uniform(size=k) < 0.5
+    nodes = snap.nodes
+    n_taint = int(nodes.taint_group.max()) + 1
+    n_label = int(nodes.label_group.max()) + 1
+    rows = _host_rows(nodes, TOPOLOGY_NODE_FIELDS, idx)
+    rows.update(_host_rows(snap.devices, TOPOLOGY_DEVICE_FIELDS, idx))
+    rows["taint_group"] = rng.integers(0, n_taint, k).astype(np.int32)
+    rows["label_group"] = rng.integers(0, n_label, k).astype(np.int32)
+    metric = _host_rows(nodes, METRIC_FIELDS, idx)
+    fill = {"cpu_amplification": 1.0, "gpu_numa": -1, "gpu_pcie": -1}
+    for table in (rows, metric):
+        for f, v in table.items():
+            v[removed] = fill.get(f, 0)
+    return NodeTopologyDelta(
+        idx=torch.from_numpy(idx), **_tensors(rows),
+        metric=NodeMetricDelta(idx=torch.from_numpy(idx.copy()),
+                               **_tensors(metric)),
+        source_version=torch.tensor(version, dtype=torch.int32))
+
+
 CONFIG_5_NOW = 1e9
 
 

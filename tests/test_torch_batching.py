@@ -15,6 +15,7 @@ from koordinator_tpu.utils import synthetic as jsyn
 from koordinator_tpu_torch.scheduler import batching
 
 from torch_port_ref import to_port
+from torch_port_ref import one_torch_thread  # noqa: F401 (autouse)
 
 
 @settings(max_examples=40, deadline=None)

@@ -38,6 +38,7 @@ from koordinator_tpu_torch.scheduler.domains import (
 from koordinator_tpu_torch.scheduler.plugins.loadaware import LoadAwareConfig
 
 from torch_port_ref import to_port
+from torch_port_ref import one_torch_thread  # noqa: F401 (autouse)
 
 P, N, CHUNK = 512, 96, 256
 KW = dict(num_rounds=2, k_choices=8, score_dims=(0, 1), tie_break=True,

@@ -21,6 +21,7 @@ from koordinator_tpu_torch.scheduler.plugins.loadaware import LoadAwareConfig
 from koordinator_tpu_torch.utils import synthetic
 
 from torch_port_ref import to_port
+from torch_port_ref import one_torch_thread  # noqa: F401 (autouse)
 
 BENCH_KW = dict(num_rounds=2, k_choices=8, score_dims=(0, 1),
                 tie_break=True, quota_depth=2, fit_dims=(0, 1, 2, 3),

@@ -33,6 +33,8 @@ from koordinator_tpu_torch.utils.synthetic import config_5_cluster
 
 from test_descheduler_device import NOW, random_cluster
 
+from torch_port_ref import one_torch_thread  # noqa: F401 (autouse)
+
 R = 11
 DEVIATION_THRESHOLDS = dict(low_thresholds={JRK.CPU: 10.0, JRK.MEMORY: 10.0},
                             high_thresholds={JRK.CPU: 10.0,

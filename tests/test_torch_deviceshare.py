@@ -32,6 +32,7 @@ from koordinator_tpu_torch.scheduler.batching import (
 from koordinator_tpu_torch.scheduler.plugins import deviceshare
 
 from torch_port_ref import to_port
+from torch_port_ref import one_torch_thread  # noqa: F401 (autouse)
 
 SEEDS = [0, 1, 2]
 STRATEGIES = ["least", "most"]

@@ -18,6 +18,7 @@ from koordinator_tpu_torch.scheduler.core import overcommit_ok, quota_ok
 from koordinator_tpu_torch.scheduler.plugins.loadaware import LoadAwareConfig
 
 from torch_port_ref import to_port
+from torch_port_ref import one_torch_thread  # noqa: F401 (autouse)
 
 PODS, NODES, CHUNK, TAIL_CHUNK = 2048, 128, 512, 128
 

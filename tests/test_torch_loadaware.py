@@ -16,6 +16,7 @@ from koordinator_tpu.utils import synthetic as jsyn
 from koordinator_tpu_torch.scheduler.plugins import loadaware
 
 from torch_port_ref import to_port
+from torch_port_ref import one_torch_thread  # noqa: F401 (autouse)
 
 VARIANTS = {
     "default": {},

@@ -23,6 +23,7 @@ from koordinator_tpu_torch.kernels.numa_terms import (
 from koordinator_tpu_torch.scheduler.plugins import numaaware
 
 from torch_port_ref import to_port
+from torch_port_ref import one_torch_thread  # noqa: F401 (autouse)
 
 
 def zone_state(seed, n, z, *, fractional=False):

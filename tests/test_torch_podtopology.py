@@ -65,6 +65,7 @@ from test_torch_reservation import (
     k1_slot_inputs,
 )
 from torch_port_ref import assert_trees_equal, numpy_tree, to_port
+from torch_port_ref import one_torch_thread  # noqa: F401 (autouse)
 
 NOW = 1_700_000_000.0
 TOPO_FIELDS = ("spread_id", "spread_carrier", "spread_member",

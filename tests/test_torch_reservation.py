@@ -40,6 +40,7 @@ from koordinator_tpu_torch.scheduler.plugins.reservation import (
 from koordinator_tpu_torch.utils import synthetic
 
 from torch_port_ref import assert_trees_equal, numpy_tree, to_port
+from torch_port_ref import one_torch_thread  # noqa: F401 (autouse)
 
 FIT_DIMS = (0, 1, 2, 3)
 SCORE_DIMS = (0, 1)

@@ -37,6 +37,7 @@ from koordinator_tpu_torch.scheduler.cascade import (
 from koordinator_tpu_torch.scheduler.plugins import loadaware, numaaware
 
 from torch_port_ref import to_port
+from torch_port_ref import one_torch_thread  # noqa: F401 (autouse)
 
 FIT_DIMS = (0, 1, 2, 3)
 SCORE_DIMS = (0, 1)

@@ -33,6 +33,7 @@ from test_torch_reservation import (
     reference_select_slots,
 )
 from torch_port_ref import to_port
+from torch_port_ref import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _taint_case(variant, seed=0):

@@ -21,6 +21,7 @@ from koordinator_tpu_torch.kernels.topology import (
 from koordinator_tpu_torch.scheduler import topologymanager as tm
 
 from torch_port_ref import to_port
+from torch_port_ref import one_torch_thread  # noqa: F401 (autouse)
 
 POLICIES = (tm.POLICY_NONE, tm.POLICY_BEST_EFFORT, tm.POLICY_RESTRICTED,
             tm.POLICY_SINGLE_NUMA_NODE)

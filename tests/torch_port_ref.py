@@ -7,8 +7,10 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import pytest
+import torch
 
-from koordinator_tpu_torch.bridge import from_reference
+from koordinator_tpu_torch.bridge import from_reference, to_numpy
 
 
 def numpy_tree(x) -> dict:
@@ -44,3 +46,47 @@ def assert_trees_equal(got: dict, want: dict, path: str = "") -> None:
             np.testing.assert_array_equal(g, w, err_msg=f"{path}.{k}")
         else:
             assert g == w, (f"{path}.{k}", g, w)
+
+
+def assert_bits_equal(got, want, path=""):
+    """Leaf by leaf: same dtype and shape, f32 bit for bit, the rest
+    exactly (nested dicts recurse; plain values compare equal)."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), (path, set(got) ^ set(want))
+        for k in want:
+            assert_bits_equal(got[k], want[k], f"{path}.{k}")
+        return
+    if not isinstance(want, np.ndarray) and not hasattr(want, "dtype"):
+        assert got == want, (path, got, want)
+        return
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape, \
+        (path, got.dtype, want.dtype, got.shape, want.shape)
+    if want.dtype == np.float32:
+        got, want = got.view(np.uint32), want.view(np.uint32)
+    np.testing.assert_array_equal(got, want, err_msg=path)
+
+
+def tree(x) -> dict:
+    """The port struct's numpy tree without host-side switches."""
+    return {k: v for k, v in to_numpy(x).items()
+            if isinstance(v, (np.ndarray, dict))}
+
+
+def ref_tree(x) -> dict:
+    return {k: v for k, v in numpy_tree(x).items()
+            if isinstance(v, (np.ndarray, dict))}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread for a test module that imports this
+    fixture. The port's plain path runs thousands of small torch ops a
+    batch; with the suite's six workers each holding torch's default
+    pool (a thread a core), every op waits on the other processes'
+    threads: a guarded full-gate batch at 96 nodes took 0.9 s in six
+    one-thread processes and 174 s in six default ones."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
