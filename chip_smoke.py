@@ -83,7 +83,19 @@ in order:
    rows and a topology delta of 64 (timed on given columns, beside
    index_copy_ over the same columns, and again with the wrapper's
    clones, each against its own bound), with repeated, -1 and
-   out-of-range indices, K = 1 and an empty delta. Each timed case with
+   out-of-range indices, K = 1 and an empty delta. Batches above one
+   block: K2 at P = 2500 and 4096 (the tiled walk; 70 % and 8 % trying,
+   11 dims, one level, the topology mask, level 0's own amplified
+   requests), K5 and K7's two-grid take (between K7's choose launch
+   and the K2 gate) at the same sizes, K8's tiled walk at a gpu_share
+   step of 2500 and 4096 pods; K2 on fractional requests at P = 250,
+   2048 and 2500 (ROADMAP check C-a: equal off the gate boundaries, and
+   on them differing at most at the boundary pods, fault C7); K1 with
+   the amplified CPU fit at the sweep's shape (a third of the nodes
+   amplified and nearly full, a third of the pods CPU-bound), over 11
+   dims and at ratio 1; K11 and K12 (with K10 and K13) at the config-5
+   cluster listing pods on every node (40 000 pods: the sorts and scans
+   in device memory). Each timed case with
    its time
    (CUDA events over back-to-back calls, and the kernel's device time
    from torch.profiler), the plain version's, one library call's where
@@ -170,7 +182,28 @@ in order:
    the host's numpy recount of the committed snapshot less the
    forgotten pods' charges (gpu_free within GPU_FREE_TOL); the restored
    store equal to the checkpointed one; the line and the guard's
-   overhead on a clean batch (guarded against unguarded, in turns).
+   overhead on a clean batch (guarded against unguarded, in turns);
+10. config 4: BASELINE config 4 (`configs.run_config_4_quota`: 50 000
+   pods x 5000 nodes under 500 quotas, chunks of 2500, every K2 launch
+   the tiled walk) on the card after a warm-up run, counting launches
+   (K1 once a round, K2 once an inner step, no NUMA, DeviceShare or
+   topology kernel), then on the host: the assignment and every leaf of
+   the final snapshot equal; no overcommit, quota within runtime;
+11. config 5 with pods on every node (`run_config_5_descheduler(
+   every_node=True)`: 40 000 pods on 10 000 nodes), plain and capped, as
+   phase 8: the card's plan equal to the host's and the host loop's,
+   launches, caps and thresholds;
+12. the amplified full gate (`run_full_gate(amplified=True)`,
+   `full_gate_amplified_100kx10k`: the full gate on a cluster whose node
+   webhook amplified the CPU of about 30 % of the nodes, amplification
+   on): on the card and the host, every field equal, at 8000 pods x
+   1000 nodes in chunks of 2000 and at 10 000 pods x 10 000 nodes in
+   chunks of 2500 (K2, K5, K7's take and K8 above 2048 pods inside the
+   batch); at 100 000 x 10 000 on the card with the full gate's launch
+   formulas and invariants (node requested equal to the recount with
+   the bind pods' CPU amplified) and CPU-bind pods placed on amplified
+   nodes (the host run of the whole 100k x 10k would take over an
+   hour).
 
 The last three lines are one JSON object listing the kernels, the
 card's name and power limit, and one JSON object stating the result.
@@ -193,6 +226,7 @@ from koordinator_tpu_torch.api.extension import ResourceKind
 from koordinator_tpu_torch.bridge import to_numpy
 from koordinator_tpu_torch.configs import (
     CONFIG_2_KW,
+    CONFIG_4_KW,
     CONFIG_5_CAPS,
     FULL_GATE_KW,
     GPU_SHARE_KW,
@@ -201,6 +235,7 @@ from koordinator_tpu_torch.configs import (
     full_gate_sweep,
     pack_full_gate,
     run_config_2_numa,
+    run_config_4_quota,
     run_config_5_descheduler,
     run_full_gate,
     run_gpu_share,
@@ -334,6 +369,7 @@ from koordinator_tpu_torch.utils.synthetic import (
 # and f32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+CPU = int(ResourceKind.CPU)
 FIT_DIMS = [0, 1, 2, 3]
 SCORE_DIMS = [0, 1]
 ALL_DIMS = list(range(11))
@@ -712,13 +748,13 @@ def check_k1(snap, pods, cfg, gen):
     return out
 
 
-def k2_case(snap, pods, gen, p0, trying_frac, fit_dims):
+def k2_case(snap, pods, gen, p0, trying_frac, fit_dims, p=2000):
     """The chained gate of one inner step as schedule_batch forms it
-    for the chunk [p0, p0 + 2000): the node level (choices spread over
+    for the chunk [p0, p0 + p): the node level (choices spread over
     the 10^4 nodes, half of them on 64 popular ones) and the 2 quota
     levels of the flagship (segments from the chunk's pod_anc)."""
     dev = snap.nodes.allocatable.device
-    batch = slice_batch(pods, p0, 2000)
+    batch = slice_batch(pods, p0, p)
     p = batch.num_pods
     n_nodes, quotas = snap.num_nodes, snap.quotas
     n_quotas = quotas.min.shape[0]
@@ -772,35 +808,18 @@ def check_k2(snap, pods, gen):
             raise SystemExit(f"K2 segment_prefix_chain ({label}) differs "
                              f"from its plain version at "
                              f"{(got != want).nonzero()[:5, 0].tolist()}")
-        # the work this data needs, level by level: each pod alive and
-        # in range sums its earlier same-segment pods (one add a column
-        # on a segmented scan) and compares (3 operations a column);
-        # bytes: active and the result, the rank of the active pods, the
-        # seg of the pods alive at each level, the req of the pods some
-        # level gates (once), the base and limit rows of the segments in
-        # range
+        # the work this data needs (`k2_cost`), and on the single level
+        # the same-segment earlier pairs the masked matmul multiplies
         p, r = kw["req"].shape
-        alive = kw["active"]
-        nbytes, ops, matched = 2 * p + 4 * int(alive.sum()), 0, 0
-        gated = torch.zeros_like(alive)
-        for level, (base, limit, s) in zip(kw["seg"], kw["tables"]):
-            inr = alive & (level < s)
-            gated |= inr
-            n_in = int(inr.sum())
-            n_seg = int(torch.unique(level[inr]).numel())
-            nbytes += 4 * int(alive.sum()) + 2 * n_seg * r * 4
-            ops += n_in * r * 4
-            if label == "node level":
-                rank = kw["rank"]
-                mask = ((level[:, None] == level[None, :])
-                        & (rank[None, :] < rank[:, None])
-                        & inr[:, None] & inr[None, :])
-                matched = int(mask.sum())
-            alive = alive & segment_prefix_ok_plain(
-                torch.where(alive, level, s).to(torch.int32), kw["rank"],
-                torch.where(alive[:, None], kw["req"], 0.0), base, limit,
-                s, EPS)
-        nbytes += 4 * r * int(gated.sum())
+        nbytes, ops = k2_cost(kw)
+        matched = 0
+        if label == "node level":
+            level, rank = kw["seg"][0], kw["rank"]
+            inr = kw["active"] & (level < kw["tables"][0][2])
+            mask = ((level[:, None] == level[None, :])
+                    & (rank[None, :] < rank[:, None])
+                    & inr[:, None] & inr[None, :])
+            matched = int(mask.sum())
         b_ms, b_by = bound(nbytes, ops)
         library_ms = None
         if label == "node level":
@@ -858,6 +877,23 @@ def check_k3(snap, pods, gen):
                                                  rows.cpu())):
         raise SystemExit("K3 ordered_scatter_add (negative indices) differs "
                          "from its plain version on the host")
+    # rows of which not one level fits a launch (the reservation
+    # rebuild's instance scatter at P = 2500: C = 24 into 64 slots),
+    # taken in pieces, two levels, with drops (checked, not timed)
+    p_big, s_res, c_res = 2500, 64, 24
+    if levels_per_launch(s_res, c_res, p_big) > 0:
+        raise SystemExit("K3's piece case fits one launch: it checks "
+                         "nothing")
+    t_res = torch.rand((s_res, c_res), generator=gen, device=dev) * 5000.0
+    r_res = torch.rand((p_big, c_res), generator=gen, device=dev) * 3000.0
+    i_res = torch.randint(0, s_res + 2, (2, p_big), generator=gen,
+                          device=dev).to(torch.int32)
+    if not torch.equal(ordered_scatter_add(t_res, i_res, r_res).cpu(),
+                       ordered_scatter_add_plain(t_res.cpu(), i_res.cpu(),
+                                                 r_res.cpu())):
+        raise SystemExit("K3 ordered_scatter_add (P = 2500 rows of C = 24 "
+                         "in pieces) differs from its plain version on "
+                         "the host")
     groups, domains_ = 16, 10_000
     cidx = torch.where(
         torch.rand((groups, p), generator=gen, device=dev) < 0.02,
@@ -1068,20 +1104,8 @@ def check_k5(dev, gen):
             out[label] = dict(max_abs_err=err, engaged=engaged,
                               admitted=admitted)
             continue
-        # bytes: the pod columns (choice, trying, numa_single, demand),
-        # the zone rows of the chosen nodes (cap, used, valid, policy)
-        # once a node, and the outputs. Operations this data needs, per
-        # engaged pod, M = 2^Z masks: a mask's combined free (3 a zone
-        # and dim) and fit (4), its free cpu (2 a zone), its key (9 with
-        # the argmin); the greedy take (8 a zone) and its total (2 a
-        # zone and 2); per pod not engaged, its policy (2)
         p = args[0].shape[0]
-        m = 1 << z
-        n_rows = int(torch.unique(args[0][args[1]]).numel())
-        nbytes = p * 14 + n_rows * (z * 17 + 4) + p * (z * 17 + 6)
-        ops = engaged * (m * (8 * z + 13) + 10 * z + 2) \
-            + (p - engaged) * 2
-        b_ms, b_by = bound(nbytes, ops)
+        b_ms, b_by = bound(*k5_cost(args, full, z))
         out[label] = dict(
             ms=cuda_ms(lambda: topology_admit(*args)),
             device_ms=device_ms(lambda: topology_admit(*args),
@@ -1521,7 +1545,7 @@ def check_k7(dev, gen):
         # per-instance request (20) and 9 a fitting test and key per
         # instance. take: the pods' columns and the multi-GPU pods'
         # node rows, the outputs (1 + I bytes a pod); per multi-GPU pod
-        # one compare per shared take listed and 9 an instance
+        # 9 an instance, and one OR a surviving shared pod
         n_gpu = int((count > 0).sum())
         rows = int(torch.unique(st["choice"][count > 0]).numel())
         multi = st["accept"] & (count > 1)
@@ -1531,7 +1555,7 @@ def check_k7(dev, gen):
         b_choose = bound(p * 21 + rows * (12 + 13 * i) + p * 45,
                          n_gpu * (20 + 9 * i))
         b_take = bound(p * 25 + rows_multi * 13 * i + p * (1 + i),
-                       n_multi * (n_shared + 9 * i))
+                       n_multi * 9 * i + n_shared)
         chosen = gpu_instance_pick(*base)
         ms_c = cuda_ms(lambda: gpu_instance_pick(*base))
         ms_t = cuda_ms(lambda: gpu_instance_pick(*take_args, chosen=chosen))
@@ -1539,7 +1563,7 @@ def check_k7(dev, gen):
                           "gpu_choose_kernel")
         dev_t = device_ms(lambda: gpu_instance_pick(*take_args,
                                                     chosen=chosen),
-                          "gpu_take_kernel")
+                          ("gpu_shared_taken_kernel", "gpu_take_kernel"))
         plain_c = cuda_ms(lambda: gpu_choose_plain(*base), reps=5)
         plain_t = cuda_ms(lambda: gpu_take_plain(st["choice"], alive, pick,
                                                  d, *zone), reps=5)
@@ -2347,7 +2371,8 @@ def check_gpu_share(run, line, launches, snap0=None, pods=None,
     if not torch.equal((dev0.gpu_free - free) * valid, used * valid):
         raise SystemExit(f"{name}: instance takes differ from total minus "
                          "free")
-    check_slots_and_taints(snap0, pods, run, line)
+    check_slots_and_taints(snap0, pods, run, line,
+                           step_kw.get("enable_amplification", False))
     check_topology(pods, run, line)
     if not (overcommit_ok(run.snapshot) and quota_ok(run.snapshot)):
         raise SystemExit(f"{name}: overcommit or quota over runtime")
@@ -2410,10 +2435,12 @@ def check_topology(pods, run, line):
         flush=True)
 
 
-def check_slots_and_taints(snap0, pods, run, line):
+def check_slots_and_taints(snap0, pods, run, line, amplified=False):
     """The reservation and taint invariants of a gpu_share run (see
     `check_gpu_share`), on the host: integer-valued sums, exact in any
-    order."""
+    order (with `amplified`, a CPU-bind pod's node charge is its CPU
+    times its node's ratio: 1.5, 2 or 3 times a multiple of 500 mC, a
+    whole number too)."""
     assign = run.assignment.cpu().long()
     res_slot = run.res_slot.cpu().long()
     req = pods.requests.cpu()
@@ -2445,6 +2472,11 @@ def check_slots_and_taints(snap0, pods, run, line):
                          "less its consumers' requests")
     n = snap0.num_nodes
     on_node = placed & ~consumer
+    if amplified:
+        ratio = snap0.nodes.cpu_amplification.cpu()[assign.clamp(0, n - 1)]
+        req = req.clone()
+        req[:, CPU] = req[:, CPU] * torch.where(
+            pods.numa_single.cpu() & on_node, ratio, 1.0)
     requested = snap0.nodes.requested.cpu().index_add(
         0, assign[on_node], req[on_node])
     if not torch.equal(run.snapshot.nodes.requested.cpu(), requested):
@@ -2762,12 +2794,13 @@ DEVIATION_THRESHOLDS = dict(
     high_thresholds={ResourceKind.CPU: 10.0, ResourceKind.MEMORY: 10.0})
 
 
-def lnl_columns(dev, deviation=False, n_nodes=10_000):
+def lnl_columns(dev, deviation=False, n_nodes=10_000, every_node=False):
     """Config 5's plan inputs (the columns DeviceLowNodeLoad.balance_once
     hands the plan) on `dev`, with the threshold dims as `rdims`; in
     deviation mode with thresholds of 10/10 around the average (the
-    defaults leave no source there). Returns (columns, fit_dims)."""
-    nodes, metrics, by_node = config_5_cluster(n_nodes)
+    defaults leave no source there); with `every_node` the cluster that
+    lists pods on every node. Returns (columns, fit_dims)."""
+    nodes, metrics, by_node = config_5_cluster(n_nodes, every_node)
     args = LowNodeLoadArgs(consecutive_abnormalities=1,
                            use_deviation_thresholds=deviation,
                            **(DEVIATION_THRESHOLDS if deviation else {}))
@@ -2867,7 +2900,7 @@ def lnl_bounds(t, eo, fits, fit_dims, ns_n):
             "lnl_plan_prefix": k12, "lnl_plan_capped": k13}
 
 
-def check_lnl(dev, gen):
+def check_lnl(dev, gen, every_node=False):
     """K10-K13 against their plain versions on the host, chained as the
     plan chains them: at config 5's shape (10 000 nodes, the hot nodes'
     pods; timed, with the capped plan's caps), in deviation mode, at
@@ -2875,8 +2908,10 @@ def check_lnl(dev, gen):
     thousandth of config 5's), and with every cap binding (8
     namespaces, per-node 1, per-namespace 5, per-cycle 30, seeded
     counts). K11's order, flags and floats bit for bit, the takes
-    equal. Returns {case: result}."""
-    base, fit_dims = lnl_columns(dev)
+    equal. With `every_node`, the one case of the cluster listing pods
+    on every node (40 000 pods: the sorts and scans in device memory),
+    timed. Returns {case: result}."""
+    base, fit_dims = lnl_columns(dev, every_node=every_node)
     dev_cols, _ = lnl_columns(dev, deviation=True)
     p0, n0 = base["pod_node"].shape[0], base["usage"].shape[0]
     one = dict(base, **{k: base[k][:1].contiguous() for k in (
@@ -2899,6 +2934,8 @@ def check_lnl(dev, gen):
              ("nodeless", nodeless, False, None, caps_cfg5, False),
              ("budget binds", base, False, 0.001, caps_cfg5, False),
              ("caps bind", base, False, None, caps_bind, False))
+    if every_node:
+        cases = (("every node", base, False, None, caps_cfg5, True),)
     out = {}
     for label, t, deviation, budget_scale, caps, timed in cases:
         k11_args = lnl_k11_args(t, deviation)
@@ -3025,19 +3062,22 @@ def check_descheduler(line, run, host_names, golden_names, capped):
             raise SystemExit(f"{line['metric']}: a cap did not hold")
 
 
-def descheduler_phase():
+def descheduler_phase(every_node=False):
     """BASELINE config 5 plain and capped at 10 000 nodes on the card
     (`configs.run_config_5_descheduler`: a warm plan, then the timed
     one), counting launches over both plans, then on the host (the
     port's plan through the plain versions, and the host loop LowNodeLoad
-    with the same evictor): the plans equal and the invariants held.
-    Returns ({metric: line}, {metric: launches})."""
+    with the same evictor): the plans equal and the invariants held;
+    with `every_node`, on the cluster listing pods on every node (40 000
+    pods). Returns ({metric: line}, {metric: launches})."""
     lines, launches = {}, {}
     for capped in (False, True):
         kernels.reset_launch_counts()
-        line, run = run_config_5_descheduler(capped, device="cuda")
+        line, run = run_config_5_descheduler(capped, device="cuda",
+                                             every_node=every_node)
         counts = kernels.launch_counts()
-        host_line, host_run = run_config_5_descheduler(capped, device="cpu")
+        host_line, host_run = run_config_5_descheduler(
+            capped, device="cpu", every_node=every_node)
         evictor = RecordingEvictor(
             EvictionLimiter(**CONFIG_5_CAPS) if capped else None)
         t0 = time.perf_counter()
@@ -3585,6 +3625,526 @@ def guarded_phase():
     return line, launches
 
 
+# --- batches above one block, fractional requests, amplified CPU ----------
+# K2, K5, K7's take and K8 at P = 2500 (a config-4 chunk) and 4096 against
+# their plain versions; K2 on fractional requests at gate boundaries
+# (ROADMAP check C-a, fault C7); K1 with the amplified CPU fit; K11 and
+# K12 at the every-node config 5 (40 000 pods)
+
+BIG_PODS = (2500, 4096)
+
+
+def k2_cost(kw):
+    """(bytes, operations) of one K2 call on kw, level by level: each pod
+    alive and in range sums its earlier same-segment pods (one
+    add a column) and compares (3 a column); bytes: active and the
+    result, the rank of the active pods, the seg of the pods alive at
+    each level, the req of the pods some level gates (once), the base
+    and limit rows of the segments in range."""
+    p, r = kw["req"].shape
+    alive = kw["active"]
+    nbytes, ops = 2 * p + 4 * int(alive.sum()), 0
+    gated = torch.zeros_like(alive)
+    for l, (level, (base, limit, s)) in enumerate(zip(kw["seg"],
+                                                      kw["tables"])):
+        inr = alive & (level < s)
+        gated |= inr
+        n_in = int(inr.sum())
+        n_seg = int(torch.unique(level[inr]).numel())
+        nbytes += 4 * int(alive.sum()) + 2 * n_seg * r * 4
+        ops += n_in * r * 4
+        req = kw["req"] if l or kw.get("req0") is None else kw["req0"]
+        alive = alive & segment_prefix_ok_plain(
+            torch.where(alive, level, s).to(torch.int32), kw["rank"],
+            torch.where(alive[:, None], req, 0.0), base, limit, s, EPS)
+        if l == 0 and kw.get("mask") is not None:
+            alive = alive & kw["mask"]
+    return nbytes + 4 * r * int(gated.sum()), ops
+
+
+def check_k2_big(snap, pods, gen):
+    """K2 at P = 2500 and 4096 (the tiled walk: 2 tiles of 2048) on the
+    flagship's loaded state, as check_k2 at P = 2000: the chain with 70 %
+    and 8 % trying, over all 11 dims, one level, the topology mask after
+    level 0, and level 0's own requests (an amplified node level: a
+    third of the pods CPU-bound, their CPU times 1.5, 2 or 3). Equal to
+    the plain version; the chain and the amplified chain timed."""
+    dev = snap.nodes.allocatable.device
+    out = {}
+    for p in BIG_PODS:
+        for label, p0, frac, fd, variant, timed in (
+                ("chain", 20_000, 0.7, FIT_DIMS, None, True),
+                ("chain 8% trying", 30_000, 0.08, FIT_DIMS, None, False),
+                ("chain R=11", 40_000, 0.7, ALL_DIMS, None, False),
+                ("node level", 50_000, 0.7, FIT_DIMS, "level", False),
+                ("chain + mask", 60_000, 0.7, FIT_DIMS, "mask", False),
+                ("amplified node level", 70_000, 0.7, FIT_DIMS, "req0",
+                 True)):
+            kw = k2_case(snap, pods, gen, p0, frac, fd, p=p)
+            if variant == "level":
+                kw["seg"], kw["tables"] = kw["seg"][:1], kw["tables"][:1]
+            if variant == "mask":
+                kw["mask"] = torch.rand((p,), generator=gen, device=dev) < 0.8
+            if variant == "req0":
+                ratios = torch.tensor([1.0, 1.5, 2.0, 3.0], device=dev)
+                ratio = ratios[torch.randint(0, 4, (snap.num_nodes + 1,),
+                                             generator=gen, device=dev)]
+                bind = torch.rand((p,), generator=gen, device=dev) < 0.33
+                f = torch.where(bind, ratio[kw["seg"][0].long()], 1.0)
+                req0 = kw["req"].clone()
+                req0[:, 0] = req0[:, 0] * f
+                kw["req0"] = req0
+            got = segment_prefix_chain(**kw)
+            want = segment_prefix_chain_plain(**kw)
+            if not torch.equal(got, want):
+                raise SystemExit(
+                    f"K2 segment_prefix_chain ({label}, P={p}) differs from "
+                    f"its plain version at "
+                    f"{(got != want).nonzero()[:5, 0].tolist()}")
+            stats = dict(max_abs_err=0.0, trying=int(kw["active"].sum()),
+                         accepted=int(got.sum()))
+            if not 0 < stats["accepted"] < stats["trying"]:
+                raise SystemExit(f"K2 ({label}, P={p}): the gate admits "
+                                 f"{stats['accepted']} of "
+                                 f"{stats['trying']}")
+            key = f"{label} P={p}"
+            if not timed:
+                out[key] = stats
+                continue
+            b_ms, b_by = bound(*k2_cost(kw))
+            out[key] = dict(
+                ms=cuda_ms(lambda: segment_prefix_chain(**kw)),
+                device_ms=device_ms(lambda: segment_prefix_chain(**kw),
+                                    "segment_prefix_chain_kernel"),
+                plain_ms=cuda_ms(lambda: segment_prefix_chain_plain(**kw)),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                shape=f"P={p} L={len(kw['tables'])} R={kw['req'].shape[1]}",
+                **stats)
+    return out
+
+
+def fractional_case(p, seed, offset, segments=40, r=4):
+    """K2's single level on fractional requests (tests/
+    test_torch_bigbatch.py's case): requests in fractional MiB and mC,
+    each segment's memory limit set by its middle pod in rank order so
+    that the limit plus EPS is that pod's left side summed in rank order
+    in f32, plus `offset`. Returns the tensors and the boundary pods."""
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, segments, p).astype(np.int32)
+    rank = rng.permutation(p).astype(np.int32)
+    req = np.zeros((p, r), np.float32)
+    req[:, 0] = rng.integers(1, 4000, p) / np.float32(3.0)
+    req[:, 1] = rng.uniform(0.1, 2048.0, p)
+    req[:, 2] = rng.integers(1, 64, p) / np.float32(8.0)
+    req[:, 3] = rng.uniform(0.0, 1.0, p)
+    base = rng.uniform(0.0, 5000.0, (segments, r)).astype(np.float32)
+    limit = np.full((segments, r), np.float32(3.0e7))
+    order = np.argsort(rank)
+    boundary = []
+    for s in range(segments):
+        pods = order[seg[order] == s]
+        if not len(pods):
+            continue
+        at = pods[len(pods) // 2]
+        cum = np.float32(0.0)
+        for q in pods[:len(pods) // 2]:
+            cum = np.float32(cum + req[q, 1])
+        lhs = np.float32(np.float32(base[s, 1] + cum) + req[at, 1])
+        limit[s, 1] = np.float32(lhs - np.float32(EPS) + np.float32(offset))
+        boundary.append(int(at))
+    return seg, rank, req, base, limit, boundary
+
+
+def check_k2_fractional(dev):
+    """ROADMAP check C-a on the card: K2 at one level on fractional
+    requests at P = 250 (its unsorted path), 2048 (sorted) and 2500
+    (tiled), against its plain version. With every limit 4 MiB off a
+    pod's boundary the verdicts must be equal; with the limits on the
+    boundaries (fault C7: the kernel adds in rank order, the plain
+    version in cuBLAS's order) they may differ only at the boundary
+    pods, which the result counts."""
+    out = {}
+    for p in (250, 2048, 2500):
+        for offset in (4.0, 0.0):
+            seg, rank, req, base, limit, boundary = fractional_case(
+                p, p, offset)
+            t = [torch.from_numpy(x).to(dev)
+                 for x in (seg, rank, req, base, limit)]
+            kw = dict(seg=t[0][None].contiguous(), rank=t[1], req=t[2],
+                      active=torch.ones(p, dtype=torch.bool, device=dev),
+                      tables=[(t[3], t[4], base.shape[0])], eps=EPS)
+            got = segment_prefix_chain(**kw).cpu()
+            want = segment_prefix_chain_plain(**kw).cpu()
+            differ = sorted((got != want).nonzero()[:, 0].tolist())
+            if offset and differ:
+                raise SystemExit(f"K2 on fractional requests (P={p}) "
+                                 f"differs from its plain version at "
+                                 f"{differ[:5]} off the boundaries")
+            if not set(differ) <= set(boundary):
+                raise SystemExit(f"K2 on fractional requests (P={p}): "
+                                 f"verdicts differ off the boundary pods: "
+                                 f"{sorted(set(differ) - set(boundary))[:5]}")
+            out[f"P={p} {'off' if offset else 'on'} the boundaries"] = dict(
+                differ=len(differ), boundary_pods=len(boundary),
+                accepted=int(got.sum()), max_abs_err=float(len(differ) > 0))
+    return out
+
+
+def k5_cost(args, full, z):
+    """(bytes, operations) of one K5 call: the pod columns (choice,
+    trying, numa_single, demand), the zone rows of the chosen nodes
+    (cap, used, valid, policy) once a node, and the outputs; per engaged
+    pod, M = 2^Z masks: a mask's combined free (3 a zone and dim) and
+    fit (4), its free cpu (2 a zone), its key (9 with the argmin); the
+    greedy take (8 a zone) and its total (2 a zone and 2); per pod not
+    engaged, its policy (2)."""
+    p = args[0].shape[0]
+    m = 1 << z
+    engaged = int(full.engaged.sum())
+    n_rows = int(torch.unique(args[0][args[1]]).numel())
+    nbytes = p * 14 + n_rows * (z * 17 + 4) + p * (z * 17 + 6)
+    ops = engaged * (m * (8 * z + 13) + 10 * z + 2) + (p - engaged) * 2
+    return nbytes, ops
+
+
+def check_k5_big(dev, gen):
+    """K5 at P = 2500 and 4096 (a grid of blocks, no cap) on config 2's
+    nodes at Z = 2, every policy code, strategy "most"; equal to the
+    plain version in every output; timed."""
+    out = {}
+    for p in BIG_PODS:
+        snap, pods = numa_state(dev, gen, 1000, 2)
+        args = k5_args(snap, slice_batch(pods, 0, p), gen) + ("most",)
+        got = topology_admit(*args)
+        same_outputs(f"K5 topology_admit (P={p})", got,
+                     topology_admit_plain(*args))
+        b_ms, b_by = bound(*k5_cost(args, got, 2))
+        out[f"P={p}"] = dict(
+            ms=cuda_ms(lambda: topology_admit(*args)),
+            device_ms=device_ms(lambda: topology_admit(*args),
+                                "topology_admit_kernel"),
+            plain_ms=cuda_ms(lambda: topology_admit_plain(*args), reps=5),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+            shape=f"P={p} S=1000 Z=2", engaged=int(got.engaged.sum()))
+    return out
+
+
+def check_k7_big(dev, gen):
+    """K7's two launches and the K2 gate between them at a gpu_share
+    step of P = 2500 and 4096 pods (N = 10 000, I = 8, the affinity from
+    K5; the take launch's two-grid form), strategy "least"; each equal
+    to its plain version; the take launch timed."""
+    out = {}
+    for p in BIG_PODS:
+        snap, batch = gpu_state(dev, gen, 10_000, 6000, p)
+        n = snap.num_nodes
+        st = gpu_step(snap, batch, gen)
+        d = snap.devices
+        i = d.gpu_free.shape[1]
+        adm = topology_admit(*k5_gpu_args(snap, st, "most"))
+        zone = (adm.affinity, adm.engaged)
+        base = (st["choice"], st["accept"], st["gpu_req"], d, *zone, "least")
+        pick = gpu_instance_pick(*base)
+        same_outputs(f"K7 choose (P={p})", pick, gpu_choose_plain(*base))
+        gate_base = torch.zeros((n * i, 3), device=dev)
+        one_pod = torch.zeros((n, 3), device=dev)
+        one_pod[:, 0] = 1.0
+        chain = dict(seg=pick.seg, rank=st["rank"], req=pick.req,
+                     active=pick.gate_active,
+                     tables=[(gate_base, d.gpu_free.view(n * i, 3), n * i),
+                             (gate_base[:n], one_pod, n)], eps=EPS)
+        alive = segment_prefix_chain(**chain)
+        if not torch.equal(alive, segment_prefix_chain_plain(**chain)):
+            raise SystemExit(f"K2 as the GPU gate (P={p}) differs from its "
+                             "plain version")
+        take_args = (st["choice"], alive, st["gpu_req"], d, *zone, "least")
+        fin = gpu_instance_pick(*take_args, chosen=pick)
+        same_outputs(f"K7 take (P={p})", fin,
+                     gpu_take_plain(st["choice"], alive, pick, d, *zone))
+        count = pick.count
+        multi = st["accept"] & (count > 1)
+        n_multi = int(multi.sum())
+        n_shared = int((alive & (count == 1)).sum())
+        rows_multi = int(torch.unique(st["choice"][multi]).numel())
+        # the take: the pods' columns and the multi-GPU pods' node rows,
+        # the outputs; per multi-GPU pod 9 operations an instance, and
+        # one OR a surviving shared pod
+        b_ms, b_by = bound(p * 25 + rows_multi * 13 * i + p * (1 + i),
+                           n_multi * 9 * i + n_shared)
+        out[f"take P={p}"] = dict(
+            ms=cuda_ms(lambda: gpu_instance_pick(*take_args, chosen=pick)),
+            device_ms=device_ms(
+                lambda: gpu_instance_pick(*take_args, chosen=pick),
+                ("gpu_shared_taken_kernel", "gpu_take_kernel")),
+            plain_ms=cuda_ms(lambda: gpu_take_plain(st["choice"], alive,
+                                                    pick, d, *zone), reps=5),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+            shape=f"P={p} N={n} I={i}, take",
+            multi_tried=n_multi, multi_took=int((fin.accept
+                                                 & (count > 1)).sum()),
+            shared_took=n_shared, instances_taken=int(fin.take.sum()))
+    return out
+
+
+def check_k8_big(dev, gen):
+    """K8 at a gpu_share step of P = 2500 and 4096 pods (N = 10 000 and 64
+    slots, the workload's 40 groups; each block walks 2 tiles of gated
+    pods by 2 of charging ones), equal to the plain version; timed."""
+    out = {}
+    for p in BIG_PODS:
+        snap, batch = gpu_state(dev, gen, 10_000, 8000, p)
+        batch, topo, counts, _, lim = topo_state(snap, batch, gen)
+        choice, trying, rank = k8_step(snap, batch, gen)
+        fams = domains.step_families(topo, counts, lim)
+        got = topology_prefix_gate(choice, trying, rank, fams)
+        want = topology_prefix_gate_plain(choice, trying, rank, fams)
+        if not torch.equal(got, want):
+            raise SystemExit(f"K8 topology_prefix_gate (P={p}) differs from "
+                             f"its plain version at "
+                             f"{(got != want).nonzero()[:5, 0].tolist()}")
+        rejected = int((trying & ~got).sum())
+        if not rejected:
+            raise SystemExit(f"K8 (P={p}): the gates reject no pod")
+        b_ms, b_by = bound(*k8_cost(choice, trying, fams))
+        out[f"P={p}"] = dict(
+            ms=cuda_ms(lambda: topology_prefix_gate(choice, trying, rank,
+                                                    fams)),
+            device_ms=device_ms(
+                lambda: topology_prefix_gate(choice, trying, rank, fams),
+                "topology_prefix_kernel"),
+            plain_ms=cuda_ms(lambda: topology_prefix_gate_plain(
+                choice, trying, rank, fams), reps=3),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+            shape=(f"P={p} X={snap.num_nodes + 64} columns="
+                   f"{sum(f.dom_x.shape[0] for f in fams)}"),
+            trying=int(trying.sum()), rejected=rejected)
+    return out
+
+
+def check_k1_amp(snap, pods, cfg, gen):
+    """K1 with the amplified CPU fit (`AmpTerms`) at the sweep's shape
+    (P = 2000 against the loaded 10 000 nodes, k = 8), a third of the
+    nodes amplified (CPU allocatable times 1.5, 2 or 3) and a third of
+    the pods CPU-bound; and untimed with fit_dims over all 11 dims.
+    Equal to the plain version; the amplified term must remove pairs.
+    The sweep's batch is timed three ways on the same state: amplified,
+    with every node's ratio 1 (the term in, removing nothing) and with
+    no term (K1 as an unamplified batch runs it)."""
+    from koordinator_tpu_torch.kernels.score_topk import AmpTerms, amp_fit
+    dev = snap.nodes.allocatable.device
+    ratios = torch.tensor([1.5, 2.0, 3.0], device=dev)
+    n = snap.num_nodes
+    on = torch.rand((n,), generator=gen, device=dev) < 0.33
+    ratio = torch.where(on, ratios[torch.randint(
+        0, 3, (n,), generator=gen, device=dev)], 1.0)
+    alloc = snap.nodes.allocatable.clone()
+    alloc[:, CPU] = alloc[:, CPU] * ratio
+    # the amplified nodes nearly full: 0 to 8000 mC of CPU headroom, so
+    # that a bound pod's amplified request misses where its raw one fits
+    head = torch.floor(torch.rand((n,), generator=gen, device=dev) * 16.0) \
+        * 500.0
+    requested = snap.nodes.requested.clone()
+    requested[:, CPU] = torch.where(
+        on, torch.clamp_min(alloc[:, CPU] - head, 0.0), requested[:, CPU])
+    amp_snap = snap.replace(nodes=snap.nodes.replace(allocatable=alloc,
+                                                     requested=requested))
+    cases = {}
+    for fd in (FIT_DIMS, ALL_DIMS):
+        kw = k1_case(amp_snap, pods, cfg, 80_000, 2000, 8, gen, fd,
+                     SCORE_DIMS)
+        bind = torch.rand((2000,), generator=gen, device=dev) < 0.33
+        col = fd.index(CPU)
+        if fd is FIT_DIMS:
+            cases["sweep"] = dict(kw, amp=AmpTerms(bind, ratio, col))
+            cases["ratio 1"] = dict(kw, amp=AmpTerms(
+                bind, torch.ones_like(ratio), col))
+            cases["no term"] = dict(kw, amp=None)
+        else:
+            cases["R=11"] = dict(kw, amp=AmpTerms(bind, ratio, col))
+    out = {}
+    for label, kw in cases.items():
+        (val, idx), err = k1_equal(f"amplified {label}", kw)
+        amp = kw["amp"]
+        gates = kw["gates"]
+        checked = expand_gates(gates) & kw["row_ok"][:, None]
+        fit = torch.all(kw["req_fit"][:, None, :] + kw["requested_fit"][None]
+                        <= kw["alloc_fit"][None] + EPS, dim=-1)
+        # the pairs the fit admits and the amplified term removes
+        removed = 0 if amp is None else int((checked & fit & ~amp_fit(
+            amp, kw["req_fit"], kw["requested_fit"], kw["alloc_fit"],
+            EPS)).sum())
+        if (removed > 0) != (label in ("sweep", "R=11")):
+            raise SystemExit(f"K1 amplified ({label}): the term removes "
+                             f"{removed} pairs")
+        if label == "R=11":
+            out[label] = dict(max_abs_err=err, removed_pairs=removed)
+            continue
+        p, f = kw["req_fit"].shape
+        d = kw["est"].shape[1]
+        n_rows = int(kw["row_ok"].sum())
+        n_checked = int(checked.sum())
+        feasible = checked & fit
+        if amp is not None:
+            feasible = feasible & amp_fit(amp, kw["req_fit"],
+                                          kw["requested_fit"],
+                                          kw["alloc_fit"], EPS)
+        n_feasible = int(feasible.sum())
+        n_needed, n_terms = k1_needed_pairs(kw, checked, val, idx)
+        active = int((kw["row_ok"] & gates.device_ok).sum())
+        # bytes: as check_k1's, plus (with the term) the ratio a node and
+        # the bind flag a pod. Operations: `bound_ms` as check_k1's, a
+        # selection that prunes by node bounds (the amplified term only
+        # removes pairs, so the bounds hold), plus 3 (a product, a sum,
+        # a compare) a needed pair of a bound pod; `bound_ms_all_pairs`
+        # a selection that prunes nothing, plus 3 a checked pair of a
+        # bound pod.
+        nbytes = p * (f + d) * 4 + n * (2 * f + 3 * d) * 4 + d * 4 \
+            + p * 8 * 8 + p * 9 + n * 8 + gates.selector_match.numel() \
+            + (n * 4 + p if amp is not None else 0)
+        n_bind_needed = n_bind = 0
+        if amp is not None:
+            n_bind_needed = k1_needed_pairs(
+                kw, checked & amp.bind[:, None], val, idx)[0]
+            n_bind = int((checked & amp.bind[:, None]).sum())
+        ops = active * n + n * (3 + n_terms * (5 * d + 3)) \
+            + n_needed * (2 * f + 8 * d + 4) + n_bind_needed * 3
+        ops_all = n_rows * n + n_checked * 2 * f + n * (f + 2 * d) \
+            + n_feasible * (8 * d + 4) + n_bind * 3
+        b_ms, b_by = bound(nbytes, ops)
+        masked = torch.where(feasible, tie_break_jitter(
+            loadaware.least_requested_score(
+                kw["est"], kw["prod_scored"], kw["node_term"],
+                kw["prod_term"], kw["alloc_score"], gates.metric_fresh,
+                kw["weights"], kw["fma_sum"])), -1.0)
+        out[label] = dict(
+            ms=cuda_ms(lambda: score_topk(**kw)),
+            device_ms=device_ms(lambda: score_topk(**kw),
+                                "score_topk_kernel"),
+            plain_ms=cuda_ms(lambda: score_topk_plain(**kw), reps=3),
+            library_ms=cuda_ms(lambda: torch.topk(masked, 8, dim=1)),
+            bound_ms=b_ms, bound_by=b_by,
+            bound_ms_all_pairs=bound(nbytes, ops_all)[0], max_abs_err=err,
+            shape=f"P={p} N={n} k=8 F={f} D={d}, {label}",
+            removed_pairs=removed, feasible_pairs=n_feasible,
+            needed_pairs=n_needed)
+    return out
+
+
+def config_4_phase():
+    """BASELINE config 4 (`configs.run_config_4_quota`: 50 000 pods x 5000
+    nodes, 500 quotas, chunks of 2500) on the card after a warm-up run,
+    counting launches, then on the host: the assignment and every leaf
+    of the final snapshot equal; K2 once an inner step (every one at
+    P = 2500, the tiled walk), K1 once a round, nothing of the NUMA,
+    DeviceShare or topology paths; no overcommit, quota within runtime.
+    Returns (line, launches)."""
+    run_config_4_quota(device="cuda")                     # warm-up
+    kernels.reset_launch_counts()
+    line, run = run_config_4_quota(device="cuda")
+    launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    host_line, host = run_config_4_quota(device="cpu")
+    line.update(launches=launches, host_s=time.perf_counter() - t0,
+                host_placed=host_line["placed"])
+    got = dict(to_numpy(run.snapshot), assignment=run.assignment.cpu().numpy())
+    want = dict(to_numpy(host.snapshot), assignment=host.assignment.numpy())
+    differ = []
+
+    def walk(g, w, prefix):
+        for k, v in w.items():
+            if isinstance(v, dict):
+                walk(g[k], v, f"{prefix}{k}.")
+            elif isinstance(v, np.ndarray) and not (
+                    g[k].dtype == v.dtype and np.array_equal(g[k], v)):
+                differ.append(prefix + k)
+    walk(got, want, "")
+    line["differing_fields"] = differ
+    print("config 4: " + json.dumps(line), flush=True)
+    if differ:
+        raise SystemExit(f"config 4: the card differs from the host in "
+                         f"{differ}")
+    chunks = line["num_pods"] // line["chunk"]
+    rounds = chunks * CONFIG_4_KW["num_rounds"]
+    steps = rounds * CONFIG_4_KW["k_choices"]
+    want_l = {"score_topk": rounds, "segment_prefix_ok": steps,
+              "numa_pair_terms": 0, "topology_admit": 0,
+              "device_pair_terms": 0, "gpu_instance_pick": 0,
+              "topology_prefix_gate": 0, "stage1_mask": 0}
+    for name, count in want_l.items():
+        if launches[name] != count:
+            raise SystemExit(f"config 4: {name} launched {launches[name]} "
+                             f"times, not {count}")
+    if not (overcommit_ok(run.snapshot) and quota_ok(run.snapshot)
+            and 0 < line["placed"] <= line["num_pods"]):
+        raise SystemExit("config 4: overcommit, quota over runtime or "
+                         f"placed {line['placed']}")
+    return line, launches
+
+
+def amplified_phase():
+    """full_gate_amplified_100kx10k: the packed full gate on a cluster
+    whose node webhook amplified the CPU of about 30 % of the nodes,
+    amplification on (`configs.run_full_gate(amplified=True)`). Card
+    against host, every field equal: at 8000 pods x 1000 nodes in the
+    full gate's chunks of 2000, and at 10 000 pods x 10 000 nodes (the
+    full width) in chunks of 2500, four chunks and the tail, so that
+    K2, K5, K7's take and K8 run their forms above 2048 pods inside the
+    batch. Then at 100 000 x 10 000 on the card, counting launches, with
+    the full gate's launch formulas and invariants (node requested the
+    recount with the bind pods' CPU amplified) and the bind pods placed
+    on amplified nodes. Returns (line, launches)."""
+    for num_pods, num_nodes, chunk in ((8000, 1000, 2000),
+                                       (10_000, 10_000, 2500)):
+        runs = {}
+        for d in ("cuda", "cpu"):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            _, run, _ = run_full_gate(num_pods, num_nodes, chunk, device=d,
+                                      amplified=True)
+            runs[d] = (flat_run(run), time.perf_counter() - t0,
+                       kernels.launch_counts())
+        got, want = runs["cuda"][0], runs["cpu"][0]
+        differ = [f for f in got if not (
+            got[f].dtype == want[f].dtype and np.array_equal(got[f],
+                                                             want[f]))]
+        label = f"{num_pods}x{num_nodes} chunk {chunk}"
+        launches = runs["cuda"][2]
+        print(f"amplified full gate {label}: " + json.dumps({
+            "differing_fields": differ, "fields": len(got),
+            "seconds": {k: v[1] for k, v in runs.items()},
+            "placed": int((got["assignment"] >= 0).sum()),
+            "launches": launches}), flush=True)
+        if differ:
+            raise SystemExit(f"amplified full gate {label}: the card differs "
+                             f"from the host in {differ}")
+        idle = [k for k in ("score_topk", "segment_prefix_ok",
+                            "topology_admit", "gpu_instance_pick",
+                            "topology_prefix_gate") if not launches[k]]
+        if idle:
+            raise SystemExit(f"amplified full gate {label}: {idle} never "
+                             "launched")
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    line, run, setup = run_full_gate(device="cuda", amplified=True)
+    launches = kernels.launch_counts()
+    line["launches"] = launches
+    line["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    snap0, pods = setup["snap"], setup["pods"]
+    ratio = snap0.nodes.cpu_amplification
+    assign = run.assignment
+    bound_amp = (assign >= 0) & (run.res_slot < 0) & pods.numa_single
+    line["bind_pods_on_amplified_nodes"] = int(
+        (bound_amp & (ratio[assign.clamp_min(0).long()] > 1.0)).sum())
+    print("amplified full gate: " + json.dumps(line), flush=True)
+    if not line["bind_pods_on_amplified_nodes"]:
+        raise SystemExit("amplified full gate: no CPU-bind pod sits on an "
+                         "amplified node")
+    check_gpu_share(run, line, launches, snap0, pods, setup["step_kw"],
+                    setup["tail_kw"], name="amplified full gate")
+    return line, launches
+
+
 def expected_launches(line):
     """(inner steps, K3 launches) of one flagship run: K2 launches once
     an inner step; K3 twice an inner step (node, all quota levels),
@@ -3643,6 +4203,13 @@ def main() -> int:
     lnl = check_lnl(dev, gen)
     guard_checks = check_guards(dev, gen)
     k16 = check_k16(dev, gen)
+    k2_big = check_k2_big(snap, pods, gen)
+    k2_frac = check_k2_fractional(dev)
+    k5_big = check_k5_big(dev, gen)
+    k7_big = check_k7_big(dev, gen)
+    k8_big = check_k8_big(dev, gen)
+    k1_amp = check_k1_amp(snap, pods, cfg, gen)
+    lnl_every = check_lnl(dev, gen, every_node=True)
     for name, res in (("score_topk", k1), ("segment_prefix_ok", k2),
                       ("ordered_scatter_add", k3), ("numa_pair_terms", k4),
                       ("topology_admit", k5), ("score_topk", k1_numa),
@@ -3656,7 +4223,13 @@ def main() -> int:
                       ("segment_prefix_ok", k2_mask),
                       ("stage1_mask", k9), ("prefix rows", rows),
                       ("lownodeload", lnl), ("guard", guard_checks),
-                      ("delta_rows", k16)):
+                      ("delta_rows", k16), ("segment_prefix_ok", k2_big),
+                      ("segment_prefix_ok fractional", k2_frac),
+                      ("topology_admit", k5_big),
+                      ("gpu_instance_pick", k7_big),
+                      ("topology_prefix_gate", k8_big),
+                      ("score_topk amplified", k1_amp),
+                      ("lownodeload every node", lnl_every)):
         for label, r in res.items():
             print(f"kernel {name} [{label}]: " + json.dumps(r), flush=True)
 
@@ -3730,6 +4303,15 @@ def main() -> int:
     # --- 9. the guarded cycle: guards, deltas, forget, the store ----------
     _, launches_guarded = guarded_phase()
 
+    # --- 10. BASELINE config 4: chunks of 2500, K2's tiled walk -----------
+    _, launches_cfg4 = config_4_phase()
+
+    # --- 11. config 5 with pods on every node: K11 and K12 above 16 384 ----
+    _, launches_cfg5_every = descheduler_phase(every_node=True)
+
+    # --- 12. the amplified full gate ---------------------------------------
+    _, launches_amp = amplified_phase()
+
     # each kernel's numbers at the shapes of the path it came with (K1-K3
     # the flagship, K4-K5 config 2, K6-K7 gpu_share), and K1, K2, K5 at
     # gpu_share's too
@@ -3757,10 +4339,31 @@ def main() -> int:
             "launches_by_path": {"flagship": launches[name],
                                  "config_2": launches_cfg2[name],
                                  "gpu_share": launches_gpu[name],
-                                 "full_gate": launches_full[name]},
+                                 "full_gate": launches_full[name],
+                                 "config_4": launches_cfg4[name],
+                                 "full_gate_amplified": launches_amp[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        tiled = {"segment_prefix_ok": k2_big, "topology_admit": k5_big,
+                 "gpu_instance_pick": k7_big,
+                 "topology_prefix_gate": k8_big}
+        if name in tiled:
+            entry["above_2048_pods"] = {
+                label: {k: v for k, v in res.items() if k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "shape")}
+                for label, res in tiled[name].items() if "ms" in res}
+        if name == "segment_prefix_ok":
+            entry["fractional_requests"] = k2_frac
+        if name == "score_topk":
+            entry["at_amplified"] = {
+                label: {k: k1_amp[label][k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "bound_ms_all_pairs", "library_ms", "shape",
+                    "removed_pairs")}
+                for label in ("sweep", "ratio 1", "no term")}
         if name == "segment_prefix_ok":
             entry["at_allocate_once"] = {
                 k: k2_once["gpu_share"][k] for k in (
@@ -3775,7 +4378,6 @@ def main() -> int:
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "shape")}
         if name == "topology_prefix_gate":
-            entry["device_ms"] = r["device_ms"]
             entry["at_tail"] = k8["gpu_share tail"]
         if name in ("numa_pair_terms", "device_pair_terms"):
             entry["at_prefix_rows"] = rows[name]
@@ -3783,8 +4385,6 @@ def main() -> int:
             entry["at_prefix_rows"] = next(
                 v for k, v in rows.items() if k.startswith("addend rows")
                 and "device_ms" in v)
-        if name == "stage1_mask":
-            entry["device_ms"] = r["device_ms"]
         if name in at_gpu_share:
             g = at_gpu_share[name]
             entry["at_gpu_share"] = {
@@ -3796,7 +4396,11 @@ def main() -> int:
     # from the capped run), two plans each
     by_path = {"config_5": launches_cfg5["baseline_cfg5_descheduler_10k"],
                "config_5_capped": launches_cfg5[
-                   "baseline_cfg5_descheduler_10k_capped"]}
+                   "baseline_cfg5_descheduler_10k_capped"],
+               "config_5_every_node": launches_cfg5_every[
+                   "baseline_cfg5_descheduler_10k_every_node"],
+               "config_5_capped_every_node": launches_cfg5_every[
+                   "baseline_cfg5_descheduler_10k_capped_every_node"]}
     for name in LNL_KERNELS:
         source, replaces = SOURCES[name]
         r = lnl["config 5"]["timing"][name]
@@ -3809,7 +4413,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"]})
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "at_every_node": lnl_every["every node"]["timing"][name]})
     # K14-K16 at the guarded cycle's shapes; launches from phase 9 (two
     # runs of ten batches, two deltas applied a run)
     for name, r in (("guard_nodes", guard_checks["guard_nodes full gate"]),

@@ -11,6 +11,14 @@ tie-break on, cascade off, NUMA strategy "most"), each chunk on the previous one
 there is no straggler tail. The reference scans the chunks on device;
 here they are a Python loop.
 
+`run_config_4_quota` is BASELINE config 4 (`bench_configs.config_4_quota`,
+:131-141, through `_run_scheduler_config`, :48-81): 50 000 pods against
+5000 nodes under a tree of 500 quotas (a table of 512), in chunks of
+2500 through `schedule_batch` with the bench's knobs and NUMA off
+(`CONFIG_4_KW`), each chunk on the previous one's snapshot, exact
+top-k, no tail. A chunk of 2500 is above one block of K2 (2048): its
+steps take K2's tiled walk.
+
 `run_gpu_share` (`gpu_share_100kx10k`) is the reference's full-gate
 flagship (bench.py:226-250 knobs, :398-470 sweep and tail, :84-89 tail
 passes; utils/synthetic.py:369-554 full_gate_cluster and
@@ -43,7 +51,10 @@ and the sweep run with the cascade on and the three prefixes
 (`FULL_GATE_KW`); the tail keeps the cascade, the topology prefix and
 the domain classes but not the numa and gpu prefixes (a retry window
 is not packed), and budgets its constrained stragglers by the topology
-prefix.
+prefix. With `amplified` it runs the same on a cluster whose node
+webhook amplified the CPU of about 30 % of the nodes
+(`utils.synthetic.amplified_full_gate_inputs`) and with
+`enable_amplification` on (`full_gate_amplified_100kx10k`).
 
 `run_guarded_cycles` (`guarded_cycles_10k`) is the service's inner
 cycle without the service (frameworkext.py:624-1267: the store, the
@@ -65,7 +76,10 @@ and the reference's defaults otherwise (low 45/60, high 65/80, weights
 1/1, node_fit on), through `DeviceLowNodeLoad.balance_once` with a
 `RecordingEvictor`: plain (no caps: K10, K11, K12) or capped
 (`EvictionLimiter(max_per_cycle=4000, max_per_node=2,
-max_per_namespace=2000)`: K10, K11, K13).
+max_per_namespace=2000)`: K10, K11, K13). With `every_node` the
+cluster lists 4 pods on every node (40 000 pods at 10 000 nodes,
+`..._every_node`), above the 16 384 that K11 and K12 hold in shared
+memory.
 """
 
 from __future__ import annotations
@@ -94,7 +108,9 @@ from koordinator_tpu_torch.scheduler.plugins.deviceshare import (
 )
 from koordinator_tpu_torch.utils.synthetic import (
     CONFIG_5_NOW,
+    amplified_full_gate_inputs,
     config_2_inputs,
+    config_4_inputs,
     config_5_cluster,
     dom_classes,
     gpu_share_inputs,
@@ -109,6 +125,11 @@ CONFIG_2_METRIC = "baseline_cfg2_numa_10kx1k"
 CONFIG_2_KW = dict(num_rounds=2, k_choices=8, score_dims=(0, 1),
                    tie_break=True, quota_depth=2, fit_dims=(0, 1, 2, 3),
                    cascade=False, enable_numa=True, numa_strategy="most")
+
+CONFIG_4_METRIC = "baseline_cfg4_quota_500x50k"
+CONFIG_4_KW = dict(num_rounds=2, k_choices=8, score_dims=(0, 1),
+                   tie_break=True, quota_depth=2, fit_dims=(0, 1, 2, 3),
+                   cascade=False, enable_numa=False)
 
 GPU_SHARE_METRIC = "gpu_share_100kx10k"
 # bench.py's full-gate step unpacked and with the cascade off
@@ -125,6 +146,7 @@ FULL_GATE_METRIC = "score_bind_100k_pods_10k_nodes_full_gate"
 # prefixes and domain classes come from the packed pods
 FULL_GATE_KW = dict(GPU_SHARE_KW, cascade=True)
 FULL_GATE_TAIL_KW = dict(FULL_GATE_KW, num_rounds=4, k_choices=32)
+FULL_GATE_AMPLIFIED_METRIC = "full_gate_amplified_100kx10k"
 
 CONFIG_5_METRIC = "baseline_cfg5_descheduler_10k"
 CONFIG_5_CAPPED_METRIC = "baseline_cfg5_descheduler_10k_capped"
@@ -141,17 +163,19 @@ class SweepRun:
     numa_take: torch.Tensor      # f32[P, Z, 2]
 
 
-def numa_sweep(snap: ClusterSnapshot, pods: PodBatch, cfg: LoadAwareConfig,
-               chunk: int) -> SweepRun:
-    """Schedule `pods` chunk by chunk with the NUMA path, each chunk on
-    the previous one's snapshot."""
+def chunked_sweep(snap: ClusterSnapshot, pods: PodBatch,
+                  cfg: LoadAwareConfig, chunk: int,
+                  step_kw: dict) -> SweepRun:
+    """Schedule `pods` chunk by chunk with `schedule_batch(**step_kw)`,
+    each chunk on the previous one's snapshot (bench_configs.
+    _run_scheduler_config's sweep, no tail)."""
     num = pods.num_pods
     if num % chunk:
         raise ValueError(f"{num} pods not divisible by chunk {chunk}")
     results = []
     for start in range(0, num, chunk):
         res = schedule_batch(snap, slice_batch(pods, start, chunk), cfg,
-                             **CONFIG_2_KW)
+                             **step_kw)
         snap = res.snapshot
         results.append(res)
     return SweepRun(snapshot=snap,
@@ -175,7 +199,7 @@ def run_config_2_numa(num_pods: int = 10_000, num_nodes: int = 1000,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    run = numa_sweep(snap, pods, cfg, chunk)
+    run = chunked_sweep(snap, pods, cfg, chunk, CONFIG_2_KW)
     assign = run.assignment.cpu()
     elapsed = time.perf_counter() - t0
     line = {
@@ -189,6 +213,42 @@ def run_config_2_numa(num_pods: int = 10_000, num_nodes: int = 1000,
         "chunk": chunk,
         "platform": dev.type,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+    }
+    return line, run
+
+
+def run_config_4_quota(num_pods: int = 50_000, num_nodes: int = 5000,
+                       chunk: int = 2500, num_quotas: int = 500,
+                       device="cuda"):
+    """Build BASELINE config 4 (`config_4_inputs`), time one chunked
+    sweep on it (`CONFIG_4_KW`), and return (line, run): `line` holds
+    the bench line's fields (value = seconds of the timed region, which
+    ends with the assignment's readback; pods_per_sec, placed) and the
+    device it ran on, on a card with its name and power limit; `run`
+    the final snapshot and the assignment. The first call on a card also
+    pays the kernels' build unless `kernels.build.build_all()` ran
+    before."""
+    dev = resolve_device(device)
+    snap, pods = config_4_inputs(num_pods, num_nodes, num_quotas, device=dev)
+    cfg = LoadAwareConfig.make(device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    run = chunked_sweep(snap, pods, cfg, chunk, CONFIG_4_KW)
+    assign = run.assignment.cpu()
+    elapsed = time.perf_counter() - t0
+    line = {
+        "metric": CONFIG_4_METRIC,
+        "value": elapsed,
+        "pods_per_sec": num_pods / elapsed,
+        "placed": int((assign >= 0).sum()),
+        "num_pods": num_pods,
+        "num_nodes": num_nodes,
+        "num_quotas": num_quotas,
+        "chunk": chunk,
+        "platform": dev.type,
+        "device": (card_name_and_power_limit() if dev.type == "cuda"
                    else "cpu"),
     }
     return line, run
@@ -261,20 +321,24 @@ def placed_line(metric: str, elapsed: float, snap: ClusterSnapshot,
     }
 
 
-def pack_full_gate(snap: ClusterSnapshot, pods: PodBatch, chunk: int):
+def pack_full_gate(snap: ClusterSnapshot, pods: PodBatch, chunk: int,
+                   amplified: bool = False):
     """The full-gate run's set-up (bench.py:226-253, :346-355): (packed
     pods, prefixes, masks, step kwargs, tail kwargs). Packs the pods
     (`pack_gate_prefixes`), derives the domain classes, and adds the
-    cascade's prefixes to FULL_GATE_KW; the tail's kwargs keep the
-    topology prefix and the classes but drop the numa and gpu prefixes.
-    Raises ValueError on a snapshot with a topology-manager policy node,
-    where the numa prefix would be unsound."""
+    cascade's prefixes to FULL_GATE_KW (with `enable_amplification`
+    where `amplified`); the tail's kwargs keep the topology prefix and
+    the classes but drop the numa and gpu prefixes. Raises ValueError on
+    a snapshot with a topology-manager policy node, where the numa
+    prefix would be unsound."""
     if bool(snap.nodes.numa_policy.ne(0).any()):
         raise ValueError("numa_prefix needs a policy-free snapshot "
                          "(the schedule_batch contract)")
     packed, prefixes, masks = pack_gate_prefixes(pods, chunk)
     contracts = dict(topo_prefix=prefixes["topo"],
                      dom_classes=dom_classes(packed))
+    if amplified:
+        contracts["enable_amplification"] = True
     step_kw = dict(FULL_GATE_KW, numa_prefix=prefixes["numa"],
                    gpu_prefix=prefixes["gpu"], **contracts)
     tail_kw = dict(FULL_GATE_TAIL_KW, numa_prefix=None, gpu_prefix=None,
@@ -295,19 +359,21 @@ def full_gate_sweep(snap: ClusterSnapshot, packed: PodBatch,
 
 
 def run_full_gate(num_pods: int = 100_000, num_nodes: int = 10_000,
-                  chunk: int = 2000, device="cuda"):
-    """Build the full-gate flagship (`gpu_share_inputs`, packed by
-    `pack_full_gate`: set-up, untimed as in the bench), time one
-    sweep-and-tail on it, and return (line, run, setup): `line` is
+                  chunk: int = 2000, device="cuda", amplified: bool = False):
+    """Build the full-gate flagship (`gpu_share_inputs`, or with
+    `amplified` `amplified_full_gate_inputs` and amplification on;
+    packed by `pack_full_gate`: set-up, untimed as in the bench), time
+    one sweep-and-tail on it, and return (line, run, setup): `line` is
     `placed_line` with the three prefixes; `run` as run_gpu_share's, in
     the packed order; `setup` the initial snapshot, the packed pods, the
     prefixes, masks and kwargs. The first call on a card also pays the
     kernels' build unless `kernels.build.build_all()` ran before."""
     dev = resolve_device(device)
-    snap, pods = gpu_share_inputs(num_pods, num_nodes, device=dev)
+    inputs = amplified_full_gate_inputs if amplified else gpu_share_inputs
+    snap, pods = inputs(num_pods, num_nodes, device=dev)
     cfg = LoadAwareConfig.make(device=dev)
-    packed, prefixes, masks, step_kw, tail_kw = pack_full_gate(snap, pods,
-                                                               chunk)
+    packed, prefixes, masks, step_kw, tail_kw = pack_full_gate(
+        snap, pods, chunk, amplified)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -315,10 +381,12 @@ def run_full_gate(num_pods: int = 100_000, num_nodes: int = 10_000,
                           step_kw, tail_kw)
     assign = run.assignment.cpu()
     elapsed = time.perf_counter() - t0
-    line = placed_line(FULL_GATE_METRIC, elapsed, snap, packed, run, assign,
-                       chunk)
+    line = placed_line(FULL_GATE_AMPLIFIED_METRIC if amplified
+                       else FULL_GATE_METRIC, elapsed, snap, packed, run,
+                       assign, chunk)
     line.update(topo_prefix=prefixes["topo"], numa_prefix=prefixes["numa"],
-                gpu_prefix=prefixes["gpu"], cascade=True)
+                gpu_prefix=prefixes["gpu"], cascade=True,
+                amplified=amplified)
     setup = dict(snap=snap, pods=packed, prefixes=prefixes, masks=masks,
                  step_kw=step_kw, tail_kw=tail_kw)
     return line, run, setup
@@ -513,7 +581,7 @@ class DeschedulerRun:
 
 
 def run_config_5_descheduler(capped: bool = False, n_nodes: int = 10_000,
-                             device="cuda"):
+                             device="cuda", every_node: bool = False):
     """BASELINE config 5 as `bench_configs.config_5_descheduler` measures
     it: one warm `balance_once`, then the limiter reset and the
     evictions cleared, then one timed `balance_once` (it ends with the
@@ -521,8 +589,9 @@ def run_config_5_descheduler(capped: bool = False, n_nodes: int = 10_000,
     fields (metric `baseline_cfg5_descheduler_10k`, or `..._capped` with
     the caps, value = the timed seconds, evictions_planned, nodes) and
     the device it ran on with, on a card, its name and power limit;
-    `run` the cluster (`config_5_cluster(n_nodes)`, built once) and the
-    evictor. The first call on a card also pays the kernels' build unless
+    `run` the cluster (`config_5_cluster(n_nodes, every_node)`, built
+    once; the metric ends in `_every_node` with it) and the evictor.
+    The first call on a card also pays the kernels' build unless
     `kernels.build.build_all()` ran before."""
     from koordinator_tpu_torch.descheduler import (
         DeviceLowNodeLoad,
@@ -532,7 +601,7 @@ def run_config_5_descheduler(capped: bool = False, n_nodes: int = 10_000,
     )
 
     dev = resolve_device(device)
-    nodes, metrics, pods_by_node = config_5_cluster(n_nodes)
+    nodes, metrics, pods_by_node = config_5_cluster(n_nodes, every_node)
     evictor = RecordingEvictor(
         EvictionLimiter(**CONFIG_5_CAPS) if capped else None)
     plugin = DeviceLowNodeLoad(LowNodeLoadArgs(consecutive_abnormalities=1),
@@ -544,9 +613,11 @@ def run_config_5_descheduler(capped: bool = False, n_nodes: int = 10_000,
     plugin.balance_once(nodes, metrics, pods_by_node, CONFIG_5_NOW)
     elapsed = time.perf_counter() - t0
     line = {
-        "metric": CONFIG_5_CAPPED_METRIC if capped else CONFIG_5_METRIC,
+        "metric": (CONFIG_5_CAPPED_METRIC if capped else CONFIG_5_METRIC)
+        + ("_every_node" if every_node else ""),
         "value": elapsed,
         "nodes": len(nodes),
+        "pods": sum(len(v) for v in pods_by_node.values()),
         "evictions_planned": len(evictor.evictions),
         "device_plan": True,
         "platform": dev.type,

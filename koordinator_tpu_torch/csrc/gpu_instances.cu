@@ -21,13 +21,17 @@
 //   capacity of one (the first multi-GPU pod of a node in priority
 //   order passes: the reference's first_multi, core.py:1012-1016,
 //   without a [P, P] tensor);
-// - the take launch (`koord_gpu_take`), after it: one block over all
-//   pods. It lists the (node, instance) pairs the surviving shared pods
-//   took, and each surviving multi-GPU pod takes the lowest-index
+// - the take launch (`koord_gpu_take`), after it: two kernels over a
+//   grid of blocks, a thread a pod. The surviving shared pods OR their
+//   instances into a word a node in device memory (zeroed first on the
+//   stream); then each surviving multi-GPU pod takes the lowest-index
 //   `count` instances of its node that fit, lie in its affinity and no
 //   shared pod of the step took (:246 full_fit_instances with the
-//   `exclude`), or is rejected when there are fewer. It writes the
-//   step's final accept and each pod's instances, bool take[P, I].
+//   `exclude`, its node's word), or is rejected when there are fewer.
+//   It writes the step's final accept and each pod's instances, bool
+//   take[P, I]. Only the first multi-GPU pod of a node survives K2's
+//   gate, so no take depends on another multi-GPU pod's: the order of
+//   the pods plays no part, and any P takes the same two kernels.
 //
 // What bounds it on the H100: the launches. A pod reads its node's
 // I <= 32 instance rows (12 bytes each) and does a few dozen compares
@@ -47,9 +51,7 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int TAKE_THREADS = 1024;
 constexpr int MAX_I = 32;
-constexpr int MAX_P = 2048;
 
 struct Pool {
   const float* total;    // [S, 3]
@@ -118,53 +120,54 @@ __global__ void __launch_bounds__(THREADS) gpu_choose_kernel(
   }
 }
 
-__global__ void __launch_bounds__(TAKE_THREADS) gpu_take_kernel(
+// The take, first kernel: each surviving shared pod's instance into its
+// node's word.
+__global__ void __launch_bounds__(THREADS) gpu_shared_taken_kernel(
+    const int32_t* __restrict__ choice, const uint8_t* __restrict__ alive,
+    const int32_t* __restrict__ count, const int32_t* __restrict__ inst,
+    int P, int S, unsigned* __restrict__ taken) {
+  const int p = blockIdx.x * THREADS + threadIdx.x;
+  if (p >= P || !alive[p] || count[p] != 1) return;
+  const int c = choice[p];
+  if (c >= 0 && c < S) atomicOr(taken + c, 1u << inst[p]);
+}
+
+// The take, second kernel: a thread a pod, its final accept and
+// instances, given the instances of its node that the step's shared pods
+// took (`exclude`, its node's word).
+__global__ void __launch_bounds__(THREADS) gpu_take_kernel(
     const int32_t* __restrict__ choice, const uint8_t* __restrict__ alive,
     const int32_t* __restrict__ count, const float* __restrict__ per,
     const int32_t* __restrict__ inst, Pool g,
     const uint8_t* __restrict__ affinity, const uint8_t* __restrict__ engaged,
-    int P, int Z, float eps, uint8_t* __restrict__ out_accept,
-    uint8_t* __restrict__ out_take) {
-  __shared__ int s_taken[MAX_P];  // node * I + instance of shared takes
-  __shared__ int s_n;
-  if (threadIdx.x == 0) s_n = 0;
-  __syncthreads();
-  for (int p = threadIdx.x; p < P; p += TAKE_THREADS)
-    if (alive[p] && count[p] == 1)
-      s_taken[atomicAdd(&s_n, 1)] = choice[p] * g.I + inst[p];
-  __syncthreads();
-  const int n_taken = s_n;
-  for (int p = threadIdx.x; p < P; p += TAKE_THREADS) {
-    const int c = count[p];
-    bool acc = alive[p] != 0;
-    unsigned take = 0;
-    if (acc && c == 1) {
-      take = 1u << inst[p];
-    } else if (acc && c > 1) {
-      const int nc = min(max(choice[p], 0), g.S - 1);
-      const int lo = nc * g.I;
-      unsigned exclude = 0;
-      for (int k = 0; k < n_taken; ++k) {
-        const int key = s_taken[k];
-        if (key >= lo && key < lo + g.I) exclude |= 1u << (key - lo);
-      }
-      const bool eng = engaged != nullptr && engaged[p];
-      const float pv[3] = {per[(size_t)p * 3], per[(size_t)p * 3 + 1],
-                           per[(size_t)p * 3 + 2]};
-      int n_fit = 0;
-      for (int i = 0; i < g.I; ++i) {
-        if (((exclude >> i) & 1u) || !fits(g, nc, i, pv, eps) ||
-            !allowed(g, nc, i, affinity, eng, p, Z))
-          continue;
-        if (++n_fit <= c) take |= 1u << i;
-      }
-      acc = n_fit >= c;
-      if (!acc) take = 0;
+    int P, int Z, float eps, const unsigned* __restrict__ taken,
+    uint8_t* __restrict__ out_accept, uint8_t* __restrict__ out_take) {
+  const int p = blockIdx.x * THREADS + threadIdx.x;
+  if (p >= P) return;
+  const int c = count[p];
+  bool acc = alive[p] != 0;
+  unsigned take = 0;
+  if (acc && c == 1) {
+    take = 1u << inst[p];
+  } else if (acc && c > 1) {
+    const int nc = min(max(choice[p], 0), g.S - 1);
+    const unsigned exclude = taken[nc];
+    const bool eng = engaged != nullptr && engaged[p];
+    const float pv[3] = {per[(size_t)p * 3], per[(size_t)p * 3 + 1],
+                         per[(size_t)p * 3 + 2]};
+    int n_fit = 0;
+    for (int i = 0; i < g.I; ++i) {
+      if (((exclude >> i) & 1u) || !fits(g, nc, i, pv, eps) ||
+          !allowed(g, nc, i, affinity, eng, p, Z))
+        continue;
+      if (++n_fit <= c) take |= 1u << i;
     }
-    out_accept[p] = acc;
-    for (int i = 0; i < g.I; ++i)
-      out_take[(size_t)p * g.I + i] = (take >> i) & 1u;
+    acc = n_fit >= c;
+    if (!acc) take = 0;
   }
+  out_accept[p] = acc;
+  for (int i = 0; i < g.I; ++i)
+    out_take[(size_t)p * g.I + i] = (take >> i) & 1u;
 }
 
 Pool pool_of(const void* const* ptr, int S, int I) {
@@ -197,16 +200,24 @@ extern "C" int koord_gpu_choose(const void* const* ptr, int P, int S, int I,
 // The take launch. ptr: gpu_total, gpu_free, gpu_valid, gpu_numa (as
 // above), choice [P], alive [P], count [P], per_inst [P, 3], inst [P],
 // affinity [P, Z] (or null), engaged [P] (or null), then the outputs
-// accept [P], take [P, I]. One block: P <= 2048.
+// accept [P], take [P, I], then a word a node of scratch, [S] int32.
 extern "C" int koord_gpu_take(const void* const* ptr, int P, int S, int I,
                               int Z, float eps, void* stream) {
   if (P <= 0) return 0;
-  if (P > MAX_P || S <= 0 || I <= 0 || I > MAX_I || Z <= 0)
+  if (S <= 0 || I <= 0 || I > MAX_I || Z <= 0 || ptr[13] == nullptr)
     return (int)cudaErrorInvalidValue;
-  gpu_take_kernel<<<1, TAKE_THREADS, 0, (cudaStream_t)stream>>>(
+  cudaStream_t st = (cudaStream_t)stream;
+  unsigned* taken = (unsigned*)ptr[13];
+  cudaError_t e = cudaMemsetAsync(taken, 0, (size_t)S * sizeof(unsigned), st);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (P + THREADS - 1) / THREADS;
+  gpu_shared_taken_kernel<<<blocks, THREADS, 0, st>>>(
+      (const int32_t*)ptr[4], (const uint8_t*)ptr[5], (const int32_t*)ptr[6],
+      (const int32_t*)ptr[8], P, S, taken);
+  gpu_take_kernel<<<blocks, THREADS, 0, st>>>(
       (const int32_t*)ptr[4], (const uint8_t*)ptr[5], (const int32_t*)ptr[6],
       (const float*)ptr[7], (const int32_t*)ptr[8], pool_of(ptr, S, I),
-      (const uint8_t*)ptr[9], (const uint8_t*)ptr[10], P, Z, eps,
+      (const uint8_t*)ptr[9], (const uint8_t*)ptr[10], P, Z, eps, taken,
       (uint8_t*)ptr[11], (uint8_t*)ptr[12]);
   return (int)cudaGetLastError();
 }

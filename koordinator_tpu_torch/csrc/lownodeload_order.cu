@@ -22,12 +22,17 @@
 // dependent sorts and the tree sums' levels in one block.
 //
 // Design: one block of 1024 threads (the sorts and the tree sums need
-// every value of a column, and N and P are at most 16 384). Each key is
-// 64 bits, unique (the index in its low 14 bits), so the bitonic sort
-// in shared memory (at most 16 384 keys, 128 KB) needs no stability:
-// nodes sort on (sort_bits(-node_w) or +inf, index); pods on (node
-// rank: 15 bits, sort_bits(-pod_w), index). No library sort: the card
-// path holds no torch.sort.
+// every value of a column). Each key is 64 bits, unique (the index in
+// its low bits), so the bitonic sort needs no stability: nodes sort on
+// (sort_bits(-node_w) or +inf, index); pods on (node rank,
+// sort_bits(-pod_w), index). Up to 16 384 nodes and pods the keys sit
+// in shared memory (128 KB) and the index takes 14 bits, the rank 15;
+// above that (a cluster listing pods on every node) the same block
+// sorts in device memory, with an index field of bit_length(P - 1)
+// bits and a rank field of bit_length(N) (the wrapper refuses the
+// sizes whose fields pass 32 bits together), and the tree sums' partials
+// sit in device memory too: the same sums in the same order. No library
+// sort: the card path holds no torch.sort.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,9 +42,8 @@
 namespace {
 
 constexpr int THREADS = 1024;
-constexpr int MAX_KEYS = 16384;  // N and P
-constexpr int IDX_BITS = 14;
-constexpr uint64_t IDX_MASK = (1ull << IDX_BITS) - 1;
+constexpr int MAX_KEYS = 16384;  // N and P in shared memory
+constexpr int IDX_BITS = 14;     // the index field there
 constexpr int R = 11;  // NUM_RESOURCES: the row stride of usage, capacity
 constexpr int MAX_PARTIALS = MAX_KEYS / 32;
 
@@ -65,7 +69,11 @@ struct Args {
   float* term;      // scratch [N, RD]
   int32_t* src_rank;  // scratch [N]
   int32_t* source;    // scratch [N]
+  uint64_t* keys;     // above MAX_KEYS: scratch [pow2 >= max(N, P)]
+  float* ping;        // above MAX_KEYS: scratch [N / 32 + 1] each
+  float* pong;
   int N, P, RD, deviation;
+  int node_bits, pod_bits;  // the index fields' widths
 };
 
 // ascending bitonic sort of keys[0, m), m a power of two
@@ -94,12 +102,21 @@ __device__ int pow2_at_least(int n) {
   return m;
 }
 
+// BIG: the keys and the tree sums' partials in device memory (a.keys,
+// a.ping, a.pong), else in shared memory
+template <bool BIG>
 __global__ void __launch_bounds__(THREADS) eviction_order_kernel(Args a) {
-  extern __shared__ uint64_t keys[];  // [pow2 >= max(N, P)]
+  extern __shared__ uint64_t s_keys[];  // [pow2 >= max(N, P)]
   __shared__ float s_low[lnl::MAX_RD], s_high[lnl::MAX_RD],
       s_w[lnl::MAX_RD];
   __shared__ int s_rd[lnl::MAX_RD];
-  __shared__ float ping[MAX_PARTIALS], pong[MAX_PARTIALS], s_out;
+  __shared__ float s_ping[BIG ? 1 : MAX_PARTIALS];
+  __shared__ float s_pong[BIG ? 1 : MAX_PARTIALS], s_out;
+  uint64_t* const keys = BIG ? a.keys : s_keys;
+  float* const ping = BIG ? a.ping : s_ping;
+  float* const pong = BIG ? a.pong : s_pong;
+  const uint64_t node_mask = (1ull << a.node_bits) - 1;
+  const uint64_t pod_mask = (1ull << a.pod_bits) - 1;
   const int tid = threadIdx.x, T = blockDim.x;
   const int N = a.N, P = a.P, RD = a.RD;
   if (tid < RD) {
@@ -164,7 +181,7 @@ __global__ void __launch_bounds__(THREADS) eviction_order_kernel(Args a) {
     a.low_mask[n] = low;
     a.source[n] = src;
     const float key = src ? -w : __int_as_float(0x7f800000);
-    keys[n] = (uint64_t)lnl::sort_bits(key) << IDX_BITS | (uint64_t)n;
+    keys[n] = (uint64_t)lnl::sort_bits(key) << a.node_bits | (uint64_t)n;
   }
   const int mn = pow2_at_least(N);
   for (int i = N + tid; i < mn; i += T) keys[i] = ~0ull;
@@ -178,7 +195,7 @@ __global__ void __launch_bounds__(THREADS) eviction_order_kernel(Args a) {
 
   // node ranks: sources by weighted usage% descending, then the rest
   bitonic_sort(keys, mn);
-  for (int i = tid; i < N; i += T) a.src_rank[keys[i] & IDX_MASK] = i;
+  for (int i = tid; i < N; i += T) a.src_rank[keys[i] & node_mask] = i;
   __syncthreads();
 
   // pods: (node rank, -pod_w, index); nodeless pods rank N
@@ -191,14 +208,14 @@ __global__ void __launch_bounds__(THREADS) eviction_order_kernel(Args a) {
     for (int d = 0; d < RD; ++d)
       w = __fmaf_rn(a.pod_usage_r[p * RD + d], s_w[d], w);
     a.active[p] = a.pod_eligible[p] && on && a.source[pn];
-    keys[p] = (uint64_t)rank << (32 + IDX_BITS) |
-              (uint64_t)lnl::sort_bits(-w) << IDX_BITS | (uint64_t)p;
+    keys[p] = (uint64_t)rank << (32 + a.pod_bits) |
+              (uint64_t)lnl::sort_bits(-w) << a.pod_bits | (uint64_t)p;
   }
   const int mp = pow2_at_least(P);
   for (int i = P + tid; i < mp; i += T) keys[i] = ~0ull;
   __syncthreads();
   bitonic_sort(keys, mp);
-  for (int i = tid; i < P; i += T) a.order[i] = (int32_t)(keys[i] & IDX_MASK);
+  for (int i = tid; i < P; i += T) a.order[i] = (int32_t)(keys[i] & pod_mask);
 }
 
 }  // namespace
@@ -232,20 +249,40 @@ extern "C" int koord_lnl_eviction_order(const void* const* ptr,
   a.term = scratch + (size_t)a.N * a.RD;
   a.src_rank = (int32_t*)(scratch + (size_t)2 * a.N * a.RD);
   a.source = a.src_rank + a.N;
-  if (a.N < 1 || a.N > MAX_KEYS || a.P < 0 || a.P > MAX_KEYS || a.RD < 1 ||
-      a.RD > lnl::MAX_RD)
+  if (a.N < 1 || a.P < 0 || a.RD < 1 || a.RD > lnl::MAX_RD)
     return (int)cudaErrorInvalidValue;
   int m = 2;
   while (m < a.N || m < a.P) m <<= 1;
+  const bool big = a.N > MAX_KEYS || a.P > MAX_KEYS;
+  auto bits = [](long long x) {  // bit_length(x), at least 1
+    int b = 1;
+    while (b < 62 && (1ll << b) <= x) ++b;
+    return b;
+  };
+  a.node_bits = big ? bits(a.N - 1) : IDX_BITS;
+  a.pod_bits = big ? bits(a.P - 1) : IDX_BITS;
+  if (big && bits(a.N) + a.pod_bits > 32) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (big) {
+    // after the [2 N RD + 2 N] scratch: the keys (8-byte aligned), then
+    // the partials
+    uintptr_t k = (uintptr_t)(a.source + a.N);
+    a.keys = (uint64_t*)((k + 7) & ~(uintptr_t)7);
+    a.ping = (float*)(a.keys + m);
+    a.pong = a.ping + a.N / 32 + 1;
+    eviction_order_kernel<true><<<1, THREADS, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = (size_t)m * sizeof(uint64_t);
   static bool attr = false;
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        eviction_order_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        eviction_order_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)(MAX_KEYS * sizeof(uint64_t)));
     if (e != cudaSuccess) return (int)e;
     attr = true;
   }
-  eviction_order_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(a);
+  eviction_order_kernel<false><<<1, THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }

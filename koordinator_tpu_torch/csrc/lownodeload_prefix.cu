@@ -20,10 +20,14 @@
 // floor is the scans' levels, two a dim, each a few barriers deep.
 //
 // Design: one block of 1024 threads holds one dim's column of P floats
-// in shared memory at a time (P at most 16 384: 64 KB), scans it in
+// in shared memory at a time (up to 16 384 pods: 64 KB), scans it in
 // place, and folds each dim's verdict into a byte a pod (still over /
 // budget open); the segment starts are one max-scan of ints, the count
-// one add-scan, both exact in any order.
+// one add-scan, both exact in any order. Above 16 384 pods (a cluster
+// that lists pods on every node) the same block keeps those arrays in
+// device memory (scratch from the wrapper) instead: the scan is the
+// same blocked-16 recursion, one level deeper, in the same order, so
+// the sums and takes are the same.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,14 +52,18 @@ struct Args {
 };
 
 size_t smem_bytes(int P) {
-  // col f32[P], start i32[P], over u8[P], ok u8[P], scan levels
+  // col f32[P], start i32[P], over u8[P], ok u8[P], scan levels (the
+  // wrapper, kernels/lownodeload.py, sizes the same in device memory)
   return (size_t)P * 4 * 2 + (size_t)P * 2 + ((size_t)P / 15 + 32) * 4 + 16;
 }
 
-__global__ void __launch_bounds__(THREADS) plan_prefix_kernel(Args a) {
+// work: the arrays of smem_bytes(P), in shared memory (null) or in
+// device memory
+__global__ void __launch_bounds__(THREADS) plan_prefix_kernel(Args a,
+                                                              float* work) {
   extern __shared__ float smem[];
   const int P = a.P, N = a.N, RD = a.RD;
-  float* col = smem;
+  float* col = work != nullptr ? work : smem;
   int* start = (int*)(col + P);
   uint8_t* over = (uint8_t*)(start + P);
   uint8_t* ok = over + P;
@@ -146,7 +154,9 @@ extern "C" int koord_lnl_plan_prefix(const void* const* ptr, const int* dims,
   a.RD = dims[2];
   a.max_evictions = dims[3];
   if (a.P <= 0) return 0;
-  if (a.P > MAX_P || a.N < 1 || a.RD < 1 || a.RD > lnl::MAX_RD)
+  float* work = (float*)ptr[8];  // [smem_bytes(P) / 4] above MAX_P
+  if (a.N < 1 || a.RD < 1 || a.RD > lnl::MAX_RD ||
+      (a.P > MAX_P && work == nullptr))
     return (int)cudaErrorInvalidValue;
   static bool attr = false;
   if (!attr) {
@@ -156,7 +166,10 @@ extern "C" int koord_lnl_plan_prefix(const void* const* ptr, const int* dims,
     if (e != cudaSuccess) return (int)e;
     attr = true;
   }
-  plan_prefix_kernel<<<1, THREADS, smem_bytes(a.P), (cudaStream_t)stream>>>(
-      a);
+  if (a.P > MAX_P)
+    plan_prefix_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(a, work);
+  else
+    plan_prefix_kernel<<<1, THREADS, smem_bytes(a.P),
+                         (cudaStream_t)stream>>>(a, nullptr);
   return (int)cudaGetLastError();
 }

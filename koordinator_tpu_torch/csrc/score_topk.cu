@@ -161,6 +161,13 @@
 //   not decrease in their argument. A gated-off class stages -inf, and
 //   the floor would lift -inf - sp to 0: the filter keeps -inf there.
 //
+// - Amplified CPU (core.py:383-404, :565-577; amp_ratio given): a
+//   CPU-bind pod (amp_bind) must also fit its CPU request times the
+//   node's ratio, fl(fl(req * ratio) + requested) <= fl(alloc + eps) on
+//   the fit column of CPU, checked with the fit when a pair is scored.
+//   It only removes pairs, so the node bounds stay bounds; slot columns
+//   keep a ratio of 1, where the check is the fit's own.
+//
 // Exactness against the reference (bit for bit): the file builds with
 // -fmad=false, and the arithmetic names its rounding. The floors sit on
 // IEEE divisions (__fdiv_rn). The reference's compiler contracts the
@@ -259,6 +266,8 @@ struct Args {
   const int32_t* pod_words;       // [P, 5] (the TOPO instances) or null
   const int32_t* col_words;       // [5, N + V]
   const float* penalty;           // [SG, LDP] or null
+  const uint8_t* amp_bind;        // [P] CPU-bind pods, or null
+  const float* amp_ratio;         // [N] CPU amplification, or null
   const float* weights;           // [D]
   float* part_val;                // [gridDim.x, RB, k]
   int32_t* part_idx;
@@ -267,6 +276,7 @@ struct Args {
   int32_t* out_idx;
   int P, N, F, D, k, S, L, tie_break, fma_sum, V, T, G, SG, LDP;
   int R1, R2;  // the addends' rows: pod rows at or beyond add nothing
+  int amp_col;  // the fit column of CPU (amp_ratio given)
   float eps;
 };
 
@@ -682,6 +692,12 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     if (a.pair_ok != nullptr)
       ok = ok && a.pair_ok[(size_t)prow[r] * N + n];
     if (TOPO) ok = ok && !topo_blocked(a, pw[r], n);
+    if (a.amp_ratio != nullptr && ok && a.amp_bind[prow[r]]) {
+      const size_t c = (size_t)n * F + a.amp_col;
+      ok = __fadd_rn(__fmul_rn(s_rq[slot0 + r][a.amp_col], a.amp_ratio[n]),
+                     a.requested_fit[c])
+           <= __fadd_rn(a.alloc_fit[c], a.eps);
+    }
     const float* est = s_es[slot0 + r];
     const float* req = a.requested_fit + (size_t)n * F;
     const float* alloc = a.alloc_fit + (size_t)n * F;
@@ -1072,10 +1088,11 @@ extern "C" int koord_score_topk_blocks(int P, int F, int D, int add,
 // pair_score2 (or null; only with pair_score), toleration_id,
 // taint_group, tol_forbid, tol_penalty (all four or none), slot_ok,
 // slot_block (null where V = 0), pod_words, col_words (both or none),
-// penalty (or null; only with the words). dims: P, N, F, D, k, S, L,
-// tie_break, fma_sum, blocks (from koord_score_topk_blocks), V, T, G,
-// SG (the penalty map's groups), LDP (its row stride), R1, R2 (the
-// rows of pair_score and pair_score2, each at most P).
+// penalty (or null; only with the words), amp_bind, amp_ratio (both
+// or none). dims: P, N, F, D, k, S, L, tie_break, fma_sum, blocks (from
+// koord_score_topk_blocks), V, T, G, SG (the penalty map's groups), LDP
+// (its row stride), R1, R2 (the rows of pair_score and pair_score2,
+// each at most P), amp_col (the fit column of CPU).
 extern "C" int koord_score_topk(const void* const* ptr, const int* dims,
                                 float eps, void* stream) {
   Args a;
@@ -1116,6 +1133,8 @@ extern "C" int koord_score_topk(const void* const* ptr, const int* dims,
   a.pod_words = (const int32_t*)ptr[34];
   a.col_words = (const int32_t*)ptr[35];
   a.penalty = (const float*)ptr[36];
+  a.amp_bind = (const uint8_t*)ptr[37];
+  a.amp_ratio = (const float*)ptr[38];
   a.P = dims[0];
   a.N = dims[1];
   a.F = dims[2];
@@ -1134,6 +1153,7 @@ extern "C" int koord_score_topk(const void* const* ptr, const int* dims,
   a.LDP = dims[14];
   a.R1 = dims[15];
   a.R2 = dims[16];
+  a.amp_col = dims[17];
   if (a.P <= 0) return 0;
   const bool taint = a.tol_forbid != nullptr;
   if (a.F > MAX_DIMS || a.D > MAX_DIMS || a.k > MAX_K || a.V < 0 ||
@@ -1148,7 +1168,9 @@ extern "C" int koord_score_topk(const void* const* ptr, const int* dims,
       (a.V > 0 && (a.slot_ok == nullptr || a.slot_block == nullptr)) ||
       ((a.pod_words == nullptr) != (a.col_words == nullptr)) ||
       (a.penalty != nullptr && (a.pod_words == nullptr || a.SG <= 0 ||
-                                a.SG > 32 || a.LDP < a.N)))
+                                a.SG > 32 || a.LDP < a.N)) ||
+      ((a.amp_bind == nullptr) != (a.amp_ratio == nullptr)) ||
+      (a.amp_ratio != nullptr && (a.amp_col < 0 || a.amp_col >= a.F)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return a.F <= NARROW && a.D <= NARROW ? launch<Narrow>(a, blocks, s)

@@ -36,7 +36,7 @@
 // levels (each waits on the one before) set its time. So one launch
 // does every level.
 //
-// Design: one block of 512 threads (P <= 2048). The pods sit in rank
+// Design: one block of 512 threads (2048 pods a tile). The pods sit in rank
 // order (rank is a permutation of [0, P)). Per level, a block scan
 // counts the alive pods with a segment in range, in rank order; the
 // others take no part in the level's sums, and a level where none is
@@ -61,13 +61,30 @@
 // a copy in shared memory, gathered in rank order, cost more than it
 // saved at the flagship's R = 4.
 //
+// Above 2048 pods (the tiled form, a BASELINE config 4 chunk of 2500
+// or a service batch): the same block walks the rank order a tile of
+// 2048 positions at a time, each tile through every level as above.
+// A pod's verdict at a level depends only on the pods of earlier rank
+// that enter that level, and every one of those sits in its own tile
+// or an earlier one, so the walk keeps the reference's meaning. Each
+// level keeps, in device memory, a carry a segment (S + 1 rows, the
+// -1 segment's included): the requests of the pods of earlier tiles
+// that entered the level with that segment. A pod's prefix is its
+// segment's carry plus its earlier same-segment pods of the tile, and
+// the last pod of each segment in the tile writes the new carry (its
+// prefix plus its own request), after every read of the tile. The
+// rank order, the pods' alive flags (in `out`) and the carries live in
+// device memory; one block orders them with its barriers. The path up
+// to 2048 pods is the one above, unchanged.
+//
 // Preconditions, checked in the kernel: rank is a permutation of
 // [0, P) and every alive pod's segment is >= -1. A launch that finds
 // either broken stops with __trap(): the launch fails and the caller
 // sees the CUDA error at its next synchronisation, rather than a gate
 // that silently passed pods the reference would have gated.
 //
-// Exactness: the summation order is not the reference's. The sums are
+// Exactness: the summation order is not the reference's (the tiled
+// form adds a carry first, then the tile's prefix). The sums are
 // still exact on the scheduler's inputs: requests are multiples of
 // 500 mC and 512 MiB (utils/synthetic.py) and node/quota usage is a sum
 // of such requests, so every partial sum is an integer (a multiple of 4,
@@ -80,6 +97,8 @@
 #include <cub/block/block_radix_sort.cuh>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -102,6 +121,7 @@ struct Levels {
   const float* req[MAX_LEVELS];  // [P, R] of the level, rows rstride apart
   const float* base[MAX_LEVELS];
   const float* limit[MAX_LEVELS];
+  float* carry[MAX_LEVELS];  // tiled form: [S + 1, R], row seg + 1
   int S[MAX_LEVELS];
   int stride[MAX_LEVELS];  // row stride of base and limit
   int rstride;             // row stride of every level's req
@@ -111,53 +131,78 @@ struct Levels {
 using Sort = cub::BlockRadixSort<uint32_t, THREADS, ITEMS, int, 5>;
 
 // A level's shared memory: the sort's, or where few pods are in range,
-// those pods compacted in rank order with their requests.
+// those pods compacted in rank order with their requests (the tiled
+// form's pod ids take 32 bits).
+template <bool TILED>
 union LevelStorage {
   Sort::TempStorage sort;
   struct __align__(16) {
     int seg[MAX_P];                      // n, then PAD sentinels
     float req[(SMALL + PAD) * MAX_R];    // [n][R], then zeros
-    int16_t pod[MAX_P];
+    std::conditional_t<TILED, int32_t, int16_t> pod[MAX_P];
   } in;
 };
 
-// NR: the columns the unsorted path unrolls (R <= NR)
-template <int NR>
+// NR: the columns the unsorted path unrolls (R <= NR). TILED: P > MAX_P,
+// the rank order walked a tile at a time (order_g [P] and lv.carry in
+// device memory, the alive flags in `out`).
+template <int NR, bool TILED>
 __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
     const int32_t* __restrict__ seg, const int32_t* __restrict__ rank,
     const uint8_t* __restrict__ active, const uint8_t* __restrict__ mask,
     Levels lv, int L, int P, int R, int vec4, float eps,
-    uint8_t* __restrict__ out) {
-  __shared__ LevelStorage sh;
+    int32_t* __restrict__ order_g, uint8_t* __restrict__ out) {
+  using PodIdx = std::conditional_t<TILED, int32_t, int16_t>;
+  __shared__ LevelStorage<TILED> sh;
   __shared__ int warp_count[2][WARPS];  // by level parity
-  __shared__ int16_t order[MAX_P];  // pod at each rank position, -1 = none
-  __shared__ uint8_t alive[MAX_P];
+  __shared__ int16_t order[TILED ? 1 : MAX_P];  // pod at each rank position
+  __shared__ uint8_t alive_s[TILED ? 1 : MAX_P];
   __shared__ int carry_key[WARPS];  // each warp's trailing segment
   __shared__ float carry_sum[WARPS][COLS];
+  __shared__ uint32_t first_key[WARPS];  // tiled: each warp's first key
+  uint8_t* alive;
+  if constexpr (TILED) alive = out; else alive = alive_s;
 
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  for (int i = t; i < MAX_P; i += THREADS) order[i] = -1;
-  __syncthreads();
-  for (int i = t; i < P; i += THREADS) {
-    const int r = rank[i];
-    if (r >= 0 && r < P) order[r] = (int16_t)i;
-    alive[i] = active[i];
+  if constexpr (TILED) {
+    for (int i = t; i < P; i += THREADS) order_g[i] = -1;
+    __syncthreads();
+    for (int i = t; i < P; i += THREADS) {
+      const int r = rank[i];
+      if (r >= 0 && r < P) order_g[r] = i;
+      alive[i] = active[i];
+    }
+    __syncthreads();
+    bool filled = true;
+    for (int i = t; i < P; i += THREADS) filled &= order_g[i] >= 0;
+    if (!__syncthreads_and(filled)) __trap();
+  } else {
+    for (int i = t; i < MAX_P; i += THREADS) order[i] = -1;
+    __syncthreads();
+    for (int i = t; i < P; i += THREADS) {
+      const int r = rank[i];
+      if (r >= 0 && r < P) order[r] = (int16_t)i;
+      alive[i] = active[i];
+    }
+    __syncthreads();
+    // rank is a permutation iff every position below P holds a pod
+    bool filled = true;
+    for (int i = t; i < P; i += THREADS) filled &= order[i] >= 0;
+    if (!__syncthreads_and(filled)) __trap();
   }
-  __syncthreads();
-  // rank is a permutation iff every position below P holds a pod
-  bool filled = true;
-  for (int i = t; i < P; i += THREADS) filled &= order[i] >= 0;
-  if (!__syncthreads_and(filled)) __trap();
 
+  // the tiles of the rank order: one below MAX_P pods
+  for (int t0 = 0; t0 < P; t0 += MAX_P) {
   // this thread's pods (blocked: rank order) and their segments, each
   // level's read one level ahead
   int mine[ITEMS], snext[ITEMS];
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) {
-    const int pos = t * ITEMS + k;
-    mine[k] = pos < P ? order[pos] : -1;
+    const int pos = t0 + t * ITEMS + k;
+    if constexpr (TILED) mine[k] = pos < P ? order_g[pos] : -1;
+    else mine[k] = pos < P ? order[pos] : -1;
     snext[k] = L > 0 && mine[k] >= 0 ? seg[mine[k]] : 0;
   }
 
@@ -175,6 +220,7 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
     const float* req = lv.req[l];
     const int stride = lv.stride[l];
     const int rstride = lv.rstride;
+    float* const carry = lv.carry[l];  // tiled form only
     int scur[ITEMS];
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) {
@@ -227,7 +273,7 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
       for (int k = 0; k < ITEMS; ++k) {
         if (cpod[k] >= 0) {
           sh.in.seg[off] = cseg[k];
-          sh.in.pod[off] = (int16_t)cpod[k];
+          sh.in.pod[off] = (PodIdx)cpod[k];
 #pragma unroll
           for (int r = 0; r < NR; ++r)
             if (r < R)
@@ -240,6 +286,8 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
       for (int i = n * R + t; i < (n + PAD) * R + MAX_R; i += THREADS)
         sh.in.req[i] = 0.0f;
       __syncthreads();
+      bool last = false;  // tiled: this pod ends its segment in the tile
+      float incl[NR];     // tiled: its prefix plus its request
       if (t < n) {
         const int s = sh.in.seg[t];
         const size_t o = (size_t)max(s, 0) * stride;
@@ -249,6 +297,8 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
           bas[r] = base[o + min(r, R - 1)];
           lim[r] = limit[o + min(r, R - 1)];
           acc[r] = 0.0f;
+          if constexpr (TILED)  // the earlier tiles' pods of the segment
+            acc[r] = carry[(size_t)(s + 1) * R + min(r, R - 1)];
         }
         // B earlier pods at a time, every read first (unconditional,
         // inside the padded copy), then each request times 1 where its
@@ -295,8 +345,25 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
           ok &= (r >= R) | (lhs <= __fadd_rn(lim[r], eps));
         }
         if (!ok) alive[sh.in.pod[t]] = 0;
+        if constexpr (TILED) {
+          // the segment's last pod of the tile carries it on, after
+          // every pod of the tile read the carry (the barrier below)
+          last = true;
+          for (int j = t + 1; j < n; ++j) last &= sh.in.seg[j] != s;
+#pragma unroll
+          for (int r = 0; r < NR; ++r)
+            incl[r] = __fadd_rn(acc[r], sh.in.req[t * R + r]);
+        }
       }
       __syncthreads();
+      if constexpr (TILED) {
+        if (last) {
+          const int s = sh.in.seg[t];
+#pragma unroll
+          for (int r = 0; r < NR; ++r)
+            if (r < R) carry[(size_t)(s + 1) * R + r] = incl[r];
+        }
+      }
       continue;
     }
 
@@ -312,6 +379,9 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
     }
     const int bits = 32 - __clz((int)out_key);
     Sort(sh.sort).Sort(key, pod, 0, bits);  // stable: rank order kept
+    if constexpr (TILED) {
+      if (lane == 0) first_key[warp] = key[0];  // read after a barrier
+    }
 
     bool ok[ITEMS];
 #pragma unroll
@@ -324,9 +394,16 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
       // columns read row 0 and mask the result; where R is a multiple of
       // 4, each row's 4 columns in one 16-byte read)
       float v[ITEMS][COLS], lim[ITEMS][COLS], bas[ITEMS][COLS];
+      float cr[ITEMS][COLS];  // tiled: the segment's carry
 #pragma unroll
       for (int k = 0; k < ITEMS; ++k) {
         const bool in = key[k] != out_key;
+        if constexpr (TILED) {
+#pragma unroll
+          for (int c = 0; c < COLS; ++c)
+            cr[k][c] = in ? carry[(size_t)key[k] * R + min(r0 + c, R - 1)]
+                          : 0.0f;
+        }
         const size_t o =
             (size_t)(in ? max((int)key[k] - 1, 0) : 0) * stride;
         const size_t q = (size_t)max(pod[k], 0) * rstride;
@@ -403,6 +480,12 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
           pre[c] = pkey == -1 ? wsum[c] : __fadd_rn(wsum[c], pre[c]);
         pkey = wkey;
       }
+      // tiled: the key after each of this thread's pods (the next
+      // thread's first, the next warp's first at a warp's end)
+      uint32_t nxt = __shfl_down_sync(FULL, key[0], 1);
+      if constexpr (TILED) {
+        if (lane == 31) nxt = warp + 1 < WARPS ? first_key[warp + 1] : ~0u;
+      }
       // each pod's exclusive prefix, then its comparison
       float ex[COLS];
 #pragma unroll
@@ -417,11 +500,18 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
                                          : 0.0f;
         }
         const bool in = key[k] != out_key;
+        // the segment's last pod of the tile carries it on (every read
+        // of the carries precedes the barrier above)
+        const bool last = TILED && in && (k + 1 < ITEMS ? key[k + 1] : nxt)
+                                              != key[k];
 #pragma unroll
         for (int c = 0; c < COLS; ++c) {
-          const float lhs = __fadd_rn(__fadd_rn(bas[k][c], ex[c]), v[k][c]);
+          const float pre_c = TILED ? __fadd_rn(cr[k][c], ex[c]) : ex[c];
+          const float lhs = __fadd_rn(__fadd_rn(bas[k][c], pre_c), v[k][c]);
           const bool pass = lhs <= __fadd_rn(lim[k][c], eps);
           ok[k] = ok[k] & (pass | !in | (r0 + c >= R));
+          if (last && r0 + c < R)
+            carry[(size_t)key[k] * R + r0 + c] = __fadd_rn(pre_c, v[k][c]);
         }
       }
       __syncthreads();  // the carries are read before the next pass
@@ -431,50 +521,82 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
       if (key[k] != out_key && !ok[k]) alive[pod[k]] = 0;
     __syncthreads();
   }
-  for (int i = t; i < P; i += THREADS)
-    out[i] = alive[i] && (L != 1 || mask == nullptr || mask[i]);
+  }  // the tiles
+  if constexpr (TILED) {
+    if (L == 1 && mask != nullptr)
+      for (int i = t; i < P; i += THREADS) out[i] = out[i] && mask[i];
+  } else {
+    for (int i = t; i < P; i += THREADS)
+      out[i] = alive[i] && (L != 1 || mask == nullptr || mask[i]);
+  }
 }
 
 }  // namespace
 
 // req: level l's [P, R] requests start req_level_stride * l elements in
 // (0: shared by the levels), rows req_row_stride (>= R) apart, unit
-// column stride; strides: each level's row stride of base and limit
-// (>= R).
-// mask: bool[P] ANDed in after level 0, or null.
+// column stride; req0: level 0's own [P, R] requests (rows as req's),
+// or null; strides: each level's row stride of base and limit (>= R).
+// mask: bool[P] ANDed in after level 0, or null. work: above MAX_P
+// pods, int32 scratch of P + sum over levels of (nseg[l] + 1) * R
+// elements (the rank order, then each level's carries, zeroed here on
+// the stream); else unused.
+
 extern "C" int koord_segment_prefix_chain(
-    const void* seg, const void* rank, const void* req, const void* active,
-    const void* mask, const void* const* bases, const void* const* limits, const int* nseg,
-    const int* strides, int L, int P, int R, long long req_level_stride,
-    int req_row_stride, float eps, void* out, void* stream) {
+    const void* seg, const void* rank, const void* req, const void* req0,
+    const void* active, const void* mask, const void* const* bases,
+    const void* const* limits, const int* nseg, const int* strides, int L,
+    int P, int R, long long req_level_stride, int req_row_stride, float eps,
+    void* work, void* out, void* stream) {
   if (P <= 0) return 0;
-  if (P > MAX_P || R > MAX_R || R <= 0 || L < 0 || L > MAX_LEVELS)
+  if (R > MAX_R || R <= 0 || L < 0 || L > MAX_LEVELS ||
+      (P > MAX_P && work == nullptr))
     return (int)cudaErrorInvalidValue;
   if ((P > 1 && req_row_stride < R) || req_level_stride < 0)
     return (int)cudaErrorInvalidValue;
+  const bool tiled = P > MAX_P;
+  cudaStream_t st = (cudaStream_t)stream;
   Levels lv = {};
   lv.rstride = req_row_stride;
   int vec4 = R % 4 == 0 && req_row_stride % 4 == 0;
+  float* carry = tiled ? (float*)((int32_t*)work + P) : nullptr;
   for (int l = 0; l < L; ++l) {
     if (nseg[l] <= 0 || (nseg[l] > 1 && strides[l] < R))
       return (int)cudaErrorInvalidValue;
-    lv.req[l] = (const float*)req + (size_t)l * req_level_stride;
+    lv.req[l] = l == 0 && req0 != nullptr
+                    ? (const float*)req0
+                    : (const float*)req + (size_t)l * req_level_stride;
     lv.base[l] = (const float*)bases[l];
     lv.limit[l] = (const float*)limits[l];
     lv.S[l] = nseg[l];
     lv.stride[l] = strides[l];
+    if (tiled) {
+      lv.carry[l] = carry;
+      carry += (size_t)(nseg[l] + 1) * R;
+    }
     vec4 = vec4 && strides[l] % 4 == 0 && ((uintptr_t)lv.req[l] & 15) == 0
            && ((uintptr_t)lv.base[l] & 15) == 0
            && ((uintptr_t)lv.limit[l] & 15) == 0;
   }
-  cudaStream_t st = (cudaStream_t)stream;
-  if (R <= 4)
-    segment_prefix_chain_kernel<4><<<1, THREADS, 0, st>>>(
-        (const int32_t*)seg, (const int32_t*)rank, (const uint8_t*)active,
-        (const uint8_t*)mask, lv, L, P, R, vec4, eps, (uint8_t*)out);
-  else
-    segment_prefix_chain_kernel<MAX_R><<<1, THREADS, 0, st>>>(
-        (const int32_t*)seg, (const int32_t*)rank, (const uint8_t*)active,
-        (const uint8_t*)mask, lv, L, P, R, vec4, eps, (uint8_t*)out);
+  if (tiled) {
+    const size_t bytes =
+        (size_t)((char*)carry - (char*)((int32_t*)work + P));
+    const cudaError_t e =
+        cudaMemsetAsync((int32_t*)work + P, 0, bytes, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+#define KOORD_K2_LAUNCH(NR, TILED)                                          \
+  segment_prefix_chain_kernel<NR, TILED><<<1, THREADS, 0, st>>>(            \
+      (const int32_t*)seg, (const int32_t*)rank, (const uint8_t*)active,     \
+      (const uint8_t*)mask, lv, L, P, R, vec4, eps, (int32_t*)work,          \
+      (uint8_t*)out)
+  if (R <= 4) {
+    if (tiled) KOORD_K2_LAUNCH(4, true);
+    else KOORD_K2_LAUNCH(4, false);
+  } else {
+    if (tiled) KOORD_K2_LAUNCH(MAX_R, true);
+    else KOORD_K2_LAUNCH(MAX_R, false);
+  }
+#undef KOORD_K2_LAUNCH
   return (int)cudaGetLastError();
 }

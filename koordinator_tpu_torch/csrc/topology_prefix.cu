@@ -30,7 +30,7 @@
 // the blocks merge their verdicts through a ticket.
 //
 // Design: grid = one block a group column (sum of the families' G),
-// 512 threads, four pods a thread (P <= 2048). A block
+// 512 threads, four pods a thread (2048 pods a tile). A block
 // 1. computes for its pods the domain of the chosen column, whether
 //    each charges and whether each is gated (an opener reads the
 //    domain's count);
@@ -42,6 +42,13 @@
 // 4. writes its column's failing pods as bits to scratch; the block
 //    that takes the last ticket ORs every column's bits and writes
 //    ok[p] = no column failed p, then resets the ticket.
+// Above 2048 pods (a service batch or a config-4-sized chunk) the block
+// walks the pods a tile of 2048 at a time: for each tile of gated pods
+// it compacts each tile of charging pods in turn (steps 1-2) and adds
+// their counts (step 3), then writes the gated tile's failures. A count
+// of earlier charges is a sum of whole numbers, so adding it up tile by
+// tile gives the same count; up to 2048 pods there is one tile of each,
+// the steps above.
 //
 // Exactness: the charges are 0/1 and the counts whole numbers below
 // 2^24, so every count and sum is exact in any order, and occ is the
@@ -105,81 +112,108 @@ __global__ void __launch_bounds__(THREADS)
   while (f + 1 < a.nfam && g >= a.fam[f].G) g -= a.fam[f++].G;
   const Family fm = a.fam[f];
   const int P = a.P, X = a.X;
-  for (int w = t; w < a.words; w += THREADS) s_rej[w] = 0u;
+  for (int w = t; w < WORDS; w += THREADS) s_rej[w] = 0u;
 
-  // 1. each pod's segment, charge and gate
-  int seg[ITEMS], rk[ITEMS], cnt = 0;
-  bool charge[ITEMS], gated[ITEMS];
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const int i = t + k * THREADS;
-    charge[k] = gated[k] = false;
-    seg[k] = -1;
-    rk[k] = 0;
-    if (i < P && a.trying[i]) {
-      const int c = min(max(a.choice[i], 0), X - 1);
-      const int d = fm.dom[(size_t)g * X + c];
-      if (d >= 0) {
-        rk[k] = a.rank[i];
-        if (fm.kind == OPENER) {
-          const bool open = ((fm.gate[i] >> g) & 1) &&
-                            fm.counts[(size_t)g * fm.D + d] < 0.5f;
-          charge[k] = gated[k] = open;
-          seg[k] = 0;
-        } else {
-          charge[k] = (fm.charge[i] >> g) & 1;
-          gated[k] = (fm.gate[i] >> g) & 1;
-          seg[k] = d;
-        }
-      }
-    }
-    cnt += charge[k];
-  }
-
-  // 2. the charging pods, compacted; an opener group's total
-  int off, n;
-  Scan(tmp.scan).ExclusiveSum(cnt, off, n);
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    if (charge[k]) {
-      s_seg[off] = seg[k];
-      s_rank[off] = rk[k];
-      ++off;
-    }
-  }
+  // an opener group's total
   if (fm.kind == OPENER) {
-    __syncthreads();  // the scan's storage is reused
     float part = 0.0f;
     for (int j = t; j < fm.D; j += THREADS)
       part += fm.counts[(size_t)g * fm.D + j];
     const float total = Reduce(tmp.reduce).Sum(part);
     if (t == 0) s_total = total;
+    __syncthreads();  // the reduction's storage is reused below
   }
-  __syncthreads();
 
-  // 3. each gated pod against the earlier charges of its segment
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    if (!gated[k]) continue;
-    int before = 0;
-    for (int j = 0; j < n; ++j)
-      before += (s_seg[j] == seg[k]) & (s_rank[j] < rk[k]);
-    const float base = fm.kind == OPENER
-                           ? s_total
-                           : fm.counts[(size_t)g * fm.D + seg[k]];
-    const float occ = __fadd_rn(base, (float)before);
-    const bool fits = fm.kind == CAP ? __fadd_rn(occ, 1.0f) <= fm.lim[g]
-                                     : occ < 0.5f;
-    if (!fits) {
-      const int i = t + k * THREADS;
-      atomicOr(&s_rej[i >> 5], 1u << (i & 31));
+  // 1. a pod's segment, charge and gate (pod i: out of range or not
+  // trying = neither)
+  auto classify = [&](int i, int& seg, int& rk, bool& charge, bool& gated) {
+    charge = gated = false;
+    seg = -1;
+    rk = 0;
+    if (i < P && a.trying[i]) {
+      const int c = min(max(a.choice[i], 0), X - 1);
+      const int d = fm.dom[(size_t)g * X + c];
+      if (d >= 0) {
+        rk = a.rank[i];
+        if (fm.kind == OPENER) {
+          const bool open = ((fm.gate[i] >> g) & 1) &&
+                            fm.counts[(size_t)g * fm.D + d] < 0.5f;
+          charge = gated = open;
+          seg = 0;
+        } else {
+          charge = (fm.charge[i] >> g) & 1;
+          gated = (fm.gate[i] >> g) & 1;
+          seg = d;
+        }
+      }
     }
-  }
-  __syncthreads();
+  };
 
-  // 4. this column's failures to scratch; the last block merges
-  for (int w = t; w < a.words; w += THREADS)
-    a.rejected[(size_t)blockIdx.x * a.words + w] = s_rej[w];
+  for (int g0 = 0; g0 < P; g0 += MAX_P) {  // the gated pods' tiles
+    int seg[ITEMS], rk[ITEMS], before[ITEMS];
+    bool gated[ITEMS];
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      bool ch;
+      classify(g0 + t + k * THREADS, seg[k], rk[k], ch, gated[k]);
+      before[k] = 0;
+    }
+    for (int c0 = 0; c0 < P; c0 += MAX_P) {  // the charging pods' tiles
+      // 2. the tile's charging pods, compacted
+      int cseg[ITEMS], crk[ITEMS], cnt = 0;
+      bool charge[ITEMS];
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) {
+        bool gt;
+        classify(c0 + t + k * THREADS, cseg[k], crk[k], charge[k], gt);
+        cnt += charge[k];
+      }
+      int off, n;
+      Scan(tmp.scan).ExclusiveSum(cnt, off, n);
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) {
+        if (charge[k]) {
+          s_seg[off] = cseg[k];
+          s_rank[off] = crk[k];
+          ++off;
+        }
+      }
+      __syncthreads();
+      // 3. each gated pod against the earlier charges of its segment
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) {
+        if (!gated[k]) continue;
+        int b = 0;
+        for (int j = 0; j < n; ++j)
+          b += (s_seg[j] == seg[k]) & (s_rank[j] < rk[k]);
+        before[k] += b;
+      }
+      __syncthreads();  // s_seg, s_rank and the scan's storage reused
+    }
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      if (!gated[k]) continue;
+      const float base = fm.kind == OPENER
+                             ? s_total
+                             : fm.counts[(size_t)g * fm.D + seg[k]];
+      const float occ = __fadd_rn(base, (float)before[k]);
+      const bool fits = fm.kind == CAP ? __fadd_rn(occ, 1.0f) <= fm.lim[g]
+                                       : occ < 0.5f;
+      if (!fits) {
+        const int i = t + k * THREADS;
+        atomicOr(&s_rej[i >> 5], 1u << (i & 31));
+      }
+    }
+    __syncthreads();
+    // this tile's failures to scratch
+    for (int w = t; w < WORDS && g0 / 32 + w < a.words; w += THREADS) {
+      a.rejected[(size_t)blockIdx.x * a.words + g0 / 32 + w] = s_rej[w];
+      s_rej[w] = 0u;
+    }
+    __syncthreads();
+  }
+
+  // 4. the last block merges every column's failures
   __threadfence();
   __syncthreads();
   if (t == 0) s_last = atomicAdd(a.ticket, 1) == a.columns - 1;
@@ -207,7 +241,7 @@ extern "C" int koord_topology_prefix_gate(const void* const* ptr,
   a.X = dims[1];
   a.nfam = dims[2];
   if (a.P <= 0) return 0;
-  if (a.P > MAX_P || a.X <= 0 || a.nfam <= 0 || a.nfam > MAX_FAM)
+  if (a.X <= 0 || a.nfam <= 0 || a.nfam > MAX_FAM)
     return (int)cudaErrorInvalidValue;
   a.columns = 0;
   for (int f = 0; f < a.nfam; ++f) {

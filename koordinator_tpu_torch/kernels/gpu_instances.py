@@ -32,7 +32,6 @@ from koordinator_tpu_torch.scheduler.plugins import deviceshare
 from koordinator_tpu_torch.snapshot.schema import DeviceState
 
 MAX_INSTANCES = 32
-MAX_PODS = 2048   # the take launch is one block
 
 
 class GpuChoice(NamedTuple):
@@ -125,7 +124,7 @@ def gpu_instance_pick(choice: torch.Tensor, active: torch.Tensor,
     (gpu_total f32[N, 3], gpu_free f32[N, I, 3], gpu_valid bool[N, I],
     gpu_numa i32[N, I]); affinity bool[P, Z] and engaged bool[P] from
     the topology manager, or both None when it is off; strategy "least"
-    or "most". Takes 1 <= I <= 32, and P <= 2048 for the take launch."""
+    or "most". Takes 1 <= I <= 32 and any P."""
     p = choice.shape[0]
     n, i, _ = devices.gpu_free.shape
     dev = choice.device
@@ -162,10 +161,9 @@ def gpu_instance_pick(choice: torch.Tensor, active: torch.Tensor,
                               engaged)
     if dev.type != "cuda":
         raise ValueError(f"gpu_instance_pick: unsupported device {dev}")
-    if i > MAX_INSTANCES or (chosen is not None and p > MAX_PODS):
-        raise ValueError(f"gpu_instance_pick: I={i}, P={p} above its "
-                         f"capacity ({MAX_INSTANCES}, {MAX_PODS} pods for "
-                         "the take launch)")
+    if i > MAX_INSTANCES:
+        raise ValueError(f"gpu_instance_pick: I={i} above its capacity "
+                         f"({MAX_INSTANCES})")
     pool = (devices.gpu_total, devices.gpu_free, devices.gpu_valid,
             devices.gpu_numa)
     stream = _launch.stream(dev)
@@ -187,8 +185,10 @@ def gpu_instance_pick(choice: torch.Tensor, active: torch.Tensor,
         out = GpuTake(
             accept=torch.empty((p,), dtype=torch.bool, device=dev),
             take=torch.empty((p, i), dtype=torch.bool, device=dev))
+        taken = torch.empty((n,), dtype=torch.int32, device=dev)
         tensors = pool + (choice, active, chosen.count, chosen.per_inst,
-                          chosen.inst, affinity, engaged) + tuple(out)
+                          chosen.inst, affinity, engaged) + tuple(out) \
+            + (taken,)
         fn = TOOLCHAIN.function("gpu_instances", "koord_gpu_take",
                                 [ctypes.c_void_p] + [ctypes.c_int] * 4
                                 + [ctypes.c_float, ctypes.c_void_p])

@@ -41,9 +41,9 @@ from koordinator_tpu_torch.kernels import _launch
 from koordinator_tpu_torch.kernels.build import TOOLCHAIN, check
 
 # K11 sorts the nodes, and K11 and K12 sort and scan the pods, in one
-# block's shared memory (csrc/lownodeload_order.cu, _prefix.cu)
-MAX_NODES = 16384
-MAX_PODS = 16384
+# block's shared memory up to this many (csrc/lownodeload_order.cu,
+# _prefix.cu); above it, in device memory
+SHARED_KEYS = 16384
 # K13 keeps the namespace counts in shared memory
 MAX_NAMESPACES = 32768
 MAX_RD = NUM_RESOURCES
@@ -262,8 +262,9 @@ def lnl_eviction_order(usage, capacity, fresh, source_mask, pod_node,
     tensors, the plain version for CPU tensors. usage, capacity
     f32[N, R]; fresh, source_mask bool[N]; pod_node i32[P]; pod_usage_r
     f32[P, Rd]; pod_eligible bool[P]; low, high, weights f32[Rd]; rdims
-    i32[Rd] (the threshold dims' columns). One block: N and P at most
-    16384."""
+    i32[Rd] (the threshold dims' columns). One block; any N and P whose
+    sort keys fit 64 bits (rank and index fields of bit_length(N) and
+    bit_length(P - 1) bits beside 32 of weight)."""
     n = usage.shape[0]
     p, rdn = pod_usage_r.shape
     dev = usage.device
@@ -286,10 +287,11 @@ def lnl_eviction_order(usage, capacity, fresh, source_mask, pod_node,
             pod_eligible, low, high, weights, rdims, use_deviation)
     if dev.type != "cuda":
         raise ValueError(f"lnl_eviction_order: unsupported device {dev}")
-    if n > MAX_NODES or p > MAX_PODS or not 1 <= rdn <= MAX_RD or n < 1:
+    if (not 1 <= rdn <= MAX_RD or n < 1
+            or n.bit_length() + max(p - 1, 1).bit_length() > 32):
         raise ValueError(f"lnl_eviction_order: N={n}, P={p}, Rd={rdn} "
-                         f"outside 1 <= N <= {MAX_NODES}, P <= {MAX_PODS}, "
-                         f"1 <= Rd <= {MAX_RD}")
+                         f"outside N >= 1, 1 <= Rd <= {MAX_RD} and keys "
+                         "of 64 bits")
     out = EvictionOrder(
         order=torch.empty((p,), dtype=torch.int32, device=dev),
         active=torch.empty((p,), dtype=torch.bool, device=dev),
@@ -298,9 +300,13 @@ def lnl_eviction_order(usage, capacity, fresh, source_mask, pod_node,
         low_mask=torch.empty((n,), dtype=torch.bool, device=dev),
         usage_sel=torch.empty((n, rdn), dtype=torch.float32, device=dev))
     # the kernel's pct and budget terms [N, Rd], node ranks and source
-    # flags [N]
-    scratch = torch.empty((2 * n * rdn + 2 * n,), dtype=torch.float32,
-                          device=dev)
+    # flags [N]; above SHARED_KEYS, the sort keys (8 bytes each, a power
+    # of two of them) and the tree sums' partials
+    keys = 1 << max(max(n, p) - 1, 1).bit_length()
+    big = max(n, p) > SHARED_KEYS
+    extra = 2 * keys + 2 * (n // 32 + 1) + 2 if big else 0
+    scratch = torch.empty((2 * n * rdn + 2 * n + extra,),
+                          dtype=torch.float32, device=dev)
     tensors = (usage, capacity, fresh, source_mask, pod_node, pod_usage_r,
                pod_eligible, low, high, weights, rdims, out.order,
                out.active, out.budget0, out.high_abs, out.low_mask,
@@ -383,8 +389,8 @@ def lnl_plan_prefix(order, active, pod_node, pod_usage_r, usage_sel,
     """The take of `lnl_plan_prefix_plain`: the kernel for CUDA tensors,
     the plain version for CPU tensors. order i32[P] a permutation,
     active bool[P], pod_node i32[P], pod_usage_r f32[P, Rd], usage_sel
-    and high_abs f32[N, Rd], budget0 f32[Rd]. One block: P at most
-    16384."""
+    and high_abs f32[N, Rd], budget0 f32[Rd]. One block, any P (above
+    16384 its columns in device memory)."""
     p, n, rdn, dev = _check_plan(order, active, pod_node, pod_usage_r,
                                  usage_sel, high_abs, budget0)
     if dev.type == "cpu":
@@ -393,15 +399,21 @@ def lnl_plan_prefix(order, active, pod_node, pod_usage_r, usage_sel,
                                      max_evictions)
     if dev.type != "cuda":
         raise ValueError(f"lnl_plan_prefix: unsupported device {dev}")
-    if p > MAX_PODS or not 1 <= rdn <= MAX_RD or n < 1:
-        raise ValueError(f"lnl_plan_prefix: P={p}, N={n}, Rd={rdn} outside "
-                         f"P <= {MAX_PODS}, N >= 1, 1 <= Rd <= {MAX_RD}")
+    if not 1 <= rdn <= MAX_RD or n < 1:
+        raise ValueError(f"lnl_plan_prefix: N={n}, Rd={rdn} outside "
+                         f"N >= 1, 1 <= Rd <= {MAX_RD}")
     take = torch.empty((p,), dtype=torch.bool, device=dev)
     if p == 0:
         return take
+    # above SHARED_KEYS the kernel's arrays (csrc/lownodeload_prefix.cu
+    # smem_bytes: col f32, start i32, over and ok u8, the scan's levels)
+    work = (torch.empty((p * 10 + (p // 15 + 32) * 4 + 16,),
+                        dtype=torch.uint8, device=dev)
+            if p > SHARED_KEYS else None)
     tensors = (order, active, pod_node, pod_usage_r, usage_sel, high_abs,
-               budget0, take)
-    ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+               budget0, take, work)
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *(None if t is None else t.data_ptr() for t in tensors))
     dims = (ctypes.c_int * 4)(p, n, rdn, int(max_evictions))
     fn = TOOLCHAIN.function("lownodeload_prefix", "koord_lnl_plan_prefix",
                             [ctypes.c_void_p] * 3)

@@ -18,7 +18,9 @@ the taint penalty is subtracted and the result floored at 0
 penalty is subtracted and the result floored at 0 again (:705-712), and
 V reservation slots are extra columns N..N+V-1 of the selection
 (:713-720, the owner-restricted virtual nodes of plugins/reservation.py)
-scoring 3 * MAX_NODE_SCORE + 1.
+scoring 3 * MAX_NODE_SCORE + 1. With amplified CPU (`AmpTerms`,
+:383-404, :565-577) a CPU-bind pod must also fit its CPU request times
+each node's ratio.
 """
 
 from __future__ import annotations
@@ -75,6 +77,28 @@ class TopoTerms:
     penalty: Optional[torch.Tensor] = None
 
 
+@dataclasses.dataclass
+class AmpTerms:
+    """The amplified-CPU fit (core.py:383-404, :565-577): `bind` bool[P]
+    the CPU-bind pods (numa_single), `ratio` f32[N] each node's CPU
+    amplification, `col` the fit column of CPU. A bind pod fits node n
+    only where fl(fl(req[col] * ratio[n]) + requested[n, col]) <=
+    fl(alloc[n, col] + eps); the slot columns keep a ratio of 1 (the
+    fit's own check)."""
+    bind: torch.Tensor
+    ratio: torch.Tensor
+    col: int
+
+
+def amp_fit(amp: AmpTerms, req_fit, requested_fit, alloc_fit, eps):
+    """bool[P, N]: the amplified CPU fit on the node columns."""
+    n = amp.ratio.shape[0]
+    c = amp.col
+    amp_cpu = req_fit[:, c][:, None] * torch.where(
+        amp.bind[:, None], amp.ratio[None, :], 1.0)
+    return amp_cpu + requested_fit[None, :n, c] <= alloc_fit[None, :n, c] + eps
+
+
 def topo_blocked(topo: TopoTerms) -> torch.Tensor:
     """bool[P, N + V]: the pairs the words block."""
     hit = topo.pod_words[:, :, None] & topo.col_words[None, :, :]
@@ -125,7 +149,8 @@ def masked_scores(gates: GateTerms, pair_ok: Optional[torch.Tensor],
                   pair_score2: Optional[torch.Tensor] = None,
                   slot_ok: Optional[torch.Tensor] = None,
                   slot_block: Optional[torch.Tensor] = None,
-                  topo: Optional[TopoTerms] = None):
+                  topo: Optional[TopoTerms] = None,
+                  amp: Optional[AmpTerms] = None):
     """f32[P, N + V]: each pair's value in the selection of
     `score_topk_plain`, -1 where it is not feasible (the reference's
     masked matrix, core.py:693-735)."""
@@ -136,6 +161,9 @@ def masked_scores(gates: GateTerms, pair_ok: Optional[torch.Tensor],
     fit = torch.all(req_fit[:, None, :] + requested_fit[None]
                     <= alloc_fit[None] + eps, dim=-1)          # [P, N+V]
     feasible = fit[:, :n] & static_ok & row_ok[:, None]
+    if amp is not None:
+        feasible = feasible & amp_fit(amp, req_fit, requested_fit,
+                                      alloc_fit, eps)
     scores = loadaware.least_requested_score(
         est, prod_scored, node_term, prod_term, alloc_score,
         gates.metric_fresh, weights, fma_sum)
@@ -168,7 +196,8 @@ def score_topk_plain(gates: GateTerms, pair_ok: Optional[torch.Tensor],
                      pair_score2: Optional[torch.Tensor] = None,
                      slot_ok: Optional[torch.Tensor] = None,
                      slot_block: Optional[torch.Tensor] = None,
-                     topo: Optional[TopoTerms] = None):
+                     topo: Optional[TopoTerms] = None,
+                     amp: Optional[AmpTerms] = None):
     """(val f32[P, k], idx i32[P, k]): the k best of each pod's N node
     columns and V slot columns by value descending then index ascending
     (lax.top_k's order). A node pair's value is its LoadAware score
@@ -183,13 +212,15 @@ def score_topk_plain(gates: GateTerms, pair_ok: Optional[torch.Tensor],
     slot_block[v] hold, else -1. With `topo`, a pair its words block is
     -1 (slot columns included), and with a spread penalty map a node
     pair's value before the jitter is max(v - spread, 0), v the value
-    above (the reference's order, core.py:700-712). `fma_sum` picks the
-    rounding of the score's weighted sum (loadaware.weighted_sum)."""
+    above (the reference's order, core.py:700-712). With `amp` a
+    CPU-bind pod's node pairs also need the amplified CPU fit
+    (`AmpTerms`). `fma_sum` picks the rounding of the score's weighted
+    sum (loadaware.weighted_sum)."""
     masked = masked_scores(gates, pair_ok, row_ok, req_fit, requested_fit,
                            alloc_fit, est, prod_scored, node_term,
                            prod_term, alloc_score, weights, tie_break, eps,
                            fma_sum, pair_score, pair_score2, slot_ok,
-                           slot_block, topo)
+                           slot_block, topo, amp)
     val, idx = torch.sort(masked, dim=1, descending=True, stable=True)
     return val[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
 
@@ -210,7 +241,8 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
                pair_score2: Optional[torch.Tensor] = None,
                slot_ok: Optional[torch.Tensor] = None,
                slot_block: Optional[torch.Tensor] = None,
-               topo: Optional[TopoTerms] = None):
+               topo: Optional[TopoTerms] = None,
+               amp: Optional[AmpTerms] = None):
     """The selection of `score_topk_plain`: the kernel for CUDA tensors,
     the plain version for CPU tensors. Shapes: `gates` over P pods and N
     nodes (selector table S x L, L <= MAX_LABELS; with tolerations,
@@ -223,6 +255,7 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
     f32[P, D]; node_term, prod_term, alloc_score f32[N, D]; weights
     f32[D]; topo (`TopoTerms`: pod_words i32[P, 5], col_words
     i32[5, N + V], penalty f32[Sg, N + V] with Sg <= 32, or None) or
+    None; amp (`AmpTerms`: bind bool[P], ratio f32[N], 0 <= col < F) or
     None; k <= min(N + V, 32); F, D <= NUM_RESOURCES.
 
     On the card, a launch merges the partial lists of its node splits by
@@ -286,6 +319,12 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
                                  "1 to 32 groups")
     if pair_ok is not None:
         checks.append(("pair_ok", pair_ok, torch.bool, (p, n)))
+    if amp is not None:
+        checks += [("amp_bind", amp.bind, torch.bool, (p,)),
+                   ("amp_ratio", amp.ratio, torch.float32, (n,))]
+        if not 0 <= amp.col < f:
+            raise ValueError(f"score_topk: amp column {amp.col} outside "
+                             f"[0, {f})")
     if pair_score2 is not None and pair_score is None:
         raise ValueError("score_topk: pair_score2 needs pair_score")
     for name, x in (("pair_score", pair_score),
@@ -307,7 +346,7 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
                                 requested_fit, alloc_fit, est, prod_scored,
                                 node_term, prod_term, alloc_score, weights,
                                 k, tie_break, eps, fma_sum, pair_score,
-                                pair_score2, slot_ok, slot_block, topo)
+                                pair_score2, slot_ok, slot_block, topo, amp)
     if dev.type != "cuda":
         raise ValueError(f"score_topk: unsupported device {dev}")
     # an addend of no rows adds nothing: the kernel takes the others
@@ -342,15 +381,17 @@ def score_topk(gates: GateTerms, pair_ok: Optional[torch.Tensor], row_ok,
                gates.taint_group, gates.tol_forbid, gates.tol_penalty,
                slot_ok, slot_block,
                *((topo.pod_words, topo.col_words, topo.penalty)
-                 if topo is not None else (None, None, None)))
+                 if topo is not None else (None, None, None)),
+               *((amp.bind, amp.ratio) if amp is not None else (None, None)))
     ptrs = (ctypes.c_void_p * len(tensors))(
         *(None if x is None else x.data_ptr() for x in tensors))
     sg = 0 if topo is None or topo.penalty is None else topo.penalty.shape[0]
     ld = 0 if not sg else topo.penalty.stride(0)
     rows = [0 if x is None else x.shape[0] for x in (pair_score, pair_score2)]
-    dims = (ctypes.c_int * 17)(p, n, f, d, k, s, labels,
+    dims = (ctypes.c_int * 18)(p, n, f, d, k, s, labels,
                                int(bool(tie_break)), int(bool(fma_sum)),
-                               blocks, v, t, groups, sg, ld, *rows)
+                               blocks, v, t, groups, sg, ld, *rows,
+                               0 if amp is None else int(amp.col))
     fn = TOOLCHAIN.function("score_topk", "koord_score_topk",
                             [ctypes.c_void_p, ctypes.c_void_p,
                              ctypes.c_float, ctypes.c_void_p])

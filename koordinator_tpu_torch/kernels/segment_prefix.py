@@ -7,7 +7,11 @@ koordinator_tpu/scheduler/batching.py segment_prefix_ok (a masked
 each quota level in every inner commit step: one launch takes the node
 gate and every quota level, with the step's pod topology verdict (K8)
 ANDed in between them, where the reference's topology gates sit
-(core.py:776-884).
+(core.py:776-884). Level 0 may read requests of its own (the node
+level's amplified CPU, core.py:757-763, against the quota levels' raw
+requests). Above 2048 pods the launch walks the rank order a tile of
+2048 at a time, each level carrying its segments' sums from tile to
+tile.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from koordinator_tpu_torch.api.extension import NUM_RESOURCES
 from koordinator_tpu_torch.kernels import _launch
 from koordinator_tpu_torch.kernels.build import TOOLCHAIN, check
 
-MAX_PODS = 2048   # one block of 512 threads, four pods a thread
+TILE_PODS = 2048  # a tile: one block of 512 threads, four pods a thread
 MAX_LEVELS = 8
 
 # (base f32[S, R], limit f32[S, R], S) of one level
@@ -83,21 +87,24 @@ def segment_prefix_ok_plain(seg: torch.Tensor, rank: torch.Tensor,
 def segment_prefix_chain_plain(seg: torch.Tensor, rank: torch.Tensor,
                                req: torch.Tensor, active: torch.Tensor,
                                tables: Sequence[Table], eps: float,
-                               mask: Optional[torch.Tensor] = None
+                               mask: Optional[torch.Tensor] = None,
+                               req0: Optional[torch.Tensor] = None
                                ) -> torch.Tensor:
     """bool[P]: `active`, narrowed level by level: at level l the pods
     still alive are gated by `segment_prefix_ok_plain` on seg[l],
-    tables[l] and the level's requests (req[l] of a per-level req
-    [L, P, R], else the shared req [P, R]); the others sit out (segment
-    out of range, no request). `mask` (bool[P]), where given, is ANDed
-    into the alive pods after level 0: level 0 charges every active
-    pod, the later levels only those that pass both."""
+    tables[l] and the level's requests (req0 at level 0 where given,
+    else req[l] of a per-level req [L, P, R], else the shared req
+    [P, R]); the others sit out (segment out of range, no request).
+    `mask` (bool[P]), where given, is ANDed into the alive pods after
+    level 0: level 0 charges every active pod, the later levels only
+    those that pass both."""
     alive = active
     for l, (level, (base_used, limit, num_segments)) in enumerate(
             zip(seg, tables)):
         seg_l = torch.where(alive, level, num_segments).to(torch.int32)
-        req_l = torch.where(alive[:, None], req[l] if req.dim() == 3 else req,
-                            0.0)
+        req_l = req0 if l == 0 and req0 is not None else (
+            req[l] if req.dim() == 3 else req)
+        req_l = torch.where(alive[:, None], req_l, 0.0)
         alive = alive & segment_prefix_ok_plain(
             seg_l, rank, req_l, base_used, limit, num_segments, eps)
         if l == 0 and mask is not None:
@@ -108,7 +115,8 @@ def segment_prefix_chain_plain(seg: torch.Tensor, rank: torch.Tensor,
 def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
                          req: torch.Tensor, active: torch.Tensor,
                          tables: Sequence[Table], eps: float,
-                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         mask: Optional[torch.Tensor] = None,
+                         req0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The chained gate of `segment_prefix_chain_plain`: the kernel for
     CUDA tensors (one launch for all levels; L = 1 is the reference's
     single-level gate), the plain version for CPU tensors. seg:
@@ -117,8 +125,9 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
     (base, limit, S), base and limit f32[S, R] with unit column stride
     and one row stride (a column slice of a wider table is taken as it
     is); req likewise needs only unit column stride; mask: bool[P] or
-    None, ANDed in after level 0 (L >= 1). Takes P <= 2048, R <= 11,
-    L <= 8.
+    None, ANDed in after level 0 (L >= 1); req0: f32[P, R] level 0's
+    own requests with req's row stride, or None. Takes any P (above
+    2048 the tiled walk), R <= 11, L <= 8.
 
     rank must be a permutation of [0, P) and every active pod's
     segments >= -1. On the host a call that breaks this raises
@@ -135,6 +144,13 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
         _launch.check_tensor("mask", mask, torch.bool, (p,), dev)
         if not levels:
             raise ValueError("segment_prefix_chain: a mask needs a level")
+    if req0 is not None:
+        _check_req(req0, 1, p, r, dev)
+        if req0.dim() != 2 or (p > 1 and req0.stride(0) != req.stride(-2)):
+            raise ValueError("segment_prefix_chain: req0 needs shape "
+                             "[P, R] and req's row stride")
+        if not levels:
+            raise ValueError("segment_prefix_chain: req0 needs a level")
     for l, (base_used, limit, num_segments) in enumerate(tables):
         for name, t in (("base", base_used), ("limit", limit)):
             _check_table(f"{name}[{l}]", t, num_segments, r, dev)
@@ -150,21 +166,20 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
             raise ValueError("segment_prefix_chain: an active pod has a "
                              "segment below -1")
         return segment_prefix_chain_plain(seg, rank, req, active, tables, eps,
-                                          mask)
+                                          mask, req0)
     if dev.type != "cuda":
         raise ValueError(f"segment_prefix_chain: unsupported device {dev}")
-    if p > MAX_PODS or r > NUM_RESOURCES or levels > MAX_LEVELS:
-        raise ValueError(f"segment_prefix_chain: P={p}, R={r}, L={levels} "
-                         f"above its capacity ({MAX_PODS}, {NUM_RESOURCES}, "
-                         f"{MAX_LEVELS})")
+    if r > NUM_RESOURCES or levels > MAX_LEVELS:
+        raise ValueError(f"segment_prefix_chain: R={r}, L={levels} above "
+                         f"its capacity ({NUM_RESOURCES}, {MAX_LEVELS})")
     if any(t[2] <= 0 for t in tables) or r == 0:
         raise ValueError("segment_prefix_chain: empty table")
     out = torch.empty((p,), dtype=torch.bool, device=dev)
     fn = TOOLCHAIN.function("segment_prefix_ok", "koord_segment_prefix_chain",
-                            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+                            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
                             + [ctypes.c_longlong, ctypes.c_int,
                                ctypes.c_float, ctypes.c_void_p,
-                               ctypes.c_void_p])
+                               ctypes.c_void_p, ctypes.c_void_p])
     bases = (ctypes.c_void_p * max(levels, 1))(
         *(t[0].data_ptr() for t in tables))
     limits = (ctypes.c_void_p * max(levels, 1))(
@@ -172,7 +187,14 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
     nseg = (ctypes.c_int * max(levels, 1))(*(t[2] for t in tables))
     strides = (ctypes.c_int * max(levels, 1))(
         *(t[0].stride(0) for t in tables))
+    work = None
+    if p > TILE_PODS:
+        # the rank order, then a carry a level and segment (and one for
+        # the pods of no segment)
+        work = torch.empty((p + sum((t[2] + 1) * r for t in tables),),
+                           dtype=torch.int32, device=dev)
     rc = fn(_launch.ptr(seg), _launch.ptr(rank), _launch.ptr(req),
+            None if req0 is None else _launch.ptr(req0),
             _launch.ptr(active),
             None if mask is None else _launch.ptr(mask),
             ctypes.cast(bases, ctypes.c_void_p),
@@ -180,7 +202,8 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
             ctypes.cast(nseg, ctypes.c_void_p),
             ctypes.cast(strides, ctypes.c_void_p), levels, p, r,
             req.stride(0) if req.dim() == 3 else 0,
-            req.stride(-2) if p > 1 else r, eps, _launch.ptr(out),
+            req.stride(-2) if p > 1 else r, eps,
+            None if work is None else _launch.ptr(work), _launch.ptr(out),
             _launch.stream(dev))
     check(rc, "segment_prefix_chain")
     segment_prefix_chain.launches += 1

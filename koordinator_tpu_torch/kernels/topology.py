@@ -31,7 +31,6 @@ from koordinator_tpu_torch.scheduler import topologymanager as tm
 from koordinator_tpu_torch.scheduler.plugins import deviceshare
 from koordinator_tpu_torch.snapshot.schema import DeviceState
 
-MAX_PODS = 2048
 MAX_ZONES = 4
 STRATEGIES = ("most", "least")
 
@@ -99,7 +98,8 @@ def topology_admit(choice: torch.Tensor, trying: torch.Tensor,
     (each pod's GPU core, memory and memory ratio,
     `deviceshare.gpu_request`) and `devices` with its live gpu_free
     (gpu_total f32[S, 3], gpu_free f32[S, I, 3], gpu_valid bool[S, I],
-    gpu_numa i32[S, I]). Takes P <= 2048 and Z <= 4."""
+    gpu_numa i32[S, I]). Takes any P (a thread a pod, a grid of
+    blocks) and Z <= 4."""
     p = choice.shape[0]
     s, z, _ = numa_cap.shape
     dev = choice.device
@@ -135,9 +135,9 @@ def topology_admit(choice: torch.Tensor, trying: torch.Tensor,
                                     numa_policy, strategy, gpu_req, devices)
     if dev.type != "cuda":
         raise ValueError(f"topology_admit: unsupported device {dev}")
-    if p > MAX_PODS or z > MAX_ZONES:
-        raise ValueError(f"topology_admit: P={p}, Z={z} above its capacity "
-                         f"({MAX_PODS}, {MAX_ZONES})")
+    if z > MAX_ZONES:
+        raise ValueError(f"topology_admit: Z={z} above its capacity "
+                         f"({MAX_ZONES})")
     out = Admission(
         affinity=torch.empty((p, z), dtype=torch.bool, device=dev),
         engaged=torch.empty((p,), dtype=torch.bool, device=dev),

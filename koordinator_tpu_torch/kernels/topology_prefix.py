@@ -44,7 +44,6 @@ import torch
 from koordinator_tpu_torch.kernels import _launch
 from koordinator_tpu_torch.kernels.build import TOOLCHAIN, check
 
-MAX_PODS = 2048     # one block of 512 threads, four pods a thread
 MAX_GROUPS = 32     # groups a family: one bit a group in a pod's word
 MAX_FAMILIES = 4
 CAP, OCCUPY, OPENER = 0, 1, 2
@@ -120,8 +119,9 @@ def topology_prefix_gate(choice: torch.Tensor, trying: torch.Tensor,
     tensors (one launch, one block a group column), the plain version
     for CPU tensors. choice: i32[P] each pod's extended column (any
     value where the pod does not try); trying: bool[P]; rank: i32[P];
-    1 to 4 families whose dom_x share the column count X; P <= 2048 and
-    G <= 32 on the card.
+    1 to 4 families whose dom_x share the column count X; any P (above
+    2048 each block walks the pods a tile at a time) and G <= 32 on the
+    card.
 
     On the card the launch's blocks merge their columns' verdicts by a
     ticket kept for its (device, stream) and reset by the launch itself,
@@ -158,8 +158,6 @@ def topology_prefix_gate(choice: torch.Tensor, trying: torch.Tensor,
         return topology_prefix_gate_plain(choice, trying, rank, families)
     if dev.type != "cuda":
         raise ValueError(f"topology_prefix_gate: unsupported device {dev}")
-    if p > MAX_PODS:
-        raise ValueError(f"topology_prefix_gate: P={p} above {MAX_PODS}")
     out = torch.empty((p,), dtype=torch.bool, device=dev)
     if p == 0:
         return out

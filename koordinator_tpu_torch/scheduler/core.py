@@ -10,9 +10,11 @@ PreferNoSchedule score penalty), live reservation slots (V > 0) and
 pod topology spread, inter-pod anti-affinity and affinity
 (`pods.has_spread` / `has_anti` / `has_aff`), the Filter->Score gate
 cascade (`cascade=True`) and the packing-prefix contracts
-(`topo_prefix`, `numa_prefix`, `gpu_prefix`, `dom_classes`): no aux
-(RDMA/FPGA) pools, no amplification, no approximate top-k. Anything
-outside that raises NotImplementedError.
+(`topo_prefix`, `numa_prefix`, `gpu_prefix`, `dom_classes`) and
+amplified CPU (`enable_amplification`): no aux (RDMA/FPGA) pools, no
+approximate top-k. Anything outside that raises NotImplementedError.
+Any batch size: the in-step kernels walk batches above 2048 pods a tile
+at a time.
 
 Per round (num_rounds of them), kernel K1 (`score_topk`) picks each
 active pod's k best feasible columns: the N nodes and the V reservation
@@ -65,6 +67,10 @@ the rounds, strict gangs below quorum roll back, and the snapshot is
 rebuilt from the final assignment: a slot's consumer charges its quota
 and its estimate (on the slot's host node), not the node's requested or
 pools, and is drawn from the slot (`reservation.rebuild_reservations`).
+With `enable_amplification` a CPU-bind pod's CPU costs its request
+times its node's ratio: K1 fits it so, K2's node level and the node
+commits charge it so (level 0 takes its own request rows), the quota
+levels stay raw; slot columns keep a ratio of 1.
 The reference runs the rounds and steps as lax.scan loops inside one
 jitted program; here they are Python loops over launches, with no host
 readback inside a batch.
@@ -77,12 +83,16 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from koordinator_tpu_torch.api.extension import NUM_AUX_TYPES, PriorityClass
+from koordinator_tpu_torch.api.extension import (
+    NUM_AUX_TYPES,
+    PriorityClass,
+    ResourceKind,
+)
 from koordinator_tpu_torch.kernels.device_terms import device_pair_terms
 from koordinator_tpu_torch.kernels.gpu_instances import gpu_instance_pick
 from koordinator_tpu_torch.kernels.numa_terms import numa_pair_terms
 from koordinator_tpu_torch.kernels.scatter import ordered_scatter_add
-from koordinator_tpu_torch.kernels.score_topk import score_topk
+from koordinator_tpu_torch.kernels.score_topk import AmpTerms, score_topk
 from koordinator_tpu_torch.kernels.topology import topology_admit
 from koordinator_tpu_torch.kernels.topology_prefix import topology_prefix_gate
 from koordinator_tpu_torch.scheduler.batching import (
@@ -127,6 +137,7 @@ from koordinator_tpu_torch.snapshot.schema import (
 )
 
 PROD = int(PriorityClass.PROD)
+CPU = int(ResourceKind.CPU)
 
 
 @dataclasses.dataclass
@@ -146,22 +157,18 @@ class ScheduleResult(Struct):
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: the port covers the slim flagship "
-        "path, NodeNUMAResource, DeviceShare's GPU instances, taints, "
-        "reservation slots, pod topology groups and the cascade with "
-        "its packing prefixes (ROADMAP queue A item 6 holds the rest of "
-        "the full-gate form)")
+        f"{what} is not ported yet: the port covers every option of "
+        "schedule_batch but the aux (RDMA/FPGA) instance pools and "
+        "approx_topk (ROADMAP queue A items 6e and 6g)")
 
 
 def _check_slim(snap: ClusterSnapshot, pods: PodBatch, *, enable_numa,
                 numa_strategy, enable_devices, device_strategy,
-                enable_amplification, approx_topk) -> None:
+                approx_topk) -> None:
     if enable_numa and numa_strategy not in ("most", "least"):
         raise ValueError(f"numa_strategy {numa_strategy!r}")
     if enable_devices and device_strategy not in deviceshare.STRATEGIES:
         raise ValueError(f"device_strategy {device_strategy!r}")
-    if enable_amplification:
-        raise _unported("enable_amplification=True")
     if approx_topk:
         raise _unported("approx_topk=True")
     if enable_devices and snap.devices.aux_free.shape[2]:
@@ -267,9 +274,7 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     rows only; the placements equal those with the cascade off."""
     _check_slim(snap, pods, enable_numa=enable_numa,
                 numa_strategy=numa_strategy, enable_devices=enable_devices,
-                device_strategy=device_strategy,
-                enable_amplification=enable_amplification,
-                approx_topk=approx_topk)
+                device_strategy=device_strategy, approx_topk=approx_topk)
     nodes0, quotas0, gangs0 = snap.nodes, snap.quotas, snap.gangs
     dev = nodes0.allocatable.device
     n_nodes = nodes0.num_nodes
@@ -432,6 +437,18 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         once_req = torch.ones((p, 1), dtype=torch.float32, device=dev)
         once_taken = torch.zeros((n_slots,), dtype=torch.bool, device=dev)
 
+    # amplified CPU (core.py:383-404): a CPU-bind pod's CPU costs its
+    # request times the ratio of its column (1 on slot columns); K1 fits
+    # it so only where the fit checks CPU
+    amp = amp_ext = None
+    if enable_amplification:
+        amp_ext = extend(nodes0.cpu_amplification, torch.ones(
+            (n_slots,), dtype=torch.float32, device=dev))
+        if fd is None or CPU in fd:
+            amp = AmpTerms(bind=pods.numa_single,
+                           ratio=nodes0.cpu_amplification,
+                           col=CPU if fd is None else fd.index(CPU))
+
     req_fit = dims(pods.requests)
     alloc_fit = dims(extend(nodes0.allocatable, slot_alloc0))
     runtime_fit = dims(quotas0.runtime)
@@ -486,7 +503,7 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
             est_score, is_prod_scored, node_term, prod_term, alloc_score,
             weights, k, tie_break, EPS, fma_sum=score_dims is not None,
             pair_score=pair_score, pair_score2=pair_score2, topo=topo_terms,
-            **slots)
+            amp=amp, **slots)
 
         kptr = torch.zeros((p,), dtype=torch.int64, device=dev)
         for _ in range(k):
@@ -513,12 +530,21 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
 
             # node (and slot) capacity prefix in priority order, then (K2
             # ANDs in the topology verdict) the quota prefix per tree
-            # level among the pods both admitted
+            # level among the pods both admitted; with amplification the
+            # node level charges a CPU-bind pod's amplified CPU
+            # (core.py:757-763), the quota levels the raw request
+            req_node = pods.requests
+            if enable_amplification:
+                f_amp = torch.where(pods.numa_single, amp_ext[
+                    choice_eff.clamp(0, n_ext - 1).long()], 1.0)
+                req_node = pods.requests.clone()
+                req_node[:, CPU] = req_node[:, CPU] * f_amp
             quota_table = (dims(quota_used), runtime_fit, n_quotas)
             accept = segment_prefix_chain(
                 torch.cat([choice_eff[None], quota_seg]), rank, req_fit,
                 trying, [(dims(requested), alloc_fit, n_ext)]
-                + [quota_table] * quota_depth, EPS, topo_ok)
+                + [quota_table] * quota_depth, EPS, topo_ok,
+                req0=dims(req_node) if enable_amplification else None)
 
             if use_gpu:
                 live = devices_x.replace(gpu_free=gpu_free)
@@ -635,7 +661,8 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                 counts = commit_counts(topo, counts, accept[:pc],
                                        choice[:pc])
             acc_req = pods.requests * accept[:, None]
-            requested = ordered_scatter_add(requested, choice_eff, acc_req)
+            requested = ordered_scatter_add(requested, choice_eff,
+                                            req_node * accept[:, None])
             quota_used = quota_commit(quota_used, accept, acc_req)
             placed = _where_i32(accept, choice, placed)
             out_score = torch.where(accept, val, out_score)
@@ -686,6 +713,12 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         placed_real = placed
         tgt = on_node = _where_i32(ok, placed, n_nodes)
         node_req = fin_req
+    if enable_amplification:
+        # a CPU-bind pod's node charge is amplified (core.py:1208-1216)
+        f_fin = torch.where(ok & pods.numa_single, nodes0.cpu_amplification[
+            placed_real.clamp(0, n_nodes - 1).long()], 1.0)
+        node_req = node_req.clone()
+        node_req[:, CPU] = node_req[:, CPU] * f_fin
     requested = ordered_scatter_add(nodes0.requested, tgt, node_req)
     assigned_est = ordered_scatter_add(nodes0.assigned_estimated, tgt,
                                        fin_est)
@@ -751,7 +784,8 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         gpu_take=gpu_take,
         aux_inst=torch.full((p, NUM_AUX_TYPES), -1, dtype=torch.int32,
                             device=dev),
-        res_slot=res_slot, gang_failed=gang_fail, snapshot=new_snap)
+        res_slot=res_slot, gang_failed=gang_fail, snapshot=new_snap,
+        amplified=enable_amplification)
 
 
 def overcommit_ok(snap: ClusterSnapshot, tol: float = 1.0) -> bool:

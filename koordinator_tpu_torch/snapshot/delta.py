@@ -24,7 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from koordinator_tpu_torch.api.extension import PriorityClass
+from koordinator_tpu_torch.api.extension import PriorityClass, ResourceKind
 from koordinator_tpu_torch.kernels.delta_rows import delta_rows
 from koordinator_tpu_torch.kernels._xla import xla_max, xla_min
 from koordinator_tpu_torch.kernels.scatter import ordered_scatter_add
@@ -32,6 +32,7 @@ from koordinator_tpu_torch.ops.feasibility import pod_ancestors
 from koordinator_tpu_torch.snapshot.schema import ClusterSnapshot, Struct
 
 PROD = int(PriorityClass.PROD)
+CPU = int(ResourceKind.CPU)
 
 __all__ = ["NodeMetricDelta", "NodeTopologyDelta", "DeltaRejectReason",
            "apply_metric_delta", "apply_topology_delta", "delta_version",
@@ -186,14 +187,15 @@ def forget_pods(snap: ClusterSnapshot, pods, result,
     pool or the slot's hold), GPU instances (likewise), slot free, and a
     forgotten AllocateOnce consumer re-opens its slot. The adds run
     through K3 in the reference's order; the clamps follow XLA's max
-    and min. Aux pools and amplification raise NotImplementedError."""
+    and min. A CPU-bind pod of an amplified result (`result.amplified`,
+    or `enable_amplification` where given) returns its CPU times its
+    node's ratio, as it was charged (delta.py:284-291). Aux pools raise
+    NotImplementedError."""
     from koordinator_tpu_torch.scheduler.plugins import deviceshare
 
     amp = enable_amplification
     if amp is None:
         amp = getattr(result, "amplified", False)
-    if amp:
-        raise _unported("forget with enable_amplification=True")
     nodes, quotas, gangs = snap.nodes, snap.quotas, snap.gangs
     resv, devices = snap.reservations, snap.devices
     if devices.aux_free.shape[2]:
@@ -214,7 +216,13 @@ def forget_pods(snap: ClusterSnapshot, pods, result,
     node_only = at(und & ~on_slot, assign, n)
     und_f = und.to(torch.float32)
     req = pods.requests * und_f[:, None]
-    requested = ordered_scatter_add(nodes.requested, node_only, -req)
+    req_node = req
+    if amp:
+        f_amp = torch.where(und & pods.numa_single, nodes.cpu_amplification[
+            assign.clamp(0, n - 1).long()], 1.0)
+        req_node = req.clone()
+        req_node[:, CPU] = req_node[:, CPU] * f_amp
+    requested = ordered_scatter_add(nodes.requested, node_only, -req_node)
     est = pods.estimated * und_f[:, None]
     assigned_est = ordered_scatter_add(nodes.assigned_estimated, node_tgt,
                                        -est)

@@ -10,9 +10,14 @@ live reservation slots (`num_reservations`, on their own generator) and
 the full-gate workload's taint classes, toleration sets, pod topology
 groups and slot owners draw in the reference's order. The full-gate
 packers (`pack_gate_prefixes`, `topo_constrained_mask`, `dom_classes`)
-compute on the host, as the reference's do. `config_5_cluster` builds
-BASELINE config 5's descheduler cluster as typed objects, with the
-draws of `bench_configs.config_5_descheduler`.
+compute on the host, as the reference's do. `config_4_inputs` is
+BASELINE config 4's cluster and queue. `amplified_cpu` draws the CPU
+amplification ratios of the amplified full gate (`with_amplified_cpu`,
+`amplified_full_gate_inputs`), which the reference's own generators do
+not draw. `config_5_cluster` builds BASELINE config 5's descheduler
+cluster as typed objects, with the draws of
+`bench_configs.config_5_descheduler`, and with `every_node` the same
+cluster listing pods on every node.
 """
 
 from __future__ import annotations
@@ -474,6 +479,63 @@ def config_2_inputs(num_pods: int = 10_000, num_nodes: int = 1000,
         numa_single=pods.priority_class == int(PriorityClass.PROD))
 
 
+def config_4_inputs(num_pods: int = 50_000, num_nodes: int = 5000,
+                    num_quotas: int = 500, device="cuda"
+                    ) -> Tuple[ClusterSnapshot, PodBatch]:
+    """BASELINE config 4 (bench_configs.config_4_quota, :131-141): nodes
+    seed 0 with `num_quotas` quotas in a table of 512, pods seed 1 over
+    the same quotas."""
+    snap = synthetic_cluster(num_nodes, num_quotas=num_quotas, max_quotas=512,
+                             seed=0, device=device)
+    pods = synthetic_pods(num_pods, seed=1, num_quotas=num_quotas,
+                          device=device)
+    return snap, pods
+
+
+# the amplified full gate: the share of nodes the node webhook amplifies
+# and the ratios it draws from
+AMPLIFIED_NODE_FRAC = 0.3
+AMPLIFIED_RATIOS = (1.5, 2.0, 3.0)
+
+
+def amplified_cpu(allocatable: np.ndarray, seed: int = 7
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """(cpu_amplification f32[N], allocatable f32[N, R]): about
+    AMPLIFIED_NODE_FRAC of the nodes get a ratio drawn from
+    AMPLIFIED_RATIOS (the rest 1.0), and their CPU allocatable is
+    multiplied by it in f32, as the node webhook publishes it (the NUMA
+    zones stay raw). Numpy arrays, so that a test applies the same ones
+    to the reference's snapshot."""
+    rng = np.random.default_rng(seed)
+    n = allocatable.shape[0]
+    on = rng.uniform(size=n) < AMPLIFIED_NODE_FRAC
+    drawn = rng.choice(np.asarray(AMPLIFIED_RATIOS, np.float32), size=n)
+    ratio = np.where(on, drawn, np.float32(1.0)).astype(np.float32)
+    alloc = np.array(allocatable, dtype=np.float32, copy=True)
+    alloc[:, CPU] = alloc[:, CPU] * ratio
+    return ratio, alloc
+
+
+def with_amplified_cpu(snap: ClusterSnapshot, seed: int = 7
+                       ) -> ClusterSnapshot:
+    """`snap` with `amplified_cpu`'s ratios and allocatable."""
+    dev = snap.nodes.allocatable.device
+    ratio, alloc = amplified_cpu(snap.nodes.allocatable.cpu().numpy(), seed)
+    return snap.replace(nodes=snap.nodes.replace(
+        cpu_amplification=torch.from_numpy(ratio).to(dev),
+        allocatable=torch.from_numpy(alloc).to(dev)))
+
+
+def amplified_full_gate_inputs(num_pods: int = 100_000,
+                               num_nodes: int = 10_000, device="cuda"
+                               ) -> Tuple[ClusterSnapshot, PodBatch]:
+    """`gpu_share_inputs` with the nodes' CPU amplified
+    (`with_amplified_cpu`): the full gate's workload on a cluster whose
+    node webhook amplifies CPU."""
+    snap, pods = gpu_share_inputs(num_pods, num_nodes, device=device)
+    return with_amplified_cpu(snap), pods
+
+
 def full_gate_reservations(num_nodes: int) -> int:
     """The live-slot count full_gate_cluster and full_gate_pods share
     (owner ids line up with the slots' owner groups)."""
@@ -760,14 +822,17 @@ def topology_delta_rows(snap: ClusterSnapshot, k: int, seed: int,
 CONFIG_5_NOW = 1e9
 
 
-def config_5_cluster(num_nodes: int = 10_000):
+def config_5_cluster(num_nodes: int = 10_000, every_node: bool = False):
     """BASELINE config 5 (bench_configs.py:159-183): `num_nodes` nodes of
     64 000 mC and 262 144 MiB, each at usage `uniform(0.1, 0.95)` of both
     (one draw of `num_nodes` from `default_rng(3)`), reported at
     `CONFIG_5_NOW`; every node above 0.7 carries 4 BE pods of 4000 mC and 8192
     MiB (priority 5500, namespace "default", no pod metrics, so their
-    usage falls back to their requests). Returns (nodes, metrics by node
-    name, pods by node name) as `api.types` objects."""
+    usage falls back to their requests). With `every_node` every node
+    lists its 4 pods, as a descheduler sees a cluster it lists whole
+    (4 * num_nodes pods; the plan moves only the hot nodes' ones).
+    Returns (nodes, metrics by node name, pods by node name) as
+    `api.types` objects."""
     from koordinator_tpu_torch.api import types as api
 
     rng = np.random.default_rng(3)
@@ -782,7 +847,7 @@ def config_5_cluster(num_nodes: int = 10_000):
             node_name=name, update_time=CONFIG_5_NOW,
             node_usage={ResourceKind.CPU: 64000.0 * usage_frac[i],
                         ResourceKind.MEMORY: 262144.0 * usage_frac[i]})
-        if usage_frac[i] > 0.7:
+        if every_node or usage_frac[i] > 0.7:
             pods_by_node[name] = [
                 api.Pod(meta=api.ObjectMeta(name=f"{name}-p{j}",
                                             uid=f"{name}-p{j}"),

@@ -5,7 +5,8 @@ with the bench's arguments, at a cut size; and gpu_share_100kx10k
 (configs.run_gpu_share, the DeviceShare path with taints, slots and the
 pod topology families) against the reference's sweep and straggler tail
 with the full-gate knobs and bench.py's count threading, at a cut size
-and two seeds. Tolerances: none."""
+and two seeds (the reference's jitted steps driven from the host:
+`torch_port_ref.reference_sweep_and_tail`). Tolerances: none."""
 
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from koordinator_tpu_torch import configs, flagship
 from koordinator_tpu_torch.scheduler.core import overcommit_ok, quota_ok
 from koordinator_tpu_torch.scheduler.plugins.loadaware import LoadAwareConfig
 
-from torch_port_ref import to_port
+from torch_port_ref import one_torch_thread  # noqa: F401 (autouse)
+from torch_port_ref import reference_sweep_and_tail, to_port
 
 PODS, NODES, CHUNK = 1200, 80, 400
 
@@ -106,46 +108,19 @@ def gpu_share_reference_inputs(snap_seed, pod_seed):
 
 
 @functools.lru_cache(maxsize=None)
-def _gpu_share_reference_program():
-    step = functools.partial(jcore.schedule_batch, **configs.GPU_SHARE_KW)
-    tail_step = functools.partial(jcore.schedule_batch,
-                                  **configs.GPU_SHARE_TAIL_KW)
-
-    @jax.jit
-    def run(snap, stacked, pods, cfg):
-        # bench.py's sweep (:435-456): each chunk's count0 fields are the
-        # counts so far, charged with its assignment after it
-        def body(carry, cols):
-            s, counts = carry
-            batch = pods.replace(**cols, **dict(zip(jcore.COUNT_FIELDS,
-                                                    counts)))
-            res = step(s, batch, cfg)
-            counts = jcore.charge_all_counts(counts, batch, res.assignment)
-            return (res.snapshot, counts), (res.assignment, res.res_slot)
-        counts = tuple(getattr(pods, f) for f in jcore.COUNT_FIELDS)
-        (snap, counts), (assign, res_slot) = jax.lax.scan(
-            body, (snap, counts), stacked)
-        return jcore.tail_compaction_loop(
-            tail_step, snap, counts, assign.reshape(-1), pods, cfg,
-            tail_chunk=min(GPU_CHUNK, 512),
-            min_passes=flagship.MIN_TAIL_PASSES,
-            max_passes=configs.FULL_GATE_MAX_TAIL_PASSES,
-            charge_counts=True), res_slot.reshape(-1)
-    return run
-
-
-@functools.lru_cache(maxsize=None)
 def _gpu_share_both(snap_seed, pod_seed):
     """(reference (snap, assign, stats, the sweep's res_slot, the final
     counts), port run, port line or None): the config's own seeds (0, 1)
     through run_gpu_share, others through flagship.sweep_and_tail with
     the config's kwargs."""
     snap, pods = gpu_share_reference_inputs(snap_seed, pod_seed)
-    (want_snap, counts, assign, stats), sweep_slot = \
-        _gpu_share_reference_program()(
-            snap, jsyn.stack_pod_chunks(pods, GPU_CHUNK), pods, JCfg.make())
-    want = (want_snap, np.asarray(assign), np.asarray(stats),
-            np.asarray(sweep_slot), tuple(np.asarray(c) for c in counts))
+    want_snap, counts, assign, stats, sweep_slot = reference_sweep_and_tail(
+        functools.partial(jcore.schedule_batch, **configs.GPU_SHARE_KW),
+        functools.partial(jcore.schedule_batch, **configs.GPU_SHARE_TAIL_KW),
+        snap, pods, JCfg.make(), GPU_CHUNK, tail_chunk=min(GPU_CHUNK, 512),
+        min_passes=flagship.MIN_TAIL_PASSES,
+        max_passes=configs.FULL_GATE_MAX_TAIL_PASSES)
+    want = (want_snap, assign, stats, sweep_slot, counts)
     if (snap_seed, pod_seed) == (0, 1):
         line, run = configs.run_gpu_share(GPU_PODS, GPU_NODES, GPU_CHUNK,
                                           device="cpu")

@@ -233,11 +233,29 @@ def test_forget_pods_equals_reference(share):
 
 
 def test_forget_refuses_amplification():
-    _, _, pods, res = _scheduled()
-    with pytest.raises(NotImplementedError, match="amplification"):
-        delta.forget_pods(res.snapshot, pods, res,
-                          torch.ones(P, dtype=torch.bool),
-                          enable_amplification=True)
+    """Forget with amplification is ported (ROADMAP B21): on the inputs
+    above with the nodes' CPU amplified (`utils.synthetic.amplified_cpu`)
+    and the batch scheduled with amplification by the reference, forget
+    with `enable_amplification=True` given explicitly equals the
+    reference's, and returns the bind pods' amplified charges."""
+    jsnap = jsyn.full_gate_cluster(N, seed=6, num_quotas=4, num_gangs=4)
+    ratio, alloc = synthetic.amplified_cpu(np.asarray(jsnap.nodes.allocatable),
+                                           seed=2)
+    jsnap = jsnap.replace(nodes=jsnap.nodes.replace(
+        cpu_amplification=jnp.asarray(ratio), allocatable=jnp.asarray(alloc)))
+    jpods = jsyn.full_gate_pods(P, N, seed=13, num_quotas=4, num_gangs=4)
+    jres = jcore.schedule_batch(jsnap, jpods, JCfg.make(),
+                                enable_amplification=True, **KW)
+    pods, res = to_port("PodBatch", jpods), to_port("ScheduleResult", jres)
+    mask = np.ones(P, bool)
+    want = jdelta.forget_pods(jres.snapshot, jpods, jres, jnp.asarray(mask),
+                              enable_amplification=True)
+    got = delta.forget_pods(res.snapshot, pods, res, torch.from_numpy(mask),
+                            enable_amplification=True)
+    assert_bits_equal(tree(got), ref_tree(want))
+    assign = np.asarray(jres.assignment)
+    bind = np.asarray(jpods.numa_single) & (assign >= 0)
+    assert (ratio[assign[bind]] > 1.0).any()
 
 
 # --- checkpoints across the packages --------------------------------------

@@ -306,7 +306,8 @@ def test_cycle_runner_drives_the_device_plan():
 
 # --- XLA:CPU's orders of additions ------------------------------------------
 
-@pytest.mark.parametrize("p", [1, 15, 16, 17, 255, 256, 257, 12_000])
+@pytest.mark.parametrize("p", [1, 15, 16, 17, 255, 256, 257, 12_000,
+                               20_000, 70_000])
 def test_xla_cumsum_equals_jnp_cumsum(p):
     rng = np.random.default_rng(p)
     x = rng.uniform(0, 5000, (p, 2)).astype(np.float32)
@@ -318,7 +319,7 @@ def test_xla_cumsum_equals_jnp_cumsum(p):
         assert not np.array_equal(np.cumsum(x, 0, dtype=np.float32), want)
 
 
-@pytest.mark.parametrize("n", [1, 32, 33, 100, 1025, 10_000])
+@pytest.mark.parametrize("n", [1, 32, 33, 100, 1025, 10_000, 20_000])
 def test_xla_column_sum_equals_reference(n):
     rng = np.random.default_rng(n)
     x = rng.uniform(-100, 5000, (n, 2)).astype(np.float32)

@@ -5,10 +5,11 @@ numpy packers (`utils.synthetic.pack_gate_prefixes`,
 set-up's checks, the addend row counts of K1, K4 and K6 (their plain
 versions) against the full-row forms, and the packed sweep and budgeted
 tail at a cut size against the reference's bench composition
-(bench.py:226-253, :398-416, :483-496: schedule_batch in lax.scan over
-the chunks with the cascade and the three prefixes, then
-tail_compaction_loop with the topology budget), driven here directly
-rather than through bench.py.
+(bench.py:226-253, :398-416, :483-496: schedule_batch over the chunks
+with the cascade and the three prefixes, then the straggler tail with
+the topology budget), its jitted steps driven here from the host
+(`torch_port_ref.reference_sweep_and_tail`) rather than through
+bench.py's scan.
 
 Tolerances: none."""
 
@@ -16,7 +17,6 @@ from __future__ import annotations
 
 import functools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,7 +40,12 @@ from koordinator_tpu_torch.scheduler.plugins.loadaware import LoadAwareConfig
 from koordinator_tpu_torch.snapshot.schema import PER_POD_FIELDS
 from koordinator_tpu_torch.utils import synthetic
 
-from torch_port_ref import assert_trees_equal, numpy_tree
+from torch_port_ref import (
+    assert_trees_equal,
+    numpy_tree,
+    reference_sweep_and_tail,
+)
+from torch_port_ref import one_torch_thread  # noqa: F401 (autouse)
 
 # --- the packers ----------------------------------------------------------
 
@@ -190,9 +195,11 @@ PODS, NODES, CHUNK = 1200, 120, 400
 def _reference_full_gate():
     """bench.py run_northstar(full_gate=True)'s sweep and device tail at
     PODS x NODES, chunks of CHUNK: the pods packed, schedule_batch with
-    the cascade, the three prefixes and the domain classes in lax.scan
-    with bench.py's count threading, then tail_compaction_loop with the
-    tail's knobs (no numa/gpu prefix) and the topology budget."""
+    the cascade, the three prefixes and the domain classes over the
+    chunks with bench.py's count threading, then the tail with the
+    tail's knobs (no numa/gpu prefix) and the topology budget; the
+    reference's jitted steps driven from the host
+    (`torch_port_ref.reference_sweep_and_tail`)."""
     snap = jsyn.full_gate_cluster(NODES, seed=0)
     pods = jsyn.full_gate_pods(PODS, NODES, seed=1)
     assert not np.asarray(snap.nodes.numa_policy).any()
@@ -204,29 +211,12 @@ def _reference_full_gate():
                              gpu_prefix=prefixes["gpu"], **contracts)
     tail_step = functools.partial(jcore.schedule_batch,
                                   **configs.FULL_GATE_TAIL_KW, **contracts)
-
-    @jax.jit
-    def run(snap, stacked, pods, cfg, topo_mask):
-        def body(carry, cols):
-            s, counts = carry
-            batch = pods.replace(**cols, **dict(zip(jcore.COUNT_FIELDS,
-                                                    counts)))
-            res = step(s, batch, cfg)
-            counts = jcore.charge_all_counts(counts, batch, res.assignment)
-            return (res.snapshot, counts), res.assignment
-        counts = tuple(getattr(pods, f) for f in jcore.COUNT_FIELDS)
-        (snap, counts), assign = jax.lax.scan(body, (snap, counts), stacked)
-        return jcore.tail_compaction_loop(
-            tail_step, snap, counts, assign.reshape(-1), pods, cfg,
-            tail_chunk=min(CHUNK, 512), min_passes=flagship.MIN_TAIL_PASSES,
-            max_passes=configs.FULL_GATE_MAX_TAIL_PASSES,
-            topo_prefix=prefixes["topo"], topo_mask=topo_mask)
-
-    w_snap, w_counts, w_assign, w_stats = run(
-        snap, jsyn.stack_pod_chunks(pods, CHUNK), pods, JCfg.make(),
-        jnp.asarray(masks["topo"]))
-    return (w_snap, tuple(np.asarray(c) for c in w_counts),
-            np.asarray(w_assign), np.asarray(w_stats), prefixes)
+    w_snap, w_counts, w_assign, w_stats, _ = reference_sweep_and_tail(
+        step, tail_step, snap, pods, JCfg.make(), CHUNK,
+        tail_chunk=min(CHUNK, 512), min_passes=flagship.MIN_TAIL_PASSES,
+        max_passes=configs.FULL_GATE_MAX_TAIL_PASSES,
+        topo_prefix=prefixes["topo"], topo_mask=jnp.asarray(masks["topo"]))
+    return w_snap, w_counts, w_assign, w_stats, prefixes
 
 
 @functools.lru_cache(maxsize=None)

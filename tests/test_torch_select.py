@@ -552,3 +552,19 @@ def test_ordered_scatter_add_levels_per_launch_fit_the_kernel(s, c, p):
 
     per = levels_per_launch(s, c, p)
     assert per > 0 and smem(per) <= 200 * 1024 < smem(per + 1)
+
+
+@pytest.mark.parametrize("s,c", [(64, 24), (64, 32), (160_000, 1),
+                                 (10_064, 24)])
+def test_ordered_scatter_add_rows_per_launch_fit_the_kernel(s, c):
+    """Where one level of P rows does not fit a launch (the reservation
+    rebuild's instance scatter at P = 2500: C = 24 into the slots), K3
+    takes a level in pieces of `rows_per_launch(S, C)` rows: the most
+    rows with which one level still fits the kernel's shared memory."""
+    from koordinator_tpu_torch.kernels.scatter import (levels_per_launch,
+                                                       rows_per_launch)
+    q = rows_per_launch(s, c)
+    assert q > 0 and levels_per_launch(s, c, q) >= 1
+    assert levels_per_launch(s, c, q + 1) == 0
+    if s == 64 and c == 24:
+        assert levels_per_launch(s, c, 2500) == 0 and q < 2500

@@ -90,3 +90,43 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+def reference_sweep_and_tail(step, tail_step, snap, pods, cfg, chunk, *,
+                             tail_chunk, min_passes, max_passes,
+                             topo_prefix=None, topo_mask=None):
+    """bench.py's sweep and device tail (:435-496) on the JAX package,
+    driven from the host: the sweep a Python loop over the reference's
+    own jitted `step` (each chunk's count0 fields the counts so far,
+    charged with its assignment after it, as bench.py's scan body
+    does), the tail the reference's host-driven tail orchestration
+    (tests/test_cascade.py `_host_tail`, held equal to the device
+    `tail_compaction_loop` by `test_device_tail_matches_host_tail`).
+    One compile of each step instead of the scan-and-while program's:
+    XLA:CPU compiles that one in minutes. Returns (snap, counts,
+    assignment, stats [after sweep, final, never retried, passes], the
+    sweep's res_slot), the arrays as numpy."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu.scheduler import core as jcore
+    from koordinator_tpu.utils import synthetic as jsyn
+    from test_cascade import _host_tail
+
+    stacked = jsyn.stack_pod_chunks(pods, chunk)
+    counts = tuple(jnp.asarray(getattr(pods, f)) for f in jcore.COUNT_FIELDS)
+    assign, res_slot = [], []
+    for c in range(next(iter(stacked.values())).shape[0]):
+        batch = pods.replace(**{k: v[c] for k, v in stacked.items()},
+                             **dict(zip(jcore.COUNT_FIELDS, counts)))
+        res = step(snap, batch, cfg)
+        counts = jcore.charge_all_counts(counts, batch, res.assignment)
+        snap = res.snapshot
+        assign.append(res.assignment)
+        res_slot.append(res.res_slot)
+    snap, counts, assign, stats = _host_tail(
+        tail_step, snap, counts, jnp.concatenate(assign), pods, cfg,
+        tail_chunk=tail_chunk, min_passes=min_passes, max_passes=max_passes,
+        topo_prefix=topo_prefix, topo_mask=topo_mask)
+    return (snap, tuple(np.asarray(c) for c in counts), np.asarray(assign),
+            np.asarray(stats), np.concatenate([np.asarray(r)
+                                               for r in res_slot]))
