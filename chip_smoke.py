@@ -89,8 +89,9 @@ in order:
    requests), K5 and K7's two-grid take (between K7's choose launch
    and the K2 gate) at the same sizes, K8's tiled walk at a gpu_share
    step of 2500 and 4096 pods; K2 on fractional requests at P = 250,
-   2048 and 2500 (ROADMAP check C-a: equal off the gate boundaries, and
-   on them differing at most at the boundary pods, fault C7); K1 with
+   2048 and 2500 at R = 4, and at R = 1 and 11, off and on the gate
+   boundaries (fault C7: the pinned order, equal to the plain version
+   in every verdict), and the pinned form's time beside the scan's; K1 with
    the amplified CPU fit at the sweep's shape (a third of the nodes
    amplified and nearly full, a third of the pods CPU-bound), over 11
    dims and at ratio 1; K11 and K12 (with K10 and K13) at the config-5
@@ -187,8 +188,9 @@ in order:
    pods x 5000 nodes under 500 quotas, chunks of 2500, every K2 launch
    the tiled walk) on the card after a warm-up run, counting launches
    (K1 once a round, K2 once an inner step, no NUMA, DeviceShare or
-   topology kernel), then on the host: the assignment and every leaf of
-   the final snapshot equal; no overcommit, quota within runtime;
+   topology kernel), then its first 20 000 pods on the card and on the
+   host: the assignment and every leaf of the final snapshot equal; no
+   overcommit, quota within runtime;
 11. config 5 with pods on every node (`run_config_5_descheduler(
    every_node=True)`: 40 000 pods on 10 000 nodes), plain and capped, as
    phase 8: the card's plan equal to the host's and the host loop's,
@@ -196,14 +198,29 @@ in order:
 12. the amplified full gate (`run_full_gate(amplified=True)`,
    `full_gate_amplified_100kx10k`: the full gate on a cluster whose node
    webhook amplified the CPU of about 30 % of the nodes, amplification
-   on): on the card and the host, every field equal, at 8000 pods x
-   1000 nodes in chunks of 2000 and at 10 000 pods x 10 000 nodes in
-   chunks of 2500 (K2, K5, K7's take and K8 above 2048 pods inside the
-   batch); at 100 000 x 10 000 on the card with the full gate's launch
-   formulas and invariants (node requested equal to the recount with
-   the bind pods' CPU amplified) and CPU-bind pods placed on amplified
-   nodes (the host run of the whole 100k x 10k would take over an
-   hour).
+   on): on the card and the host, every field equal, at 5000 pods x
+   10 000 nodes in chunks of 2500 (K2, K5, K7's take and K8 above 2048
+   pods inside the batch); at 100 000 x 10 000 on the card with the
+   full gate's launch formulas and invariants (node requested equal to
+   the recount with the bind pods' CPU amplified) and CPU-bind pods
+   placed on amplified nodes (the host run of the whole 100k x 10k would
+   take over an hour).
+13. full_gate_aux_100kx10k (`configs.run_full_gate(aux=True)`: RDMA
+   VFs on the GPU nodes and a tenth of the others, FPGAs on 2 % of the
+   nodes, pods asking for them): card against host in every field
+   (aux_inst and aux_free included) at 8000 x 1000 and on the first
+   full-width chunk; at 100 000 x 10 000 on the card with the full
+   gate's launch formulas plus K17, K2 and K3 once more a step, the
+   aux invariants (the final VF free is the batch-start free less the
+   placed pods' requests, exactly; none below 0; every held VF valid)
+   and aux pods both placed and turned away. Phase 2 also holds K17
+   (ties, empty pools, both strategies), K6 with its aux part and K2's
+   aux levels against their plain versions, and K2 on fractional
+   requests equal to its plain version (fault C7's pinned order).
+14-15. BASELINE configs 1 (32 BE pods x 10 nodes) and 3 (1000 strict
+   gangs of 8 on 5000 nodes): card against host in the assignment and
+   every leaf of the snapshot, only K1-K3 launched, no gang in part.
+Each phase's seconds are printed.
 
 The last three lines are one JSON object listing the kernels, the
 card's name and power limit, and one JSON object stating the result.
@@ -228,13 +245,17 @@ from koordinator_tpu_torch.configs import (
     CONFIG_2_KW,
     CONFIG_4_KW,
     CONFIG_5_CAPS,
+    CONFIG_3_GANG_SIZE,
+    FULL_GATE_AUX_METRIC,
     FULL_GATE_KW,
     GPU_SHARE_KW,
     GPU_SHARE_TAIL_KW,
     card_name_and_power_limit,
     full_gate_sweep,
     pack_full_gate,
+    run_config_1_spark,
     run_config_2_numa,
+    run_config_3_gangs,
     run_config_4_quota,
     run_config_5_descheduler,
     run_full_gate,
@@ -255,6 +276,10 @@ from koordinator_tpu_torch.flagship import (
     sweep_and_tail,
 )
 from koordinator_tpu_torch.kernels import guard
+from koordinator_tpu_torch.kernels.aux_instances import (
+    aux_instance_pick,
+    aux_instance_pick_plain,
+)
 from koordinator_tpu_torch.kernels.build import build_all
 from koordinator_tpu_torch.kernels.delta_rows import (
     delta_rows,
@@ -309,6 +334,8 @@ from koordinator_tpu_torch.kernels.score_topk import (
     topo_blocked,
 )
 from koordinator_tpu_torch.kernels.segment_prefix import (
+    exact_in_any_order,
+    exact_in_any_order_plain,
     segment_prefix_chain,
     segment_prefix_chain_plain,
     segment_prefix_ok_plain,
@@ -357,6 +384,7 @@ from koordinator_tpu_torch.testing import faults
 from koordinator_tpu_torch.utils import synthetic
 from koordinator_tpu_torch.utils.synthetic import (
     CONFIG_5_NOW,
+    aux_full_gate_inputs,
     config_2_inputs,
     config_5_cluster,
     gpu_share_inputs,
@@ -378,9 +406,12 @@ QUOTA_DEPTH = STEP_KW["quota_depth"]
 # stragglers after its sweep; a kernel change that moves a placement
 # changes it
 STRAGGLERS_AFTER_SWEEP = 510
-# the slim path's kernels; the NUMA path adds K4 and K5, the DeviceShare
-# path K6 and K7
-SLIM_KERNELS = ("score_topk", "segment_prefix_ok", "ordered_scatter_add")
+# config 4's pods that phase 10 compares card against host
+CONFIG_4_COMPARED_PODS = 20_000
+# the slim path's kernels (K2's order switch once a batch); the NUMA path
+# adds K4 and K5, the DeviceShare path K6 and K7
+SLIM_KERNELS = ("score_topk", "segment_prefix_ok", "order_switch",
+                "ordered_scatter_add")
 NUMA_KERNELS = SLIM_KERNELS + ("numa_pair_terms", "topology_admit")
 GPU_KERNELS = ("device_pair_terms", "gpu_instance_pick")
 SOURCES = {
@@ -388,6 +419,8 @@ SOURCES = {
                    "koordinator_tpu/scheduler/core.py:721"),
     "segment_prefix_ok": ("koordinator_tpu_torch/csrc/segment_prefix_ok.cu",
                           "koordinator_tpu/scheduler/batching.py:45"),
+    "order_switch": ("koordinator_tpu_torch/csrc/segment_prefix_ok.cu",
+                     "koordinator_tpu/scheduler/batching.py:45"),
     "ordered_scatter_add": (
         "koordinator_tpu_torch/csrc/ordered_scatter_add.cu",
         "koordinator_tpu/scheduler/core.py:1109"),
@@ -422,6 +455,9 @@ SOURCES = {
                    "koordinator_tpu/scheduler/guards.py:149"),
     "delta_rows": ("koordinator_tpu_torch/csrc/delta_rows.cu",
                    "koordinator_tpu/snapshot/delta.py:108"),
+    "aux_instance_pick": ("koordinator_tpu_torch/csrc/aux_instances.cu",
+                          "koordinator_tpu/scheduler/plugins/"
+                          "deviceshare.py:274"),
 }
 
 
@@ -788,6 +824,16 @@ def k2_case(snap, pods, gen, p0, trying_frac, fit_dims, p=2000):
         + [quota_table] * QUOTA_DEPTH, eps=EPS)
 
 
+def k2_switch(kw):
+    """kw with K2's order switch decided (`exact_in_any_order` of its
+    request arrays), so that a timed call runs the launch alone, as the
+    main path's launches do where it decides the switch once a batch
+    (check_k2 times the switch itself)."""
+    reqs = [kw["req"]] + ([kw["req0"]] if kw.get("req0") is not None
+                          else [])
+    return dict(kw, exact=exact_in_any_order(*reqs))
+
+
 def check_k2(snap, pods, gen):
     """K2's chained gate (node + 2 quota levels, one launch) at P=2000:
     70 % of the pods trying (a round's first steps), 8 % trying (its
@@ -801,6 +847,7 @@ def check_k2(snap, pods, gen):
         kw = k2_case(snap, pods, gen, p0, frac, fd)
         if label == "node level":
             kw["seg"], kw["tables"] = kw["seg"][:1], kw["tables"][:1]
+        kw = k2_switch(kw)
         got = segment_prefix_chain(**kw)
         want = segment_prefix_chain_plain(**kw)
         err = float((got.int() - want.int()).abs().max())
@@ -836,6 +883,48 @@ def check_k2(snap, pods, gen):
                   f"S={[t[2] for t in kw['tables']]}",
             trying=int(kw["active"].sum()), accepted=int(got.sum()),
             matched_pairs=matched if label == "node level" else None)
+    return out
+
+
+def check_order_switch(snap, pods, gen):
+    """K2's order switch (`exact_in_any_order`) against its plain version
+    on the flagship's requests (whole numbers: True), the same with a
+    third of a millicore, an infinity, a column of zeros, and one with
+    a per-level zone take as the NUMA step passes it (a [Z, P, 2] view
+    of a [P, Z, 2] take) beside level 0's own requests; timed on the
+    chained gate's requests (P = 2000, R = 4), where a batch decides it
+    once and a step decides it for its GPU, zone and amplified
+    levels."""
+    kw = k2_case(snap, pods, gen, 0, 0.7, FIT_DIMS)
+    req = kw["req"]
+    third = req.clone()
+    third[5, 0] += 1.0 / 3.0
+    inf = req.clone()
+    inf[7, 1] = float("inf")
+    zeros = torch.zeros_like(req)
+    take = torch.floor(torch.rand((2000, 2, 2), generator=gen,
+                                  device=req.device) * 64.0) * 500.0
+    cases = {"whole numbers": ((req,), True), "a third": ((third,), False),
+             "an infinity": ((inf,), False), "zeros": ((zeros,), True),
+             "zone take and req0": ((take.transpose(0, 1), take[:, 0]),
+                                    True),
+             "fractional take": ((take.transpose(0, 1) + 0.1,), False)}
+    out = {}
+    for label, (arrays, want) in cases.items():
+        got = exact_in_any_order(*arrays)
+        plain = exact_in_any_order_plain(*arrays)
+        if bool(got) != bool(plain) or bool(got) != want:
+            raise SystemExit(f"order switch ({label}): {bool(got)}, plain "
+                             f"version {bool(plain)}, expected {want}")
+        out[label] = dict(exact=bool(got), max_abs_err=0.0)
+    b_ms, b_by = bound(req.numel() * 4 + 1, req.numel())
+    out["chain requests"] = dict(
+        ms=cuda_ms(lambda: exact_in_any_order(req)),
+        device_ms=device_ms(lambda: exact_in_any_order(req),
+                            "order_switch_kernel"),
+        plain_ms=cuda_ms(lambda: exact_in_any_order_plain(req)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=0.0,
+        shape=f"P={req.shape[0]} R={req.shape[1]}")
     return out
 
 
@@ -1215,6 +1304,7 @@ def check_k2_zones(dev, gen):
             tables=[(used_flat[:, 2 * i:2 * i + 2],
                      cap_flat[:, 2 * i:2 * i + 2], n) for i in range(z)],
             eps=EPS)
+        kw = k2_switch(kw)
         got = segment_prefix_chain(**kw)
         want = segment_prefix_chain_plain(**kw)
         err = float((got.int() - want.int()).abs().max())
@@ -1521,6 +1611,7 @@ def check_k7(dev, gen):
                      active=pick.gate_active,
                      tables=[(gate_base, d.gpu_free.view(n * i, 3), n * i),
                              (gate_base[:n], one_pod, n)], eps=EPS)
+        chain = k2_switch(chain)
         alive = segment_prefix_chain(**chain)
         if not torch.equal(alive, segment_prefix_chain_plain(**chain)):
             raise SystemExit(f"K2 as the GPU gate ({label}) differs from "
@@ -1828,6 +1919,7 @@ def check_k2_once(dev, gen):
             req=torch.ones((p, 1), device=dev), active=here,
             tables=[(torch.zeros((v, 1), device=dev),
                      torch.ones((v, 1), device=dev), v)], eps=EPS)
+        chain = k2_switch(chain)
         got = segment_prefix_chain(**chain)
         if not torch.equal(got, segment_prefix_chain_plain(**chain)):
             raise SystemExit(f"K2 as the AllocateOnce level ({label}) "
@@ -2119,6 +2211,7 @@ def check_k2_mask(snap, pods, gen):
             kw["seg"], kw["tables"] = kw["seg"][:levels], kw["tables"][:levels]
         kw["mask"] = torch.rand((2000,), generator=gen,
                                 device=kw["rank"].device) < 0.8
+        kw = k2_switch(kw)
         got = segment_prefix_chain(**kw)
         want = segment_prefix_chain_plain(**kw)
         if not torch.equal(got, want):
@@ -2319,7 +2412,9 @@ def check_gpu_share(run, line, launches, snap0=None, pods=None,
     zones, instances and the four count tables), three times a round
     and fifteen times a batch: the eight rebuild scatters, the three
     reservation draw-downs and the four count charges after it; K9 once
-    a batch with the cascade on, else never); every placed GPU pod holds
+    a batch with the cascade on, else never; on a snapshot with aux
+    pools K17 once an inner step, K2 and K3 once more an inner step and
+    K3 once more a batch); every placed GPU pod holds
     `count` instances of its node, the takes times the per-instance
     requests equal each valid instance's total minus its final free,
     and no free is negative; every slot consumer owns its slot, each
@@ -2340,12 +2435,16 @@ def check_gpu_share(run, line, launches, snap0=None, pods=None,
               + passes * tail_kw["num_rounds"])
     steps = (chunks * step_kw["num_rounds"] * step_kw["k_choices"]
              + passes * tail_kw["num_rounds"] * tail_kw["k_choices"])
+    aux = int(snap0 is not None and snap0.devices.aux_free.shape[2] > 0)
     want = {"numa_pair_terms": batches, "device_pair_terms": batches,
             "score_topk": rounds, "topology_admit": steps,
-            "gpu_instance_pick": 2 * steps, "segment_prefix_ok": 4 * steps,
+            "gpu_instance_pick": 2 * steps,
+            "segment_prefix_ok": (4 + aux) * steps,
             "topology_prefix_gate": steps,
-            "ordered_scatter_add": 8 * steps + 3 * rounds + 15 * batches,
-            "stage1_mask": batches if step_kw["cascade"] else 0}
+            "ordered_scatter_add": (8 + aux) * steps + 3 * rounds
+            + (15 + aux) * batches,
+            "stage1_mask": batches if step_kw["cascade"] else 0,
+            "aux_instance_pick": aux * steps}
     for kernel, count in want.items():
         if launches[kernel] != count:
             raise SystemExit(f"{name}: {kernel} launched {launches[kernel]} "
@@ -2704,7 +2803,7 @@ def flat_run(run):
     carried counts and every leaf of the final snapshot."""
     out = {f: getattr(run, f).cpu().numpy()
            for f in ("assignment", "stats", "gpu_take", "res_slot",
-                     "numa_zone")}
+                     "numa_zone", "aux_inst") if getattr(run, f) is not None}
     out.update({f"counts.{f}": c.cpu().numpy()
                 for f, c in zip(domains.COUNT_FIELDS, run.counts)})
 
@@ -3498,7 +3597,9 @@ def guarded_phase():
     host_s = time.perf_counter() - t0
     # two runs, each: K14 once and K15 twice a batch, K16 twice a delta
     # applied (two), the full gate's batch formulas of `check_gpu_share`
-    # (no tail), and K3 `forget_launches` times a forget, once a batch
+    # (no tail), K3 `forget_launches` times a forget, once a batch, and
+    # K2's order switch twice a batch (the pods' requests, AllocateOnce)
+    # and twice a step (the zone takes, the GPU per-instance requests)
     batches = line["batches"]
     rounds = batches * FULL_GATE_KW["num_rounds"]
     steps = rounds * FULL_GATE_KW["k_choices"]
@@ -3509,6 +3610,7 @@ def guarded_phase():
             "score_topk": rounds, "topology_admit": steps,
             "gpu_instance_pick": 2 * steps, "segment_prefix_ok": 4 * steps,
             "topology_prefix_gate": steps,
+            "order_switch": 2 * batches + 2 * steps,
             "ordered_scatter_add": (8 * steps + 3 * rounds + 15 * batches
                                     + per_forget * batches)}
     want = {k: 2 * v for k, v in want.items()}
@@ -3641,7 +3743,7 @@ def k2_cost(kw):
     result, the rank of the active pods, the seg of the pods alive at
     each level, the req of the pods some level gates (once), the base
     and limit rows of the segments in range."""
-    p, r = kw["req"].shape
+    p, r = kw["req"].shape[-2:]
     alive = kw["active"]
     nbytes, ops = 2 * p + 4 * int(alive.sum()), 0
     gated = torch.zeros_like(alive)
@@ -3653,7 +3755,8 @@ def k2_cost(kw):
         n_seg = int(torch.unique(level[inr]).numel())
         nbytes += 4 * int(alive.sum()) + 2 * n_seg * r * 4
         ops += n_in * r * 4
-        req = kw["req"] if l or kw.get("req0") is None else kw["req0"]
+        req = (kw["req0"] if l == 0 and kw.get("req0") is not None
+               else kw["req"][l] if kw["req"].dim() == 3 else kw["req"])
         alive = alive & segment_prefix_ok_plain(
             torch.where(alive, level, s).to(torch.int32), kw["rank"],
             torch.where(alive[:, None], req, 0.0), base, limit, s, EPS)
@@ -3694,6 +3797,7 @@ def check_k2_big(snap, pods, gen):
                 req0 = kw["req"].clone()
                 req0[:, 0] = req0[:, 0] * f
                 kw["req0"] = req0
+            kw = k2_switch(kw)
             got = segment_prefix_chain(**kw)
             want = segment_prefix_chain_plain(**kw)
             if not torch.equal(got, want):
@@ -3728,17 +3832,21 @@ def fractional_case(p, seed, offset, segments=40, r=4):
     test_torch_bigbatch.py's case): requests in fractional MiB and mC,
     each segment's memory limit set by its middle pod in rank order so
     that the limit plus EPS is that pod's left side summed in rank order
-    in f32, plus `offset`. Returns the tensors and the boundary pods."""
+    in f32, plus `offset`; r = 1 keeps the memory column alone, r > 4
+    adds fractional columns whose limits do not bite. Returns the arrays
+    and the boundary pods."""
     rng = np.random.default_rng(seed)
     seg = rng.integers(0, segments, p).astype(np.int32)
     rank = rng.permutation(p).astype(np.int32)
-    req = np.zeros((p, r), np.float32)
+    req = np.zeros((p, max(r, 4)), np.float32)
     req[:, 0] = rng.integers(1, 4000, p) / np.float32(3.0)
     req[:, 1] = rng.uniform(0.1, 2048.0, p)
     req[:, 2] = rng.integers(1, 64, p) / np.float32(8.0)
     req[:, 3] = rng.uniform(0.0, 1.0, p)
-    base = rng.uniform(0.0, 5000.0, (segments, r)).astype(np.float32)
-    limit = np.full((segments, r), np.float32(3.0e7))
+    base = rng.uniform(0.0, 5000.0, (segments, max(r, 4))).astype(np.float32)
+    if r > 4:
+        req[:, 4:] = rng.uniform(0.0, 3000.0, (p, r - 4))
+    limit = np.full((segments, max(r, 4)), np.float32(3.0e7))
     order = np.argsort(rank)
     boundary = []
     for s in range(segments):
@@ -3752,42 +3860,272 @@ def fractional_case(p, seed, offset, segments=40, r=4):
         lhs = np.float32(np.float32(base[s, 1] + cum) + req[at, 1])
         limit[s, 1] = np.float32(lhs - np.float32(EPS) + np.float32(offset))
         boundary.append(int(at))
+    if r == 1:
+        req, base, limit = (np.ascontiguousarray(x[:, 1:2])
+                            for x in (req, base, limit))
     return seg, rank, req, base, limit, boundary
 
 
 def check_k2_fractional(dev):
-    """ROADMAP check C-a on the card: K2 at one level on fractional
-    requests at P = 250 (its unsorted path), 2048 (sorted) and 2500
-    (tiled), against its plain version. With every limit 4 MiB off a
-    pod's boundary the verdicts must be equal; with the limits on the
-    boundaries (fault C7: the kernel adds in rank order, the plain
-    version in cuBLAS's order) they may differ only at the boundary
-    pods, which the result counts."""
+    """ROADMAP fault C7 on the card: K2 at one level on fractional
+    requests, off and on the gate boundaries, at R = 4 for P = 250 (the
+    unsorted path's size), 2048 and 2500 (the tiled size), and at R = 1
+    and 11: the launch finds its sums inexact and takes the pinned form
+    (the reference's XLA:CPU order), which must equal the plain version
+    (`_xla.xla_mask_dot`) in every verdict. Then the pinned form's time
+    at P = 2000 and 2500 (R = 4) beside the scan's on the same case with
+    whole-number requests and bases (the launch then keeps the scan)."""
     out = {}
-    for p in (250, 2048, 2500):
+    for p, r in ((250, 4), (2048, 4), (2500, 4), (300, 1), (2500, 1),
+                 (300, 11), (2048, 11)):
         for offset in (4.0, 0.0):
             seg, rank, req, base, limit, boundary = fractional_case(
-                p, p, offset)
+                p, p, offset, r=r)
             t = [torch.from_numpy(x).to(dev)
                  for x in (seg, rank, req, base, limit)]
             kw = dict(seg=t[0][None].contiguous(), rank=t[1], req=t[2],
                       active=torch.ones(p, dtype=torch.bool, device=dev),
                       tables=[(t[3], t[4], base.shape[0])], eps=EPS)
+            kw = k2_switch(kw)
             got = segment_prefix_chain(**kw).cpu()
             want = segment_prefix_chain_plain(**kw).cpu()
-            differ = sorted((got != want).nonzero()[:, 0].tolist())
-            if offset and differ:
-                raise SystemExit(f"K2 on fractional requests (P={p}) "
+            differ = int((got != want).sum())
+            out[f"P={p} R={r} {'off' if offset else 'on'} the boundaries"] = \
+                dict(differ=differ, boundary_pods=len(boundary),
+                     accepted=int(got.sum()),
+                     boundary_accepted=int(got[boundary].sum()),
+                     max_abs_err=float(differ > 0))
+            if differ:
+                raise SystemExit(f"K2 on fractional requests (P={p}, R={r}) "
                                  f"differs from its plain version at "
-                                 f"{differ[:5]} off the boundaries")
-            if not set(differ) <= set(boundary):
-                raise SystemExit(f"K2 on fractional requests (P={p}): "
-                                 f"verdicts differ off the boundary pods: "
-                                 f"{sorted(set(differ) - set(boundary))[:5]}")
-            out[f"P={p} {'off' if offset else 'on'} the boundaries"] = dict(
-                differ=len(differ), boundary_pods=len(boundary),
-                accepted=int(got.sum()), max_abs_err=float(len(differ) > 0))
+                                 f"{differ} pods")
+    for p in (2000, 2500):
+        seg, rank, req, base, limit, _ = fractional_case(p, p, 4.0)
+        for form, (rq, bs) in (("pinned", (req, base)),
+                               ("scan", (np.round(req), np.round(base)))):
+            t = [torch.from_numpy(x).to(dev)
+                 for x in (seg, rank, rq, bs, limit)]
+            kw = dict(seg=t[0][None].contiguous(), rank=t[1], req=t[2],
+                      active=torch.ones(p, dtype=torch.bool, device=dev),
+                      tables=[(t[3], t[4], base.shape[0])], eps=EPS)
+            kw = k2_switch(kw)
+            if not torch.equal(segment_prefix_chain(**kw).cpu(),
+                               segment_prefix_chain_plain(**kw).cpu()):
+                raise SystemExit(f"K2 {form} (P={p}) differs from its plain "
+                                 f"version")
+            nbytes, ops = k2_cost(kw)
+            if form == "pinned":
+                # the function's sums in the reference's order: no pod
+                # can reuse another's, so each adds the requests of its
+                # earlier same-segment pods, n_s (n_s - 1) / 2 pods of
+                # R columns a segment of n_s pods (the pinned form's own
+                # walk over all P^2 pairs is its cost, not the work's)
+                n_s = torch.bincount(t[0].long(), minlength=base.shape[0])
+                ops += int((n_s * (n_s - 1) // 2).sum()) * rq.shape[1]
+            b_ms, b_by = bound(nbytes, ops)
+            out[f"{form} P={p}"] = dict(
+                ms=cuda_ms(lambda: segment_prefix_chain(**kw)),
+                device_ms=device_ms(lambda: segment_prefix_chain(**kw),
+                                    "segment_prefix_chain_kernel"),
+                plain_ms=cuda_ms(lambda: segment_prefix_chain_plain(**kw),
+                                 reps=3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                max_abs_err=0.0, shape=f"P={p} L=1 R=4 S=40")
     return out
+
+
+# --- the aux (RDMA/FPGA) pools: K17, K6's aux part, K2's aux levels --------
+
+
+def aux_state(dev, n_nodes=10_000, p=2000):
+    """The aux full gate's first packed chunk of p pods against n_nodes
+    (`aux_full_gate_inputs`, packed by `pack_full_gate`): (snapshot,
+    batch, prefixes)."""
+    snap, pods = aux_full_gate_inputs(5 * p, n_nodes, device=dev)
+    packed, prefixes, _, _, _ = pack_full_gate(snap, pods, p)
+    return snap, slice_batch(packed, 0, p), prefixes
+
+
+def aux_choice(snap, batch, gen):
+    """Chosen nodes as a step sees them: an aux pod on a node with a VF
+    of its pool (half of them among 16 popular ones, so pods contend
+    for one VF), the others on any node."""
+    dev = batch.valid.device
+    n, p = snap.num_nodes, batch.num_pods
+    req = deviceshare.aux_request(batch.requests)
+    has_vf = snap.devices.aux_valid.any(dim=2)                 # [N, 2]
+    pool = (req[:, 1] > 0).long()
+    choice = torch.randint(0, n, (p,), generator=gen, device=dev)
+    for t in range(2):
+        nodes = torch.nonzero(has_vf[:, t])[:, 0]
+        if not nodes.numel():
+            continue
+        pick = nodes[torch.randint(0, nodes.numel(), (p,), generator=gen,
+                                   device=dev)]
+        popular = nodes[torch.randint(0, min(16, nodes.numel()), (p,),
+                                      generator=gen, device=dev)]
+        hot = torch.rand(p, generator=gen, device=dev) < 0.5
+        on = (req > 0).any(dim=1) & (pool == t)
+        choice = torch.where(on, torch.where(hot, popular, pick), choice)
+    return choice.to(torch.int32), req.contiguous()
+
+
+def check_k17(dev, gen):
+    """K17 aux_instance_pick against its plain version: on random pools
+    with ties (a node whose VFs all hold the same free), invalid VFs, a
+    node with none, zero and oversize requests and choices out of range,
+    both strategies and P = 1, untimed; then at the aux full gate's
+    first chunk (P = 2000 against N = 10 000, J = 8), both strategies,
+    timed. Instances and ok must be equal."""
+    out = {}
+    rng = np.random.default_rng(17)
+    n, j, p = 64, 8, 4096
+    free = rng.choice(np.asarray([0.0, 25.0, 50.0, 100.0], np.float32),
+                      size=(n, 2, j))
+    valid = rng.uniform(size=(n, 2, j)) < 0.8
+    valid[2] = False
+    free[3] = 50.0
+    edge = None  # the aux full gate's devices with these pools, below
+    choice = torch.from_numpy(rng.integers(-3, n + 3, p).astype(
+        np.int32)).to(dev)
+    req = torch.from_numpy(rng.choice(np.asarray(
+        [0.0, 25.0, 50.0, 60.0, 100.0, 150.0], np.float32),
+        size=(p, 2))).to(dev)
+    cases = [(f"edge {s}", choice, req, edge, s) for s in ("least", "most")]
+    cases.append(("P=1", choice[:1].clone(), req[:1].clone(), edge, "most"))
+    snap, batch, _ = aux_state(dev)
+    ch, rq = aux_choice(snap, batch, gen)
+    cases += [(f"aux full gate {s}", ch, rq, snap.devices, s)
+              for s in ("least", "most")]
+    edge = snap.devices.replace(aux_free=torch.from_numpy(free).to(dev),
+                                aux_valid=torch.from_numpy(valid).to(dev))
+    cases = [(lb, c, r, edge if d is None else d, st)
+             for lb, c, r, d, st in cases]
+    for label, c, r, d, strategy in cases:
+        got = aux_instance_pick(c, r, d.aux_free, d, strategy)
+        want = aux_instance_pick_plain(c, r, d.aux_free, d, strategy)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            raise SystemExit(f"K17 aux_instance_pick ({label}) differs from "
+                             f"its plain version")
+        res = dict(max_abs_err=0.0, ok=int(got[1].sum()),
+                   asking=int((r > 0).sum()))
+        if label.startswith("aux full gate"):
+            # bytes: choice and req read, the chosen nodes' VF rows (free
+            # and valid) once, inst and ok written; operations: an add, two
+            # compares and a select a VF of each (pod, pool)
+            nodes = int(torch.unique(c.clamp(0, d.aux_free.shape[0] - 1)
+                                     .long()).numel())
+            jj = d.aux_free.shape[2]
+            nbytes = c.numel() * (4 + 8 + 10) + nodes * 2 * jj * 5
+            ops = c.numel() * 2 * jj * 4
+            b_ms, b_by = bound(nbytes, ops)
+            res.update(
+                ms=cuda_ms(lambda: aux_instance_pick(c, r, d.aux_free, d,
+                                                     strategy)),
+                device_ms=device_ms(lambda: aux_instance_pick(
+                    c, r, d.aux_free, d, strategy),
+                    "aux_instance_pick_kernel"),
+                plain_ms=cuda_ms(lambda: aux_instance_pick_plain(
+                    c, r, d.aux_free, d, strategy), reps=5),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                shape=f"P={c.numel()} N={d.aux_free.shape[0]} J={jj}")
+        out[label] = res
+    return out
+
+
+def check_k6_aux(dev, gen):
+    """K6 with its aux part at the aux full gate's first chunk (its gpu
+    prefix's rows against N = 10 000, ANDed into a pair mask in place,
+    both strategies), timed beside K6 on the same rows without it, and
+    untimed on the same cluster with no GPU instance (the aux part
+    alone, no score). Equal to the plain version (bools, scores bit for
+    bit)."""
+    out = {}
+    snap, batch, prefixes = aux_state(dev)
+    rows = prefixes["gpu"]
+    d = snap.devices
+    g = gpu_req_of(batch)[:rows].contiguous()
+    a = deviceshare.aux_request(batch.requests)[:rows].contiguous()
+    n = snap.num_nodes
+    pair = torch.rand((batch.num_pods, n), generator=gen, device=dev) < 0.8
+    no_gpu = d.replace(gpu_free=d.gpu_free[:, :0].contiguous(),
+                       gpu_valid=d.gpu_valid[:, :0].contiguous())
+    for label, dd, aux, strategy, timed in (
+            ("aux full gate least", d, a, "least", True),
+            ("aux full gate most", d, a, "most", False),
+            ("without the aux part", d, None, "least", True),
+            ("no GPU instance", no_gpu, a, "least", False)):
+        ok, score = device_pair_terms(g, dd, strategy, pair.clone(), aux)
+        want_ok, want_score = device_pair_terms_plain(g, dd, strategy, pair,
+                                                      aux)
+        same = torch.equal(ok, want_ok) and (
+            score is None and want_score is None or torch.equal(
+                score.view(torch.int32), want_score.view(torch.int32)))
+        if not same:
+            raise SystemExit(f"K6 with the aux part ({label}) differs from "
+                             f"its plain version")
+        res = dict(max_abs_err=0.0, pairs_ok=int(ok[:rows].sum()))
+        if timed:
+            i = d.gpu_free.shape[1]
+            jj = d.aux_free.shape[2]
+            nbytes = rows * (12 + (8 if aux is not None else 0)) + n * (
+                12 + i * 13 + (2 * jj * 5 if aux is not None else 0)
+            ) + rows * n * 6
+            n_gpu = int((g > 0).any(dim=1).sum())
+            ops = (rows - n_gpu) * n + n_gpu * n * (45 + 7 * i) + (
+                rows * n * 4 if aux is not None else 0)
+            b_ms, b_by = bound(nbytes, ops)
+            buf = pair.clone()
+            res.update(
+                ms=cuda_ms(lambda: device_pair_terms(g, dd, strategy, buf,
+                                                     aux)),
+                device_ms=device_ms(lambda: device_pair_terms(
+                    g, dd, strategy, buf, aux), "device_pair_terms_kernel"),
+                plain_ms=cuda_ms(lambda: device_pair_terms_plain(
+                    g, dd, strategy, pair, aux), reps=3),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                shape=f"rows={rows} N={n} I={i} "
+                      f"J={jj if aux is not None else 0} and-into mask")
+        out[label] = res
+    return out
+
+
+def check_k2_aux(dev, gen):
+    """K2 as the step's two aux levels (core.py:1020-1039) at the aux full
+    gate's first chunk: K17's choice on the chunk's chosen nodes, the
+    (node, pool, instance) segments, pool 1's fit ANDed in after pool 0's
+    gate, against the live free; 90 % of the pods arriving accepted.
+    Equal to the plain version; timed."""
+    snap, batch, _ = aux_state(dev)
+    d = snap.devices
+    choice, req = aux_choice(snap, batch, gen)
+    inst, ok = aux_instance_pick(choice, req, d.aux_free, d, "least")
+    p, n, jj = batch.num_pods, snap.num_nodes, d.aux_free.shape[2]
+    s = n * 2 * jj
+    has = req > 0
+    seg = deviceshare.aux_segments(choice, inst, has, jj, s).T.contiguous()
+    fit = ~has | ok
+    accept = torch.rand(p, generator=gen, device=dev) < 0.9
+    kw = dict(seg=seg, rank=rank_by_priority(batch), req=req.T.contiguous()[
+        :, :, None], active=accept & fit[:, 0],
+        tables=[(torch.zeros((s, 1), device=dev), d.aux_free.view(s, 1), s)]
+        * 2, eps=EPS, mask=fit[:, 1].contiguous())
+    kw = k2_switch(kw)
+    got = segment_prefix_chain(**kw)
+    want = segment_prefix_chain_plain(**kw)
+    if not torch.equal(got, want):
+        raise SystemExit("K2's aux levels differ from the plain version")
+    nbytes, ops = k2_cost(kw)
+    b_ms, b_by = bound(nbytes, ops)
+    return {"aux levels": dict(
+        ms=cuda_ms(lambda: segment_prefix_chain(**kw)),
+        device_ms=device_ms(lambda: segment_prefix_chain(**kw),
+                            "segment_prefix_chain_kernel"),
+        plain_ms=cuda_ms(lambda: segment_prefix_chain_plain(**kw), reps=3),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+        shape=f"P={p} L=2 R=1 S={s}", asking=int(has.any(dim=1).sum()),
+        rejected=int(((accept & fit.all(dim=1)) & ~got).sum()))}
 
 
 def k5_cost(args, full, z):
@@ -3853,6 +4191,7 @@ def check_k7_big(dev, gen):
                      active=pick.gate_active,
                      tables=[(gate_base, d.gpu_free.view(n * i, 3), n * i),
                              (gate_base[:n], one_pod, n)], eps=EPS)
+        chain = k2_switch(chain)
         alive = segment_prefix_chain(**chain)
         if not torch.equal(alive, segment_prefix_chain_plain(**chain)):
             raise SystemExit(f"K2 as the GPU gate (P={p}) differs from its "
@@ -4033,18 +4372,22 @@ def check_k1_amp(snap, pods, cfg, gen):
 def config_4_phase():
     """BASELINE config 4 (`configs.run_config_4_quota`: 50 000 pods x 5000
     nodes, 500 quotas, chunks of 2500) on the card after a warm-up run,
-    counting launches, then on the host: the assignment and every leaf
-    of the final snapshot equal; K2 once an inner step (every one at
-    P = 2500, the tiled walk), K1 once a round, nothing of the NUMA,
-    DeviceShare or topology paths; no overcommit, quota within runtime.
-    Returns (line, launches)."""
+    counting launches: K2 once an inner step (every one at P = 2500, the
+    tiled walk), K1 once a round, nothing of the NUMA, DeviceShare or
+    topology paths; no overcommit, quota within runtime. Then its first
+    20 000 pods (eight chunks, the same nodes and quotas) on the card
+    and on the host: the assignment and every leaf of the final snapshot
+    equal (the whole queue's host run, about 40 s, was cut to keep the
+    script's time). Returns (line, launches)."""
     run_config_4_quota(device="cuda")                     # warm-up
     kernels.reset_launch_counts()
     line, run = run_config_4_quota(device="cuda")
     launches = kernels.launch_counts()
+    _, run = run_config_4_quota(CONFIG_4_COMPARED_PODS, device="cuda")
     t0 = time.perf_counter()
-    host_line, host = run_config_4_quota(device="cpu")
+    host_line, host = run_config_4_quota(CONFIG_4_COMPARED_PODS, device="cpu")
     line.update(launches=launches, host_s=time.perf_counter() - t0,
+                compared_pods=CONFIG_4_COMPARED_PODS,
                 host_placed=host_line["placed"])
     got = dict(to_numpy(run.snapshot), assignment=run.assignment.cpu().numpy())
     want = dict(to_numpy(host.snapshot), assignment=host.assignment.numpy())
@@ -4085,16 +4428,16 @@ def amplified_phase():
     """full_gate_amplified_100kx10k: the packed full gate on a cluster
     whose node webhook amplified the CPU of about 30 % of the nodes,
     amplification on (`configs.run_full_gate(amplified=True)`). Card
-    against host, every field equal: at 8000 pods x 1000 nodes in the
-    full gate's chunks of 2000, and at 10 000 pods x 10 000 nodes (the
-    full width) in chunks of 2500, four chunks and the tail, so that
+    against host, every field equal, at 5000 pods x 10 000 nodes (the
+    full width) in chunks of 2500, two chunks and the tail, so that
     K2, K5, K7's take and K8 run their forms above 2048 pods inside the
-    batch. Then at 100 000 x 10 000 on the card, counting launches, with
-    the full gate's launch formulas and invariants (node requested the
-    recount with the bind pods' CPU amplified) and the bind pods placed
-    on amplified nodes. Returns (line, launches)."""
-    for num_pods, num_nodes, chunk in ((8000, 1000, 2000),
-                                       (10_000, 10_000, 2500)):
+    batch (an earlier comparison at 8000 x 1000 was cut to keep the
+    script's time; the full gate's phase 7 compares that size). Then
+    at 100 000 x 10 000 on the card, counting launches, with the full
+    gate's launch formulas and invariants (node requested the recount
+    with the bind pods' CPU amplified) and the bind pods placed on
+    amplified nodes. Returns (line, launches)."""
+    for num_pods, num_nodes, chunk in ((5000, 10_000, 2500),):
         runs = {}
         for d in ("cuda", "cpu"):
             kernels.reset_launch_counts()
@@ -4145,6 +4488,163 @@ def amplified_phase():
     return line, launches
 
 
+def aux_invariants(snap0, pods, run, line, name):
+    """The aux pools' invariants on a whole run: the batch-start free
+    less every placed pod's request at its (node, pool, instance) equals
+    the final free exactly; no VF below 0; every placed aux pod's VF
+    valid on its node, and every pod holding a VF placed and asking for
+    its pool."""
+    d0 = snap0.devices
+    n, _, j = d0.aux_free.shape
+    req = deviceshare.aux_request(pods.requests)
+    inst, assign = run.aux_inst, run.assignment
+    held = inst >= 0
+    if not bool((held <= ((assign >= 0)[:, None] & (req > 0))).all()):
+        raise SystemExit(f"{name}: a VF held by an unplaced pod or for a "
+                         "pool it does not ask for")
+    flat = deviceshare.aux_segments(assign.clamp_min(0), inst, held, j,
+                                    n * 2 * j).long()
+    if not bool(d0.aux_valid.reshape(-1)[flat[held]].all()):
+        raise SystemExit(f"{name}: a placed pod holds an invalid VF")
+    want = torch.zeros(n * 2 * j + 1, dtype=torch.float64,
+                       device=assign.device).index_add_(
+        0, flat.reshape(-1), torch.where(held, req, 0.0).double().reshape(-1))
+    final = run.snapshot.devices.aux_free
+    if not torch.equal(final.double().reshape(-1),
+                       d0.aux_free.double().reshape(-1) - want[:-1]):
+        raise SystemExit(f"{name}: the final VF free is not the batch-start "
+                         "free less the placed pods' requests")
+    if not bool((final >= 0).all()):
+        raise SystemExit(f"{name}: a VF's free is negative")
+    line["aux_vfs_held"] = int(held.sum())
+
+
+def aux_phase():
+    """full_gate_aux_100kx10k: the packed full gate on a cluster with aux
+    pools (`configs.run_full_gate(aux=True)`): card against host, every
+    field equal (aux_inst and aux_free included), at 8000 pods x 1000
+    nodes in chunks of 2000, and on the first full-width chunk (2000
+    pods of the 100 000 against 10 000 nodes, one batch); then at
+    100 000 x 10 000 on the card, counting launches, with the full
+    gate's launch formulas (K17, K2 and K3 once more a step) and
+    invariants, the aux invariants (`aux_invariants`), and aux pods
+    both placed and turned away by K2's aux levels (counted by
+    `aux_stats` in the untimed first chunk, which is the run's first
+    batch: the timed run counts nothing). Returns (line, launches)."""
+    runs = {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        line_s, run, _ = run_full_gate(8000, 1000, 2000, device=d, aux=True)
+        runs[d] = (flat_run(run), time.perf_counter() - t0, line_s)
+    got, want = runs["cuda"][0], runs["cpu"][0]
+    differ = [f for f in got if not (
+        got[f].dtype == want[f].dtype and np.array_equal(got[f], want[f]))]
+    print("aux full gate 8000x1000: " + json.dumps({
+        "differing_fields": differ, "fields": len(got),
+        "seconds": {k: v[1] for k, v in runs.items()},
+        **{k: runs["cuda"][2][k] for k in (
+            "placed", "aux_pods", "aux_placed", "aux_no_fit")}}), flush=True)
+    if differ or "aux_inst" not in got:
+        raise SystemExit(f"aux full gate 8000x1000: the card differs from "
+                         f"the host in {differ}")
+    # the first full-width chunk, one batch on each (the whole run's
+    # first batch), counting the pods the aux gates turn away
+    first = {}
+    for d in ("cuda", "cpu"):
+        snap, pods = aux_full_gate_inputs(device=d)
+        packed, _, _, step_kw, _ = pack_full_gate(snap, pods, 2000)
+        stats = {}
+        t0 = time.perf_counter()
+        res = schedule_batch(snap, slice_batch(packed, 0, 2000),
+                             loadaware.LoadAwareConfig.make(device=d),
+                             aux_stats=stats, **step_kw)
+        flat = {k: v.cpu().numpy() for k, v in (
+            ("assignment", res.assignment), ("aux_inst", res.aux_inst),
+            ("gpu_take", res.gpu_take), ("res_slot", res.res_slot),
+            ("numa_zone", res.numa_zone), ("chosen_score", res.chosen_score))}
+        flat.update({f"snapshot.{k}": v for k, v in to_numpy(
+            res.snapshot.devices).items() if isinstance(v, np.ndarray)})
+        flat.update({f"snapshot.nodes.{k}": v for k, v in to_numpy(
+            res.snapshot.nodes).items() if isinstance(v, np.ndarray)})
+        flat.update({f"aux_{k}": np.asarray(int(v))
+                     for k, v in stats.items()})
+        first[d] = (flat, time.perf_counter() - t0)
+    differ = [f for f in first["cuda"][0] if not np.array_equal(
+        first["cuda"][0][f], first["cpu"][0][f])]
+    turned_away = {k: int(first["cuda"][0][f"aux_{k}"])
+                   for k in ("no_instance", "gate_rejected")}
+    print("aux full gate, first chunk at 10 000 nodes: " + json.dumps({
+        "differing_fields": differ, "fields": len(first["cuda"][0]),
+        "seconds": {k: v[1] for k, v in first.items()},
+        "placed": int((first["cuda"][0]["assignment"] >= 0).sum()),
+        "vfs_held": int((first["cuda"][0]["aux_inst"] >= 0).sum()),
+        "aux_turned_away": turned_away}), flush=True)
+    if differ:
+        raise SystemExit(f"aux full gate first chunk: the card differs from "
+                         f"the host in {differ}")
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    line, run, setup = run_full_gate(device="cuda", aux=True)
+    launches = kernels.launch_counts()
+    line["launches"] = launches
+    line["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    snap0, pods = setup["snap"], setup["pods"]
+    aux_invariants(snap0, pods, run, line, "aux full gate")
+    line["first_chunk_aux_turned_away"] = turned_away
+    print("aux full gate: " + json.dumps(line), flush=True)
+    if not (line["aux_placed"] > 0 and min(turned_away.values()) > 0
+            and min(line["aux_no_fit"].values()) > 0):
+        raise SystemExit("aux full gate: aux pods must both place and be "
+                         "turned away (no fitting VF, K2's aux levels, in "
+                         "the run's first batch), and each kind must have "
+                         "pods no node fits: " + json.dumps(
+                             {k: line[k] for k in (
+                                 "aux_placed", "first_chunk_aux_turned_away",
+                                 "aux_no_fit")}))
+    check_gpu_share(run, line, launches, snap0, pods, setup["step_kw"],
+                    setup["tail_kw"], name="aux full gate")
+    return line, launches
+
+
+def small_config_phase(name, run_fn, kw):
+    """A BASELINE config on the card, counting launches, then on the
+    host: the assignment and every leaf of the final snapshot equal;
+    only K1-K3 launched. Returns (line, launches)."""
+    kernels.reset_launch_counts()
+    line, run = run_fn(device="cuda", **kw)
+    launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    _, host = run_fn(device="cpu", **kw)
+    line.update(launches=launches, host_s=time.perf_counter() - t0)
+    got = dict(to_numpy(run.snapshot), assignment=run.assignment.cpu().numpy())
+    want = dict(to_numpy(host.snapshot), assignment=host.assignment.numpy())
+    differ = []
+
+    def walk(g, w, prefix):
+        for k, v in w.items():
+            if isinstance(v, dict):
+                walk(g[k], v, f"{prefix}{k}.")
+            elif isinstance(v, np.ndarray) and not (
+                    g[k].dtype == v.dtype and np.array_equal(g[k], v)):
+                differ.append(prefix + k)
+    walk(got, want, "")
+    line["differing_fields"] = differ
+    print(f"{name}: " + json.dumps(line), flush=True)
+    if differ:
+        raise SystemExit(f"{name}: the card differs from the host in "
+                         f"{differ}")
+    if any(launches[k] for k in launches if k not in SLIM_KERNELS) or min(
+            launches[k] for k in SLIM_KERNELS) <= 0:
+        raise SystemExit(f"{name}: launched other than K1-K3, or one of "
+                         f"them never: {launches}")
+    if not (overcommit_ok(run.snapshot) and quota_ok(run.snapshot)
+            and 0 < line["placed"] <= line["num_pods"]):
+        raise SystemExit(f"{name}: overcommit, quota over runtime or placed "
+                         f"{line['placed']}")
+    return line, launches
+
+
 def expected_launches(line):
     """(inner steps, K3 launches) of one flagship run: K2 launches once
     an inner step; K3 twice an inner step (node, all quota levels),
@@ -4168,7 +4668,9 @@ def main() -> int:
     dev = resolve_device("cuda")
     smi = card_name_and_power_limit()
     print(smi, flush=True)
+    phase_s = {}
     tc = build_all()
+    phase_s["1. build"] = tc.build_s
     print(f"build: {tc.build_s:.1f} s for {len(tc.libs)} kernels", flush=True)
     for name, log in tc.ptxas.items():
         for line in log.splitlines():
@@ -4176,6 +4678,7 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     # --- 2. kernels against their plain versions -------------------------
+    t_phase = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(2026)
     snap, pods = loaded_state(dev, gen)
@@ -4184,6 +4687,7 @@ def main() -> int:
     print("kernel score_topk edges, equal to the plain version: "
           + json.dumps(check_k1_edges(snap, pods, cfg, gen)), flush=True)
     k2 = check_k2(snap, pods, gen)
+    switch = check_order_switch(snap, pods, gen)
     k3 = check_k3(snap, pods, gen)
     k4 = check_k4(dev, gen)
     k5 = check_k5(dev, gen)
@@ -4210,7 +4714,11 @@ def main() -> int:
     k8_big = check_k8_big(dev, gen)
     k1_amp = check_k1_amp(snap, pods, cfg, gen)
     lnl_every = check_lnl(dev, gen, every_node=True)
+    k17 = check_k17(dev, gen)
+    k6_aux = check_k6_aux(dev, gen)
+    k2_aux = check_k2_aux(dev, gen)
     for name, res in (("score_topk", k1), ("segment_prefix_ok", k2),
+                      ("order_switch", switch),
                       ("ordered_scatter_add", k3), ("numa_pair_terms", k4),
                       ("topology_admit", k5), ("score_topk", k1_numa),
                       ("segment_prefix_ok", k2_zones),
@@ -4229,11 +4737,18 @@ def main() -> int:
                       ("gpu_instance_pick", k7_big),
                       ("topology_prefix_gate", k8_big),
                       ("score_topk amplified", k1_amp),
-                      ("lownodeload every node", lnl_every)):
+                      ("lownodeload every node", lnl_every),
+                      ("aux_instance_pick", k17),
+                      ("device_pair_terms aux", k6_aux),
+                      ("segment_prefix_ok aux", k2_aux)):
         for label, r in res.items():
             print(f"kernel {name} [{label}]: " + json.dumps(r), flush=True)
 
+    phase_s["2. kernels"] = time.perf_counter() - t_phase
+    print(f"phase 2. kernels: {phase_s['2. kernels']:.1f} s", flush=True)
+
     # --- 3. slice equality: the card against the host --------------------
+    t_phase = time.perf_counter()
     runs = {}
     for d in ("cuda", "cpu"):
         t0 = time.perf_counter()
@@ -4253,7 +4768,12 @@ def main() -> int:
     if not same:
         raise SystemExit("the card's assignment differs from the host's")
 
+    phase_s["3. slice equality"] = time.perf_counter() - t_phase
+    print(f"phase 3. slice equality: {phase_s['3. slice equality']:.1f} s",
+          flush=True)
+
     # --- 4. the flagship at 100k x 10k ------------------------------------
+    t_phase = time.perf_counter()
     warm, _ = run_northstar(device="cuda", snap_seed=0)
     print("flagship warm-up: " + json.dumps(warm), flush=True)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4288,34 +4808,59 @@ def main() -> int:
     if not 0 < line["placed"] <= 100_000:
         raise SystemExit(f"placed {line['placed']} pods")
 
+    phase_s["4. flagship"] = time.perf_counter() - t_phase
+    print(f"phase 4. flagship: {phase_s['4. flagship']:.1f} s", flush=True)
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        phase_s[label] = time.perf_counter() - t0
+        print(f"phase {label}: {phase_s[label]:.1f} s", flush=True)
+        return out
+
     # --- 5. BASELINE config 2, the NUMA path, at 10k x 1k ------------------
-    _, launches_cfg2 = config_2_phase()
+    _, launches_cfg2 = timed("5. config 2", config_2_phase)
 
     # --- 6. gpu_share_100kx10k, the DeviceShare path ----------------------
-    _, launches_gpu, _ = gpu_share_phase()
+    _, launches_gpu, _ = timed("6. gpu_share", gpu_share_phase)
 
     # --- 7. the full gate: the cascade and the packing prefixes ------------
-    _, launches_full, _ = full_gate_phase()
+    _, launches_full, _ = timed("7. full gate", full_gate_phase)
 
     # --- 8. BASELINE config 5: the descheduler's LowNodeLoad plan ---------
-    _, launches_cfg5 = descheduler_phase()
+    _, launches_cfg5 = timed("8. config 5", descheduler_phase)
 
     # --- 9. the guarded cycle: guards, deltas, forget, the store ----------
-    _, launches_guarded = guarded_phase()
+    _, launches_guarded = timed("9. guarded cycle", guarded_phase)
 
     # --- 10. BASELINE config 4: chunks of 2500, K2's tiled walk -----------
-    _, launches_cfg4 = config_4_phase()
+    _, launches_cfg4 = timed("10. config 4", config_4_phase)
 
     # --- 11. config 5 with pods on every node: K11 and K12 above 16 384 ----
-    _, launches_cfg5_every = descheduler_phase(every_node=True)
+    _, launches_cfg5_every = timed(
+        "11. config 5 every node", lambda: descheduler_phase(every_node=True))
 
     # --- 12. the amplified full gate ---------------------------------------
-    _, launches_amp = amplified_phase()
+    _, launches_amp = timed("12. amplified full gate", amplified_phase)
+
+    # --- 13. the aux full gate: RDMA/FPGA pools (K17) ----------------------
+    _, launches_aux = timed("13. aux full gate", aux_phase)
+
+    # --- 14-15. BASELINE configs 1 and 3 ----------------------------------
+    timed("14. config 1", lambda: small_config_phase(
+        "config 1", run_config_1_spark, {}))
+    line3, _ = timed("15. config 3", lambda: small_config_phase(
+        "config 3", run_config_3_gangs, {}))
+    if not (line3["gangs_placed"] > 0 and line3["gangs_partial"] == 0
+            and line3["placed"] == CONFIG_3_GANG_SIZE * line3["gangs_placed"]):
+        raise SystemExit(f"config 3: a strict gang placed in part: {line3}")
+    print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     # each kernel's numbers at the shapes of the path it came with (K1-K3
     # the flagship, K4-K5 config 2, K6-K7 gpu_share), and K1, K2, K5 at
     # gpu_share's too
     timings = {"score_topk": k1["sweep"], "segment_prefix_ok": k2["chain"],
+               "order_switch": switch["chain requests"],
                "ordered_scatter_add": k3["node commit"],
                "numa_pair_terms": k4["cfg2 most"],
                "topology_admit": k5["cfg2 most"],
@@ -4341,7 +4886,8 @@ def main() -> int:
                                  "gpu_share": launches_gpu[name],
                                  "full_gate": launches_full[name],
                                  "config_4": launches_cfg4[name],
-                                 "full_gate_amplified": launches_amp[name]},
+                                 "full_gate_amplified": launches_amp[name],
+                                 "full_gate_aux": launches_aux[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -4357,6 +4903,11 @@ def main() -> int:
                 for label, res in tiled[name].items() if "ms" in res}
         if name == "segment_prefix_ok":
             entry["fractional_requests"] = k2_frac
+            entry["at_aux_levels"] = k2_aux["aux levels"]
+        if name == "device_pair_terms":
+            entry["at_aux_full_gate"] = {
+                label: k6_aux[label] for label in (
+                    "aux full gate least", "without the aux part")}
         if name == "score_topk":
             entry["at_amplified"] = {
                 label: {k: k1_amp[label][k] for k in (
@@ -4432,6 +4983,20 @@ def main() -> int:
         if name == "delta_rows":
             entry["at_topology_delta"] = k16["topology 64"]
         report.append(entry)
+    # K17 at the aux full gate's first chunk; launches from phase 13
+    source, replaces = SOURCES["aux_instance_pick"]
+    r = k17["aux full gate least"]
+    report.append({
+        "name": "aux_instance_pick", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches_aux["aux_instance_pick"],
+        "launches_by_path": {"full_gate_aux":
+                             launches_aux["aux_instance_pick"]},
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "shape": r["shape"],
+        "most": {k: k17["aux full gate most"][k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms")}})
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -54,7 +54,18 @@ is not packed), and budgets its constrained stragglers by the topology
 prefix. With `amplified` it runs the same on a cluster whose node
 webhook amplified the CPU of about 30 % of the nodes
 (`utils.synthetic.amplified_full_gate_inputs`) and with
-`enable_amplification` on (`full_gate_amplified_100kx10k`).
+`enable_amplification` on (`full_gate_amplified_100kx10k`). With `aux`
+it runs the same on a cluster whose GPU nodes carry 8 RDMA VFs each, a
+tenth of the others two and 2 % of all nodes two FPGAs, with 60 % of
+the GPU pods, 1 % of the others and 0.2 % asking for them
+(`utils.synthetic.aux_full_gate_inputs`, `full_gate_aux_100kx10k`).
+
+`run_config_1_spark` and `run_config_3_gangs` are BASELINE configs 1
+and 3 (`bench_configs.config_1_spark`, :84-93, and `config_3_gangs`,
+:116-129, through `_run_scheduler_config`): 32 BE pods against 10 nodes
+in one chunk of 32, and 1000 strict gangs of 8 against 5000 nodes
+(a gang table of 1024) in chunks of 2000, both with config 4's knobs
+(NUMA off, exact top-k, no tail).
 
 `run_guarded_cycles` (`guarded_cycles_10k`) is the service's inner
 cycle without the service (frameworkext.py:624-1267: the store, the
@@ -94,6 +105,7 @@ import numpy as np
 import torch
 
 from koordinator_tpu_torch import resolve_device
+from koordinator_tpu_torch.api.extension import AUX_KINDS
 from koordinator_tpu_torch.flagship import FlagshipRun, sweep_and_tail
 from koordinator_tpu_torch.scheduler.core import schedule_batch
 from koordinator_tpu_torch.scheduler.domains import (
@@ -109,7 +121,11 @@ from koordinator_tpu_torch.scheduler.plugins.deviceshare import (
 from koordinator_tpu_torch.utils.synthetic import (
     CONFIG_5_NOW,
     amplified_full_gate_inputs,
+    aux_full_gate_inputs,
+    aux_no_fit,
+    config_1_inputs,
     config_2_inputs,
+    config_3_inputs,
     config_4_inputs,
     config_5_cluster,
     dom_classes,
@@ -130,6 +146,13 @@ CONFIG_4_METRIC = "baseline_cfg4_quota_500x50k"
 CONFIG_4_KW = dict(num_rounds=2, k_choices=8, score_dims=(0, 1),
                    tie_break=True, quota_depth=2, fit_dims=(0, 1, 2, 3),
                    cascade=False, enable_numa=False)
+# configs 1 and 3 run _run_scheduler_config's step with NUMA off, as
+# config 4 does
+CONFIG_1_METRIC, CONFIG_1_CHUNK = "baseline_cfg1_spark_32x10", 32
+CONFIG_1_KW = CONFIG_4_KW
+CONFIG_3_METRIC = "baseline_cfg3_gangs_1kx8_5k"
+CONFIG_3_KW = CONFIG_4_KW
+CONFIG_3_GANG_SIZE = 8
 
 GPU_SHARE_METRIC = "gpu_share_100kx10k"
 # bench.py's full-gate step unpacked and with the cascade off
@@ -147,6 +170,7 @@ FULL_GATE_METRIC = "score_bind_100k_pods_10k_nodes_full_gate"
 FULL_GATE_KW = dict(GPU_SHARE_KW, cascade=True)
 FULL_GATE_TAIL_KW = dict(FULL_GATE_KW, num_rounds=4, k_choices=32)
 FULL_GATE_AMPLIFIED_METRIC = "full_gate_amplified_100kx10k"
+FULL_GATE_AUX_METRIC = "full_gate_aux_100kx10k"
 
 CONFIG_5_METRIC = "baseline_cfg5_descheduler_10k"
 CONFIG_5_CAPPED_METRIC = "baseline_cfg5_descheduler_10k_capped"
@@ -218,6 +242,69 @@ def run_config_2_numa(num_pods: int = 10_000, num_nodes: int = 1000,
     return line, run
 
 
+def _timed_chunked_sweep(metric: str, snap: ClusterSnapshot, pods: PodBatch,
+                         chunk: int, step_kw: dict, dev, **extra):
+    """Time one `chunked_sweep` of `pods` on `snap` and return (line,
+    run): `line` holds the bench line's fields (value = seconds of the
+    timed region, which ends with the assignment's readback;
+    pods_per_sec, placed, `extra`) and the device it ran on, on a card
+    with its name and power limit."""
+    cfg = LoadAwareConfig.make(device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    run = chunked_sweep(snap, pods, cfg, chunk, step_kw)
+    assign = run.assignment.cpu()
+    elapsed = time.perf_counter() - t0
+    num_pods = pods.num_pods
+    line = {
+        "metric": metric,
+        "value": elapsed,
+        "pods_per_sec": num_pods / elapsed,
+        "placed": int((assign >= 0).sum()),
+        "num_pods": num_pods,
+        "num_nodes": snap.nodes.num_nodes,
+        **extra,
+        "chunk": chunk,
+        "platform": dev.type,
+        "device": (card_name_and_power_limit() if dev.type == "cuda"
+                   else "cpu"),
+    }
+    return line, run
+
+
+def run_config_1_spark(device="cuda"):
+    """Build BASELINE config 1 (`config_1_inputs`: 32 BE pods against 10
+    nodes), time one chunked sweep on it (`CONFIG_1_KW`, one chunk of
+    32), and return (line, run) as `run_config_4_quota` does."""
+    dev = resolve_device(device)
+    snap, pods = config_1_inputs(device=dev)
+    return _timed_chunked_sweep(CONFIG_1_METRIC, snap, pods, CONFIG_1_CHUNK,
+                                CONFIG_1_KW, dev)
+
+
+def run_config_3_gangs(num_gangs: int = 1000, num_nodes: int = 5000,
+                       chunk: int = 2000, device="cuda"):
+    """Build BASELINE config 3 (`config_3_inputs`: `num_gangs` strict
+    gangs of 8 against `num_nodes` nodes), time one chunked sweep on it
+    (`CONFIG_3_KW`), and return (line, run) as `run_config_4_quota`
+    does; the line also counts the gangs whose every member placed
+    (`gangs_placed`) and those with some but not all placed
+    (`gangs_partial`, 0 for strict gangs after the rollback)."""
+    dev = resolve_device(device)
+    snap, pods = config_3_inputs(num_gangs, num_nodes, device=dev)
+    line, run = _timed_chunked_sweep(CONFIG_3_METRIC, snap, pods, chunk,
+                                     CONFIG_3_KW, dev, num_gangs=num_gangs)
+    gang = pods.gang_id.cpu().long()
+    placed = (run.assignment.cpu() >= 0).to(torch.int64)
+    members = torch.zeros(num_gangs, dtype=torch.int64).index_add_(
+        0, gang, placed)
+    line["gangs_placed"] = int((members == CONFIG_3_GANG_SIZE).sum())
+    line["gangs_partial"] = int(((members > 0)
+                                 & (members < CONFIG_3_GANG_SIZE)).sum())
+    return line, run
+
+
 def run_config_4_quota(num_pods: int = 50_000, num_nodes: int = 5000,
                        chunk: int = 2500, num_quotas: int = 500,
                        device="cuda"):
@@ -231,27 +318,8 @@ def run_config_4_quota(num_pods: int = 50_000, num_nodes: int = 5000,
     before."""
     dev = resolve_device(device)
     snap, pods = config_4_inputs(num_pods, num_nodes, num_quotas, device=dev)
-    cfg = LoadAwareConfig.make(device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    run = chunked_sweep(snap, pods, cfg, chunk, CONFIG_4_KW)
-    assign = run.assignment.cpu()
-    elapsed = time.perf_counter() - t0
-    line = {
-        "metric": CONFIG_4_METRIC,
-        "value": elapsed,
-        "pods_per_sec": num_pods / elapsed,
-        "placed": int((assign >= 0).sum()),
-        "num_pods": num_pods,
-        "num_nodes": num_nodes,
-        "num_quotas": num_quotas,
-        "chunk": chunk,
-        "platform": dev.type,
-        "device": (card_name_and_power_limit() if dev.type == "cuda"
-                   else "cpu"),
-    }
-    return line, run
+    return _timed_chunked_sweep(CONFIG_4_METRIC, snap, pods, chunk,
+                                CONFIG_4_KW, dev, num_quotas=num_quotas)
 
 
 def run_gpu_share(num_pods: int = 100_000, num_nodes: int = 10_000,
@@ -359,17 +427,23 @@ def full_gate_sweep(snap: ClusterSnapshot, packed: PodBatch,
 
 
 def run_full_gate(num_pods: int = 100_000, num_nodes: int = 10_000,
-                  chunk: int = 2000, device="cuda", amplified: bool = False):
+                  chunk: int = 2000, device="cuda", amplified: bool = False,
+                  aux: bool = False):
     """Build the full-gate flagship (`gpu_share_inputs`, or with
-    `amplified` `amplified_full_gate_inputs` and amplification on;
-    packed by `pack_full_gate`: set-up, untimed as in the bench), time
-    one sweep-and-tail on it, and return (line, run, setup): `line` is
-    `placed_line` with the three prefixes; `run` as run_gpu_share's, in
-    the packed order; `setup` the initial snapshot, the packed pods, the
+    `amplified` `amplified_full_gate_inputs` and amplification on, or
+    with `aux` `aux_full_gate_inputs`; packed by `pack_full_gate`:
+    set-up, untimed as in the bench), time one sweep-and-tail on it, and
+    return (line, run, setup): `line` is `placed_line` with the three
+    prefixes (and with `aux` the aux pods asked, placed and fitting no
+    node; the timed run counts nothing more, so that it runs the full
+    gate's code: `schedule_batch(aux_stats=...)` counts the pods the aux
+    gates turn away in an untimed batch); `run` as run_gpu_share's, in the
+    packed order; `setup` the initial snapshot, the packed pods, the
     prefixes, masks and kwargs. The first call on a card also pays the
     kernels' build unless `kernels.build.build_all()` ran before."""
     dev = resolve_device(device)
-    inputs = amplified_full_gate_inputs if amplified else gpu_share_inputs
+    inputs = (amplified_full_gate_inputs if amplified
+              else aux_full_gate_inputs if aux else gpu_share_inputs)
     snap, pods = inputs(num_pods, num_nodes, device=dev)
     cfg = LoadAwareConfig.make(device=dev)
     packed, prefixes, masks, step_kw, tail_kw = pack_full_gate(
@@ -382,11 +456,17 @@ def run_full_gate(num_pods: int = 100_000, num_nodes: int = 10_000,
     assign = run.assignment.cpu()
     elapsed = time.perf_counter() - t0
     line = placed_line(FULL_GATE_AMPLIFIED_METRIC if amplified
+                       else FULL_GATE_AUX_METRIC if aux
                        else FULL_GATE_METRIC, elapsed, snap, packed, run,
                        assign, chunk)
     line.update(topo_prefix=prefixes["topo"], numa_prefix=prefixes["numa"],
                 gpu_prefix=prefixes["gpu"], cascade=True,
-                amplified=amplified)
+                amplified=amplified, aux=aux)
+    if aux:
+        asks = (packed.requests[:, list(AUX_KINDS)] > 0).any(dim=1).cpu()
+        line.update(aux_pods=int(asks.sum()),
+                    aux_placed=int((asks & (assign >= 0)).sum()),
+                    aux_no_fit=aux_no_fit(snap, packed))
     setup = dict(snap=snap, pods=packed, prefixes=prefixes, masks=masks,
                  step_kw=step_kw, tail_kw=tail_kw)
     return line, run, setup

@@ -10,9 +10,15 @@
 // - plugins/deviceshare.py:152 score_matrix: the least- (or most-)
 //   allocated score of the node's GPU pool after the pod's allocation,
 //   averaged over the device dims the pod asks for, times 100;
-// pods without a GPU request pass everywhere and score 0. It writes
-// bool pair_ok[P, N] (ANDed into K4's NUMA mask in place when the
-// caller passes one) and f32 pair_score[P, N]; K1 reads both. Under
+// pods without a GPU request pass everywhere and score 0;
+// - the prefilter's aux part (deviceshare.py:123-133), on a snapshot
+//   with aux (RDMA/FPGA) pools: for each pool the pod asks for, a valid
+//   instance whose free covers the request (one instance serves a whole
+//   request, devicehandler_default.go).
+// It writes bool pair_ok[P, N] (ANDed into K4's NUMA mask in place when
+// the caller passes one) and f32 pair_score[P, N]; K1 reads both. A
+// snapshot with aux pools and no GPU instance runs the aux part alone
+// and writes no score (there is no GPU pool to score). Under
 // the cascade's stage 2 (core.py:304-327) P is the batch's gpu prefix:
 // the caller passes the first P pods and the pair mask, whose first P
 // rows it ANDs. The gate tolerance eps comes from the host
@@ -25,9 +31,12 @@
 //
 // Design: a block of 128 threads owns a tile of 128 nodes and 16 pods.
 // It stages the tile's instance free (up to 16 instances), valid bits,
-// per-GPU memory and pool sums, and the pods' requests, in shared
-// memory; thread t takes node t of the tile for each of the 16 pods, so
-// a warp writes 32 consecutive nodes of one pod row at a time.
+// per-GPU memory and pool sums, each aux pool's largest valid free, and
+// the pods' requests, in shared memory; thread t takes node t of the
+// tile for each of the 16 pods, so a warp writes 32 consecutive nodes
+// of one pod row at a time. An aux pool has a fitting instance iff its
+// largest valid free plus eps covers the request: f32 addition rounds
+// monotonically, so max_j (free_j + eps) = max_j free_j + eps.
 //
 // Exactness against the reference (bit for bit): the file builds with
 // -fmad=false and names each rounding (device_share.cuh for the
@@ -57,14 +66,18 @@ constexpr int MAX_I = 16;
 __global__ void __launch_bounds__(THREADS) device_pair_terms_kernel(
     const float* __restrict__ gpu_req, const float* __restrict__ total,
     const float* __restrict__ free_, const uint8_t* __restrict__ valid,
-    int P, int N, int I, int least, float eps, const uint8_t* and_in,
-    uint8_t* out_ok, float* __restrict__ out_score) {
+    const float* __restrict__ aux_req, const float* __restrict__ aux_free,
+    const uint8_t* __restrict__ aux_valid, int P, int N, int I, int J,
+    int least, float eps, const uint8_t* and_in, uint8_t* out_ok,
+    float* __restrict__ out_score) {
   __shared__ float s_free[MAX_I][3][TILE];
   __shared__ unsigned s_valid[TILE];
   __shared__ float s_mem[TILE];
   __shared__ float s_pool_total[3][TILE];
   __shared__ float s_pool_free[3][TILE];
   __shared__ float s_req[PODS][3];
+  __shared__ float s_aux_max[2][TILE];
+  __shared__ float s_areq[PODS][2];
 
   const int t = threadIdx.x;
   const int n0 = blockIdx.x * TILE, p0 = blockIdx.y * PODS;
@@ -85,7 +98,15 @@ __global__ void __launch_bounds__(THREADS) device_pair_terms_kernel(
       }
     }
     s_valid[t] = vbits;
-    s_mem[t] = total[(size_t)n * 3 + 1];
+    for (int a = 0; a < 2 && J > 0; ++a) {
+      float m = -INFINITY;
+      for (int j = 0; j < J; ++j) {
+        const size_t o = ((size_t)n * 2 + a) * J + j;
+        if (aux_valid[o]) m = fmaxf(m, aux_free[o]);
+      }
+      s_aux_max[a][t] = m;
+    }
+    s_mem[t] = I > 0 ? total[(size_t)n * 3 + 1] : 0.0f;
     for (int d = 0; d < 3; ++d) {
       s_pool_total[d][t] = __fmul_rn(total[(size_t)n * 3 + d], (float)vn);
       s_pool_free[d][t] = pf[d];
@@ -93,7 +114,12 @@ __global__ void __launch_bounds__(THREADS) device_pair_terms_kernel(
   }
   if (t < PODS * 3) {
     const int q = p0 + t / 3;
-    s_req[t / 3][t % 3] = q < P ? gpu_req[(size_t)q * 3 + t % 3] : 0.0f;
+    s_req[t / 3][t % 3] = q < P && I > 0 ? gpu_req[(size_t)q * 3 + t % 3]
+                                         : 0.0f;
+  } else if (t < PODS * 5) {
+    const int k = t - PODS * 3, q = p0 + k / 2;
+    s_areq[k / 2][k % 2] = q < P && J > 0 ? aux_req[(size_t)q * 2 + k % 2]
+                                          : 0.0f;
   }
   __syncthreads();
   if (n >= N) return;
@@ -127,9 +153,13 @@ __global__ void __launch_bounds__(THREADS) device_pair_terms_kernel(
       score = __fmul_rn(
           fminf(fmaxf(__fdiv_rn(s, fmaxf(wsum, 1.0f)), 0.0f), 1.0f), 100.0f);
     }
+    for (int a = 0; a < 2 && J > 0; ++a) {
+      const float r = s_areq[j][a];
+      ok &= r <= 0.0f || __fadd_rn(s_aux_max[a][t], eps) >= r;
+    }
     const size_t o = (size_t)p * N + n;
     out_ok[o] = (and_in == nullptr || and_in[o]) && ok;
-    out_score[o] = score;
+    if (out_score != nullptr) out_score[o] = score;
   }
 }
 
@@ -137,18 +167,23 @@ __global__ void __launch_bounds__(THREADS) device_pair_terms_kernel(
 
 // ptr: gpu_req [P, 3] (core, memory, memory ratio), gpu_total [N, 3],
 // gpu_free [N, I, 3], gpu_valid [N, I], and_in [P, N] (or null; may be
-// pair_ok itself), pair_ok [P, N], pair_score [P, N]. least: 1 for
-// "least", 0 for "most"; eps: the gate tolerance.
+// pair_ok itself), pair_ok [P, N], pair_score [P, N] (null where I = 0),
+// aux_req [P, 2], aux_free [N, 2, J], aux_valid [N, 2, J] (unread where
+// J = 0). least: 1 for "least", 0 for "most"; eps: the gate tolerance.
+// I = 0 runs the aux part alone, J = 0 the GPU part alone.
 extern "C" int koord_device_pair_terms(const void* const* ptr, int P, int N,
-                                       int I, int least, float eps,
+                                       int I, int J, int least, float eps,
                                        void* stream) {
   if (P <= 0 || N <= 0) return 0;
-  if (I <= 0 || I > MAX_I) return (int)cudaErrorInvalidValue;
+  if (I < 0 || I > MAX_I || J < 0 || J > MAX_I || I + J == 0 ||
+      (I > 0 && ptr[6] == nullptr))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((N + TILE - 1) / TILE, (P + PODS - 1) / PODS);
   if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
   device_pair_terms_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)ptr[0], (const float*)ptr[1], (const float*)ptr[2],
-      (const uint8_t*)ptr[3], P, N, I, least, eps, (const uint8_t*)ptr[4],
+      (const uint8_t*)ptr[3], (const float*)ptr[7], (const float*)ptr[8],
+      (const uint8_t*)ptr[9], P, N, I, J, least, eps, (const uint8_t*)ptr[4],
       (uint8_t*)ptr[5], (float*)ptr[6]);
   return (int)cudaGetLastError();
 }

@@ -83,19 +83,30 @@
 // sees the CUDA error at its next synchronisation, rather than a gate
 // that silently passed pods the reference would have gated.
 //
-// Exactness: the summation order is not the reference's (the tiled
-// form adds a carry first, then the tile's prefix). The sums are
-// still exact on the scheduler's inputs: requests are multiples of
-// 500 mC and 512 MiB (utils/synthetic.py) and node/quota usage is a sum
-// of such requests, so every partial sum is an integer (a multiple of 4,
-// resp. 512, far below 2^24 times that) and representable in f32, in
-// any order. The quota root (depth 0 holds
-// every quota pod) puts up to a whole chunk in one segment, so this
-// reasoning, not a small segment size, is what keeps the result exact.
-// The comparison itself keeps the reference's order of additions.
+// Exactness: the scan's summation order is not the reference's (the
+// tiled form adds a carry first, then the tile's prefix). The caller
+// passes `exact`, a flag on the device that says whether the launch's
+// sums are exact in any order, from the order switch at the end of this
+// file (kernels/segment_prefix.py exact_in_any_order states the rule;
+// the scheduler decides it once a batch for the requests fixed for the
+// batch, and a launch for the step's own arrays, with no host sync). The scheduler's workloads
+// meet it (requests are multiples of 500 mC and 512 MiB, whole GPU and
+// aux percents), and such a launch runs the scan. Any other launch
+// (fractional requests, fault C7) runs the pinned form instead: every
+// level, each pod's thread walks the pods in index order and adds its
+// earlier same-segment pods' requests in XLA:CPU's order of the
+// reference's `mask @ req` (kernels/_xla.py xla_mask_dot states the
+// rule: four lanes by j mod 4 folded as (l0 + l1) + (l2 + l3) plus the
+// tail summed on its own, index order below 8 pods; at R = 1 the fused
+// loop's 32 lanes, then 4, then the rest), then adds base + sum +
+// request as the reference does. It is O(P^2) a level on one block, and
+// only fractional inputs pay it. The comparison itself keeps the
+// reference's order of additions in both forms.
 
 #include <cub/block/block_radix_sort.cuh>
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -143,6 +154,191 @@ union LevelStorage {
   } in;
 };
 
+constexpr int JT = 256;  // pods a staged tile of the pinned form
+
+// Stage the pinned form's tile [j0, j0 + JT) of level l in shared
+// memory: each pod's segment (INT_MIN where it is not alive or past P),
+// rank and request row. Every thread of the block calls it.
+__device__ __forceinline__ void stage_tile(
+    const int32_t* seg, const int32_t* rank, const float* req,
+    const uint8_t* alive, int rstride, int l, int P, int R, int j0,
+    int* seg_s, int* rank_s, float* req_s) {
+  __syncthreads();  // the previous tile is read
+  for (int jj = threadIdx.x; jj < JT; jj += blockDim.x) {
+    const int j = j0 + jj;
+    seg_s[jj] = j < P && alive[j] ? seg[(size_t)l * P + j] : INT_MIN;
+    rank_s[jj] = j < P ? rank[j] : 0;
+    for (int r = 0; r < R; ++r)
+      req_s[jj * R + r] = j < P ? req[(size_t)j * rstride + r] : 0.0f;
+  }
+  __syncthreads();
+}
+
+// The pinned form's sum for one pod, R >= 2 (NR: R <= NR): four lanes
+// by j mod 4 over j < q, the tail j >= q summed on its own, over the
+// staged tile [j0, j0 + JT) of (segment or INT_MIN where not alive,
+// rank, request). q is 4 * (P / 4), or 0 below 8 pods.
+template <int NR>
+__device__ __forceinline__ void pinned_tile(
+    const int* seg_s, const int* rank_s, const float* req_s, int j0, int P,
+    int q, int R, int si, int ri, float (&acc)[4][NR], float (&tail)[NR]) {
+  for (int g = 0; g < JT; g += 4) {
+    const int jg = j0 + g;
+    if (jg >= P) break;
+    if (jg < q) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (seg_s[g + u] == si && rank_s[g + u] < ri) {
+#pragma unroll
+          for (int r = 0; r < NR; ++r)
+            if (r < R)
+              acc[u][r] = __fadd_rn(acc[u][r], req_s[(g + u) * R + r]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (jg + u < P && seg_s[g + u] == si && rank_s[g + u] < ri) {
+#pragma unroll
+          for (int r = 0; r < NR; ++r)
+            if (r < R) tail[r] = __fadd_rn(tail[r], req_s[(g + u) * R + r]);
+        }
+      }
+    }
+  }
+}
+
+// The 32 lanes of the R = 1 form as one sum: ((v1 + v0) + v2) + v3,
+// then the eight lanes folded in halves.
+__device__ __forceinline__ float fold32(const float (&acc)[32]) {
+  float w8[8], h[4];
+#pragma unroll
+  for (int l = 0; l < 8; ++l)
+    w8[l] = __fadd_rn(__fadd_rn(__fadd_rn(acc[8 + l], acc[l]), acc[16 + l]),
+                      acc[24 + l]);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) h[k] = __fadd_rn(w8[k], w8[k + 4]);
+  return __fadd_rn(__fadd_rn(h[0], h[2]), __fadd_rn(h[1], h[3]));
+}
+
+// The pinned form's sum for one pod, R = 1: 32 lanes over j < q32 (lane
+// j mod 32 of the group, v_u = lanes 8u..8u+7), combined as
+// ((v1 + v0) + v2) + v3 and folded in halves; then four lanes from
+// (that, 0, 0, 0) over j < e, folded as (a0 + a2) + (a1 + a3); then the
+// rest in index order. Below 32 pods (q32 = 0, e = 0): index order.
+// Where P is a multiple of 32 the caller folds the lanes at the end.
+__device__ __forceinline__ void pinned_tile1(
+    const int* seg_s, const int* rank_s, const float* req_s, int j0, int P,
+    int q32, int e, int si, int ri, float (&acc)[32], float& out) {
+  for (int g = 0; g < JT; g += 32) {
+    const int jg = j0 + g;
+    if (jg >= P) break;
+    if (jg < q32) {
+#pragma unroll
+      for (int w = 0; w < 32; ++w)
+        if (seg_s[g + w] == si && rank_s[g + w] < ri)
+          acc[w] = __fadd_rn(acc[w], req_s[g + w]);
+      continue;
+    }
+    if (jg == q32 && q32 > 0) {  // the vector loop ended: four lanes
+      out = fold32(acc);
+      float a[4] = {out, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int w = 0; w < 32; ++w)
+        if (jg + w < e && seg_s[g + w] == si && rank_s[g + w] < ri)
+          a[w & 3] = __fadd_rn(a[w & 3], req_s[g + w]);
+      if (e > q32)
+        out = __fadd_rn(__fadd_rn(a[0], a[2]), __fadd_rn(a[1], a[3]));
+    }
+#pragma unroll
+    for (int w = 0; w < 32; ++w) {
+      const int j = jg + w;
+      if (j >= e && j < P && seg_s[g + w] == si && rank_s[g + w] < ri)
+        out = __fadd_rn(out, req_s[g + w]);
+    }
+  }
+}
+
+// The pinned form of the whole chain, for every thread of the block: a
+// level at a time, each pod's verdict from the alive flags at the
+// level's start (held in `verdict`, the rank-order scratch this path
+// does not use, until every pod has walked the level), its sum in the
+// reference's order; seg_s and req_s: shared memory for a staged tile
+// (2 * JT ints, JT * R floats). Out of line, so that its registers do
+// not crowd the scan's; `lv` is a copy of the levels in shared memory
+// (a reference to the kernel's parameter would put them on every
+// thread's stack on the scan's path too).
+template <int NR, typename V>
+__device__ __noinline__ void pinned_chain(
+    const int32_t* seg, const int32_t* rank, const uint8_t* mask,
+    const Levels& lv, int L, int P, int R, float eps, uint8_t* alive,
+    V* verdict, int* seg_s, float* req_s) {
+  const int t = threadIdx.x;
+  int* rank_s = seg_s + JT;
+  for (int l = 0; l < L; ++l) {
+    if (l == 1 && mask != nullptr) {
+      for (int i = t; i < P; i += THREADS) alive[i] &= mask[i];
+      __syncthreads();
+    }
+    const int S = lv.S[l];
+    const float* req = lv.req[l];
+    const int q4 = P >= 8 ? P / 4 * 4 : 0;
+    const int q32 = P >= 32 ? P / 32 * 32 : 0;
+    const int e = P >= 32 ? q32 + (P - q32) / 4 * 4 : 0;
+    for (int c0 = 0; c0 < P; c0 += THREADS) {
+      const int i = c0 + t;
+      int si = INT_MIN, ri = 0;
+      bool gated = false;
+      if (i < P && alive[i]) {
+        si = seg[(size_t)l * P + i];
+        gated = si < S;
+        ri = rank[i];
+      }
+      float cum[NR] = {};
+      if (R == 1) {  // block-uniform, as every branch below
+        float acc[32] = {};
+        for (int j0 = 0; j0 < P; j0 += JT) {
+          stage_tile(seg, rank, req, alive, lv.rstride, l, P, R, j0, seg_s,
+                     rank_s, req_s);
+          if (gated)
+            pinned_tile1(seg_s, rank_s, req_s, j0, P, q32, e, si, ri, acc,
+                         cum[0]);
+        }
+        if (q32 > 0 && q32 == P) cum[0] = fold32(acc);
+      } else {
+        float acc[4][NR] = {}, tail[NR] = {};
+        for (int j0 = 0; j0 < P; j0 += JT) {
+          stage_tile(seg, rank, req, alive, lv.rstride, l, P, R, j0, seg_s,
+                     rank_s, req_s);
+          if (gated)
+            pinned_tile<NR>(seg_s, rank_s, req_s, j0, P, q4, R, si, ri, acc,
+                            tail);
+        }
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
+          cum[r] = __fadd_rn(__fadd_rn(__fadd_rn(acc[0][r], acc[1][r]),
+                                       __fadd_rn(acc[2][r], acc[3][r])),
+                             tail[r]);
+      }
+      bool ok = true;
+      if (gated) {
+        const size_t o = (size_t)max(si, 0) * lv.stride[l];
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+          if (r >= R) continue;
+          const float lhs = __fadd_rn(__fadd_rn(lv.base[l][o + r], cum[r]),
+                                      req[(size_t)i * lv.rstride + r]);
+          ok &= lhs <= __fadd_rn(lv.limit[l][o + r], eps);
+        }
+      }
+      if (i < P) verdict[i] = ok;
+    }
+    __syncthreads();
+    for (int i = t; i < P; i += THREADS) alive[i] &= verdict[i] != 0;
+    __syncthreads();
+  }
+}
+
 // NR: the columns the unsorted path unrolls (R <= NR). TILED: P > MAX_P,
 // the rank order walked a tile at a time (order_g [P] and lv.carry in
 // device memory, the alive flags in `out`).
@@ -150,8 +346,9 @@ template <int NR, bool TILED>
 __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
     const int32_t* __restrict__ seg, const int32_t* __restrict__ rank,
     const uint8_t* __restrict__ active, const uint8_t* __restrict__ mask,
-    Levels lv, int L, int P, int R, int vec4, float eps,
-    int32_t* __restrict__ order_g, uint8_t* __restrict__ out) {
+    const uint8_t* __restrict__ exact, Levels lv, int L, int P, int R,
+    int vec4, float eps, int32_t* __restrict__ order_g,
+    uint8_t* __restrict__ out) {
   using PodIdx = std::conditional_t<TILED, int32_t, int16_t>;
   __shared__ LevelStorage<TILED> sh;
   __shared__ int warp_count[2][WARPS];  // by level parity
@@ -174,10 +371,6 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
       if (r >= 0 && r < P) order_g[r] = i;
       alive[i] = active[i];
     }
-    __syncthreads();
-    bool filled = true;
-    for (int i = t; i < P; i += THREADS) filled &= order_g[i] >= 0;
-    if (!__syncthreads_and(filled)) __trap();
   } else {
     for (int i = t; i < MAX_P; i += THREADS) order[i] = -1;
     __syncthreads();
@@ -186,15 +379,33 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
       if (r >= 0 && r < P) order[r] = (int16_t)i;
       alive[i] = active[i];
     }
+  }
+  __syncthreads();
+  // rank is a permutation iff every position below P holds a pod
+  bool filled = true;
+  for (int i = t; i < P; i += THREADS) {
+    if constexpr (TILED) filled &= order_g[i] >= 0;
+    else filled &= order[i] >= 0;
+  }
+  if (!__syncthreads_and(filled)) __trap();
+
+  // sums that are not exact in any order: the pinned form gates every
+  // level
+  const bool scan = *exact != 0;
+  if (__builtin_expect(!scan, 0)) {
+    __shared__ Levels lv_s;
+    if (t == 0) lv_s = lv;
     __syncthreads();
-    // rank is a permutation iff every position below P holds a pod
-    bool filled = true;
-    for (int i = t; i < P; i += THREADS) filled &= order[i] >= 0;
-    if (!__syncthreads_and(filled)) __trap();
+    if constexpr (TILED)
+      pinned_chain<NR>(seg, rank, mask, lv_s, L, P, R, eps, alive, order_g,
+                       sh.in.seg, sh.in.req);
+    else
+      pinned_chain<NR>(seg, rank, mask, lv_s, L, P, R, eps, alive, order,
+                       sh.in.seg, sh.in.req);
   }
 
   // the tiles of the rank order: one below MAX_P pods
-  for (int t0 = 0; t0 < P; t0 += MAX_P) {
+  for (int t0 = 0; scan && t0 < P; t0 += MAX_P) {
   // this thread's pods (blocked: rank order) and their segments, each
   // level's read one level ahead
   int mine[ITEMS], snext[ITEMS];
@@ -531,20 +742,126 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
   }
 }
 
+// --- the order switch (kernels/segment_prefix.py exact_in_any_order) ---
+
+constexpr int MAX_SWITCH = 4;  // request arrays a switch launch reads
+
+struct SwitchArrays {
+  const float* ptr[MAX_SWITCH];
+  long long level_stride[MAX_SWITCH];
+  int levels[MAX_SWITCH];
+  int rows[MAX_SWITCH];
+  int row_stride[MAX_SWITCH];
+};
+
+// The exponent e of x's lowest set bit (x an odd multiple of 2^e) for
+// finite nonzero x; INT_MAX for zero (no constraint), INT_MIN for NaN
+// and infinities (no bound holds).
+__device__ __forceinline__ int low_bit_exponent(float x) {
+  const unsigned bits = __float_as_uint(x);
+  const int exp = (bits >> 23) & 0xFF;
+  if (exp == 0xFF) return INT_MIN;
+  const unsigned mant = exp ? (bits & 0x7FFFFFu) | 0x800000u
+                            : bits & 0x7FFFFFu;
+  if (mant == 0) return INT_MAX;
+  return (exp ? exp - 150 : -149) + __ffs(mant) - 1;
+}
+
+// One block over every row of every array (levels x rows, each at
+// level * level_stride + row * row_stride): per array and column the
+// least low_bit_exponent e and the sum of magnitudes in double (exact
+// for multiples of 2^e below 2^(53 + e), so near the bound it is the
+// plain version's sum), then out[0] = every column of every array has
+// no nonzero request, or e >= -149 and the sum below 2^(24 + e).
+__global__ void __launch_bounds__(THREADS) order_switch_kernel(
+    SwitchArrays a, int n, int R, uint8_t* __restrict__ out) {
+  __shared__ int low_s[MAX_SWITCH * MAX_R];
+  __shared__ double sum_s[MAX_SWITCH * MAX_R];
+  const int t = threadIdx.x;
+  if (t < MAX_SWITCH * MAX_R) {
+    low_s[t] = INT_MAX;
+    sum_s[t] = 0.0;
+  }
+  __syncthreads();
+  for (int m = 0; m < n; ++m) {
+    for (int c = 0; c < R; ++c) {
+      int low = INT_MAX;
+      double sum = 0.0;
+      for (int l = 0; l < a.levels[m]; ++l) {
+        const float* q = a.ptr[m] + (size_t)l * a.level_stride[m] + c;
+        for (int i = t; i < a.rows[m]; i += THREADS) {
+          const float x = q[(size_t)i * a.row_stride[m]];
+          low = min(low, low_bit_exponent(x));
+          sum += fabs((double)x);
+        }
+      }
+      for (int d = 16; d > 0; d >>= 1) {
+        low = min(low, __shfl_xor_sync(FULL, low, d));
+        sum += __shfl_xor_sync(FULL, sum, d);
+      }
+      if ((t & 31) == 0) {
+        atomicMin(&low_s[m * MAX_R + c], low);
+        atomicAdd(&sum_s[m * MAX_R + c], sum);
+      }
+    }
+  }
+  __syncthreads();
+  if (t == 0) {
+    bool ok = true;
+    for (int m = 0; m < n; ++m)
+      for (int c = 0; c < R; ++c) {
+        const int e = low_s[m * MAX_R + c];
+        if (e == INT_MAX) continue;  // nothing but zeros
+        ok = ok && e >= -149 && sum_s[m * MAX_R + c] < ldexp(1.0, 24 + e);
+      }
+    out[0] = ok;
+  }
+}
+
 }  // namespace
+
+// The order switch: n (<= 4) request arrays of R (<= 11) columns, array
+// m at ptrs[m] with levels[m] levels level_strides[m] elements apart,
+// rows[m] rows row_strides[m] apart and unit column stride; out: bool[1]
+// on the device.
+extern "C" int koord_order_switch(const void* const* ptrs,
+                                  const long long* level_strides,
+                                  const int* levels, const int* rows,
+                                  const int* row_strides, int n, int R,
+                                  void* out, void* stream) {
+  if (n < 0 || n > MAX_SWITCH || R <= 0 || R > MAX_R)
+    return (int)cudaErrorInvalidValue;
+  SwitchArrays a = {};
+  for (int m = 0; m < n; ++m) {
+    if (levels[m] < 0 || rows[m] < 0 || level_strides[m] < 0 ||
+        (rows[m] > 1 && row_strides[m] < R))
+      return (int)cudaErrorInvalidValue;
+    a.ptr[m] = (const float*)ptrs[m];
+    a.level_stride[m] = level_strides[m];
+    a.levels[m] = levels[m];
+    a.rows[m] = rows[m];
+    a.row_stride[m] = row_strides[m];
+  }
+  order_switch_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
+      a, n, R, (uint8_t*)out);
+  return (int)cudaGetLastError();
+}
 
 // req: level l's [P, R] requests start req_level_stride * l elements in
 // (0: shared by the levels), rows req_row_stride (>= R) apart, unit
 // column stride; req0: level 0's own [P, R] requests (rows as req's),
 // or null; strides: each level's row stride of base and limit (>= R).
-// mask: bool[P] ANDed in after level 0, or null. work: above MAX_P
+// mask: bool[P] ANDed in after level 0, or null. exact: bool[1] on the
+// device, true where the launch's sums are exact in any order (the
+// scan), false for the pinned form. work: above MAX_P
 // pods, int32 scratch of P + sum over levels of (nseg[l] + 1) * R
 // elements (the rank order, then each level's carries, zeroed here on
 // the stream); else unused.
 
 extern "C" int koord_segment_prefix_chain(
     const void* seg, const void* rank, const void* req, const void* req0,
-    const void* active, const void* mask, const void* const* bases,
+    const void* active, const void* mask, const void* exact,
+    const void* const* bases,
     const void* const* limits, const int* nseg, const int* strides, int L,
     int P, int R, long long req_level_stride, int req_row_stride, float eps,
     void* work, void* out, void* stream) {
@@ -552,7 +869,8 @@ extern "C" int koord_segment_prefix_chain(
   if (R > MAX_R || R <= 0 || L < 0 || L > MAX_LEVELS ||
       (P > MAX_P && work == nullptr))
     return (int)cudaErrorInvalidValue;
-  if ((P > 1 && req_row_stride < R) || req_level_stride < 0)
+  if ((P > 1 && req_row_stride < R) || req_level_stride < 0 ||
+      exact == nullptr)
     return (int)cudaErrorInvalidValue;
   const bool tiled = P > MAX_P;
   cudaStream_t st = (cudaStream_t)stream;
@@ -588,8 +906,8 @@ extern "C" int koord_segment_prefix_chain(
 #define KOORD_K2_LAUNCH(NR, TILED)                                          \
   segment_prefix_chain_kernel<NR, TILED><<<1, THREADS, 0, st>>>(            \
       (const int32_t*)seg, (const int32_t*)rank, (const uint8_t*)active,     \
-      (const uint8_t*)mask, lv, L, P, R, vec4, eps, (int32_t*)work,          \
-      (uint8_t*)out)
+      (const uint8_t*)mask, (const uint8_t*)exact, lv, L, P, R, vec4, eps,  \
+      (int32_t*)work, (uint8_t*)out)
   if (R <= 4) {
     if (tiled) KOORD_K2_LAUNCH(4, true);
     else KOORD_K2_LAUNCH(4, false);

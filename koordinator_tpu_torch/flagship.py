@@ -69,6 +69,9 @@ class FlagshipRun:
     numa_zone: Optional[torch.Tensor] = None  # i32[P] placed NUMA-bound
                                               # pods' zone, -1, on the
                                               # NUMA path
+    aux_inst: Optional[torch.Tensor] = None  # i32[P, 2] placed pods' aux
+                                             # instance a pool, -1, where
+                                             # the snapshot has aux pools
 
 
 def sweep_and_tail(snap: ClusterSnapshot, pods: PodBatch,
@@ -84,6 +87,7 @@ def sweep_and_tail(snap: ClusterSnapshot, pods: PodBatch,
     `schedule_batch(**tail_kw)`, 2 to `max_passes` passes. The kwargs
     default to the slim flagship's (STEP_KW, TAIL_KW); a path with GPU
     instances also returns every placed pod's instance takes, one with
+    aux pools every placed pod's aux instances, one with
     reservation slots every placed pod's slot, and the NUMA path every
     placed NUMA-bound pod's zone. With pod topology
     groups each chunk's count0 fields are the counts so far, charged
@@ -110,8 +114,11 @@ def sweep_and_tail(snap: ClusterSnapshot, pods: PodBatch,
         snap = res.snapshot
         results.append(res)
     fields = []
-    if snap.devices.num_instances and step_kw.get("enable_devices", True):
+    devices_on = step_kw.get("enable_devices", True)
+    if snap.devices.num_instances and devices_on:
         fields.append("gpu_take")
+    if snap.devices.aux_free.shape[2] and devices_on:
+        fields.append("aux_inst")
     if step_kw.get("enable_numa", True):
         fields.append("numa_zone")
     if snap.reservations.valid.shape[0]:

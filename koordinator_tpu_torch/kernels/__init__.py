@@ -14,6 +14,7 @@ from typing import Dict
 
 def _wrappers():
     from koordinator_tpu_torch.kernels import (
+        aux_instances,
         delta_rows,
         device_terms,
         guard,
@@ -29,6 +30,7 @@ def _wrappers():
     )
     return {"score_topk": score_topk.score_topk,
             "segment_prefix_ok": segment_prefix.segment_prefix_chain,
+            "order_switch": segment_prefix.exact_in_any_order,
             "ordered_scatter_add": scatter.ordered_scatter_add,
             "numa_pair_terms": numa_terms.numa_pair_terms,
             "topology_admit": topology.topology_admit,
@@ -42,7 +44,8 @@ def _wrappers():
             "lnl_plan_capped": lownodeload.lnl_plan_capped,
             "guard_nodes": guard.guard_nodes,
             "guard_pods": guard.guard_pods,
-            "delta_rows": delta_rows.delta_rows}
+            "delta_rows": delta_rows.delta_rows,
+            "aux_instance_pick": aux_instances.aux_instance_pick}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -30,7 +30,7 @@ SOURCES = ("score_topk", "segment_prefix_ok", "ordered_scatter_add",
            "numa_terms", "topology_admit", "device_terms", "gpu_instances",
            "topology_prefix", "stage1_mask", "lownodeload_fit",
            "lownodeload_order", "lownodeload_prefix", "lownodeload_capped",
-           "guard_nodes", "guard_pods", "delta_rows")
+           "guard_nodes", "guard_pods", "delta_rows", "aux_instances")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")

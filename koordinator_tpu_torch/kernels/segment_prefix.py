@@ -11,7 +11,11 @@ ANDed in between them, where the reference's topology gates sit
 level's amplified CPU, core.py:757-763, against the quota levels' raw
 requests). Above 2048 pods the launch walks the rank order a tile of
 2048 at a time, each level carrying its segments' sums from tile to
-tile.
+tile. A launch whose sums are not exact in any order
+(`exact_in_any_order`, a flag on the device that the kernel reads: no
+host sync) adds them in the reference's XLA:CPU order instead
+(`_xla.xla_mask_dot`, fault C7), as the plain version does on the same
+flag.
 """
 
 from __future__ import annotations
@@ -23,10 +27,12 @@ import torch
 
 from koordinator_tpu_torch.api.extension import NUM_RESOURCES
 from koordinator_tpu_torch.kernels import _launch
+from koordinator_tpu_torch.kernels._xla import xla_mask_dot
 from koordinator_tpu_torch.kernels.build import TOOLCHAIN, check
 
 TILE_PODS = 2048  # a tile: one block of 512 threads, four pods a thread
 MAX_LEVELS = 8
+MAX_SWITCH_ARRAYS = 4  # request arrays an order switch launch reads
 
 # (base f32[S, R], limit f32[S, R], S) of one level
 Table = Tuple[torch.Tensor, torch.Tensor, int]
@@ -68,27 +74,145 @@ def _check_req(req: torch.Tensor, levels: int, p: int, r: int,
                          f"at least {r}")
 
 
+def low_bit_exponent(x: torch.Tensor) -> torch.Tensor:
+    """i32[...]: for finite nonzero f32 x the e with x an odd multiple of
+    2^e (the exponent of its lowest set mantissa bit); x = 0 gives a
+    value above any other's (it constrains nothing), non-finite x -1000
+    (it fails every bound below)."""
+    bits = x.contiguous().view(torch.int32)
+    exp = (bits >> 23) & 0xFF
+    mant = torch.where(exp == 0, bits & 0x7FFFFF, (bits & 0x7FFFFF) | 0x800000)
+    low = torch.log2((mant & -mant).to(torch.float32)).to(torch.int32)
+    e = torch.where(exp == 0, -149, exp - 150) + low
+    e = torch.where(mant == 0, 1000, e)
+    return torch.where(torch.isfinite(x), e, -1000).to(torch.int32)
+
+
+def exact_in_any_order_plain(*reqs: torch.Tensor) -> torch.Tensor:
+    """K2's order switch: bool[1] on the arrays' device, True where every
+    sum of requests a K2 launch on these request arrays ([..., R], every
+    row) can form is exact in any order. The rule, for each array and
+    column: the requests are multiples of one power of two 2^e (the
+    smallest of the column's `low_bit_exponent`s) and the sum of their
+    magnitudes stays below 2^(24 + e). Then every partial sum of
+    requests is a multiple of 2^e below 2^(24 + e), which an f32 holds
+    exactly, so any order of the additions gives the same bits (a pod's
+    base is added once, after its sum): so for requests in whole
+    millicores and MiB (multiples of 500 and 512 in every workload),
+    whole GPU and aux percents. Where it fails, K2 and its plain version
+    add in the reference's order (`_xla.xla_mask_dot`); a launch may
+    pass a flag decided on a superset of its rows."""
+    ok = None
+    for req in reqs:
+        x = req.reshape(-1, req.shape[-1])
+        if not x.shape[0]:
+            continue
+        e = low_bit_exponent(x).amin(dim=0).double()
+        total = x.abs().sum(dim=0, dtype=torch.float64)
+        col = (e == 1000) | ((e >= -149) & (total < torch.exp2(24.0 + e)))
+        ok = col.all() if ok is None else ok & col.all()
+    if ok is None:
+        return torch.ones((1,), dtype=torch.bool, device=reqs[0].device)
+    return ok.reshape(1)
+
+
+def exact_in_any_order(*reqs: torch.Tensor) -> torch.Tensor:
+    """`exact_in_any_order_plain`, the order switch, as K2's launches
+    read it: a kernel of `csrc/segment_prefix_ok.cu` for CUDA tensors
+    (one launch, one block; no host sync), the plain version for CPU
+    tensors. reqs: up to 4 f32 arrays [P, R] or [L, P, R] (any level
+    and row strides, unit column stride) of one R <= 11. The scheduler
+    decides it once a batch for the requests fixed for the batch, and a
+    launch for the step's own arrays."""
+    if not reqs or len(reqs) > MAX_SWITCH_ARRAYS:
+        raise ValueError(f"exact_in_any_order: 1 to {MAX_SWITCH_ARRAYS} "
+                         f"arrays, got {len(reqs)}")
+    dev, r = reqs[0].device, reqs[0].shape[-1]
+    for k, req in enumerate(reqs):
+        if req.dtype != torch.float32:
+            raise TypeError(f"reqs[{k}]: expected torch.float32, got "
+                            f"{req.dtype}")
+        if req.dim() not in (2, 3) or req.shape[-1] != r or not 0 < r <= (
+                NUM_RESOURCES):
+            raise ValueError(f"reqs[{k}]: expected [P, R] or [L, P, R] "
+                             f"with one R in [1, {NUM_RESOURCES}], got "
+                             f"{tuple(req.shape)}")
+        if req.device != dev:
+            raise ValueError(f"reqs[{k}]: on {req.device}, expected {dev}")
+    if dev.type == "cpu":
+        return exact_in_any_order_plain(*reqs)
+    if dev.type != "cuda":
+        raise ValueError(f"exact_in_any_order: unsupported device {dev}")
+    arrays = [q if q.stride(-1) == 1 and (q.shape[-2] <= 1
+                                          or q.stride(-2) >= r)
+              else q.contiguous() for q in reqs]
+    a3 = [q if q.dim() == 3 else q[None] for q in arrays]
+    n = len(a3)
+    ptrs = (ctypes.c_void_p * n)(*(q.data_ptr() for q in a3))
+    lstr = (ctypes.c_longlong * n)(*(q.stride(0) for q in a3))
+    levels = (ctypes.c_int * n)(*(q.shape[0] for q in a3))
+    rows = (ctypes.c_int * n)(*(q.shape[1] for q in a3))
+    rstr = (ctypes.c_int * n)(*(q.stride(1) if q.shape[1] > 1 else r
+                                for q in a3))
+    out = torch.empty((1,), dtype=torch.bool, device=dev)
+    fn = TOOLCHAIN.function("segment_prefix_ok", "koord_order_switch",
+                            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                            + [ctypes.c_void_p] * 2)
+    rc = fn(ctypes.cast(ptrs, ctypes.c_void_p),
+            ctypes.cast(lstr, ctypes.c_void_p),
+            ctypes.cast(levels, ctypes.c_void_p),
+            ctypes.cast(rows, ctypes.c_void_p),
+            ctypes.cast(rstr, ctypes.c_void_p), n, r, _launch.ptr(out),
+            _launch.stream(dev))
+    check(rc, "exact_in_any_order")
+    exact_in_any_order.launches += 1
+    return out
+
+
+exact_in_any_order.launches = 0
+
+
 def segment_prefix_ok_plain(seg: torch.Tensor, rank: torch.Tensor,
                             req: torch.Tensor, base_used: torch.Tensor,
                             limit: torch.Tensor, num_segments: int,
-                            eps: float) -> torch.Tensor:
+                            eps: float,
+                            exact: Optional[bool] = None) -> torch.Tensor:
     """bool[P]: base_used[seg] + Σ req of the same-segment pods ranked
     earlier + own req <= limit[seg] + eps on every column; segments
     >= num_segments ("no candidate") pass. The reference's masked
-    matmul, exact for the integer-valued sums the scheduler forms."""
+    matmul, its sums added in XLA:CPU's order (`_xla.xla_mask_dot`), so
+    that fractional requests gate as the reference gates them; where
+    the sums are exact in any order (`exact`, else
+    `exact_in_any_order_plain(req)`) the matmul gives the same bits and
+    runs instead."""
     same = seg[:, None] == seg[None, :]
     earlier = rank[None, :] < rank[:, None]
-    cum = (same & earlier).to(req.dtype) @ req
+    if exact is None:
+        exact = bool(exact_in_any_order_plain(req))
+    if exact:
+        cum = (same & earlier).to(req.dtype) @ req
+    else:
+        cum = xla_mask_dot(same & earlier, req)
     seg_c = seg.clamp(0, num_segments - 1).long()
     ok = torch.all(base_used[seg_c] + cum + req <= limit[seg_c] + eps, dim=-1)
     return ok | (seg >= num_segments)
+
+
+def _launch_exact(req: torch.Tensor, req0: Optional[torch.Tensor],
+                  exact: Optional[torch.Tensor], rule) -> torch.Tensor:
+    """A launch's order switch: the caller's flag, else `rule` (the
+    switch or its plain version) on the launch's request arrays."""
+    if exact is not None:
+        return exact
+    return rule(req, *(() if req0 is None else (req0,)))
 
 
 def segment_prefix_chain_plain(seg: torch.Tensor, rank: torch.Tensor,
                                req: torch.Tensor, active: torch.Tensor,
                                tables: Sequence[Table], eps: float,
                                mask: Optional[torch.Tensor] = None,
-                               req0: Optional[torch.Tensor] = None
+                               req0: Optional[torch.Tensor] = None,
+                               exact: Optional[torch.Tensor] = None
                                ) -> torch.Tensor:
     """bool[P]: `active`, narrowed level by level: at level l the pods
     still alive are gated by `segment_prefix_ok_plain` on seg[l],
@@ -97,8 +221,11 @@ def segment_prefix_chain_plain(seg: torch.Tensor, rank: torch.Tensor,
     [P, R]); the others sit out (segment out of range, no request).
     `mask` (bool[P]), where given, is ANDed into the alive pods after
     level 0: level 0 charges every active pod, the later levels only
-    those that pass both."""
+    those that pass both. `exact` (bool[1]) is the launch's order
+    switch, as the kernel reads it (None: decided here on req and
+    req0)."""
     alive = active
+    scan = bool(_launch_exact(req, req0, exact, exact_in_any_order_plain))
     for l, (level, (base_used, limit, num_segments)) in enumerate(
             zip(seg, tables)):
         seg_l = torch.where(alive, level, num_segments).to(torch.int32)
@@ -106,7 +233,7 @@ def segment_prefix_chain_plain(seg: torch.Tensor, rank: torch.Tensor,
             req[l] if req.dim() == 3 else req)
         req_l = torch.where(alive[:, None], req_l, 0.0)
         alive = alive & segment_prefix_ok_plain(
-            seg_l, rank, req_l, base_used, limit, num_segments, eps)
+            seg_l, rank, req_l, base_used, limit, num_segments, eps, scan)
         if l == 0 and mask is not None:
             alive = alive & mask
     return alive
@@ -116,7 +243,9 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
                          req: torch.Tensor, active: torch.Tensor,
                          tables: Sequence[Table], eps: float,
                          mask: Optional[torch.Tensor] = None,
-                         req0: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         req0: Optional[torch.Tensor] = None,
+                         exact: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """The chained gate of `segment_prefix_chain_plain`: the kernel for
     CUDA tensors (one launch for all levels; L = 1 is the reference's
     single-level gate), the plain version for CPU tensors. seg:
@@ -126,8 +255,11 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
     and one row stride (a column slice of a wider table is taken as it
     is); req likewise needs only unit column stride; mask: bool[P] or
     None, ANDed in after level 0 (L >= 1); req0: f32[P, R] level 0's
-    own requests with req's row stride, or None. Takes any P (above
-    2048 the tiled walk), R <= 11, L <= 8.
+    own requests with req's row stride, or None; exact: bool[1], the
+    order switch (`exact_in_any_order` of req and req0, or of a
+    superset of their rows: a caller that decides it once a batch
+    passes it), or None to decide it here (one more launch). Takes any
+    P (above 2048 the tiled walk), R <= 11, L <= 8.
 
     rank must be a permutation of [0, P) and every active pod's
     segments >= -1. On the host a call that breaks this raises
@@ -151,6 +283,8 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
                              "[P, R] and req's row stride")
         if not levels:
             raise ValueError("segment_prefix_chain: req0 needs a level")
+    exact = _launch_exact(req, req0, exact, exact_in_any_order)
+    _launch.check_tensor("exact", exact, torch.bool, (1,), dev)
     for l, (base_used, limit, num_segments) in enumerate(tables):
         for name, t in (("base", base_used), ("limit", limit)):
             _check_table(f"{name}[{l}]", t, num_segments, r, dev)
@@ -166,7 +300,7 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
             raise ValueError("segment_prefix_chain: an active pod has a "
                              "segment below -1")
         return segment_prefix_chain_plain(seg, rank, req, active, tables, eps,
-                                          mask, req0)
+                                          mask, req0, exact)
     if dev.type != "cuda":
         raise ValueError(f"segment_prefix_chain: unsupported device {dev}")
     if r > NUM_RESOURCES or levels > MAX_LEVELS:
@@ -176,7 +310,7 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
         raise ValueError("segment_prefix_chain: empty table")
     out = torch.empty((p,), dtype=torch.bool, device=dev)
     fn = TOOLCHAIN.function("segment_prefix_ok", "koord_segment_prefix_chain",
-                            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+                            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
                             + [ctypes.c_longlong, ctypes.c_int,
                                ctypes.c_float, ctypes.c_void_p,
                                ctypes.c_void_p, ctypes.c_void_p])
@@ -196,7 +330,7 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
     rc = fn(_launch.ptr(seg), _launch.ptr(rank), _launch.ptr(req),
             None if req0 is None else _launch.ptr(req0),
             _launch.ptr(active),
-            None if mask is None else _launch.ptr(mask),
+            None if mask is None else _launch.ptr(mask), _launch.ptr(exact),
             ctypes.cast(bases, ctypes.c_void_p),
             ctypes.cast(limits, ctypes.c_void_p),
             ctypes.cast(nseg, ctypes.c_void_p),

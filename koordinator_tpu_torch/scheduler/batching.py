@@ -10,8 +10,9 @@ from __future__ import annotations
 
 import torch
 
-# K2; re-exported as this module's gate
+# K2 and its order switch; re-exported as this module's gate
 from koordinator_tpu_torch.kernels.segment_prefix import (  # noqa: F401
+    exact_in_any_order,
     segment_prefix_chain,
 )
 

@@ -104,7 +104,7 @@ def static_gate_terms(nodes: NodeState, pods: PodBatch,
     adds the forbid table and the penalty table
     `tol_prefer / max(max(tol_prefer), 1) * MAX_NODE_SCORE`, the
     reference's per-pair arithmetic (elementwise, in its order) done
-    once a table entry. Raises NotImplementedError on aux pools."""
+    once a table entry."""
     taints = {}
     if pods.has_taints:
         taints = dict(
@@ -112,12 +112,8 @@ def static_gate_terms(nodes: NodeState, pods: PodBatch,
             tol_forbid=pods.tol_forbid,
             tol_penalty=pods.tol_prefer / torch.clamp_min(
                 torch.max(pods.tol_prefer), 1.0) * MAX_NODE_SCORE)
-    if devices is None:
-        device_ok = torch.ones_like(pods.valid)
-    elif devices.gpu_free.shape[1]:
-        device_ok = deviceshare.no_aux_term(devices, pods)
-    else:
-        device_ok = deviceshare.zero_instance_term(devices, pods)
+    device_ok = (torch.ones_like(pods.valid) if devices is None
+                 else deviceshare.poolless_term(devices, pods))
     node_ok, prod_node_ok = loadaware.filter_terms(nodes, cfg)
     return GateTerms(
         selector_id=pods.selector_id, prod_gate=loadaware.prod_gate(pods, cfg),

@@ -10,11 +10,11 @@ PreferNoSchedule score penalty), live reservation slots (V > 0) and
 pod topology spread, inter-pod anti-affinity and affinity
 (`pods.has_spread` / `has_anti` / `has_aff`), the Filter->Score gate
 cascade (`cascade=True`) and the packing-prefix contracts
-(`topo_prefix`, `numa_prefix`, `gpu_prefix`, `dom_classes`) and
-amplified CPU (`enable_amplification`): no aux (RDMA/FPGA) pools, no
-approximate top-k. Anything outside that raises NotImplementedError.
-Any batch size: the in-step kernels walk batches above 2048 pods a tile
-at a time.
+(`topo_prefix`, `numa_prefix`, `gpu_prefix`, `dom_classes`), amplified
+CPU (`enable_amplification`), the aux (RDMA/FPGA) instance pools and
+`approx_topk` (run as the exact top-k): every option of the
+reference's schedule_batch. Any batch size: the in-step kernels walk
+batches above 2048 pods a tile at a time.
 
 Per round (num_rounds of them), kernel K1 (`score_topk`) picks each
 active pod's k best feasible columns: the N nodes and the V reservation
@@ -42,7 +42,12 @@ K5 also runs DeviceShare's hint provider, kernel K7
 (`gpu_instance_pick`) picks each shared pod's instance, a third K2
 launch gates the shared pods per (row, instance) and admits one
 multi-GPU pod a row, K7 again gives the multi-GPU pods whole
-instances, and one K3 launch commits every pod's instance takes. The
+instances, and one K3 launch commits every pod's instance takes. With
+aux pools, K6 also ANDs in the prefilter's aux part, and in each inner
+step kernel K17 (`aux_instance_pick`) picks each aux pod's RDMA and FPGA
+instance on its chosen node, one K2 launch gates both pools' (node,
+pool, instance) segments (pool 1 after pool 0's gate) and one K3
+launch commits them. The
 zone and instance pools carry one extended row a slot (its zone and
 instance holds), so a consumer takes the reserved zone and minors
 through the same gates. With slots, one more K2 launch a step admits
@@ -88,6 +93,7 @@ from koordinator_tpu_torch.api.extension import (
     PriorityClass,
     ResourceKind,
 )
+from koordinator_tpu_torch.kernels.aux_instances import aux_instance_pick
 from koordinator_tpu_torch.kernels.device_terms import device_pair_terms
 from koordinator_tpu_torch.kernels.gpu_instances import gpu_instance_pick
 from koordinator_tpu_torch.kernels.numa_terms import numa_pair_terms
@@ -95,9 +101,11 @@ from koordinator_tpu_torch.kernels.scatter import ordered_scatter_add
 from koordinator_tpu_torch.kernels.score_topk import AmpTerms, score_topk
 from koordinator_tpu_torch.kernels.topology import topology_admit
 from koordinator_tpu_torch.kernels.topology_prefix import topology_prefix_gate
+from koordinator_tpu_torch.kernels._xla import xla_max
 from koordinator_tpu_torch.scheduler.batching import (
     EPS,
     MAX_NODE_SCORE,
+    exact_in_any_order,
     rank_by_priority,
     segment_prefix_chain,
     stable_rank,
@@ -148,31 +156,19 @@ class ScheduleResult(Struct):
     numa_take: torch.Tensor      # f32[P, Z, 2] per-zone (cpu, mem) charged
                                  # by topology-engaged pods, zero elsewhere
     gpu_take: torch.Tensor       # bool[P, I], False
-    aux_inst: torch.Tensor       # i32[P, 2], -1
+    aux_inst: torch.Tensor       # i32[P, 2] aux instance a pool, -1
     res_slot: torch.Tensor       # i32[P] reservation slot consumed, -1
     gang_failed: torch.Tensor    # bool[G] strict gangs proven below quorum
     snapshot: ClusterSnapshot    # post-commit snapshot
     amplified: bool = False
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: the port covers every option of "
-        "schedule_batch but the aux (RDMA/FPGA) instance pools and "
-        "approx_topk (ROADMAP queue A items 6e and 6g)")
-
-
-def _check_slim(snap: ClusterSnapshot, pods: PodBatch, *, enable_numa,
-                numa_strategy, enable_devices, device_strategy,
-                approx_topk) -> None:
+def _check_strategies(*, enable_numa, numa_strategy, enable_devices,
+                      device_strategy) -> None:
     if enable_numa and numa_strategy not in ("most", "least"):
         raise ValueError(f"numa_strategy {numa_strategy!r}")
     if enable_devices and device_strategy not in deviceshare.STRATEGIES:
         raise ValueError(f"device_strategy {device_strategy!r}")
-    if approx_topk:
-        raise _unported("approx_topk=True")
-    if enable_devices and snap.devices.aux_free.shape[2]:
-        raise _unported("a snapshot with aux (RDMA/FPGA) instance pools")
 
 
 def _count(n: int, idx: torch.Tensor) -> torch.Tensor:
@@ -244,7 +240,8 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                    dom_classes: tuple = None,
                    numa_prefix: int = None,
                    gpu_prefix: int = None,
-                   cascade: bool = False) -> ScheduleResult:
+                   cascade: bool = False,
+                   aux_stats: Optional[dict] = None) -> ScheduleResult:
     """Schedule a pod batch against the snapshot. Pure: the caller
     publishes `result.snapshot`.
 
@@ -265,16 +262,30 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     every CPU-bind pod sits below it and no node has a topology-manager
     policy, and the topology manager and zone gates run on those rows;
     with `gpu_prefix` every device-requesting pod sits below it, and the
-    GPU instance gates run on those rows. A prefix above the batch is
-    the batch. `dom_classes` (spread, anti, affinity classes of groups
-    with equal domain rows) is checked (ValueError unless each
-    partitions its family) and changes nothing else. `cascade` folds the
-    stage-1 mask in (K9) and, where a numa or gpu prefix is below the
-    batch, runs the batch-start NUMA and device gates and scores on its
-    rows only; the placements equal those with the cascade off."""
-    _check_slim(snap, pods, enable_numa=enable_numa,
-                numa_strategy=numa_strategy, enable_devices=enable_devices,
-                device_strategy=device_strategy, approx_topk=approx_topk)
+    GPU instance gates run on those rows (with aux pools, the batch-start
+    aux prefilter too: `has_device_request` counts aux pods). A prefix
+    above the batch is the batch. `dom_classes` (spread, anti, affinity
+    classes of groups with equal domain rows) is checked (ValueError
+    unless each partitions its family) and changes nothing else.
+    `cascade` folds the stage-1 mask in (K9) and, where a numa or gpu
+    prefix is below the batch, runs the batch-start NUMA and device
+    gates and scores on its rows only; the placements equal those with
+    the cascade off.
+
+    `aux_stats` (a dict, or None) counts, on the device, the pods the
+    aux instance gates turn away in the inner steps: `no_instance` (the
+    chosen node has no fitting instance of a pool the pod asks for) and
+    `gate_rejected` (K2's aux levels reject it: this step's earlier pods
+    took the instance's room); each adds to what the dict holds.
+
+    `approx_topk` runs K1's exact select: the reference's approx_max_k
+    (core.py:734-738) is a TPU partial reduction that XLA lowers to the
+    exact top-k on the CPU, where the port is held to it, and on the
+    card an exact select costs what K1 costs, so the flag changes
+    nothing here."""
+    _check_strategies(enable_numa=enable_numa, numa_strategy=numa_strategy,
+                      enable_devices=enable_devices,
+                      device_strategy=device_strategy)
     nodes0, quotas0, gangs0 = snap.nodes, snap.quotas, snap.gangs
     dev = nodes0.allocatable.device
     n_nodes = nodes0.num_nodes
@@ -326,7 +337,9 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     # instances) in factored form: K1 combines them pair by pair
     devices0 = snap.devices
     n_inst = devices0.gpu_free.shape[1]
+    n_aux = devices0.aux_free.shape[2]
     use_gpu = enable_devices and n_inst > 0
+    use_aux = enable_devices and n_aux > 0
     gates = static_gate_terms(nodes0, pods, cfg,
                               devices0 if enable_devices else None)
     # stage 2 of the cascade (core.py:286-367): with a gpu (numa) prefix
@@ -399,16 +412,21 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                                device=dev)
 
     # DeviceShare at batch start (K6, on the first dev_pg rows): the
-    # instance prefilter ANDed into the pair mask, the pool score a
-    # second addend after the zone score (the first without NUMA), as
-    # the reference sums them; the instance pool gains a row per slot
-    # (its reserved instances, the host node's totals and topology)
+    # instance prefilter (GPU and aux parts) ANDed into the pair mask,
+    # the GPU pool score a second addend after the zone score (the first
+    # without NUMA), as the reference sums them; the instance pool gains
+    # a row per slot (its reserved instances, the host node's totals and
+    # topology)
     pair_score2 = None
+    gpu_req = deviceshare.gpu_request(pods.requests,
+                                      pods.gpu_ratio).contiguous()
+    if use_aux:
+        a_req = deviceshare.aux_request(pods.requests).contiguous()
+    if use_gpu or use_aux:
+        pair_ok, dev_score = device_pair_terms(
+            gpu_req[:dev_pg], devices0, device_strategy, pair_ok,
+            a_req[:dev_pg] if use_aux else None)
     if use_gpu:
-        gpu_req = deviceshare.gpu_request(pods.requests,
-                                          pods.gpu_ratio).contiguous()
-        pair_ok, dev_score = device_pair_terms(gpu_req[:dev_pg], devices0,
-                                               device_strategy, pair_ok)
         if pair_score is None:
             pair_score = dev_score
         else:
@@ -429,12 +447,27 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         out_gpu_take = torch.zeros((p, n_inst), dtype=torch.bool, device=dev)
         out_per = torch.zeros((p, 3), dtype=torch.float32, device=dev)
 
+    if use_aux:
+        # the aux pools (N rows: slot columns never carry an aux pod,
+        # reservation.slot_columns) and K2's table of their gates: the
+        # (node, pool, instance) segments, used 0, capacity the live free
+        n_aux_seg = n_nodes * NUM_AUX_TYPES * n_aux
+        aux_free = devices0.aux_free
+        aux_base = torch.zeros((n_aux_seg, 1), dtype=torch.float32,
+                               device=dev)
+        has_aux = a_req > 0
+        a_req_lv = a_req.T.contiguous()[:, :, None]            # [2, P, 1]
+        exact_aux = exact_in_any_order(a_req)
+        out_aux = torch.full((p, NUM_AUX_TYPES), -1, dtype=torch.int32,
+                             device=dev)
+
     if n_slots:
         # K2's table of the AllocateOnce level: one winner a once slot
         once_base = torch.zeros((n_slots, 1), dtype=torch.float32,
                                 device=dev)
         once_cap = torch.ones((n_slots, 1), dtype=torch.float32, device=dev)
         once_req = torch.ones((p, 1), dtype=torch.float32, device=dev)
+        exact_once = exact_in_any_order(once_req)
         once_taken = torch.zeros((n_slots,), dtype=torch.bool, device=dev)
 
     # amplified CPU (core.py:383-404): a CPU-bind pod's CPU costs its
@@ -450,6 +483,11 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                            col=CPU if fd is None else fd.index(CPU))
 
     req_fit = dims(pods.requests)
+    # K2's order switch (exact_in_any_order) for the requests fixed for
+    # the batch, decided once on the device; the step's own arrays (the
+    # amplified node level's, the zone takes, the GPU per-instance
+    # requests) are decided a launch by the wrapper
+    exact_fit = exact_in_any_order(req_fit)
     alloc_fit = dims(extend(nodes0.allocatable, slot_alloc0))
     runtime_fit = dims(quotas0.runtime)
     est_score = (pods.estimated if sd is None
@@ -544,7 +582,8 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                 torch.cat([choice_eff[None], quota_seg]), rank, req_fit,
                 trying, [(dims(requested), alloc_fit, n_ext)]
                 + [quota_table] * quota_depth, EPS, topo_ok,
-                req0=dims(req_node) if enable_amplification else None)
+                req0=dims(req_node) if enable_amplification else None,
+                exact=None if enable_amplification else exact_fit)
 
             if use_gpu:
                 live = devices_x.replace(gpu_free=gpu_free)
@@ -601,6 +640,30 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                                         *zone, device_strategy, chosen=pick)
                 accept = _with_head(accept, fin.accept)
 
+            if use_aux:
+                # the aux instance gates (core.py:1020-1039): K17 picks
+                # each pod's instance of both pools on its chosen node
+                # from the live free; one K2 launch gates pool 0's
+                # (node, pool, instance) segments, then, with pool 1's
+                # fit ANDed in after it, pool 1's
+                a_inst, a_ok = aux_instance_pick(choice_eff, a_req, aux_free,
+                                                 devices0, device_strategy)
+                aux_seg = deviceshare.aux_segments(choice_eff, a_inst,
+                                                   has_aux, n_aux, n_aux_seg)
+                fit_a = ~has_aux | a_ok
+                before = accept
+                accept = segment_prefix_chain(
+                    aux_seg.T.contiguous(), rank, a_req_lv,
+                    accept & fit_a[:, 0],
+                    [(aux_base, aux_free.view(n_aux_seg, 1), n_aux_seg)]
+                    * NUM_AUX_TYPES, EPS, fit_a[:, 1].contiguous(),
+                    exact=exact_aux)
+                if aux_stats is not None:
+                    fits = before & fit_a.all(dim=1)
+                    for key, n in (("no_instance", (before & ~fits).sum()),
+                                   ("gate_rejected", (fits & ~accept).sum())):
+                        aux_stats[key] = aux_stats.get(key, 0) + n
+
             if n_slots:
                 # AllocateOnce: among this step's accepted consumers of a
                 # once slot only the first in priority order wins
@@ -610,7 +673,7 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                 won = segment_prefix_chain(
                     _where_i32(once_here, slot_of, n_slots)[None], rank,
                     once_req, once_here, [(once_base, once_cap, n_slots)],
-                    EPS)
+                    EPS, exact=exact_once)
                 accept = (accept & ~once_here) | won
                 hit = torch.zeros((n_slots + 1,), dtype=torch.bool,
                                   device=dev)
@@ -642,10 +705,21 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                     _where_i32(took_gpu, choice[:pg], n_ext),
                     -(fin.take[:, :, None] * pick.per_inst[:, None, :])
                     .reshape(pg, n_inst * 3)).view(n_ext, n_inst, 3)
-                out_gpu_take = _with_head(out_gpu_take,
-                                          out_gpu_take[:pg] | fin.take)
+                out_gpu_take = _with_head(
+                    out_gpu_take, out_gpu_take[:pg] | (fin.take
+                                                       & took_gpu[:, None]))
                 out_per = _with_head(out_per, torch.where(
                     took_gpu[:, None], pick.per_inst, out_per[:pg]))
+
+            if use_aux:
+                # both pools' takes in one ordered scatter, pool 0's pods
+                # first, as the reference's two scatters add them
+                took_a = accept[:, None] & has_aux
+                aux_free = ordered_scatter_add(
+                    aux_free.view(n_aux_seg, 1),
+                    _where_i32(took_a, aux_seg, n_aux_seg).T.reshape(-1),
+                    -(a_req * took_a).T.reshape(-1, 1)).view(aux_free.shape)
+                out_aux = _where_i32(took_a, a_inst, out_aux)
 
             if topo is not None and pc:
                 # The reference recounts the (group x domain) counts from
@@ -757,6 +831,21 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                 -(gpu_take[:, :, None] * out_per[:, None, :]).reshape(
                     p, n_inst * 3)), 0.0).view(n_nodes, n_inst, 3))
 
+    # aux free from the surviving assignment (core.py:1249, :1258-1270),
+    # clamped at 0 with XLA's max
+    aux_inst = torch.full((p, NUM_AUX_TYPES), -1, dtype=torch.int32,
+                          device=dev)
+    if use_aux:
+        aux_inst = _where_i32(ok[:, None], out_aux, -1)
+        took_f = ok[:, None] & has_aux & (aux_inst >= 0)
+        seg_f = deviceshare.aux_segments(placed_real.clamp_min(0), aux_inst,
+                                         took_f, n_aux, n_aux_seg)
+        new_devices = new_devices.replace(aux_free=xla_max(
+            ordered_scatter_add(
+                devices0.aux_free.reshape(n_aux_seg, 1), seg_f.T.reshape(-1),
+                -(a_req * took_f).T.reshape(-1, 1)).view(
+                    devices0.aux_free.shape), 0.0))
+
     # a slot's score outranks any node sum for the owner's preference;
     # it is reported capped at MaxNodeScore
     if n_slots:
@@ -782,8 +871,7 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         chosen_score=chosen_score,
         numa_zone=numa_zone, numa_take=numa_take,
         gpu_take=gpu_take,
-        aux_inst=torch.full((p, NUM_AUX_TYPES), -1, dtype=torch.int32,
-                            device=dev),
+        aux_inst=aux_inst,
         res_slot=res_slot, gang_failed=gang_fail, snapshot=new_snap,
         amplified=enable_amplification)
 

@@ -8,9 +8,12 @@ held against them), the fitting instances per NUMA zone that feed the
 topology manager's DeviceShare hint provider (`gpu_zone_counts`; in
 kernel K5), and the inner-step choosers (`choose_gpu_instance` for
 shared pods, `full_fit_instances` for multi-GPU pods; kernel K7
-`kernels/gpu_instances.py`). `zero_instance_term` is the prefilter of a
-snapshot with no instance at all, one bool a pod. The aux (RDMA/FPGA)
-instance chooser is not ported yet.
+`kernels/gpu_instances.py`). `poolless_term` is the prefilter's part
+for the kinds a snapshot has no instance of, one bool a pod. The aux
+(RDMA/FPGA) pools, one instance serving a whole request
+(devicehandler_default.go): their part of the prefilter
+(`aux_prefilter`, in kernel K6) and the inner-step chooser
+`choose_aux_instance` (kernel K17 `kernels/aux_instances.py`).
 
 Float note: XLA compiles the reference's divisions by the constant 100
 as multiplications by float32(0.01), and this module does the same
@@ -118,20 +121,35 @@ def gpu_prefilter(devices: DeviceState, gpu_req: torch.Tensor
     return ~(gpu_req > 0).any(dim=-1)[:, None] | (fits.sum(dim=-1) >= count)
 
 
+def aux_request(requests: torch.Tensor) -> torch.Tensor:
+    """f32[..., 2]: each pod's RDMA and FPGA request, in pool order."""
+    return torch.stack([requests[..., kind] for kind in AUX_KINDS], dim=-1)
+
+
+def aux_prefilter(devices: DeviceState, aux_req: torch.Tensor
+                  ) -> torch.Tensor:
+    """bool[P, N]: the aux part of `prefilter` for requests aux_req
+    f32[P, 2]: for every pool the pod asks for, the node has a valid
+    instance whose free covers the request."""
+    ok = torch.ones((aux_req.shape[0], devices.aux_free.shape[0]),
+                    dtype=torch.bool, device=aux_req.device)
+    for t in range(aux_req.shape[1]):
+        req = aux_req[:, t]
+        aux_ok = torch.any(
+            (devices.aux_free[None, :, t, :] + EPS >= req[:, None, None])
+            & devices.aux_valid[None, :, t, :], dim=-1)
+        ok = ok & ((req <= 0)[:, None] | aux_ok)
+    return ok
+
+
 def prefilter(devices: DeviceState, pods: PodBatch) -> torch.Tensor:
     """bool[P, N]: the node has >= count instances that each fit the
     per-instance request, and a fitting instance in every aux pool the
     pod asks for; pods without device requests pass everywhere. An
     upper bound: free only shrinks in a batch, and the exact gates run
     in the inner step on the chosen node."""
-    ok = gpu_prefilter(devices, gpu_request(pods.requests, pods.gpu_ratio))
-    for t, kind in enumerate(AUX_KINDS):
-        req = pods.requests[:, kind]
-        aux_ok = torch.any(
-            (devices.aux_free[None, :, t, :] + EPS >= req[:, None, None])
-            & devices.aux_valid[None, :, t, :], dim=-1)
-        ok = ok & ((req <= 0)[:, None] | aux_ok)
-    return ok
+    return (gpu_prefilter(devices, gpu_request(pods.requests, pods.gpu_ratio))
+            & aux_prefilter(devices, aux_request(pods.requests)))
 
 
 def pool_terms(devices: DeviceState) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -251,27 +269,47 @@ def full_fit_instances(gpu_free: torch.Tensor, devices: DeviceState,
     return fits & (cum <= count[:, None]), enough
 
 
-def zero_instance_term(devices: DeviceState, pods: PodBatch) -> torch.Tensor:
-    """bool[P]: `prefilter`'s row of each pod when the snapshot holds no
-    GPU and no aux instance (every node the same): the pod asks for no
-    GPU resource and for no aux resource. Raises NotImplementedError on
-    a snapshot with instances, whose prefilter is pairwise."""
-    if devices.gpu_free.shape[1] or devices.aux_free.shape[2]:
-        raise NotImplementedError(
-            "a snapshot with device instances has a pairwise device "
-            "prefilter (kernel K6, kernels/device_terms.py)")
-    return ~has_device_request(pods.requests, pods.gpu_ratio)
+def choose_aux_instance(aux_free: torch.Tensor, devices: DeviceState,
+                        node_idx: torch.Tensor, pool: int, req: torch.Tensor,
+                        strategy: str = "least"
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(inst i32[P], ok bool[P]): each pod's instance of aux pool `pool`
+    on its chosen node (node_idx clamped into [0, N)) from the live free
+    aux_free f32[N, 2, J], among the batch-start valid instances whose
+    free covers req f32[P]: the most free for "least", the least free
+    for "most", the first index among ties (instance 0 where none
+    fits). ok: some instance fits, or the pod asks for nothing."""
+    n = aux_free.shape[0]
+    nc = node_idx.clamp(0, n - 1).long()
+    free = aux_free[nc, pool]                                    # [P, J]
+    fits = (free + EPS >= req[:, None]) & devices.aux_valid[nc, pool]
+    if strategy == "most":
+        inst = torch.argmin(torch.where(fits, free, torch.inf), dim=-1)
+    else:
+        inst = torch.argmax(torch.where(fits, free, -torch.inf), dim=-1)
+    return inst.to(torch.int32), torch.any(fits, dim=-1) | (req <= 0)
 
 
-def no_aux_term(devices: DeviceState, pods: PodBatch) -> torch.Tensor:
-    """bool[P]: the aux part of `prefilter`'s row when the snapshot has
-    no aux instance: the pod asks for no aux resource. Raises
-    NotImplementedError on a snapshot with aux pools."""
-    if devices.aux_free.shape[2]:
-        raise NotImplementedError(
-            "aux (RDMA/FPGA) instance pools are not ported yet (ROADMAP "
-            "queue A item 6)")
+def aux_segments(node: torch.Tensor, inst: torch.Tensor,
+                 take: torch.Tensor, n_aux: int, drop: int) -> torch.Tensor:
+    """i32[P, 2]: the flat (node, pool, instance) row of each pod's aux
+    instance in an [N, 2, J] pool, (node * 2 + pool) * J + inst, where
+    `take` (bool[P, 2]), else `drop` (the rows the reference's segment
+    gates and scatters give its "no instance": N * 2 * J)."""
+    pools = torch.arange(inst.shape[1], dtype=torch.int32, device=inst.device)
+    return torch.where(take, (node[:, None] * inst.shape[1] + pools) * n_aux
+                       + inst, drop).to(torch.int32)
+
+
+def poolless_term(devices: DeviceState, pods: PodBatch) -> torch.Tensor:
+    """bool[P]: the part of `prefilter`'s row that is one bool a pod:
+    without GPU instances a pod asking for a GPU resource passes
+    nowhere, without aux instances one asking for RDMA or FPGA passes
+    nowhere. The kinds the snapshot has instances of pass here: their
+    part is pairwise (kernel K6, kernels/device_terms.py)."""
     ok = torch.ones_like(pods.valid)
-    for kind in AUX_KINDS:
-        ok = ok & (pods.requests[:, kind] <= 0)
+    if not devices.gpu_free.shape[1]:
+        ok = ok & ~has_gpu_request(pods.requests, pods.gpu_ratio)
+    if not devices.aux_free.shape[2]:
+        ok = ok & ~(aux_request(pods.requests) > 0).any(dim=-1)
     return ok

@@ -10,7 +10,7 @@ columns cloned, then every column's rows in two launches, the last row
 winning on a repeated index as XLA's scatter leaves it). `forget_pods`
 returns the charges of failed binds through kernel K3's ordered
 scatter-adds (node requested and estimates, quota levels, gang counts,
-NUMA takes, GPU instances, reservation holds), then clamps. Each is
+NUMA takes, GPU and aux instances, reservation holds), then clamps. Each is
 functional: it returns a new snapshot with `version` one higher and
 writes nothing of the snapshot it was given.
 """
@@ -24,7 +24,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from koordinator_tpu_torch.api.extension import PriorityClass, ResourceKind
+from koordinator_tpu_torch.api.extension import (
+    NUM_AUX_TYPES,
+    PriorityClass,
+    ResourceKind,
+)
 from koordinator_tpu_torch.kernels.delta_rows import delta_rows
 from koordinator_tpu_torch.kernels._xla import xla_max, xla_min
 from koordinator_tpu_torch.kernels.scatter import ordered_scatter_add
@@ -166,11 +170,6 @@ def apply_topology_delta(snap: ClusterSnapshot,
         version=snap.version + 1)
 
 
-def _unported(what: str) -> NotImplementedError:
-    from koordinator_tpu_torch.scheduler.core import _unported as core_unported
-    return core_unported(what)
-
-
 def _rows(x: torch.Tensor) -> torch.Tensor:
     """x [P, ...] as [P, C] for K3."""
     return x.reshape(x.shape[0], -1).contiguous()
@@ -184,13 +183,14 @@ def forget_pods(snap: ClusterSnapshot, pods, result,
     of a schedule_batch result whose binds failed, the exact inverse of
     its commit: node requested (non-consumers only), the estimates,
     quota used at every level, gang assumed, NUMA takes (to the node's
-    pool or the slot's hold), GPU instances (likewise), slot free, and a
-    forgotten AllocateOnce consumer re-opens its slot. The adds run
-    through K3 in the reference's order; the clamps follow XLA's max
-    and min. A CPU-bind pod of an amplified result (`result.amplified`,
-    or `enable_amplification` where given) returns its CPU times its
-    node's ratio, as it was charged (delta.py:284-291). Aux pools raise
-    NotImplementedError."""
+    pool or the slot's hold), GPU instances (likewise), aux instances
+    (delta.py:344-356, both pools in one scatter, unclamped), slot free,
+    and a forgotten AllocateOnce consumer re-opens its slot. The adds
+    run through K3 in the reference's order; the clamps follow XLA's
+    max and min. A CPU-bind pod of an amplified result
+    (`result.amplified`, or `enable_amplification` where given) returns
+    its CPU times its node's ratio, as it was charged
+    (delta.py:284-291)."""
     from koordinator_tpu_torch.scheduler.plugins import deviceshare
 
     amp = enable_amplification
@@ -198,8 +198,6 @@ def forget_pods(snap: ClusterSnapshot, pods, result,
         amp = getattr(result, "amplified", False)
     nodes, quotas, gangs = snap.nodes, snap.quotas, snap.gangs
     resv, devices = snap.reservations, snap.devices
-    if devices.aux_free.shape[2]:
-        raise _unported("forget on a snapshot with aux (RDMA/FPGA) pools")
     dev = nodes.allocatable.device
     mask = torch.as_tensor(mask, dtype=torch.bool, device=dev)
     n = nodes.num_nodes
@@ -266,6 +264,18 @@ def forget_pods(snap: ClusterSnapshot, pods, result,
         resv_gpu = ordered_scatter_add(_rows(resv.gpu_free), slot_tgt,
                                        g_upd).view(resv.gpu_free.shape)
 
+    aux_free = devices.aux_free
+    n_aux = aux_free.shape[2]
+    if n_aux:
+        a_req = deviceshare.aux_request(pods.requests)
+        took = und[:, None] & (a_req > 0) & (result.aux_inst >= 0)
+        n_seg = n * NUM_AUX_TYPES * n_aux
+        seg = deviceshare.aux_segments(assign.clamp_min(0), result.aux_inst,
+                                       took, n_aux, n_seg)
+        aux_free = ordered_scatter_add(
+            aux_free.reshape(n_seg, 1), seg.T.reshape(-1),
+            (a_req * took).T.reshape(-1, 1)).view(aux_free.shape)
+
     resv_free = ordered_scatter_add(resv.free, slot_tgt, req)
     reopen = torch.zeros((n_res + 1,), dtype=torch.bool, device=dev)
     reopen = reopen.index_fill_(0, slot_tgt.long(), True)[:n_res]
@@ -280,5 +290,5 @@ def forget_pods(snap: ClusterSnapshot, pods, result,
                                   gpu_free=resv_gpu,
                                   valid=resv.valid | (reopen
                                                       & resv.allocate_once)),
-        devices=devices.replace(gpu_free=gpu_free),
+        devices=devices.replace(gpu_free=gpu_free, aux_free=aux_free),
         version=snap.version + 1)

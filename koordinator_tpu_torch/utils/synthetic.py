@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from koordinator_tpu_torch.api.extension import (
+    AUX_KINDS,
     NUM_AUX_TYPES,
     NUM_RESOURCES,
     PriorityClass,
@@ -38,6 +39,7 @@ from koordinator_tpu_torch import resolve_device
 from koordinator_tpu_torch.bridge import from_reference
 from koordinator_tpu_torch.scheduler.plugins.deviceshare import (
     has_device_request,
+    has_gpu_request,
 )
 from koordinator_tpu_torch.snapshot.schema import (
     MAX_QUOTA_DEPTH,
@@ -479,6 +481,30 @@ def config_2_inputs(num_pods: int = 10_000, num_nodes: int = 1000,
         numa_single=pods.priority_class == int(PriorityClass.PROD))
 
 
+def config_1_inputs(device="cuda") -> Tuple[ClusterSnapshot, PodBatch]:
+    """BASELINE config 1 (bench_configs.config_1_spark, :84-93): 10 nodes
+    seed 0 with 2 quotas, 32 pods seed 1, all of them batch-tier (prod
+    share 0), over the same quotas."""
+    snap = synthetic_cluster(10, num_quotas=2, seed=0, device=device)
+    pods = synthetic_pods(32, seed=1, prod_frac=0.0, num_quotas=2,
+                          device=device)
+    return snap, pods
+
+
+def config_3_inputs(num_gangs: int = 1000, num_nodes: int = 5000,
+                    device="cuda") -> Tuple[ClusterSnapshot, PodBatch]:
+    """BASELINE config 3 (bench_configs.config_3_gangs, :116-129):
+    `num_nodes` nodes seed 0 with 32 quotas and `num_gangs` strict gangs
+    of 8 in a table of 1024, and their 8 * num_gangs members, seed 1."""
+    snap = synthetic_cluster(num_nodes, num_quotas=32, seed=0,
+                             num_gangs=num_gangs, max_gangs=1024,
+                             gang_min_member=8, device=device)
+    pods = synthetic_pods(8 * num_gangs, seed=1, num_quotas=32,
+                          num_gangs=num_gangs, gang_min_member=8,
+                          device=device)
+    return snap, pods
+
+
 def config_4_inputs(num_pods: int = 50_000, num_nodes: int = 5000,
                     num_quotas: int = 500, device="cuda"
                     ) -> Tuple[ClusterSnapshot, PodBatch]:
@@ -534,6 +560,119 @@ def amplified_full_gate_inputs(num_pods: int = 100_000,
     node webhook amplifies CPU."""
     snap, pods = gpu_share_inputs(num_pods, num_nodes, device=device)
     return with_amplified_cpu(snap), pods
+
+
+# the aux full gate's pools (J instances a node and pool) and draws:
+# the RDMA VFs' free (percent), the pods' shares and requests, and the
+# share of each kind of aux pod that asks for more than one instance
+# holds (one instance serves a whole request), so finds no node
+AUX_INSTANCES = 8
+AUX_FREE_LEVELS = (100.0, 100.0, 75.0, 50.0, 0.0)
+AUX_OTHER_NODE_FRAC, AUX_FPGA_NODE_FRAC = 0.10, 0.02
+AUX_GPU_POD_FRAC, AUX_RDMA_ALONE_FRAC, AUX_FPGA_POD_FRAC = 0.6, 0.01, 0.002
+AUX_GPU_POD_REQ, AUX_RDMA_ALONE_REQ = (100.0, 50.0, 25.0), (25.0, 50.0,
+                                                          75.0, 100.0)
+AUX_TOO_BIG_FRAC, AUX_TOO_BIG_REQ = 0.05, 150.0
+
+
+def aux_pools(gpu_nodes: np.ndarray, gpu_pods: np.ndarray, seed: int = 11):
+    """(aux_free f32[N, 2, J], aux_valid bool[N, 2, J], aux_req f32[P, 2],
+    aux_alloc f32[N, 2], aux_used f32[N, 2]) of the aux full gate,
+    J = AUX_INSTANCES: every GPU node (gpu_nodes
+    bool[N]) gets J valid RDMA VFs and AUX_OTHER_NODE_FRAC of the other
+    nodes two, each VF's free drawn from AUX_FREE_LEVELS; AUX_FPGA_NODE_FRAC
+    of all nodes get two FPGA instances at 100 free. Of the GPU pods
+    (gpu_pods bool[P]) AUX_GPU_POD_FRAC also ask for RDMA (100, 50 or 25),
+    AUX_RDMA_ALONE_FRAC of the others for RDMA alone (25-100) and
+    AUX_FPGA_POD_FRAC of the rest for FPGA 100; AUX_TOO_BIG_FRAC of each
+    kind ask for AUX_TOO_BIG_REQ, more than any instance holds.
+    aux_req's columns are the RDMA and FPGA requests; aux_alloc is each
+    node's RDMA and FPGA allocatable (100 a valid instance, as the device
+    plugin reports it and the reference's SnapshotBuilder merges it) and
+    aux_used what running pods hold of it (100 less each valid
+    instance's free). Numpy arrays, so that a test applies the same ones
+    to the reference's inputs."""
+    rng = np.random.default_rng(seed)
+    n, p, j = gpu_nodes.shape[0], gpu_pods.shape[0], AUX_INSTANCES
+    levels = np.asarray(AUX_FREE_LEVELS, np.float32)
+    free = np.zeros((n, NUM_AUX_TYPES, j), np.float32)
+    valid = np.zeros((n, NUM_AUX_TYPES, j), bool)
+    other = ~gpu_nodes & (rng.uniform(size=n) < AUX_OTHER_NODE_FRAC)
+    fpga = rng.uniform(size=n) < AUX_FPGA_NODE_FRAC
+    drawn = rng.choice(levels, size=(n, j))
+    valid[gpu_nodes, 0] = True
+    valid[other, 0, :2] = True
+    free[:, 0] = np.where(valid[:, 0], drawn, np.float32(0.0))
+    valid[fpga, 1, :2] = True
+    free[fpga, 1, :2] = 100.0
+    req = np.zeros((p, NUM_AUX_TYPES), np.float32)
+    u = rng.uniform(size=(p, 3))
+    with_gpu = gpu_pods & (u[:, 0] < AUX_GPU_POD_FRAC)
+    alone = ~gpu_pods & (u[:, 1] < AUX_RDMA_ALONE_FRAC)
+    fpga_pod = ~gpu_pods & ~alone & (u[:, 2] < AUX_FPGA_POD_FRAC)
+    req[with_gpu, 0] = rng.choice(np.asarray(AUX_GPU_POD_REQ, np.float32),
+                                  size=int(with_gpu.sum()))
+    req[alone, 0] = rng.choice(np.asarray(AUX_RDMA_ALONE_REQ, np.float32),
+                               size=int(alone.sum()))
+    req[fpga_pod, 1] = 100.0
+    big = rng.uniform(size=p) < AUX_TOO_BIG_FRAC
+    for kind, col in ((with_gpu, 0), (alone, 0), (fpga_pod, 1)):
+        req[kind & big, col] = AUX_TOO_BIG_REQ
+    alloc = (valid.sum(axis=2) * 100.0).astype(np.float32)
+    used = (alloc - (free * valid).sum(axis=2)).astype(np.float32)
+    return free, valid, req, alloc, used
+
+
+def with_aux_pools(snap: ClusterSnapshot, pods: PodBatch, seed: int = 11
+                   ) -> Tuple[ClusterSnapshot, PodBatch]:
+    """`snap` and `pods` with `aux_pools`' pools, the nodes' RDMA and
+    FPGA allocatable and use, and the pods' requests (the GPU nodes:
+    those with a valid GPU instance; the GPU pods: those asking for a GPU
+    resource)."""
+    dev = snap.nodes.allocatable.device
+    gpu_nodes = snap.devices.gpu_valid.any(dim=1).cpu().numpy()
+    gpu_pods = has_gpu_request(pods.requests, pods.gpu_ratio).cpu().numpy()
+    free, valid, req, alloc, used = aux_pools(gpu_nodes, gpu_pods, seed)
+    kinds = list(AUX_KINDS)
+    requests = pods.requests.clone()
+    requests[:, kinds] = torch.from_numpy(req).to(dev)
+    allocatable = snap.nodes.allocatable.clone()
+    allocatable[:, kinds] = torch.from_numpy(alloc).to(dev)
+    requested = snap.nodes.requested.clone()
+    requested[:, kinds] = torch.from_numpy(used).to(dev)
+    return (snap.replace(
+                nodes=snap.nodes.replace(allocatable=allocatable,
+                                         requested=requested),
+                devices=snap.devices.replace(
+                    aux_free=torch.from_numpy(free).to(dev),
+                    aux_valid=torch.from_numpy(valid).to(dev))),
+            pods.replace(requests=requests))
+
+
+def aux_no_fit(snap: ClusterSnapshot, pods: PodBatch) -> Dict[str, int]:
+    """{kind: pods}: the aux pods of each kind (GPU with RDMA, RDMA
+    alone, FPGA) that no node's batch-start pools fit, one instance a
+    request (the prefilter's aux part over every node)."""
+    free = snap.devices.aux_free.cpu()
+    valid = snap.devices.aux_valid.cpu()
+    gpu = has_gpu_request(pods.requests, pods.gpu_ratio).cpu()
+    out = {}
+    for name, t, kind in (("gpu_rdma", 0, gpu), ("rdma", 0, ~gpu),
+                          ("fpga", 1, None)):
+        req = pods.requests[:, AUX_KINDS[t]].cpu()
+        ask = req > 0 if kind is None else (req > 0) & kind
+        best = torch.where(valid[:, t], free[:, t], -torch.inf).max()
+        out[name] = int((ask & (best + 0.5 < req)).sum())
+    return out
+
+
+def aux_full_gate_inputs(num_pods: int = 100_000, num_nodes: int = 10_000,
+                         device="cuda") -> Tuple[ClusterSnapshot, PodBatch]:
+    """`gpu_share_inputs` with `with_aux_pools`: the full gate's workload
+    on a cluster whose GPU nodes carry RDMA VFs beside their GPUs, a few
+    nodes FPGAs, and pods that ask for them."""
+    snap, pods = gpu_share_inputs(num_pods, num_nodes, device=device)
+    return with_aux_pools(snap, pods)
 
 
 def full_gate_reservations(num_nodes: int) -> int:

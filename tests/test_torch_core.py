@@ -126,17 +126,21 @@ def _slim_inputs():
     dict(cascade=True, enable_amplification=True),
     dict(approx_topk=True), dict(enable_amplification=True)], ids=str)
 def test_unported_options_raise(kw):
-    """approx_topk is not ported and raises; amplification is (ROADMAP
-    B21): the option sets that turn it on schedule, the result marked
+    """Every option of schedule_batch is ported now, so none raises:
+    amplification (ROADMAP B21) schedules with the result marked
     amplified (its equality with the reference is
-    tests/test_torch_amplification.py's)."""
+    tests/test_torch_amplification.py's), and approx_topk (B22) runs
+    K1's exact select, placing as the batch without it (its equality
+    with the reference is tests/test_torch_aux.py's)."""
     snap, pods, cfg = _slim_inputs()
-    if kw.get("approx_topk"):
-        with pytest.raises(NotImplementedError, match="approx_topk"):
-            core.schedule_batch(snap, pods, cfg, **dict(BENCH_KW, **kw))
-        return
     res = core.schedule_batch(snap, pods, cfg, **dict(BENCH_KW, **kw))
-    assert res.amplified and int((res.assignment >= 0).sum()) > 0
+    assert int((res.assignment >= 0).sum()) > 0
+    if kw.get("approx_topk"):
+        exact = core.schedule_batch(snap, pods, cfg, **BENCH_KW)
+        assert torch.equal(res.assignment, exact.assignment)
+        assert torch.equal(res.chosen_score, exact.chosen_score)
+        return
+    assert res.amplified
 
 
 def test_unported_inputs_raise():
@@ -147,8 +151,14 @@ def test_unported_inputs_raise():
         aux_free=torch.ones((8, 2, 1)),
         aux_valid=torch.ones((8, 2, 1), dtype=torch.bool)))
     resv = jsyn.synthetic_cluster(8, num_reservations=2)
-    with pytest.raises(NotImplementedError):
-        core.schedule_batch(aux, pods, cfg, **BENCH_KW)
+    # aux pools schedule (ROADMAP B8; their equality with the reference
+    # is tests/test_torch_aux.py's): a pod asking for one RDMA VF takes it
+    rdma = pods.requests.clone()
+    rdma[:, int(RK.RDMA)] = torch.where(torch.arange(16) < 4, 1.0, 0.0)
+    res = core.schedule_batch(aux, pods.replace(requests=rdma), cfg,
+                              **BENCH_KW)
+    took = res.aux_inst[:4, 0]
+    assert bool(((took == 0) == (res.assignment[:4] >= 0)).all())
     # a spread family whose domain map is not one column a node
     with pytest.raises(ValueError, match="spread_domain"):
         core.schedule_batch(snap, pods.replace(has_spread=True), cfg,

@@ -34,7 +34,11 @@ from koordinator_tpu_torch.scheduler.cascade import (
     expand_gates,
     static_gate_terms,
 )
-from koordinator_tpu_torch.scheduler.plugins import loadaware, numaaware
+from koordinator_tpu_torch.scheduler.plugins import (
+    deviceshare,
+    loadaware,
+    numaaware,
+)
 
 from torch_port_ref import to_port
 from torch_port_ref import one_torch_thread  # noqa: F401 (autouse)
@@ -220,9 +224,11 @@ def test_gate_terms_index_the_table_as_reference(seed):
 def test_gate_terms_without_devices_and_with_taints():
     """devices=None leaves the device prefilter out; a batch with taints
     factors with its forbid table (the expanded mask equals the
-    reference's static gates) and a snapshot with aux pools does not and
-    raises; on a snapshot with GPU instances the factored device term is
-    the prefilter's aux part (K6 gives the GPU part pair by pair)."""
+    reference's static gates); on a snapshot with GPU instances and no
+    aux pool the factored device term is the prefilter's aux part (a pod
+    asking for RDMA or FPGA passes nowhere; K6 gives the GPU part pair by
+    pair), with aux pools too it passes every pod (K6 gives both parts),
+    and with aux pools alone it fails the GPU pods."""
     nodes, pods, devices = _gated_case(4, 32, 24)
     _, cfg = _port_cfg("default")
     tn, tp = to_port("NodeState", nodes), to_port("PodBatch", pods)
@@ -243,10 +249,17 @@ def test_gate_terms_without_devices_and_with_taints():
     np.testing.assert_array_equal(
         static_gate_terms(tn, tp, cfg, gpu).device_ok.numpy(),
         ~(aux > 0).any(axis=1))
-    with pytest.raises(NotImplementedError):
-        static_gate_terms(tn, tp, cfg, gpu.replace(
-            aux_free=torch.ones((24, 2, 1)),
-            aux_valid=torch.ones((24, 2, 1), dtype=torch.bool)))
+    # with aux pools the prefilter's aux part is pairwise too (K6), so
+    # every pod passes the per-pod term; without GPU instances a GPU pod
+    # passes nowhere (ROADMAP B8, tests/test_torch_aux.py)
+    with_aux = gpu.replace(aux_free=torch.ones((24, 2, 1)),
+                           aux_valid=torch.ones((24, 2, 1), dtype=torch.bool))
+    assert static_gate_terms(tn, tp, cfg, with_aux).device_ok.all()
+    no_gpu = with_aux.replace(gpu_free=with_aux.gpu_free[:, :0],
+                              gpu_valid=with_aux.gpu_valid[:, :0])
+    gpu_pod = deviceshare.has_gpu_request(tp.requests, tp.gpu_ratio)
+    assert torch.equal(static_gate_terms(tn, tp, cfg, no_gpu).device_ok,
+                       ~gpu_pod)
 
 
 def _port_select(tn, tp, cfg, gates, pair_ok, row_ok, k, tie_break,
@@ -337,7 +350,6 @@ def test_score_topk_two_addends_equal_reference(k, tie_break, strategy):
     two-zone nodes, half of them GPU nodes, 40 % of the pods
     NUMA-bound and 50 % asking for GPUs, so some pods carry both."""
     from koordinator_tpu_torch.kernels.device_terms import device_pair_terms
-    from koordinator_tpu_torch.scheduler.plugins import deviceshare
 
     nodes, pods, _, _, row_ok = _case(6, 96, 64, False)
     snap = jsyn.with_two_numa_zones(jsyn.synthetic_cluster(
