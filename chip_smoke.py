@@ -120,8 +120,9 @@ in order:
    runtime; K6 to K8 never launched;
 6. gpu_share: `configs.run_gpu_share` (the DeviceShare path with
    NodeNUMAResource, taints and tolerations, 64 reservation slots and
-   the spread, anti-affinity and affinity groups) at 8000 pods x 1000
-   nodes on the card and on the host, every result field equal
+   the spread, anti-affinity and affinity groups) at 4000 pods x 1000
+   nodes (phase 7 compares 8000 on the same path with the cascade) on
+   the card and on the host, every result field equal
    (assignment, tail stats, instance takes, slots consumed, requested,
    zone free, instance free, quotas, gangs, the reservation state, the
    four topology count tables, the placed pods of each family); then
@@ -220,6 +221,31 @@ in order:
 14-15. BASELINE configs 1 (32 BE pods x 10 nodes) and 3 (1000 strict
    gangs of 8 on 5000 nodes): card against host in the assignment and
    every leaf of the snapshot, only K1-K3 launched, no gang in part.
+16. config_4_fair_share_500q_50k (`configs.run_config_4_fair_share`:
+   config 4 under a contended four-level tree of 500 quotas, the whole
+   queue folded into the leaves' demand by K3, the runtime solved once
+   by K18, config 4's sweep with four quota levels) on the card after a
+   warm-up run: K18 launched once, K3 the fold's launches more than the
+   same sweep at runtime = max (which also counts the pods the runtime
+   turns away), K1, K2 and the order switch as that sweep; the card's
+   runtime, limited demand and rounds equal to the host's plain
+   water-fill; quota used within runtime at every level; the tree
+   binding (quotas below their demand at levels 1-3, pods turned
+   away); the first 5000 pods' run card against host in the assignment
+   and every leaf of the snapshot. Phase 2 holds K18 against its plain
+   version on the fair-share tree, config 4's own tree, a six-level
+   chain, unlimited maxes with zero weights, max_iters = 2 and Q = 1,
+   and K3 as the fold at 50 000 pods with quota-less, invalid and
+   out-of-table pods;
+17. node_resource_10k (`configs.run_node_resource`: koord-manager's
+   NodeResourceController over 10 000 nodes and 300 000 pods, two
+   reconciles, the second after a usage drift): K19 launched once a
+   reconcile, nothing else; batch, mid, degraded, sync_mask and the
+   gauges card against host in both reconciles, the diff gate both
+   syncing and holding rows. Phase 2 holds K19 against its plain
+   version at 10 000 nodes, every policy, NaN, infinite, -0 and
+   negative inputs (NaN where the host has NaN: the card does not keep
+   NaN payloads).
 Each phase's seconds are printed.
 
 The last three lines are one JSON object listing the kernels, the
@@ -230,6 +256,7 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import sys
 import time
@@ -240,12 +267,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from koordinator_tpu_torch import kernels, resolve_device
 from koordinator_tpu_torch.api.extension import ResourceKind
-from koordinator_tpu_torch.bridge import to_numpy
+from koordinator_tpu_torch.bridge import from_reference, to_numpy
 from koordinator_tpu_torch.configs import (
     CONFIG_2_KW,
     CONFIG_4_KW,
     CONFIG_5_CAPS,
     CONFIG_3_GANG_SIZE,
+    FAIR_SHARE_LEVELS,
     FULL_GATE_AUX_METRIC,
     FULL_GATE_KW,
     GPU_SHARE_KW,
@@ -256,11 +284,13 @@ from koordinator_tpu_torch.configs import (
     run_config_1_spark,
     run_config_2_numa,
     run_config_3_gangs,
+    run_config_4_fair_share,
     run_config_4_quota,
     run_config_5_descheduler,
     run_full_gate,
     run_gpu_share,
     run_guarded_cycles,
+    run_node_resource,
 )
 from koordinator_tpu_torch.descheduler import (
     EvictionLimiter,
@@ -314,14 +344,23 @@ from koordinator_tpu_torch.kernels.lownodeload import (
     lnl_plan_prefix_plain,
     weighted_sum,
 )
+from koordinator_tpu_torch.kernels.node_overcommit import (
+    node_overcommit,
+    node_overcommit_plain,
+)
 from koordinator_tpu_torch.kernels.numa_terms import (
     numa_pair_terms,
     numa_pair_terms_plain,
+)
+from koordinator_tpu_torch.kernels.quota_runtime import (
+    quota_runtime,
+    quota_runtime_plain,
 )
 from koordinator_tpu_torch.kernels.scatter import (
     levels_per_launch,
     ordered_scatter_add,
     ordered_scatter_add_plain,
+    rows_per_launch,
 )
 from koordinator_tpu_torch.kernels.score_topk import (
     JITTER,
@@ -363,6 +402,8 @@ from koordinator_tpu_torch.scheduler.cascade import (
     taint_penalty,
 )
 from koordinator_tpu_torch.ops import feasibility
+from koordinator_tpu_torch.ops.quota_demand import add_pending_demand
+from koordinator_tpu_torch.ops.waterfill import quota_depth
 from koordinator_tpu_torch.scheduler import cascade, domains
 from koordinator_tpu_torch.scheduler import guards
 from koordinator_tpu_torch.scheduler.core import (
@@ -386,8 +427,11 @@ from koordinator_tpu_torch.utils.synthetic import (
     CONFIG_5_NOW,
     aux_full_gate_inputs,
     config_2_inputs,
+    config_4_inputs,
     config_5_cluster,
+    fair_share_inputs,
     gpu_share_inputs,
+    node_resource_cluster,
     slice_batch,
     synthetic_cluster,
     synthetic_pods,
@@ -408,6 +452,11 @@ QUOTA_DEPTH = STEP_KW["quota_depth"]
 STRAGGLERS_AFTER_SWEEP = 510
 # config 4's pods that phase 10 compares card against host
 CONFIG_4_COMPARED_PODS = 20_000
+# gpu_share's pods that phase 6 compares card against host at 1000 nodes
+# (phase 7's full gate compares 8000 on this path and the cascade's)
+GPU_SHARE_COMPARED_PODS = 4000
+# the fair share's pods that phase 16 compares card against host
+FAIR_SHARE_COMPARED_PODS = 5000
 # the slim path's kernels (K2's order switch once a batch); the NUMA path
 # adds K4 and K5, the DeviceShare path K6 and K7
 SLIM_KERNELS = ("score_topk", "segment_prefix_ok", "order_switch",
@@ -458,6 +507,11 @@ SOURCES = {
     "aux_instance_pick": ("koordinator_tpu_torch/csrc/aux_instances.cu",
                           "koordinator_tpu/scheduler/plugins/"
                           "deviceshare.py:274"),
+    "quota_runtime": ("koordinator_tpu_torch/csrc/quota_runtime.cu",
+                      "koordinator_tpu/ops/waterfill.py:135"),
+    "node_overcommit": ("koordinator_tpu_torch/csrc/node_overcommit.cu",
+                        "koordinator_tpu/slo_controller/"
+                        "noderesource.py:166"),
 }
 
 
@@ -2363,14 +2417,15 @@ def _run_field(run, path):
 
 
 def gpu_share_phase():
-    """gpu_share_100kx10k: at 8000 pods x 1000 nodes on the card and on
-    the host (every result field equal), then at 100 000 x 10 000 on the
-    card, counting launches, with its invariants. Returns (line,
-    launches, small-run summary)."""
+    """gpu_share_100kx10k: at GPU_SHARE_COMPARED_PODS pods x 1000 nodes
+    on the card and on the host (every result field equal), then at
+    100 000 x 10 000 on the card, counting launches, with its invariants.
+    Returns (line, launches, small-run summary)."""
     small = {}
     for d in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        line, run = run_gpu_share(8000, 1000, chunk=2000, device=d)
+        line, run = run_gpu_share(GPU_SHARE_COMPARED_PODS, 1000, chunk=2000,
+                                  device=d)
         small[d] = (line, run, time.perf_counter() - t0)
     equal = {f: torch.equal(_run_field(small["cuda"][1], f),
                             _run_field(small["cpu"][1], f))
@@ -2384,7 +2439,8 @@ def gpu_share_phase():
                    "slot_consumers", "once_slots_taken",
                    "stragglers_after_sweep", "stragglers_final",
                    "tail_passes") + GPU_SHARE_TOPO_LINE}}
-    print("gpu_share 8000x1000: " + json.dumps(summary), flush=True)
+    print(f"gpu_share {GPU_SHARE_COMPARED_PODS}x1000: "
+          + json.dumps(summary), flush=True)
     if not all(equal.values()):
         raise SystemExit(f"gpu_share: the card's results differ from the "
                          f"host's: {equal}")
@@ -4644,6 +4700,368 @@ def small_config_phase(name, run_fn, kw):
                          f"{line['placed']}")
     return line, launches
 
+# --- the ElasticQuota fair share (K18, K3 as the fold) and koord-manager's
+# overcommit (K19) ---------------------------------------------------------
+
+
+def quota_chain(dev, depth=6, width=3, q=32, seed=3):
+    """A six-level chain (root, then `width` children a level, the first
+    of which parents the next level) where no quota lends; fractional
+    mins, maxes, weights and demand in CPU and memory. Returns (quotas,
+    cluster_total)."""
+    rng = np.random.default_rng(seed)
+    parent, head = [-1], 0
+    for _ in range(1, depth):
+        first = len(parent)
+        parent += [head] * width
+        head = first
+    n, r, f32 = len(parent), len(ALL_DIMS), np.float32
+    par = np.full((q,), -1, np.int32)
+    par[:n] = parent
+    da = np.full((q, 6), -1, np.int32)
+    anc = np.zeros((q, q), bool)
+    for i in range(n):
+        chain = [i]
+        while par[chain[-1]] >= 0:
+            chain.append(int(par[chain[-1]]))
+        da[i, :len(chain)] = chain[::-1]
+        anc[i, chain] = True
+    mx = np.full((q, r), np.inf, f32)
+    mx[:n, :2] = rng.uniform(2e4, 8e4, (n, 2))
+    mn = np.zeros((q, r), f32)
+    mn[:n, :2] = rng.uniform(0, 1.5e4, (n, 2))
+    sw = np.zeros((q, r), f32)
+    sw[:n, :2] = rng.uniform(0.1, 3.0, (n, 2))
+    dem = np.zeros((q, r), f32)
+    dem[:n, :2] = rng.uniform(0, 6e4, (n, 2))
+    quotas = from_reference("QuotaState", dict(
+        min=mn, max=mx, shared_weight=sw, parent=par, ancestors=anc,
+        depth_ancestor=da, used=np.zeros_like(mn), demand=dem,
+        allow_lent=np.zeros((q,), bool), runtime=mx.copy(),
+        valid=np.arange(q) < n), dev)
+    total = np.zeros((r,), f32)
+    total[:2] = (1e5, 2e5)
+    return quotas, torch.from_numpy(total).to(dev)
+
+
+@functools.lru_cache(maxsize=None)
+def fair_share_state(dev):
+    """(snap, pods, cluster_total) of config_4_fair_share_500q_50k on
+    `dev`, built once for phase 2 and phase 16 (nothing changes them)."""
+    return fair_share_inputs(device=dev)
+
+
+def k18_cases(dev):
+    """{label: (quotas, cluster_total, max_iters)}: the fair-share tree
+    (50 000 pods folded, Q = 512), config 4's own tree (degenerate in
+    CPU and memory), a six-level chain that lends nothing, the fair
+    share with unlimited memory maxes below the root and CPU weights
+    zeroed, the cap max_iters = 2, and one quota (Q = 1)."""
+    snap, pods, total = fair_share_state(dev)
+    folded = add_pending_demand(snap.quotas, pods)
+    mx, sw = folded.max.clone(), folded.shared_weight.clone()
+    mx[1:, 1] = float("inf")
+    sw[:, CPU] = 0.0
+    s4, p4 = config_4_inputs(device=dev)
+    t4 = s4.nodes.allocatable.double().sum(dim=0).float()
+    one = from_reference("QuotaState", dict(
+        min=np.zeros((1, 11), np.float32),
+        max=np.full((1, 11), 5e4, np.float32),
+        shared_weight=np.zeros((1, 11), np.float32),
+        parent=np.full((1,), -1, np.int32), ancestors=np.ones((1, 1), bool),
+        depth_ancestor=np.array([[0, -1, -1, -1, -1, -1]], np.int32),
+        used=np.zeros((1, 11), np.float32),
+        demand=np.full((1, 11), 7e4, np.float32),
+        allow_lent=np.ones((1,), bool),
+        runtime=np.zeros((1, 11), np.float32),
+        valid=np.ones((1,), bool)), dev)
+    chain, chain_total = quota_chain(dev)
+    return {"fair share": (folded, total, 64),
+            "config 4 tree": (add_pending_demand(s4.quotas, p4), t4, 64),
+            "6-level chain": (chain, chain_total, 64),
+            "inf max, zero weights": (folded.replace(max=mx,
+                                                     shared_weight=sw),
+                                      total, 64),
+            "max_iters 2": (folded, total, 2),
+            "Q=1": (one, total, 64)}
+
+
+def k18_cost(quotas, rounds):
+    """(bytes, operations) of one forest solve: the QuotaState's columns
+    read once and the runtime and limited demand written once; the adds
+    of the demand's propagation (each child's clamped demand once, each
+    row's five level sums), and a level's work a round from the rounds
+    the kernel ran (the total weight and the returned excess summed over
+    the level's rows, six operations a row for delta and its clamp),
+    with the start sum and one more weight sum for the loop's exit."""
+    q, r = quotas.min.shape
+    nbytes = 6 * q * r * 4 + q * (4 + 24 + 2) + r * 4
+    depth = quota_depth(quotas).cpu()
+    with_parent = int((quotas.parent >= 0).sum())
+    ops = with_parent * r + 5 * q * r
+    for d in range(1, 6):
+        rows = int(((depth == d) & quotas.valid.cpu()).sum()) * r
+        ops += rows * (2 + int(rounds[d]) * 8)
+    return nbytes, ops
+
+
+def check_k18(dev):
+    """K18 quota_runtime against its plain version on the host (runtime,
+    limited demand and rounds a level, bit for bit) on each of
+    `k18_cases`, and on the fair share stopped after the demand
+    (propagate_demand alone); timed on the fair-share tree."""
+    out = {}
+    for label, (q, total, it) in k18_cases(dev).items():
+        got = quota_runtime(q, total, it)
+        want = quota_runtime_plain(q.to("cpu"), total.cpu(), it)
+        for f in ("runtime", "limited"):
+            g, w = getattr(got, f).cpu(), getattr(want, f)
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                raise SystemExit(f"K18 quota_runtime ({label}): {f} differs "
+                                 f"from its plain version")
+        if not torch.equal(got.rounds.cpu(), want.rounds):
+            raise SystemExit(f"K18 quota_runtime ({label}): rounds "
+                             f"{got.rounds.tolist()} against "
+                             f"{want.rounds.tolist()}")
+        res = dict(max_abs_err=0.0, rounds=got.rounds.tolist(),
+                   shape=f"Q={q.min.shape[0]} R={q.min.shape[1]} "
+                         f"max_iters={it}")
+        if label == "fair share":
+            only = quota_runtime(q, None, demand_only=True)
+            if only.runtime is not None or not torch.equal(
+                    only.limited.cpu().view(torch.int32),
+                    want.limited.view(torch.int32)):
+                raise SystemExit("K18 quota_runtime (demand only) differs "
+                                 "from its plain version")
+            nbytes, ops = k18_cost(q, got.rounds.cpu())
+            b_ms, b_by = bound(nbytes, ops)
+            res.update(
+                ms=cuda_ms(lambda: quota_runtime(q, total, it)),
+                device_ms=device_ms(lambda: quota_runtime(q, total, it),
+                                    "quota_runtime_kernel"),
+                demand_only_ms=cuda_ms(lambda: quota_runtime(
+                    q, None, demand_only=True)),
+                plain_ms=cuda_ms(lambda: quota_runtime_plain(q, total, it),
+                                 reps=3),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                bound_counts={"bytes": nbytes, "operations": ops})
+        out[label] = res
+    return out
+
+
+def check_fold(dev):
+    """K3 as the pending-demand fold (`add_pending_demand`): the fair
+    share's 50 000 pods with 10 % quota-less, 5 % invalid and 1 % beyond
+    the table, into the 512-row tree at R = 11, against the fold on the
+    host, bit for bit; timed, beside index_add_ of the kept rows (the
+    library call) and the plain scatter on the card."""
+    snap, pods, _ = fair_share_state(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    u = torch.rand((3, pods.num_pods), generator=gen, device=dev)
+    qid = torch.where(u[0] < 0.1, -1, pods.quota_id)
+    qid = torch.where(u[1] < 0.01, 600, qid).to(torch.int32)
+    pods = pods.replace(quota_id=qid, valid=pods.valid & (u[2] >= 0.05))
+    quotas = snap.quotas
+    got = add_pending_demand(quotas, pods).demand.cpu()
+    want = add_pending_demand(quotas.to("cpu"), pods.to("cpu")).demand
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise SystemExit("K3 as the fold differs from the fold on the host")
+    q, r = quotas.demand.shape
+    p = pods.num_pods
+    kernels.reset_launch_counts()
+    add_pending_demand(quotas, pods)
+    launches = kernels.launch_counts()["ordered_scatter_add"]
+    req = pods.requests * pods.valid[:, None]
+    tgt = torch.where(pods.quota_id >= 0, pods.quota_id, q).to(torch.int32)
+    keep = tgt < q
+    kidx, krows = tgt[keep].long(), req[keep]
+    # requests, valid and quota ids read once, the demand read and
+    # written once; an add a kept pod and column
+    b_ms, b_by = bound(p * (r * 4 + 1 + 4) + 2 * q * r * 4,
+                       int(keep.sum()) * r)
+    return {"fair share fold": dict(
+        max_abs_err=0.0, launches=launches,
+        ms=cuda_ms(lambda: add_pending_demand(quotas, pods)),
+        device_ms=device_ms(lambda: add_pending_demand(quotas, pods),
+                            "ordered_scatter_add_kernel") * launches,
+        plain_ms=cuda_ms(lambda: ordered_scatter_add_plain(
+            quotas.demand, tgt, req)),
+        library_ms=cuda_ms(lambda: quotas.demand.clone().index_add_(
+            0, kidx, krows)),
+        bound_ms=b_ms, bound_by=b_by, kept=int(keep.sum()),
+        shape=f"P={p} Q={q} R={r} pieces of {rows_per_launch(q, r)}")}
+
+
+def k19_columns(dev, n, seed=19):
+    """K19's arguments on n nodes: random columns with NaN, +-inf, -0 and
+    negative entries, every CPU policy and memory policy."""
+    rng = np.random.default_rng(seed)
+
+    def col(scale):
+        x = rng.uniform(-0.1, 1.0, (n, 2)) * scale
+        k = rng.uniform(size=(n, 2))
+        x = np.where(k < 0.01, np.nan, x)
+        x = np.where((k >= 0.01) & (k < 0.02), np.inf, x)
+        x = np.where((k >= 0.02) & (k < 0.03), -np.inf, x)
+        x = np.where((k >= 0.03) & (k < 0.04), -0.0, x)
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    return [col(1e5), col(3e4), col(5e3), col(8e3), col(4e4), col(3e4),
+            col(4e4),
+            torch.from_numpy(rng.uniform(size=n) < 0.5).to(dev),
+            torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(dev),
+            col(1e5), col(3e4), col(1.0)]
+
+
+def same_floats(got, want) -> bool:
+    """NaN where the other has NaN (a NaN's payload is the device's own),
+    every other entry bit for bit."""
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+
+def check_k19(dev):
+    """K19 node_overcommit against its plain version on the host at
+    10 000 nodes, every policy, NaN, +-inf, -0 and negative inputs (NaN
+    where the host has NaN, other entries bit for bit); timed."""
+    args = k19_columns(dev, 10_000)
+    got = node_overcommit(*args)
+    want = node_overcommit_plain(*(a.cpu() for a in args))
+    for name, g, w in zip(("batch", "mid"), got, want):
+        if not same_floats(g, w):
+            raise SystemExit(f"K19 node_overcommit: {name} differs from its "
+                             f"plain version")
+    n = args[0].shape[0]
+    # ten [N, 2] columns, the policy bytes read once, batch and mid written
+    b_ms, b_by = bound(n * (10 * 8 + 1 + 4 + 2 * 8), n * 2 * 12)
+    return {"10k nodes": dict(
+        max_abs_err=0.0, nan_rows=int(torch.isnan(want[0]).any(1).sum()),
+        ms=cuda_ms(lambda: node_overcommit(*args)),
+        device_ms=device_ms(lambda: node_overcommit(*args),
+                            "node_overcommit_kernel"),
+        plain_ms=cuda_ms(lambda: node_overcommit_plain(*args)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=f"N={n}")}
+
+
+def fold_launches(q, r, p):
+    """K3 launches of one fold of p pods into q rows of r columns."""
+    if levels_per_launch(q, r, p) > 0:
+        return 1
+    return -(-p // rows_per_launch(q, r))
+
+
+def fair_share_phase():
+    """config_4_fair_share_500q_50k (`run_config_4_fair_share`: the fold,
+    K18's runtime, config 4's sweep with four quota levels) on the card
+    after a warm-up run, counting launches; then once more with the
+    sweep at runtime = max that counts the pods the runtime turns away,
+    whose extra launches are that sweep's. The fair share launches K18
+    once, K3 the fold's launches more than that sweep, K1, K2 and the
+    order switch as that sweep, nothing else. Then the card's runtime
+    equal to the host's plain water-fill of the same folded tree, bit
+    for bit; quota used within runtime + EPS at every level; the tree
+    binding (quotas below their limited demand at levels 1-3, pods
+    turned away). Then the first FAIR_SHARE_COMPARED_PODS pods' run on
+    the card and on the host: the assignment and every leaf of the final
+    snapshot equal. Returns (line, launches)."""
+    run_config_4_fair_share(device="cuda")                # warm-up
+    kernels.reset_launch_counts()
+    line, run = run_config_4_fair_share(device="cuda")
+    launches = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    both, _ = run_config_4_fair_share(device="cuda", count_turned_away=True)
+    sweep = {k: v - launches[k] for k, v in kernels.launch_counts().items()}
+    line.update({k: both[k] for k in ("placed_at_max", "turned_away")})
+    q, r = run.quotas.min.shape
+    fold = fold_launches(q, r, line["num_pods"])
+    want = dict(sweep, quota_runtime=1,
+                ordered_scatter_add=sweep["ordered_scatter_add"] + fold)
+    if launches != want or both["placed"] != line["placed"]:
+        raise SystemExit(f"fair share: launches {launches}, not {want}, or "
+                         f"the runs differ")
+    line.update(launches=launches, fold_launches=fold)
+    total = fair_share_state(torch.device("cuda"))[2]
+    host = quota_runtime_plain(run.quotas.to("cpu"), total.cpu())
+    if not (torch.equal(run.quotas.runtime.cpu().view(torch.int32),
+                        host.runtime.view(torch.int32))
+            and torch.equal(run.limited.cpu().view(torch.int32),
+                            host.limited.view(torch.int32))
+            and torch.equal(run.rounds.cpu(), host.rounds)):
+        raise SystemExit("fair share: the card's runtime differs from the "
+                         "host's")
+    quotas = run.snapshot.quotas
+    depth = quota_depth(quotas).cpu()
+    over = ((quotas.used > quotas.runtime + EPS).any(dim=1)
+            & quotas.valid).cpu()
+    line["over_runtime_by_level"] = [int(over[depth == d].sum())
+                                     for d in range(FAIR_SHARE_LEVELS)]
+    t0 = time.perf_counter()
+    host_line, host = run_config_4_fair_share(FAIR_SHARE_COMPARED_PODS,
+                                              device="cpu")
+    line.update(host_s=time.perf_counter() - t0,
+                compared_pods=FAIR_SHARE_COMPARED_PODS,
+                host_placed=host_line["placed"])
+    _, card = run_config_4_fair_share(FAIR_SHARE_COMPARED_PODS,
+                                      device="cuda")
+    differ = (diff_fields(card.snapshot, host.snapshot)
+              + diff_fields(card.assignment, host.assignment, "assignment"))
+    line["differing_fields"] = differ
+    print("fair share: " + json.dumps(line), flush=True)
+    if differ:
+        raise SystemExit(f"fair share: the card differs from the host in "
+                         f"{differ}")
+    if any(line["over_runtime_by_level"]) or not overcommit_ok(run.snapshot):
+        raise SystemExit("fair share: quota used over runtime or overcommit")
+    if not (all(line["below_demand_cpu"]) and line["turned_away"] > 0
+            and 0 < line["placed"] < line["num_pods"]):
+        raise SystemExit(f"fair share: the tree does not bind: {line}")
+    return line, launches
+
+
+def gauge_values(samples):
+    return [(name, labels, np.float64(v).view(np.uint64)
+             if v == v else "nan") for name, labels, v in samples]
+
+
+def node_resource_phase():
+    """node_resource_10k (`run_node_resource`: two reconciles of the
+    NodeResourceController over 10 000 nodes, the second after a usage
+    drift) on the card, counting launches (K19 once a reconcile, nothing
+    else), then on the host: batch, mid (NaN where the host has NaN,
+    other entries bit for bit), degraded, sync_mask and the gauges equal
+    in both reconciles; the diff gate syncs and holds rows in the
+    second. Returns (line, launches)."""
+    cluster = node_resource_cluster(10_000)
+    kernels.reset_launch_counts()
+    line, run = run_node_resource(device="cuda", cluster=cluster)
+    launches = kernels.launch_counts()
+    want = {k: 2 if k == "node_overcommit" else 0 for k in launches}
+    if launches != want:
+        raise SystemExit(f"node resource: launches {launches}, not {want}")
+    t0 = time.perf_counter()
+    host_line, host = run_node_resource(device="cpu", cluster=cluster)
+    line.update(launches=launches, host_s=time.perf_counter() - t0,
+                host_values=[r["value"] for r in host_line["reconciles"]])
+    print("node resource: " + json.dumps(line), flush=True)
+    for k, (g, w) in enumerate(zip(run.outputs, host.outputs)):
+        for f in ("batch", "mid"):
+            if not same_floats(torch.from_numpy(g[f]),
+                               torch.from_numpy(w[f])):
+                raise SystemExit(f"node resource: reconcile {k} {f} differs")
+        for f in ("degraded", "sync_mask"):
+            if not np.array_equal(g[f], w[f]):
+                raise SystemExit(f"node resource: reconcile {k} {f} differs")
+        if gauge_values(run.gauges[k]) != gauge_values(host.gauges[k]):
+            raise SystemExit(f"node resource: reconcile {k} gauges differ")
+    second = line["reconciles"][1]
+    if not 0 < second["synced"] < line["nodes"] - second["degraded"]:
+        raise SystemExit(f"node resource: the diff gate did not both sync "
+                         f"and hold rows: {second}")
+    return line, launches
+
 
 def expected_launches(line):
     """(inner steps, K3 launches) of one flagship run: K2 launches once
@@ -4717,6 +5135,9 @@ def main() -> int:
     k17 = check_k17(dev, gen)
     k6_aux = check_k6_aux(dev, gen)
     k2_aux = check_k2_aux(dev, gen)
+    k18 = check_k18(dev)
+    fold = check_fold(dev)
+    k19 = check_k19(dev)
     for name, res in (("score_topk", k1), ("segment_prefix_ok", k2),
                       ("order_switch", switch),
                       ("ordered_scatter_add", k3), ("numa_pair_terms", k4),
@@ -4740,7 +5161,10 @@ def main() -> int:
                       ("lownodeload every node", lnl_every),
                       ("aux_instance_pick", k17),
                       ("device_pair_terms aux", k6_aux),
-                      ("segment_prefix_ok aux", k2_aux)):
+                      ("segment_prefix_ok aux", k2_aux),
+                      ("quota_runtime", k18),
+                      ("ordered_scatter_add fold", fold),
+                      ("node_overcommit", k19)):
         for label, r in res.items():
             print(f"kernel {name} [{label}]: " + json.dumps(r), flush=True)
 
@@ -4854,6 +5278,12 @@ def main() -> int:
     if not (line3["gangs_placed"] > 0 and line3["gangs_partial"] == 0
             and line3["placed"] == CONFIG_3_GANG_SIZE * line3["gangs_placed"]):
         raise SystemExit(f"config 3: a strict gang placed in part: {line3}")
+
+    # --- 16. the ElasticQuota fair share: the fold (K3) and K18 ----------
+    _, launches_fair = timed("16. config 4 fair share", fair_share_phase)
+
+    # --- 17. koord-manager's batch and mid overcommit (K19) ---------------
+    _, launches_nr = timed("17. node resource", node_resource_phase)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     # each kernel's numbers at the shapes of the path it came with (K1-K3
@@ -4924,6 +5354,9 @@ def main() -> int:
                 k: k2_mask["chain + mask"][k] for k in (
                     "ms", "device_ms", "plain_ms", "shape")}
         if name == "ordered_scatter_add":
+            entry["at_fold"] = fold["fair share fold"]
+            entry["launches_by_path"]["config_4_fair_share"] = \
+                launches_fair[name]
             entry["at_count_commit"] = {
                 k: k3["count commit"][k] for k in (
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
@@ -4997,6 +5430,22 @@ def main() -> int:
         "library_ms": r["library_ms"], "shape": r["shape"],
         "most": {k: k17["aux full gate most"][k] for k in (
             "ms", "device_ms", "plain_ms", "bound_ms")}})
+    # K18 on the fair-share tree, launches from phase 16; K19 at 10 000
+    # nodes, launches from phase 17 (two reconciles)
+    for name, r, path, launched in (
+            ("quota_runtime", k18["fair share"], "config_4_fair_share",
+             launches_fair),
+            ("node_overcommit", k19["10k nodes"], "node_resource_10k",
+             launches_nr)):
+        source, replaces = SOURCES[name]
+        report.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launched[name],
+            "launches_by_path": {path: launched[name]},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"]})
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

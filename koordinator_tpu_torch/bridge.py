@@ -94,7 +94,8 @@ def to_numpy(struct) -> Dict[str, Any]:
 
 _API_CLASSES = {cls.__name__: cls for cls in (
     api.ObjectMeta, api.Pod, api.Node, api.PodMetricInfo, api.NodeMetric)}
-_RESOURCE_LISTS = ("requests", "allocatable", "usage", "node_usage")
+_RESOURCE_LISTS = ("requests", "allocatable", "usage", "node_usage",
+                   "system_usage", "prod_reclaimable")
 
 
 def api_from_reference(obj):

@@ -79,6 +79,23 @@ the batch forgotten, and at the end a checkpoint restored into a fresh
 store (`guarded_cycle_inputs` and `guarded_cycle` are its set-up and
 its timed steps).
 
+`run_config_4_fair_share` (`config_4_fair_share_500q_50k`) is BASELINE
+config 4 with its ElasticQuota fair share (GroupQuotaManager's
+pending-demand fold and water-fill, composed as
+tests/test_waterfill.py:195-240 composes them): config 4's nodes and
+pods with the quota table rebuilt as a contended four-level tree of
+500 quotas (`utils.synthetic.fair_share_tree`); the whole pending queue
+folded into the leaves' demand (`ops.quota_demand.add_pending_demand`,
+K3), the forest's runtime solved once (`ops.waterfill`, K18), then
+config 4's chunked sweep with four quota levels gated
+(`FAIR_SHARE_KW`).
+
+`run_node_resource` (`node_resource_10k`) is koord-manager's
+NodeResourceController (`slo_controller.noderesource`): the batch and
+mid overcommit of 10 000 nodes from their NodeMetrics and pods
+(`utils.synthetic.node_resource_cluster`), two reconciles a metric
+sync round apart, the second after a usage drift.
+
 `run_config_5_descheduler` is BASELINE config 5
 (`bench_configs.config_5_descheduler`, :144-200): koord-descheduler's
 LowNodeLoad balance plan over 10 000 nodes (`config_5_cluster`), about
@@ -105,8 +122,11 @@ import numpy as np
 import torch
 
 from koordinator_tpu_torch import resolve_device
-from koordinator_tpu_torch.api.extension import AUX_KINDS
+from koordinator_tpu_torch.api.extension import AUX_KINDS, ResourceKind
 from koordinator_tpu_torch.flagship import FlagshipRun, sweep_and_tail
+from koordinator_tpu_torch.kernels.quota_runtime import quota_runtime
+from koordinator_tpu_torch.ops.quota_demand import add_pending_demand
+from koordinator_tpu_torch.ops.waterfill import quota_depth
 from koordinator_tpu_torch.scheduler.core import schedule_batch
 from koordinator_tpu_torch.scheduler.domains import (
     COUNT_FIELDS,
@@ -128,6 +148,8 @@ from koordinator_tpu_torch.utils.synthetic import (
     config_3_inputs,
     config_4_inputs,
     config_5_cluster,
+    fair_share_inputs,
+    node_resource_cluster,
     dom_classes,
     gpu_share_inputs,
     metric_delta_rows,
@@ -135,6 +157,8 @@ from koordinator_tpu_torch.utils.synthetic import (
     slice_batch,
     topology_delta_rows,
 )
+
+CPU, MEM = int(ResourceKind.CPU), int(ResourceKind.MEMORY)
 
 CONFIG_2_METRIC = "baseline_cfg2_numa_10kx1k"
 # bench_configs._run_scheduler_config's step
@@ -148,6 +172,10 @@ CONFIG_4_KW = dict(num_rounds=2, k_choices=8, score_dims=(0, 1),
                    cascade=False, enable_numa=False)
 # configs 1 and 3 run _run_scheduler_config's step with NUMA off, as
 # config 4 does
+# the fair share's tree has four levels, all gated
+FAIR_SHARE_METRIC = "config_4_fair_share_500q_50k"
+FAIR_SHARE_KW = dict(CONFIG_4_KW, quota_depth=4)
+FAIR_SHARE_LEVELS = 4
 CONFIG_1_METRIC, CONFIG_1_CHUNK = "baseline_cfg1_spark_32x10", 32
 CONFIG_1_KW = CONFIG_4_KW
 CONFIG_3_METRIC = "baseline_cfg3_gangs_1kx8_5k"
@@ -171,6 +199,8 @@ FULL_GATE_KW = dict(GPU_SHARE_KW, cascade=True)
 FULL_GATE_TAIL_KW = dict(FULL_GATE_KW, num_rounds=4, k_choices=32)
 FULL_GATE_AMPLIFIED_METRIC = "full_gate_amplified_100kx10k"
 FULL_GATE_AUX_METRIC = "full_gate_aux_100kx10k"
+
+NODE_RESOURCE_METRIC = "node_resource_10k"
 
 CONFIG_5_METRIC = "baseline_cfg5_descheduler_10k"
 CONFIG_5_CAPPED_METRIC = "baseline_cfg5_descheduler_10k_capped"
@@ -320,6 +350,79 @@ def run_config_4_quota(num_pods: int = 50_000, num_nodes: int = 5000,
     snap, pods = config_4_inputs(num_pods, num_nodes, num_quotas, device=dev)
     return _timed_chunked_sweep(CONFIG_4_METRIC, snap, pods, chunk,
                                 CONFIG_4_KW, dev, num_quotas=num_quotas)
+
+
+@dataclasses.dataclass
+class FairShareRun:
+    snapshot: ClusterSnapshot    # after the sweep
+    assignment: torch.Tensor     # i32[P]
+    quotas: object               # QuotaState: the folded demand, runtime
+    limited: torch.Tensor        # f32[Q, R] limited demand
+    rounds: torch.Tensor         # i32[6] the water-fill's rounds a level
+
+
+def run_config_4_fair_share(num_pods: int = 50_000, num_nodes: int = 5000,
+                            chunk: int = 2500, device="cuda",
+                            count_turned_away: bool = False):
+    """`config_4_fair_share_500q_50k`: fold the whole pending queue into
+    the quota tree's demand (K3), solve the forest's runtime once (K18),
+    set it as the snapshot's runtime, then config 4's chunked sweep with
+    the tree's four levels gated; all of it timed (value ends with the
+    assignment's readback). Returns (line, run). The line also gives,
+    for each level 1-3, the quotas whose runtime is below their limited
+    demand in CPU and in memory, the rounds each level's water-fill ran,
+    K18's device time by CUDA events (on a card), and with
+    `count_turned_away` the pods that the same sweep with runtime = max
+    places but this one does not (an untimed second sweep)."""
+    dev = resolve_device(device)
+    snap, pods, total = fair_share_inputs(num_pods, num_nodes, device=dev)
+    cfg = LoadAwareConfig.make(device=dev)
+    cuda = dev.type == "cuda"
+    if cuda:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    quotas = add_pending_demand(snap.quotas, pods)
+    if cuda:
+        events[0].record()
+    solved = quota_runtime(quotas, total)
+    if cuda:
+        events[1].record()
+    quotas = quotas.replace(runtime=solved.runtime)
+    run = chunked_sweep(snap.replace(quotas=quotas), pods, cfg, chunk,
+                        FAIR_SHARE_KW)
+    assign = run.assignment.cpu()
+    elapsed = time.perf_counter() - t0
+    depth = quota_depth(quotas).cpu()
+    below = ((solved.runtime < solved.limited).cpu()
+             & quotas.valid.cpu()[:, None])
+    line = {
+        "metric": FAIR_SHARE_METRIC,
+        "value": elapsed,
+        "pods_per_sec": num_pods / elapsed,
+        "placed": int((assign >= 0).sum()),
+        "num_pods": num_pods,
+        "num_nodes": num_nodes,
+        "num_quotas": int(quotas.valid.sum()),
+        "below_demand_cpu": [int(below[depth == d, CPU].sum())
+                             for d in range(1, FAIR_SHARE_LEVELS)],
+        "below_demand_memory": [int(below[depth == d, MEM].sum())
+                                for d in range(1, FAIR_SHARE_LEVELS)],
+        "rounds": solved.rounds.cpu().tolist(),
+        "quota_runtime_ms": (events[0].elapsed_time(events[1]) if cuda
+                             else None),
+        "chunk": chunk,
+        "platform": dev.type,
+        "device": card_name_and_power_limit() if cuda else "cpu",
+    }
+    if count_turned_away:
+        capped = chunked_sweep(snap.replace(quotas=quotas.replace(
+            runtime=snap.quotas.runtime)), pods, cfg, chunk, FAIR_SHARE_KW)
+        line["placed_at_max"] = int((capped.assignment >= 0).sum())
+        line["turned_away"] = int(((capped.assignment >= 0)
+                                   & (run.assignment < 0)).sum())
+    return line, FairShareRun(run.snapshot, run.assignment, quotas,
+                              solved.limited, solved.rounds)
 
 
 def run_gpu_share(num_pods: int = 100_000, num_nodes: int = 10_000,
@@ -650,6 +753,78 @@ def card_name_and_power_limit() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+
+
+@dataclasses.dataclass
+class NodeResourceRun:
+    cluster: dict                # node_resource_cluster's objects
+    outputs: list                # each reconcile's result
+    gauges: list                 # each reconcile's gauge samples
+    controller: object           # the NodeResourceController
+
+
+def run_node_resource(num_nodes: int = 10_000, device="cuda",
+                      cluster: dict = None):
+    """`node_resource_10k`: koord-manager's NodeResourceController over
+    `utils.synthetic.node_resource_cluster(num_nodes)`, two reconciles
+    a metric sync round apart (the second on the drifted metrics), each
+    `build_inputs` then `reconcile` with the per-node strategies of the
+    cluster's ColocationConfig (resolved once, at set-up), the formulas
+    on K19. Returns (line, run): the line's `value` is the second
+    reconcile's seconds (host clock, from the typed objects to the
+    gauges), and `reconciles` gives each reconcile's seconds split into
+    build_inputs, the calculation (K19, its readback, the resets and the
+    diff gate) and the gauge updates, with the synced and degraded
+    counts; `run` holds each reconcile's result and gauge samples. The
+    controller's metrics go to a registry of its own. `cluster` may give
+    a `node_resource_cluster` built before (it is not changed)."""
+    from koordinator_tpu_torch.metrics import Registry
+    from koordinator_tpu_torch.slo_controller.metrics_defs import (
+        SloControllerMetrics,
+    )
+    from koordinator_tpu_torch.slo_controller.noderesource import (
+        NodeResourceController,
+        build_inputs,
+    )
+
+    dev = resolve_device(device)
+    if cluster is None:
+        cluster = node_resource_cluster(num_nodes)
+    nodes = cluster["nodes"]
+    strategies = [cluster["config"].strategy_for(n.meta.labels,
+                                                 n.meta.annotations)
+                  for n in nodes]
+    registry = Registry()
+    ctl = NodeResourceController(
+        strategy=cluster["config"].cluster_strategy,
+        stats=SloControllerMetrics(registry), device=str(dev))
+    gauge = ctl.stats.node_extended_resource_allocatable
+    reconciles, outputs, gauges = [], [], []
+    for metrics, now in ((cluster["metrics"], cluster["now"]),
+                         (cluster["drifted"], cluster["drift_now"])):
+        t0 = time.perf_counter()
+        inputs = build_inputs(nodes, metrics, cluster["pods_by_node"], now,
+                              cluster["node_reservations"])
+        t1 = time.perf_counter()
+        out = ctl.reconcile(inputs, strategies)
+        elapsed = time.perf_counter() - t0
+        reconciles.append({"value": elapsed, "build_inputs_s": t1 - t0,
+                           **ctl.timings,
+                           "synced": int(out["sync_mask"].sum()),
+                           "degraded": int(out["degraded"].sum())})
+        outputs.append(out)
+        gauges.append(gauge.samples())
+    line = {
+        "metric": NODE_RESOURCE_METRIC,
+        "value": reconciles[-1]["value"],
+        "reconciles": reconciles,
+        "nodes": len(nodes),
+        "pods": sum(len(v) for v in cluster["pods_by_node"].values()),
+        "platform": dev.type,
+        "device": (card_name_and_power_limit() if dev.type == "cuda"
+                   else "cpu"),
+    }
+    return line, NodeResourceRun(cluster, outputs, gauges, ctl)
 
 
 @dataclasses.dataclass

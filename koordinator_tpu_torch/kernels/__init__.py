@@ -20,7 +20,9 @@ def _wrappers():
         guard,
         gpu_instances,
         lownodeload,
+        node_overcommit,
         numa_terms,
+        quota_runtime,
         scatter,
         score_topk,
         segment_prefix,
@@ -45,7 +47,9 @@ def _wrappers():
             "guard_nodes": guard.guard_nodes,
             "guard_pods": guard.guard_pods,
             "delta_rows": delta_rows.delta_rows,
-            "aux_instance_pick": aux_instances.aux_instance_pick}
+            "aux_instance_pick": aux_instances.aux_instance_pick,
+            "quota_runtime": quota_runtime.quota_runtime,
+            "node_overcommit": node_overcommit.node_overcommit}
 
 
 def launch_counts() -> Dict[str, int]:

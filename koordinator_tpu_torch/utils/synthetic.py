@@ -518,6 +518,114 @@ def config_4_inputs(num_pods: int = 50_000, num_nodes: int = 5000,
     return snap, pods
 
 
+# config_4_fair_share_500q_50k's quota tree: root, business units,
+# departments (per unit), leaf teams; the root's share of the cluster
+FAIR_SHARE_UNITS, FAIR_SHARE_DEPTS_PER_UNIT, FAIR_SHARE_LEAVES = 8, 5, 451
+FAIR_SHARE_ROOT_SHARE = 0.3
+FAIR_SHARE_UNIT_MIN = 0.6          # the units' mins, of the root's max
+FAIR_SHARE_CHILD_MIN = (0.5, 0.9)  # a level's mins, of its parent's min
+FAIR_SHARE_CHILD_MAX = (0.3, 0.8)  # a child's max, of its parent's max
+FAIR_SHARE_WEIGHTED = 0.3          # quotas with an explicit shared weight
+FAIR_SHARE_NOT_LENDING = 0.2
+FAIR_SHARE_ZIPF_A = 1.3
+
+
+def fair_share_tree(allocatable: np.ndarray, node_valid: np.ndarray,
+                    num_pods: int, max_quotas: int = 512, seed: int = 5
+                    ) -> dict:
+    """A contended four-level ElasticQuota tree over a shared pool, in
+    numpy: {"quotas": QuotaState's fields, "quota_id": i32[num_pods] (the
+    pods redrawn over the leaves), "cluster_total": f32[R]}.
+
+    Rows: 0 the root; 1-8 business units; 9-48 departments (5 a unit);
+    49-499 leaf teams, spread evenly over the departments; the rest of
+    the table invalid. The root's max is FAIR_SHARE_ROOT_SHARE of the
+    valid nodes' allocatable (summed in float64, then f32; unlimited in
+    a column the cluster has none of); a child's max a uniform
+    FAIR_SHARE_CHILD_MAX share of its parent's; the units' mins split
+    FAIR_SHARE_UNIT_MIN of the root's max, each lower level's a uniform
+    FAIR_SHARE_CHILD_MIN share of its parent's min (Dirichlet splits,
+    at most the child's max). FAIR_SHARE_WEIGHTED of the quotas carry a
+    shared weight of 0.5-2x their max (the rest weigh their max), and
+    FAIR_SHARE_NOT_LENDING do not lend. Each pod's quota is a leaf
+    drawn with a Zipf skew (a = FAIR_SHARE_ZIPF_A over the leaves in a
+    random order)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    q = max_quotas
+    cluster = allocatable[node_valid].astype(np.float64).sum(axis=0)
+    units = FAIR_SHARE_UNITS
+    depts = units * FAIR_SHARE_DEPTS_PER_UNIT
+    first_dept, first_leaf = 1 + units, 1 + units + depts
+    n = first_leaf + FAIR_SHARE_LEAVES
+    if n > q:
+        raise ValueError(f"the tree's {n} quotas exceed a table of {q}")
+    parent = np.full((q,), -1, np.int32)
+    parent[1:first_dept] = 0
+    parent[first_dept:first_leaf] = 1 + np.arange(depts) \
+        // FAIR_SHARE_DEPTS_PER_UNIT
+    parent[first_leaf:n] = first_dept + np.arange(FAIR_SHARE_LEAVES) \
+        * depts // FAIR_SHARE_LEAVES
+    has = cluster > 0
+    mx = np.full((q, R), np.inf)
+    mn = np.zeros((q, R))
+    mx[0] = np.where(has, cluster * FAIR_SHARE_ROOT_SHARE, np.inf)
+    for i in range(1, n):
+        mx[i] = mx[parent[i]] * rng.uniform(*FAIR_SHARE_CHILD_MAX)
+    for p in range(first_leaf):
+        kids = np.flatnonzero(parent[:n] == p)
+        share = (FAIR_SHARE_UNIT_MIN * mx[0] if p == 0
+                 else rng.uniform(*FAIR_SHARE_CHILD_MIN) * mn[p])
+        split = rng.dirichlet(np.ones(kids.size))
+        mn[kids] = np.where(has, share[None] * split[:, None], 0.0)
+    mn = np.minimum(mn, mx)
+    weighted = rng.uniform(size=q) < FAIR_SHARE_WEIGHTED
+    sw = np.where(weighted[:, None] & np.isfinite(mx),
+                  mx * rng.uniform(0.5, 2.0, size=(q, 1)), 0.0)
+    lent = rng.uniform(size=q) >= FAIR_SHARE_NOT_LENDING
+    valid = np.arange(q) < n
+    lent[0] = True
+    ancestors = np.zeros((q, q), bool)
+    depth_anc = np.full((q, MAX_QUOTA_DEPTH), -1, np.int32)
+    for i in range(n):
+        chain = [i]
+        while parent[chain[-1]] >= 0:
+            chain.append(int(parent[chain[-1]]))
+        ancestors[i, chain] = True
+        depth_anc[i, :len(chain)] = chain[::-1]
+    rank_p = np.arange(1, FAIR_SHARE_LEAVES + 1, dtype=np.float64) \
+        ** -FAIR_SHARE_ZIPF_A
+    order = rng.permutation(FAIR_SHARE_LEAVES)
+    quota_id = (first_leaf + order[rng.choice(
+        FAIR_SHARE_LEAVES, num_pods, p=rank_p / rank_p.sum())]).astype(
+        np.int32)
+    mx, mn = mx.astype(f32), mn.astype(f32)
+    quotas = dict(
+        min=mn, max=mx, shared_weight=sw.astype(f32), parent=parent,
+        ancestors=ancestors, depth_ancestor=depth_anc,
+        used=np.zeros((q, R), f32), demand=np.zeros((q, R), f32),
+        allow_lent=lent, runtime=mx.copy(), valid=valid)
+    return {"quotas": quotas, "quota_id": quota_id,
+            "cluster_total": cluster.astype(f32)}
+
+
+def fair_share_inputs(num_pods: int = 50_000, num_nodes: int = 5000,
+                      device="cuda"):
+    """config_4_fair_share_500q_50k: config 4's nodes (seed 0) and pods
+    (seed 1) with the quota table rebuilt as `fair_share_tree` and the
+    pods' quotas redrawn over its leaves. Returns (snap, pods,
+    cluster_total f32[R]); the snapshot's runtime is its max."""
+    snap, pods = config_4_inputs(num_pods, num_nodes, device="cpu")
+    tree = fair_share_tree(snap.nodes.allocatable.numpy(),
+                           snap.nodes.schedulable.numpy(), num_pods)
+    snap = snap.replace(quotas=from_reference("QuotaState", tree["quotas"],
+                                              "cpu"))
+    pods = pods.replace(quota_id=torch.from_numpy(tree["quota_id"]))
+    dev = resolve_device(device)
+    return (snap.to(dev), pods.to(dev),
+            torch.from_numpy(tree["cluster_total"]).to(dev))
+
+
 # the amplified full gate: the share of nodes the node webhook amplifies
 # and the ratios it draws from
 AMPLIFIED_NODE_FRAC = 0.3
@@ -995,3 +1103,143 @@ def config_5_cluster(num_nodes: int = 10_000, every_node: bool = False):
                                   ResourceKind.MEMORY: 8192.0})
                 for j in range(4)]
     return nodes, metrics, pods_by_node
+
+
+# node_resource_10k: koord-manager's view of a colocation cluster
+NODE_RESOURCE_NOW = 1.7e9
+NODE_RESOURCE_SYNC_S = 60.0        # one metric sync round
+# (priority class, share of the pods, the band's lowest priority)
+NODE_RESOURCE_CLASSES = ((PriorityClass.PROD, 0.45, 9000),
+                         (PriorityClass.MID, 0.10, 7000),
+                         (PriorityClass.BATCH, 0.35, 5000),
+                         (PriorityClass.FREE, 0.10, 3000))
+NODE_RESOURCE_POOL_LABEL = "colocation-pool"
+# the per-node strategy overrides: pool label value -> strategy fields
+NODE_RESOURCE_POOLS = (
+    ("mem-request", {"memory_calculate_policy": "request"}),
+    ("mem-max-usage-request", {"memory_calculate_policy": "maxUsageRequest"}),
+    ("cpu-max-usage-request", {"cpu_calculate_policy": "maxUsageRequest"}),
+)
+
+
+def node_resource_cluster(num_nodes: int = 10_000, pods_per_node: int = 30,
+                          seed: int = 0) -> dict:
+    """node_resource_10k's cluster as `api.types` objects: {"nodes",
+    "metrics" (by node name), "pods_by_node", "node_reservations",
+    "config" (a ColocationConfig), "now", "drifted" (the metrics one
+    sync round later), "drift_now"}.
+
+    Nodes carry the allocatable (cpu, memory) of `synthetic_cluster(
+    num_nodes, seed=0)` and a kubelet reservation (2 % of the cpu, 2048
+    MiB); 10 % of them a pool label whose override computes memory by
+    request or by maxUsageRequest, or cpu by maxUsageRequest. Each node
+    lists `pods_per_node` Running (95 %) or Pending pods: 45 % prod, 10 %
+    mid, 35 % batch, 10 % free (batch and free pods ask for batch
+    resources); 5 % of the prod and mid (HP) pods are LSE, the rest LS;
+    10 % of the HP pods have no pod metric, the others report a usage of
+    0.2-1.2x their request. NodeMetrics report system usage and the
+    prod-reclaimable prediction; 2 % of the nodes report one dangling
+    pod metric (a prod pod no longer listed), 0.2 % a NaN system cpu
+    usage, 3 % a metric older than the default degrade time (15
+    minutes) and 1 % none. `drifted`: every reported node one sync round
+    later, half of them with 5 % more pod and system usage."""
+    from koordinator_tpu_torch.api import types as api
+    from koordinator_tpu_torch.slo_controller.config import (
+        CalculatePolicy,
+        ColocationConfig,
+        ColocationStrategy,
+        ColocationStrategyOverride,
+    )
+
+    n, per = num_nodes, pods_per_node
+    alloc = synthetic_cluster(n, seed=0, device="cpu").nodes.allocatable[
+        :, [CPU, MEM]].numpy().astype(np.float64)
+    rng = np.random.default_rng(seed + 17)
+    pool = np.where(rng.uniform(size=n) < 0.1,
+                    rng.integers(0, len(NODE_RESOURCE_POOLS), n), -1)
+    sys_use = alloc * np.stack([rng.uniform(0.01, 0.06, n),
+                                rng.uniform(0.02, 0.08, n)], axis=1)
+    reclaim = alloc * np.stack([rng.uniform(0.0, 0.25, n),
+                                rng.uniform(0.0, 0.2, n)], axis=1)
+    state = rng.uniform(size=n)          # < 0.01 none, < 0.04 stale
+    age = np.where(state < 0.04, rng.uniform(15 * 60.0, 3600.0, n),
+                   rng.uniform(0.0, 120.0, n))
+    dangling = rng.uniform(size=n) < 0.02
+    nan_cpu = rng.uniform(size=n) < 0.002
+    drift = rng.uniform(size=n) < 0.5
+    p = n * per
+    cls = rng.choice(len(NODE_RESOURCE_CLASSES), p,
+                     p=[c[1] for c in NODE_RESOURCE_CLASSES])
+    prio = np.array([c[2] for c in NODE_RESOURCE_CLASSES])[cls] \
+        + rng.integers(0, 1000, p)
+    running = rng.uniform(size=p) < 0.95
+    req = np.stack([rng.integers(1, 9, p) * 250.0,
+                    rng.integers(1, 17, p) * 256.0], axis=1)
+    hp = cls < 2
+    lse = hp & (rng.uniform(size=p) < 0.05)
+    metered = ~(hp & (rng.uniform(size=p) < 0.1))
+    use = req * rng.uniform(0.2, 1.2, size=(p, 2))
+    ghost = alloc * 0.02
+
+    config = ColocationConfig(
+        cluster_strategy=ColocationStrategy(enable=True),
+        node_overrides=[ColocationStrategyOverride(
+            node_selector={NODE_RESOURCE_POOL_LABEL: name},
+            fields={k: CalculatePolicy(v) for k, v in fields.items()})
+            for name, fields in NODE_RESOURCE_POOLS])
+    rk_cpu, rk_mem = ResourceKind.CPU, ResourceKind.MEMORY
+    nodes, reservations, pods_by_node = [], {}, {}
+    metrics, drifted = {}, {}
+    for i in range(n):
+        name = f"node-{i:05d}"
+        labels = ({NODE_RESOURCE_POOL_LABEL: NODE_RESOURCE_POOLS[pool[i]][0]}
+                  if pool[i] >= 0 else {})
+        nodes.append(api.Node(meta=api.ObjectMeta(name=name, labels=labels),
+                              allocatable={rk_cpu: float(alloc[i, 0]),
+                                           rk_mem: float(alloc[i, 1])}))
+        reservations[name] = {rk_cpu: float(np.floor(alloc[i, 0] * 0.02)),
+                              rk_mem: 2048.0}
+        pods, infos = [], []
+        for j in range(i * per, (i + 1) * per):
+            pc = NODE_RESOURCE_CLASSES[cls[j]][0]
+            kinds = (rk_cpu, rk_mem) if hp[j] else (ResourceKind.BATCH_CPU,
+                                                    ResourceKind.BATCH_MEMORY)
+            meta = api.ObjectMeta(name=f"pod-{j}", namespace=f"ns-{j % 50}")
+            pods.append(api.Pod(
+                meta=meta, priority=int(prio[j]), node_name=name,
+                phase="Running" if running[j] else "Pending",
+                qos_label="LSE" if lse[j] else "LS" if hp[j] else "BE",
+                requests={kinds[0]: float(req[j, 0]),
+                          kinds[1]: float(req[j, 1])}))
+            if metered[j]:
+                infos.append((meta.namespace, meta.name, pc, use[j]))
+        if dangling[i]:
+            infos.append(("ns-ghost", f"gone-{i}", PriorityClass.PROD,
+                          ghost[i]))
+        pods_by_node[name] = pods
+        if state[i] < 0.01:
+            continue
+
+        def report(scale, sync):
+            sys_cpu = np.nan if nan_cpu[i] else float(sys_use[i, 0] * scale)
+            return api.NodeMetric(
+                node_name=name,
+                update_time=NODE_RESOURCE_NOW - age[i] + sync,
+                system_usage={rk_cpu: sys_cpu,
+                              rk_mem: float(sys_use[i, 1] * scale)},
+                pods_metric=[api.PodMetricInfo(
+                    namespace=ns, name=pn, priority_class=pc,
+                    usage={rk_cpu: float(u[0] * scale),
+                           rk_mem: float(u[1] * scale)})
+                    for ns, pn, pc, u in infos],
+                prod_reclaimable={rk_cpu: float(reclaim[i, 0]),
+                                  rk_mem: float(reclaim[i, 1])})
+        metrics[name] = report(1.0, 0.0)
+        stale = state[i] < 0.04
+        drifted[name] = (metrics[name] if stale else
+                         report(1.05 if drift[i] else 1.0,
+                                NODE_RESOURCE_SYNC_S))
+    return {"nodes": nodes, "metrics": metrics, "pods_by_node": pods_by_node,
+            "node_reservations": reservations, "config": config,
+            "now": NODE_RESOURCE_NOW, "drifted": drifted,
+            "drift_now": NODE_RESOURCE_NOW + NODE_RESOURCE_SYNC_S}

@@ -130,3 +130,33 @@ def reference_sweep_and_tail(step, tail_step, snap, pods, cfg, chunk, *,
     return (snap, tuple(np.asarray(c) for c in counts), np.asarray(assign),
             np.asarray(stats), np.concatenate([np.asarray(r)
                                                for r in res_slot]))
+
+
+def api_to_reference(obj):
+    """The reference's counterpart of a port typed host object (the
+    inverse of `bridge.api_from_reference`): found by class name in the
+    reference's `api.types` or `slo_controller.config` and filled by the
+    reference class's fields that the object has; enums carried by
+    value, resource lists re-keyed to the reference's ResourceKind."""
+    import enum
+
+    from koordinator_tpu.api import extension as jext
+    from koordinator_tpu.api import types as jtypes
+    from koordinator_tpu.slo_controller import config as jconfig
+
+    if isinstance(obj, dict):
+        return {api_to_reference(k): api_to_reference(v)
+                for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(api_to_reference(v) for v in obj)
+    if isinstance(obj, enum.Enum):
+        cls = (getattr(jext, type(obj).__name__, None)
+               or getattr(jconfig, type(obj).__name__))
+        return cls(obj.value)
+    if not dataclasses.is_dataclass(obj):
+        return obj
+    name = type(obj).__name__
+    cls = getattr(jtypes, name, None) or getattr(jconfig, name)
+    have = {f.name for f in dataclasses.fields(obj)}
+    return cls(**{f.name: api_to_reference(getattr(obj, f.name))
+                  for f in dataclasses.fields(cls) if f.name in have})
