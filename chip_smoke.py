@@ -18,8 +18,11 @@ in order:
    (N = 1000, N = k, every row inactive, P = 10 000, a tie-heavy batch
    without jitter, P = 1, every factored gate biting, table indices out
    of range, a pair mask, negative estimates and weights); K2 with 70 % and 8 % of the pods trying, over all 11
-   dims, and one level alone; K3 at the node commit and at the 2-level
-   quota commit. The NUMA path's kernels the same way: K4
+   dims, and one level alone; K3 (`check_k3`) in the one-group and the
+   grouped form at the node, quota and count commits, the
+   order-sensitive hot row at P = 2000 and 50 000, the reservation
+   rebuild's P = 2500, C = 24 in one call and a grouped step of the
+   full gate's eight commits. The NUMA path's kernels the same way: K4
    numa_pair_terms at a config-2 chunk (P = 2000, N = 1000, Z = 2) and
    at the flagship's width (N = 10 000), both strategies, and at Z = 4
    (policy nodes, invalid and partly used zones); K5 topology_admit at a
@@ -106,8 +109,8 @@ in order:
 4. flagship: the slim flagship at 100 000 pods x 10 000 nodes, chunk
    2000, on the card, after a warm-up run: the bench line, every
    kernel's launch count in the measured run (each must be > 0; K2 once
-   an inner step; K3 at most twice an inner step plus its round and
-   rebuild commits), peak device memory, and the invariants (no
+   an inner step; K3 once an inner step, once a round and once a
+   batch: `k3_formula`), peak device memory, and the invariants (no
    overcommit, quota used within runtime, every straggler retried, the
    sweep's stragglers unchanged; K4 to K8 never launched);
 5. config 2: BASELINE config 2 (10 000 pods x 1000 nodes, chunks of
@@ -128,8 +131,9 @@ in order:
    four topology count tables, the placed pods of each family); then
    100 000 x 10 000 on the card: the bench line, the launch counts its
    design fixes (K4 and K6 once a batch, K1 once a round, K5 and K8
-   once an inner step, K7 twice, K2 four times, K3 eight times an inner
-   step, three times a round and fifteen times a batch),
+   once an inner step, K7 twice, K2 four times; K3 once an inner step,
+   once a round and twice a batch: `k3_formula`, printed as
+   K3_FORMULA),
    every placed GPU pod holding its count of instances, the takes times
    the per-instance requests equal to each valid instance's total minus
    its free, no negative free; every slot consumer on its slot's node
@@ -211,7 +215,7 @@ in order:
    nodes, pods asking for them): card against host in every field
    (aux_inst and aux_free included) at 8000 x 1000 and on the first
    full-width chunk; at 100 000 x 10 000 on the card with the full
-   gate's launch formulas plus K17, K2 and K3 once more a step, the
+   gate's launch formulas plus K17 and K2 once more a step, the
    aux invariants (the final VF free is the batch-start free less the
    placed pods' requests, exactly; none below 0; every held VF valid)
    and aux pods both placed and turned away. Phase 2 also holds K17
@@ -225,7 +229,7 @@ in order:
    config 4 under a contended four-level tree of 500 quotas, the whole
    queue folded into the leaves' demand by K3, the runtime solved once
    by K18, config 4's sweep with four quota levels) on the card after a
-   warm-up run: K18 launched once, K3 the fold's launches more than the
+   warm-up run: K18 launched once, K3 once (the fold) more than the
    same sweep at runtime = max (which also counts the pods the runtime
    turns away), K1, K2 and the order switch as that sweep; the card's
    runtime, limited demand and rounds equal to the host's plain
@@ -357,10 +361,10 @@ from koordinator_tpu_torch.kernels.quota_runtime import (
     quota_runtime_plain,
 )
 from koordinator_tpu_torch.kernels.scatter import (
-    levels_per_launch,
     ordered_scatter_add,
+    ordered_scatter_add_many,
+    ordered_scatter_add_many_plain,
     ordered_scatter_add_plain,
-    rows_per_launch,
 )
 from koordinator_tpu_torch.kernels.score_topk import (
     JITTER,
@@ -422,6 +426,7 @@ from koordinator_tpu_torch.snapshot import delta as snapshot_delta
 from koordinator_tpu_torch.snapshot.delta import NodeTopologyDelta
 from koordinator_tpu_torch.snapshot.store import SnapshotStore
 from koordinator_tpu_torch.testing import faults
+from koordinator_tpu_torch.testing.scatter_cases import hot_row_case
 from koordinator_tpu_torch.utils import synthetic
 from koordinator_tpu_torch.utils.synthetic import (
     CONFIG_5_NOW,
@@ -982,17 +987,135 @@ def check_order_switch(snap, pods, gen):
     return out
 
 
+def k3_equal(groups, label):
+    """K3 against its plain version on the host, bit for bit: each group
+    in the one-group form, then all of them in one grouped call, which
+    must launch the kernel once."""
+    plain = [ordered_scatter_add_plain(*(x.cpu() for x in g)) for g in groups]
+    one = [ordered_scatter_add(*g).cpu() for g in groups]
+    before = ordered_scatter_add.launches
+    many = [o.cpu() for o in ordered_scatter_add_many(groups)]
+    if ordered_scatter_add.launches != before + 1:
+        raise SystemExit(f"K3 ({label}): a grouped call launched "
+                         f"{ordered_scatter_add.launches - before} times")
+    for form, outs in (("one-group", one), ("grouped", many)):
+        for got, want in zip(outs, plain):
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                err = float((got - want).abs().max())
+                raise SystemExit(f"K3 ordered_scatter_add ({label}, {form} "
+                                 f"form) differs from its plain version on "
+                                 f"the host, max abs err {err}")
+
+
+def k3_work(groups):
+    """(bytes, adds, kept entries, the hottest row's adds) of K3's
+    function on these groups: each target read and written once, the
+    indices read once, the rows some level keeps read once; an add a
+    kept entry and column."""
+    nbytes = adds = kept = hottest = 0
+    for target, idx, rows in groups:
+        s, c = target.shape
+        levels = idx.reshape(-1, rows.shape[0])
+        wrapped = torch.where(levels < 0, levels + s, levels)
+        keep = (wrapped >= 0) & (wrapped < s)
+        nbytes += 2 * s * c * 4 + levels.numel() * 4 \
+            + int(keep.any(dim=0).sum()) * c * 4
+        adds += int(keep.sum()) * c
+        kept += int(keep.sum())
+        if keep.any():
+            hottest = max(hottest, int(torch.bincount(
+                wrapped[keep].long(), minlength=s).max()))
+    return nbytes, adds, kept, hottest
+
+
+def k3_timed(groups, shape, library=None):
+    """One case's numbers: events and device time of a grouped call of
+    the groups, the plain version's, the library call's (one index_add_
+    of the kept entries, one group only), the bound and the chain's
+    floor (the hottest row's adds)."""
+    nbytes, adds, kept, hottest = k3_work(groups)
+    b_ms, b_by = bound(nbytes, adds)
+    lib = None
+    if library:
+        target, idx, rows = groups[0]
+        s = target.shape[0]
+        levels = idx.reshape(-1, rows.shape[0])
+        wrapped = torch.where(levels < 0, levels + s, levels)
+        keep = (wrapped >= 0) & (wrapped < s)
+        flat_idx = wrapped[keep].long()
+        flat_rows = rows.expand(levels.shape[0], *rows.shape)[keep]
+        lib = cuda_ms(lambda: target.clone().index_add_(0, flat_idx,
+                                                        flat_rows))
+    return dict(
+        ms=cuda_ms(lambda: ordered_scatter_add_many(groups)),
+        device_ms=device_ms(lambda: ordered_scatter_add_many(groups),
+                            "ordered_scatter_add_kernel"),
+        # torch's CUDA index_add_ under the plain version: atomics, no
+        # fixed order (timed only)
+        plain_ms=cuda_ms(lambda: ordered_scatter_add_many_plain(groups)),
+        library_ms=lib, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+        shape=shape, groups=len(groups), kept=kept, hottest_row=hottest)
+
+
+def full_gate_step_groups(dev, gen):
+    """Eight K3 groups of the full gate's inner step at its widths
+    (10 000 nodes and 64 slots, P = 2000, the NUMA and GPU prefixes):
+    the zone takes [N + V, 4] of 768 pods, the instance takes [N + V,
+    24] of 896 pods, the four count tables (spread 16 x 10 000,
+    anti-affinity and carriers 16 x 10 000, affinity 8 x 10 000, a level
+    a group, 2 % of the pods a group), requested [N + V, 11] and the
+    quota levels [64, 11] x 2 of 2000 pods, every commit half the pods
+    accepted, fractional rows."""
+    n_ext, p = 10_064, 2000
+
+    def frac(shape):
+        return torch.rand(shape, generator=gen, device=dev) * 3000.0 + 0.1
+
+    def nodes(rows, s=n_ext):
+        i = torch.randint(0, s, (rows,), generator=gen, device=dev)
+        off = torch.rand((rows,), generator=gen, device=dev) < 0.5
+        return torch.where(off, s, i).to(torch.int32)
+
+    def counts(g):
+        i = torch.where(
+            torch.rand((g, p), generator=gen, device=dev) < 0.02,
+            torch.arange(g, device=dev)[:, None] * 10_000
+            + torch.randint(0, 10_000, (g, p), generator=gen, device=dev),
+            g * 10_000).to(torch.int32)
+        return (torch.randint(0, 5, (g * 10_000, 1), generator=gen,
+                              device=dev).to(torch.float32), i,
+                torch.ones((p, 1), device=dev))
+
+    quota_idx = torch.stack([
+        torch.where(torch.rand((p,), generator=gen, device=dev) < 0.5, 0, 64),
+        torch.randint(1, 65, (p,), generator=gen, device=dev)]).to(
+            torch.int32)
+    return [(frac((n_ext, 4)), nodes(768), -frac((768, 4))),
+            (frac((n_ext, 24)), nodes(896), -frac((896, 24))),
+            counts(16), counts(16), counts(16), counts(8),
+            (frac((n_ext, 11)), nodes(p), frac((p, 11))),
+            (frac((64, 11)), quota_idx, frac((p, 11)))]
+
+
 def check_k3(snap, pods, gen):
-    """K3 at the node commit (P=2000 rows into 10^4 targets, one level,
-    repeats and drops) and the quota commit (P=2000 into the 64-row
-    quota table, 2 levels from a real chunk's pod_anc, half the pods
-    accepted: every accepted quota pod lands on the root at level 0),
-    non-integer rows in both, and a step's count commit into a topology
-    count table (16 groups x 10^4 domains, one level a group, 2 % of the
-    pods charging each group, rows of 1.0: gpu_share's spread and
-    anti-affinity tables); and, untimed, indices below 0 (wrapped
-    or dropped as in the reference). The plain version runs on the
-    host, whose index_add_ adds in order (the card's uses atomics)."""
+    """K3 against its plain version on the host (bit for bit, one-group
+    and grouped form, one launch a grouped call), then timed: the node
+    commit (P=2000 rows into 10^4 targets, one level, repeats and
+    drops), the quota commit (P=2000 into the 64-row quota table, 2
+    levels from a real chunk's pod_anc, half the pods accepted: every
+    accepted quota pod lands on the root at level 0), non-integer rows
+    in both, and a step's count commit into a topology count table (16
+    groups x 10^4 domains, one level a group, 2 % of the pods charging
+    each group, rows of 1.0: gpu_share's spread and anti-affinity
+    tables), with index_add_ as the library call; the order-sensitive
+    hot row (`testing.scatter_cases.hot_row_case`: nine in ten indices
+    on one row, rows of mixed magnitude) at P = 2000 and 50 000; the
+    reservation rebuild's instance scatter (P = 2500 rows of C = 24
+    into 64 slots, two levels, drops) in one call; and a grouped step
+    of the full gate's eight commits at their widths
+    (`full_gate_step_groups`). Untimed: indices below 0 (wrapped or
+    dropped as in the reference). The plain version runs on the host,
+    whose index_add_ adds in order (the card's uses atomics)."""
     dev = snap.nodes.allocatable.device
     s_node, c, p = snap.num_nodes, 11, 2000
     idx = torch.randint(0, s_node + 1, (p,), generator=gen, device=dev)
@@ -1011,39 +1134,19 @@ def check_k3(snap, pods, gen):
         :, :QUOTA_DEPTH].T.to(torch.int32).contiguous()
     # negative indices: [-S, 0) wraps to S + idx, as in the reference
     # (no commit passes one; checked, not timed)
-    target = torch.rand((n_quotas, c), generator=gen, device=dev) * 5000.0
-    rows = torch.rand((p, c), generator=gen, device=dev) * 3000.0 + 0.1
     neg = torch.randint(-n_quotas - 4, n_quotas + 4, (p,), generator=gen,
                         device=dev).to(torch.int32)
-    if not torch.equal(ordered_scatter_add(target, neg, rows).cpu(),
-                       ordered_scatter_add_plain(target.cpu(), neg.cpu(),
-                                                 rows.cpu())):
-        raise SystemExit("K3 ordered_scatter_add (negative indices) differs "
-                         "from its plain version on the host")
-    # rows of which not one level fits a launch (the reservation
-    # rebuild's instance scatter at P = 2500: C = 24 into 64 slots),
-    # taken in pieces, two levels, with drops (checked, not timed)
-    p_big, s_res, c_res = 2500, 64, 24
-    if levels_per_launch(s_res, c_res, p_big) > 0:
-        raise SystemExit("K3's piece case fits one launch: it checks "
-                         "nothing")
-    t_res = torch.rand((s_res, c_res), generator=gen, device=dev) * 5000.0
-    r_res = torch.rand((p_big, c_res), generator=gen, device=dev) * 3000.0
-    i_res = torch.randint(0, s_res + 2, (2, p_big), generator=gen,
-                          device=dev).to(torch.int32)
-    if not torch.equal(ordered_scatter_add(t_res, i_res, r_res).cpu(),
-                       ordered_scatter_add_plain(t_res.cpu(), i_res.cpu(),
-                                                 r_res.cpu())):
-        raise SystemExit("K3 ordered_scatter_add (P = 2500 rows of C = 24 "
-                         "in pieces) differs from its plain version on "
-                         "the host")
+    k3_equal([(torch.rand((n_quotas, c), generator=gen, device=dev) * 5000.0,
+               neg,
+               torch.rand((p, c), generator=gen, device=dev) * 3000.0 + 0.1)],
+             "negative indices")
     groups, domains_ = 16, 10_000
     cidx = torch.where(
         torch.rand((groups, p), generator=gen, device=dev) < 0.02,
         torch.arange(groups, device=dev)[:, None] * domains_
         + torch.randint(0, domains_, (groups, p), generator=gen, device=dev),
         groups * domains_).to(torch.int32)
-    out = {}
+    cases = {}
     for label, s, c, index in (("node commit", s_node, c, idx),
                                ("quota commit", n_quotas, c, qidx),
                                ("count commit", groups * domains_, 1, cidx)):
@@ -1055,37 +1158,29 @@ def check_k3(snap, pods, gen):
             target = torch.rand((s, c), generator=gen, device=dev) * 5000.0
             rows = torch.rand((p, c), generator=gen, device=dev) * 3000.0 \
                 + 0.1
-        got = ordered_scatter_add(target, index, rows)
-        want = ordered_scatter_add_plain(target.cpu(), index.cpu(),
-                                         rows.cpu())
-        err = float((got.cpu() - want).abs().max())
-        if not torch.equal(got.cpu(), want):
-            raise SystemExit(f"K3 ordered_scatter_add ({label}) differs "
-                             f"from its plain version on the host, max abs "
-                             f"err {err}")
-        levels = index.reshape(-1, p)
-        keep = levels < s
-        hits = keep.sum(dim=0)
-        # target read and written once, the indices, the rows some
-        # level takes; one add a kept entry and column
-        nbytes = 2 * s * c * 4 + levels.numel() * 4 \
-            + int((hits > 0).sum()) * c * 4
-        b_ms, b_by = bound(nbytes, int(keep.sum()) * c)
-        flat_idx = levels[keep].long()
-        flat_rows = rows.expand(levels.shape[0], p, c)[keep]
-        out[label] = dict(
-            ms=cuda_ms(lambda: ordered_scatter_add(target, index, rows)),
-            device_ms=device_ms(
-                lambda: ordered_scatter_add(target, index, rows),
-                "ordered_scatter_add_kernel"),
-            plain_ms=cuda_ms(lambda: ordered_scatter_add_plain(
-                target, index, rows)),
-            library_ms=cuda_ms(lambda: target.clone().index_add_(
-                0, flat_idx, flat_rows)),
-            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-            shape=f"P={p} S={s} C={c} L={levels.shape[0]}",
-            kept=int(keep.sum()), hottest_row=int(torch.bincount(
-                flat_idx, minlength=s).max()))
+        cases[label] = ([(target, index, rows)],
+                        f"P={p} S={s} C={c} L={index.reshape(-1, p).shape[0]}",
+                        True)
+    for hp in (2000, 50_000):
+        cases[f"hot row P={hp}"] = (
+            [tuple(torch.from_numpy(x).to(dev)
+                   for x in hot_row_case(hp, seed=hp))],
+            f"P={hp} S=64 C=11 L=1, nine in ten on row 0", True)
+    p_big, s_res, c_res = 2500, 64, 24
+    cases["rebuild P=2500 C=24"] = (
+        [(torch.rand((s_res, c_res), generator=gen, device=dev) * 5000.0,
+          torch.randint(0, s_res + 2, (2, p_big), generator=gen,
+                        device=dev).to(torch.int32),
+          torch.rand((p_big, c_res), generator=gen, device=dev) * 3000.0)],
+        f"P={p_big} S={s_res} C={c_res} L=2", True)
+    cases["full gate step"] = (
+        full_gate_step_groups(dev, gen),
+        "eight groups: zones, instances, four count tables, requested, "
+        "quota levels", False)
+    out = {}
+    for label, (grp, shape, library) in cases.items():
+        k3_equal(grp, label)
+        out[label] = k3_timed(grp, shape, library)
     return out
 
 
@@ -2359,7 +2454,7 @@ def check_config_2(run, line, launches):
     """Config 2's invariants: each zone's takes (from the placed pods)
     within its capacity and equal to capacity minus zone free; no
     overcommit; quota within runtime; K4 once a chunk, K5 once an inner
-    step, K2 twice an inner step, K1 once a round, K3 within its count."""
+    step, K2 twice an inner step, K1 once a round, K3 by `k3_formula`."""
     snap = run.snapshot
     n = snap.num_nodes
     ok = run.assignment >= 0
@@ -2389,11 +2484,11 @@ def check_config_2(run, line, launches):
         if launches[name] != count:
             raise SystemExit(f"config 2: {name} launched {launches[name]} "
                              f"times, not {count}")
-    k3_most = 3 * steps + 3 * rounds + 7 * chunks
-    if not 0 < launches["ordered_scatter_add"] <= k3_most:
+    k3_want = k3_formula(steps, rounds, chunks)
+    if launches["ordered_scatter_add"] != k3_want:
         raise SystemExit(f"config 2: K3 launched "
-                         f"{launches['ordered_scatter_add']} times, not in "
-                         f"(0, {k3_most}]")
+                         f"{launches['ordered_scatter_add']} times, not "
+                         f"{k3_want} ({K3_FORMULA})")
 
 
 GPU_SHARE_FIELDS = ("assignment", "stats", "gpu_take", "res_slot",
@@ -2464,13 +2559,13 @@ def check_gpu_share(run, line, launches, snap0=None, pods=None,
     counts its design fixes (K4 and K6 once a batch, K1 once a round, K5
     once an inner step, K7 twice, K2 four times an inner step: node and
     quotas (with K8's verdict), zones, GPU instances, AllocateOnce; K8
-    once an inner step; K3 eight times an inner step (node, quotas,
-    zones, instances and the four count tables), three times a round
-    and fifteen times a batch: the eight rebuild scatters, the three
-    reservation draw-downs and the four count charges after it; K9 once
-    a batch with the cascade on, else never; on a snapshot with aux
-    pools K17 once an inner step, K2 and K3 once more an inner step and
-    K3 once more a batch); every placed GPU pod holds
+    once an inner step; K3 by `k3_formula`: one grouped launch an inner
+    step (node, quotas, zones, instances, aux pools and the four count
+    tables), one a round and two a batch (the rebuild with the
+    reservation draw-downs, then the count charges after it); K9 once a
+    batch with the cascade on, else never; on a snapshot with aux pools
+    K17 once an inner step and K2 once more an inner step); every
+    placed GPU pod holds
     `count` instances of its node, the takes times the per-instance
     requests equal each valid instance's total minus its final free,
     and no free is negative; every slot consumer owns its slot, each
@@ -2497,10 +2592,15 @@ def check_gpu_share(run, line, launches, snap0=None, pods=None,
             "gpu_instance_pick": 2 * steps,
             "segment_prefix_ok": (4 + aux) * steps,
             "topology_prefix_gate": steps,
-            "ordered_scatter_add": (8 + aux) * steps + 3 * rounds
-            + (15 + aux) * batches,
+            "ordered_scatter_add": k3_formula(steps, rounds, batches,
+                                              charged=batches),
             "stage1_mask": batches if step_kw["cascade"] else 0,
             "aux_instance_pick": aux * steps}
+    print(f"{name}: K3 launches " + json.dumps({
+        "formula": K3_FORMULA, "steps": steps, "rounds": rounds,
+        "batches": batches, "charged": batches,
+        "expected": want["ordered_scatter_add"],
+        "measured": launches["ordered_scatter_add"]}), flush=True)
     for kernel, count in want.items():
         if launches[kernel] != count:
             raise SystemExit(f"{name}: {kernel} launched {launches[kernel]} "
@@ -3149,8 +3249,13 @@ def check_lnl(dev, gen, every_node=False):
                            eo.order):
             raise SystemExit("K11: argsort of its keys differs from its "
                              "order")
+        # and K12's: torch.cumsum of its usage columns in plan order (the
+        # running sums without the per-node budget and the stops)
+        ordered_usage = t["pod_usage_r"][eo.order.long()].contiguous()
         library = {"lnl_eviction_order": cuda_ms(
-            lambda: torch.argsort(keys, stable=True))}
+            lambda: torch.argsort(keys, stable=True)),
+            "lnl_plan_prefix": cuda_ms(
+                lambda: torch.cumsum(ordered_usage, dim=0))}
         timing = {}
         for name, (kern, plain) in calls.items():
             b_ms, b_by = bound(*bounds[name])
@@ -3602,10 +3707,10 @@ def forget_launches(run):
     """K3's launches in one `store.forget` on the card, counted around a
     forget of the first batch's failed binds on a store holding its
     committed snapshot, which must end equal to the cycle's; every
-    other kernel must stay at 0. It must equal the code's count: nine
-    single-level scatters (requested, two estimates, gang count, NUMA
-    free of nodes and slots, GPU free of nodes and slots, slot free)
-    and the quota levels in launches of `levels_per_launch`."""
+    other kernel must stay at 0. It must equal the code's count: one
+    grouped launch for all its scatters (requested, two estimates, the
+    quota levels, gang count, NUMA free of nodes and slots, GPU free of
+    nodes and slots, aux free, slot free)."""
     b = run.batches[0]
     res, batch = b["result"], b["batch"]
     store = SnapshotStore(device=res.assignment.device)
@@ -3613,18 +3718,13 @@ def forget_launches(run):
     kernels.reset_launch_counts()
     store.forget(batch, res, b["forget"])
     counts = kernels.launch_counts()
-    quotas = res.snapshot.quotas
-    levels = quotas.depth_ancestor.shape[1]
-    per = levels_per_launch(quotas.used.shape[0], quotas.used.shape[1],
-                            batch.num_pods)
-    want = 9 + -(-levels // per)
+    want = 1
     others = {k: v for k, v in counts.items()
               if v and k != "ordered_scatter_add"}
     print("forget launches (one store.forget, N = "
           f"{res.snapshot.num_nodes}, P = {batch.num_pods}): "
           + json.dumps({"measured": counts["ordered_scatter_add"],
-                        "expected": want, "quota_levels": levels,
-                        "levels_per_launch": per}), flush=True)
+                        "expected": want}), flush=True)
     if counts["ordered_scatter_add"] != want or others:
         raise SystemExit(f"forget: launches {counts}, expected K3 {want} "
                          "and nothing else")
@@ -3667,8 +3767,8 @@ def guarded_phase():
             "gpu_instance_pick": 2 * steps, "segment_prefix_ok": 4 * steps,
             "topology_prefix_gate": steps,
             "order_switch": 2 * batches + 2 * steps,
-            "ordered_scatter_add": (8 * steps + 3 * rounds + 15 * batches
-                                    + per_forget * batches)}
+            "ordered_scatter_add": k3_formula(
+                steps, rounds, batches, charged=(1 + per_forget) * batches)}
     want = {k: 2 * v for k, v in want.items()}
     got = {k: launches[k] for k in want}
     if got != want or any(v for k, v in launches.items() if k not in want):
@@ -3925,14 +4025,17 @@ def fractional_case(p, seed, offset, segments=40, r=4):
 def check_k2_fractional(dev):
     """ROADMAP fault C7 on the card: K2 at one level on fractional
     requests, off and on the gate boundaries, at R = 4 for P = 250 (the
-    unsorted path's size), 2048 and 2500 (the tiled size), and at R = 1
-    and 11: the launch finds its sums inexact and takes the pinned form
-    (the reference's XLA:CPU order), which must equal the plain version
+    unsorted path's size), 2048 and 2500 (the tiled size), at R = 1 for
+    P = 20, 30, 50, 64, 300, 2000, 2500 and 4100 (every form of the
+    fused loop's order, `_xla.fused_matvec_form`) and at R = 11: the
+    launch finds its sums inexact and takes the pinned form (the
+    reference's XLA:CPU order), which must equal the plain version
     (`_xla.xla_mask_dot`) in every verdict. Then the pinned form's time
     at P = 2000 and 2500 (R = 4) beside the scan's on the same case with
     whole-number requests and bases (the launch then keeps the scan)."""
     out = {}
-    for p, r in ((250, 4), (2048, 4), (2500, 4), (300, 1), (2500, 1),
+    for p, r in ((250, 4), (2048, 4), (2500, 4), (20, 1), (30, 1), (50, 1),
+                 (64, 1), (300, 1), (2000, 1), (2500, 1), (4100, 1),
                  (300, 11), (2048, 11)):
         for offset in (4.0, 0.0):
             seg, rank, req, base, limit, boundary = fractional_case(
@@ -4582,7 +4685,7 @@ def aux_phase():
     nodes in chunks of 2000, and on the first full-width chunk (2000
     pods of the 100 000 against 10 000 nodes, one batch); then at
     100 000 x 10 000 on the card, counting launches, with the full
-    gate's launch formulas (K17, K2 and K3 once more a step) and
+    gate's launch formulas (K17 and K2 once more a step) and
     invariants, the aux invariants (`aux_invariants`), and aux pods
     both placed and turned away by K2's aux levels (counted by
     `aux_stats` in the untimed first chunk, which is the run's first
@@ -4880,8 +4983,12 @@ def check_fold(dev):
     # written once; an add a kept pod and column
     b_ms, b_by = bound(p * (r * 4 + 1 + 4) + 2 * q * r * 4,
                        int(keep.sum()) * r)
+    if launches != 1:
+        raise SystemExit(f"K3 as the fold launched {launches} times, not "
+                         "once")
     return {"fair share fold": dict(
         max_abs_err=0.0, launches=launches,
+        hottest_row=int(torch.bincount(kidx, minlength=q).max()),
         ms=cuda_ms(lambda: add_pending_demand(quotas, pods)),
         device_ms=device_ms(lambda: add_pending_demand(quotas, pods),
                             "ordered_scatter_add_kernel") * launches,
@@ -4890,7 +4997,7 @@ def check_fold(dev):
         library_ms=cuda_ms(lambda: quotas.demand.clone().index_add_(
             0, kidx, krows)),
         bound_ms=b_ms, bound_by=b_by, kept=int(keep.sum()),
-        shape=f"P={p} Q={q} R={r} pieces of {rows_per_launch(q, r)}")}
+        shape=f"P={p} Q={q} R={r} in one launch")}
 
 
 def k19_columns(dev, n, seed=19):
@@ -4946,20 +5053,13 @@ def check_k19(dev):
         library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=f"N={n}")}
 
 
-def fold_launches(q, r, p):
-    """K3 launches of one fold of p pods into q rows of r columns."""
-    if levels_per_launch(q, r, p) > 0:
-        return 1
-    return -(-p // rows_per_launch(q, r))
-
-
 def fair_share_phase():
     """config_4_fair_share_500q_50k (`run_config_4_fair_share`: the fold,
     K18's runtime, config 4's sweep with four quota levels) on the card
     after a warm-up run, counting launches; then once more with the
     sweep at runtime = max that counts the pods the runtime turns away,
     whose extra launches are that sweep's. The fair share launches K18
-    once, K3 the fold's launches more than that sweep, K1, K2 and the
+    once, K3 once more than that sweep (the fold), K1, K2 and the
     order switch as that sweep, nothing else. Then the card's runtime
     equal to the host's plain water-fill of the same folded tree, bit
     for bit; quota used within runtime + EPS at every level; the tree
@@ -4975,8 +5075,7 @@ def fair_share_phase():
     both, _ = run_config_4_fair_share(device="cuda", count_turned_away=True)
     sweep = {k: v - launches[k] for k, v in kernels.launch_counts().items()}
     line.update({k: both[k] for k in ("placed_at_max", "turned_away")})
-    q, r = run.quotas.min.shape
-    fold = fold_launches(q, r, line["num_pods"])
+    fold = 1
     want = dict(sweep, quota_runtime=1,
                 ordered_scatter_add=sweep["ordered_scatter_add"] + fold)
     if launches != want or both["placed"] != line["placed"]:
@@ -5063,19 +5162,33 @@ def node_resource_phase():
     return line, launches
 
 
+K3_FORMULA = "steps + rounds + batches + charged"
+
+
+def k3_formula(steps, rounds, batches, charged=0):
+    """K3's launches as the code issues them (K3_FORMULA): one grouped
+    launch an inner step (every commit of the step), one a round (the
+    estimates and gang counts; the first round also the batch's gang
+    attempts), one a batch (the rebuild, the reservation slots' included)
+    and one for each `charge_all_counts` (the count tables between
+    batches) or forget."""
+    return steps + rounds + batches + charged
+
+
 def expected_launches(line):
     """(inner steps, K3 launches) of one flagship run: K2 launches once
-    an inner step; K3 twice an inner step (node, all quota levels),
-    three times a round (two estimates, gang count) and six times a
-    batch (the rebuild's requested, two estimates, quotas, gangs
-    assumed, gangs attempted)."""
+    an inner step; K3 once an inner step (node and all quota levels in
+    one grouped launch), once a round (two estimates and the gang count;
+    the first round also the gangs attempted) and once a batch (the
+    rebuild's requested, two estimates, quotas and gangs assumed):
+    `k3_formula`."""
     batches = line["num_pods"] // line["chunk"]
     rounds = (batches * STEP_KW["num_rounds"]
               + line["tail_passes"] * TAIL_KW["num_rounds"])
     steps = (batches * STEP_KW["num_rounds"] * STEP_KW["k_choices"]
              + line["tail_passes"] * TAIL_KW["num_rounds"]
              * TAIL_KW["k_choices"])
-    return steps, 2 * steps + 3 * rounds + 6 * (batches + line["tail_passes"])
+    return steps, k3_formula(steps, rounds, batches + line["tail_passes"])
 
 
 def main() -> int:
@@ -5216,9 +5329,9 @@ def main() -> int:
     if launches["segment_prefix_ok"] != steps:
         raise SystemExit(f"K2 launched {launches['segment_prefix_ok']} "
                          f"times for {steps} inner steps")
-    if launches["ordered_scatter_add"] > k3_launches:
+    if launches["ordered_scatter_add"] != k3_launches:
         raise SystemExit(f"K3 launched {launches['ordered_scatter_add']} "
-                         f"times, above {k3_launches}")
+                         f"times, not {k3_launches} ({K3_FORMULA})")
     if line["stragglers_after_sweep"] != STRAGGLERS_AFTER_SWEEP:
         raise SystemExit(f"{line['stragglers_after_sweep']} stragglers after "
                          f"the sweep, not {STRAGGLERS_AFTER_SWEEP}: a "
@@ -5357,10 +5470,13 @@ def main() -> int:
             entry["at_fold"] = fold["fair share fold"]
             entry["launches_by_path"]["config_4_fair_share"] = \
                 launches_fair[name]
-            entry["at_count_commit"] = {
-                k: k3["count commit"][k] for k in (
-                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "shape")}
+            for label in ("count commit", "quota commit", "hot row P=50000",
+                          "full gate step"):
+                entry["at_" + label.replace(" ", "_").replace("=", "")] = {
+                    k: k3[label][k] for k in (
+                        "ms", "device_ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms", "shape", "hottest_row")}
+            entry["launch_formula"] = K3_FORMULA
         if name == "topology_prefix_gate":
             entry["at_tail"] = k8["gpu_share tail"]
         if name in ("numa_pair_terms", "device_pair_terms"):

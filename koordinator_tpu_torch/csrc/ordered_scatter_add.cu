@@ -1,9 +1,11 @@
-// K3 ordered_scatter_add: out = target with rows[j] added into row
-// idx[l, j] for every level l, each target row's updates applied in
-// ascending (l, j); an index in [-S, 0) names row S + idx (numpy's
-// rule, as the reference's `.at[]`), other indices outside [0, S) are
-// dropped. L levels are L scatters in a row into the same target, in
-// one launch.
+// K3 ordered_scatter_add: for each group of a launch, out = target with
+// rows[j] added into row idx[l, j] for every level l, each target row's
+// updates applied in ascending (l, j); an index in [-S, 0) names row
+// S + idx (numpy's rule, as the reference's `.at[]`), other indices
+// outside [0, S) are dropped. L levels are L scatters in a row into the
+// same target. A launch takes up to MAX_GROUPS independent groups
+// (distinct targets, each with its own S, C, L and P): every commit of
+// an inner step, of a round or of a batch's rebuild in one launch.
 //
 // Replaces the `.at[idx].add(rows, mode="drop")` commits of
 // koordinator_tpu/scheduler/core.py schedule_batch: node requested and
@@ -16,222 +18,299 @@
 // scatter-add (index_add_) adds in an order that changes from run to run.
 // One ulp there flips a later round's floored score and moves a pod.
 //
-// What bounds it on the H100: bytes. It reads and writes the [S, C]
-// target once (0.9 MB at S=10^4, C=11) and reads the [L, P] indices and
-// the matched [P, C] rows once; the adds are few. Its floor in time is
-// the chain of dependent adds of the row that takes the most updates:
-// the quota root takes every quota pod of a chunk, up to P adds in a row,
-// which the bit-exact order forbids splitting.
+// What bounds it on the H100: bytes. It reads and writes each [S, C]
+// target once and reads the [L, P] indices and the matched rows; the
+// adds are few. Its floor in time is the chain of dependent adds of the
+// row that takes the most updates (the quota root takes every quota pod
+// of a chunk), which the bit-exact order forbids splitting.
 //
-// Design: no sort. A block first copies the [L, P] indices into shared
-// memory (coalesced, every thread of the block), and where its warps own
-// one target row each (small S, where hot rows are) the [P, C] rows too,
-// so that the chains below read them at shared-memory latency, not the
-// L2's. Each warp owns a tile of TR consecutive target rows (TR = 1
-// where S is small, so that many warps share the work; up to 32 where S
-// is large, so that few warps scan the indices) and keeps the tile in
-// shared memory. It scans the indices in ascending (l, j), 32 at a time
-// and four chunks in flight, and finds the tile's matches with one
-// __ballot_sync a chunk. Lane c < C reads column c of the matched rows
-// first (all reads in flight together), then adds them in ascending j.
-// Where a warp owns one row (small S: the quota table, gang counts) the
-// walk is dense and branch-free: all 32 rows of a chunk read from the
-// block's copy, a predicated add for each set bit. This is the hot-row
-// case: the quota root takes a whole chunk's quota pods, one dependent
-// add each. Where a warp owns several rows (a wide table: node commits)
-// its matches are few and scattered, so it lists them in order in
-// shared memory and walks them 32 at a time: one wait on the reads for
-// 32 matches, not one a chunk; the current row's accumulator stays in
-// a register while consecutive matches hit the same row. Rows that
-// receive nothing copy the target. Column lanes: C <= 32; the rows,
-// indices and tiles must fit in shared memory.
+// Design: a block owns a contiguous range of one group's target rows
+// (the wrapper sizes the ranges from the shapes alone, so that a group's
+// blocks scan its indices a few times, not thousands) and first copies
+// its range of the target to the output, eight loads in flight a
+// thread. It then reads the group's L * P indices once, in tiles of
+// 2048 (a warp's 256 as eight coalesced rows of 32; the two tiles after
+// it read while this one is placed), ballots the entries that fall in
+// its range and appends them to a list in shared memory in (l, j) order
+// (the warps' counts, one barrier a tile). When the list would overflow, and
+// at the end, the block flushes it: a stable radix sort by row keeps
+// each row's entries in (l, j) order, a scan marks the runs of one row,
+// the matched rows are gathered into shared memory in that order (in
+// segments of STAGE floats; cp.async, every copy of a thread in
+// flight), and one thread for each (run, column) adds its run in order
+// into the output row, 32 reads in flight. The output is the
+// accumulator, so a row continues across flushes and segments. Nothing
+// is staged whole: any P, L and S go in one launch.
 
+#include <cub/block/block_radix_sort.cuh>
+#include <cub/block/block_scan.cuh>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int WARPS = 8;  // warps a block
-constexpr int MAX_TR = 32;
-constexpr int MAX_C = 32;
-constexpr int GROUP = 4;  // index chunks in flight (the walk names 4)
-constexpr int LIST = 64;  // a warp's pending matches: < 32 + one chunk
-constexpr size_t MAX_SMEM = 200 * 1024;
+constexpr int THREADS = 256;
+constexpr int SCAN_ITEMS = 8;                 // indices a thread a tile
+constexpr int TILE = THREADS * SCAN_ITEMS;    // indices a tile
+constexpr int SORT_ITEMS = 8;
+constexpr int CAP = THREADS * SORT_ITEMS;     // entries the list holds
+constexpr int STAGE = 16384;                  // staged row floats (64 KB)
+constexpr int WARPS = THREADS / 32;
+constexpr int FLIGHT = 8;  // loads a thread keeps in flight in a copy
+constexpr int MAX_GROUPS = 32;
+constexpr int MAX_C = 128;
 
-// STAGED: a warp owns one row (TR == 1) and the block copies the rows.
-template <bool STAGED>
-__global__ void __launch_bounds__(WARPS * 32) ordered_scatter_add_kernel(
-    const float* __restrict__ target, const int32_t* __restrict__ idx,
-    const float* __restrict__ rows, int S, int C, int P, int L, int TR,
-    float* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* tiles = smem;                         // [WARPS][TR][C]
-  int* sidx = (int*)(tiles + WARPS * TR * C);  // [L][P]
-  float* srows = (float*)(sidx + (size_t)L * P);  // [P][C] when STAGED
-  for (int i = threadIdx.x; i < L * P; i += WARPS * 32) {
-    const int v = idx[i];
-    sidx[i] = v < 0 ? v + S : v;  // [-S, 0) wraps; the rest stays out
-  }
-  if constexpr (STAGED) {
-    const int nv = P * C;
-    if (((uintptr_t)rows & 15) == 0 && ((uintptr_t)srows & 15) == 0) {
-      const float4* src4 = (const float4*)rows;
-      float4* dst4 = (float4*)srows;
-      for (int i = threadIdx.x; i < nv / 4; i += WARPS * 32)
-        dst4[i] = src4[i];
-      for (int i = nv / 4 * 4 + threadIdx.x; i < nv; i += WARPS * 32)
-        srows[i] = rows[i];
-    } else {
-      for (int i = threadIdx.x; i < nv; i += WARPS * 32) srows[i] = rows[i];
-    }
-  }
-  __syncthreads();
+// One group (kernels/scatter.py _Group mirrors it): its blocks are
+// block0 .. block0 + ceil(S / rb) - 1, block b owning rows
+// [b * rb, b * rb + rb).
+struct Group {
+  const float* target;
+  const int32_t* idx;
+  const float* rows;
+  float* out;
+  int S, C, P, L, rb, block0;
+};
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int lo = (blockIdx.x * WARPS + warp) * TR;
-  if (lo >= S) return;  // the whole warp leaves together
-  const int hi = min(lo + TR, S);
-  const int n = (hi - lo) * C;
-  float* acc = tiles + warp * TR * C;
-  for (int t = lane; t < n; t += 32) acc[t] = target[(size_t)lo * C + t];
-  __syncwarp();
+struct Groups {
+  int n, blocks;
+  Group g[MAX_GROUPS];
+};
 
-  const int c = min(lane, C - 1);  // lanes >= C shadow column C - 1
-  int cur = STAGED ? 0 : -1;  // tile row held in `held` (warp-uniform)
-  float held = acc[c];         // acc[cur][c]
+using Sort = cub::BlockRadixSort<unsigned, THREADS, SORT_ITEMS, int>;
+using Scan = cub::BlockScan<int, THREADS>;
 
-  // several rows a warp: its matches, (j << 5 | tile row), in order
-  __shared__ int lists[WARPS][LIST];
-  int* list = lists[warp];
-  int count = 0;
-  // the first nf matches of the list: every lane's reads first (up to
-  // 32 in flight), then the adds in order; the rest move to the front
-  auto walk = [&](int nf) {
-    __syncwarp();
-    float x[32];
-    int r[32];
-#pragma unroll
-    for (int k = 0; k < 32; ++k) {
-      const int e = list[min(k, nf - 1)];
-      x[k] = __ldg(rows + (size_t)(e >> 5) * C + c);
-      r[k] = e & 31;
-    }
-#pragma unroll
-    for (int k = 0; k < 32; ++k) {
-      if (k < nf) {  // warp-uniform
-        if (r[k] != cur) {
-          if (cur >= 0 && lane < C) acc[cur * C + c] = held;
-          cur = r[k];
-          held = acc[cur * C + c];
-        }
-        held = __fadd_rn(held, x[k]);
-      }
-    }
-    const int rest = count - nf;
-    const int moved = lane < rest ? list[nf + lane] : 0;
-    __syncwarp();
-    if (lane < rest) list[lane] = moved;
-    __syncwarp();
-    count = rest;
-  };
-  for (int l = 0; l < L; ++l) {
-    const int* il = sidx + (size_t)l * P;
-    for (int g0 = 0; g0 < P; g0 += 32 * GROUP) {
-      unsigned match[GROUP];
-      int sv[GROUP];  // this lane's index in each chunk of the group
-#pragma unroll
-      for (int q = 0; q < GROUP; ++q) {
-        const int j = g0 + 32 * q + lane;
-        sv[q] = j < P ? il[j] : -1;
-        match[q] = __ballot_sync(FULL, sv[q] >= lo && sv[q] < hi);
-      }
-      if constexpr (STAGED) {
-        // one row: each chunk with matches walked densely and
-        // branch-free, all 32 of its rows read from the block's copy,
-        // an add for each set bit
-#pragma unroll
-        for (int q = 0; q < GROUP; ++q) {
-          if (!match[q]) continue;  // warp-uniform
-          const int j0 = g0 + 32 * q;
-          float x[32];
-#pragma unroll
-          for (int b = 0; b < 32; ++b)
-            x[b] = srows[min(j0 + b, P - 1) * C + c];
-#pragma unroll
-          for (int b = 0; b < 32; ++b)
-            held = match[q] >> b & 1u ? __fadd_rn(held, x[b]) : held;
-        }
-      } else {
-        if (!(match[0] | match[1] | match[2] | match[3])) continue;
-        // several rows: the matches go to the warp's list in ascending
-        // (l, j), and 32 at a time are walked
-#pragma unroll 1
-        for (int q = 0; q < GROUP; ++q) {
-          const unsigned mq = q == 0 ? match[0] : q == 1 ? match[1]
-                              : q == 2 ? match[2] : match[3];
-          if (!mq) continue;  // warp-uniform
-          const int s = q == 0 ? sv[0] : q == 1 ? sv[1]
-                        : q == 2 ? sv[2] : sv[3];
-          if (mq >> lane & 1u)
-            list[count + __popc(mq & ((1u << lane) - 1u))] =
-                (g0 + 32 * q + lane) << 5 | (s - lo);
-          count += __popc(mq);
-          if (count >= 32) walk(32);
-        }
-      }
-    }
-  }
-  if constexpr (!STAGED) {
-    if (count) walk(count);
-  }
-  if (cur >= 0 && lane < C) acc[cur * C + c] = held;
-  __syncwarp();
-  for (int t = lane; t < n; t += 32) out[(size_t)lo * C + t] = acc[t];
+struct Shared {
+  unsigned row[CAP];  // the list: local row, then sorted
+  int j[CAP];         // its row of `rows`
+  int runs[CAP + 1];  // start of each run of one row in the sorted list
+  union {
+    Sort::TempStorage sort;
+    Scan::TempStorage scan;
+  } tmp;
+};
+
+// An asynchronous 4-byte copy from device to shared memory (cp.async:
+// no register holds it, so a thread can have all of its copies in
+// flight at once); cp_async_wait waits for this thread's.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
 }
 
-size_t smem_bytes(int C, int P, int L, int TR) {
-  return ((size_t)WARPS * TR * C + (TR == 1 ? (size_t)P * C : 0)
-          + (size_t)L * P) * 4;
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// The first u in [0, n) with a[u] >= x (n where none).
+__device__ __forceinline__ int first_at_least(const int* a, int n, int x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Sort the list's first `count` entries by row (stable), find the runs
+// of one row, and add each run in order into the output rows; every
+// thread of the block calls it.
+__device__ void flush(Shared& sh, float* stage, const Group& g, int lo,
+                      int span, int count) {
+  const int t = threadIdx.x;
+  const int C = g.C;
+  __syncthreads();  // the list is written
+  unsigned key[SORT_ITEMS];
+  int val[SORT_ITEMS];
+#pragma unroll
+  for (int i = 0; i < SORT_ITEMS; ++i) {
+    const int p = t * SORT_ITEMS + i;
+    key[i] = p < count ? sh.row[p] : (unsigned)span;  // empties sort last
+    val[i] = p < count ? sh.j[p] : 0;
+  }
+  const int bits = 32 - __clz(span);
+  Sort(sh.tmp.sort).Sort(key, val, 0, bits);
+  __syncthreads();  // every thread holds its sorted items
+  int flag[SORT_ITEMS], run[SORT_ITEMS];
+#pragma unroll
+  for (int i = 0; i < SORT_ITEMS; ++i) {
+    const int p = t * SORT_ITEMS + i;
+    sh.row[p] = key[i];
+    sh.j[p] = val[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < SORT_ITEMS; ++i) {
+    const int p = t * SORT_ITEMS + i;
+    flag[i] = p < count && (p == 0 || sh.row[p - 1] != sh.row[p]);
+  }
+  int nruns;
+  Scan(sh.tmp.scan).ExclusiveSum(flag, run, nruns);
+#pragma unroll
+  for (int i = 0; i < SORT_ITEMS; ++i)
+    if (flag[i]) sh.runs[run[i]] = t * SORT_ITEMS + i;
+  if (t == 0) sh.runs[nruns] = count;
+  __syncthreads();
+  const int seg = STAGE / C;  // entries a staged segment
+  for (int s0 = 0; s0 < count; s0 += seg) {
+    const int s1 = min(count, s0 + seg);
+    // the segment's rows, every copy of a thread in flight at once:
+    // element i of the segment is column c of its k-th entry
+    const int nv = (s1 - s0) * C;
+    for (int i = t, k = t / C, c = t % C; i < nv; i += THREADS) {
+      cp_async4(stage + i, g.rows + (size_t)sh.j[s0 + k] * C + c);
+      k += THREADS / C;
+      c += THREADS % C;
+      if (c >= C) {
+        c -= C;
+        ++k;
+      }
+    }
+    cp_async_wait();
+    __syncthreads();
+    // the runs that meet [s0, s1): from the one holding s0
+    const int u0 = first_at_least(sh.runs, nruns + 1, s0 + 1) - 1;
+    const int u1 = first_at_least(sh.runs, nruns + 1, s1);
+    for (int q = t; q < (u1 - u0) * C; q += THREADS) {
+      const int u = u0 + q / C, c = q - (q / C) * C;
+      const int a = max(sh.runs[u], s0), z = min(sh.runs[u + 1], s1);
+      float* o = g.out + (size_t)(lo + sh.row[a]) * C + c;
+      float acc = *o;
+      const float* x = stage + (a - s0) * C + c;
+      int k = 0, n = z - a;
+      for (; k + 32 <= n; k += 32) {  // the hot rows' chains
+        float v[32];
+#pragma unroll
+        for (int w = 0; w < 32; ++w) v[w] = x[(k + w) * C];
+#pragma unroll
+        for (int w = 0; w < 32; ++w) acc = __fadd_rn(acc, v[w]);
+      }
+      for (; k < n; ++k) acc = __fadd_rn(acc, x[k * C]);
+      *o = acc;
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) ordered_scatter_add_kernel(
+    const Groups gs) {
+  extern __shared__ float stage[];  // STAGE floats
+  __shared__ Shared sh;
+  // this block's group: the last whose first block is not above it
+  // (constant indices only, so that the descriptors stay parameters)
+  Group g = gs.g[0];
+#pragma unroll
+  for (int k = 1; k < MAX_GROUPS; ++k)
+    if (k < gs.n && (int)blockIdx.x >= gs.g[k].block0) g = gs.g[k];
+  const int t = threadIdx.x;
+  const int S = g.S, C = g.C;
+  const int lo = ((int)blockIdx.x - g.block0) * g.rb;
+  const int span = min(g.rb, S - lo);
+  {
+    const size_t base = (size_t)lo * C, nv = (size_t)span * C;
+    for (size_t i0 = t; i0 < nv; i0 += THREADS * FLIGHT) {
+      float v[FLIGHT];
+#pragma unroll
+      for (int f = 0; f < FLIGHT; ++f) {
+        const size_t i = i0 + f * THREADS;
+        v[f] = i < nv ? __ldg(g.target + base + i) : 0.0f;
+      }
+#pragma unroll
+      for (int f = 0; f < FLIGHT; ++f)
+        if (i0 + f * THREADS < nv) g.out[base + i0 + f * THREADS] = v[f];
+    }
+  }
+  // the scan: warp w of a tile reads its 32 * SCAN_ITEMS indices as
+  // SCAN_ITEMS coalesced rows of 32, in index order, and ballots each;
+  // the warps' match counts (double-buffered by tile) place each warp's
+  // matches after the earlier warps'. The two next tiles' indices are
+  // read while this one is placed.
+  __shared__ int wcount[2][WARPS];
+  const int warp = t >> 5, lane = t & 31;
+  const int n = g.L * g.P;
+  auto load = [&](int e0, int (&x)[SCAN_ITEMS]) {
+#pragma unroll
+    for (int k = 0; k < SCAN_ITEMS; ++k) {
+      const int e = e0 + warp * 32 * SCAN_ITEMS + k * 32 + lane;
+      x[k] = e < n ? __ldg(g.idx + e) : S;
+    }
+  };
+  int cur[SCAN_ITEMS], nxt[SCAN_ITEMS], far[SCAN_ITEMS];
+  if (n) load(0, cur);
+  if (TILE < n) load(TILE, nxt);
+  int count = 0;
+  for (int e0 = 0, tile = 0; e0 < n; e0 += TILE, ++tile) {
+    if (e0 + 2 * TILE < n) load(e0 + 2 * TILE, far);
+    unsigned ball[SCAN_ITEMS];
+    int mine = 0;
+#pragma unroll
+    for (int k = 0; k < SCAN_ITEMS; ++k) {
+      int x = cur[k];
+      x = x < 0 ? x + S : x;  // [-S, 0) wraps; the rest stays out
+      cur[k] = x - lo;
+      ball[k] = __ballot_sync(0xffffffffu, x >= lo && x - lo < span);
+      mine += __popc(ball[k]);
+    }
+    if (lane == 0) wcount[tile & 1][warp] = mine;
+    __syncthreads();
+    int off = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const int c = wcount[tile & 1][w];
+      off += w < warp ? c : 0;
+      total += c;
+    }
+    if (total) {  // block-uniform
+      if (count + total > CAP) {
+        flush(sh, stage, g, lo, span, count);
+        count = 0;
+      }
+      int w = count + off;
+      const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+      for (int k = 0; k < SCAN_ITEMS; ++k) {
+        if (ball[k] >> lane & 1u) {
+          const int at = w + __popc(ball[k] & below);
+          sh.row[at] = (unsigned)cur[k];
+          sh.j[at] = (e0 + warp * 32 * SCAN_ITEMS + k * 32 + lane) % g.P;
+        }
+        w += __popc(ball[k]);
+      }
+      count += total;
+    }
+#pragma unroll
+    for (int k = 0; k < SCAN_ITEMS; ++k) {
+      cur[k] = nxt[k];
+      nxt[k] = far[k];
+    }
+  }
+  if (count) flush(sh, stage, g, lo, span, count);
 }
 
 }  // namespace
 
-extern "C" int koord_ordered_scatter_add(const void* target, const void* idx,
-                                         const void* rows, int S, int C,
-                                         int P, int L, void* out,
-                                         void* stream) {
-  if (S <= 0 || C <= 0) return 0;
-  // target rows a warp owns: 1 up to 1024 targets (many warps share a
-  // small target), doubling up to 32 so that at most about 1024 warps
-  // scan the indices of a large one (625 at 10^4 targets)
-  int TR = 1;
-  while (TR < MAX_TR && TR * 1024 < S) TR *= 2;
-  if (C > MAX_C || P < 0 || L < 0 || smem_bytes(C, P, L, TR) > MAX_SMEM)
-    return (int)cudaErrorInvalidValue;
+// desc: a Groups (kernels/scatter.py _Groups), copied into the launch's
+// parameter
+extern "C" int koord_ordered_scatter_add_many(const void* desc,
+                                              void* stream) {
+  const Groups* gs = (const Groups*)desc;
+  if (gs->n < 1 || gs->n > MAX_GROUPS) return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < gs->n; ++k) {
+    const Group& g = gs->g[k];
+    if (g.S > 0 && (g.C < 1 || g.C > MAX_C || g.rb < 1 || g.P < 0 ||
+                    g.L < 0 || (long long)g.L * g.P >= (1ll << 31)))
+      return (int)cudaErrorInvalidValue;
+  }
+  if (gs->blocks <= 0) return 0;
   static bool attr = false;
   if (!attr) {
-    const void* fns[2] = {(const void*)ordered_scatter_add_kernel<true>,
-                          (const void*)ordered_scatter_add_kernel<false>};
-    for (const void* fn : fns) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
-      if (e != cudaSuccess) return (int)e;
-    }
+    const cudaError_t e = cudaFuncSetAttribute(
+        ordered_scatter_add_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, STAGE * 4);
+    if (e != cudaSuccess) return (int)e;
     attr = true;
   }
-  const int tiles = (S + TR - 1) / TR;
-  const int blocks = (tiles + WARPS - 1) / WARPS;
-  const size_t smem = smem_bytes(C, P, L, TR);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (TR == 1)
-    ordered_scatter_add_kernel<true><<<blocks, WARPS * 32, smem, st>>>(
-        (const float*)target, (const int32_t*)idx, (const float*)rows, S, C,
-        P, L, TR, (float*)out);
-  else
-    ordered_scatter_add_kernel<false><<<blocks, WARPS * 32, smem, st>>>(
-        (const float*)target, (const int32_t*)idx, (const float*)rows, S, C,
-        P, L, TR, (float*)out);
+  ordered_scatter_add_kernel<<<gs->blocks, THREADS, STAGE * 4,
+                               (cudaStream_t)stream>>>(*gs);
   return (int)cudaGetLastError();
 }

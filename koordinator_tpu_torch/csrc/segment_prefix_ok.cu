@@ -98,7 +98,7 @@
 // reference's `mask @ req` (kernels/_xla.py xla_mask_dot states the
 // rule: four lanes by j mod 4 folded as (l0 + l1) + (l2 + l3) plus the
 // tail summed on its own, index order below 8 pods; at R = 1 the fused
-// loop's 32 lanes, then 4, then the rest), then adds base + sum +
+// loop's form, a function of P: `pinned_sum1`), then adds base + sum +
 // request as the reference does. It is O(P^2) a level on one block, and
 // only fractional inputs pay it. The comparison itself keeps the
 // reference's order of additions in both forms.
@@ -208,55 +208,113 @@ __device__ __forceinline__ void pinned_tile(
   }
 }
 
-// The 32 lanes of the R = 1 form as one sum: ((v1 + v0) + v2) + v3,
-// then the eight lanes folded in halves.
-__device__ __forceinline__ float fold32(const float (&acc)[32]) {
-  float w8[8], h[4];
+// The first w (4 or 8) lanes of v folded in halves: lane l + lane
+// l + w/2 until one is left.
+__device__ __forceinline__ float fold_halves(float (&v)[8], int w) {
+  if (w == 8) {
 #pragma unroll
-  for (int l = 0; l < 8; ++l)
-    w8[l] = __fadd_rn(__fadd_rn(__fadd_rn(acc[8 + l], acc[l]), acc[16 + l]),
-                      acc[24 + l]);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) h[k] = __fadd_rn(w8[k], w8[k + 4]);
-  return __fadd_rn(__fadd_rn(h[0], h[2]), __fadd_rn(h[1], h[3]));
+    for (int k = 0; k < 4; ++k) v[k] = __fadd_rn(v[k], v[k + 4]);
+  }
+  return __fadd_rn(__fadd_rn(v[0], v[2]), __fadd_rn(v[1], v[3]));
 }
 
-// The pinned form's sum for one pod, R = 1: 32 lanes over j < q32 (lane
-// j mod 32 of the group, v_u = lanes 8u..8u+7), combined as
-// ((v1 + v0) + v2) + v3 and folded in halves; then four lanes from
-// (that, 0, 0, 0) over j < e, folded as (a0 + a2) + (a1 + a3); then the
-// rest in index order. Below 32 pods (q32 = 0, e = 0): index order.
-// Where P is a multiple of 32 the caller folds the lanes at the end.
-__device__ __forceinline__ void pinned_tile1(
-    const int* seg_s, const int* rank_s, const float* req_s, int j0, int P,
-    int q32, int e, int si, int ri, float (&acc)[32], float& out) {
-  for (int g = 0; g < JT; g += 32) {
-    const int jg = j0 + g;
-    if (jg >= P) break;
-    if (jg < q32) {
+// The pinned form's sum for pod i at R = 1 (segment si, rank ri), read
+// from device memory: the terms t(j) = m * req[j], m = 1 for an alive
+// earlier pod of the same segment, else 0, added in the order of
+// kernels/_xla.py _fused_matvec (its docstring states the rule; the
+// form by P is fused_matvec_form): index order below 28 pods; XLA's
+// tiled gemv from 4096; between, vf-wide chunks in ic accumulators,
+// kept apart (a loop, from 320 pods) or folded into one chain (the loop
+// unrolled whole), then the lanes in halves, a vector epilogue of width
+// 8 or 4 and the last terms one at a time.
+__device__ float pinned_sum1(const int32_t* seg_l, const int32_t* rank,
+                             const float* req, int rstride,
+                             const uint8_t* alive, int P, int i, int si,
+                             int ri) {
+  auto t = [&](int j) {
+    const bool m = alive[j] && seg_l[j] == si && rank[j] < ri;
+    return __fmul_rn(m ? 1.0f : 0.0f, req[(size_t)j * rstride]);
+  };
+  float out = 0.0f;
+  if (P < 28) {
+    for (int j = 0; j < P; ++j) out = __fadd_rn(out, t(j));
+    return out;
+  }
+  if (P >= 4096) {
+    const int q = P / 8 * 8;
+    float a[8] = {};
+    for (int j = 0; j < q; j += 8) {
 #pragma unroll
-      for (int w = 0; w < 32; ++w)
-        if (seg_s[g + w] == si && rank_s[g + w] < ri)
-          acc[w] = __fadd_rn(acc[w], req_s[g + w]);
-      continue;
+      for (int l = 0; l < 8; ++l) a[l] = __fadd_rn(a[l], t(j + l));
     }
-    if (jg == q32 && q32 > 0) {  // the vector loop ended: four lanes
-      out = fold32(acc);
-      float a[4] = {out, 0.0f, 0.0f, 0.0f};
+    if (i < q)
+      out = __fadd_rn(__fadd_rn(__fadd_rn(a[0], a[1]), __fadd_rn(a[2], a[3])),
+                      __fadd_rn(__fadd_rn(a[4], a[5]), __fadd_rn(a[6], a[7])));
+    else
+      out = fold_halves(a, 8);
+    float tail = 0.0f;
+    for (int j = q; j < P; ++j) tail = __fadd_rn(tail, t(j));
+    return __fadd_rn(out, tail);
+  }
+  const int vf = P < 32 ? 4 : 8;
+  const int ic = P < 32 || (P >= 48 && P < 64) ? 2 : 4;
+  const int step = vf * ic, n = P / step;
+  float v[8];
 #pragma unroll
-      for (int w = 0; w < 32; ++w)
-        if (jg + w < e && seg_s[g + w] == si && rank_s[g + w] < ri)
-          a[w & 3] = __fadd_rn(a[w & 3], req_s[g + w]);
-      if (e > q32)
-        out = __fadd_rn(__fadd_rn(a[0], a[2]), __fadd_rn(a[1], a[3]));
+  for (int l = 0; l < 8; ++l) v[l] = l ? -0.0f : 0.0f;
+  auto add = [&](float (&acc)[8], int k, int u) {
+    const int j = step * k + vf * u;
+#pragma unroll
+    for (int l = 0; l < 8; ++l)
+      if (l < vf) acc[l] = __fadd_rn(acc[l], t(j + l));
+  };
+  if (P < 320) {  // the loop unrolled whole: one chain
+    for (int k = 0; k < n; ++k) add(v, k, 0);
+    for (int u = 1; u < ic; ++u) {
+      if (n > 1) {
+        add(v, 1, u);
+        add(v, 0, u);
+        for (int k = 2; k < n; ++k) add(v, k, u);
+      } else {
+        add(v, 0, u);
+      }
+    }
+  } else {  // four accumulators: ((a1 + a0) + a2) + a3
+    float a[3][8];
+#pragma unroll
+    for (int u = 0; u < 3; ++u)
+#pragma unroll
+      for (int l = 0; l < 8; ++l) a[u][l] = -0.0f;
+    for (int k = 0; k < n; ++k) {
+      add(v, k, 0);
+      add(a[0], k, 1);
+      add(a[1], k, 2);
+      add(a[2], k, 3);
     }
 #pragma unroll
-    for (int w = 0; w < 32; ++w) {
-      const int j = jg + w;
-      if (j >= e && j < P && seg_s[g + w] == si && rank_s[g + w] < ri)
-        out = __fadd_rn(out, req_s[g + w]);
+    for (int l = 0; l < 8; ++l)
+      v[l] = __fadd_rn(__fadd_rn(__fadd_rn(a[0][l], v[l]), a[1][l]),
+                       a[2][l]);
+  }
+  out = fold_halves(v, vf);
+  int j = n * step;
+  if (vf == 8) {
+    const int rest = P - j;
+    const int w = rest % 8 < 4 ? 8 : 4;
+    if (rest >= w) {
+      float e[8];
+#pragma unroll
+      for (int l = 0; l < 8; ++l) e[l] = l ? -0.0f : out;
+      for (int c = 0; c < rest / w; ++c, j += w) {
+#pragma unroll
+        for (int l = 0; l < 8; ++l)
+          if (l < w) e[l] = __fadd_rn(e[l], t(j + l));
+      }
+      out = fold_halves(e, w);
     }
   }
+  for (; j < P; ++j) out = __fadd_rn(out, t(j));
+  return out;
 }
 
 // The pinned form of the whole chain, for every thread of the block: a
@@ -283,8 +341,6 @@ __device__ __noinline__ void pinned_chain(
     const int S = lv.S[l];
     const float* req = lv.req[l];
     const int q4 = P >= 8 ? P / 4 * 4 : 0;
-    const int q32 = P >= 32 ? P / 32 * 32 : 0;
-    const int e = P >= 32 ? q32 + (P - q32) / 4 * 4 : 0;
     for (int c0 = 0; c0 < P; c0 += THREADS) {
       const int i = c0 + t;
       int si = INT_MIN, ri = 0;
@@ -296,15 +352,9 @@ __device__ __noinline__ void pinned_chain(
       }
       float cum[NR] = {};
       if (R == 1) {  // block-uniform, as every branch below
-        float acc[32] = {};
-        for (int j0 = 0; j0 < P; j0 += JT) {
-          stage_tile(seg, rank, req, alive, lv.rstride, l, P, R, j0, seg_s,
-                     rank_s, req_s);
-          if (gated)
-            pinned_tile1(seg_s, rank_s, req_s, j0, P, q32, e, si, ri, acc,
-                         cum[0]);
-        }
-        if (q32 > 0 && q32 == P) cum[0] = fold32(acc);
+        if (gated)
+          cum[0] = pinned_sum1(seg + (size_t)l * P, rank, req, lv.rstride,
+                               alive, P, i, si, ri);
       } else {
         float acc[4][NR] = {}, tail[NR] = {};
         for (int j0 = 0; j0 < P; j0 += JT) {

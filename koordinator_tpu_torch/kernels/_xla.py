@@ -53,23 +53,11 @@ def xla_mask_dot(mask: torch.Tensor, req: torch.Tensor) -> torch.Tensor:
       j >= 4 * (P // 4) summed on its own from 0 in index order and
       added last.
     - R >= 2, P < 8: one sum from 0 in index order.
-    - R = 1 (the dot fused into the gate's loop, LLVM's vector loop):
-      32 lane sums over j < 32 * (P // 32), lane (u, l) adding the
-      j with (j // 8) mod 4 = u and j mod 8 = l in index order; the
-      four vectors combine as ((v1 + v0) + v2) + v3 and the eight lanes
-      fold in halves, ((l0 + l4) + (l2 + l6)) + ((l1 + l5) + (l3 + l7));
-      then the rest goes four at a time into four lanes that start
-      from (that sum, 0, 0, 0), folded as (a0 + a2) + (a1 + a3); the
-      last P mod 4 terms are added in index order. Below 32 pods, one
-      sum from 0 in index order.
+    - R = 1: see `_fused_matvec`, whose rule is a function of P alone.
 
     The R >= 2 forms matched XLA:CPU (jax 0.9.0) on every row of random
     dense and segment masks at R = 2..4 for P in 1..5000, at R = 5 and
-    8 for 8 <= P <= 4096 and at R = 11 for 16 <= P <= 2500. The R = 1
-    form matched every row at P = 32..40, 400..1500, 2048, 2049, 2500,
-    2503 and 3000, but not all rows at P = 63..301 (where LLVM unrolls
-    the loop whole and the backend reassociates the chains), 2000 or
-    4100: ROADMAP fault C7 stays open there."""
+    8 for 8 <= P <= 4096 and at R = 11 for 16 <= P <= 2500."""
     p, r = req.shape
     m = mask.to(req.dtype)
     if r == 1:
@@ -88,27 +76,119 @@ def xla_mask_dot(mask: torch.Tensor, req: torch.Tensor) -> torch.Tensor:
     return ((a[0] + a[1]) + (a[2] + a[3])) + tail
 
 
+def _halves(v: torch.Tensor) -> torch.Tensor:
+    """The lanes of v (f32[P, 2^k]) folded in halves: lane l + lane
+    l + w/2 until one is left (LLVM's reassociated vector reduction)."""
+    while v.shape[1] > 1:
+        h = v.shape[1] // 2
+        v = v[:, :h] + v[:, h:]
+    return v[:, 0]
+
+
+def fused_matvec_form(p: int):
+    """(vf, ic, chain) of `_fused_matvec` at P pods: the vector width
+    and the accumulators of XLA:CPU's R = 1 loop, and whether the loop
+    is unrolled whole (the backend then folds the accumulators into
+    one chain); None for index order, "gemv" above the fusion."""
+    if p >= 4096:
+        return "gemv"
+    if p < 28:
+        return None
+    if p < 32:
+        return 4, 2, True
+    if p < 48:
+        return 8, 4, True
+    if p < 64:
+        return 8, 2, True
+    return 8, 4, p < 320
+
+
 def _fused_matvec(m: torch.Tensor, req: torch.Tensor) -> torch.Tensor:
-    """`xla_mask_dot`'s R = 1 form (m f32[P, P], req f32[P, 1])."""
+    """`xla_mask_dot`'s R = 1 form (m f32[P, P], req f32[P, 1]): row i's
+    terms t[j] = m[i, j] * req[j], added as XLA:CPU (jax 0.9.0, an
+    AVX-512 host with FMA) runs the gate's fused loop, read from its
+    optimised IR and its machine code. With (vf, ic, chain) =
+    `fused_matvec_form(P)` and chunk (k, u) the vf terms from
+    vf * (ic * k + u), n = P // (vf * ic) whole steps:
+
+    - P < 28: one sum from +0 in index order.
+    - loop (320 <= P < 4096): accumulator u (lanes from -0, lane 0 of
+      the first from +0) adds chunks (0, u), (1, u), ... in order; they
+      combine as ((a1 + a0) + a2) + a3.
+    - chain (28 <= P < 320; the loop unrolled whole, the fused
+      multiply-adds reassociated by the backend into one chain): one
+      vector from chunk (0, 0), then chunks (1, 0) .. (n - 1, 0), then
+      for each u >= 1 chunks (1, u), (0, u), (2, u) .. (n - 1, u).
+    - then the vector's lanes fold in halves (lane l + lane l + w/2);
+    - the rest r = P - n * vf * ic (vf 8 only): where r // w > 0 for the
+      epilogue's width w (8 where r mod 8 < 4, else 4), a vector from
+      (that sum, -0, ...) adds the next w terms r // w times and folds
+      in halves; the last terms are added one at a time in index order.
+    - gemv (P >= 4096: the product leaves the fusion and runs XLA's
+      tiled dot): eight lanes by j mod 8 over j < 8 * (P // 8), summed
+      from +0, folded ((l0 + l1) + (l2 + l3)) + ((l4 + l5) + (l6 + l7))
+      on rows below 8 * (P // 8) and in halves on the last P mod 8 rows;
+      plus the terms j >= 8 * (P // 8) summed from +0 in index order.
+
+    Every P from 1 to 700 and samples to 5000 matched every row of
+    dense and two-segment masks (ROADMAP fault C7)."""
     p = m.shape[0]
-    x = req[:, 0]
-    out = req.new_zeros((p,))
-    q = p // 32 * 32 if p >= 32 else 0
-    if q:
-        v = req.new_zeros((p, 4, 8))
-        for k in range(q // 32):
-            j = 32 * k
-            v = v + m[:, j:j + 32].reshape(p, 4, 8) * x[j:j + 32].reshape(4, 8)
-        w = ((v[:, 1] + v[:, 0]) + v[:, 2]) + v[:, 3]
-        h = w[:, :4] + w[:, 4:]
-        out = (h[:, 0] + h[:, 2]) + (h[:, 1] + h[:, 3])
-        e = q + (p - q) // 4 * 4
-        if e > q:
-            a = torch.stack([out] + [torch.zeros_like(out)] * 3, dim=1)
-            for j in range(q, e, 4):
-                a = a + m[:, j:j + 4] * x[j:j + 4]
-            out = (a[:, 0] + a[:, 2]) + (a[:, 1] + a[:, 3])
-        q = e
-    for j in range(q, p):
-        out = out + m[:, j] * x[j]
+    t = m * req[:, 0][None, :]
+    form = fused_matvec_form(p)
+    if form is None:
+        out = t.new_zeros((p,))
+        for j in range(p):
+            out = out + t[:, j]
+        return out[:, None]
+    if form == "gemv":
+        q = p // 8 * 8
+        lanes = t.new_zeros((p, 8))
+        for j in range(0, q, 8):
+            lanes = lanes + t[:, j:j + 8]
+        pair = lanes[:, 0::2] + lanes[:, 1::2]
+        out = (pair[:, 0] + pair[:, 1]) + (pair[:, 2] + pair[:, 3])
+        rows = p // 8 * 8
+        out[rows:] = _halves(lanes[rows:])
+        tail = t.new_zeros((p,))
+        for j in range(q, p):
+            tail = tail + t[:, j]
+        return (out + tail)[:, None]
+    vf, ic, chain = form
+    step = vf * ic
+    n = p // step
+
+    def chunk(k, u):
+        return t[:, step * k + vf * u:step * k + vf * (u + 1)]
+
+    first = torch.full((p, vf), -0.0, dtype=t.dtype, device=t.device)
+    first[:, 0] = 0.0
+    if chain:
+        acc = first + chunk(0, 0)
+        for k in range(1, n):
+            acc = acc + chunk(k, 0)
+        for u in range(1, ic):
+            for k in ([1, 0] + list(range(2, n))) if n > 1 else [0]:
+                acc = acc + chunk(k, u)
+    else:
+        a = [first] + [torch.full_like(first, -0.0) for _ in range(ic - 1)]
+        for k in range(n):
+            for u in range(ic):
+                a[u] = a[u] + chunk(k, u)
+        acc = a[1] + a[0]
+        for u in range(2, ic):
+            acc = acc + a[u]
+    out = _halves(acc)
+    j = n * step
+    if vf == 8:
+        rest = p - j
+        w = 8 if rest % 8 < 4 else 4
+        if rest >= w:
+            v = torch.full((p, w), -0.0, dtype=t.dtype, device=t.device)
+            v[:, 0] = out
+            for _ in range(rest // w):
+                v = v + t[:, j:j + w]
+                j += w
+            out = _halves(v)
+    for k in range(j, p):
+        out = out + t[:, k]
     return out[:, None]

@@ -4,49 +4,85 @@ commit in schedule_batch.
 Kernel: `csrc/ordered_scatter_add.cu`. Replaces the
 `.at[idx].add(rows, mode="drop")` commits of
 koordinator_tpu/scheduler/core.py, keeping their order of additions.
+`ordered_scatter_add_many` takes a step's, a round's or a rebuild's
+independent commits (distinct targets) in one launch;
+`ordered_scatter_add` is its one-group form.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Hashable, List, Sequence, Tuple
 
 import torch
 
 from koordinator_tpu_torch.kernels import _launch
 from koordinator_tpu_torch.kernels.build import TOOLCHAIN, check
 
-MAX_COLUMNS = 32  # one lane a column (csrc/ordered_scatter_add.cu)
-# csrc/ordered_scatter_add.cu: the shared memory a launch may use, in
-# 4-byte words, and the warps of a block
-_SMEM_WORDS = 200 * 1024 // 4
-_WARPS = 8
+MAX_GROUPS = 32    # groups a launch (csrc/ordered_scatter_add.cu)
+MAX_COLUMNS = 128  # columns a target (a staged segment holds one row)
+# the H100's SMs, the most blocks a group takes, and `group_blocks`'
+# two shares
+_SMS = 132
+_MAX_BLOCKS = 2 * _SMS
+_ENTRIES_A_BLOCK = 512
+_SCAN_PER_COPY = 2
+
+Group = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def _target_rows(s: int) -> int:
-    """The target rows a warp owns (the kernel's TR)."""
-    tr = 1
-    while tr < 32 and tr * 1024 < s:
-        tr *= 2
-    return tr
+class _Group(ctypes.Structure):
+    _fields_ = [("target", ctypes.c_void_p), ("idx", ctypes.c_void_p),
+                ("rows", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("S", ctypes.c_int), ("C", ctypes.c_int), ("P", ctypes.c_int),
+                ("L", ctypes.c_int), ("rb", ctypes.c_int),
+                ("block0", ctypes.c_int)]
 
 
-def levels_per_launch(s: int, c: int, p: int) -> int:
-    """How many levels of P indices one launch of the kernel takes into a
-    target of S rows and C columns: its shared memory holds each warp's
-    tile of target rows, the [P, C] rows where a warp owns one row, and
-    the [L, P] indices (the kernel's smem_bytes)."""
-    tr = _target_rows(s)
-    fixed = _WARPS * tr * c + (p * c if tr == 1 else 0)
-    return max((_SMEM_WORDS - fixed) // max(p, 1), 0)
+class _Groups(ctypes.Structure):
+    """The launch's parameter, passed to the kernel by value."""
+    _fields_ = [("n", ctypes.c_int), ("blocks", ctypes.c_int),
+                ("g", _Group * MAX_GROUPS)]
 
 
-def rows_per_launch(s: int, c: int) -> int:
-    """The most rows of one level that one launch takes into a target of
-    S rows and C columns (levels_per_launch(s, c, rows) >= 1)."""
-    tr = _target_rows(s)
-    if tr == 1:
-        return (_SMEM_WORDS - _WARPS * c) // (c + 1)
-    return _SMEM_WORDS - _WARPS * tr * c
+def group_blocks(s: int, c: int, levels: int, p: int) -> Tuple[int, int]:
+    """(blocks, target rows a block) of one group of S rows, C columns
+    and L levels of P indices, from the shapes alone: enough blocks that
+    each reads about as many index bytes as it reads and writes of the
+    target, and at least one for each _ENTRIES_A_BLOCK indices (a hot
+    row's block then shares its list with few other rows), at most
+    _MAX_BLOCKS and S. The constants were chosen on the H100 among
+    (1, 2, 4) for the first and 256 to 4096 for the second
+    (`chip_smoke.py check_k3` and `check_fold`)."""
+    if s == 0 or c == 0:
+        return 0, 1
+    n = levels * p
+    want = max(-(-_SCAN_PER_COPY * s * c // max(n, 1)),
+               -(-n // _ENTRIES_A_BLOCK), 1)
+    rb = -(-s // min(want, s, _MAX_BLOCKS))
+    return -(-s // rb), rb
+
+
+def pack_groups(groups: Sequence[Group],
+                outs: Sequence[torch.Tensor]) -> _Groups:
+    """The kernel's descriptor of (target, idx, rows) groups (at most
+    MAX_GROUPS) and their outputs: pointers, shapes, the rows a block
+    owns and each group's first block (the prefix of the groups' block
+    counts)."""
+    desc = _Groups()
+    desc.n = len(groups)
+    block0 = 0
+    for k, ((target, idx, rows), out) in enumerate(zip(groups, outs)):
+        s, c = target.shape
+        levels = 1 if idx.dim() == 1 else idx.shape[0]
+        p = rows.shape[0]
+        blocks, rb = group_blocks(s, c, levels, p)
+        desc.g[k] = _Group(target.data_ptr(), idx.data_ptr(),
+                           rows.data_ptr(), out.data_ptr(),
+                           s if blocks else 0, c, p, levels, rb, block0)
+        block0 += blocks
+    desc.blocks = block0
+    return desc
 
 
 def ordered_scatter_add_plain(target: torch.Tensor, idx: torch.Tensor,
@@ -65,57 +101,83 @@ def ordered_scatter_add_plain(target: torch.Tensor, idx: torch.Tensor,
     return out
 
 
-def ordered_scatter_add(target: torch.Tensor, idx: torch.Tensor,
-                        rows: torch.Tensor) -> torch.Tensor:
-    """The scatter of `ordered_scatter_add_plain`: the kernel for CUDA
-    tensors, the plain version for CPU tensors. target: f32[S, C];
-    idx: i32[P] or i32[L, P] (L scatters of the same rows, applied in
-    order: bit-equal to L calls in a row); rows: f32[P, C]. Returns a
-    new tensor. One launch takes up to `levels_per_launch(S, C, P)`
-    levels; more levels take that many launches, each on the last one's
-    result, in order. Where not even one level fits, each level goes in
-    pieces of `rows_per_launch(S, C)` rows, a launch a piece, levels
-    outer: each target row still takes its adds in ascending (l, j)."""
-    s, c = target.shape
-    p = rows.shape[0]
-    dev = target.device
-    _launch.check_tensor("target", target, torch.float32, (s, c), dev)
-    _launch.check_tensor("idx", idx, torch.int32,
-                         (p,) if idx.dim() == 1 else (None, p), dev)
-    _launch.check_tensor("rows", rows, torch.float32, (p, c), dev)
+def ordered_scatter_add_many_plain(groups: Sequence[Group]
+                                   ) -> List[torch.Tensor]:
+    """`ordered_scatter_add_plain` of each group, in order."""
+    return [ordered_scatter_add_plain(*g) for g in groups]
+
+
+def _check(groups: Sequence[Group]) -> torch.device:
+    if len(groups) > MAX_GROUPS:
+        raise ValueError(f"ordered_scatter_add_many: {len(groups)} groups, "
+                         f"at most {MAX_GROUPS} a launch")
+    dev = groups[0][0].device
+    for target, idx, rows in groups:
+        s, c = target.shape
+        p = rows.shape[0]
+        _launch.check_tensor("target", target, torch.float32, (s, c), dev)
+        _launch.check_tensor("idx", idx, torch.int32,
+                             (p,) if idx.dim() == 1 else (None, p), dev)
+        _launch.check_tensor("rows", rows, torch.float32, (p, c), dev)
+        if idx.numel() >= 2 ** 31:
+            raise ValueError("ordered_scatter_add: L * P at or above 2^31")
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * 4)
+                   for t, _, _ in groups if t.numel())
+    for (_, end), (start, _) in zip(spans, spans[1:]):
+        if start < end:
+            raise ValueError("ordered_scatter_add_many: two targets overlap "
+                             "in memory")
+    return dev
+
+
+def ordered_scatter_add_many(groups: Sequence[Group]) -> List[torch.Tensor]:
+    """The scatters of `ordered_scatter_add_many_plain`, each into a new
+    tensor: one launch of the kernel for CUDA tensors (at most
+    MAX_GROUPS groups, C <= MAX_COLUMNS, distinct targets that do not
+    overlap in memory; any S, L and P), the plain version for CPU
+    tensors. A group is (target f32[S, C], idx i32[P] or i32[L, P],
+    rows f32[P, C])."""
+    groups = list(groups)
+    if not groups:
+        return []
+    ordered_scatter_add.calls += 1
+    dev = _check(groups)
     if dev.type == "cpu":
-        return ordered_scatter_add_plain(target, idx, rows)
+        return ordered_scatter_add_many_plain(groups)
     if dev.type != "cuda":
         raise ValueError(f"ordered_scatter_add: unsupported device {dev}")
-    if c > MAX_COLUMNS:
-        raise ValueError(f"ordered_scatter_add: C={c} above {MAX_COLUMNS}")
-    if idx.dim() == 1:
-        idx = idx[None]
-    per = levels_per_launch(s, c, p)
-    if per > 0:
-        pieces = [(l0, min(l0 + per, idx.shape[0]), 0, p)
-                  for l0 in range(0, max(idx.shape[0], 1), per)]
-    elif idx.shape[0] == 0:
-        return target.clone()
-    else:
-        q = rows_per_launch(s, c)
-        pieces = [(l, l + 1, j0, min(j0 + q, p))
-                  for l in range(idx.shape[0]) for j0 in range(0, p, q)]
-    fn = TOOLCHAIN.function("ordered_scatter_add",
-                            "koord_ordered_scatter_add",
-                            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                            + [ctypes.c_void_p, ctypes.c_void_p])
-    out = target
-    for l0, l1, j0, j1 in pieces:
-        # one level's piece of rows: its indices are contiguous
-        part = idx[l0:l1, j0:j1]
-        src, out = out, torch.empty_like(target)
-        rc = fn(_launch.ptr(src), _launch.ptr(part), _launch.ptr(rows[j0:]),
-                s, c, j1 - j0, l1 - l0, _launch.ptr(out),
-                _launch.stream(dev))
-        check(rc, "ordered_scatter_add")
+    for target, _, _ in groups:
+        if target.shape[1] > MAX_COLUMNS:
+            raise ValueError(f"ordered_scatter_add: C={target.shape[1]} "
+                             f"above {MAX_COLUMNS}")
+    outs = [torch.empty_like(t) for t, _, _ in groups]
+    desc = pack_groups(groups, outs)
+    if desc.blocks:
+        fn = TOOLCHAIN.function("ordered_scatter_add",
+                                "koord_ordered_scatter_add_many",
+                                [ctypes.c_void_p, ctypes.c_void_p])
+        check(fn(ctypes.addressof(desc), _launch.stream(dev)),
+              "ordered_scatter_add")
         ordered_scatter_add.launches += 1
-    return out
+    return outs
 
 
+def ordered_scatter_add_named(commits: Dict[Hashable, Group]
+                              ) -> Dict[Hashable, torch.Tensor]:
+    """{name: output} of named groups {name: (target, idx, rows)}, in one
+    `ordered_scatter_add_many` call."""
+    return dict(zip(commits, ordered_scatter_add_many(list(commits.values()))))
+
+
+def ordered_scatter_add(target: torch.Tensor, idx: torch.Tensor,
+                        rows: torch.Tensor) -> torch.Tensor:
+    """The one-group form of `ordered_scatter_add_many`. target:
+    f32[S, C]; idx: i32[P] or i32[L, P] (L scatters of the same rows,
+    applied in order: bit-equal to L calls in a row); rows: f32[P, C].
+    Returns a new tensor."""
+    return ordered_scatter_add_many([(target, idx, rows)])[0]
+
+
+# launches: kernel launches (CUDA); calls: grouped calls on any device
 ordered_scatter_add.launches = 0
+ordered_scatter_add.calls = 0

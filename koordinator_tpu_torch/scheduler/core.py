@@ -97,7 +97,10 @@ from koordinator_tpu_torch.kernels.aux_instances import aux_instance_pick
 from koordinator_tpu_torch.kernels.device_terms import device_pair_terms
 from koordinator_tpu_torch.kernels.gpu_instances import gpu_instance_pick
 from koordinator_tpu_torch.kernels.numa_terms import numa_pair_terms
-from koordinator_tpu_torch.kernels.scatter import ordered_scatter_add
+from koordinator_tpu_torch.kernels.scatter import (
+    ordered_scatter_add,
+    ordered_scatter_add_named,
+)
 from koordinator_tpu_torch.kernels.score_topk import AmpTerms, score_topk
 from koordinator_tpu_torch.kernels.topology import topology_admit
 from koordinator_tpu_torch.kernels.topology_prefix import topology_prefix_gate
@@ -123,7 +126,7 @@ from koordinator_tpu_torch.scheduler.domains import (
     batch_counts,
     batch_topology,
     charge_all_counts,
-    commit_counts,
+    commit_count_groups,
     round_terms,
     step_families,
 )
@@ -133,7 +136,7 @@ from koordinator_tpu_torch.scheduler.plugins import (
     numaaware,
 )
 from koordinator_tpu_torch.scheduler.plugins.reservation import (
-    rebuild_reservations,
+    reservation_groups,
     slot_columns,
 )
 from koordinator_tpu_torch.snapshot.schema import (
@@ -171,13 +174,13 @@ def _check_strategies(*, enable_numa, numa_strategy, enable_devices,
         raise ValueError(f"device_strategy {device_strategy!r}")
 
 
-def _count(n: int, idx: torch.Tensor) -> torch.Tensor:
-    """f32[n, 1]: how many entries of idx fall on each of n rows (rows
-    outside [0, n) dropped), through the ordered scatter."""
+def _count(n: int, idx: torch.Tensor) -> tuple:
+    """The K3 group whose output (f32[n, 1]) counts the entries of idx
+    that fall on each of n rows (rows outside [0, n) dropped)."""
     ones = torch.ones((idx.shape[0], 1), dtype=torch.float32,
                       device=idx.device)
     zeros = torch.zeros((n, 1), dtype=torch.float32, device=idx.device)
-    return ordered_scatter_add(zeros, idx, ones)
+    return zeros, idx, ones
 
 
 def _where_i32(cond: torch.Tensor, a, b) -> torch.Tensor:
@@ -506,12 +509,18 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     drop_node = torch.full((p,), n_ext, dtype=torch.int32, device=dev)
 
     def quota_commit(used, take, rows):
-        """used with rows charged to every quota level of the pods in
-        `take`: one ordered scatter for all levels."""
+        """{"quota": the K3 group that charges rows to every quota level
+        of the pods in `take`} (one group for all levels), or {}."""
         if not quota_depth:
-            return used
-        return ordered_scatter_add(
-            used, _where_i32(take[None, :], quota_seg, n_quotas), rows)
+            return {}
+        return {"quota": (used, _where_i32(take[None, :], quota_seg,
+                                           n_quotas), rows)}
+
+    # the gang attempts of the batch, known before any step: charged in
+    # the first round's call (or alone, with no rounds)
+    attempted_group = _count(n_gangs, _where_i32(
+        pods.valid & (pods.gang_id >= 0), pods.gang_id, n_gangs))
+    attempted = None
 
     for _ in range(num_rounds):
         active = pods.valid & (placed < 0) & gang_ok
@@ -681,13 +690,15 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                 once_taken = once_taken | hit[:n_slots]
 
             # scatter-commit (assume): accept is final from here on; the
-            # zone and instance commits read their prefix rows only
+            # step's commits go in one grouped K3 call; the zone and
+            # instance commits read their prefix rows only
+            commits = {}
             if adm is not None:
                 took_z = accept[:pn] & adm.engaged
-                numa_used = ordered_scatter_add(
+                commits["numa"] = (
                     used_flat, _where_i32(took_z, choice[:pn], n_ext),
                     (adm.take * took_z[:, None, None]).reshape(
-                        pn, n_zones * 2)).view(n_ext, n_zones, 2)
+                        pn, n_zones * 2))
                 out_take = _with_head(out_take, torch.where(
                     took_z[:, None, None], adm.take, out_take[:pn]))
                 out_zone = _with_head(out_zone, _where_i32(
@@ -700,11 +711,11 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                 # reference's shared scatter followed by its multi-GPU
                 # one bit for bit (the other columns add -0.0)
                 took_gpu = accept[:pg] & (pick.count > 0)
-                gpu_free = ordered_scatter_add(
+                commits["gpu"] = (
                     gpu_free.view(n_ext, n_inst * 3),
                     _where_i32(took_gpu, choice[:pg], n_ext),
                     -(fin.take[:, :, None] * pick.per_inst[:, None, :])
-                    .reshape(pg, n_inst * 3)).view(n_ext, n_inst, 3)
+                    .reshape(pg, n_inst * 3))
                 out_gpu_take = _with_head(
                     out_gpu_take, out_gpu_take[:pg] | (fin.take
                                                        & took_gpu[:, None]))
@@ -715,12 +726,13 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                 # both pools' takes in one ordered scatter, pool 0's pods
                 # first, as the reference's two scatters add them
                 took_a = accept[:, None] & has_aux
-                aux_free = ordered_scatter_add(
+                commits["aux"] = (
                     aux_free.view(n_aux_seg, 1),
                     _where_i32(took_a, aux_seg, n_aux_seg).T.reshape(-1),
-                    -(a_req * took_a).T.reshape(-1, 1)).view(aux_free.shape)
+                    -(a_req * took_a).T.reshape(-1, 1))
                 out_aux = _where_i32(took_a, a_inst, out_aux)
 
+            count_groups, count_finish = [], None
             if topo is not None and pc:
                 # The reference recounts the (group x domain) counts from
                 # `placed` at every step and round; here the accepted
@@ -732,12 +744,26 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                 # count0 plus one 1.0 for each placed member, as the
                 # recount does, and 0/1 adds onto whole numbers in f32
                 # are exact below 2^24 in any order.
-                counts = commit_counts(topo, counts, accept[:pc],
-                                       choice[:pc])
+                count_groups, count_finish = commit_count_groups(
+                    topo, counts, accept[:pc], choice[:pc])
+                commits.update((("count", k), g)
+                               for k, g in enumerate(count_groups))
             acc_req = pods.requests * accept[:, None]
-            requested = ordered_scatter_add(requested, choice_eff,
-                                            req_node * accept[:, None])
-            quota_used = quota_commit(quota_used, accept, acc_req)
+            commits["requested"] = (requested, choice_eff,
+                                    req_node * accept[:, None])
+            commits.update(quota_commit(quota_used, accept, acc_req))
+            outs = ordered_scatter_add_named(commits)
+            if adm is not None:
+                numa_used = outs["numa"].view(n_ext, n_zones, 2)
+            if use_gpu and pg:
+                gpu_free = outs["gpu"].view(n_ext, n_inst, 3)
+            if use_aux:
+                aux_free = outs["aux"].view(aux_free.shape)
+            if count_groups:
+                counts = count_finish([outs["count", k]
+                                       for k in range(len(count_groups))])
+            requested = outs["requested"]
+            quota_used = outs.get("quota", quota_used)
             placed = _where_i32(accept, choice, placed)
             out_score = torch.where(accept, val, out_score)
             # a rejected pod's chosen node just filled up: fall through
@@ -748,17 +774,22 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         new = (placed >= 0) & active
         tgt = _where_i32(new, to_real(placed), n_nodes)
         est = pods.estimated * new[:, None]
-        assigned_est = ordered_scatter_add(assigned_est, tgt, est)
-        prod_assigned_est = ordered_scatter_add(
-            prod_assigned_est, tgt, est * is_prod[:, None])
-        gang_placed = gang_placed + _count(
-            n_gangs, _where_i32(new & (pods.gang_id >= 0), pods.gang_id,
-                                n_gangs))
+        commits = {"est": (assigned_est, tgt, est),
+                   "prod_est": (prod_assigned_est, tgt,
+                                est * is_prod[:, None]),
+                   "gang": _count(n_gangs, _where_i32(
+                       new & (pods.gang_id >= 0), pods.gang_id, n_gangs))}
+        if attempted is None:
+            commits["attempted"] = attempted_group
+        outs = ordered_scatter_add_named(commits)
+        assigned_est, prod_assigned_est = outs["est"], outs["prod_est"]
+        gang_placed = gang_placed + outs["gang"]
+        attempted = outs.get("attempted", attempted)
 
     # gang all-or-nothing rollback (Permit barrier, core.go:311-341): a
     # strict gang below quorum rolls back once no member is outstanding
-    attempted = _count(n_gangs, _where_i32(
-        pods.valid & (pods.gang_id >= 0), pods.gang_id, n_gangs))
+    if attempted is None:
+        attempted = ordered_scatter_add(*attempted_group)
     attempted = attempted[:, 0].to(torch.int32)
     outstanding = torch.clamp_min(
         gangs0.member_count - gangs0.assumed - attempted, 0)
@@ -793,23 +824,22 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
             placed_real.clamp(0, n_nodes - 1).long()], 1.0)
         node_req = node_req.clone()
         node_req[:, CPU] = node_req[:, CPU] * f_fin
-    requested = ordered_scatter_add(nodes0.requested, tgt, node_req)
-    assigned_est = ordered_scatter_add(nodes0.assigned_estimated, tgt,
-                                       fin_est)
-    prod_assigned_est = ordered_scatter_add(
-        nodes0.prod_assigned_estimated, tgt, fin_est * is_prod[:, None])
-    quota_used = quota_commit(quotas0.used, ok, fin_req)
-    gang_assumed = gangs0.assumed + _count(n_gangs, _where_i32(
-        ok & (pods.gang_id >= 0), pods.gang_id, n_gangs))[:, 0].to(torch.int32)
+    # every commit of the rebuild (the reservation slots' too) in one
+    # grouped K3 call
+    commits = {"requested": (nodes0.requested, tgt, node_req),
+               "est": (nodes0.assigned_estimated, tgt, fin_est),
+               "prod_est": (nodes0.prod_assigned_estimated, tgt,
+                            fin_est * is_prod[:, None]),
+               "gang": _count(n_gangs, _where_i32(
+                   ok & (pods.gang_id >= 0), pods.gang_id, n_gangs))}
+    commits.update(quota_commit(quotas0.used, ok, fin_req))
 
     # zone usage from the surviving assignment (revoked gang members give
     # their takes back)
-    numa_free = nodes0.numa_free
     if enable_numa:
-        numa_free = torch.clamp_min(ordered_scatter_add(
+        commits["numa"] = (
             nodes0.numa_free.reshape(n_nodes, n_zones * 2), on_node,
-            (-out_take * ok[:, None, None]).reshape(p, n_zones * 2)),
-            0.0).view(n_nodes, n_zones, 2)
+            (-out_take * ok[:, None, None]).reshape(p, n_zones * 2))
         numa_zone = _where_i32(ok & pods.numa_single, out_zone, -1)
         numa_take = out_take * ok[:, None, None]
     else:
@@ -821,15 +851,13 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     # give their instances back); a take's per-instance request is the
     # one of its pod at its node, carried from the step that took it
     gpu_take = torch.zeros((p, n_inst), dtype=torch.bool, device=dev)
-    new_devices = devices0
     if use_gpu:
         gpu_take = out_gpu_take & ok[:, None]
-        new_devices = devices0.replace(gpu_free=torch.clamp_min(
-            ordered_scatter_add(
-                devices0.gpu_free.reshape(n_nodes, n_inst * 3),
-                _where_i32(gpu_take.any(dim=1), on_node, n_nodes),
-                -(gpu_take[:, :, None] * out_per[:, None, :]).reshape(
-                    p, n_inst * 3)), 0.0).view(n_nodes, n_inst, 3))
+        commits["gpu"] = (
+            devices0.gpu_free.reshape(n_nodes, n_inst * 3),
+            _where_i32(gpu_take.any(dim=1), on_node, n_nodes),
+            -(gpu_take[:, :, None] * out_per[:, None, :]).reshape(
+                p, n_inst * 3))
 
     # aux free from the surviving assignment (core.py:1249, :1258-1270),
     # clamped at 0 with XLA's max
@@ -840,11 +868,33 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
         took_f = ok[:, None] & has_aux & (aux_inst >= 0)
         seg_f = deviceshare.aux_segments(placed_real.clamp_min(0), aux_inst,
                                          took_f, n_aux, n_aux_seg)
+        commits["aux"] = (devices0.aux_free.reshape(n_aux_seg, 1),
+                          seg_f.T.reshape(-1),
+                          -(a_req * took_f).T.reshape(-1, 1))
+
+    resv_groups, resv_finish = reservation_groups(
+        resv0, pods, res_slot, ok,
+        numa_take=out_take if enable_numa else None,
+        gpu_take=gpu_take if use_gpu else None,
+        gpu_per_inst=out_per if use_gpu else None)
+    commits.update((("resv", k), g) for k, g in resv_groups.items())
+    outs = ordered_scatter_add_named(commits)
+    requested, assigned_est = outs["requested"], outs["est"]
+    prod_assigned_est = outs["prod_est"]
+    quota_used = outs.get("quota", quotas0.used)
+    gang_assumed = gangs0.assumed + outs["gang"][:, 0].to(torch.int32)
+    numa_free = nodes0.numa_free
+    if enable_numa:
+        numa_free = torch.clamp_min(outs["numa"], 0.0).view(
+            n_nodes, n_zones, 2)
+    new_devices = devices0
+    if use_gpu:
+        new_devices = devices0.replace(gpu_free=torch.clamp_min(
+            outs["gpu"], 0.0).view(n_nodes, n_inst, 3))
+    if use_aux:
         new_devices = new_devices.replace(aux_free=xla_max(
-            ordered_scatter_add(
-                devices0.aux_free.reshape(n_aux_seg, 1), seg_f.T.reshape(-1),
-                -(a_req * took_f).T.reshape(-1, 1)).view(
-                    devices0.aux_free.shape), 0.0))
+            outs["aux"].view(devices0.aux_free.shape), 0.0))
+    new_resv = resv_finish({k: outs["resv", k] for k in resv_groups})
 
     # a slot's score outranks any node sum for the owner's preference;
     # it is reported capped at MaxNodeScore
@@ -859,11 +909,7 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
                              numa_free=numa_free),
         quotas=quotas0.replace(used=quota_used),
         gangs=gangs0.replace(assumed=gang_assumed),
-        reservations=rebuild_reservations(
-            resv0, pods, res_slot, ok,
-            numa_take=out_take if enable_numa else None,
-            gpu_take=gpu_take if use_gpu else None,
-            gpu_per_inst=out_per if use_gpu else None),
+        reservations=new_resv,
         devices=new_devices,
         version=snap.version + 1)
     return ScheduleResult(

@@ -24,7 +24,10 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from koordinator_tpu_torch.kernels.scatter import ordered_scatter_add
+from koordinator_tpu_torch.kernels.scatter import (
+    ordered_scatter_add,
+    ordered_scatter_add_many,
+)
 from koordinator_tpu_torch.kernels.score_topk import TOPO_FAMILIES, TopoTerms
 from koordinator_tpu_torch.kernels.topology_prefix import (
     CAP,
@@ -56,14 +59,10 @@ def domain_map_x(dom: torch.Tensor, slot_node: torch.Tensor) -> torch.Tensor:
                      dim=1).contiguous()
 
 
-def charge_domain_counts(count0: torch.Tensor, dom: torch.Tensor,
-                         member: torch.Tensor,
-                         assignment: torch.Tensor) -> torch.Tensor:
-    """f32[G, D]: count0 plus one at (g, dom[g, assignment[p]]) for every
-    placed row p (assignment >= 0) that is a member of g; non-members,
-    unplaced rows and keyless columns (-1) drop out (core.py:1361). One
-    ordered scatter through K3, a level a group: each entry's adds are
-    all 1.0, so any order of them gives the reference's bits."""
+def charge_group(count0: torch.Tensor, dom: torch.Tensor,
+                 member: torch.Tensor, assignment: torch.Tensor) -> tuple:
+    """The K3 group (target, idx, rows) of `charge_domain_counts`: its
+    [G * D, 1] table, a level a group, rows of 1.0."""
     g_n, d_n = count0.shape
     ok = member & (assignment >= 0)[:, None]                 # [P, G]
     dom_pg = dom.T[assignment.clamp_min(0).long()]           # [P, G]
@@ -72,9 +71,20 @@ def charge_domain_counts(count0: torch.Tensor, dom: torch.Tensor,
     seg = torch.where(ok, g_idx[None, :] * d_n + dom_pg, g_n * d_n)
     ones = torch.ones((member.shape[0], 1), dtype=torch.float32,
                       device=dom.device)
+    return (count0.reshape(g_n * d_n, 1), seg.T.to(torch.int32).contiguous(),
+            ones)
+
+
+def charge_domain_counts(count0: torch.Tensor, dom: torch.Tensor,
+                         member: torch.Tensor,
+                         assignment: torch.Tensor) -> torch.Tensor:
+    """f32[G, D]: count0 plus one at (g, dom[g, assignment[p]]) for every
+    placed row p (assignment >= 0) that is a member of g; non-members,
+    unplaced rows and keyless columns (-1) drop out (core.py:1361). One
+    ordered scatter through K3, a level a group: each entry's adds are
+    all 1.0, so any order of them gives the reference's bits."""
     return ordered_scatter_add(
-        count0.reshape(g_n * d_n, 1), seg.T.to(torch.int32).contiguous(),
-        ones).view(g_n, d_n)
+        *charge_group(count0, dom, member, assignment)).view(count0.shape)
 
 
 def charge_all_counts(counts: Sequence[torch.Tensor], batch: PodBatch,
@@ -82,11 +92,12 @@ def charge_all_counts(counts: Sequence[torch.Tensor], batch: PodBatch,
     """The counts (COUNT_FIELDS order) with a batch's placements charged
     (core.py:1342): the cross-batch analogue of rebuilding count0 from
     running and assumed pods. `assignment` is node-level (a slot's
-    consumer on its host node) and final (after the gang rollback)."""
-    return tuple(
-        charge_domain_counts(c, getattr(batch, dom), getattr(batch, mem),
-                             assignment)
-        for c, (dom, mem) in zip(counts, _COUNT_RULE))
+    consumer on its host node) and final (after the gang rollback). One
+    grouped K3 call for the four tables."""
+    outs = ordered_scatter_add_many([
+        charge_group(c, getattr(batch, dom), getattr(batch, mem), assignment)
+        for c, (dom, mem) in zip(counts, _COUNT_RULE)])
+    return tuple(o.view(c.shape) for o, c in zip(outs, counts))
 
 
 def batch_counts(pods: PodBatch) -> tuple:
@@ -325,6 +336,31 @@ def step_families(topo: BatchTopology, counts: Sequence[torch.Tensor],
     return fams
 
 
+def commit_count_groups(topo: BatchTopology, counts: Sequence[torch.Tensor],
+                        accept: torch.Tensor, choice: torch.Tensor):
+    """(groups, finish): the K3 groups that charge this step's accepted
+    pods into the carried counts, one a count table, and the function
+    that turns their outputs into the counts (`commit_counts`), so that
+    the scheduler's step runs them with its other commits in one call."""
+    x = topo.commit_dom.shape[1]
+    dom = topo.commit_dom[:, choice.clamp(0, x - 1)]          # [R, P]
+    ok = topo.commit_bits & accept[None, :] & (dom >= 0)
+    idx = torch.where(ok, topo.commit_off + dom, topo.commit_drop)
+    ones = torch.ones((accept.shape[0], 1), dtype=torch.float32,
+                      device=accept.device)
+    tables = topo.commit_tables
+    groups = [(counts[i].reshape(-1, 1), idx[r0:r1], ones)
+              for i, r0, r1 in tables]
+
+    def finish(outs):
+        out = list(counts)
+        for (i, _, _), o in zip(tables, outs):
+            out[i] = o.view(counts[i].shape)
+        return tuple(out)
+
+    return groups, finish
+
+
 def commit_counts(topo: BatchTopology, counts: Sequence[torch.Tensor],
                   accept: torch.Tensor, choice: torch.Tensor) -> tuple:
     """The carried counts with this step's accepted pods charged: each
@@ -333,17 +369,6 @@ def commit_counts(topo: BatchTopology, counts: Sequence[torch.Tensor],
     on its host's domain). `accept` and `choice` are the first rows of
     the batch that `batch_topology` took (core.py:479: the in-batch
     counts charge `member[:pc]`). The indices of every table come from
-    one gather over the batch's commit rows; then one K3 launch a count
-    table."""
-    x = topo.commit_dom.shape[1]
-    dom = topo.commit_dom[:, choice.clamp(0, x - 1)]          # [R, P]
-    ok = topo.commit_bits & accept[None, :] & (dom >= 0)
-    idx = torch.where(ok, topo.commit_off + dom, topo.commit_drop)
-    ones = torch.ones((accept.shape[0], 1), dtype=torch.float32,
-                      device=accept.device)
-    out = list(counts)
-    for i, r0, r1 in topo.commit_tables:
-        g_n, d_n = counts[i].shape
-        out[i] = ordered_scatter_add(counts[i].reshape(g_n * d_n, 1),
-                                     idx[r0:r1], ones).view(g_n, d_n)
-    return tuple(out)
+    one gather over the batch's commit rows; then one grouped K3 call."""
+    groups, finish = commit_count_groups(topo, counts, accept, choice)
+    return finish(ordered_scatter_add_many(groups))

@@ -14,12 +14,12 @@ scatter (kernel K3).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from koordinator_tpu_torch.api.extension import AUX_KINDS
-from koordinator_tpu_torch.kernels.scatter import ordered_scatter_add
+from koordinator_tpu_torch.kernels.scatter import ordered_scatter_add_named
 from koordinator_tpu_torch.scheduler.cascade import GateTerms, expand_gates
 from koordinator_tpu_torch.scheduler.plugins.deviceshare import (
     has_gpu_request,
@@ -62,6 +62,57 @@ def slot_columns(snap: ClusterSnapshot, pods: PodBatch, gates: GateTerms
     return slot_ok, resv.free, resv.node
 
 
+def reservation_groups(resv: ReservationState, pods: PodBatch,
+                         res_slot: torch.Tensor, ok: torch.Tensor,
+                         numa_take: Optional[torch.Tensor] = None,
+                         gpu_take: Optional[torch.Tensor] = None,
+                         gpu_per_inst: Optional[torch.Tensor] = None
+                         ) -> Tuple[Dict[str, tuple], Callable]:
+    """(groups, finish): the K3 groups of `rebuild_reservations` (the
+    consumed requests and a count of consumers in one, the instance and
+    zone takes) and the function that turns their outputs into the new
+    state, so that the scheduler's rebuild runs them with its own
+    commits in one call. With no slots, no groups."""
+    n_res = resv.valid.shape[0]
+    if not n_res:
+        return {}, lambda outs: resv
+    p = res_slot.shape[0]
+    consuming = ok & (res_slot >= 0)
+    tgt = torch.where(consuming, res_slot, n_res).to(torch.int32)
+    # the consumed requests and a count of consumers, in one scatter
+    cols = torch.cat([pods.requests, torch.ones_like(pods.requests[:, :1])],
+                     dim=1) * consuming[:, None]
+    groups = {"drawn": (torch.zeros((n_res, cols.shape[1]), dtype=cols.dtype,
+                                    device=cols.device), tgt, cols)}
+    if gpu_take is not None and gpu_per_inst is not None:
+        v, i, dd = resv.gpu_free.shape
+        groups["gpu"] = (resv.gpu_free.reshape(v, i * dd), tgt,
+                         -(gpu_take[:, :, None] * gpu_per_inst[:, None, :]
+                           * consuming[:, None, None]).reshape(p, i * dd))
+    if numa_take is not None:
+        v, z, two = resv.numa_free.shape
+        groups["numa"] = (resv.numa_free.reshape(v, z * two), tgt,
+                          -(numa_take * consuming[:, None, None]).reshape(
+                              p, z * two))
+
+    def finish(outs: Dict[str, torch.Tensor]) -> ReservationState:
+        drawn = outs["drawn"]
+        exhausted = resv.allocate_once & (drawn[:, -1] > 0)
+        new_gpu_free, new_numa_free = resv.gpu_free, resv.numa_free
+        if "gpu" in outs:
+            new_gpu_free = torch.clamp_min(outs["gpu"], 0.0).view(
+                resv.gpu_free.shape)
+        if "numa" in outs:
+            new_numa_free = torch.clamp_min(outs["numa"], 0.0).view(
+                resv.numa_free.shape)
+        return resv.replace(
+            free=torch.clamp_min(resv.free - drawn[:, :-1], 0.0),
+            gpu_free=new_gpu_free, numa_free=new_numa_free,
+            valid=resv.valid & ~exhausted)
+
+    return groups, finish
+
+
 def rebuild_reservations(resv: ReservationState, pods: PodBatch,
                          res_slot: torch.Tensor, ok: torch.Tensor,
                          numa_take: Optional[torch.Tensor] = None,
@@ -76,34 +127,7 @@ def rebuild_reservations(resv: ReservationState, pods: PodBatch,
     batch ran those paths; an AllocateOnce slot that a pod consumed is
     no longer valid (it keeps its remainder, so that a later forget can
     restore it). With no slots, unchanged."""
-    n_res = resv.valid.shape[0]
-    if not n_res:
-        return resv
-    p = res_slot.shape[0]
-    consuming = ok & (res_slot >= 0)
-    tgt = torch.where(consuming, res_slot, n_res).to(torch.int32)
-    # the consumed requests and a count of consumers, in one scatter
-    cols = torch.cat([pods.requests, torch.ones_like(pods.requests[:, :1])],
-                     dim=1) * consuming[:, None]
-    drawn = ordered_scatter_add(
-        torch.zeros((n_res, cols.shape[1]), dtype=cols.dtype,
-                    device=cols.device), tgt, cols)
-    exhausted = resv.allocate_once & (drawn[:, -1] > 0)
-    new_gpu_free, new_numa_free = resv.gpu_free, resv.numa_free
-    if gpu_take is not None and gpu_per_inst is not None:
-        v, i, dd = resv.gpu_free.shape
-        new_gpu_free = torch.clamp_min(ordered_scatter_add(
-            resv.gpu_free.reshape(v, i * dd), tgt,
-            -(gpu_take[:, :, None] * gpu_per_inst[:, None, :]
-              * consuming[:, None, None]).reshape(p, i * dd)),
-            0.0).view(v, i, dd)
-    if numa_take is not None:
-        v, z, two = resv.numa_free.shape
-        new_numa_free = torch.clamp_min(ordered_scatter_add(
-            resv.numa_free.reshape(v, z * two), tgt,
-            -(numa_take * consuming[:, None, None]).reshape(p, z * two)),
-            0.0).view(v, z, two)
-    return resv.replace(
-        free=torch.clamp_min(resv.free - drawn[:, :-1], 0.0),
-        gpu_free=new_gpu_free, numa_free=new_numa_free,
-        valid=resv.valid & ~exhausted)
+    groups, finish = reservation_groups(
+        resv, pods, res_slot, ok, numa_take=numa_take, gpu_take=gpu_take,
+        gpu_per_inst=gpu_per_inst)
+    return finish(ordered_scatter_add_named(groups))

@@ -31,7 +31,7 @@ from koordinator_tpu_torch.api.extension import (
 )
 from koordinator_tpu_torch.kernels.delta_rows import delta_rows
 from koordinator_tpu_torch.kernels._xla import xla_max, xla_min
-from koordinator_tpu_torch.kernels.scatter import ordered_scatter_add
+from koordinator_tpu_torch.kernels.scatter import ordered_scatter_add_named
 from koordinator_tpu_torch.ops.feasibility import pod_ancestors
 from koordinator_tpu_torch.snapshot.schema import ClusterSnapshot, Struct
 
@@ -220,49 +220,40 @@ def forget_pods(snap: ClusterSnapshot, pods, result,
             assign.clamp(0, n - 1).long()], 1.0)
         req_node = req.clone()
         req_node[:, CPU] = req_node[:, CPU] * f_amp
-    requested = ordered_scatter_add(nodes.requested, node_only, -req_node)
+    # every scatter of the forget in one grouped K3 call
+    commits = {"requested": (nodes.requested, node_only, -req_node)}
     est = pods.estimated * und_f[:, None]
-    assigned_est = ordered_scatter_add(nodes.assigned_estimated, node_tgt,
-                                       -est)
+    commits["est"] = (nodes.assigned_estimated, node_tgt, -est)
     is_prod = (pods.priority_class == PROD).to(torch.float32)
-    prod_est = ordered_scatter_add(nodes.prod_assigned_estimated, node_tgt,
-                                   -est * is_prod[:, None])
+    commits["prod_est"] = (nodes.prod_assigned_estimated, node_tgt,
+                           -est * is_prod[:, None])
 
     n_quotas = quotas.used.shape[0]
     anc = torch.where(und[:, None], pod_ancestors(quotas, pods), -1)
-    used = ordered_scatter_add(
-        quotas.used, at(anc >= 0, anc, n_quotas).T.contiguous(), -req)
+    commits["used"] = (quotas.used,
+                       at(anc >= 0, anc, n_quotas).T.contiguous(), -req)
 
     n_gangs = gangs.assumed.shape[0]
     gang_tgt = at(und & (pods.gang_id >= 0), pods.gang_id.clamp_min(0),
                   n_gangs)
     ones = torch.ones((pods.gang_id.shape[0], 1), dtype=torch.float32,
                       device=dev)
-    count = ordered_scatter_add(
-        torch.zeros((n_gangs, 1), dtype=torch.float32, device=dev),
-        gang_tgt, ones)[:, 0]
-    assumed = gangs.assumed - count.to(i32)
+    commits["gang"] = (torch.zeros((n_gangs, 1), dtype=torch.float32,
+                                   device=dev), gang_tgt, ones)
 
     take = _rows(result.numa_take * und_f[:, None, None])
-    numa_free = xla_min(
-        ordered_scatter_add(_rows(nodes.numa_free), node_only,
-                            take).view(nodes.numa_free.shape),
-        nodes.numa_cap)
+    commits["numa"] = (_rows(nodes.numa_free), node_only, take)
     slot_tgt = at(und & on_slot, result.res_slot.clamp_min(0), n_res)
-    resv_numa = ordered_scatter_add(_rows(resv.numa_free), slot_tgt,
-                                    take).view(resv.numa_free.shape)
+    commits["resv_numa"] = (_rows(resv.numa_free), slot_tgt, take)
 
-    gpu_free, resv_gpu = devices.gpu_free, resv.gpu_free
     if devices.num_instances:
         _, per_f = deviceshare.per_instance_at(
             devices, deviceshare.gpu_request(pods.requests, pods.gpu_ratio),
             assign)
         g_upd = _rows(result.gpu_take.to(torch.float32)[:, :, None]
                       * per_f[:, None, :] * und_f[:, None, None])
-        gpu_free = ordered_scatter_add(_rows(devices.gpu_free), node_only,
-                                       g_upd).view(devices.gpu_free.shape)
-        resv_gpu = ordered_scatter_add(_rows(resv.gpu_free), slot_tgt,
-                                       g_upd).view(resv.gpu_free.shape)
+        commits["gpu"] = (_rows(devices.gpu_free), node_only, g_upd)
+        commits["resv_gpu"] = (_rows(resv.gpu_free), slot_tgt, g_upd)
 
     aux_free = devices.aux_free
     n_aux = aux_free.shape[2]
@@ -272,11 +263,24 @@ def forget_pods(snap: ClusterSnapshot, pods, result,
         n_seg = n * NUM_AUX_TYPES * n_aux
         seg = deviceshare.aux_segments(assign.clamp_min(0), result.aux_inst,
                                        took, n_aux, n_seg)
-        aux_free = ordered_scatter_add(
-            aux_free.reshape(n_seg, 1), seg.T.reshape(-1),
-            (a_req * took).T.reshape(-1, 1)).view(aux_free.shape)
+        commits["aux"] = (aux_free.reshape(n_seg, 1), seg.T.reshape(-1),
+                          (a_req * took).T.reshape(-1, 1))
 
-    resv_free = ordered_scatter_add(resv.free, slot_tgt, req)
+    commits["resv_free"] = (resv.free, slot_tgt, req)
+    outs = ordered_scatter_add_named(commits)
+    requested, assigned_est = outs["requested"], outs["est"]
+    prod_est, used = outs["prod_est"], outs["used"]
+    assumed = gangs.assumed - outs["gang"][:, 0].to(i32)
+    numa_free = xla_min(outs["numa"].view(nodes.numa_free.shape),
+                        nodes.numa_cap)
+    resv_numa = outs["resv_numa"].view(resv.numa_free.shape)
+    gpu_free, resv_gpu = devices.gpu_free, resv.gpu_free
+    if "gpu" in outs:
+        gpu_free = outs["gpu"].view(devices.gpu_free.shape)
+        resv_gpu = outs["resv_gpu"].view(resv.gpu_free.shape)
+    if "aux" in outs:
+        aux_free = outs["aux"].view(aux_free.shape)
+    resv_free = outs["resv_free"]
     reopen = torch.zeros((n_res + 1,), dtype=torch.bool, device=dev)
     reopen = reopen.index_fill_(0, slot_tgt.long(), True)[:n_res]
     return snap.replace(

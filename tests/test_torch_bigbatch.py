@@ -289,25 +289,26 @@ def test_fractional_gate_boundary_equals_reference(p, r):
     assert 0 < want[boundary].sum() < len(boundary)
 
 
-@pytest.mark.parametrize("p", [300, 2048, 2500])
-def test_fractional_gate_boundary_within_2_ulp_at_one_column(p):
-    """Fault C7 where it stays open: at R = 1 XLA:CPU fuses the gate's
-    sum into a vectorised loop whose order the port pins only where the
-    loop stays a loop (`_xla.xla_mask_dot`); where LLVM unrolls it, the
-    backend reassociates the chains. The test bounds the fault against
-    the sum inside the reference's gate (`_gate_and_sum`): the port's
-    prefix sums lie within 2 ulp of it on every pod, the gate's
-    verdicts differ only at boundary pods, and the chain through the
-    wrapper equals the plain gate."""
+@pytest.mark.parametrize("p", [64, 300, 2000, 2048, 2500, 4100])
+def test_fractional_gate_boundary_equals_reference_at_one_column(p):
+    """Fault C7 at R = 1: XLA:CPU fuses the gate's sum into a vectorised
+    loop, whose order depends on P alone (`_xla.fused_matvec_form`: the
+    loop unrolled whole and its multiply-adds chained by the backend
+    below 320 pods, four accumulators up to 4095, XLA's tiled dot from
+    4096). The port's prefix sums equal the sum inside the reference's
+    gate (`_gate_and_sum`) bit for bit on every pod, so do the verdicts,
+    the boundary pods are gated both ways from 300 pods (at 64 the 40
+    segments hold one or two pods, whose sums are exact), and the chain
+    through the wrapper equals the plain gate."""
     seg, rank, req, base, limit, boundary = fractional_case(p, p, offset=0.0,
                                                             r=1)
     want, want_cum, got, got_cum, chain = _k2_both(seg, rank, req, base,
                                                    limit)
+    assert_bits_equal(got_cum, want_cum)
+    np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(chain, got)
-    ulp = np.spacing(np.abs(want_cum))
-    assert (np.abs(got_cum - want_cum) <= 2 * ulp).all()
-    differ = np.flatnonzero(got != want)
-    assert set(differ.tolist()) <= set(boundary.tolist())
+    if p >= 300:
+        assert 0 < want[boundary].sum() < len(boundary)
 
 
 @pytest.mark.parametrize("case, exact", [

@@ -545,38 +545,3 @@ def test_wrappers_refuse_other_devices():
     assert ordered_scatter_add_plain(
         torch.zeros((2, 1)), torch.tensor([1, 5, 1], dtype=torch.int32),
         torch.ones((3, 1))).flatten().tolist() == [0.0, 2.0]
-
-
-@pytest.mark.parametrize("s,c,p", [(160_000, 1, 2000), (128, 1, 2000),
-                                   (10_000, 11, 2048), (40, 4, 512)])
-def test_ordered_scatter_add_levels_per_launch_fit_the_kernel(s, c, p):
-    """K3 takes as many levels a launch as its shared memory holds (the
-    kernel's smem_bytes: the warps' target tiles, the rows where a warp
-    owns one row, the [L, P] indices, within 200 KiB), and one more
-    level would not fit; the count commits of a step split by it."""
-    from koordinator_tpu_torch.kernels.scatter import levels_per_launch
-    tr = 1
-    while tr < 32 and tr * 1024 < s:
-        tr *= 2
-
-    def smem(levels):
-        return (8 * tr * c + (p * c if tr == 1 else 0) + levels * p) * 4
-
-    per = levels_per_launch(s, c, p)
-    assert per > 0 and smem(per) <= 200 * 1024 < smem(per + 1)
-
-
-@pytest.mark.parametrize("s,c", [(64, 24), (64, 32), (160_000, 1),
-                                 (10_064, 24)])
-def test_ordered_scatter_add_rows_per_launch_fit_the_kernel(s, c):
-    """Where one level of P rows does not fit a launch (the reservation
-    rebuild's instance scatter at P = 2500: C = 24 into the slots), K3
-    takes a level in pieces of `rows_per_launch(S, C)` rows: the most
-    rows with which one level still fits the kernel's shared memory."""
-    from koordinator_tpu_torch.kernels.scatter import (levels_per_launch,
-                                                       rows_per_launch)
-    q = rows_per_launch(s, c)
-    assert q > 0 and levels_per_launch(s, c, q) >= 1
-    assert levels_per_launch(s, c, q + 1) == 0
-    if s == 64 and c == 24:
-        assert levels_per_launch(s, c, 2500) == 0 and q < 2500
