@@ -425,7 +425,7 @@ from koordinator_tpu_torch.scheduler.plugins.reservation import slot_columns
 from koordinator_tpu_torch.snapshot import delta as snapshot_delta
 from koordinator_tpu_torch.snapshot.delta import NodeTopologyDelta
 from koordinator_tpu_torch.snapshot.store import SnapshotStore
-from koordinator_tpu_torch.testing import faults
+from koordinator_tpu_torch.testing import faults, lnl_cases
 from koordinator_tpu_torch.testing.scatter_cases import hot_row_case
 from koordinator_tpu_torch.utils import synthetic
 from koordinator_tpu_torch.utils.synthetic import (
@@ -883,14 +883,36 @@ def k2_case(snap, pods, gen, p0, trying_frac, fit_dims, p=2000):
         + [quota_table] * QUOTA_DEPTH, eps=EPS)
 
 
+# K2 launches given no flag, held against the plain version: their
+# verdicts (the order switch decided in the launch), one a k2_switch call
+K2_FOLDED = []
+
+
 def k2_switch(kw):
     """kw with K2's order switch decided (`exact_in_any_order` of its
     request arrays), so that a timed call runs the launch alone, as the
     main path's launches do where it decides the switch once a batch
-    (check_k2 times the switch itself)."""
+    (check_order_switch times the switch itself). First the launch given
+    no flag, which decides the switch in its own prologue (as the GPU,
+    zone and amplified levels' launches do), is held against the plain
+    version: the same gate, and a verdict equal to
+    `exact_in_any_order_plain`'s and the switch kernel's (K2_FOLDED
+    keeps it)."""
     reqs = [kw["req"]] + ([kw["req0"]] if kw.get("req0") is not None
                           else [])
-    return dict(kw, exact=exact_in_any_order(*reqs))
+    exact = exact_in_any_order(*reqs)
+    plain = bool(exact_in_any_order_plain(*reqs))
+    bare = {k: v for k, v in kw.items() if k != "exact"}
+    decided = torch.empty((1,), dtype=torch.bool, device=kw["rank"].device)
+    got = segment_prefix_chain(**bare, switch_out=decided)
+    if not torch.equal(got, segment_prefix_chain_plain(**bare)) or not (
+            bool(decided) == plain == bool(exact)):
+        raise SystemExit(f"K2 deciding its own order switch: verdict "
+                         f"{bool(decided)}, plain {plain}, switch kernel "
+                         f"{bool(exact)}, or its gate differs from the "
+                         f"plain version's")
+    K2_FOLDED.append(plain)
+    return dict(kw, exact=exact)
 
 
 def check_k2(snap, pods, gen):
@@ -931,12 +953,22 @@ def check_k2(snap, pods, gen):
         if label == "node level":
             mask_f = mask.to(torch.float32)
             library_ms = cuda_ms(lambda: mask_f @ kw["req"])
+        deciding = {}
+        if label == "chain":
+            # the same launch given no flag: it decides the order switch
+            # in its prologue (the GPU, zone and amplified levels' form)
+            bare = {k: v for k, v in kw.items() if k != "exact"}
+            deciding = dict(
+                deciding_ms=cuda_ms(lambda: segment_prefix_chain(**bare)),
+                deciding_device_ms=device_ms(
+                    lambda: segment_prefix_chain(**bare),
+                    "segment_prefix_chain_kernel"))
         out[label] = dict(
             ms=cuda_ms(lambda: segment_prefix_chain(**kw)),
             device_ms=device_ms(lambda: segment_prefix_chain(**kw),
                                 "segment_prefix_chain_kernel"),
             plain_ms=cuda_ms(lambda: segment_prefix_chain_plain(**kw)),
-            library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, **deciding,
             max_abs_err=err,
             shape=f"P={p} L={len(kw['tables'])} R={r} "
                   f"S={[t[2] for t in kw['tables']]}",
@@ -948,12 +980,14 @@ def check_k2(snap, pods, gen):
 def check_order_switch(snap, pods, gen):
     """K2's order switch (`exact_in_any_order`) against its plain version
     on the flagship's requests (whole numbers: True), the same with a
-    third of a millicore, an infinity, a column of zeros, and one with
+    third of a millicore, an infinity, a column of zeros, sums of
+    magnitudes past f32's range (the kernel's f32 sum overflows: counted
+    again in f64), and one with
     a per-level zone take as the NUMA step passes it (a [Z, P, 2] view
     of a [P, Z, 2] take) beside level 0's own requests; timed on the
     chained gate's requests (P = 2000, R = 4), where a batch decides it
-    once and a step decides it for its GPU, zone and amplified
-    levels."""
+    once (a K2 launch given no flag decides it itself: `k2_switch`
+    holds that, check_k2 times it)."""
     kw = k2_case(snap, pods, gen, 0, 0.7, FIT_DIMS)
     req = kw["req"]
     third = req.clone()
@@ -963,8 +997,17 @@ def check_order_switch(snap, pods, gen):
     zeros = torch.zeros_like(req)
     take = torch.floor(torch.rand((2000, 2, 2), generator=gen,
                                   device=req.device) * 64.0) * 500.0
+    # a column of multiples of 2^127 whose sum passes 2^128 (f32's sum
+    # overflows) but not its bound 2^151; and one with a multiple of
+    # 2^104 beside them, whose bound 2^128 the sum passes
+    huge = torch.zeros_like(req[:3])
+    huge[:, 0] = 2.0 ** 127
+    at_bound = huge.clone()
+    at_bound[2, 0] = 2.0 ** 104
     cases = {"whole numbers": ((req,), True), "a third": ((third,), False),
              "an infinity": ((inf,), False), "zeros": ((zeros,), True),
+             "sum past f32": ((huge,), True),
+             "sum past 2^128 at e = 104": ((at_bound,), False),
              "zone take and req0": ((take.transpose(0, 1), take[:, 0]),
                                     True),
              "fractional take": ((take.transpose(0, 1) + 0.1,), False)}
@@ -2454,7 +2497,9 @@ def check_config_2(run, line, launches):
     """Config 2's invariants: each zone's takes (from the placed pods)
     within its capacity and equal to capacity minus zone free; no
     overcommit; quota within runtime; K4 once a chunk, K5 once an inner
-    step, K2 twice an inner step, K1 once a round, K3 by `k3_formula`."""
+    step, K2 twice an inner step, K1 once a round, K3 by `k3_formula`,
+    K2's order switch once a chunk (the zone levels' launches decide
+    their own)."""
     snap = run.snapshot
     n = snap.num_nodes
     ok = run.assignment >= 0
@@ -2478,6 +2523,7 @@ def check_config_2(run, line, launches):
     steps = rounds * CONFIG_2_KW["k_choices"]
     want = {"numa_pair_terms": chunks, "topology_admit": steps,
             "segment_prefix_ok": 2 * steps, "score_topk": rounds,
+            "order_switch": chunks,
             "device_pair_terms": 0, "gpu_instance_pick": 0,
             "topology_prefix_gate": 0, "stage1_mask": 0}
     for name, count in want.items():
@@ -2564,7 +2610,10 @@ def check_gpu_share(run, line, launches, snap0=None, pods=None,
     tables), one a round and two a batch (the rebuild with the
     reservation draw-downs, then the count charges after it); K9 once a
     batch with the cascade on, else never; on a snapshot with aux pools
-    K17 once an inner step and K2 once more an inner step); every
+    K17 once an inner step and K2 once more an inner step); K2's order
+    switch twice a batch (the pods' requests and AllocateOnce; three
+    times with aux pools), none a step: the GPU, zone and amplified
+    levels' K2 launches decide it themselves; every
     placed GPU pod holds
     `count` instances of its node, the takes times the per-instance
     requests equal each valid instance's total minus its final free,
@@ -2595,7 +2644,8 @@ def check_gpu_share(run, line, launches, snap0=None, pods=None,
             "ordered_scatter_add": k3_formula(steps, rounds, batches,
                                               charged=batches),
             "stage1_mask": batches if step_kw["cascade"] else 0,
-            "aux_instance_pick": aux * steps}
+            "aux_instance_pick": aux * steps,
+            "order_switch": (2 + aux) * batches}
     print(f"{name}: K3 launches " + json.dumps({
         "formula": K3_FORMULA, "steps": steps, "rounds": rounds,
         "batches": batches, "charged": batches,
@@ -3041,7 +3091,7 @@ LNL_KERNELS = ("lnl_node_fit", "lnl_eviction_order", "lnl_plan_prefix",
                "lnl_plan_capped")
 # the device symbols of each kernel (K10 is two launches on the stream)
 LNL_SYMBOLS = {"lnl_node_fit": ("low_node_rows", "pod_fits"),
-               "lnl_eviction_order": ("eviction_order_kernel",),
+               "lnl_eviction_order": ("k11_coop",),
                "lnl_plan_prefix": ("plan_prefix_kernel",),
                "lnl_plan_capped": ("plan_capped_kernel",)}
 DEVIATION_THRESHOLDS = dict(
@@ -3268,6 +3318,33 @@ def check_lnl(dev, gen, every_node=False):
                 shape=f"N={n0} P={p0} Rd={t['pod_usage_r'].shape[1]} "
                       f"F={len(fit_dims)}")
         out[label] = dict(summary, timing=timing)
+    return out
+
+
+def check_lnl_cases(dev):
+    """K11 on `testing/lnl_cases`'s edge cases at config 5's size (N =
+    10 000, P = 11 796), on the shape past the old kernel's 32-bit key
+    field (N = 10 000, P = 300 000) and on pending pods where the N + 1
+    buckets fill whole blocks (N = 1023, 2047), against the plain
+    version on the host: order, active, budget0, high_abs, low_mask and
+    usage_sel bit for bit. Returns {case: summary}."""
+    cases = {name: fn(*lnl_cases.CARD, 7)
+             for name, fn in lnl_cases.CASES.items()}
+    cases["N=10000 P=300000"] = lnl_cases.big(7)
+    for n, p in lnl_cases.BLOCK_EDGES:
+        cases[f"pending N={n} P={p}"] = lnl_cases.pending(n, p, 7)
+    out = {}
+    for label, c in cases.items():
+        arrays, deviation = lnl_cases.k11_args(c)
+        args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays) + (deviation,)
+        want = lnl_eviction_order_plain(*lnl_host(args))
+        lnl_equal(label, "K11", tuple(lnl_eviction_order(*args)),
+                  tuple(want))
+        out[label] = dict(max_abs_err=0.0, nodes=int(c["usage"].shape[0]),
+                          pods=int(c["pod_node"].shape[0]),
+                          active=int(want.active.sum()),
+                          low_nodes=int(want.low_mask.sum()))
     return out
 
 
@@ -3754,8 +3831,8 @@ def guarded_phase():
     # two runs, each: K14 once and K15 twice a batch, K16 twice a delta
     # applied (two), the full gate's batch formulas of `check_gpu_share`
     # (no tail), K3 `forget_launches` times a forget, once a batch, and
-    # K2's order switch twice a batch (the pods' requests, AllocateOnce)
-    # and twice a step (the zone takes, the GPU per-instance requests)
+    # K2's order switch twice a batch (the pods' requests, AllocateOnce;
+    # the zone and GPU levels' K2 launches decide their own)
     batches = line["batches"]
     rounds = batches * FULL_GATE_KW["num_rounds"]
     steps = rounds * FULL_GATE_KW["k_choices"]
@@ -3766,7 +3843,7 @@ def guarded_phase():
             "score_topk": rounds, "topology_admit": steps,
             "gpu_instance_pick": 2 * steps, "segment_prefix_ok": 4 * steps,
             "topology_prefix_gate": steps,
-            "order_switch": 2 * batches + 2 * steps,
+            "order_switch": 2 * batches,
             "ordered_scatter_add": k3_formula(
                 steps, rounds, batches, charged=(1 + per_forget) * batches)}
     want = {k: 2 * v for k, v in want.items()}
@@ -4032,11 +4109,15 @@ def check_k2_fractional(dev):
     reference's XLA:CPU order), which must equal the plain version
     (`_xla.xla_mask_dot`) in every verdict. Then the pinned form's time
     at P = 2000 and 2500 (R = 4) beside the scan's on the same case with
-    whole-number requests and bases (the launch then keeps the scan)."""
+    whole-number requests and bases (the launch then keeps the scan).
+    Each case also goes through the launch that decides the switch
+    itself (`k2_switch`): at P = 2000, 2500 and 4100, R = 1 and 4, its
+    verdict is False (the pinned form) and its gate the plain
+    version's."""
     out = {}
-    for p, r in ((250, 4), (2048, 4), (2500, 4), (20, 1), (30, 1), (50, 1),
-                 (64, 1), (300, 1), (2000, 1), (2500, 1), (4100, 1),
-                 (300, 11), (2048, 11)):
+    for p, r in ((250, 4), (2000, 4), (2048, 4), (2500, 4), (4100, 4),
+                 (20, 1), (30, 1), (50, 1), (64, 1), (300, 1), (2000, 1),
+                 (2500, 1), (4100, 1), (300, 11), (2048, 11)):
         for offset in (4.0, 0.0):
             seg, rank, req, base, limit, boundary = fractional_case(
                 p, p, offset, r=r)
@@ -4046,6 +4127,9 @@ def check_k2_fractional(dev):
                       active=torch.ones(p, dtype=torch.bool, device=dev),
                       tables=[(t[3], t[4], base.shape[0])], eps=EPS)
             kw = k2_switch(kw)
+            if bool(kw["exact"]):
+                raise SystemExit(f"K2 on fractional requests (P={p}, R={r}): "
+                                 "the order switch kept the scan")
             got = segment_prefix_chain(**kw).cpu()
             want = segment_prefix_chain_plain(**kw).cpu()
             differ = int((got != want).sum())
@@ -4569,7 +4653,8 @@ def config_4_phase():
     rounds = chunks * CONFIG_4_KW["num_rounds"]
     steps = rounds * CONFIG_4_KW["k_choices"]
     want_l = {"score_topk": rounds, "segment_prefix_ok": steps,
-              "numa_pair_terms": 0, "topology_admit": 0,
+              "order_switch": chunks, "numa_pair_terms": 0,
+              "topology_admit": 0,
               "device_pair_terms": 0, "gpu_instance_pick": 0,
               "topology_prefix_gate": 0, "stage1_mask": 0}
     for name, count in want_l.items():
@@ -5236,6 +5321,7 @@ def main() -> int:
     k9 = check_k9(dev, gen)
     rows = check_prefix_rows(dev, gen)
     lnl = check_lnl(dev, gen)
+    lnl_edges = check_lnl_cases(dev)
     guard_checks = check_guards(dev, gen)
     k16 = check_k16(dev, gen)
     k2_big = check_k2_big(snap, pods, gen)
@@ -5264,7 +5350,9 @@ def main() -> int:
                       ("topology_prefix_gate", k8),
                       ("segment_prefix_ok", k2_mask),
                       ("stage1_mask", k9), ("prefix rows", rows),
-                      ("lownodeload", lnl), ("guard", guard_checks),
+                      ("lownodeload", lnl),
+                      ("lnl_eviction_order cases", lnl_edges),
+                      ("guard", guard_checks),
                       ("delta_rows", k16), ("segment_prefix_ok", k2_big),
                       ("segment_prefix_ok fractional", k2_frac),
                       ("topology_admit", k5_big),
@@ -5281,6 +5369,11 @@ def main() -> int:
         for label, r in res.items():
             print(f"kernel {name} [{label}]: " + json.dumps(r), flush=True)
 
+    print("K2 deciding its own order switch, equal to the plain version: "
+          + json.dumps({"launches_held": len(K2_FOLDED),
+                        "exact": sum(K2_FOLDED),
+                        "pinned": len(K2_FOLDED) - sum(K2_FOLDED)}),
+          flush=True)
     phase_s["2. kernels"] = time.perf_counter() - t_phase
     print(f"phase 2. kernels: {phase_s['2. kernels']:.1f} s", flush=True)
 
@@ -5515,6 +5608,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
             "at_every_node": lnl_every["every node"]["timing"][name]})
+        if name == "lnl_eviction_order":
+            report[-1]["edge_cases"] = sorted(lnl_edges)
     # K14-K16 at the guarded cycle's shapes; launches from phase 9 (two
     # runs of ten batches, two deltas applied a run)
     for name, r in (("guard_nodes", guard_checks["guard_nodes full gate"]),

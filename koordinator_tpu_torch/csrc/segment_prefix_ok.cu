@@ -84,12 +84,14 @@
 // that silently passed pods the reference would have gated.
 //
 // Exactness: the scan's summation order is not the reference's (the
-// tiled form adds a carry first, then the tile's prefix). The caller
-// passes `exact`, a flag on the device that says whether the launch's
-// sums are exact in any order, from the order switch at the end of this
-// file (kernels/segment_prefix.py exact_in_any_order states the rule;
-// the scheduler decides it once a batch for the requests fixed for the
-// batch, and a launch for the step's own arrays, with no host sync). The scheduler's workloads
+// tiled form adds a carry first, then the tile's prefix). `exact` is a
+// flag on the device that says whether the launch's sums are exact in
+// any order, by the order switch's rule (kernels/segment_prefix.py
+// exact_in_any_order states it; `switch_verdict` below): the caller
+// passes it where the scheduler decided it once a batch for the
+// requests fixed for the batch, or the launch decides it itself on its
+// own request arrays before level 0 (the step's GPU, zone and amplified
+// levels), with no host sync and no launch of its own. The scheduler's workloads
 // meet it (requests are multiples of 500 mC and 512 MiB, whole GPU and
 // aux percents), and such a launch runs the scan. Any other launch
 // (fractional requests, fault C7) runs the pinned form instead: every
@@ -139,6 +141,8 @@ struct Levels {
 };
 
 // 5 key bits a pass: 3 passes for 10^4 node segments, 2 for quotas
+// (7 bits a pass, 2 and 1, measured slower: the counters' scan grows
+// with the digits)
 using Sort = cub::BlockRadixSort<uint32_t, THREADS, ITEMS, int, 5>;
 
 // A level's shared memory: the sort's, or where few pods are in range,
@@ -389,6 +393,164 @@ __device__ __noinline__ void pinned_chain(
   }
 }
 
+// --- the order switch (kernels/segment_prefix.py exact_in_any_order) ---
+
+constexpr int MAX_SWITCH = 4;  // request arrays a switch launch reads
+
+struct SwitchArrays {
+  const float* ptr[MAX_SWITCH];
+  long long level_stride[MAX_SWITCH];
+  int levels[MAX_SWITCH];
+  int rows[MAX_SWITCH];
+  int row_stride[MAX_SWITCH];
+};
+
+// The exponent e of x's lowest set bit (x an odd multiple of 2^e) for
+// finite nonzero x; INT_MAX for zero (no constraint), INT_MIN for NaN
+// and infinities (no bound holds).
+__device__ __forceinline__ int low_bit_exponent(float x) {
+  const unsigned bits = __float_as_uint(x);
+  const int exp = (bits >> 23) & 0xFF;
+  if (exp == 0xFF) return INT_MIN;
+  const unsigned mant = exp ? (bits & 0x7FFFFFu) | 0x800000u
+                            : bits & 0x7FFFFFu;
+  if (mant == 0) return INT_MAX;
+  return (exp ? exp - 150 : -149) + __ffs(mant) - 1;
+}
+
+// The switch's partials: per array (NA) and column (NC), each warp's
+// least low_bit_exponent e and sum of magnitudes.
+template <int NA, int NC>
+struct SwitchPartials {
+  int low[NA][NC][WARPS];
+  float sum[NA][NC][WARPS];
+};
+
+// Every thread of the block: array m's rows (levels x rows, each at
+// level * level_stride + row * row_stride, R <= NC columns) into the
+// partials. A thread reads four rows at once, all their loads in
+// flight before the first use; each warp's lanes meet by shuffles. A
+// barrier must follow before switch_decide.
+template <int NA, int NC>
+__device__ void switch_add(SwitchPartials<NA, NC>& s, int m,
+                           const float* ptr, long long level_stride,
+                           int levels, int rows, int row_stride, int R) {
+  int low[NC];
+  float sum[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    low[c] = INT_MAX;
+    sum[c] = 0.0f;
+  }
+  const int n = levels * rows;
+  for (int i0 = threadIdx.x; i0 < n; i0 += 4 * THREADS) {
+    float x[4][NC];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = i0 + k * THREADS;
+      const int l = levels > 1 ? i / rows : 0;
+      const float* row = ptr + (size_t)l * level_stride +
+                         (size_t)(i - l * rows) * row_stride;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) x[k][c] = i < n && c < R ? row[c] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {  // a zero is neutral to both
+        low[c] = min(low[c], low_bit_exponent(x[k][c]));
+        sum[c] = __fadd_rn(sum[c], fabsf(x[k][c]));
+      }
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (c >= R) break;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      low[c] = min(low[c], __shfl_xor_sync(FULL, low[c], d));
+      sum[c] = __fadd_rn(sum[c], __shfl_xor_sync(FULL, sum[c], d));
+    }
+    if (lane == 0) {
+      s.low[m][c][warp] = low[c];
+      s.sum[m][c][warp] = sum[c];
+    }
+  }
+}
+
+// Every thread, after a barrier that follows every switch_add: the
+// verdict on n arrays, the same on every thread (each adds the warps'
+// partials itself). True where each column of each array has no
+// nonzero request, or e >= -149 and its sum of magnitudes below B =
+// 2^(24 + e). The f32 sum, in any order, decides as the plain version's
+// exact (f64) sum does: while the exact total stays below B every
+// partial sum is a multiple of 2^e below B, which f32 holds exactly;
+// once a partial sum reaches B, rounding (which is monotone) keeps it
+// and every later sum of nonnegative terms at or above B (or inf). B is
+// inf in f32 from e = 104 on, which still decides while the total is
+// finite (below 2^128 <= B); a total that overflowed there is counted
+// again exactly, in f64, by one thread (the branch is the block's).
+template <int NA, int NC>
+__device__ __forceinline__ bool switch_decide(const SwitchPartials<NA, NC>& s,
+                              const SwitchArrays& a, int n, int R) {
+  __shared__ int recount;
+  bool ok = true;
+#pragma unroll  // a's fields at constant indices: no copy in local memory
+  for (int m = 0; m < NA; ++m) {
+    if (m >= n) break;
+    for (int c = 0; c < R; ++c) {
+      int e = INT_MAX;
+      float total = 0.0f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        e = min(e, s.low[m][c][w]);
+        total = __fadd_rn(total, s.sum[m][c][w]);
+      }
+      if (e == INT_MAX) continue;  // nothing but zeros
+      bool col = e >= -149 && total < ldexpf(1.0f, 24 + e);
+      if (e > 104 && isinf(total)) {
+        if (threadIdx.x == 0) {
+          double exact = 0.0;
+          for (int l = 0; l < a.levels[m]; ++l)
+            for (int i = 0; i < a.rows[m]; ++i)
+              exact += fabs((double)a.ptr[m][(size_t)l * a.level_stride[m] +
+                                             (size_t)i * a.row_stride[m] +
+                                             c]);
+          recount = exact < ldexp(1.0, 24 + e);
+        }
+        __syncthreads();
+        col = recount;
+        __syncthreads();  // recount is read
+      }
+      ok = ok && col;
+    }
+  }
+  return ok;
+}
+
+// The switch over n arrays, every thread of the block; a block barrier
+// first where `s` was in use.
+template <int NA, int NC>
+__device__ __forceinline__ bool switch_verdict(SwitchPartials<NA, NC>& s,
+                               const SwitchArrays& a, int n, int R) {
+#pragma unroll
+  for (int m = 0; m < NA; ++m) {
+    if (m >= n) break;
+    switch_add(s, m, a.ptr[m], a.level_stride[m], a.levels[m], a.rows[m],
+               a.row_stride[m], R);
+  }
+  __syncthreads();
+  return switch_decide(s, a, n, R);
+}
+
+// The switch as a launch of its own (a flag decided once a batch).
+__global__ void __launch_bounds__(THREADS) order_switch_kernel(
+    SwitchArrays a, int n, int R, uint8_t* __restrict__ out) {
+  __shared__ SwitchPartials<MAX_SWITCH, MAX_R> s;
+  const bool ok = switch_verdict(s, a, n, R);
+  if (threadIdx.x == 0) out[0] = ok;
+}
+
 // NR: the columns the unsorted path unrolls (R <= NR). TILED: P > MAX_P,
 // the rank order walked a tile at a time (order_g [P] and lv.carry in
 // device memory, the alive flags in `out`).
@@ -396,8 +558,9 @@ template <int NR, bool TILED>
 __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
     const int32_t* __restrict__ seg, const int32_t* __restrict__ rank,
     const uint8_t* __restrict__ active, const uint8_t* __restrict__ mask,
-    const uint8_t* __restrict__ exact, Levels lv, int L, int P, int R,
-    int vec4, float eps, int32_t* __restrict__ order_g,
+    uint8_t* __restrict__ exact, int decide, const float* req_all,
+    long long req_level_stride, int req_levels, const float* req0, Levels lv,
+    int L, int P, int R, int vec4, float eps, int32_t* __restrict__ order_g,
     uint8_t* __restrict__ out) {
   using PodIdx = std::conditional_t<TILED, int32_t, int16_t>;
   __shared__ LevelStorage<TILED> sh;
@@ -440,8 +603,27 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
   if (!__syncthreads_and(filled)) __trap();
 
   // sums that are not exact in any order: the pinned form gates every
-  // level
-  const bool scan = *exact != 0;
+  // level. The launch reads the flag it was given (decided once a
+  // batch), or, with `decide`, decides it here on its request arrays
+  // (req_all's every level, and req0) and writes it to `exact`.
+  bool scan;
+  if (decide) {
+    __shared__ SwitchPartials<2, NR> sw;
+    SwitchArrays a = {};
+    a.ptr[0] = req_all;
+    a.level_stride[0] = req_level_stride;
+    a.levels[0] = req_levels;
+    a.ptr[1] = req0;
+    a.levels[1] = 1;
+    for (int m = 0; m < 2; ++m) {
+      a.rows[m] = P;
+      a.row_stride[m] = lv.rstride;
+    }
+    scan = switch_verdict(sw, a, req0 != nullptr ? 2 : 1, R);
+    if (t == 0) *exact = scan;
+  } else {
+    scan = *exact != 0;
+  }
   if (__builtin_expect(!scan, 0)) {
     __shared__ Levels lv_s;
     if (t == 0) lv_s = lv;
@@ -792,82 +974,6 @@ __global__ void __launch_bounds__(THREADS) segment_prefix_chain_kernel(
   }
 }
 
-// --- the order switch (kernels/segment_prefix.py exact_in_any_order) ---
-
-constexpr int MAX_SWITCH = 4;  // request arrays a switch launch reads
-
-struct SwitchArrays {
-  const float* ptr[MAX_SWITCH];
-  long long level_stride[MAX_SWITCH];
-  int levels[MAX_SWITCH];
-  int rows[MAX_SWITCH];
-  int row_stride[MAX_SWITCH];
-};
-
-// The exponent e of x's lowest set bit (x an odd multiple of 2^e) for
-// finite nonzero x; INT_MAX for zero (no constraint), INT_MIN for NaN
-// and infinities (no bound holds).
-__device__ __forceinline__ int low_bit_exponent(float x) {
-  const unsigned bits = __float_as_uint(x);
-  const int exp = (bits >> 23) & 0xFF;
-  if (exp == 0xFF) return INT_MIN;
-  const unsigned mant = exp ? (bits & 0x7FFFFFu) | 0x800000u
-                            : bits & 0x7FFFFFu;
-  if (mant == 0) return INT_MAX;
-  return (exp ? exp - 150 : -149) + __ffs(mant) - 1;
-}
-
-// One block over every row of every array (levels x rows, each at
-// level * level_stride + row * row_stride): per array and column the
-// least low_bit_exponent e and the sum of magnitudes in double (exact
-// for multiples of 2^e below 2^(53 + e), so near the bound it is the
-// plain version's sum), then out[0] = every column of every array has
-// no nonzero request, or e >= -149 and the sum below 2^(24 + e).
-__global__ void __launch_bounds__(THREADS) order_switch_kernel(
-    SwitchArrays a, int n, int R, uint8_t* __restrict__ out) {
-  __shared__ int low_s[MAX_SWITCH * MAX_R];
-  __shared__ double sum_s[MAX_SWITCH * MAX_R];
-  const int t = threadIdx.x;
-  if (t < MAX_SWITCH * MAX_R) {
-    low_s[t] = INT_MAX;
-    sum_s[t] = 0.0;
-  }
-  __syncthreads();
-  for (int m = 0; m < n; ++m) {
-    for (int c = 0; c < R; ++c) {
-      int low = INT_MAX;
-      double sum = 0.0;
-      for (int l = 0; l < a.levels[m]; ++l) {
-        const float* q = a.ptr[m] + (size_t)l * a.level_stride[m] + c;
-        for (int i = t; i < a.rows[m]; i += THREADS) {
-          const float x = q[(size_t)i * a.row_stride[m]];
-          low = min(low, low_bit_exponent(x));
-          sum += fabs((double)x);
-        }
-      }
-      for (int d = 16; d > 0; d >>= 1) {
-        low = min(low, __shfl_xor_sync(FULL, low, d));
-        sum += __shfl_xor_sync(FULL, sum, d);
-      }
-      if ((t & 31) == 0) {
-        atomicMin(&low_s[m * MAX_R + c], low);
-        atomicAdd(&sum_s[m * MAX_R + c], sum);
-      }
-    }
-  }
-  __syncthreads();
-  if (t == 0) {
-    bool ok = true;
-    for (int m = 0; m < n; ++m)
-      for (int c = 0; c < R; ++c) {
-        const int e = low_s[m * MAX_R + c];
-        if (e == INT_MAX) continue;  // nothing but zeros
-        ok = ok && e >= -149 && sum_s[m * MAX_R + c] < ldexp(1.0, 24 + e);
-      }
-    out[0] = ok;
-  }
-}
-
 }  // namespace
 
 // The order switch: n (<= 4) request arrays of R (<= 11) columns, array
@@ -903,14 +1009,16 @@ extern "C" int koord_order_switch(const void* const* ptrs,
 // or null; strides: each level's row stride of base and limit (>= R).
 // mask: bool[P] ANDed in after level 0, or null. exact: bool[1] on the
 // device, true where the launch's sums are exact in any order (the
-// scan), false for the pinned form. work: above MAX_P
+// scan), false for the pinned form; with `decide`, the launch decides it
+// on its own request arrays (req's every level, and req0) by the order
+// switch's rule and writes it there. work: above MAX_P
 // pods, int32 scratch of P + sum over levels of (nseg[l] + 1) * R
 // elements (the rank order, then each level's carries, zeroed here on
 // the stream); else unused.
 
 extern "C" int koord_segment_prefix_chain(
     const void* seg, const void* rank, const void* req, const void* req0,
-    const void* active, const void* mask, const void* exact,
+    const void* active, const void* mask, void* exact, int decide,
     const void* const* bases,
     const void* const* limits, const int* nseg, const int* strides, int L,
     int P, int R, long long req_level_stride, int req_row_stride, float eps,
@@ -956,8 +1064,10 @@ extern "C" int koord_segment_prefix_chain(
 #define KOORD_K2_LAUNCH(NR, TILED)                                          \
   segment_prefix_chain_kernel<NR, TILED><<<1, THREADS, 0, st>>>(            \
       (const int32_t*)seg, (const int32_t*)rank, (const uint8_t*)active,     \
-      (const uint8_t*)mask, (const uint8_t*)exact, lv, L, P, R, vec4, eps,  \
-      (int32_t*)work, (uint8_t*)out)
+      (const uint8_t*)mask, (uint8_t*)exact, decide, (const float*)req,     \
+      req_level_stride, req_level_stride > 0 ? L : 1, (const float*)req0,   \
+      lv, L, P, R, vec4,                                                    \
+      eps, (int32_t*)work, (uint8_t*)out)
   if (R <= 4) {
     if (tiled) KOORD_K2_LAUNCH(4, true);
     else KOORD_K2_LAUNCH(4, false);

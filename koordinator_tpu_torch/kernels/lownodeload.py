@@ -40,9 +40,8 @@ from koordinator_tpu_torch.api.extension import NUM_RESOURCES
 from koordinator_tpu_torch.kernels import _launch
 from koordinator_tpu_torch.kernels.build import TOOLCHAIN, check
 
-# K11 sorts the nodes, and K11 and K12 sort and scan the pods, in one
-# block's shared memory up to this many (csrc/lownodeload_order.cu,
-# _prefix.cu); above it, in device memory
+# K12 scans the pods in one block's shared memory up to this many
+# (csrc/lownodeload_prefix.cu); above it, in device memory
 SHARED_KEYS = 16384
 # K13 keeps the namespace counts in shared memory
 MAX_NAMESPACES = 32768
@@ -255,6 +254,22 @@ def lnl_eviction_order_plain(usage, capacity, fresh, source_mask, pod_node,
                          low_mask, usage_sel)
 
 
+# the kernel's ranks and indices are int32
+MAX_INDEX = (1 << 31) - 2
+
+
+def check_eviction_order_shape(n: int, p: int, rdn: int) -> None:
+    """Raise ValueError unless K11 takes N nodes, P pods and Rd threshold
+    dims: N >= 1, 1 <= Rd <= 11, N + 1 and P int32 indices (its keys
+    keep the index in 32 bits of their own, beside the rank or the
+    weight, so N and P no longer limit each other)."""
+    if not 1 <= rdn <= MAX_RD or not 1 <= n <= MAX_INDEX - 1 or not (
+            0 <= p <= MAX_INDEX):
+        raise ValueError(f"lnl_eviction_order: N={n}, P={p}, Rd={rdn} "
+                         f"outside 1 <= N < {MAX_INDEX}, 0 <= P <= "
+                         f"{MAX_INDEX}, 1 <= Rd <= {MAX_RD}")
+
+
 def lnl_eviction_order(usage, capacity, fresh, source_mask, pod_node,
                        pod_usage_r, pod_eligible, low, high, weights, rdims,
                        use_deviation: bool) -> EvictionOrder:
@@ -262,9 +277,10 @@ def lnl_eviction_order(usage, capacity, fresh, source_mask, pod_node,
     tensors, the plain version for CPU tensors. usage, capacity
     f32[N, R]; fresh, source_mask bool[N]; pod_node i32[P]; pod_usage_r
     f32[P, Rd]; pod_eligible bool[P]; low, high, weights f32[Rd]; rdims
-    i32[Rd] (the threshold dims' columns). One block; any N and P whose
-    sort keys fit 64 bits (rank and index fields of bit_length(N) and
-    bit_length(P - 1) bits beside 32 of weight)."""
+    i32[Rd] (the threshold dims' columns). Grid-wide, one cooperative
+    launch with grid barriers between its steps
+    (`csrc/lownodeload_order.cu`). Any N >= 1 and P whose indices fit
+    int32 (`check_eviction_order_shape`), 1 <= Rd <= 11."""
     n = usage.shape[0]
     p, rdn = pod_usage_r.shape
     dev = usage.device
@@ -281,17 +297,13 @@ def lnl_eviction_order(usage, capacity, fresh, source_mask, pod_node,
             ("weights", weights, torch.float32, (rdn,)),
             ("rdims", rdims, torch.int32, (rdn,))):
         _launch.check_tensor(name, t, dt, shape, dev)
+    check_eviction_order_shape(n, p, rdn)
     if dev.type == "cpu":
         return lnl_eviction_order_plain(
             usage, capacity, fresh, source_mask, pod_node, pod_usage_r,
             pod_eligible, low, high, weights, rdims, use_deviation)
     if dev.type != "cuda":
         raise ValueError(f"lnl_eviction_order: unsupported device {dev}")
-    if (not 1 <= rdn <= MAX_RD or n < 1
-            or n.bit_length() + max(p - 1, 1).bit_length() > 32):
-        raise ValueError(f"lnl_eviction_order: N={n}, P={p}, Rd={rdn} "
-                         f"outside N >= 1, 1 <= Rd <= {MAX_RD} and keys "
-                         "of 64 bits")
     out = EvictionOrder(
         order=torch.empty((p,), dtype=torch.int32, device=dev),
         active=torch.empty((p,), dtype=torch.bool, device=dev),
@@ -299,14 +311,14 @@ def lnl_eviction_order(usage, capacity, fresh, source_mask, pod_node,
         high_abs=torch.empty((n, rdn), dtype=torch.float32, device=dev),
         low_mask=torch.empty((n,), dtype=torch.bool, device=dev),
         usage_sel=torch.empty((n, rdn), dtype=torch.float32, device=dev))
-    # the kernel's pct and budget terms [N, Rd], node ranks and source
-    # flags [N]; above SHARED_KEYS, the sort keys (8 bytes each, a power
-    # of two of them) and the tree sums' partials
-    keys = 1 << max(max(n, p) - 1, 1).bit_length()
-    big = max(n, p) > SHARED_KEYS
-    extra = 2 * keys + 2 * (n // 32 + 1) + 2 if big else 0
-    scratch = torch.empty((2 * n * rdn + 2 * n + extra,),
-                          dtype=torch.float32, device=dev)
+    # the kernel's scratch: budget terms and tree partials, node keys and
+    # ranks, the pods' buckets, slots and keys (the C side's layout)
+    size = TOOLCHAIN.function("lownodeload_order",
+                              "koord_lnl_eviction_order_scratch",
+                              [ctypes.c_int] * 3)
+    size.restype = ctypes.c_longlong
+    scratch = torch.empty((max(size(n, p, rdn), 1),), dtype=torch.uint8,
+                          device=dev)
     tensors = (usage, capacity, fresh, source_mask, pod_node, pod_usage_r,
                pod_eligible, low, high, weights, rdims, out.order,
                out.active, out.budget0, out.high_abs, out.low_mask,

@@ -11,11 +11,12 @@ ANDed in between them, where the reference's topology gates sit
 level's amplified CPU, core.py:757-763, against the quota levels' raw
 requests). Above 2048 pods the launch walks the rank order a tile of
 2048 at a time, each level carrying its segments' sums from tile to
-tile. A launch whose sums are not exact in any order
-(`exact_in_any_order`, a flag on the device that the kernel reads: no
-host sync) adds them in the reference's XLA:CPU order instead
-(`_xla.xla_mask_dot`, fault C7), as the plain version does on the same
-flag.
+tile. A launch whose sums are not exact in any order (the order
+switch, `exact_in_any_order`'s rule: a flag on the device that the
+caller decided once a batch, or that the launch decides itself before
+its first level; no host sync) adds them in the reference's XLA:CPU
+order instead (`_xla.xla_mask_dot`, fault C7), as the plain version
+does on the same flag.
 """
 
 from __future__ import annotations
@@ -122,8 +123,10 @@ def exact_in_any_order(*reqs: torch.Tensor) -> torch.Tensor:
     (one launch, one block; no host sync), the plain version for CPU
     tensors. reqs: up to 4 f32 arrays [P, R] or [L, P, R] (any level
     and row strides, unit column stride) of one R <= 11. The scheduler
-    decides it once a batch for the requests fixed for the batch, and a
-    launch for the step's own arrays."""
+    decides it here once a batch for the requests fixed for the batch;
+    a K2 launch given no flag (the step's own arrays: GPU, zone,
+    amplified levels) decides it in its own launch by the same block
+    function."""
     if not reqs or len(reqs) > MAX_SWITCH_ARRAYS:
         raise ValueError(f"exact_in_any_order: 1 to {MAX_SWITCH_ARRAYS} "
                          f"arrays, got {len(reqs)}")
@@ -244,7 +247,8 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
                          tables: Sequence[Table], eps: float,
                          mask: Optional[torch.Tensor] = None,
                          req0: Optional[torch.Tensor] = None,
-                         exact: Optional[torch.Tensor] = None
+                         exact: Optional[torch.Tensor] = None,
+                         switch_out: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """The chained gate of `segment_prefix_chain_plain`: the kernel for
     CUDA tensors (one launch for all levels; L = 1 is the reference's
@@ -258,8 +262,11 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
     own requests with req's row stride, or None; exact: bool[1], the
     order switch (`exact_in_any_order` of req and req0, or of a
     superset of their rows: a caller that decides it once a batch
-    passes it), or None to decide it here (one more launch). Takes any
-    P (above 2048 the tiled walk), R <= 11, L <= 8.
+    passes it), or None: the launch decides it itself, by the same rule
+    on req (every level) and req0, before its first level (no launch of
+    its own); switch_out: bool[1] or None, where `exact` is None, gets
+    the verdict the launch decided. Takes any P (above 2048 the tiled
+    walk), R <= 11, L <= 8.
 
     rank must be a permutation of [0, P) and every active pod's
     segments >= -1. On the host a call that breaks this raises
@@ -283,8 +290,13 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
                              "[P, R] and req's row stride")
         if not levels:
             raise ValueError("segment_prefix_chain: req0 needs a level")
-    exact = _launch_exact(req, req0, exact, exact_in_any_order)
-    _launch.check_tensor("exact", exact, torch.bool, (1,), dev)
+    if exact is not None:
+        _launch.check_tensor("exact", exact, torch.bool, (1,), dev)
+        if switch_out is not None:
+            raise ValueError("segment_prefix_chain: switch_out needs "
+                             "exact None")
+    if switch_out is not None:
+        _launch.check_tensor("switch_out", switch_out, torch.bool, (1,), dev)
     for l, (base_used, limit, num_segments) in enumerate(tables):
         for name, t in (("base", base_used), ("limit", limit)):
             _check_table(f"{name}[{l}]", t, num_segments, r, dev)
@@ -299,8 +311,11 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
         if bool(torch.any((seg < -1) & active)):
             raise ValueError("segment_prefix_chain: an active pod has a "
                              "segment below -1")
+        flag = _launch_exact(req, req0, exact, exact_in_any_order_plain)
+        if switch_out is not None:
+            switch_out.copy_(flag)
         return segment_prefix_chain_plain(seg, rank, req, active, tables, eps,
-                                          mask, req0, exact)
+                                          mask, req0, flag)
     if dev.type != "cuda":
         raise ValueError(f"segment_prefix_chain: unsupported device {dev}")
     if r > NUM_RESOURCES or levels > MAX_LEVELS:
@@ -309,8 +324,16 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
     if any(t[2] <= 0 for t in tables) or r == 0:
         raise ValueError("segment_prefix_chain: empty table")
     out = torch.empty((p,), dtype=torch.bool, device=dev)
+    # the flag the launch reads, or the byte it writes its own verdict to
+    decide = exact is None
+    flag = exact if not decide else (
+        switch_out if switch_out is not None
+        else torch.empty((1,), dtype=torch.bool, device=dev))
+    if decide and not p:
+        flag.fill_(True)
     fn = TOOLCHAIN.function("segment_prefix_ok", "koord_segment_prefix_chain",
-                            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+                            [ctypes.c_void_p] * 7 + [ctypes.c_int]
+                            + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                             + [ctypes.c_longlong, ctypes.c_int,
                                ctypes.c_float, ctypes.c_void_p,
                                ctypes.c_void_p, ctypes.c_void_p])
@@ -330,8 +353,8 @@ def segment_prefix_chain(seg: torch.Tensor, rank: torch.Tensor,
     rc = fn(_launch.ptr(seg), _launch.ptr(rank), _launch.ptr(req),
             None if req0 is None else _launch.ptr(req0),
             _launch.ptr(active),
-            None if mask is None else _launch.ptr(mask), _launch.ptr(exact),
-            ctypes.cast(bases, ctypes.c_void_p),
+            None if mask is None else _launch.ptr(mask), _launch.ptr(flag),
+            int(decide), ctypes.cast(bases, ctypes.c_void_p),
             ctypes.cast(limits, ctypes.c_void_p),
             ctypes.cast(nseg, ctypes.c_void_p),
             ctypes.cast(strides, ctypes.c_void_p), levels, p, r,

@@ -19,7 +19,7 @@ prints, and writes as JSON to `--out`: the untraced run, the traced
 run's wall time, the device's busy time (the union of its kernels'
 intervals), idle share and number of device activities (kernels,
 copies, memsets), and the device time and launch
-count of each kernel name, largest first. The descheduler workloads
+count of every kernel name, largest first. The descheduler workloads
 are BASELINE config 5 at 10 000 nodes (`configs.run_config_5_descheduler`,
 plain or capped); each run holds two plans, its warm one and its timed
 one. The guarded workload is `configs.guarded_cycle` (steps 2-5 of
@@ -173,7 +173,7 @@ def main() -> None:
         agg = by_name.setdefault(e.name, [0.0, 0])
         agg[0] += e.time_range.end - e.time_range.start
         agg[1] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     ranges = range_times(run) if args.workload == "fullgate" else None
     report = {
         "workload": args.workload,

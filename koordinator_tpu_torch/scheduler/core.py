@@ -489,7 +489,7 @@ def schedule_batch(snap: ClusterSnapshot, pods: PodBatch,
     # K2's order switch (exact_in_any_order) for the requests fixed for
     # the batch, decided once on the device; the step's own arrays (the
     # amplified node level's, the zone takes, the GPU per-instance
-    # requests) are decided a launch by the wrapper
+    # requests) are decided by each K2 launch itself
     exact_fit = exact_in_any_order(req_fit)
     alloc_fit = dims(extend(nodes0.allocatable, slot_alloc0))
     runtime_fit = dims(quotas0.runtime)

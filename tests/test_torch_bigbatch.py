@@ -40,6 +40,7 @@ from koordinator_tpu_torch.api.extension import ResourceKind
 from koordinator_tpu_torch.kernels._xla import xla_mask_dot
 from koordinator_tpu_torch.kernels.segment_prefix import (
     exact_in_any_order,
+    exact_in_any_order_plain,
     segment_prefix_chain,
     segment_prefix_ok_plain,
 )
@@ -366,6 +367,46 @@ def test_order_switch_checks_its_inputs():
         with pytest.raises((ValueError, TypeError)):
             exact_in_any_order(*bad)
     assert bool(exact_in_any_order(req, req[None].expand(3, 8, 4)))
+
+
+@pytest.mark.parametrize("form", ["whole", "fractional", "zone take",
+                                  "amplified level 0"])
+def test_chain_decides_its_own_order_switch(form):
+    """A K2 call given no flag decides the order switch itself, on its
+    own request arrays (every level of req, and req0): `switch_out`
+    gets the verdict, equal to `exact_in_any_order_plain` of those
+    arrays, and the gate equals the call given that flag. A flag and
+    switch_out together are refused."""
+    rng = np.random.default_rng(5)
+    p, s = 300, 8
+    seg = torch.from_numpy(rng.integers(0, s, (2, p)).astype(np.int32))
+    rank = torch.from_numpy(rng.permutation(p).astype(np.int32))
+    req = torch.from_numpy((rng.integers(0, 9, (p, 4)) * 500.0).astype(
+        np.float32))
+    req0 = None
+    if form == "fractional":
+        req[:, 1] += torch.from_numpy(rng.uniform(0.0, 1.0, p).astype(
+            np.float32))
+    elif form == "zone take":
+        req = req.reshape(p, 2, 2).transpose(0, 1)
+    elif form == "amplified level 0":
+        req0 = req.clone()
+        req0[:, 0] *= 1.5
+    r = req.shape[-1]
+    table = (torch.zeros((s, r)), torch.full((s, r), 6000.0), s)
+    active = torch.ones(p, dtype=torch.bool)
+    flag = torch.zeros((1,), dtype=torch.bool)
+    got = segment_prefix_chain(seg, rank, req, active, [table] * 2, EPS,
+                               req0=req0, switch_out=flag)
+    want = exact_in_any_order_plain(
+        req, *(() if req0 is None else (req0,)))
+    assert bool(flag) == bool(want) == (form != "fractional")
+    assert torch.equal(got, segment_prefix_chain(
+        seg, rank, req, active, [table] * 2, EPS, req0=req0, exact=want))
+    assert 0 < int(got.sum()) < p
+    with pytest.raises(ValueError, match="switch_out"):
+        segment_prefix_chain(seg, rank, req, active, [table] * 2, EPS,
+                             req0=req0, exact=want, switch_out=flag)
 
 
 def _one_node_fractional(p, seed):

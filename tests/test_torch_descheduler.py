@@ -29,6 +29,7 @@ from koordinator_tpu_torch.api.extension import ResourceKind as RK
 from koordinator_tpu_torch.bridge import api_from_reference
 from koordinator_tpu_torch.descheduler import lownodeload_device as tdev
 from koordinator_tpu_torch.kernels import lownodeload as klnl
+from koordinator_tpu_torch.testing import lnl_cases
 from koordinator_tpu_torch.utils.synthetic import config_5_cluster
 
 from test_descheduler_device import NOW, random_cluster
@@ -402,6 +403,69 @@ def test_sort_treats_signed_zeros_as_equal():
     got = torch.argsort(torch.from_numpy(keys), stable=True).numpy()
     assert np.array_equal(got, want)
     assert list(want) == [0, 1, 3, 4, 2]
+
+
+def _assert_case_equals_reference(c):
+    """K11's plain version (through its wrapper, on the host) against
+    the reference's `_plan_prelude` on an `lnl_cases` case: the order,
+    the active pods, the budget and high_abs equal bit for bit."""
+    args = [c[k] for k in (
+        "usage", "capacity", "fresh", "source_mask", "pod_node",
+        "pod_usage_r", "pod_req", "pod_eligible", "low", "high", "weights",
+        "rdims_onehot")]
+    active, order, budget0, high_abs = (np.asarray(x) for x in
+                                        _reference_prelude(
+        *args, use_deviation=c["deviation"], node_fit=False,
+        fit_dims=c["fit_dims"]))
+    arrays, deviation = lnl_cases.k11_args(c)
+    eo = klnl.lnl_eviction_order(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays),
+        deviation)
+    assert np.array_equal(eo.order.numpy(), order)
+    assert np.array_equal(eo.active.numpy(), active)
+    assert np.array_equal(eo.budget0.numpy(), budget0)
+    assert np.array_equal(eo.high_abs.numpy(), high_abs)
+
+
+@pytest.mark.parametrize("case", sorted(lnl_cases.CASES))
+def test_lnl_cases_equal_reference(case):
+    """Each of `testing/lnl_cases`'s edge cases at their small size."""
+    _assert_case_equals_reference(lnl_cases.CASES[case](*lnl_cases.SMALL, 3))
+
+
+@pytest.mark.parametrize("shape", lnl_cases.BLOCK_EDGES,
+                         ids=lambda s: f"N={s[0]}-P={s[1]}")
+def test_lnl_pending_at_block_edges_equal_reference(shape):
+    """Pending (nodeless) pods where the N + 1 buckets fill whole blocks
+    of the kernel's 1024 threads: the nodeless pods come last, as the
+    reference orders them."""
+    c = lnl_cases.pending(*shape, 3)
+    assert (c["pod_node"] < 0).any()
+    _assert_case_equals_reference(c)
+
+
+def test_eviction_order_takes_shapes_past_the_old_key_field():
+    """The wrapper's checks take N = 10 000 with P = 300 000 (rank and
+    index fields of 14 + 19 bits: the old kernel refused them) and run
+    the plain path there: the order is a permutation with the nodeless
+    pods last and each source's pods in one run; the limits that stay
+    (N >= 1, Rd <= 11) still raise."""
+    c = lnl_cases.big()
+    arrays, deviation = lnl_cases.k11_args(c)
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    klnl.check_eviction_order_shape(*lnl_cases.BIG, 2)
+    eo = klnl.lnl_eviction_order(*t, deviation)
+    order = eo.order.numpy()
+    assert np.array_equal(np.sort(order), np.arange(lnl_cases.BIG[1]))
+    node_of = c["pod_node"][order]
+    nodeless = int((c["pod_node"] < 0).sum())
+    assert nodeless and (node_of[-nodeless:] < 0).all()
+    runs = node_of[:-nodeless]
+    starts = np.flatnonzero(np.r_[True, runs[1:] != runs[:-1]])
+    assert len(starts) == len(np.unique(runs))
+    for bad in ((0, 10, 2), (10, 10, 0), (10, 10, 12)):
+        with pytest.raises(ValueError):
+            klnl.check_eviction_order_shape(*bad)
 
 
 def _raw_cols(n, p, seed, weights=(1.0, 1.0)):
