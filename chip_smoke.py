@@ -41,7 +41,9 @@ in order:
    P = 1; K7 gpu_instance_pick's two launches around the K2 gate
    (shared pods' instances, one multi-GPU pod a node, whole instances
    but the shared pods' takes) at a gpu_share step, both strategies,
-   the edge state, the topology manager off, P = 1; K1 with two
+   the edge state, the topology manager off, P = 1, and the same at
+   I = 24 and 56 (MIG slices); K7's take one device activity and a
+   step's K7 work two (torch.profiler's trace, checked); K1 with two
    addends (K4's zone score, then K6's pool score; k = 32 without
    jitter, negative estimates, K6's alone). The taint and reservation
    slot paths: K1 with the taint term and the 64 slot columns at a
@@ -99,7 +101,13 @@ in order:
    amplified and nearly full, a third of the pods CPU-bound), over 11
    dims and at ratio 1; K11 and K12 (with K10 and K13) at the config-5
    cluster listing pods on every node (40 000 pods: the sorts and scans
-   in device memory). Each timed case with
+   in device memory); fault C8's widths (`check_c8`): at Z = 8 K4, K5,
+   K2's 8-level zone chain, K14 and a config-2 chunk, at I = 24 and 56
+   K6, K5 with the GPU hints, K7 and a gpu_share chunk, at Z = 8 with
+   I = 56 K5, K7 and a chunk, at J = 64 K17 and K6's aux part, each
+   kernel against its plain version and each chunk card against host
+   in every field, and every widened wrapper refusing one past its cap.
+   Each timed case with
    its time
    (CUDA events over back-to-back calls, and the kernel's device time
    from torch.profiler), the plain version's, one library call's where
@@ -1227,16 +1235,18 @@ def check_k3(snap, pods, gen):
     return out
 
 
-def numa_state(dev, gen, n_nodes, z=2):
-    """BASELINE config 2's pods (seed 1, 60 % prod, prod pods NUMA-bound)
-    against n_nodes nodes with z zones: each node's cpu and memory split
-    over its zones, about 15 % of the zones invalid (zone 0 valid),
-    zones partly used (multiples of 500 mC / 512 MiB, as commits leave
-    them), and every topology policy code on some nodes (a quarter each,
-    at random)."""
-    snap, pods = config_2_inputs(10_000, n_nodes, device=dev)
-    nodes = snap.nodes
-    if z != 2:
+def with_zones(snap, gen, z):
+    """`snap` with z NUMA zones a node: each node's cpu and memory split
+    over its zones at random (the zones kept where z is the snapshot's
+    own width), about 15 % of the zones invalid (zone 0 valid), zones
+    partly used (multiples of 500 mC / 512 MiB, as commits leave them),
+    every topology policy code on some nodes (a quarter each, at
+    random), the reservations' zone columns z wide with no hold, and the
+    GPU instances spread over the z zones in index order."""
+    nodes, resv, d = snap.nodes, snap.reservations, snap.devices
+    dev = nodes.allocatable.device
+    n_nodes = snap.num_nodes
+    if z != nodes.numa_cap.shape[1]:
         share = torch.rand((n_nodes, z), generator=gen, device=dev)
         share = share / share.sum(dim=1, keepdim=True)
         cap = torch.stack([
@@ -1252,14 +1262,24 @@ def numa_state(dev, gen, n_nodes, z=2):
     used = torch.floor(cap * load / 500.0) * 500.0
     policy = torch.randint(0, 4, (n_nodes,), generator=gen, device=dev,
                            dtype=torch.int32)
-    resv = snap.reservations
-    snap = snap.replace(
+    v, i = resv.numa_free.shape[0], d.gpu_numa.shape[1]
+    zone_of = (torch.arange(i, device=dev, dtype=torch.int32) * z
+               // max(i, 1))
+    return snap.replace(
         nodes=nodes.replace(numa_cap=cap, numa_free=(cap - used).contiguous(),
                             numa_valid=valid, numa_policy=policy),
         reservations=resv.replace(
-            numa_free=torch.zeros((0, z, 2), device=dev),
-            numa_valid=torch.zeros((0, z), dtype=torch.bool, device=dev)))
-    return snap, pods
+            numa_free=torch.zeros((v, z, 2), device=dev),
+            numa_valid=torch.zeros((v, z), dtype=torch.bool, device=dev)),
+        devices=d.replace(gpu_numa=torch.where(
+            d.gpu_numa >= 0, zone_of[None, :], d.gpu_numa).contiguous()))
+
+
+def numa_state(dev, gen, n_nodes, z=2):
+    """BASELINE config 2's pods (seed 1, 60 % prod, prod pods NUMA-bound)
+    against n_nodes nodes with z zones (`with_zones`)."""
+    snap, pods = config_2_inputs(10_000, n_nodes, device=dev)
+    return with_zones(snap, gen, z), pods
 
 
 def k4_args(snap, batch, strategy):
@@ -1272,8 +1292,8 @@ def k4_args(snap, batch, strategy):
 def check_k4(dev, gen):
     """K4 at a config-2 chunk (P=2000, N=1000, Z=2) and at the flagship's
     width (N=10 000), both strategies, and untimed at Z=4: policy nodes,
-    invalid zones, partly used zones. Equal to the plain version (bools,
-    scores bit for bit)."""
+    invalid zones, partly used zones; timed at Z=8 (fault C8's width).
+    Equal to the plain version (bools, scores bit for bit)."""
     out = {}
     for label, n, z, strategy, timed in (
             ("cfg2 most", 1000, 2, "most", True),
@@ -1281,7 +1301,8 @@ def check_k4(dev, gen):
             ("N=10000 most", 10_000, 2, "most", True),
             ("N=10000 least", 10_000, 2, "least", False),
             ("Z=4 most", 1000, 4, "most", False),
-            ("Z=4 least", 1000, 4, "least", False)):
+            ("Z=4 least", 1000, 4, "least", False),
+            ("Z=8 most", 1000, 8, "most", True)):
         snap, pods = numa_state(dev, gen, n, z)
         batch = slice_batch(pods, 0, 2000)
         args = k4_args(snap, batch, strategy)
@@ -1351,7 +1372,7 @@ def k5_args(snap, batch, gen, trying_frac=0.7, zero_frac=0.05):
 
 
 def check_k5(dev, gen):
-    """K5 at a config-2 chunk (P=2000, N=1000) at Z=2 and Z=4 (all four
+    """K5 at a config-2 chunk (P=2000, N=1000) at Z=2, 4 and 8 (all four
     policies on the nodes, NUMA-bound pods, zero requests), both
     strategies, and at P=1 and with every pod trying. Equal to the plain
     version (every output; takes bit for bit)."""
@@ -1362,7 +1383,8 @@ def check_k5(dev, gen):
             ("Z=4 most", 4, "most", True, {}),
             ("Z=4 least", 4, "least", False, {}),
             ("all trying", 2, "most", False, dict(trying_frac=1.0)),
-            ("zero requests", 4, "least", False, dict(zero_frac=0.5))):
+            ("zero requests", 4, "least", False, dict(zero_frac=0.5)),
+            ("Z=8 most", 8, "most", True, {})):
         snap, pods = numa_state(dev, gen, 1000, z)
         batch = slice_batch(pods, 2000, 2000)
         args = k5_args(snap, batch, gen, **kw) + (strategy,)
@@ -1471,6 +1493,31 @@ def check_k1_numa(dev, gen):
     return out
 
 
+def zone_chain_kw(snap, batch, gen):
+    """K2's arguments as the zone gates of a NUMA step (core.py:617-622):
+    one level a zone, each pod's take in that zone from K5 as the
+    level's request, segments the chosen node, each level's base and
+    limit a zone's columns of the [N, Z * 2] zone tables; 90 % of the
+    pods trying, 80 % of those K5 admits accepted by the earlier gates
+    (`k2_switch` applied)."""
+    dev = batch.valid.device
+    n, z = snap.num_nodes, snap.nodes.numa_cap.shape[1]
+    args = k5_args(snap, batch, gen, trying_frac=0.9)
+    adm = topology_admit(*args, "most")
+    choice, trying, used = args[0], args[1], args[5]
+    accept = trying & adm.admit & (
+        torch.rand(trying.shape, generator=gen, device=dev) < 0.8)
+    used_flat = used.view(n, z * 2)
+    cap_flat = snap.nodes.numa_cap.view(n, z * 2)
+    return k2_switch(dict(
+        seg=choice[None].expand(z, -1).contiguous(),
+        rank=rank_by_priority(batch), req=adm.take.transpose(0, 1),
+        active=accept & adm.engaged,
+        tables=[(used_flat[:, 2 * i:2 * i + 2],
+                 cap_flat[:, 2 * i:2 * i + 2], n) for i in range(z)],
+        eps=EPS))
+
+
 def check_k2_zones(dev, gen):
     """K2 as the zone gates of a NUMA step run it: 2 levels (one a zone),
     per-level requests (each pod's take in that zone, from K5), segments
@@ -1481,22 +1528,7 @@ def check_k2_zones(dev, gen):
     for label, z, timed in (("zones", 2, True), ("zones Z=4", 4, False)):
         snap, pods = numa_state(dev, gen, 1000, z)
         batch = slice_batch(pods, 4000, 2000)
-        args = k5_args(snap, batch, gen, trying_frac=0.9)
-        adm = topology_admit(*args, "most")
-        choice, trying, used = args[0], args[1], args[5]
-        n = snap.num_nodes
-        accept = trying & adm.admit & (
-            torch.rand(trying.shape, generator=gen, device=dev) < 0.8)
-        used_flat = used.view(n, z * 2)
-        cap_flat = snap.nodes.numa_cap.view(n, z * 2)
-        kw = dict(
-            seg=choice[None].expand(z, -1).contiguous(),
-            rank=rank_by_priority(batch), req=adm.take.transpose(0, 1),
-            active=accept & adm.engaged,
-            tables=[(used_flat[:, 2 * i:2 * i + 2],
-                     cap_flat[:, 2 * i:2 * i + 2], n) for i in range(z)],
-            eps=EPS)
-        kw = k2_switch(kw)
+        kw = zone_chain_kw(snap, batch, gen)
         got = segment_prefix_chain(**kw)
         want = segment_prefix_chain_plain(**kw)
         err = float((got.int() - want.int()).abs().max())
@@ -1508,7 +1540,7 @@ def check_k2_zones(dev, gen):
                               accepted=int(got.sum()))
             continue
         # as check_k2, level by level, with the level's own requests
-        p, r = batch.num_pods, 2
+        p, r, n = batch.num_pods, 2, snap.num_nodes
         alive = kw["active"]
         nbytes, ops = 2 * p + 4 * int(alive.sum()), 0
         for level, req_l, (base, limit, s) in zip(kw["seg"], kw["req"],
@@ -1537,9 +1569,11 @@ def check_k2_zones(dev, gen):
 # addends) ------------------------------------------------------------------
 
 
-def gpu_state(dev, gen, n_nodes, p0=0, p=2000, edge=False):
+def gpu_state(dev, gen, n_nodes, p0=0, p=2000, edge=False, gpus=8):
     """gpu_share_100kx10k's pods [p0, p0 + p) against n_nodes of its nodes
-    (a quarter GPU nodes with 8 instances over two zones), the instances
+    (a quarter GPU nodes with `gpus` instances over two zones: 8 on the
+    flagship, more where a node's GPUs are split into MIG slices), the
+    instances
     partly used (integer shares of their totals, half untouched) and the
     zones partly used. With `edge`: 60 % GPU pods, a quarter of the pods
     asking for GPU memory in odd MiB, ratios 100 does not divide (150,
@@ -1547,7 +1581,8 @@ def gpu_state(dev, gen, n_nodes, p0=0, p=2000, edge=False):
     an odd per-GPU memory, 10 % of the instances invalid, 10 % of zone
     -1, and nodes on which no instance, one, or all fit. Returns
     (snapshot, batch)."""
-    snap, pods = gpu_share_inputs(max(p0 + p, 10_000), n_nodes, device=dev)
+    snap, pods = gpu_share_inputs(max(p0 + p, 10_000), n_nodes, device=dev,
+                                  gpus_per_node=gpus)
     batch = slice_batch(pods, p0, p)
     d = snap.devices
     n, i, _ = d.gpu_free.shape
@@ -1603,16 +1638,19 @@ def check_k6(dev, gen):
     ANDing into a pair mask in place, both strategies; untimed, the edge
     state at N=1000 (odd memory, invalid and zone -1 instances, nodes
     where none, one or all fit, memory-specified and non-divisible
-    requests), without a mask, and P=1. Equal to the plain version
+    requests), without a mask, and P=1; timed at I=56 against N=1000
+    (8 GPUs in 7 MIG slices: the wide build). Equal to the plain version
     (bools, scores bit for bit)."""
     out = {}
-    for label, n, edge, strategy, p, mask, timed in (
-            ("gpu_share least", 10_000, False, "least", 2000, True, True),
-            ("gpu_share most", 10_000, False, "most", 2000, True, False),
-            ("edge least", 1000, True, "least", 2000, True, False),
-            ("edge most, no mask", 1000, True, "most", 2000, False, False),
-            ("P=1", 1000, True, "least", 1, True, False)):
-        snap, batch = gpu_state(dev, gen, n, 2000, p, edge)
+    for label, n, edge, strategy, p, mask, timed, gpus in (
+            ("gpu_share least", 10_000, False, "least", 2000, True, True, 8),
+            ("gpu_share most", 10_000, False, "most", 2000, True, False, 8),
+            ("edge least", 1000, True, "least", 2000, True, False, 8),
+            ("edge most, no mask", 1000, True, "most", 2000, False, False,
+             8),
+            ("P=1", 1000, True, "least", 1, True, False, 8),
+            ("I=56 least", 1000, False, "least", 2000, True, True, 56)):
+        snap, batch = gpu_state(dev, gen, n, 2000, p, edge, gpus)
         n, p = snap.num_nodes, batch.num_pods
         gpu_req, d = gpu_req_of(batch), snap.devices
         pair = (torch.rand((p, n), generator=gen, device=dev) < 0.8
@@ -1692,7 +1730,12 @@ def k5_gpu_args(snap, st, strategy):
 
 
 def same_outputs(name, got, want):
+    """Every field equal (f32 bit for bit); a field the plain version
+    leaves None is the kernel's scratch (K7's take words) and is not
+    compared."""
     for field, g, w in zip(got._fields, got, want):
+        if w is None:
+            continue
         ok = (torch.equal(g.view(torch.int32), w.view(torch.int32))
               if g.dtype == torch.float32 else torch.equal(g, w))
         if not ok:
@@ -1758,98 +1801,132 @@ def check_k5_gpu(dev, gen):
     return out
 
 
+def k7_chain(label, snap, st, strategy, numa=True):
+    """K7's choose launch, the K2 gate and K7's take launch of one inner
+    step on a gpu_step state `st` (the affinity from K5 with `numa`, the
+    topology manager off without), each held to its plain version (the
+    take on the kernel's K2 result, which is held to K2's plain version
+    too). Returns the operands and results by name."""
+    dev = st["trying"].device
+    d = snap.devices
+    n, i = d.gpu_valid.shape
+    zone = (None, None)
+    if numa:
+        adm = topology_admit(*k5_gpu_args(snap, st, "most"))
+        zone = (adm.affinity, adm.engaged)
+    base = (st["choice"], st["accept"], st["gpu_req"], d, *zone, strategy)
+    pick = gpu_instance_pick(*base)
+    same_outputs(f"K7 gpu_instance_pick choose ({label})", pick,
+                 gpu_choose_plain(*base))
+    gate_base = torch.zeros((n * i, 3), device=dev)
+    one_pod = torch.zeros((n, 3), device=dev)
+    one_pod[:, 0] = 1.0
+    chain = dict(seg=pick.seg, rank=st["rank"], req=pick.req,
+                 active=pick.gate_active,
+                 tables=[(gate_base, d.gpu_free.view(n * i, 3), n * i),
+                         (gate_base[:n], one_pod, n)], eps=EPS)
+    chain = k2_switch(chain)
+    alive = segment_prefix_chain(**chain)
+    if not torch.equal(alive, segment_prefix_chain_plain(**chain)):
+        raise SystemExit(f"K2 as the GPU gate ({label}) differs from its "
+                         "plain version")
+    take_args = (st["choice"], alive, st["gpu_req"], d, *zone, strategy)
+    fin = gpu_instance_pick(*take_args, chosen=pick)
+    same_outputs(f"K7 gpu_instance_pick take ({label})", fin,
+                 gpu_take_plain(st["choice"], alive, pick, d, *zone))
+    count = pick.count
+    stats = dict(
+        shared_tried=int((st["accept"] & (count == 1)).sum()),
+        shared_took=int((fin.accept & (count == 1)).sum()),
+        multi_tried=int((st["accept"] & (count > 1)).sum()),
+        multi_took=int((fin.accept & (count > 1)).sum()),
+        instances_taken=int(fin.take.sum()))
+    return dict(base=base, pick=pick, chain=chain, alive=alive,
+                take_args=take_args, fin=fin, zone=zone, stats=stats)
+
+
+# K7's kernels by symbol: its choose launch, and its take launch (one
+# kernel since the take's redesign)
+K7_CHOOSE = "gpu_choose_kernel"
+K7_TAKE = "gpu_take_kernel"
+
+
+def k7_take_cost(st, pick, alive, i):
+    """(bytes, operations) of K7's take: the pods' columns and the
+    multi-GPU pods' node rows, the outputs (1 + I bytes a pod); per
+    multi-GPU pod 9 operations an instance, and one OR a surviving
+    shared pod."""
+    p = st["choice"].shape[0]
+    count = pick.count
+    multi = st["accept"] & (count > 1)
+    rows_multi = int(torch.unique(st["choice"][multi]).numel())
+    n_shared = int((alive & (count == 1)).sum())
+    return (p * 25 + rows_multi * 13 * i + p * (1 + i),
+            int(multi.sum()) * 9 * i + n_shared)
+
+
 def check_k7(dev, gen):
     """K7's two launches and the K2 gate between them at a gpu_share
     step (P=2000, N=10 000, I=8, the affinity from K5), both strategies,
     and over the extended rows of the 64 reservation slots holding
     instances and zones (N + V = 10 064; timed too); untimed, the edge
     state (none, one or all instances fitting, zone -1 and invalid
-    instances), the topology manager off, and P=1. Each launch equal to
-    its plain version on the same inputs (the take launch on the
-    kernel's K2 result, which is held to K2's plain version too)."""
+    instances), the topology manager off, and P=1; then each of those
+    untimed at I = 24 and 56 (MIG slices; the lanes' second instance
+    word past 32). Each launch equal to its plain version on the same
+    inputs (`k7_chain`)."""
     out = {}
-    for label, n, edge, strategy, numa, p, timed, slots in (
-            ("gpu_share least", 10_000, False, "least", True, 2000, True,
-             False),
-            ("gpu_share + slot rows", 10_000, False, "least", True, 2000,
-             True, True),
-            ("gpu_share most", 10_000, False, "most", True, 2000, False,
-             False),
-            ("edge least", 1000, True, "least", True, 2000, False, False),
-            ("edge most, NUMA off", 1000, True, "most", False, 2000, False,
-             False),
-            ("P=1", 1000, True, "least", True, 1, False, False)):
-        snap, batch = gpu_state(dev, gen, n, 6000, p, edge)
+    cases = [
+        ("gpu_share least", 10_000, False, "least", True, 2000, True,
+         False, 8),
+        ("gpu_share + slot rows", 10_000, False, "least", True, 2000,
+         True, True, 8),
+        ("gpu_share most", 10_000, False, "most", True, 2000, False,
+         False, 8),
+        ("edge least", 1000, True, "least", True, 2000, False, False, 8),
+        ("edge most, NUMA off", 1000, True, "most", False, 2000, False,
+         False, 8),
+        ("P=1", 1000, True, "least", True, 1, False, False, 8)]
+    for gpus in C8_GPUS:
+        cases += [(f"I={gpus} {label}", n, edge, strategy, numa, p, False,
+                   False, gpus)
+                  for label, n, edge, strategy, numa, p, _, _, _ in cases[2:6]]
+        cases.append((f"I={gpus} gpu_share least", 1000, False, "least",
+                      True, 2000, False, False, gpus))
+    for label, n, edge, strategy, numa, p, timed, slots, gpus in cases:
+        snap, batch = gpu_state(dev, gen, n, 6000, p, edge, gpus)
         n, p = snap.num_nodes, batch.num_pods
         st = gpu_step(snap, batch, gen)
         if slots:
             snap, st = with_slot_rows(snap, st, gen)
             n = snap.devices.gpu_free.shape[0]
-        d = snap.devices
-        i = d.gpu_free.shape[1]
-        zone = (None, None)
-        if numa:
-            adm = topology_admit(*k5_gpu_args(snap, st, "most"))
-            zone = (adm.affinity, adm.engaged)
-        base = (st["choice"], st["accept"], st["gpu_req"], d, *zone,
-                strategy)
-        pick = gpu_instance_pick(*base)
-        same_outputs(f"K7 gpu_instance_pick choose ({label})", pick,
-                     gpu_choose_plain(*base))
-        gate_base = torch.zeros((n * i, 3), device=dev)
-        one_pod = torch.zeros((n, 3), device=dev)
-        one_pod[:, 0] = 1.0
-        chain = dict(seg=pick.seg, rank=st["rank"], req=pick.req,
-                     active=pick.gate_active,
-                     tables=[(gate_base, d.gpu_free.view(n * i, 3), n * i),
-                             (gate_base[:n], one_pod, n)], eps=EPS)
-        chain = k2_switch(chain)
-        alive = segment_prefix_chain(**chain)
-        if not torch.equal(alive, segment_prefix_chain_plain(**chain)):
-            raise SystemExit(f"K2 as the GPU gate ({label}) differs from "
-                             "its plain version")
-        take_args = (st["choice"], alive, st["gpu_req"], d, *zone, strategy)
-        fin = gpu_instance_pick(*take_args, chosen=pick)
-        same_outputs(f"K7 gpu_instance_pick take ({label})", fin,
-                     gpu_take_plain(st["choice"], alive, pick, d, *zone))
-        count = pick.count
-        stats = dict(
-            shared_tried=int((st["accept"] & (count == 1)).sum()),
-            shared_took=int((fin.accept & (count == 1)).sum()),
-            multi_tried=int((st["accept"] & (count > 1)).sum()),
-            multi_took=int((fin.accept & (count > 1)).sum()),
-            instances_taken=int(fin.take.sum()))
+        r = k7_chain(label, snap, st, strategy, numa)
         if not timed:
-            out[label] = dict(max_abs_err=0.0, **stats)
+            out[label] = dict(max_abs_err=0.0, **r["stats"])
             continue
+        activities = k7_activities(r)
         # choose: the pods' columns (choice, active, GPU request,
         # affinity, engaged) and the chosen nodes' instance rows once a
         # node, the outputs (45 bytes a pod); per GPU pod the
         # per-instance request (20) and 9 a fitting test and key per
-        # instance. take: the pods' columns and the multi-GPU pods'
-        # node rows, the outputs (1 + I bytes a pod); per multi-GPU pod
-        # 9 an instance, and one OR a surviving shared pod
-        n_gpu = int((count > 0).sum())
-        rows = int(torch.unique(st["choice"][count > 0]).numel())
-        multi = st["accept"] & (count > 1)
-        n_multi, n_shared = int(multi.sum()), int(
-            (alive & (count == 1)).sum())
-        rows_multi = int(torch.unique(st["choice"][multi]).numel())
+        # instance
+        d, pick, base = snap.devices, r["pick"], r["base"]
+        take_args, alive, chain = r["take_args"], r["alive"], r["chain"]
+        i = d.gpu_free.shape[1]
+        n_gpu = int((pick.count > 0).sum())
+        rows = int(torch.unique(st["choice"][pick.count > 0]).numel())
         b_choose = bound(p * 21 + rows * (12 + 13 * i) + p * 45,
                          n_gpu * (20 + 9 * i))
-        b_take = bound(p * 25 + rows_multi * 13 * i + p * (1 + i),
-                       n_multi * 9 * i + n_shared)
+        b_take = bound(*k7_take_cost(st, pick, alive, i))
         chosen = gpu_instance_pick(*base)
         ms_c = cuda_ms(lambda: gpu_instance_pick(*base))
         ms_t = cuda_ms(lambda: gpu_instance_pick(*take_args, chosen=chosen))
-        dev_c = device_ms(lambda: gpu_instance_pick(*base),
-                          "gpu_choose_kernel")
+        dev_c = device_ms(lambda: gpu_instance_pick(*base), K7_CHOOSE)
         dev_t = device_ms(lambda: gpu_instance_pick(*take_args,
-                                                    chosen=chosen),
-                          ("gpu_shared_taken_kernel", "gpu_take_kernel"))
+                                                    chosen=chosen), K7_TAKE)
         plain_c = cuda_ms(lambda: gpu_choose_plain(*base), reps=5)
-        plain_t = cuda_ms(lambda: gpu_take_plain(st["choice"], alive, pick,
-                                                 d, *zone), reps=5)
+        plain_t = cuda_ms(lambda: gpu_take_plain(
+            st["choice"], alive, pick, d, *r["zone"]), reps=5)
         by = b_choose[1] if b_choose[0] >= b_take[0] else b_take[1]
         out[label] = dict(
             ms=ms_c + ms_t, device_ms=dev_c + dev_t,
@@ -1865,7 +1942,46 @@ def check_k7(dev, gen):
                 device_ms=device_ms(lambda: segment_prefix_chain(**chain),
                                     "segment_prefix_chain_kernel"),
                 shape=f"P={p} L=2 R=3 S=[{n * i}, {n}]"),
-            **stats)
+            activities=activities, **r["stats"])
+    return out
+
+
+def k7_activities(r, reps=10):
+    """The device activities of K7's launches on a `k7_chain` result,
+    from torch.profiler's device trace of `reps` calls: a take launch
+    alone must be one activity (its kernel) and a step's K7 work (the
+    choose launch, then the take on its result) two; anything else on
+    the device (a memset, a second kernel) fails the run. Returns the
+    activities a call."""
+    base, take_args = r["base"], r["take_args"]
+    chosen = gpu_instance_pick(*base)
+    out = {}
+    for label, fn, want in (
+            ("take", lambda: gpu_instance_pick(*take_args, chosen=chosen), 1),
+            ("step", lambda: gpu_instance_pick(
+                *take_args, chosen=gpu_instance_pick(*base)), 2)):
+        fn()
+        torch.cuda.synchronize()
+        # the tracer may miss launches (device_ms): trace again when it
+        # saw fewer than it must, never accept more
+        for _ in range(6):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            other = [x for x in names if K7_CHOOSE not in x
+                     and K7_TAKE not in x]
+            if len(names) > want * reps or other:
+                raise SystemExit(f"K7's {label}: {len(names)} device "
+                                 f"activities in {reps} calls, not "
+                                 f"{want * reps}: {sorted(set(names))}")
+            if len(names) == want * reps:
+                break
+        else:
+            raise SystemExit(f"K7's {label}: six traces missed launches")
+        out[label] = len(names) / reps
     return out
 
 
@@ -3520,8 +3636,9 @@ def check_guard_pair(label, snap, batch, force_nodes=None, force_pods=None):
 def check_guards(dev, gen):
     """K14 guard_nodes and K15 guard_pods at a full-gate batch (N =
     10 000, P = 2000, spread, anti-affinity and affinity), healthy
-    (outputs equal to the inputs, health zero; timed) and under each of
-    the eight column faults (its bit set, its rows in the mask); untimed
+    (outputs equal to the inputs, health zero; timed, and K14 again at
+    Z = 8) and under each of the eight column faults (its bit set, its
+    rows in the mask); untimed
     edges: every row bad, N = 1 and P = 1, a family absent, a NaN in an
     invalid pod row, signed zeros and NaN payloads in scrubbed rows, the
     caller's masks (apply_quarantine). Each bit for bit against its plain
@@ -3587,14 +3704,7 @@ def check_guards(dev, gen):
     # timed: the healthy batch
     n, p = snap.num_nodes, batch.num_pods
     health = torch.zeros(3, dtype=torch.int32, device=dev)
-    in_n = [getattr(nodes, f) for f in guard.NODE_COLUMNS] + [
-        nodes.schedulable]
-    # the scrubbed columns and schedulable read once and written once,
-    # numa_cap and numa_valid read once, the mask written
-    k14_bytes = (nbytes(*in_n) * 2 + nbytes(nodes.numa_cap, nodes.numa_valid)
-                 + n)
-    in_n += [nodes.numa_cap, nodes.numa_valid]
-    k14_ops = sum(t.numel() for t in in_n) * 2
+    k14_bytes, k14_ops = k14_cost(nodes)
     n_q = snap.quotas.parent.shape[0]
     fams = [(getattr(batch, d), getattr(batch, c))
             for d, c in (("spread_domain", "spread_carrier"),
@@ -3624,7 +3734,35 @@ def check_guards(dev, gen):
             shape=f"N={n} P={p} R={nodes.allocatable.shape[1]} "
                   f"Z={nodes.numa_cap.shape[1]} groups "
                   f"{[d.shape[0] for d, _ in fams]}")
+    # K14 at Z = 8 (fault C8's width), the same nodes re-split
+    wide = with_zones(snap, gen, C8_ZONES).nodes
+    zeros = [torch.zeros(3, dtype=torch.int32, device=dev) for _ in range(2)]
+    got = guard_nodes(wide, None, zeros[0])
+    want = guard_nodes_plain(wide, None, zeros[1])
+    if diff_fields(got, (*want, zeros[1])):
+        raise SystemExit("K14 at Z=8 differs from its plain version")
+    b_ms, b_by = bound(*k14_cost(wide))
+    out["guard_nodes Z=8"] = dict(
+        ms=cuda_ms(lambda: guard_nodes(wide, None, health)),
+        device_ms=device_ms(lambda: guard_nodes(wide, None, health),
+                            GUARD_SYMBOLS["guard_nodes"]),
+        plain_ms=cuda_ms(lambda: guard_nodes_plain(wide, None, health),
+                         reps=5),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+        shape=f"N={n} R={wide.allocatable.shape[1]} Z={C8_ZONES}")
     return out
+
+
+def k14_cost(nodes):
+    """(bytes, operations) of one K14 call: the scrubbed columns and
+    schedulable read once and written once, numa_cap and numa_valid read
+    once, the mask written; two operations an entry read."""
+    cols = [getattr(nodes, f) for f in guard.NODE_COLUMNS] + [
+        nodes.schedulable]
+    nb = (nbytes(*cols) * 2 + nbytes(nodes.numa_cap, nodes.numa_valid)
+          + nodes.schedulable.shape[0])
+    cols += [nodes.numa_cap, nodes.numa_valid]
+    return nb, sum(t.numel() for t in cols) * 2
 
 
 def with_repeats(idx):
@@ -4180,11 +4318,12 @@ def check_k2_fractional(dev):
 # --- the aux (RDMA/FPGA) pools: K17, K6's aux part, K2's aux levels --------
 
 
-def aux_state(dev, n_nodes=10_000, p=2000):
+def aux_state(dev, n_nodes=10_000, p=2000, j=8):
     """The aux full gate's first packed chunk of p pods against n_nodes
-    (`aux_full_gate_inputs`, packed by `pack_full_gate`): (snapshot,
-    batch, prefixes)."""
-    snap, pods = aux_full_gate_inputs(5 * p, n_nodes, device=dev)
+    (`aux_full_gate_inputs` with j VFs a GPU node, packed by
+    `pack_full_gate`): (snapshot, batch, prefixes)."""
+    snap, pods = aux_full_gate_inputs(5 * p, n_nodes, device=dev,
+                                      aux_instances=j)
     packed, prefixes, _, _, _ = pack_full_gate(snap, pods, p)
     return snap, slice_batch(packed, 0, p), prefixes
 
@@ -4219,7 +4358,8 @@ def check_k17(dev, gen):
     node with none, zero and oversize requests and choices out of range,
     both strategies and P = 1, untimed; then at the aux full gate's
     first chunk (P = 2000 against N = 10 000, J = 8), both strategies,
-    timed. Instances and ok must be equal."""
+    and with 64 VFs a GPU node ("least"), timed. Instances and ok must
+    be equal."""
     out = {}
     rng = np.random.default_rng(17)
     n, j, p = 64, 8, 4096
@@ -4240,6 +4380,10 @@ def check_k17(dev, gen):
     ch, rq = aux_choice(snap, batch, gen)
     cases += [(f"aux full gate {s}", ch, rq, snap.devices, s)
               for s in ("least", "most")]
+    wide, wbatch, _ = aux_state(dev, j=C8_VFS)
+    wch, wrq = aux_choice(wide, wbatch, gen)
+    cases.append((f"aux full gate J={C8_VFS} least", wch, wrq, wide.devices,
+                  "least"))
     edge = snap.devices.replace(aux_free=torch.from_numpy(free).to(dev),
                                 aux_valid=torch.from_numpy(valid).to(dev))
     cases = [(lb, c, r, edge if d is None else d, st)
@@ -4411,60 +4555,287 @@ def check_k5_big(dev, gen):
 
 
 def check_k7_big(dev, gen):
-    """K7's two launches and the K2 gate between them at a gpu_share
-    step of P = 2500 and 4096 pods (N = 10 000, I = 8, the affinity from
-    K5; the take launch's two-grid form), strategy "least"; each equal
-    to its plain version; the take launch timed."""
+    """K7's two launches and the K2 gate between them (`k7_chain`) at a
+    gpu_share step of P = 2500 and 4096 pods (N = 10 000, I = 8, the
+    affinity from K5), strategy "least", the take launch timed; and
+    untimed at P = 4096 with I = 24 and 56. Each equal to its plain
+    version."""
     out = {}
-    for p in BIG_PODS:
-        snap, batch = gpu_state(dev, gen, 10_000, 6000, p)
+    for p, gpus in [(p, 8) for p in BIG_PODS] + [(BIG_PODS[-1], g)
+                                                  for g in C8_GPUS]:
+        label = f"take P={p}" + ("" if gpus == 8 else f" I={gpus}")
+        snap, batch = gpu_state(dev, gen, 10_000 if gpus == 8 else 2000,
+                                6000, p, gpus=gpus)
         n = snap.num_nodes
         st = gpu_step(snap, batch, gen)
+        r = k7_chain(label, snap, st, "least")
+        pick, alive, take_args, fin = (r["pick"], r["alive"],
+                                       r["take_args"], r["fin"])
+        if gpus != 8:
+            out[label] = dict(max_abs_err=0.0, **r["stats"])
+            continue
         d = snap.devices
         i = d.gpu_free.shape[1]
-        adm = topology_admit(*k5_gpu_args(snap, st, "most"))
-        zone = (adm.affinity, adm.engaged)
-        base = (st["choice"], st["accept"], st["gpu_req"], d, *zone, "least")
-        pick = gpu_instance_pick(*base)
-        same_outputs(f"K7 choose (P={p})", pick, gpu_choose_plain(*base))
-        gate_base = torch.zeros((n * i, 3), device=dev)
-        one_pod = torch.zeros((n, 3), device=dev)
-        one_pod[:, 0] = 1.0
-        chain = dict(seg=pick.seg, rank=st["rank"], req=pick.req,
-                     active=pick.gate_active,
-                     tables=[(gate_base, d.gpu_free.view(n * i, 3), n * i),
-                             (gate_base[:n], one_pod, n)], eps=EPS)
-        chain = k2_switch(chain)
-        alive = segment_prefix_chain(**chain)
-        if not torch.equal(alive, segment_prefix_chain_plain(**chain)):
-            raise SystemExit(f"K2 as the GPU gate (P={p}) differs from its "
-                             "plain version")
-        take_args = (st["choice"], alive, st["gpu_req"], d, *zone, "least")
-        fin = gpu_instance_pick(*take_args, chosen=pick)
-        same_outputs(f"K7 take (P={p})", fin,
-                     gpu_take_plain(st["choice"], alive, pick, d, *zone))
-        count = pick.count
-        multi = st["accept"] & (count > 1)
-        n_multi = int(multi.sum())
-        n_shared = int((alive & (count == 1)).sum())
-        rows_multi = int(torch.unique(st["choice"][multi]).numel())
-        # the take: the pods' columns and the multi-GPU pods' node rows,
-        # the outputs; per multi-GPU pod 9 operations an instance, and
-        # one OR a surviving shared pod
-        b_ms, b_by = bound(p * 25 + rows_multi * 13 * i + p * (1 + i),
-                           n_multi * 9 * i + n_shared)
-        out[f"take P={p}"] = dict(
+        b_ms, b_by = bound(*k7_take_cost(st, pick, alive, i))
+        out[label] = dict(
             ms=cuda_ms(lambda: gpu_instance_pick(*take_args, chosen=pick)),
             device_ms=device_ms(
-                lambda: gpu_instance_pick(*take_args, chosen=pick),
-                ("gpu_shared_taken_kernel", "gpu_take_kernel")),
-            plain_ms=cuda_ms(lambda: gpu_take_plain(st["choice"], alive,
-                                                    pick, d, *zone), reps=5),
+                lambda: gpu_instance_pick(*take_args, chosen=pick), K7_TAKE),
+            plain_ms=cuda_ms(lambda: gpu_take_plain(
+                st["choice"], alive, pick, d, *r["zone"]), reps=5),
             library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
-            shape=f"P={p} N={n} I={i}, take",
-            multi_tried=n_multi, multi_took=int((fin.accept
-                                                 & (count > 1)).sum()),
-            shared_took=n_shared, instances_taken=int(fin.take.sum()))
+            shape=f"P={p} N={n} I={i}, take", **r["stats"])
+    return out
+
+
+# fault C8's widths: eight NUMA zones a node (two sockets at NPS4 or
+# SNC-4), an 8-GPU node split into 3 and into 7 MIG slices, 64 RDMA VFs
+C8_ZONES = 8
+C8_GPUS = (24, 56)
+C8_VFS = 64
+
+
+def chunk_card_vs_host(label, snap, batch, kw, kernels_used):
+    """One schedule_batch chunk on the card and on the host: every field
+    of the result equal (f32 bit for bit, the post-commit snapshot
+    included), and each kernel of `kernels_used` launched in the card's
+    run."""
+    dev = snap.nodes.allocatable.device
+    kernels.reset_launch_counts()
+    got = schedule_batch(snap, batch, loadaware.LoadAwareConfig.make(
+        device=dev), **kw)
+    launched = kernels.launch_counts()
+    want = schedule_batch(snap.to("cpu"), batch.to("cpu"),
+                          loadaware.LoadAwareConfig.make(device="cpu"), **kw)
+    bad = diff_fields(got, want)
+    if bad:
+        raise SystemExit(f"schedule_batch ({label}): the card differs from "
+                         f"the host in {bad}")
+    missing = [k for k in kernels_used
+               if dev.type == "cuda" and not launched[k]]
+    if missing:
+        raise SystemExit(f"schedule_batch ({label}) never launched "
+                         f"{missing}: {launched}")
+    return dict(placed=int((got.assignment >= 0).sum()),
+                launches={k: launched[k] for k in kernels_used})
+
+
+def c8_cases(dev, gen, n=1000, p=1000):
+    """The cases of fault C8 (`check_c8`), as (label, function) pairs;
+    each function holds the card to the plain version or to the host
+    and returns what it counted."""
+    cases = []
+
+    def numa_cases():
+        snap, pods = numa_state(dev, gen, n, C8_ZONES)
+        batch = slice_batch(pods, 0, p)
+        out = {}
+        for strategy in ("most", "least"):
+            args = k4_args(snap, batch, strategy)
+            ok, score = numa_pair_terms(*args)
+            want_ok, want_score = numa_pair_terms_plain(*args)
+            if not (torch.equal(ok, want_ok) and torch.equal(
+                    score.view(torch.int32), want_score.view(torch.int32))):
+                raise SystemExit(f"K4 at Z={C8_ZONES} ({strategy}) differs "
+                                 "from its plain version")
+            args = k5_args(snap, batch, gen, trying_frac=0.9) + (strategy,)
+            one = tuple(a[:1] if k < 4 else a for k, a in enumerate(args))
+            for a in (args, one):
+                same_outputs(f"K5 at Z={C8_ZONES} ({strategy}, P="
+                             f"{a[0].shape[0]})", topology_admit(*a),
+                             topology_admit_plain(*a))
+            out[strategy] = dict(pairs_ok=int(ok.sum()))
+        # K2's zone chain, one level a zone (core.py:617-622)
+        kw = zone_chain_kw(snap, batch, gen)
+        got = segment_prefix_chain(**kw)
+        if not torch.equal(got, segment_prefix_chain_plain(**kw)):
+            raise SystemExit(f"K2's zone chain at L={C8_ZONES} differs "
+                             "from its plain version")
+        out["zone chain"] = dict(active=int(kw["active"].sum()),
+                                 accepted=int(got.sum()))
+        return out
+    cases.append((f"Z={C8_ZONES} K4, K5, K2's zone chain", numa_cases))
+
+    def guard_case():
+        snap, _ = numa_state(dev, gen, n, C8_ZONES)
+        nodes = snap.nodes
+        free = nodes.numa_free.clone()
+        free[::97, 5, 0] = -1.0
+        free[::89, 7, 1] = float("nan")
+        out = {}
+        for label, nd in (("healthy", nodes),
+                          ("zones 5 and 7 bad", nodes.replace(
+                              numa_free=free))):
+            zeros = [torch.zeros(3, dtype=torch.int32, device=dev)
+                     for _ in range(2)]
+            got = guard_nodes(nd, None, zeros[0])
+            want = guard_nodes_plain(nd, None, zeros[1])
+            bad = diff_fields(got, (*want, zeros[1]))
+            if bad:
+                raise SystemExit(f"K14 at Z={C8_ZONES} ({label}) differs "
+                                 f"from its plain version in {bad}")
+            out[label] = [int(x) for x in got[2].cpu()]
+        return out
+    cases.append((f"Z={C8_ZONES} K14", guard_case))
+
+    def numa_chunk():
+        snap, pods = numa_state(dev, gen, n, C8_ZONES)
+        return chunk_card_vs_host(
+            f"config 2 chunk at Z={C8_ZONES}", snap, slice_batch(pods, 0, p),
+            CONFIG_2_KW, NUMA_KERNELS)
+    cases.append((f"Z={C8_ZONES} schedule_batch chunk", numa_chunk))
+
+    for gpus in C8_GPUS:
+        def gpu_kernels(gpus=gpus):
+            out = {}
+            for label, edge, strategy in (("least", False, "least"),
+                                          ("most", False, "most"),
+                                          ("edge least", True, "least"),
+                                          ("edge most", True, "most")):
+                snap, batch = gpu_state(dev, gen, n, 0, p, edge, gpus)
+                g, d = gpu_req_of(batch), snap.devices
+                pair = torch.rand((p, n), generator=gen, device=dev) < 0.8
+                ok, score = device_pair_terms(g, d, strategy, pair.clone())
+                want_ok, want_score = device_pair_terms_plain(g, d, strategy,
+                                                              pair)
+                if not (torch.equal(ok, want_ok) and torch.equal(
+                        score.view(torch.int32),
+                        want_score.view(torch.int32))):
+                    raise SystemExit(f"K6 at I={gpus} ({label}) differs "
+                                     "from its plain version")
+                st = gpu_step(snap, batch, gen)
+                args = k5_gpu_args(snap, st, strategy)
+                same_outputs(f"K5 with hints at I={gpus} ({label})",
+                             topology_admit(*args),
+                             topology_admit_plain(*args))
+                r = k7_chain(f"I={gpus} {label}", snap, st, strategy)
+                out[label] = dict(pairs_ok=int(ok.sum()), **r["stats"])
+            return out
+        cases.append((f"I={gpus} K6, K5 with hints, K7", gpu_kernels))
+
+        def gpu_chunk(gpus=gpus):
+            snap, batch = gpu_state(dev, gen, n, 0, p, gpus=gpus)
+            return chunk_card_vs_host(
+                f"gpu_share chunk at I={gpus}", snap, batch, GPU_SHARE_KW,
+                NUMA_KERNELS + GPU_KERNELS)
+        cases.append((f"I={gpus} schedule_batch chunk", gpu_chunk))
+
+    def both_wide():
+        snap, batch = gpu_state(dev, gen, n, 0, p, gpus=C8_GPUS[-1])
+        snap = with_zones(snap, gen, C8_ZONES)
+        st = gpu_step(snap, batch, gen)
+        for strategy in ("most", "least"):
+            args = k5_gpu_args(snap, st, strategy)
+            same_outputs(f"K5 with hints at Z={C8_ZONES} I={C8_GPUS[-1]} "
+                         f"({strategy})", topology_admit(*args),
+                         topology_admit_plain(*args))
+        k7_chain(f"Z={C8_ZONES} I={C8_GPUS[-1]}", snap, st, "least")
+        return chunk_card_vs_host(
+            f"gpu_share chunk at Z={C8_ZONES} I={C8_GPUS[-1]}", snap, batch,
+            GPU_SHARE_KW, NUMA_KERNELS + GPU_KERNELS)
+    cases.append((f"Z={C8_ZONES} I={C8_GPUS[-1]} K5, K7, schedule_batch "
+                  "chunk", both_wide))
+
+    def aux_cases():
+        snap, batch, prefixes = aux_state(dev, n, p, j=C8_VFS)
+        d = snap.devices
+        ch, rq = aux_choice(snap, batch, gen)
+        out = {}
+        for strategy in ("least", "most"):
+            for label, c, r in ((strategy, ch, rq),
+                                (f"{strategy} P=1", ch[:1], rq[:1])):
+                got = aux_instance_pick(c, r, d.aux_free, d, strategy)
+                want = aux_instance_pick_plain(c, r, d.aux_free, d, strategy)
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    raise SystemExit(f"K17 at J={C8_VFS} ({label}) differs "
+                                     "from its plain version")
+                out[f"K17 {label}"] = dict(ok=int(got[1].sum()))
+            rows = prefixes["gpu"]
+            g = gpu_req_of(batch)[:rows].contiguous()
+            a = deviceshare.aux_request(batch.requests)[:rows].contiguous()
+            pair = torch.rand((batch.num_pods, n), generator=gen,
+                              device=dev) < 0.8
+            no_gpu = d.replace(gpu_free=d.gpu_free[:, :0].contiguous(),
+                               gpu_valid=d.gpu_valid[:, :0].contiguous())
+            for label, dd in ((strategy, d), (f"{strategy}, no GPU", no_gpu)):
+                ok, score = device_pair_terms(g, dd, strategy, pair.clone(),
+                                              a)
+                want_ok, want_score = device_pair_terms_plain(
+                    g, dd, strategy, pair, a)
+                same = torch.equal(ok, want_ok) and (
+                    score is None and want_score is None or torch.equal(
+                        score.view(torch.int32),
+                        want_score.view(torch.int32)))
+                if not same:
+                    raise SystemExit(f"K6's aux part at J={C8_VFS} ({label}) "
+                                     "differs from its plain version")
+                out[f"K6 {label}"] = dict(pairs_ok=int(ok[:rows].sum()))
+        return out
+    cases.append((f"J={C8_VFS} K6's aux part, K17", aux_cases))
+
+    def above_caps():
+        # one past each kernel's cap: the wrapper refuses it on the card,
+        # naming the cap, and falls back to nothing
+        snap, pods = numa_state(dev, gen, 200, C8_ZONES + 1)
+        batch = slice_batch(pods, 0, 100)
+        gsnap, gbatch = gpu_state(dev, gen, 200, 0, 100, gpus=65)
+        st = gpu_step(gsnap, gbatch, gen)
+        asnap, abatch, _ = aux_state(dev, 200, 200, j=65)
+        ch, rq = aux_choice(asnap, abatch, gen)
+        g = gpu_req_of(abatch)
+        a = deviceshare.aux_request(abatch.requests).contiguous()
+        zero = torch.zeros(3, dtype=torch.int32, device=dev)
+        calls = {
+            "K4 Z=9": lambda: numa_pair_terms(*k4_args(snap, batch, "most")),
+            "K5 Z=9": lambda: topology_admit(*k5_args(snap, batch, gen),
+                                             "most"),
+            "K14 Z=9": lambda: guard_nodes(snap.nodes, None, zero),
+            "K6 I=65": lambda: device_pair_terms(gpu_req_of(gbatch),
+                                                 gsnap.devices, "least"),
+            "K7 I=65": lambda: gpu_instance_pick(
+                st["choice"], st["accept"], st["gpu_req"], gsnap.devices,
+                None, None, "least"),
+            "K17 J=65": lambda: aux_instance_pick(
+                ch, rq, asnap.devices.aux_free, asnap.devices, "least"),
+            "K6 aux J=65": lambda: device_pair_terms(
+                g, asnap.devices, "least", None, a),
+        }
+        out = {}
+        for label, fn in calls.items():
+            try:
+                fn()
+            except ValueError as e:
+                out[label] = str(e)
+                continue
+            raise SystemExit(f"{label}: above its cap, the wrapper did not "
+                             "raise")
+        return out
+    cases.append(("above the caps", above_caps))
+    return cases
+
+
+def check_c8(dev, gen, n=1000, p=1000, keep_going=False):
+    """Fault C8: the reference takes any zone and instance width, so the
+    card must too (up to the kernels' caps, Z <= 8, I <= 64, J <= 64).
+    At Z = 8: K4 and K5 (both strategies, P = 1), K2's 8-level zone
+    chain, K14 healthy and with bad zones, and one config-2 chunk
+    (`schedule_batch(enable_numa=True)`, P = 1000 against N = 1000); at
+    I = 24 and 56: K6, K5 with DeviceShare's hints and K7's two launches
+    around the K2 gate (both strategies, the edge state), and one
+    gpu_share chunk; at Z = 8 with I = 56: K5, K7 and one chunk; at J =
+    64: K17 (both strategies, P = 1) and K6's aux part (with and without
+    GPU instances). Each against its plain version on the card, each
+    chunk card against host in every field. With `keep_going` a case's
+    exception is recorded and the next case runs (the parent's run)."""
+    out = {}
+    for label, fn in c8_cases(dev, gen, n, p):
+        try:
+            out[label] = fn()
+        except (ValueError, RuntimeError, SystemExit) as e:
+            if not keep_going:
+                raise
+            out[label] = dict(raised=type(e).__name__, message=str(e))
     return out
 
 
@@ -5334,6 +5705,7 @@ def main() -> int:
     k17 = check_k17(dev, gen)
     k6_aux = check_k6_aux(dev, gen)
     k2_aux = check_k2_aux(dev, gen)
+    c8 = check_c8(dev, gen)
     k18 = check_k18(dev)
     fold = check_fold(dev)
     k19 = check_k19(dev)
@@ -5368,6 +5740,8 @@ def main() -> int:
                       ("node_overcommit", k19)):
         for label, r in res.items():
             print(f"kernel {name} [{label}]: " + json.dumps(r), flush=True)
+    for label, r in c8.items():
+        print(f"fault C8 [{label}], equal: " + json.dumps(r), flush=True)
 
     print("K2 deciding its own order switch, equal to the plain version: "
           + json.dumps({"launches_held": len(K2_FOLDED),
@@ -5572,8 +5946,16 @@ def main() -> int:
             entry["launch_formula"] = K3_FORMULA
         if name == "topology_prefix_gate":
             entry["at_tail"] = k8["gpu_share tail"]
+        if name == "gpu_instance_pick":
+            entry["device_activities_a_call"] = \
+                k7["gpu_share least"]["activities"]
         if name in ("numa_pair_terms", "device_pair_terms"):
             entry["at_prefix_rows"] = rows[name]
+        wide = {"numa_pair_terms": k4.get("Z=8 most"),
+                "topology_admit": k5.get("Z=8 most"),
+                "device_pair_terms": k6.get("I=56 least")}.get(name)
+        if wide is not None:
+            entry["at_c8_width"] = wide
         if name == "score_topk":
             entry["at_prefix_rows"] = next(
                 v for k, v in rows.items() if k.startswith("addend rows")
@@ -5626,6 +6008,8 @@ def main() -> int:
             "library_ms": r["library_ms"], "shape": r["shape"]}
         if name == "delta_rows":
             entry["at_topology_delta"] = k16["topology 64"]
+        if name == "guard_nodes":
+            entry["at_c8_width"] = guard_checks["guard_nodes Z=8"]
         report.append(entry)
     # K17 at the aux full gate's first chunk; launches from phase 13
     source, replaces = SOURCES["aux_instance_pick"]
@@ -5640,7 +6024,8 @@ def main() -> int:
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"], "shape": r["shape"],
         "most": {k: k17["aux full gate most"][k] for k in (
-            "ms", "device_ms", "plain_ms", "bound_ms")}})
+            "ms", "device_ms", "plain_ms", "bound_ms")},
+        "at_c8_width": k17[f"aux full gate J={C8_VFS} least"]})
     # K18 on the fair-share tree, launches from phase 16; K19 at 10 000
     # nodes, launches from phase 17 (two reconciles)
     for name, r, path, launched in (

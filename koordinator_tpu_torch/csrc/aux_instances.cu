@@ -17,9 +17,10 @@
 //
 // What bounds it on the H100: bytes, and not many of them. A (pod,
 // pool) reads its request and its node's J instance free and valid
-// bytes (J <= 16: 80 bytes) and writes 5 bytes; 2000 pods read about
-// 330 KB, most of it from L2 (the pods of a step share nodes). The
-// launch itself costs more than the work.
+// bytes (J <= 64: 320 bytes; the aux full gate's J = 8, 40 bytes) and
+// writes 5 bytes; 2000 pods read about 330 KB at J = 8, most of it from
+// L2 (the pods of a step share nodes). The launch itself costs more
+// than the work.
 //
 // Design: one thread a (pod, pool), 256 threads a block; the thread
 // walks its node's J instances in index order with one comparison each.
@@ -33,7 +34,7 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_J = 16;
+constexpr int MAX_J = 64;
 
 __global__ void __launch_bounds__(THREADS) aux_instance_pick_kernel(
     const int32_t* __restrict__ choice, const float* __restrict__ req,

@@ -29,14 +29,18 @@
 // few correctly rounded divisions, and 90 % of the flagship's pods ask
 // for no GPU. 2000 x 10^4 pairs a chunk write 100 MB.
 //
-// Design: a block of 128 threads owns a tile of 128 nodes and 16 pods.
-// It stages the tile's instance free (up to 16 instances), valid bits,
+// Design: a block of TILE threads owns a tile of TILE nodes and 16
+// pods. It stages the tile's instance free, valid bits (a word a node),
 // per-GPU memory and pool sums, each aux pool's largest valid free, and
 // the pods' requests, in shared memory; thread t takes node t of the
 // tile for each of the 16 pods, so a warp writes 32 consecutive nodes
-// of one pod row at a time. An aux pool has a fitting instance iff its
+// of one pod row at a time. Two builds: up to 16 instances a node on
+// tiles of 128 nodes (24 KB of instance free a block), and up to 64 (8
+// GPUs in 7 MIG slices) on tiles of 32 nodes, so that the wide one's 24
+// KB fit a block as well. An aux pool has a fitting instance iff its
 // largest valid free plus eps covers the request: f32 addition rounds
-// monotonically, so max_j (free_j + eps) = max_j free_j + eps.
+// monotonically, so max_j (free_j + eps) = max_j free_j + eps; any J up
+// to 64.
 //
 // Exactness against the reference (bit for bit): the file builds with
 // -fmad=false and names each rounding (device_share.cuh for the
@@ -54,24 +58,28 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "device_share.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int TILE = 128;  // nodes a block
 constexpr int PODS = 16;   // pods a block
-constexpr int MAX_I = 16;
+constexpr int NARROW_I = 16, MAX_I = 64, MAX_J = 64;
 
-__global__ void __launch_bounds__(THREADS) device_pair_terms_kernel(
+// MI instances a node at most, on tiles of TILE nodes (TILE threads)
+template <int MI, int TILE>
+__global__ void __launch_bounds__(TILE) device_pair_terms_kernel(
     const float* __restrict__ gpu_req, const float* __restrict__ total,
     const float* __restrict__ free_, const uint8_t* __restrict__ valid,
     const float* __restrict__ aux_req, const float* __restrict__ aux_free,
     const uint8_t* __restrict__ aux_valid, int P, int N, int I, int J,
     int least, float eps, const uint8_t* and_in, uint8_t* out_ok,
     float* __restrict__ out_score) {
-  __shared__ float s_free[MAX_I][3][TILE];
-  __shared__ unsigned s_valid[TILE];
+  using Word = typename std::conditional<(MI > 32), unsigned long long,
+                                         unsigned>::type;
+  __shared__ float s_free[MI][3][TILE];
+  __shared__ Word s_valid[TILE];
   __shared__ float s_mem[TILE];
   __shared__ float s_pool_total[3][TILE];
   __shared__ float s_pool_free[3][TILE];
@@ -83,13 +91,13 @@ __global__ void __launch_bounds__(THREADS) device_pair_terms_kernel(
   const int n0 = blockIdx.x * TILE, p0 = blockIdx.y * PODS;
   const int n = n0 + t;
   if (n < N) {
-    unsigned vbits = 0;
+    Word vbits = 0;
     int vn = 0;
     float pf[3] = {0.0f, 0.0f, 0.0f};
     for (int i = 0; i < I; ++i) {
       const size_t o = (size_t)n * I + i;
       const bool v = valid[o] != 0;
-      vbits |= (unsigned)v << i;
+      vbits |= (Word)v << i;
       vn += v;
       for (int d = 0; d < 3; ++d) {
         const float f = free_[o * 3 + d];
@@ -112,14 +120,16 @@ __global__ void __launch_bounds__(THREADS) device_pair_terms_kernel(
       s_pool_free[d][t] = pf[d];
     }
   }
-  if (t < PODS * 3) {
-    const int q = p0 + t / 3;
-    s_req[t / 3][t % 3] = q < P && I > 0 ? gpu_req[(size_t)q * 3 + t % 3]
-                                         : 0.0f;
-  } else if (t < PODS * 5) {
-    const int k = t - PODS * 3, q = p0 + k / 2;
-    s_areq[k / 2][k % 2] = q < P && J > 0 ? aux_req[(size_t)q * 2 + k % 2]
-                                          : 0.0f;
+  for (int k = t; k < PODS * 5; k += TILE) {
+    if (k < PODS * 3) {
+      const int q = p0 + k / 3;
+      s_req[k / 3][k % 3] = q < P && I > 0 ? gpu_req[(size_t)q * 3 + k % 3]
+                                           : 0.0f;
+    } else {
+      const int a = k - PODS * 3, q = p0 + a / 2;
+      s_areq[a / 2][a % 2] = q < P && J > 0 ? aux_req[(size_t)q * 2 + a % 2]
+                                            : 0.0f;
+    }
   }
   __syncthreads();
   if (n >= N) return;
@@ -136,7 +146,7 @@ __global__ void __launch_bounds__(THREADS) device_pair_terms_kernel(
       for (int i = 0; i < I; ++i) {
         const float f3[3] = {s_free[i][0][t], s_free[i][1][t],
                              s_free[i][2][t]};
-        n_fit += ((s_valid[t] >> i) & 1u) && koord_dev::covers(f3, pi.v, eps);
+        n_fit += ((s_valid[t] >> i) & 1) && koord_dev::covers(f3, pi.v, eps);
       }
       ok = n_fit >= pi.count;
       float s = 0.0f, wsum = 0.0f;
@@ -175,12 +185,16 @@ extern "C" int koord_device_pair_terms(const void* const* ptr, int P, int N,
                                        int I, int J, int least, float eps,
                                        void* stream) {
   if (P <= 0 || N <= 0) return 0;
-  if (I < 0 || I > MAX_I || J < 0 || J > MAX_I || I + J == 0 ||
+  if (I < 0 || I > MAX_I || J < 0 || J > MAX_J || I + J == 0 ||
       (I > 0 && ptr[6] == nullptr))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + TILE - 1) / TILE, (P + PODS - 1) / PODS);
+  const bool narrow = I <= NARROW_I;
+  const int tile = narrow ? 128 : 32;
+  const dim3 grid((N + tile - 1) / tile, (P + PODS - 1) / PODS);
   if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
-  device_pair_terms_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  auto kernel = &device_pair_terms_kernel<NARROW_I, 128>;
+  if (!narrow) kernel = &device_pair_terms_kernel<MAX_I, 32>;
+  kernel<<<grid, tile, 0, (cudaStream_t)stream>>>(
       (const float*)ptr[0], (const float*)ptr[1], (const float*)ptr[2],
       (const uint8_t*)ptr[3], (const float*)ptr[7], (const float*)ptr[8],
       (const uint8_t*)ptr[9], P, N, I, J, least, eps, (const uint8_t*)ptr[4],

@@ -48,7 +48,7 @@ constexpr int ROWS = 32;  // node rows a block: one a lane of warp 0
 constexpr int NCOL = 10;  // scrubbed float columns
 constexpr int ALLOC = 0, REQUESTED = 1, AGG = 4, NUMA_FREE = 9;
 constexpr int METRIC_FIRST = 2, METRIC_LAST = 8;
-constexpr int MAX_R = 16, MAX_AGG = 8, MAX_Z = 4;
+constexpr int MAX_R = 16, MAX_AGG = 8, MAX_Z = 8;
 
 struct Args {
   // allocatable, requested, usage, prod_usage, agg_usage,
@@ -201,7 +201,8 @@ extern "C" int koord_guard_nodes(const void* const* ptr, const int* dims,
       a.A > MAX_AGG)
     return (int)cudaErrorInvalidValue;
   // 8 columns of R, agg of A x R, numa_free and numa_cap of 2Z, the
-  // flags; then a byte a row and a byte a zone (at most 35 KB)
+  // flags; then a byte a row and a byte a zone (at most 37 KB, under
+  // the 48 KB a launch takes without an opt-in)
   const size_t smem = sizeof(float) * ROWS * (8 * a.R + a.A * a.R + 4 * a.Z + 1)
                       + ROWS + ROWS * a.Z;
   const int grid = (a.N + ROWS - 1) / ROWS;

@@ -28,7 +28,9 @@
 // It stages the tile's zone rows (cap, free, valid, the policy and the
 // total valid free) and the pods' requests in shared memory, then
 // thread t takes node t of the tile for each of the 16 pods, so a warp
-// writes 32 consecutive nodes of one pod row at a time.
+// writes 32 consecutive nodes of one pod row at a time. The kernel is
+// built for two zone widths, Z <= 4 (18 KB of shared memory a block) and
+// Z <= 8 (36 KB), so that the narrow one keeps its occupancy.
 //
 // Exactness against the reference (bit for bit): the file builds with
 // -fmad=false and names each rounding. used_after = (cap - free) + req,
@@ -47,18 +49,19 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int TILE = 256;   // nodes a block
 constexpr int PODS = 16;    // pods a block
-constexpr int MAX_Z = 4;
+constexpr int MAX_Z = 8;
 constexpr int POLICY_NONE = 0;
 
+template <int MZ>
 __global__ void __launch_bounds__(THREADS) numa_pair_terms_kernel(
     const float* __restrict__ demand, const uint8_t* __restrict__ single,
     const float* __restrict__ cap, const float* __restrict__ free_,
     const uint8_t* __restrict__ valid, const int32_t* __restrict__ policy,
     int P, int N, int Z, int least, float eps, const uint8_t* and_in,
     uint8_t* out_ok, float* __restrict__ out_score) {
-  __shared__ float s_cap[MAX_Z][2][TILE];
-  __shared__ float s_free[MAX_Z][2][TILE];
-  __shared__ uint8_t s_valid[MAX_Z][TILE];
+  __shared__ float s_cap[MZ][2][TILE];
+  __shared__ float s_free[MZ][2][TILE];
+  __shared__ uint8_t s_valid[MZ][TILE];
   __shared__ uint8_t s_policy_none[TILE];
   __shared__ float s_total[2][TILE];
   __shared__ float s_demand[PODS][2];
@@ -145,7 +148,9 @@ extern "C" int koord_numa_pair_terms(const void* const* ptr, int P, int N,
   if (Z <= 0 || Z > MAX_Z) return (int)cudaErrorInvalidValue;
   const dim3 grid((N + TILE - 1) / TILE, (P + PODS - 1) / PODS);
   if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
-  numa_pair_terms_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  auto kernel = &numa_pair_terms_kernel<4>;
+  if (Z > 4) kernel = &numa_pair_terms_kernel<MAX_Z>;
+  kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)ptr[0], (const uint8_t*)ptr[1], (const float*)ptr[2],
       (const float*)ptr[3], (const uint8_t*)ptr[4], (const int32_t*)ptr[5],
       P, N, Z, least, eps, (const uint8_t*)ptr[6], (uint8_t*)ptr[7],

@@ -58,7 +58,7 @@ constexpr int STAGE = 16384;                  // staged row floats (64 KB)
 constexpr int WARPS = THREADS / 32;
 constexpr int FLIGHT = 8;  // loads a thread keeps in flight in a copy
 constexpr int MAX_GROUPS = 32;
-constexpr int MAX_C = 128;
+constexpr int MAX_C = 192;  // the instance commit at I = 64: 64 x 3
 
 // One group (kernels/scatter.py _Group mirrors it): its blocks are
 // block0 .. block0 + ceil(S / rb) - 1, block b owning rows

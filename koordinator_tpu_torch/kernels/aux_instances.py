@@ -22,7 +22,7 @@ from koordinator_tpu_torch.scheduler.batching import EPS
 from koordinator_tpu_torch.scheduler.plugins import deviceshare
 from koordinator_tpu_torch.snapshot.schema import DeviceState
 
-MAX_AUX_INSTANCES = 16
+MAX_AUX_INSTANCES = 64
 
 
 def aux_instance_pick_plain(choice: torch.Tensor, req: torch.Tensor,
@@ -47,7 +47,7 @@ def aux_instance_pick(choice: torch.Tensor, req: torch.Tensor,
     (the RDMA and FPGA requests, `deviceshare.aux_request`); aux_free
     f32[N, 2, J] the step's live free; devices.aux_valid bool[N, 2, J]
     the batch-start valid bits; strategy "least" or "most". Takes any
-    P and 1 <= J <= 16."""
+    P and 1 <= J <= 64."""
     p = choice.shape[0]
     n, _, j = aux_free.shape
     dev = choice.device

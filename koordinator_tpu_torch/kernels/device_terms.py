@@ -27,7 +27,7 @@ from koordinator_tpu_torch.scheduler.batching import EPS
 from koordinator_tpu_torch.scheduler.plugins import deviceshare
 from koordinator_tpu_torch.snapshot.schema import DeviceState
 
-MAX_INSTANCES = 16
+MAX_INSTANCES = 64
 
 
 def device_pair_terms_plain(gpu_req: torch.Tensor, devices: DeviceState,
@@ -64,7 +64,7 @@ def device_pair_terms(gpu_req: torch.Tensor, devices: DeviceState,
     (`deviceshare.aux_request`), aux_free f32[N, 2, J] and aux_valid
     bool[N, 2, J]; strategy "least" or "most"; pair_ok bool[P, N]
     (P >= rows) or None. On the card a given pair_ok has its first rows
-    ANDed in place and is returned. Takes I <= 16 and J <= 16, with
+    ANDed in place and is returned. Takes I <= 64 and J <= 64, with
     I >= 1 or an aux part (J >= 1); rows and N unlimited (rows = 0
     launches nothing). The score is None where I = 0."""
     p = gpu_req.shape[0]

@@ -16,6 +16,11 @@ step launches it twice around one K2 launch:
    alive): the final accept of the step and each pod's instances, the
    multi-GPU pods taking whole instances that this step's shared pods
    did not take.
+
+On the card the take is one launch: it marks the shared pods' instances
+in a 64-bit word a node (`GpuChoice.taken`, whose chosen nodes' words
+the choose launch zeroed) and takes the multi-GPU pods' instances after
+a grid barrier.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from koordinator_tpu_torch.scheduler.batching import EPS
 from koordinator_tpu_torch.scheduler.plugins import deviceshare
 from koordinator_tpu_torch.snapshot.schema import DeviceState
 
-MAX_INSTANCES = 32
+MAX_INSTANCES = 64
 
 
 class GpuChoice(NamedTuple):
@@ -42,6 +47,10 @@ class GpuChoice(NamedTuple):
     seg: torch.Tensor          # i32[2, P] K2's segments: (node, instance)
                                # of shared pods, node of multi-GPU pods
     req: torch.Tensor          # f32[2, P, 3] K2's per-level requests
+    taken: Optional[torch.Tensor] = None
+                               # the card's take words, i64[N] (a bit an
+                               # instance; the chosen nodes' zeroed), for
+                               # the take launch; None on the host
 
 
 class GpuTake(NamedTuple):
@@ -124,7 +133,9 @@ def gpu_instance_pick(choice: torch.Tensor, active: torch.Tensor,
     (gpu_total f32[N, 3], gpu_free f32[N, I, 3], gpu_valid bool[N, I],
     gpu_numa i32[N, I]); affinity bool[P, Z] and engaged bool[P] from
     the topology manager, or both None when it is off; strategy "least"
-    or "most". Takes 1 <= I <= 32 and any P."""
+    or "most". Takes 1 <= I <= 64 and any P. On the card the take
+    launch reads the words of `chosen` (this step's choose launch on the
+    same `choice`)."""
     p = choice.shape[0]
     n, i, _ = devices.gpu_free.shape
     dev = choice.device
@@ -164,6 +175,9 @@ def gpu_instance_pick(choice: torch.Tensor, active: torch.Tensor,
     if i > MAX_INSTANCES:
         raise ValueError(f"gpu_instance_pick: I={i} above its capacity "
                          f"({MAX_INSTANCES})")
+    if chosen is not None and chosen.taken is None:
+        raise ValueError("gpu_instance_pick: the take launch needs the "
+                         "card's choose result (chosen.taken)")
     pool = (devices.gpu_total, devices.gpu_free, devices.gpu_valid,
             devices.gpu_numa)
     stream = _launch.stream(dev)
@@ -174,7 +188,8 @@ def gpu_instance_pick(choice: torch.Tensor, active: torch.Tensor,
             inst=torch.empty((p,), dtype=torch.int32, device=dev),
             gate_active=torch.empty((p,), dtype=torch.bool, device=dev),
             seg=torch.empty((2, p), dtype=torch.int32, device=dev),
-            req=torch.empty((2, p, 3), dtype=torch.float32, device=dev))
+            req=torch.empty((2, p, 3), dtype=torch.float32, device=dev),
+            taken=torch.empty((n,), dtype=torch.int64, device=dev))
         tensors = pool + (choice, active, gpu_req, affinity, engaged) \
             + tuple(out)
         fn = TOOLCHAIN.function("gpu_instances", "koord_gpu_choose",
@@ -185,10 +200,9 @@ def gpu_instance_pick(choice: torch.Tensor, active: torch.Tensor,
         out = GpuTake(
             accept=torch.empty((p,), dtype=torch.bool, device=dev),
             take=torch.empty((p, i), dtype=torch.bool, device=dev))
-        taken = torch.empty((n,), dtype=torch.int32, device=dev)
         tensors = pool + (choice, active, chosen.count, chosen.per_inst,
                           chosen.inst, affinity, engaged) + tuple(out) \
-            + (taken,)
+            + (chosen.taken,)
         fn = TOOLCHAIN.function("gpu_instances", "koord_gpu_take",
                                 [ctypes.c_void_p] + [ctypes.c_int] * 4
                                 + [ctypes.c_float, ctypes.c_void_p])

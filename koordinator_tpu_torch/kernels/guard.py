@@ -51,7 +51,7 @@ DOMAIN_FAMILIES = (
     ("has_aff", "aff_domain", "aff_count0", "aff_carrier"),
 )
 MAX_R = 16      # csrc/guard_nodes.cu, csrc/guard_pods.cu
-MAX_Z = 4
+MAX_Z = 8
 MAX_GROUPS = 64  # a family, csrc/guard_pods.cu
 
 
@@ -118,7 +118,7 @@ def guard_nodes(nodes: NodeState, force: Optional[torch.Tensor] = None,
     for CPU tensors. `force` (bool[N]) names the rows to scrub instead
     of the scan's (apply_quarantine's masks); `health` is accumulated
     into (zeros where None). The node columns of `NODE_COLUMNS` are
-    written anew, the rest of `nodes` is shared. N, R <= 16, Z <= 4."""
+    written anew, the rest of `nodes` is shared. N, R <= 16, Z <= 8."""
     n, r = nodes.allocatable.shape
     z = nodes.numa_cap.shape[1]
     agg = nodes.agg_usage.shape[1]

@@ -23,7 +23,7 @@ from koordinator_tpu_torch.kernels.build import TOOLCHAIN, check
 from koordinator_tpu_torch.scheduler.batching import EPS
 from koordinator_tpu_torch.scheduler.plugins import numaaware
 
-MAX_ZONES = 4
+MAX_ZONES = 8
 STRATEGIES = ("most", "least")
 
 
@@ -60,7 +60,7 @@ def numa_pair_terms(demand: torch.Tensor, numa_single: torch.Tensor,
     numa_valid bool[N, Z]; numa_policy i32[N]; strategy "most" or
     "least"; pair_ok bool[P, N] (P >= rows) or None. On the card a given
     pair_ok has its first rows ANDed in place and is returned. Takes
-    Z <= 4; rows and N unlimited (rows = 0 launches nothing)."""
+    Z <= 8; rows and N unlimited (rows = 0 launches nothing)."""
     rows = demand.shape[0]
     n, z, _ = numa_cap.shape
     dev = demand.device

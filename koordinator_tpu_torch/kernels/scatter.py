@@ -20,7 +20,7 @@ from koordinator_tpu_torch.kernels import _launch
 from koordinator_tpu_torch.kernels.build import TOOLCHAIN, check
 
 MAX_GROUPS = 32    # groups a launch (csrc/ordered_scatter_add.cu)
-MAX_COLUMNS = 128  # columns a target (a staged segment holds one row)
+MAX_COLUMNS = 192  # columns a target: the instance commit at I = 64
 # the H100's SMs, the most blocks a group takes, and `group_blocks`'
 # two shares
 _SMS = 132

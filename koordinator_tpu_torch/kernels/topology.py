@@ -10,7 +10,8 @@ provider's (core.py:930-940: deviceshare.py:111 per_instance_at, :184
 gpu_zone_counts on the live instance free, topologymanager.py:97
 count_hints), their merge (:119 merge_hints), the policy outcome (:130
 resolve) and the greedy zone take (:197 greedy_take). On the TPU these
-are a few dozen small fused ops a step; here they are one launch.
+are a few dozen small fused ops a step; here they are one launch, a
+warp a pod.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from koordinator_tpu_torch.scheduler import topologymanager as tm
 from koordinator_tpu_torch.scheduler.plugins import deviceshare
 from koordinator_tpu_torch.snapshot.schema import DeviceState
 
-MAX_ZONES = 4
+MAX_ZONES = 8
 STRATEGIES = ("most", "least")
 
 
@@ -98,8 +99,8 @@ def topology_admit(choice: torch.Tensor, trying: torch.Tensor,
     (each pod's GPU core, memory and memory ratio,
     `deviceshare.gpu_request`) and `devices` with its live gpu_free
     (gpu_total f32[S, 3], gpu_free f32[S, I, 3], gpu_valid bool[S, I],
-    gpu_numa i32[S, I]). Takes any P (a thread a pod, a grid of
-    blocks) and Z <= 4."""
+    gpu_numa i32[S, I]). Takes any P (a warp a pod, a grid of
+    blocks), Z <= 8 and any I."""
     p = choice.shape[0]
     s, z, _ = numa_cap.shape
     dev = choice.device

@@ -6,6 +6,7 @@ the card.
         [--workload flagship|config2|gpushare|fullgate|descheduler|
                     descheduler_capped|guarded]
         [--out chiprun_out/profile_<workload>.json]
+    python -m koordinator_tpu_torch.profile_flagship --summarize FILE...
 
 Builds the kernels, runs the workload (the 100k x 10k slim flagship;
 config 2: 10k pods x 1k nodes on the NUMA path; gpu_share_100kx10k,
@@ -29,7 +30,12 @@ activity with the plain-torch parts that have no kernel of their own
 under `torch.profiler.record_function` ranges (`domains.round_terms`,
 `reservation.slot_columns` and the tail's `tail_select` with its
 topology budget): their calls a run and the device time of the kernels
-launched inside them. Needs a CUDA card.
+launched inside them. Every report also sums the device time and
+launches of each of the port's scheduler kernels (`PORT_KERNELS`, by
+symbol) and of the memsets; `--summarize` prints those sums, with each
+report's untraced `value`, busy time, idle share and activity count, for
+reports already written (a parent tree's too). Needs a CUDA card, but
+not to summarize.
 """
 
 from __future__ import annotations
@@ -62,6 +68,64 @@ from koordinator_tpu_torch.scheduler import core
 RANGES = (("domains.round_terms", "round_terms"),
           ("reservation.slot_columns", "slot_columns"),
           ("core.tail_select (select and topology budget)", "tail_select"))
+
+# the port's scheduler kernels by symbol fragment (K7's with the
+# symbols of its earlier two-kernel take, so that an older tree's report
+# sums the same way), and the memsets
+PORT_KERNELS = (
+    ("K1 score_topk", ("score_topk_kernel",)),
+    ("K2 segment_prefix_chain", ("segment_prefix_chain_kernel",)),
+    ("K2 order_switch", ("order_switch_kernel",)),
+    ("K3 ordered_scatter_add", ("ordered_scatter_add_kernel",)),
+    ("K4 numa_pair_terms", ("numa_pair_terms_kernel",)),
+    ("K5 topology_admit", ("topology_admit_kernel",)),
+    ("K6 device_pair_terms", ("device_pair_terms_kernel",)),
+    ("K7 gpu_instance_pick", ("gpu_choose_kernel", "gpu_shared_taken_kernel",
+                              "gpu_take_kernel")),
+    ("K8 topology_prefix_gate", ("topology_prefix_kernel",)),
+    ("K9 stage1_mask", ("stage1_mask_kernel",)),
+    ("K17 aux_instance_pick", ("aux_instance_pick_kernel",)),
+    ("memsets", ("Memset",)))
+
+
+# a run's placement counts, which a kernel change must not move
+PLACEMENT_KEYS = ("placed", "gpu_pods_placed", "numa_bound_placed",
+                  "slot_consumers", "once_slots_taken", "spread_placed",
+                  "anti_placed", "aff_placed", "stragglers_after_sweep",
+                  "stragglers_final", "never_retried")
+
+
+def kernel_totals(kernels_by_device_time) -> dict:
+    """{label: {device_us, launches}} of PORT_KERNELS over a report's
+    `kernels_by_device_time` rows."""
+    out = {}
+    for label, frags in PORT_KERNELS:
+        rows = [k for k in kernels_by_device_time
+                if any(f in k["name"] for f in frags)]
+        out[label] = {"device_us": sum(k["device_us"] for k in rows),
+                      "launches": sum(k["launches"] for k in rows)}
+    return out
+
+
+def summarize(paths) -> dict:
+    """{path: the untraced value and placements, the traced run's busy
+    time, idle share and activities, and `kernel_totals`} of written
+    reports."""
+    out = {}
+    for path in paths:
+        with open(path) as f:
+            r = json.load(f)
+        t = r["traced_run"]
+        line = r["untraced_run"]
+        out[path] = {
+            "card": r.get("card"),
+            "value": line.get("value"),
+            "placements": {k: line[k] for k in PLACEMENT_KEYS if k in line},
+            "device_busy_us": t["device_busy_us"],
+            "device_idle_share": t["device_idle_share"],
+            "device_activities": t["device_activities"],
+            "port_kernels": kernel_totals(r["kernels_by_device_time"])}
+    return out
 
 
 def _busy_us(events) -> float:
@@ -124,7 +188,12 @@ def main() -> None:
         "descheduler_capped", "guarded"), default="flagship")
     ap.add_argument("--out", default=None,
                     help="default chiprun_out/profile_<workload>.json")
+    ap.add_argument("--summarize", nargs="+", metavar="FILE",
+                    help="print the sums of written reports and exit")
     args = ap.parse_args()
+    if args.summarize:
+        print(json.dumps(summarize(args.summarize), indent=1))
+        return
     out = args.out or f"chiprun_out/profile_{args.workload}.json"
     if args.workload == "flagship":
         warm_up = functools.partial(run_northstar, device="cuda", snap_seed=0)
@@ -187,6 +256,7 @@ def main() -> None:
             {"name": n[:120], "device_us": t, "launches": c}
             for n, (t, c) in top],
     }
+    report["port_kernels"] = kernel_totals(report["kernels_by_device_time"])
     if ranges is not None:
         report["ranges"] = ranges
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)

@@ -683,10 +683,11 @@ AUX_GPU_POD_REQ, AUX_RDMA_ALONE_REQ = (100.0, 50.0, 25.0), (25.0, 50.0,
 AUX_TOO_BIG_FRAC, AUX_TOO_BIG_REQ = 0.05, 150.0
 
 
-def aux_pools(gpu_nodes: np.ndarray, gpu_pods: np.ndarray, seed: int = 11):
+def aux_pools(gpu_nodes: np.ndarray, gpu_pods: np.ndarray, seed: int = 11,
+              j: int = AUX_INSTANCES):
     """(aux_free f32[N, 2, J], aux_valid bool[N, 2, J], aux_req f32[P, 2],
     aux_alloc f32[N, 2], aux_used f32[N, 2]) of the aux full gate,
-    J = AUX_INSTANCES: every GPU node (gpu_nodes
+    J = j (AUX_INSTANCES by default): every GPU node (gpu_nodes
     bool[N]) gets J valid RDMA VFs and AUX_OTHER_NODE_FRAC of the other
     nodes two, each VF's free drawn from AUX_FREE_LEVELS; AUX_FPGA_NODE_FRAC
     of all nodes get two FPGA instances at 100 free. Of the GPU pods
@@ -701,7 +702,7 @@ def aux_pools(gpu_nodes: np.ndarray, gpu_pods: np.ndarray, seed: int = 11):
     instance's free). Numpy arrays, so that a test applies the same ones
     to the reference's inputs."""
     rng = np.random.default_rng(seed)
-    n, p, j = gpu_nodes.shape[0], gpu_pods.shape[0], AUX_INSTANCES
+    n, p = gpu_nodes.shape[0], gpu_pods.shape[0]
     levels = np.asarray(AUX_FREE_LEVELS, np.float32)
     free = np.zeros((n, NUM_AUX_TYPES, j), np.float32)
     valid = np.zeros((n, NUM_AUX_TYPES, j), bool)
@@ -731,16 +732,16 @@ def aux_pools(gpu_nodes: np.ndarray, gpu_pods: np.ndarray, seed: int = 11):
     return free, valid, req, alloc, used
 
 
-def with_aux_pools(snap: ClusterSnapshot, pods: PodBatch, seed: int = 11
-                   ) -> Tuple[ClusterSnapshot, PodBatch]:
-    """`snap` and `pods` with `aux_pools`' pools, the nodes' RDMA and
+def with_aux_pools(snap: ClusterSnapshot, pods: PodBatch, seed: int = 11,
+                   j: int = AUX_INSTANCES) -> Tuple[ClusterSnapshot, PodBatch]:
+    """`snap` and `pods` with `aux_pools`' pools of j VFs, the nodes' RDMA and
     FPGA allocatable and use, and the pods' requests (the GPU nodes:
     those with a valid GPU instance; the GPU pods: those asking for a GPU
     resource)."""
     dev = snap.nodes.allocatable.device
     gpu_nodes = snap.devices.gpu_valid.any(dim=1).cpu().numpy()
     gpu_pods = has_gpu_request(pods.requests, pods.gpu_ratio).cpu().numpy()
-    free, valid, req, alloc, used = aux_pools(gpu_nodes, gpu_pods, seed)
+    free, valid, req, alloc, used = aux_pools(gpu_nodes, gpu_pods, seed, j)
     kinds = list(AUX_KINDS)
     requests = pods.requests.clone()
     requests[:, kinds] = torch.from_numpy(req).to(dev)
@@ -775,12 +776,13 @@ def aux_no_fit(snap: ClusterSnapshot, pods: PodBatch) -> Dict[str, int]:
 
 
 def aux_full_gate_inputs(num_pods: int = 100_000, num_nodes: int = 10_000,
-                         device="cuda") -> Tuple[ClusterSnapshot, PodBatch]:
+                         device="cuda", aux_instances: int = AUX_INSTANCES
+                         ) -> Tuple[ClusterSnapshot, PodBatch]:
     """`gpu_share_inputs` with `with_aux_pools`: the full gate's workload
-    on a cluster whose GPU nodes carry RDMA VFs beside their GPUs, a few
-    nodes FPGAs, and pods that ask for them."""
+    on a cluster whose GPU nodes carry `aux_instances` RDMA VFs beside
+    their GPUs, a few nodes FPGAs, and pods that ask for them."""
     snap, pods = gpu_share_inputs(num_pods, num_nodes, device=device)
-    return with_aux_pools(snap, pods)
+    return with_aux_pools(snap, pods, j=aux_instances)
 
 
 def full_gate_reservations(num_nodes: int) -> int:
@@ -804,10 +806,11 @@ ANTI_GROUPS, ANTI_MEMBERS = 16, 64
 AFF_GROUPS, AFF_MEMBERS = 8, 48
 
 
-def full_gate_cluster(num_nodes: int, seed: int = 0,
-                      device="cuda") -> ClusterSnapshot:
+def full_gate_cluster(num_nodes: int, seed: int = 0, device="cuda",
+                      gpus_per_node: int = 8) -> ClusterSnapshot:
     """The full-gate flagship cluster: `synthetic_cluster` with
-    FULL_GATE_CLUSTER_KW (a quarter GPU nodes) and
+    FULL_GATE_CLUSTER_KW (a quarter GPU nodes, gpus_per_node instances
+    each) and
     full_gate_reservations(num_nodes) live reservation slots, two
     populated NUMA zones a node, and three taint classes (0 untainted,
     1 dedicated, 2 GPU-exclusive; p = 0.8 / 0.15 / 0.05, drawn from
@@ -815,7 +818,7 @@ def full_gate_cluster(num_nodes: int, seed: int = 0,
     snap = with_two_numa_zones(synthetic_cluster(
         num_nodes, seed=seed,
         num_reservations=full_gate_reservations(num_nodes), device=device,
-        **FULL_GATE_CLUSTER_KW))
+        **dict(FULL_GATE_CLUSTER_KW, gpus_per_node=gpus_per_node)))
     taint_group = np.random.default_rng(seed + 17).choice(
         3, num_nodes, p=[0.8, 0.15, 0.05]).astype(np.int32)
     return snap.replace(nodes=snap.nodes.replace(
@@ -955,7 +958,8 @@ def full_gate_pods(num_pods: int, num_nodes: int, seed: int = 1,
 
 
 def gpu_share_inputs(num_pods: int = 100_000, num_nodes: int = 10_000,
-                     device="cuda") -> Tuple[ClusterSnapshot, PodBatch]:
+                     device="cuda", gpus_per_node: int = 8
+                     ) -> Tuple[ClusterSnapshot, PodBatch]:
     """The reference's full-gate flagship workload (`full_gate_cluster`
     and `full_gate_pods`, seeds 0 and 1):
     10 000 nodes with 32 quotas, 64 gangs, a quarter of them GPU nodes
@@ -965,8 +969,10 @@ def gpu_share_inputs(num_pods: int = 100_000, num_nodes: int = 10_000,
     three toleration sets, two owners a slot, 16 spread groups (8 zone
     groups, each with a hostname companion), 16 hostname anti-affinity
     groups and 8 zone affinity groups. The one cut, the cascade, is a
-    knob of the run."""
-    snap = full_gate_cluster(num_nodes, seed=0, device=device)
+    knob of the run. A wider `gpus_per_node` (MIG slices) keeps the
+    rest as it is."""
+    snap = full_gate_cluster(num_nodes, seed=0, device=device,
+                             gpus_per_node=gpus_per_node)
     pods = full_gate_pods(num_pods, num_nodes, seed=1, device=device)
     return snap, pods
 

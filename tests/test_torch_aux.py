@@ -82,12 +82,12 @@ def test_rdma_vf_fragmentation_equals_reference():
     assert sorted(got.aux_inst[:2, 0].tolist()) == [0, 1]
 
 
-def _pick_case(strategy_seed):
+def _pick_case(strategy_seed, j=5):
     """Live free with ties (equal free on several instances), invalid
     instances, a node with no valid instance, zero and oversize
-    requests, choices out of range (clamped)."""
+    requests, choices out of range (clamped); j instances a pool."""
     rng = np.random.default_rng(strategy_seed)
-    n, j, p = 6, 5, 64
+    n, p = 6, 64
     free = rng.choice(np.asarray([0.0, 25.0, 50.0, 100.0], np.float32),
                       size=(n, 2, j))
     valid = rng.uniform(size=(n, 2, j)) < 0.8
@@ -106,7 +106,18 @@ def test_aux_instance_pick_equals_reference(strategy, seed):
     `choose_aux_instance` against the reference's chooser, pool by pool:
     instances and ok equal on ties (the first index), empty pools,
     invalid instances, zero and oversize requests."""
-    free, valid, choice, req = _pick_case(seed)
+    _pick_equals_reference(strategy, seed, 5)
+
+
+@pytest.mark.parametrize("strategy", ["least", "most"])
+def test_aux_instance_pick_at_64_vfs_equals_reference(strategy):
+    """The same at 64 VFs a pool (a node with several SR-IOV NICs; fault
+    C8's width)."""
+    _pick_equals_reference(strategy, 0, 64)
+
+
+def _pick_equals_reference(strategy, seed, j):
+    free, valid, choice, req = _pick_case(seed, j)
     jdev = jsyn.synthetic_cluster(free.shape[0]).devices.replace(
         aux_free=jnp.asarray(free), aux_valid=jnp.asarray(valid))
     tdev = to_port("DeviceState", jdev)
@@ -147,15 +158,15 @@ def test_aux_instance_pick_checks_its_inputs():
 
 
 @functools.lru_cache(maxsize=None)
-def _aux_inputs(gpu_frac=0.25):
+def _aux_inputs(gpu_frac=0.25, j=synthetic.AUX_INSTANCES):
     """The full gate's cluster and pods at NODES x PODS with
-    `synthetic.aux_pools` applied to the reference's inputs (the same
-    numpy arrays the port's `with_aux_pools` draws)."""
+    `synthetic.aux_pools` (j VFs a GPU node) applied to the reference's
+    inputs (the same numpy arrays the port's `with_aux_pools` draws)."""
     jsnap = jsyn.full_gate_cluster(NODES, seed=0, gpu_node_frac=gpu_frac)
     jpods = jsyn.full_gate_pods(PODS, NODES, seed=1)
     free, valid, req, alloc, used = synthetic.aux_pools(
         np.asarray(jsnap.devices.gpu_valid).any(axis=1),
-        np.asarray(jdeviceshare.has_gpu_request(jpods)), seed=11)
+        np.asarray(jdeviceshare.has_gpu_request(jpods)), seed=11, j=j)
     requests = np.array(jpods.requests)
     requests[:, AUX_COLS] = req
     allocatable = np.array(jsnap.nodes.allocatable)
@@ -175,7 +186,16 @@ def test_aux_prefilter_equals_reference():
     """K6 with its aux part (the plain version) against the reference's
     whole `prefilter` on the aux full gate's cluster and pods, and on
     the same cluster without GPU instances (the aux part alone)."""
-    jsnap, jpods = _aux_inputs()
+    _prefilter_equals_reference(synthetic.AUX_INSTANCES)
+
+
+def test_aux_prefilter_at_64_vfs_equals_reference():
+    """The same with 64 VFs a GPU node (fault C8's width)."""
+    _prefilter_equals_reference(64)
+
+
+def _prefilter_equals_reference(j):
+    jsnap, jpods = _aux_inputs(j=j)
     want = np.asarray(jdeviceshare.prefilter(jsnap.devices, jpods))
     tdev = to_port("DeviceState", jsnap.devices)
     pods = to_port("PodBatch", jpods)

@@ -20,7 +20,7 @@ from koordinator_tpu_torch.scheduler.plugins import deviceshare, loadaware
 from koordinator_tpu_torch.scheduler.plugins.loadaware import LoadAwareConfig
 from koordinator_tpu_torch.utils import synthetic
 
-from torch_port_ref import to_port
+from torch_port_ref import to_port, with_zones
 from torch_port_ref import one_torch_thread  # noqa: F401 (autouse)
 
 BENCH_KW = dict(num_rounds=2, k_choices=8, score_dims=(0, 1),
@@ -583,3 +583,26 @@ def test_gpu_chunk1_matches_batch_capacity_as_reference(seed):
     placed_b = got.assignment.numpy() >= 0
     assert abs((count * placed_b).sum() - (count * placed_seq).sum()) \
         <= count.max()
+
+
+def test_eight_zones_and_56_instances_chunk_equals_reference():
+    """One batch at fault C8's widths through both packages: eight NUMA
+    zones a node (every policy code) and 56 GPU instances a GPU node (8
+    GPUs in 7 MIG slices, spread over the zones), 60 % GPU pods, NUMA on
+    (a third of the prod pods NUMA-bound). Every result field, the
+    instance free and the zone state equal, the f32 ones bit for bit."""
+    snap = with_zones(jsyn.synthetic_cluster(
+        24, seed=3, num_quotas=8, gpu_node_frac=0.7, gpus_per_node=56),
+        8, seed=8)
+    pods = jsyn.synthetic_pods(240, seed=4, prod_frac=0.7, num_quotas=8,
+                               gpu_pod_frac=0.6)
+    rng = np.random.default_rng(5)
+    pods = pods.replace(numa_single=jnp.asarray(
+        (np.asarray(pods.priority_class) == 4)
+        & (rng.uniform(size=240) < 0.33)))
+    want, got = _schedule_both(snap, pods)
+    _assert_fields_equal(want, got)
+    placed = np.asarray(want.assignment) >= 0
+    take = np.asarray(want.gpu_take)
+    assert 0 < placed.sum() < 240 and (take.sum(axis=1) > 1).any()
+    assert (np.asarray(want.numa_zone) >= 0).any()

@@ -36,6 +36,10 @@ from torch_port_ref import one_torch_thread  # noqa: F401 (autouse)
 
 SEEDS = [0, 1, 2]
 STRATEGIES = ["least", "most"]
+# (seed, instances a node): 8 GPUs in 3 and in 7 MIG slices (fault C8's
+# widths: past one 32-bit word a node)
+WIDE = [(0, 24), (1, 56)]
+WIDE_IDS = [f"seed{s}-I{i}" for s, i in WIDE]
 
 
 def device_case(seed, n=40, i=8):
@@ -82,8 +86,8 @@ def pod_case(seed, p=200):
 
 
 @functools.lru_cache(maxsize=None)
-def _case(seed):
-    dev, pods = device_case(seed), pod_case(seed)
+def _case(seed, i=8):
+    dev, pods = device_case(seed, i=i), pod_case(seed)
     tdev, tpods = to_port("DeviceState", dev), to_port("PodBatch", pods)
     return dev, pods, tdev, tpods, deviceshare.gpu_request(tpods.requests,
                                                            tpods.gpu_ratio)
@@ -165,6 +169,27 @@ def test_score_matrix_and_k6_score_equal_reference(seed, strategy):
     gpu = np.asarray(jds.has_gpu_request(pods))
     assert (want[~gpu] == 0).all() and (want[gpu] > 0).any()
     assert ((want[gpu] % 1) != 0).any()   # fractional scores
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("seed,i", WIDE, ids=WIDE_IDS)
+def test_k6_at_mig_widths_equals_reference(seed, i, strategy):
+    """K6's gate (its GPU part, ANDed into a pair mask) and its pool
+    score at 24 and 56 instances a node against the reference's
+    prefilter and score matrix."""
+    dev, pods, tdev, _, gpu_req = _case(seed, i)
+    no_aux = np.array(pods.requests)
+    no_aux[:, int(RK.RDMA)] = 0.0
+    want_gpu = np.asarray(jax.jit(jds.prefilter)(
+        dev, pods.replace(requests=jnp.asarray(no_aux))))
+    want_score = np.asarray(jax.jit(jds.score_matrix, static_argnums=2)(
+        dev, pods, strategy))
+    mask = torch.from_numpy(np.random.default_rng(seed).uniform(
+        size=want_gpu.shape) < 0.7)
+    ok, score = device_pair_terms(gpu_req, tdev, strategy, pair_ok=mask)
+    _same(ok, want_gpu & mask.numpy(), "pair_ok")
+    _same(score, want_score, "pair_score")
+    assert not want_gpu.all() and want_gpu.any()
 
 
 def _step_inputs(seed, dev, p):
@@ -282,15 +307,11 @@ def reference_gpu_block(gpu_free, devices, pods, choice_eff, accept, rank,
                  | (take & (acc & multi)[:, None]))
 
 
-@pytest.mark.parametrize("numa", [True, False], ids=["numa", "no-numa"])
-@pytest.mark.parametrize("strategy", STRATEGIES)
-@pytest.mark.parametrize("seed", SEEDS)
-def test_k7_step_equals_reference_gpu_block(seed, strategy, numa):
+def _k7_step_equals_reference(seed, strategy, numa, i=8):
     """K7's two launches around the K2 gate (plain versions) against the
-    reference's GPU block: contended nodes (shared pods competing for an
-    instance, several multi-GPU pods on one node), pods the earlier
-    gates rejected and pods without a choice (index N)."""
-    dev, pods, tdev, _, gpu_req = _case(seed)
+    reference's GPU block on `_case(seed, i)`; returns (choose result,
+    take result, the admitted pods, the reference's accept)."""
+    dev, pods, tdev, _, gpu_req = _case(seed, i)
     p = pods.requests.shape[0]
     n, n_inst = dev.gpu_valid.shape
     choice, zone_mask, engaged, _ = _step_inputs(seed, dev, p)
@@ -317,13 +338,40 @@ def test_k7_step_equals_reference_gpu_block(seed, strategy, numa):
                             strategy, chosen=pick)
     _same(fin.accept, want[0], "accept")
     _same(fin.take, want[1], "take")
+    return pick, fin, accept, np.asarray(want[0])
+
+
+@pytest.mark.parametrize("numa", [True, False], ids=["numa", "no-numa"])
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_k7_step_equals_reference_gpu_block(seed, strategy, numa):
+    """K7's two launches around the K2 gate (plain versions) against the
+    reference's GPU block: contended nodes (shared pods competing for an
+    instance, several multi-GPU pods on one node), pods the earlier
+    gates rejected and pods without a choice (index N)."""
+    pick, _, accept, acc = _k7_step_equals_reference(seed, strategy, numa)
     count = pick.count.numpy()
-    acc = np.asarray(want[0])
     # shared pods lost to the instance gate and multi-GPU pods to the
     # one-a-node rule or to too few instances; some of both took
     assert (accept & ~acc & (count == 1)).any()
     assert (accept & ~acc & (count > 1)).any()
     assert (acc & (count > 1)).any() and (acc & (count == 1)).any()
+
+
+@pytest.mark.parametrize("numa", [True, False], ids=["numa", "no-numa"])
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("seed,i", WIDE, ids=WIDE_IDS)
+def test_k7_step_at_mig_widths_equals_reference_gpu_block(seed, i, strategy,
+                                                          numa):
+    """The same step at 24 and 56 instances a node: shared pods choosing
+    ("most": the least free core that fits) instances past the 32nd,
+    and the one-a-node rule still biting."""
+    pick, _, accept, acc = _k7_step_equals_reference(seed, strategy, numa, i)
+    count = pick.count.numpy()
+    assert (acc & (count > 1)).any() and (acc & (count == 1)).any()
+    assert (accept & ~acc & (count > 1)).any()
+    if i > 32 and strategy == "most":
+        assert (pick.inst.numpy()[acc & (count == 1)] >= 32).any()
 
 
 def test_wrappers_check_their_inputs():

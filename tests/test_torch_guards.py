@@ -33,6 +33,7 @@ from torch_port_ref import (  # noqa: F401 (one_torch_thread: a fixture)
     ref_tree,
     to_port,
     tree,
+    with_zones,
 )
 
 N, P = 32, 64
@@ -40,10 +41,12 @@ KW = dict(num_rounds=2, k_choices=4)
 
 
 
-def make_inputs(seed=0):
+def make_inputs(seed=0, zones=None):
     """tests/test_guards.py's inputs: (reference snap, pods, port snap,
-    pods)."""
+    pods); with `zones`, that many NUMA zones a node (`with_zones`)."""
     snap = jsyn.full_gate_cluster(N, seed=seed, num_quotas=4, num_gangs=4)
+    if zones is not None:
+        snap = with_zones(snap, zones, seed + 50)
     pods = jsyn.full_gate_pods(P, N, seed=seed + 7, num_quotas=4,
                                num_gangs=4)
     return (snap, pods, to_port("ClusterSnapshot", snap),
@@ -152,6 +155,26 @@ def test_snapshot_fault_equals_reference(kind, seed):
     assert int(word) & faults.EXPECTED_BIT[kind]
     np.testing.assert_array_equal(mask.numpy(), np.asarray(j_mask))
     assert set(np.flatnonzero(mask.numpy())) == set(rows.tolist())
+    _quarantine_equal(j_bad, jpods, bad, pods, mask.numpy(),
+                      np.zeros(P, bool))
+
+
+@pytest.mark.parametrize("kind", faults.SNAPSHOT_FAULTS)
+def test_snapshot_fault_at_eight_zones_equals_reference(kind):
+    """K14's plain version at eight NUMA zones a node (two sockets at
+    NPS4 or SNC-4; fault C8's width): each snapshot fault's word, mask
+    and quarantined fields equal the reference's."""
+    jsnap, jpods, snap, pods = make_inputs(4, zones=8)
+    j_bad, _ = jfaults.FaultInjector(17).corrupt_snapshot(jsnap, kind,
+                                                          n_rows=3)
+    bad, rows = faults.FaultInjector(17).corrupt_snapshot(snap, kind,
+                                                          n_rows=3)
+    assert_bits_equal(tree(bad), ref_tree(j_bad))
+    word, mask = guards.snapshot_health(bad)
+    j_word, j_mask = jguards.snapshot_health(j_bad)
+    assert int(word) == int(j_word)
+    assert int(word) & faults.EXPECTED_BIT[kind]
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(j_mask))
     _quarantine_equal(j_bad, jpods, bad, pods, mask.numpy(),
                       np.zeros(P, bool))
 

@@ -40,8 +40,11 @@ def zone_state(seed, n, z, *, fractional=False):
         cap = rng.uniform(0, 40000, (n, z, 2)).astype(np.float32)
         used = (cap * rng.uniform(0, 1.1, (n, z, 2))).astype(np.float32)
     else:
-        cap = np.stack([rng.integers(0, 40, (n, z)) * 500,
-                        rng.integers(0, 80, (n, z)) * 512],
+        # above four zones, narrower zones: a node's total stays near
+        # the pods' requests, so that the policy gate bites
+        k = 4 / max(z, 4)
+        cap = np.stack([rng.integers(0, int(40 * k), (n, z)) * 500,
+                        rng.integers(0, int(80 * k), (n, z)) * 512],
                        axis=-1).astype(np.float32)
         used = np.floor(cap * rng.uniform(0, 1.1, (n, z, 1)) / 500) * 500
     valid = rng.uniform(size=(n, z)) < 0.85
@@ -78,8 +81,9 @@ def _case(seed, z, fractional):
     return nodes, pods, to_port("NodeState", nodes), to_port("PodBatch", pods)
 
 
+# Z = 8: two sockets at NPS4 or SNC-4 (fault C8's width)
 CASES = [(seed, z, frac) for seed in (0, 1) for z in (2, 4)
-         for frac in (False, True)]
+         for frac in (False, True)] + [(0, 8, False), (0, 8, True)]
 IDS = [f"seed{s}-Z{z}-{'fractional' if f else 'integer'}" for s, z, f in CASES]
 
 

@@ -49,8 +49,9 @@ def hint_inputs(seed, p, z, fractional=False):
     return free, req, valid, policy
 
 
+# Z = 8: two sockets at NPS4 or SNC-4, 256 masks (fault C8's width)
 CASES = [(seed, z, frac) for seed in (0, 1) for z in (2, 4)
-         for frac in (False, True)]
+         for frac in (False, True)] + [(0, 8, False), (0, 8, True)]
 IDS = [f"seed{s}-Z{z}-{'fractional' if f else 'integer'}" for s, z, f in CASES]
 
 
@@ -206,7 +207,7 @@ def test_topology_admit_wrapper_checks_its_inputs():
     assert topology_admit_plain(*args, "least").admit.all()
 
 
-@pytest.mark.parametrize("z", [1, 2, 4])
+@pytest.mark.parametrize("z", [1, 2, 4, 8])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_count_hints_and_both_providers_equal_reference(seed, z):
     """DeviceShare's provider alone (need <= 0 pods: no preference), and
@@ -277,11 +278,12 @@ def reference_step_gpu(choice, trying, single, demand, cap, used, valid,
 
 
 @pytest.mark.parametrize("strategy", ["most", "least"])
-@pytest.mark.parametrize("z", [2, 4])
+@pytest.mark.parametrize("z", [2, 4, 8])
 def test_topology_admit_plain_with_gpu_provider_equals_reference(z, strategy):
     """K5's plain version with DeviceShare's hint provider against the
     reference's composition: GPU pods that are NUMA-bound or on policy
-    nodes, instances of zone -1, invalid and partly used instances."""
+    nodes, instances of zone -1, invalid and partly used instances; at
+    Z = 8 with 56 instances a node (8 GPUs in 7 MIG slices)."""
     from koordinator_tpu.snapshot.schema import DeviceState
     from koordinator_tpu.utils import synthetic as jsyn
     from koordinator_tpu_torch.scheduler.plugins import deviceshare
@@ -302,7 +304,7 @@ def test_topology_admit_plain_with_gpu_provider_equals_reference(z, strategy):
     demand = np.stack([rng.integers(0, 8, p) * 500,
                        rng.integers(0, 8, p) * 512],
                       axis=-1).astype(np.float32)
-    total, free, gvalid, numa = gpu_pool(z, s, z)
+    total, free, gvalid, numa = gpu_pool(z, s, z, i=56 if z == 8 else 4)
     pods = jsyn.synthetic_pods(p, seed=z, gpu_pod_frac=0.6)
     devices = DeviceState(
         gpu_total=total, gpu_free=free, gpu_valid=gvalid, gpu_numa=numa,

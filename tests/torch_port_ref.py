@@ -28,6 +28,44 @@ def numpy_tree(x) -> dict:
     return out
 
 
+def with_zones(snap, z: int, seed: int):
+    """The JAX-package snapshot `snap` with z NUMA zones a node, as
+    numpy draws from `seed`: each node's cpu and memory split over its
+    zones (Dirichlet shares, multiples of 500 mC / 512 MiB), about 15 %
+    of the zones invalid (zone 0 valid), zones partly used, every
+    topology policy code, the reservations' zone columns z wide with no
+    hold, and the GPU instances spread over the zones in index order."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    nodes, resv, dev = snap.nodes, snap.reservations, snap.devices
+    alloc = np.asarray(nodes.allocatable)
+    n = alloc.shape[0]
+    share = rng.dirichlet(np.ones(z), n).astype(np.float32)
+    cap = np.zeros((n, z, 2), np.float32)
+    cap[:, :, 0] = np.floor(alloc[:, None, 0] * share / 500) * 500
+    cap[:, :, 1] = np.floor(alloc[:, None, 1] * share / 512) * 512
+    valid = rng.uniform(size=(n, z)) < 0.85
+    valid[:, 0] = True
+    cap = cap * valid[:, :, None]
+    used = np.floor(cap * rng.uniform(0, 0.6, (n, z, 1)) / 500) * 500
+    v = np.asarray(resv.numa_free).shape[0]
+    numa = np.asarray(dev.gpu_numa)
+    i = numa.shape[1]
+    spread = np.broadcast_to((np.arange(i) * z // max(i, 1))[None], numa.shape)
+    return snap.replace(
+        nodes=nodes.replace(
+            numa_cap=jnp.asarray(cap),
+            numa_free=jnp.asarray((cap - used).astype(np.float32)),
+            numa_valid=jnp.asarray(valid),
+            numa_policy=jnp.asarray(rng.integers(0, 4, n).astype(np.int32))),
+        reservations=resv.replace(
+            numa_free=jnp.zeros((v, z, 2), jnp.float32),
+            numa_valid=jnp.zeros((v, z), bool)),
+        devices=dev.replace(gpu_numa=jnp.asarray(
+            np.where(numa >= 0, spread, numa).astype(np.int32))))
+
+
 def to_port(struct_name: str, x):
     """The port's twin of JAX struct `x`, on the host."""
     return from_reference(struct_name, numpy_tree(x), device="cpu")
