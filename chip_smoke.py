@@ -60,14 +60,20 @@ in order:
    the slots, and at the tail's setting (P = 512, k = 32, jitter), and
    untimed with no addend, one, no taints and no slots, no spread
    family, pods carrying three spread groups, k = 32 without jitter;
-   K8 topology_prefix_gate at a gpu_share step (P = 2000) and the
-   tail's (P = 512), every pod trying on one column, every column
-   keyless, every spread group soft, each family alone, P = 1; K2 with
-   K8's verdict ANDed in after the node level. The cascade: K9
-   stage1_mask at a full-gate chunk (the first packed chunk, P = 2000
-   against N = 10 000, the taint tables in, a quota at its ceiling,
-   whose pods must lose every candidate), at N = 1001, with fit_dims
-   None and on an all-dead batch; K4 and K6 on the numa and gpu
+   K8 topology_prefix_gate at a gpu_share step (P = 2000), the tail's
+   (P = 512) and the full gate's first packed chunk on its topo_prefix
+   rows (P = 384), each beside the launch floor (an empty kernel on
+   K8's grid), then every pod trying on one column, every column
+   keyless, every spread group soft, each family alone, segments of
+   more than 64 charging pods, ranks in the reverse of index order, an
+   opener column over 10 000 domains, P = 1 and 33; K2 with K8's
+   verdict ANDed in after the node level. The cascade: K9 stage1_mask
+   at a full-gate chunk (the first packed chunk, P = 2000 against N =
+   10 000, the taint tables in, a quota at its ceiling, whose pods must
+   lose every candidate), at N = 1001, with fit_dims None and on an
+   all-dead batch, then at N = 1, 17 and 10 003, P = 65, quota depth 0,
+   table ids out of range, tables too wide for its words, fractional
+   and non-finite values; K4 and K6 on the numa and gpu
    prefixes' rows, 0 rows and P rows, ANDing into K9's mask in place,
    and K1 with addends of those rows. The descheduler's kernels, chained
    as the LowNodeLoad plan chains them (K11 lnl_eviction_order, K10
@@ -91,8 +97,8 @@ in order:
    out-of-range indices, K = 1 and an empty delta. Batches above one
    block: K2 at P = 2500 and 4096 (the tiled walk; 70 % and 8 % trying,
    11 dims, one level, the topology mask, level 0's own amplified
-   requests), K5 and K7's two-grid take (between K7's choose launch
-   and the K2 gate) at the same sizes, K8's tiled walk at a gpu_share
+   requests), K5 and K7's take (between K7's choose launch and the K2
+   gate) at the same sizes, K8 over two and three tiles at a gpu_share
    step of 2500 and 4096 pods; K2 on fractional requests at P = 250,
    2048 and 2500 at R = 4, and at R = 1 and 11, off and on the gate
    boundaries (fault C7: the pinned order, equal to the plain version
@@ -403,10 +409,15 @@ from koordinator_tpu_torch.kernels.topology_prefix import (
     CAP,
     OPENER,
     PrefixFamily,
+    launch_floor,
     topology_prefix_gate,
     topology_prefix_gate_plain,
 )
-from koordinator_tpu_torch.scheduler.batching import EPS, rank_by_priority
+from koordinator_tpu_torch.scheduler.batching import (
+    EPS,
+    rank_by_priority,
+    stable_rank,
+)
 from koordinator_tpu_torch.scheduler.cascade import (
     _table_index,
     expand_gates,
@@ -2441,42 +2452,101 @@ def k8_cost(choice, trying, families):
     return nbytes, ops
 
 
+def k8_full_gate_step(dev, gen):
+    """K8's operands at the full gate's first packed chunk (the
+    workload's own packing of 100 000 pods, chunk 2000, N = 10 000 and
+    64 slots; topo_state's counts, k8_step's choices) on its first
+    topo_prefix rows, as schedule_batch passes them: the rows' stable
+    rank (`rank_of`) and step_families over those rows. Returns
+    (choice, trying, rank, families, columns X)."""
+    snap, batch, prefixes, _ = fullgate_state(dev, gen, 10_000,
+                                              num_pods=100_000)
+    batch, topo, counts, _, lim = topo_state(snap, batch, gen)
+    choice, trying, rank = k8_step(snap, batch, gen)
+    pc = prefixes["topo"]
+    return (choice[:pc].contiguous(), trying[:pc].contiguous(),
+            stable_rank(rank[:pc]),
+            domains.step_families(topo, counts, lim, pc),
+            snap.num_nodes + snap.reservations.valid.shape[0])
+
+
+def k8_edit(edit, choice, trying, rank, fams, gen):
+    """check_k8's edits of a gpu_share step: every pod trying on one
+    column; keyless columns; soft spread groups; one family kind alone;
+    95 % of the pods carrying and matching spread group 3 with 60 % on
+    two columns (segments of more than 64 charging pods); ranks in the
+    reverse of index order; the affinity openers over the spread groups'
+    10 000 node domains (a few counts set in the odd groups)."""
+    dev = choice.device
+    p = choice.shape[0]
+    if edit == "one column":
+        trying = torch.ones_like(trying)
+        choice = torch.full_like(choice, 7)
+    if edit == "keyless":
+        fams = [PrefixFamily(torch.full_like(f.dom_x, -1), f.counts,
+                             f.charge, f.gate, f.kind, f.lim) for f in fams]
+    if edit == "soft":
+        fams = [PrefixFamily(f.dom_x, f.counts, f.charge, f.gate, f.kind,
+                             torch.full_like(f.lim, float("inf")))
+                if f.kind == CAP else f for f in fams]
+    if edit in ("spread", "anti", "aff"):
+        fams = {"spread": fams[:1], "anti": fams[1:3], "aff": fams[3:]}[edit]
+    if edit == "crowded":
+        many = torch.rand((p,), generator=gen, device=dev) < 0.95
+        bit = torch.where(many, 1 << 3, 0).to(torch.int32)
+        fams = [PrefixFamily(f.dom_x, f.counts, f.charge | bit, f.gate | bit,
+                             f.kind, f.lim) if f.kind == CAP else f
+                for f in fams]
+        hot = torch.rand((p,), generator=gen, device=dev) < 0.6
+        choice = torch.where(hot & trying, 7 + torch.randint(
+            0, 2, (p,), generator=gen, device=dev, dtype=torch.int32),
+            choice)
+    if edit == "reversed":
+        rank = torch.arange(p - 1, -1, -1, dtype=torch.int32, device=dev)
+    if edit == "wide opener":
+        spread, aff = fams[0], fams[3]
+        g = aff.dom_x.shape[0]
+        counts = (torch.rand((g, spread.counts.shape[1]), generator=gen,
+                             device=dev) < 0.0005).float()
+        counts[0::2] = 0.0
+        fams = fams[:3] + [PrefixFamily(spread.dom_x[:g].contiguous(), counts,
+                                        aff.charge, aff.gate, OPENER)]
+    return choice, trying, rank, fams
+
+
 def check_k8(dev, gen):
     """K8 at a gpu_share step (P=2000 against N=10 000 nodes and 64
     slots, the workload's 16 spread, 16 anti-affinity and 8 affinity
     groups, every other zone group's skew 1, the odd affinity groups
-    empty; timed) and the tail's (P=512; timed); untimed, every pod
-    trying on
-    one column, every column keyless, every spread group soft, each
-    family alone, and P=1. Equal to the plain version."""
+    empty; timed), the tail's (P=512; timed) and the full gate's first
+    packed chunk on its topo_prefix rows (`k8_full_gate_step`; timed),
+    each beside the launch floor (an empty kernel on K8's grid and block,
+    device time); untimed, the edits of `k8_edit` and P=1, P=33. Equal
+    to the plain version."""
     out = {}
     for label, p, edit in (("gpu_share", 2000, None),
                            ("gpu_share tail", 512, None),
+                           ("full gate topo_prefix", None, None),
                            ("one column", 2000, "one column"),
                            ("keyless", 2000, "keyless"),
                            ("soft spread", 2000, "soft"),
                            ("spread alone", 2000, "spread"),
                            ("anti-affinity alone", 2000, "anti"),
                            ("affinity alone", 2000, "aff"),
-                           ("P=1", 1, None)):
-        snap, batch = gpu_state(dev, gen, 10_000, 8000, p)
-        batch, topo, counts, _, lim = topo_state(snap, batch, gen)
-        choice, trying, rank = k8_step(snap, batch, gen)
-        if edit == "one column":
-            trying = torch.ones_like(trying)
-            choice = torch.full_like(choice, 7)
-        fams = domains.step_families(topo, counts, lim)
-        if edit == "keyless":
-            fams = [PrefixFamily(torch.full_like(f.dom_x, -1), f.counts,
-                                 f.charge, f.gate, f.kind, f.lim)
-                    for f in fams]
-        if edit == "soft":
-            fams = [PrefixFamily(f.dom_x, f.counts, f.charge, f.gate, f.kind,
-                                 torch.full_like(f.lim, float("inf")))
-                    if f.kind == CAP else f for f in fams]
-        if edit in ("spread", "anti", "aff"):
-            fams = {"spread": fams[:1], "anti": fams[1:3],
-                    "aff": fams[3:]}[edit]
+                           ("crowded segments", 2000, "crowded"),
+                           ("ranks reversed", 2000, "reversed"),
+                           ("opener over 10^4 domains", 2000, "wide opener"),
+                           ("P=1", 1, None), ("P=33", 33, None)):
+        if p is None:
+            choice, trying, rank, fams, x = k8_full_gate_step(dev, gen)
+        else:
+            snap, batch = gpu_state(dev, gen, 10_000, 8000, p)
+            batch, topo, counts, _, lim = topo_state(snap, batch, gen)
+            choice, trying, rank = k8_step(snap, batch, gen)
+            fams = domains.step_families(topo, counts, lim)
+            x = snap.num_nodes + 64
+            choice, trying, rank, fams = k8_edit(edit, choice, trying, rank,
+                                                 fams, gen)
         got = topology_prefix_gate(choice, trying, rank, fams)
         want = topology_prefix_gate_plain(choice, trying, rank, fams)
         if not torch.equal(got, want):
@@ -2485,24 +2555,29 @@ def check_k8(dev, gen):
                              f"{(got != want).nonzero()[:5, 0].tolist()}")
         stats = dict(max_abs_err=0.0, trying=int(trying.sum()),
                      rejected=int((trying & ~got).sum()))
-        if label not in ("gpu_share", "gpu_share tail"):
+        if label not in ("gpu_share", "gpu_share tail",
+                         "full gate topo_prefix"):
             out[label] = stats
             continue
         if not stats["rejected"]:
             raise SystemExit(f"K8 ({label}): the gates reject no pod")
         nbytes, ops = k8_cost(choice, trying, fams)
         b_ms, b_by = bound(nbytes, ops)
+        columns = sum(f.dom_x.shape[0] for f in fams)
+        n_pods = choice.shape[0]
         out[label] = dict(
             ms=cuda_ms(lambda: topology_prefix_gate(choice, trying, rank,
                                                     fams)),
             device_ms=device_ms(
                 lambda: topology_prefix_gate(choice, trying, rank, fams),
                 "topology_prefix_kernel"),
+            floor_device_ms=device_ms(
+                lambda: launch_floor(n_pods, columns, dev),
+                "topology_prefix_floor_kernel"),
             plain_ms=cuda_ms(lambda: topology_prefix_gate_plain(
                 choice, trying, rank, fams), reps=3),
             library_ms=None, bound_ms=b_ms, bound_by=b_by,
-            shape=(f"P={batch.num_pods} X={snap.num_nodes + 64} columns="
-                   f"{sum(f.dom_x.shape[0] for f in fams)}"), **stats)
+            shape=f"P={n_pods} X={x} columns={columns}", **stats)
     return out
 
 
@@ -2953,8 +3028,8 @@ def check_k9(dev, gen):
     N=10 000 nodes, the taint tables in, a quota at its ceiling; timed),
     and untimed at N=1001 (not a multiple of 32), with fit_dims None (all
     11 dims, quota depth 6) and on an all-dead batch (every device term
-    off). Equal to the plain version; the full quota's pods that ask for
-    a capped dim have no candidate."""
+    off), then the edits of `k9_edge_args`. Equal to the plain version;
+    the full quota's pods that ask for a capped dim have no candidate."""
     out = {}
     cfg = loadaware.LoadAwareConfig.make(device=dev)
     for label, n, fit_dims, depth, dead, timed in (
@@ -3012,7 +3087,84 @@ def check_k9(dev, gen):
             plain_ms=cuda_ms(lambda: stage1_mask_plain(*args), reps=3),
             library_ms=None, bound_ms=b_ms, bound_by=b_by,
             shape=f"P={p} N={n} F={f} D={d} quota depth {depth}, taints")
+    for label in ("N=1", "N=17", "N=10003", "P=65", "quota depth 0",
+                  "ids out of range", "wide tables", "fractional",
+                  "mixed values"):
+        args = k9_edge_args(dev, gen, cfg, label)
+        got = stage1_mask(*args)
+        if not torch.equal(got, stage1_mask_plain(*args)):
+            raise SystemExit(f"K9 stage1_mask ({label}) differs from its "
+                             "plain version")
+        out[label] = dict(max_abs_err=0.0, pairs=got.numel(),
+                          pairs_ok=int(got.sum()))
     return out
+
+
+def k9_edge_args(dev, gen, cfg, label):
+    """K9's operands at a full-gate chunk edited so that P and N fall off
+    K9's tiles and store widths (N = 1 and 17: the first nodes of 1000;
+    N = 10 003; P = 65: the chunk's first pods), with no quota level,
+    with table ids out of range (selector ids below -1 and past the
+    table, label and taint groups counted from the end and past it,
+    toleration ids below 0 and past the table), with tables too wide
+    for K9's shared-memory words (3000 label groups), with every pod's
+    first request a quarter off a whole number ("fractional": no tile
+    takes K9's one-compare fit), or with a few pods fractional and a
+    few nodes' requested +-inf, NaN, -0 or above 2^22 ("mixed
+    values": some tiles take it, some do not)."""
+    n = 10_003 if label == "N=10003" else 1000
+    snap, batch, _, _ = fullgate_state(dev, gen, n)
+    gates = static_gate_terms(snap.nodes, batch, cfg, snap.devices)
+    args = list(k9_args(snap, batch, gates, FIT_DIMS,
+                        0 if label == "quota depth 0" else QUOTA_DEPTH))
+    g = args[0]
+
+    def some(x, values):
+        hit = torch.rand(x.shape, generator=gen, device=dev) < 0.3
+        pick = torch.tensor(values, dtype=x.dtype, device=dev)[torch.randint(
+            0, len(values), x.shape, generator=gen, device=dev)]
+        return torch.where(hit, pick, x)
+
+    if label in ("N=1", "N=17"):
+        k = int(label[2:])
+        g = g.replace(**{f: getattr(g, f)[:k].contiguous() for f in (
+            "label_group", "node_ok", "prod_node_ok", "metric_fresh",
+            "schedulable", "taint_group")})
+        args[2], args[3] = args[2][:k].contiguous(), args[3][:k].contiguous()
+    if label == "P=65":
+        g = g.replace(**{f: getattr(g, f)[:65].contiguous() for f in (
+            "selector_id", "prod_gate", "daemonset", "device_ok",
+            "toleration_id")})
+        args[1], args[4] = args[1][:65].contiguous(), args[4][:65].contiguous()
+    if label == "ids out of range":
+        s_, l_ = g.selector_match.shape
+        t_, g_ = g.tol_forbid.shape
+        g = g.replace(
+            selector_id=some(g.selector_id, [-3, s_, s_ + 5, s_ - 1]),
+            label_group=some(g.label_group, [-1, -l_, l_, l_ + 7]),
+            toleration_id=some(g.toleration_id, [-2, t_, t_ + 4]),
+            taint_group=some(g.taint_group, [-1, -g_, g_, g_ + 3]))
+    if label == "wide tables":
+        s_ = max(g.selector_match.shape[0], 4)
+        g = g.replace(
+            selector_match=torch.rand((s_, 3000), generator=gen,
+                                      device=dev) < 0.7,
+            selector_id=some(g.selector_id, list(range(-1, s_))),
+            label_group=torch.randint(-100, 3100, g.label_group.shape,
+                                      generator=gen, device=dev,
+                                      dtype=torch.int32))
+    if label == "fractional":
+        args[1] = args[1].clone()
+        args[1][:, 0] += 0.25
+    if label == "mixed values":
+        args[1] = args[1].clone()
+        args[1][::97, 1] += 0.75
+        args[2] = args[2].clone()
+        odd = torch.tensor([float("inf"), float("-inf"), float("nan"), -0.0,
+                            2.0 ** 23 + 1.0], device=dev)
+        args[2][torch.arange(5, device=dev) * 211, 0] = odd
+    args[0] = g
+    return tuple(args)
 
 
 def check_prefix_rows(dev, gen):
@@ -4841,8 +4993,9 @@ def check_c8(dev, gen, n=1000, p=1000, keep_going=False):
 
 def check_k8_big(dev, gen):
     """K8 at a gpu_share step of P = 2500 and 4096 pods (N = 10 000 and 64
-    slots, the workload's 40 groups; each block walks 2 tiles of gated
-    pods by 2 of charging ones), equal to the plain version; timed."""
+    slots, the workload's 40 groups; the blocks of each tile of 2048
+    gated pods walk every tile of charging ones), equal to the plain
+    version; timed."""
     out = {}
     for p in BIG_PODS:
         snap, batch = gpu_state(dev, gen, 10_000, 8000, p)
@@ -5946,6 +6099,7 @@ def main() -> int:
             entry["launch_formula"] = K3_FORMULA
         if name == "topology_prefix_gate":
             entry["at_tail"] = k8["gpu_share tail"]
+            entry["at_full_gate"] = k8["full gate topo_prefix"]
         if name == "gpu_instance_pick":
             entry["device_activities_a_call"] = \
                 k7["gpu_share least"]["activities"]

@@ -48,7 +48,8 @@ def stage1_mask(gates: GateTerms, req_fit: torch.Tensor,
     (selector table S x L; with tolerations the forbid table T x G);
     req_fit f32[P, F]; requested_fit, alloc_fit f32[N, F]; pod_anc
     i32[P, D] (-1 = no ancestor at that depth); used_fit, runtime_fit
-    f32[Q, F]; 0 <= quota_depth <= D; F <= NUM_RESOURCES."""
+    f32[Q, F]; 0 <= quota_depth <= D; F <= NUM_RESOURCES; on the card
+    P / 64 <= 65 535 (a block owns 64 pods and 512 nodes)."""
     p, f = req_fit.shape
     n = gates.label_group.shape[0]
     s, labels = gates.selector_match.shape

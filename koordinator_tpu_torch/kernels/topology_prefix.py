@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -48,9 +49,12 @@ MAX_GROUPS = 32     # groups a family: one bit a group in a pod's word
 MAX_FAMILIES = 4
 CAP, OCCUPY, OPENER = 0, 1, 2
 
-# per (device, stream): the launch's merge ticket, zero between launches
-# (the last block of a launch resets it)
-_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+# per (device, stream): the launch's merge tallies, int64, zero between
+# launches (the block that completes a tally zeroes it)
+_TALLIES: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+# ctypes array types by length (a new type a call costs host time)
+_PTRS: Dict[int, type] = {}
+_DIMS: Dict[int, type] = {}
 
 
 @dataclasses.dataclass
@@ -104,11 +108,30 @@ def topology_prefix_gate_plain(choice: torch.Tensor, trying: torch.Tensor,
     return ok
 
 
-def _tickets(dev: torch.device, stream: int) -> torch.Tensor:
-    t = _TICKETS.get((dev, stream))
-    if t is None:
-        t = torch.zeros((1,), dtype=torch.int32, device=dev)
-        _TICKETS[(dev, stream)] = t
+def _array(types: Dict[int, type], ctype, values):
+    """A ctypes array of `values`, its type made once a length."""
+    n = len(values)
+    if n not in types:
+        types[n] = ctype * n
+    return types[n](*values)
+
+
+@functools.lru_cache(maxsize=None)
+def _tally_count(p: int) -> int:
+    fn = TOOLCHAIN.function("topology_prefix", "koord_topology_prefix_tallies",
+                            [ctypes.c_int])
+    fn.restype = ctypes.c_longlong
+    return fn(p)
+
+
+def _tallies(dev: torch.device, stream: int, p: int) -> torch.Tensor:
+    """The (device, stream)'s merge tallies, grown (zeroed) when a launch
+    of p pods needs more than it holds."""
+    need = _tally_count(p)
+    t = _TALLIES.get((dev, stream))
+    if t is None or t.shape[0] < need:
+        t = torch.zeros((max(need, 512),), dtype=torch.int64, device=dev)
+        _TALLIES[(dev, stream)] = t
     return t
 
 
@@ -116,16 +139,17 @@ def topology_prefix_gate(choice: torch.Tensor, trying: torch.Tensor,
                          rank: torch.Tensor,
                          families: Sequence[PrefixFamily]) -> torch.Tensor:
     """The gate of `topology_prefix_gate_plain`: the kernel for CUDA
-    tensors (one launch, one block a group column), the plain version
-    for CPU tensors. choice: i32[P] each pod's extended column (any
-    value where the pod does not try); trying: bool[P]; rank: i32[P];
-    1 to 4 families whose dom_x share the column count X; any P (above
-    2048 each block walks the pods a tile at a time) and G <= 32 on the
-    card.
+    tensors (one launch, one block a group column and tile of gated
+    pods), the plain version for CPU tensors. choice: i32[P] each pod's
+    extended column (any value where the pod does not try); trying:
+    bool[P]; rank: i32[P] (any values: a tie is not earlier); 1 to 4
+    families whose dom_x share the column count X; any P and G <= 32 on
+    the card.
 
-    On the card the launch's blocks merge their columns' verdicts by a
-    ticket kept for its (device, stream) and reset by the launch itself,
-    as K1's split merge does."""
+    On the card the launch's blocks merge their columns' verdicts by
+    atomic tallies of six pods, kept for the (device, stream) and zeroed
+    by the launch itself, as K1's split merge keeps its tickets: a call
+    allocates only its output."""
     p = choice.shape[0]
     dev = choice.device
     if not 0 < len(families) <= MAX_FAMILIES:
@@ -161,32 +185,35 @@ def topology_prefix_gate(choice: torch.Tensor, trying: torch.Tensor,
     out = torch.empty((p,), dtype=torch.bool, device=dev)
     if p == 0:
         return out
-    columns = sum(f.counts.shape[0] for f in families)
-    words = (p + 31) // 32
-    rejected = torch.empty((columns * words,), dtype=torch.int32,
-                           device=dev)
     stream = _launch.stream(dev)
-    nf = len(families)
+    tallies = _tallies(dev, stream.value or 0, p)
     ptrs = []
+    dims = [p, x, len(families)]
     for fam in families:
         ptrs += [fam.dom_x.data_ptr(), fam.counts.data_ptr(),
                  fam.charge.data_ptr(), fam.gate.data_ptr(),
                  fam.lim.data_ptr() if fam.lim is not None else None]
-    ptrs += [choice.data_ptr(), trying.data_ptr(), rank.data_ptr(),
-             rejected.data_ptr(),
-             _tickets(dev, stream.value or 0).data_ptr(), out.data_ptr()]
-    dims = [p, x, nf]
-    for fam in families:
         dims += [fam.counts.shape[0], fam.counts.shape[1], fam.kind]
-    cptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    cdims = (ctypes.c_int * len(dims))(*dims)
+    ptrs += [choice.data_ptr(), trying.data_ptr(), rank.data_ptr(),
+             tallies.data_ptr(), out.data_ptr()]
     fn = TOOLCHAIN.function("topology_prefix", "koord_topology_prefix_gate",
                             [ctypes.c_void_p, ctypes.c_void_p,
                              ctypes.c_void_p])
-    rc = fn(cptrs, cdims, stream)
+    rc = fn(_array(_PTRS, ctypes.c_void_p, ptrs),
+            _array(_DIMS, ctypes.c_int, dims), stream)
     check(rc, "topology_prefix_gate")
     topology_prefix_gate.launches += 1
     return out
 
 
 topology_prefix_gate.launches = 0
+
+
+def launch_floor(p: int, columns: int, device) -> None:
+    """Launch an empty kernel on the grid and block a K8 launch of p pods
+    over `columns` group columns takes: the floor K8's device time is
+    read against. Not counted in `launches`."""
+    dev = torch.device(device)
+    fn = TOOLCHAIN.function("topology_prefix", "koord_topology_prefix_floor",
+                            [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    check(fn(p, columns, _launch.stream(dev)), "topology_prefix floor")

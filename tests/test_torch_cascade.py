@@ -155,25 +155,74 @@ def test_feasibility_equal_reference(fit_dims, quota_depth):
     assert 0 < int(ok.sum()) < ok.numel()
 
 
-@pytest.mark.parametrize("devices", [False, True])
+def _out_of_range_ids(snap, batch):
+    """The snapshot and batch with table indices the reference's rule
+    must resolve: selector ids below -1 (match all) and past the table
+    (its last row), label and taint groups counted from the end or past
+    the table (its last column), toleration ids below 0 (row 0) and past
+    the table (its last row)."""
+    rng = np.random.default_rng(11)
+    s, labels = np.asarray(batch.selector_match).shape
+    t, groups = np.asarray(batch.tol_forbid).shape
+
+    def spread(x, values):
+        x = np.asarray(x).copy()
+        hit = rng.uniform(size=x.shape) < 0.3
+        x[hit] = rng.choice(values, int(hit.sum()))
+        return jnp.asarray(x.astype(np.int32))
+
+    n = np.asarray(snap.nodes.label_group).shape[0]
+    nodes = snap.nodes.replace(
+        label_group=spread(snap.nodes.label_group,
+                           [-1, -labels, labels, labels + 7]),
+        taint_group=spread(snap.nodes.taint_group,
+                           [-1, -groups, groups, groups + 3]))
+    assert n == nodes.label_group.shape[0]
+    batch = batch.replace(
+        selector_id=spread(batch.selector_id, [-3, s, s + 5, s - 1]),
+        toleration_id=spread(batch.toleration_id, [-2, t, t + 4]))
+    return snap.replace(nodes=nodes), batch
+
+
+# (the device term, an edit): the edits put P and N off every tile and
+# store width of K9 (N = 1, 17, 1001; P = 1, 65), table ids out of range
+# and no quota level
+K9_CASES = [pytest.param((False, None), id="False"),
+            pytest.param((True, None), id="True")] + [
+    pytest.param((True, e), id=e)
+    for e in ("N=1", "N=17", "N=1001", "P=1", "P=65", "ids out of range",
+              "quota depth 0")]
+
+
+@pytest.mark.parametrize("devices", K9_CASES)
 def test_stage1_mask_equal_reference(devices):
     """cascade.stage1_mask (K9's plain version over the factored gates)
     equals the reference's stage1_mask over its static gates, ANDed with
     the device prefilter's per-pod row where the gates carry it; the
-    candidate counts too."""
+    candidate counts too. `devices` is (the device term, an edit of
+    K9_CASES)."""
+    devices, edit = devices
+    p = {"P=1": 1, "P=65": 65}.get(edit, CHUNK)
+    n = {"N=1": 1, "N=17": 17, "N=1001": 1001}.get(edit, N)
+    depth = 0 if edit == "quota depth 0" else 2
     pods, _, _ = sparse_workload()
-    batch = jsyn.slice_batch(pods, 0, CHUNK)
-    snap = full_gate_cluster()
-    static_ok, _ = jcascade.static_gates(snap.nodes, batch, JCfg.make())
+    batch = jsyn.slice_batch(pods, 0, p)
+    snap = full_gate_cluster(n=n)
+    if edit == "ids out of range":
+        snap, batch = _out_of_range_ids(snap, batch)
+    # jitted, as the reference runs them: a traced gather clamps an
+    # index out of range (an eager one raises)
+    static_ok, _ = jax.jit(jcascade.static_gates)(snap.nodes, batch,
+                                                  JCfg.make())
     want = np.asarray(jcascade.stage1_mask(snap, batch, static_ok,
                                            fit_dims=(0, 1, 2, 3),
-                                           quota_depth=2))
+                                           quota_depth=depth))
     tsnap = to_port("ClusterSnapshot", snap)
     tpods = to_port("PodBatch", batch)
     gates = cascade.static_gate_terms(
         tsnap.nodes, tpods, LoadAwareConfig.make(device="cpu"),
         tsnap.devices if devices else None)
-    got = cascade.stage1_mask(tsnap, tpods, gates, (0, 1, 2, 3), 2)
+    got = cascade.stage1_mask(tsnap, tpods, gates, (0, 1, 2, 3), depth)
     want = want & gates.device_ok.numpy()[:, None]
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(

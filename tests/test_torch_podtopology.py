@@ -445,12 +445,42 @@ def reference_step_gates(pods, slot_node, counts, min_c, choice_eff, trying,
     return np.asarray(accept_pc)
 
 
-def _step_case(seed, families):
+def _wide_affinity(pods, width=10_000):
+    """The pods with their affinity domains spread over a count table of
+    `width` domains (domain d of node n becomes d * k + n mod k), the
+    populated groups' counts moved with them."""
+    dom = np.asarray(pods.aff_domain)
+    count0 = np.asarray(pods.aff_count0)
+    k = width // count0.shape[1]
+    node = np.arange(dom.shape[1])[None, :]
+    wide = np.where(dom >= 0, dom * k + node % k, -1).astype(np.int32)
+    c = np.zeros((count0.shape[0], width), np.float32)
+    c[:, ::k][:, :count0.shape[1]] = count0
+    return pods.replace(aff_domain=jnp.asarray(wide), aff_count0=jnp.asarray(c))
+
+
+def _step_case(seed, families, edit=None):
     """A step over _topology_case's pods: counts at the round's start
     (its placement) and now (a few more placed since), each pod's
     extended choice (several on one column, some on slots), the trying
-    pods and a priority order with ties broken by index."""
+    pods and a priority order with ties broken by index. `edit`:
+    "crowded" makes 95 % of the pods carry and match spread group 3 and
+    puts 60 % on two columns (segments of more than 64 charging pods),
+    "wide_opener" spreads the affinity domains over 10 000
+    (`_wide_affinity`), "p33" takes the first 33 pods."""
     pods, slot_node, placed0, active = _topology_case(seed)
+    if edit == "wide_opener":
+        pods = _wide_affinity(pods)
+    if edit == "crowded":    # most pods carry and match spread group 3
+        many = np.random.default_rng(seed + 7).uniform(
+            size=placed0.shape[0]) < 0.95
+        pods = pods.replace(**{
+            f: jnp.asarray(np.asarray(getattr(pods, f)).copy())
+            .at[:, 3].set(jnp.asarray(many))
+            for f in ("spread_member", "spread_carrier")})
+    if edit == "p33":
+        pods = jsyn.slice_batch(pods, 0, 33)
+        placed0, active = placed0[:33], active[:33]
     pods = pods.replace(**{f"has_{f}": f in families
                            for f in ("spread", "anti", "aff")})
     rng = np.random.default_rng(seed + 100)
@@ -463,6 +493,9 @@ def _step_case(seed, families):
     choice = rng.integers(0, n + v, p)
     hot = rng.uniform(size=p) < 0.3          # crowd a few columns
     choice = np.where(hot, rng.integers(0, 6, p), choice)
+    if edit == "crowded":
+        choice = np.where(rng.uniform(size=p) < 0.6,
+                          rng.integers(0, 2, p), choice)
     trying = active & (placed1 < 0) & (rng.uniform(size=p) < 0.9)
     choice_eff = np.where(trying, choice, n + v).astype(np.int32)
     prio = rng.integers(0, 5, p).astype(np.int32)
@@ -470,7 +503,25 @@ def _step_case(seed, families):
         prio
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
+def _max_segment_chargers(choice, trying, families):
+    """The most charging pods any group column of `families` puts in one
+    segment (OPENER columns: its openers)."""
+    most = 0
+    for fam in families:
+        c = choice.clamp(0, fam.dom_x.shape[1] - 1).long()
+        for g in range(fam.dom_x.shape[0]):
+            dom = fam.dom_x[g, c]
+            words = fam.gate if fam.kind == OPENER else fam.charge
+            charge = trying & (dom >= 0) & (((words >> g) & 1) != 0)
+            if charge.any():
+                most = max(most, int(torch.bincount(dom[charge]).max()))
+    return most
+
+
+# seeds, and seed 0 edited: "crowded" and "wide_opener" (`_step_case`),
+# "reversed" (ranks in the reverse of index order), "p33" (33 pods)
+@pytest.mark.parametrize("seed", [0, 1, 2, "crowded", "reversed",
+                                  "wide_opener", "p33"])
 @pytest.mark.parametrize("families", [("spread", "anti", "aff"), ("spread",),
                                       ("anti",), ("aff",)], ids="+".join)
 def test_k8_prefix_gates_equal_reference(seed, families):
@@ -479,23 +530,32 @@ def test_k8_prefix_gates_equal_reference(seed, families):
     columns, soft spread groups, pods in several groups, slot columns,
     the round-start minimum against counts that moved since, and
     affinity openers of empty groups beside carriers of populated
-    ones."""
+    ones; then segments of more than 64 charging pods, reversed ranks,
+    an opener column over 10 000 domains and P = 33."""
+    edit = seed if isinstance(seed, str) else None
     pods, slot_node, placed0, placed1, active, choice_eff, trying, prio = \
-        _step_case(seed, families)
+        _step_case(0 if edit else seed, families, edit)
     n = pods.spread_domain.shape[1]
     _, _, min_c = reference_round_gates(pods, slot_node, placed0, active)
     tpods = to_port("PodBatch", pods)
     rank = rank_by_priority(tpods.replace(priority=torch.from_numpy(prio)))
+    if edit == "reversed":
+        rank = torch.arange(rank.shape[0] - 1, -1, -1, dtype=torch.int32)
     want = reference_step_gates(
         pods, slot_node, reference_counts(pods, slot_node, placed1),
         jnp.asarray(min_c), choice_eff, trying, rank.numpy())
     topo, _, _, lim = port_round(pods, slot_node, placed0, active, n)
     counts = port_counts(tpods, slot_node, placed1)
-    got = topology_prefix_gate(
-        torch.from_numpy(choice_eff), torch.from_numpy(trying), rank,
-        domains.step_families(topo, counts, lim)).numpy()
+    fams = domains.step_families(topo, counts, lim)
+    choice_t, trying_t = torch.from_numpy(choice_eff), torch.from_numpy(trying)
+    got = topology_prefix_gate(choice_t, trying_t, rank, fams).numpy()
     np.testing.assert_array_equal(got, want)
-    assert (~want & trying).any() and (want & trying).any()
+    if edit == "crowded" and "spread" in families:
+        assert _max_segment_chargers(choice_t, trying_t, fams) > 64
+    if edit == "wide_opener" and "aff" in families:
+        assert fams[-1].kind == OPENER and fams[-1].counts.shape[1] == 10_000
+    if edit != "p33":   # 33 pods are too few to make every family bite
+        assert (~want & trying).any() and (want & trying).any()
     assert want[~trying].all()
 
 
