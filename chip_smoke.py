@@ -1357,6 +1357,54 @@ def check_k4(dev, gen):
             library_ms=None, bound_ms=b_ms, bound_by=b_by,
             max_abs_err=err, shape=f"P={p} N={n} Z={z}",
             pairs_ok=int(ok.sum()), zone_fits=n_fit)
+    out["cases"] = k4_cases(dev, gen)
+    return out
+
+
+def k4_equal(label, args, mask):
+    """K4 on the card equal to its plain version (bools, scores bit for
+    bit) with `mask` given (ANDed in place; its rows beyond the batch's
+    stay as they are) or without one; the pairs that pass."""
+    ok, score = numa_pair_terms(*args, None if mask is None else mask.clone())
+    want_ok, want_score = numa_pair_terms_plain(*args, mask)
+    if not (torch.equal(ok, want_ok) and torch.equal(
+            score.view(torch.int32), want_score.view(torch.int32))):
+        raise SystemExit(f"K4 numa_pair_terms ({label}) differs from its "
+                         "plain version")
+    return int(ok[:args[0].shape[0]].sum())
+
+
+def k4_cases(dev, gen):
+    """Untimed, the cases K4's design branches on, each with a given mask
+    (a prefix of a larger one: 37 rows more) and without one: a snapshot
+    with no policy node (the full gate's kind), batches with every pod
+    NUMA-bound and with none (with and without policy nodes), N = 1, 17,
+    1001 and 10 003 (rows that start mid-word), P = 1 and 65."""
+    snap, pods = numa_state(dev, gen, 1000)
+    batch = slice_batch(pods, 0, 2000)
+    no_policy = snap.replace(nodes=snap.nodes.replace(
+        numa_policy=torch.zeros_like(snap.nodes.numa_policy)))
+    every = batch.replace(numa_single=torch.ones_like(batch.numa_single))
+    none = batch.replace(numa_single=torch.zeros_like(batch.numa_single))
+    cases = [("no policy node", no_policy, batch),
+             ("every pod NUMA-bound", snap, every),
+             ("every pod NUMA-bound, no policy node", no_policy, every),
+             ("no pod NUMA-bound", snap, none),
+             ("no pod NUMA-bound, no policy node", no_policy, none)]
+    for n in (1, 17, 1001, 10_003):
+        s, q = numa_state(dev, gen, n)
+        cases.append((f"N={n}", s, slice_batch(q, 0, 2000)))
+    s_odd, q_odd = numa_state(dev, gen, 1001)
+    cases += [(f"P={p} N=1001", s_odd, slice_batch(q_odd, 0, p))
+              for p in (1, 65)]
+    out = {}
+    for k, (label, s, b) in enumerate(cases):
+        args = k4_args(s, b, ("most", "least")[k % 2])
+        bigger = torch.rand((b.num_pods + 37, s.num_nodes), generator=gen,
+                            device=dev) < 0.8
+        out[label] = dict(no_mask=k4_equal(label, args, None),
+                          mask=k4_equal(label + ", a larger mask", args,
+                                        bigger))
     return out
 
 
@@ -1701,6 +1749,94 @@ def check_k6(dev, gen):
             library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
             shape=f"P={p} N={n} I={i} and-into mask", gpu_pods=n_gpu,
             pairs_ok=int(ok.sum()))
+    out["cases"] = k6_cases(dev, gen)
+    return out
+
+
+def k6_equal(label, g, d, strategy, mask, aux=None):
+    """K6 on the card equal to its plain version (bools, scores bit for
+    bit) with `mask` given (ANDed in place; its rows beyond the batch's
+    stay as they are) or without one; the pairs that pass."""
+    ok, score = device_pair_terms(g, d, strategy,
+                                  None if mask is None else mask.clone(), aux)
+    want_ok, want_score = device_pair_terms_plain(g, d, strategy, mask, aux)
+    if not (torch.equal(ok, want_ok) and (
+            score is None and want_score is None or torch.equal(
+                score.view(torch.int32), want_score.view(torch.int32)))):
+        raise SystemExit(f"K6 device_pair_terms ({label}) differs from its "
+                         "plain version")
+    return int(ok[:g.shape[0]].sum())
+
+
+# GPU requests (core, memory MiB, memory ratio) of every weight sum and
+# instance count: core only (w 1), ratio only and memory only (w 2),
+# core and ratio (w 3), ratios 200, 300 and 800 (count 2, 3, 8), 150
+# (not a multiple: count 1)
+K6_REQUESTS = ((37.0, 0.0, 0.0), (0.0, 0.0, 50.0), (0.0, 30_000.0, 0.0),
+               (50.0, 0.0, 50.0), (200.0, 0.0, 200.0), (300.0, 0.0, 300.0),
+               (800.0, 0.0, 800.0), (0.0, 0.0, 150.0))
+
+
+def k6_devices(d, gen, mems):
+    """`d` (I instances a node) with each node's per-GPU memory taken in
+    turn from `mems` (0: a node without a GPU, its instances invalid),
+    core and ratio totals 100, the instances partly used (integer
+    shares, half untouched), 10 % of them invalid."""
+    n, i, _ = d.gpu_free.shape
+    dev = d.gpu_free.device
+    mem = torch.tensor(mems, device=dev)[torch.arange(n, device=dev)
+                                         % len(mems)]
+    gpu = mem > 0
+    hundred = torch.where(gpu, 100.0, 0.0)
+    total = torch.stack([hundred, mem, hundred], dim=1)
+    full = total[:, None, :].expand(n, i, 3)
+    free = torch.floor(full * torch.rand((n, i, 1), generator=gen,
+                                         device=dev))
+    keep = torch.rand((n, i), generator=gen, device=dev) < 0.5
+    valid = gpu[:, None] & (torch.rand((n, i), generator=gen, device=dev)
+                            < 0.9)
+    return d.replace(gpu_total=total.contiguous(), gpu_free=torch.where(
+        keep[..., None], full, free).contiguous(), gpu_valid=valid)
+
+
+def k6_cases(dev, gen):
+    """Untimed, the cases K6's design branches on, each with a given mask
+    (a prefix of a larger one: 37 rows more) and without one: no pod with
+    a GPU request and every pod with one (K6_REQUESTS: weight sums 1, 2
+    and 3, counts 2, 3 and 8); nodes of 80 GB and 40 GB per GPU and
+    nodes without a GPU in turn (every span of 32 nodes mixes them);
+    eight memories in turn (more than a tile lists: each node computes
+    its request afresh); N = 10 003 on the edge state (more distinct
+    requests than a block lists: those rows compute their own terms);
+    P = 1 and 65 on the edge state."""
+    snap, batch = gpu_state(dev, gen, 1000, 2000, 2000, edge=True)
+    d, g = snap.devices, gpu_req_of(batch)
+    p = g.shape[0]
+    table = torch.tensor(K6_REQUESTS, device=dev)
+    every = table[torch.randint(0, len(K6_REQUESTS), (p,), generator=gen,
+                                device=dev)]
+    mixed = torch.where((torch.rand((p, 1), generator=gen, device=dev)
+                         < 0.5), every, 0.0)
+    two = k6_devices(d, gen, (81_920.0, 40_960.0, 0.0))
+    many = k6_devices(d, gen, tuple(20_000.0 + 7_777.0 * k
+                                    for k in range(8)))
+    big, big_batch = gpu_state(dev, gen, 10_003, 2000, 2000, edge=True)
+    cases = [("no GPU pod", d, torch.zeros_like(g)),
+             ("every pod a GPU pod", d, every),
+             ("80 GB, 40 GB and no GPU in turn, every pod", two, every),
+             ("80 GB, 40 GB and no GPU in turn, half the pods", two, mixed),
+             ("eight memories in turn", many, mixed),
+             ("N=10003", big.devices, gpu_req_of(big_batch)),
+             ("P=1", d, g[:1].contiguous()), ("P=65", d, g[:65].contiguous())]
+    out = {}
+    for k, (label, dd, gg) in enumerate(cases):
+        strategy = ("least", "most")[k % 2]
+        bigger = torch.rand((gg.shape[0] + 37, dd.gpu_free.shape[0]),
+                            generator=gen, device=dev) < 0.8
+        out[label] = dict(
+            no_mask=k6_equal(label, gg, dd, strategy, None),
+            mask=k6_equal(label + ", a larger mask", gg, dd, strategy,
+                          bigger))
     return out
 
 
@@ -3167,40 +3303,76 @@ def k9_edge_args(dev, gen, cfg, label):
     return tuple(args)
 
 
-def check_prefix_rows(dev, gen):
-    """K4, K6 and K1 with the cascade's row counts at the flagship's
-    first packed full-gate chunk (P=2000, N=10 000): K4 on the numa
-    prefix's rows and
-    K6 on the gpu prefix's (timed), then 0 and P rows, each ANDing into
-    K9's mask in place; K1 with the two addends of those rows (timed at
-    the prefixes), of no rows, and of P rows. Equal to the plain
-    versions."""
-    out = {}
+def prefix_state(dev, gen):
+    """The flagship's first packed full-gate chunk (P = 2000 of its own
+    packing of 100 000 pods, N = 10 000) with K9's mask over it: a dict
+    of the snapshot, batch, prefixes, K1's config and static gates, the
+    mask, K4's demand and K6's gpu_req."""
     cfg = loadaware.LoadAwareConfig.make(device=dev)
-    # the flagship's own packing (100 000 pods): its prefixes' rows
     snap, batch, prefixes, _ = fullgate_state(dev, gen, 10_000,
                                               num_pods=100_000)
+    gates = static_gate_terms(snap.nodes, batch, cfg, snap.devices)
+    return dict(snap=snap, batch=batch, prefixes=prefixes, cfg=cfg,
+                gates=gates,
+                mask=stage1_mask(*k9_args(snap, batch, gates, FIT_DIMS)),
+                demand=numaaware.zone_demand(batch),
+                gpu_req=gpu_req_of(batch))
+
+
+def prefix_row_classes(st):
+    """The row classes K4 and K6 branch on, in the prefixes' rows: the
+    NUMA-bound pods among the numa prefix's (and their distinct
+    demands), the GPU pods among the gpu prefix's (and their distinct
+    requests, K6's request classes)."""
+    rn, rg = st["prefixes"]["numa"], st["prefixes"]["gpu"]
+    bound = st["batch"].numa_single[:rn]
+    g = st["gpu_req"][:rg]
+    gpu = (g > 0).any(dim=1)
+    return {"numa_pair_terms": dict(
+                rows=rn, numa_bound=int(bound.sum()),
+                distinct_demands=len(torch.unique(st["demand"][:rn][bound],
+                                                  dim=0))),
+            "device_pair_terms": dict(
+                rows=rg, gpu=int(gpu.sum()),
+                distinct_requests=len(torch.unique(g[gpu], dim=0)))}
+
+
+def check_prefix_rows(dev, gen):
+    """K4, K6 and K1 with the cascade's row counts at the flagship's
+    first packed full-gate chunk (`prefix_state`): K4 on the numa
+    prefix's rows and K6 on the gpu prefix's (timed, with their row
+    classes), then 0, 1, 65 and P rows, each ANDing into K9's mask in
+    place (and, untimed, without a mask); K1 with the two addends of
+    those rows (timed at the prefixes), of no rows, and of P rows. Equal
+    to the plain versions."""
+    out = {}
+    st = prefix_state(dev, gen)
+    snap, batch, prefixes, cfg = (st["snap"], st["batch"], st["prefixes"],
+                                  st["cfg"])
     nodes, devices = snap.nodes, snap.devices
     p, n = batch.num_pods, snap.num_nodes
-    gates = static_gate_terms(nodes, batch, cfg, devices)
-    base = stage1_mask(*k9_args(snap, batch, gates, FIT_DIMS))
-    demand, gpu_req = numaaware.zone_demand(batch), gpu_req_of(batch)
+    base, demand, gpu_req = st["mask"], st["demand"], st["gpu_req"]
     rn, rg = prefixes["numa"], prefixes["gpu"]
+    classes = prefix_row_classes(st)
     terms = {}
-    for rows in sorted({rn, rg, 0, p}):
+    for rows in sorted({rn, rg, 0, 1, 65, p}):
         k4 = (demand[:rows], batch.numa_single[:rows], nodes.numa_cap,
               nodes.numa_free, nodes.numa_valid, nodes.numa_policy, "most")
         k6 = (gpu_req[:rows], devices, "least")
         for name, fn, plain, a in (
                 ("K4", numa_pair_terms, numa_pair_terms_plain, k4),
                 ("K6", device_pair_terms, device_pair_terms_plain, k6)):
-            ok, score = fn(*a, base.clone())
-            want_ok, want_score = plain(*a, base)
-            if not (torch.equal(ok, want_ok) and torch.equal(
-                    score.view(torch.int32), want_score.view(torch.int32))):
-                raise SystemExit(f"{name} with {rows} rows differs from its "
-                                 "plain version")
-            terms[name, rows] = (ok, score)
+            for mask in (base, None):
+                ok, score = fn(*a, None if mask is None else mask.clone())
+                want_ok, want_score = plain(*a, mask)
+                if not (torch.equal(ok, want_ok) and torch.equal(
+                        score.view(torch.int32),
+                        want_score.view(torch.int32))):
+                    raise SystemExit(
+                        f"{name} with {rows} rows differs from its plain "
+                        f"version ({'no' if mask is None else 'a'} mask)")
+                if mask is not None:
+                    terms[name, rows] = (ok, score)
     for name, fn, plain, kernel, rows, a in (
             ("numa_pair_terms", numa_pair_terms, numa_pair_terms_plain,
              "numa_pair_terms_kernel", rn,
@@ -3228,7 +3400,8 @@ def check_prefix_rows(dev, gen):
             device_ms=device_ms(lambda: fn(*a, buf), kernel),
             plain_ms=cuda_ms(lambda: plain(*a, base), reps=3),
             library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
-            shape=f"{rows} of P={p} rows, N={n}, and-into K9's mask")
+            shape=f"{rows} of P={p} rows, N={n}, and-into K9's mask",
+            row_classes=classes[name])
     for r1, r2, timed in ((rn, rg, True), (0, 0, False), (p, p, False),
                           (0, rg, False)):
         kw = k1_case(snap, batch, cfg, 0, p, 8, gen, FIT_DIMS, SCORE_DIMS,

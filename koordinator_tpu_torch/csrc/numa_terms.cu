@@ -19,141 +19,264 @@
 // first P pods and the stage-1 mask, whose first P rows it ANDs. The
 // gate tolerance eps comes from the host (scheduler/batching.py EPS).
 //
-// What bounds it on the H100: bytes. A pair costs a few compares, two
-// correctly rounded divisions a zone for NUMA-bound pods, and 5 bytes
-// written; the inputs (zone columns a node, two requests a pod) are
-// tiny. 2 * 10^6 pairs a config-2 chunk write 10 MB.
+// What bounds it on the H100: bytes, and the zone loop's divisions on
+// NUMA-bound rows. A pair writes 5 bytes; a NUMA-bound pod's pair costs
+// two correctly rounded divisions a zone it fits. The full gate's numa
+// prefix (768 rows of 10^4 nodes) writes 38 MB, half its rows NUMA-bound.
 //
-// Design: a block of 256 threads owns a tile of 256 nodes and 16 pods.
-// It stages the tile's zone rows (cap, free, valid, the policy and the
-// total valid free) and the pods' requests in shared memory, then
-// thread t takes node t of the tile for each of the 16 pods, so a warp
-// writes 32 consecutive nodes of one pod row at a time. The kernel is
-// built for two zone widths, Z <= 4 (18 KB of shared memory a block) and
-// Z <= 8 (36 KB), so that the narrow one keeps its occupancy.
+// Design (pair_rows.cuh for the spans): a block of 128 threads takes a
+// tile of nodes (512 at Z <= 3, 256 at Z <= 7, 128 at Z = 8) and up
+// to 64 rows, every G-th row of the batch, so that each block holds a
+// like share of the NUMA-bound rows. It classifies its rows once
+// (NUMA-bound or not) and reads its nodes' policies; a row that is not
+// NUMA-bound, on a tile without a policy node, passes everywhere (the
+// full gate's packing forbids policy nodes), so it only stores zero
+// scores and leaves the mask alone. Else the block stages, once a (node,
+// zone), what every pair reuses: the fit threshold free + eps (NaN on an
+// invalid zone, which fails every fit), cap - free, max(cap, 1e-9), and
+// the node's total valid free + eps. A thread takes 4 nodes of a row:
+// one mask word in (the next row's loaded before this one computes), the
+// zone loop (divisions only on the zones that fit), one word and one
+// float4 out. (Staging by cp.async behind the passing rows' stores was
+// measured slower: its raw rows leave an SM four blocks, not six.)
 //
 // Exactness against the reference (bit for bit): the file builds with
 // -fmad=false and names each rounding. used_after = (cap - free) + req,
 // frac = used_after / max(cap, 1e-9) (__fdiv_rn), the mean of the two
-// dims as (f0 + f1) / 2 (for "least" of 1 - frac), the best over the
-// fitting zones from -1, then clip to [0, 1] and * 100: the reference's
-// order. The total valid free sums free * valid over the zones in zone
-// order from 0 (exact on the scheduler's integer-valued zone state in
-// any order).
+// dims as (f0 + f1) * 0.5 (for "least" of 1 - frac; x * 0.5 and x / 2
+// are the correctly rounded value of the same real number, so they agree
+// on every input, subnormals included: the build has no -ftz), the best
+// over the fitting zones from -1, then clip to [0, 1] and * 100: the
+// reference's order. The total valid free sums free * valid over the
+// zones in zone order from 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pair_rows.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TILE = 256;   // nodes a block
-constexpr int PODS = 16;    // pods a block
+using koord_rows::SPAN;
+using koord_rows::Span;
+using koord_rows::THREADS;
+using koord_rows::MAX_ROWS;
+using koord_rows::ONES;
+
 constexpr int MAX_Z = 8;
 constexpr int POLICY_NONE = 0;
+constexpr int PER_ZONE = 6;   // staged floats a (node, zone)
 
-template <int MZ>
-__global__ void __launch_bounds__(THREADS) numa_pair_terms_kernel(
-    const float* __restrict__ demand, const uint8_t* __restrict__ single,
-    const float* __restrict__ cap, const float* __restrict__ free_,
-    const uint8_t* __restrict__ valid, const int32_t* __restrict__ policy,
-    int P, int N, int Z, int least, float eps, const uint8_t* and_in,
-    uint8_t* out_ok, float* __restrict__ out_score) {
-  __shared__ float s_cap[MZ][2][TILE];
-  __shared__ float s_free[MZ][2][TILE];
-  __shared__ uint8_t s_valid[MZ][TILE];
-  __shared__ uint8_t s_policy_none[TILE];
-  __shared__ float s_total[2][TILE];
-  __shared__ float s_demand[PODS][2];
-  __shared__ uint8_t s_single[PODS];
+struct Args {
+  const float* demand;      // [P, 2]
+  const uint8_t* single;    // [P]
+  const float* cap;         // [N, Z, 2]
+  const float* free_;       // [N, Z, 2]
+  const uint8_t* valid;     // [N, Z]
+  const int32_t* policy;    // [N]
+  uint8_t* ok;              // [P, N], the mask ANDed in place with and_in
+  float* score;             // [P, N]
+  int P, N, Z, least, tile, and_in;
+  float eps;
+};
 
-  const int t = threadIdx.x;
-  const int n0 = blockIdx.x * TILE, p0 = blockIdx.y * PODS;
-  const int n = n0 + t;
-  if (n < N) {
-    float tot0 = 0.0f, tot1 = 0.0f;
-    for (int z = 0; z < Z; ++z) {
-      const size_t o = ((size_t)n * Z + z) * 2;
-      const float v = valid[(size_t)n * Z + z] ? 1.0f : 0.0f;
-      s_cap[z][0][t] = cap[o];
-      s_cap[z][1][t] = cap[o + 1];
-      s_free[z][0][t] = free_[o];
-      s_free[z][1][t] = free_[o + 1];
-      s_valid[z][t] = v != 0.0f;
-      tot0 = __fadd_rn(tot0, __fmul_rn(free_[o], v));
-      tot1 = __fadd_rn(tot1, __fmul_rn(free_[o + 1], v));
-    }
-    s_total[0][t] = tot0;
-    s_total[1][t] = tot1;
-    s_policy_none[t] = policy[n] == POLICY_NONE;
+// shared floats of a tile: per zone z the planes fe0, fe1 (free + eps,
+// NaN where invalid), cmf0, cmf1 (cap - free), mc0, mc1 (max(cap,
+// 1e-9)), each `tile` long, then te0, te1 (total valid free + eps), then
+// the policy-none bytes
+__device__ __forceinline__ float* plane(float* s, int tile, int k) {
+  return s + (size_t)k * tile;
+}
+
+__global__ void __launch_bounds__(THREADS)
+    numa_pair_terms_kernel(const Args a) {
+  extern __shared__ float4 s_dyn[];
+  float* s = reinterpret_cast<float*>(s_dyn);
+  __shared__ float s_d[MAX_ROWS][2];
+  __shared__ uint8_t s_bound[MAX_ROWS];
+
+  const int t = threadIdx.x, tile = a.tile, Z = a.Z;
+  const int nb = blockIdx.y * tile, nrows = koord_rows::block_rows(a.P);
+  const int nodes = min(tile, a.N - nb);
+  uint8_t* s_none =
+      reinterpret_cast<uint8_t*>(s + (size_t)(PER_ZONE * Z + 2) * tile);
+
+  // 1. the rows' requests and classes, the tile's policies
+  bool bound = false, policy = false;
+  if (t < nrows) {
+    const int p = koord_rows::row_of(t);
+    s_d[t][0] = a.demand[(size_t)p * 2];
+    s_d[t][1] = a.demand[(size_t)p * 2 + 1];
+    bound = a.single[p] != 0;
+    s_bound[t] = bound;
   }
-  if (t < PODS * 2) {
-    const int q = p0 + t / 2;
-    s_demand[t / 2][t & 1] = q < P ? demand[(size_t)q * 2 + (t & 1)] : 0.0f;
+  for (int k = t; k < nodes; k += THREADS) {
+    const bool none = a.policy[nb + k] == POLICY_NONE;
+    s_none[k] = none;
+    policy |= !none;
   }
-  if (t < PODS) s_single[t] = p0 + t < P ? single[p0 + t] : 0;
-  __syncthreads();
-  if (n >= N) return;
+  const bool any_bound = __syncthreads_or(bound);
+  const bool any_policy = __syncthreads_or(policy);
 
-  const bool none = s_policy_none[t];
-  for (int i = 0; i < PODS && p0 + i < P; ++i) {
-    const int p = p0 + i;
-    const float d0 = s_demand[i][0], d1 = s_demand[i][1];
-    const bool sg = s_single[i];
-    // the NUMA-bound pod's zone request: demand * numa_single
-    const float m = sg ? 1.0f : 0.0f;
-    const float r0 = __fmul_rn(d0, m), r1 = __fmul_rn(d1, m);
-    bool any_fit = false;
-    float best = 0.0f;
-    for (int z = 0; z < Z; ++z) {
-      const float c0 = s_cap[z][0][t], c1 = s_cap[z][1][t];
-      const float f0 = s_free[z][0][t], f1 = s_free[z][1][t];
-      const bool fits = s_valid[z][t] && __fadd_rn(f0, eps) >= r0
-                        && __fadd_rn(f1, eps) >= r1;
-      any_fit |= fits;
-      float zs = -1.0f;
-      if (fits) {
-        float q0 = __fdiv_rn(__fadd_rn(__fsub_rn(c0, f0), r0),
-                             fmaxf(c0, 1e-9f));
-        float q1 = __fdiv_rn(__fadd_rn(__fsub_rn(c1, f1), r1),
-                             fmaxf(c1, 1e-9f));
-        if (least) {
-          q0 = __fsub_rn(1.0f, q0);
-          q1 = __fsub_rn(1.0f, q1);
-        }
-        zs = __fdiv_rn(__fadd_rn(q0, q1), 2.0f);
+  // 2. the tile's zone rows, once a (node, zone)
+  if (any_bound || any_policy) {
+    for (int k = t; k < nodes; k += THREADS) {
+      const size_t n = (size_t)(nb + k);
+      float tot0 = 0.0f, tot1 = 0.0f;
+      for (int z = 0; z < Z; ++z) {
+        const size_t o = (n * Z + z) * 2;
+        const float2 c = make_float2(a.cap[o], a.cap[o + 1]);
+        const float2 f = make_float2(a.free_[o], a.free_[o + 1]);
+        const bool v = a.valid[n * Z + z] != 0;
+        const float vf = v ? 1.0f : 0.0f;
+        float* zs = plane(s, tile, PER_ZONE * z);
+        zs[k] = v ? __fadd_rn(f.x, a.eps) : koord_rows::kNaN();
+        zs[tile + k] = v ? __fadd_rn(f.y, a.eps) : koord_rows::kNaN();
+        zs[2 * tile + k] = __fsub_rn(c.x, f.x);
+        zs[3 * tile + k] = __fsub_rn(c.y, f.y);
+        zs[4 * tile + k] = fmaxf(c.x, 1e-9f);
+        zs[5 * tile + k] = fmaxf(c.y, 1e-9f);
+        tot0 = __fadd_rn(tot0, __fmul_rn(f.x, vf));
+        tot1 = __fadd_rn(tot1, __fmul_rn(f.y, vf));
       }
-      best = z == 0 ? zs : fmaxf(best, zs);
+      plane(s, tile, PER_ZONE * Z)[k] = __fadd_rn(tot0, a.eps);
+      plane(s, tile, PER_ZONE * Z + 1)[k] = __fadd_rn(tot1, a.eps);
     }
-    const bool zone_ok = any_fit || !sg;
-    const bool policy_ok = none || (__fadd_rn(s_total[0][t], eps) >= d0
-                                    && __fadd_rn(s_total[1][t], eps) >= d1);
-    const size_t o = (size_t)p * N + n;
-    out_ok[o] = (and_in == nullptr || and_in[o]) && zone_ok && policy_ok;
-    out_score[o] = sg ? __fmul_rn(fminf(fmaxf(best, 0.0f), 1.0f), 100.0f)
-                      : 0.0f;
+    __syncthreads();
+  }
+
+  // 3. the pairs: thread t takes nodes k0..k0+3 of every rpi-th row
+  const int spans = tile / SPAN, rpi = THREADS / spans;
+  const int k0 = SPAN * (t % spans), rl = t / spans;
+  if (k0 >= nodes) return;
+  const int cnt = min(SPAN, nodes - k0);
+  bool none[SPAN];
+  float te0[SPAN], te1[SPAN];
+  if (any_policy) {
+#pragma unroll
+    for (int j = 0; j < SPAN; ++j) {
+      none[j] = s_none[k0 + j];
+      te0[j] = plane(s, tile, PER_ZONE * Z)[k0 + j];
+      te1[j] = plane(s, tile, PER_ZONE * Z + 1)[k0 + j];
+    }
+  }
+  const float zero[SPAN] = {0.0f, 0.0f, 0.0f, 0.0f};
+  auto span = [&](int r) {
+    return koord_rows::span_of((size_t)koord_rows::row_of(r) * a.N + nb + k0,
+                               cnt, a.ok, a.score);
+  };
+  // a row that is not NUMA-bound on a tile without a policy node passes
+  auto reads = [&](int r) {
+    return r < nrows && a.and_in && (s_bound[r] || any_policy);
+  };
+  unsigned in_next =
+      reads(rl) ? koord_rows::load_mask(a.ok, span(rl)) : ONES;
+  for (int r = rl; r < nrows; r += rpi) {
+    const Span sp = span(r);
+    const unsigned in = in_next;
+    in_next = reads(r + rpi) ? koord_rows::load_mask(a.ok, span(r + rpi))
+                             : ONES;
+    const bool sg = s_bound[r];
+    if (!sg && !any_policy) {
+      if (!a.and_in) koord_rows::store_mask(a.ok, sp, ONES);
+      koord_rows::store_score(a.score, sp, zero);
+      continue;
+    }
+    const float d0 = s_d[r][0], d1 = s_d[r][1];
+    unsigned okbits = 0;
+#pragma unroll
+    for (int j = 0; j < SPAN; ++j) {
+      const bool policy_ok = !any_policy || none[j] ||
+                             (te0[j] >= d0 && te1[j] >= d1);
+      okbits |= (unsigned)policy_ok << j;
+    }
+    if (!sg) {
+      koord_rows::store_mask(a.ok, sp, koord_rows::and_word(in, okbits));
+      koord_rows::store_score(a.score, sp, zero);
+      continue;
+    }
+    // the NUMA-bound pod's zone request: demand * numa_single
+    const float q0 = __fmul_rn(d0, 1.0f), q1 = __fmul_rn(d1, 1.0f);
+    unsigned fit_any = 0;
+    float best[SPAN];
+    for (int z = 0; z < Z; ++z) {
+      const float* zs = plane(s, tile, PER_ZONE * z) + k0;
+      float e0[SPAN], e1[SPAN];
+      koord_rows::load4(zs, e0);
+      koord_rows::load4(zs + tile, e1);
+      unsigned fits = 0;
+#pragma unroll
+      for (int j = 0; j < SPAN; ++j)
+        fits |= (unsigned)(e0[j] >= q0 && e1[j] >= q1) << j;
+      fit_any |= fits;
+      float zsc[SPAN] = {-1.0f, -1.0f, -1.0f, -1.0f};
+      if (fits) {
+        float cmf0[SPAN], cmf1[SPAN], mc0[SPAN], mc1[SPAN];
+        koord_rows::load4(zs + 2 * tile, cmf0);
+        koord_rows::load4(zs + 3 * tile, cmf1);
+        koord_rows::load4(zs + 4 * tile, mc0);
+        koord_rows::load4(zs + 5 * tile, mc1);
+#pragma unroll
+        for (int j = 0; j < SPAN; ++j) {
+          if (!((fits >> j) & 1)) continue;
+          float u0 = __fdiv_rn(__fadd_rn(cmf0[j], q0), mc0[j]);
+          float u1 = __fdiv_rn(__fadd_rn(cmf1[j], q1), mc1[j]);
+          if (a.least) {
+            u0 = __fsub_rn(1.0f, u0);
+            u1 = __fsub_rn(1.0f, u1);
+          }
+          zsc[j] = __fmul_rn(__fadd_rn(u0, u1), 0.5f);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < SPAN; ++j)
+        best[j] = z == 0 ? zsc[j] : fmaxf(best[j], zsc[j]);
+    }
+    float out[SPAN];
+#pragma unroll
+    for (int j = 0; j < SPAN; ++j)
+      out[j] = __fmul_rn(fminf(fmaxf(best[j], 0.0f), 1.0f), 100.0f);
+    koord_rows::store_mask(a.ok, sp,
+                           koord_rows::and_word(in, okbits & fit_any));
+    koord_rows::store_score(a.score, sp, out);
   }
 }
 
 }  // namespace
 
 // ptr: demand [P, 2], numa_single [P], numa_cap [N, Z, 2], numa_free
-// [N, Z, 2], numa_valid [N, Z], numa_policy [N], and_in [P, N] (or
-// null; may be pair_ok itself), pair_ok [P, N], pair_score [P, N].
-// least: 0 for "most", 1 for "least"; eps: the gate tolerance.
+// [N, Z, 2], numa_valid [N, Z], numa_policy [N], and_in [P, N] (null, or
+// pair_ok itself: the mask ANDed in place), pair_ok [P, N], pair_score
+// [P, N]. least: 0 for "most", 1 for "least"; eps: the gate tolerance.
 extern "C" int koord_numa_pair_terms(const void* const* ptr, int P, int N,
                                      int Z, int least, float eps,
                                      void* stream) {
   if (P <= 0 || N <= 0) return 0;
-  if (Z <= 0 || Z > MAX_Z) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + TILE - 1) / TILE, (P + PODS - 1) / PODS);
-  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
-  auto kernel = &numa_pair_terms_kernel<4>;
-  if (Z > 4) kernel = &numa_pair_terms_kernel<MAX_Z>;
-  kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)ptr[0], (const uint8_t*)ptr[1], (const float*)ptr[2],
-      (const float*)ptr[3], (const uint8_t*)ptr[4], (const int32_t*)ptr[5],
-      P, N, Z, least, eps, (const uint8_t*)ptr[6], (uint8_t*)ptr[7],
-      (float*)ptr[8]);
+  if (Z <= 0 || Z > MAX_Z || (ptr[6] != nullptr && ptr[6] != ptr[7]))
+    return (int)cudaErrorInvalidValue;
+  const int per_node = 4 * (PER_ZONE * Z + 2) + 1;
+  const int tile = koord_rows::tile_nodes(per_node, 48 * 1024 - 1024);
+  const long long tiles = (N + tile - 1) / tile;
+  const int rows = koord_rows::rows_per_block(P, tiles);
+  const dim3 grid((P + rows - 1) / rows, (unsigned)tiles);
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  Args a;
+  a.demand = (const float*)ptr[0];
+  a.single = (const uint8_t*)ptr[1];
+  a.cap = (const float*)ptr[2];
+  a.free_ = (const float*)ptr[3];
+  a.valid = (const uint8_t*)ptr[4];
+  a.policy = (const int32_t*)ptr[5];
+  a.and_in = ptr[6] != nullptr;
+  a.ok = (uint8_t*)ptr[7];
+  a.score = (float*)ptr[8];
+  a.P = P;
+  a.N = N;
+  a.Z = Z;
+  a.least = least;
+  a.tile = tile;
+  a.eps = eps;
+  const size_t shared = (size_t)tile * per_node;
+  numa_pair_terms_kernel<<<grid, THREADS, shared, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -85,9 +85,56 @@ def pod_case(seed, p=200):
                         gpu_ratio=jnp.asarray(ratio.astype(np.float32)))
 
 
+# GPU requests (core, memory MiB, memory ratio) of every weight sum and
+# instance count K6 branches on: core only (w 1), ratio only and memory
+# only (w 2), core and ratio (w 3), ratios 200, 300 and 800 (count 2, 3,
+# 8), 150 (not a multiple: count 1)
+K6_REQUESTS = np.array([[37, 0, 0], [0, 0, 50], [0, 30_000, 0], [50, 0, 50],
+                        [200, 0, 200], [300, 0, 300], [800, 0, 800],
+                        [0, 0, 150]], np.float32)
+
+
+def with_kind(seed, dev, pods, kind):
+    """The state of one case K6's design branches on (csrc/
+    device_terms.cu): "no-gpu-pod" (no pod asks for a GPU),
+    "every-gpu-pod" (every pod asks, K6_REQUESTS in turn),
+    "two-memories-and-none" (nodes of 80 GB and 40 GB per GPU and nodes
+    without a GPU in turn, so that every span of 32 nodes mixes them;
+    half the pods ask, K6_REQUESTS in turn); else as it is."""
+    rng = np.random.default_rng(seed + 80)
+    p = pods.requests.shape[0]
+    req, ratio = np.array(pods.requests), np.array(pods.gpu_ratio)
+    table = K6_REQUESTS[np.arange(p) % len(K6_REQUESTS)]
+    if kind == "two-memories-and-none":
+        table = np.where((rng.uniform(size=p) < 0.5)[:, None], table, 0.0)
+        n, i = dev.gpu_free.shape[:2]
+        mem = np.array([81_920.0, 40_960.0, 0.0], np.float32)[np.arange(n)
+                                                             % 3]
+        hundred = np.where(mem > 0, 100.0, 0.0)
+        total = np.stack([hundred, mem, hundred], axis=1).astype(np.float32)
+        full = np.broadcast_to(total[:, None, :], (n, i, 3))
+        free = np.floor(full * rng.uniform(0, 1, (n, i, 1)))
+        untouched = rng.uniform(size=(n, i)) < 0.5
+        free[untouched] = full[untouched]
+        dev = dev.replace(
+            gpu_total=jnp.asarray(total),
+            gpu_free=jnp.asarray(free.astype(np.float32)),
+            gpu_valid=jnp.asarray((mem > 0)[:, None]
+                                  & (rng.uniform(size=(n, i)) < 0.9)))
+    elif kind == "no-gpu-pod":
+        table = np.zeros_like(table)
+    elif kind != "every-gpu-pod":
+        return dev, pods
+    req[:, int(RK.GPU_CORE)] = table[:, 0]
+    req[:, int(RK.GPU_MEMORY)] = table[:, 1]
+    ratio = table[:, 2]
+    return dev, pods.replace(requests=jnp.asarray(req),
+                             gpu_ratio=jnp.asarray(ratio))
+
+
 @functools.lru_cache(maxsize=None)
-def _case(seed, i=8):
-    dev, pods = device_case(seed, i=i), pod_case(seed)
+def _case(seed, i=8, kind="plain"):
+    dev, pods = with_kind(seed, device_case(seed, i=i), pod_case(seed), kind)
     tdev, tpods = to_port("DeviceState", dev), to_port("PodBatch", pods)
     return dev, pods, tdev, tpods, deviceshare.gpu_request(tpods.requests,
                                                            tpods.gpu_ratio)
@@ -171,13 +218,23 @@ def test_score_matrix_and_k6_score_equal_reference(seed, strategy):
     assert ((want[gpu] % 1) != 0).any()   # fractional scores
 
 
+# (seed, instances a node, kind): fault C8's widths, then the cases K6's
+# design branches on (`with_kind`; "prefix-of-mask": the first half of
+# the pods ANDed into a mask of all of them)
+K6_CASES = [(s, i, "plain") for s, i in WIDE] + [
+    (0, 8, "no-gpu-pod"), (1, 8, "every-gpu-pod"),
+    (2, 8, "two-memories-and-none"), (0, 8, "prefix-of-mask")]
+K6_IDS = WIDE_IDS + [f"seed{s}-I{i}-{k}" for s, i, k in K6_CASES[len(WIDE):]]
+
+
 @pytest.mark.parametrize("strategy", STRATEGIES)
-@pytest.mark.parametrize("seed,i", WIDE, ids=WIDE_IDS)
-def test_k6_at_mig_widths_equals_reference(seed, i, strategy):
+@pytest.mark.parametrize("seed,i,kind", K6_CASES, ids=K6_IDS)
+def test_k6_at_mig_widths_equals_reference(seed, i, kind, strategy):
     """K6's gate (its GPU part, ANDed into a pair mask) and its pool
-    score at 24 and 56 instances a node against the reference's
-    prefilter and score matrix."""
-    dev, pods, tdev, _, gpu_req = _case(seed, i)
+    score at 24 and 56 instances a node, and at 8 in the cases its
+    design branches on, against the reference's prefilter and score
+    matrix; the mask's rows beyond a prefix stay as they are."""
+    dev, pods, tdev, _, gpu_req = _case(seed, i, kind)
     no_aux = np.array(pods.requests)
     no_aux[:, int(RK.RDMA)] = 0.0
     want_gpu = np.asarray(jax.jit(jds.prefilter)(
@@ -186,10 +243,23 @@ def test_k6_at_mig_widths_equals_reference(seed, i, strategy):
         dev, pods, strategy))
     mask = torch.from_numpy(np.random.default_rng(seed).uniform(
         size=want_gpu.shape) < 0.7)
-    ok, score = device_pair_terms(gpu_req, tdev, strategy, pair_ok=mask)
-    _same(ok, want_gpu & mask.numpy(), "pair_ok")
-    _same(score, want_score, "pair_score")
-    assert not want_gpu.all() and want_gpu.any()
+    rows = gpu_req.shape[0] // 2 if kind == "prefix-of-mask" else None
+    ok, score = device_pair_terms(gpu_req[:rows], tdev, strategy,
+                                  pair_ok=mask)
+    want_ok = mask.numpy().copy()
+    want_ok[:rows] &= want_gpu[:rows]
+    _same(ok, want_ok, "pair_ok")
+    _same(score, want_score[:rows], "pair_score")
+    gpu = np.asarray(jds.has_gpu_request(pods))
+    if kind == "no-gpu-pod":
+        assert want_gpu.all() and not want_score.any() and not gpu.any()
+    else:
+        assert not want_gpu.all() and want_gpu.any()
+    if kind in ("every-gpu-pod", "two-memories-and-none"):
+        count, _ = jax.jit(jds.per_instance_at)(
+            dev, pods, np.zeros(gpu.shape[0], np.int32))
+        assert (np.asarray(count) > 1).any() and ((want_score > 0)
+                                                  & (want_score < 100)).any()
 
 
 def _step_inputs(seed, dev, p):

@@ -76,8 +76,18 @@ _ref_terms = jax.jit(reference_pair_terms, static_argnums=2)
 
 
 @functools.lru_cache(maxsize=None)
-def _case(seed, z, fractional):
-    nodes, pods = zone_state(seed, 48, z, fractional=fractional)
+def _case(seed, z, fractional, kind="plain", n=48):
+    """`zone_state` of n nodes, made one of the cases K4's design
+    branches on (csrc/numa_terms.cu): "no-policy" (no policy node, the
+    full gate's kind), "all-bound" / "none-bound" (every pod NUMA-bound,
+    none), "none-bound-no-policy" (both: every pair passes); else as it
+    is."""
+    nodes, pods = zone_state(seed, n, z, fractional=fractional)
+    if "no-policy" in kind:
+        nodes = nodes.replace(numa_policy=jnp.zeros_like(nodes.numa_policy))
+    if kind.startswith(("all-bound", "none-bound")):
+        pods = pods.replace(numa_single=jnp.full(
+            pods.numa_single.shape, kind.startswith("all")))
     return nodes, pods, to_port("NodeState", nodes), to_port("PodBatch", pods)
 
 
@@ -116,23 +126,55 @@ def test_numa_score_matrix_bit_equal_reference(case, strategy):
     assert ((want > 0) & (want < 100)).any()
 
 
+# (seed, Z, fractional, kind, N): the cases K4's design branches on
+# (`_case`; "prefix-of-mask": the first half of the pods ANDed into a
+# mask of all of them), and rows that start mid-word (N = 17, 1001) or
+# hold one pair (N = 1, one pod)
+K4_CASES = [(0, 2, False, "no-policy", 48), (1, 2, False, "all-bound", 48),
+            (0, 4, True, "all-bound-no-policy", 48),
+            (1, 2, False, "none-bound", 48),
+            (0, 2, False, "none-bound-no-policy", 48),
+            (1, 2, False, "prefix-of-mask", 48), (0, 2, False, "plain", 1),
+            (1, 2, True, "plain", 17), (0, 2, False, "plain", 1001)]
+K4_IDS = [f"seed{s}-Z{z}-{k}-N{n}" for s, z, _, k, n in K4_CASES]
+
+
 @pytest.mark.parametrize("strategy", ["most", "least"])
-@pytest.mark.parametrize("case", CASES, ids=IDS)
+@pytest.mark.parametrize("case", CASES + K4_CASES, ids=IDS + K4_IDS)
 def test_numa_pair_terms_equal_reference(case, strategy):
     """K4's plain version (through its wrapper, on CPU tensors) against
     the reference's zone prefilter AND policy combined fit, and its zone
-    score; every policy code occurs, zone-less nodes too."""
+    score; every policy code occurs, zone-less nodes too, and the cases
+    of K4_CASES (a given mask's rows beyond a prefix stay as they
+    are)."""
     nodes, pods, tn, tp = _case(*case)
-    want_ok, want_score = _ref_terms(nodes, pods, strategy)
+    kind, n = case[3:] if len(case) > 3 else ("plain", 48)
+    want_ok, want_score = (np.asarray(x) for x in
+                           _ref_terms(nodes, pods, strategy))
+    rows, mask = None, None
+    if kind == "prefix-of-mask":
+        rows = pods.num_pods // 2
+        mask = torch.from_numpy(np.random.default_rng(case[0]).uniform(
+            size=want_ok.shape) < 0.7)
+        want_ok = np.concatenate([mask.numpy()[:rows] & want_ok[:rows],
+                                  mask.numpy()[rows:]])
     got_ok, got_score = numa_pair_terms(
-        numaaware.zone_demand(tp), tp.numa_single, tn.numa_cap,
-        tn.numa_free, tn.numa_valid, tn.numa_policy, strategy)
-    np.testing.assert_array_equal(got_ok.numpy(), np.asarray(want_ok))
-    assert got_score.numpy().tobytes() == np.asarray(want_score).tobytes()
+        numaaware.zone_demand(tp)[:rows], tp.numa_single[:rows],
+        tn.numa_cap, tn.numa_free, tn.numa_valid, tn.numa_policy, strategy,
+        pair_ok=mask)
+    np.testing.assert_array_equal(got_ok.numpy(), want_ok)
+    assert got_score.numpy().tobytes() == want_score[:rows].tobytes()
     policy_ok = numaaware.policy_fit_terms(
         numaaware.zone_demand(tp), tn.numa_free, tn.numa_valid,
         tn.numa_policy)
-    assert not bool(policy_ok.all()), "the policy gate never bites"
+    if "no-policy" in kind:
+        assert bool(policy_ok.all())
+    elif n > 1:
+        assert not bool(policy_ok.all()), "the policy gate never bites"
+    if kind.startswith("none-bound"):
+        assert not want_score.any()
+    if kind == "none-bound-no-policy":
+        assert want_ok.all()
 
 
 def test_numa_pair_terms_wrapper_checks_its_inputs():
